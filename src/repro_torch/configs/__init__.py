@@ -1,0 +1,30 @@
+"""Architecture registry: ``--arch <id>`` resolves here.
+
+Only the architectures whose whole serving path is ported are listed.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401  (re-exported)
+
+_ARCH_MODULES: Dict[str, str] = {
+    "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[arch])
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    return _module(arch).reduced()

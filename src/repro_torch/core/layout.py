@@ -1,0 +1,86 @@
+"""Stage layout of the pipelined engine (own copy of
+``repro.core.placement.Placement`` with the identity striping only,
+``repro.core.pipeline_runtime.pipeline_period`` and ``StageLayout``).
+
+The decoder's ``L`` layers are padded to a multiple of ``P * v *
+period`` and cut into ``P * v`` contiguous blocks of ``K`` layers; the
+block at (device ``d``, chunk ``c``) is ``c * P + d``.  Padding layers
+(global index ``>= L``) carry gate 0.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Identity (interleaved striping) placement: chunk ``c`` stage ``s``
+    runs on device ``s`` and holds layer-block ``c * P + s``."""
+    P: int
+    v: int
+
+    def device(self, stage: int, chunk: int) -> int:
+        return stage
+
+    def stage(self, device: int, chunk: int) -> int:
+        return device
+
+    def block(self, device: int, chunk: int) -> int:
+        return chunk * self.P + self.stage(device, chunk)
+
+
+def pipeline_period(cfg: ModelConfig) -> int:
+    """Structural period (param-tree shape changes); attention
+    local/global patterns are data flags, not structure.  Every ported
+    layer has the same structure, so the period is 1."""
+    return 1
+
+
+@dataclass(frozen=True)
+class StageLayout:
+    P: int
+    v: int
+    L: int              # real layers
+    L_pad: int
+    K: int              # layers per (device, chunk) block
+    period: int         # structural period
+    M: int              # periods per block = K // period
+
+    @property
+    def pl(self) -> Placement:
+        return Placement(self.P, self.v)
+
+    @staticmethod
+    def build(cfg: ModelConfig, P: int, v: int) -> "StageLayout":
+        per = pipeline_period(cfg)
+        quantum = P * v * per
+        L_pad = -(-cfg.num_layers // quantum) * quantum
+        K = L_pad // (P * v)
+        return StageLayout(P=P, v=v, L=cfg.num_layers, L_pad=L_pad, K=K,
+                           period=per, M=K // per)
+
+    def global_idx(self, d: int, c: int, j: int) -> int:
+        """Global layer index of local layer ``j`` of the block at
+        (device ``d``, chunk ``c``)."""
+        return self.pl.block(d, c) * self.K + j
+
+    def flags(self, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+        """window [P,v,M,period] int32; gate [P,v,M,period] f32."""
+        win = np.zeros((self.P, self.v, self.M, self.period), np.int32)
+        gate = np.zeros((self.P, self.v, self.M, self.period), np.float32)
+        for d in range(self.P):
+            for c in range(self.v):
+                for mi in range(self.M):
+                    for j in range(self.period):
+                        g = self.global_idx(d, c, mi * self.period + j)
+                        if g < self.L:
+                            gate[d, c, mi, j] = 1.0
+                            win[d, c, mi, j] = (
+                                0 if cfg.layer_is_global(g)
+                                else cfg.sliding_window)
+        return {"window": win, "gate": gate}

@@ -1,0 +1,26 @@
+// Shared helpers of the port's kernels: element types and conversions.
+//
+// Every C entry point takes a dtype code (DTYPE_F32 / DTYPE_BF16),
+// raw device pointers and the caller's CUDA stream, and returns
+// cudaGetLastError() after its launch, so a refused launch reaches the
+// Python wrapper, which raises.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+enum ReproDtype { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
+}

@@ -1,0 +1,106 @@
+"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+
+Replaces ``src/repro/kernels/flash_attention/kernel.py::
+flash_attention_fwd`` in both its static-offset (``_fwd_kernel``) and
+dynamic-offset (``_fwd_kernel_dyn``) forms, reached through
+``ops.py::flash_attention`` / ``flash_attention_dyn``.  The kernel is
+``csrc/flash_attention.cu``: one CTA per (batch * q-head, 64-row q tile)
+looping over 32-row K/V tiles in shared memory, online softmax in fp32
+registers, KV head ``h // (H // G)`` indexed in place.  ``q_offset`` is a
+launch argument.  Its bound at the serving shape is device-memory bytes
+(K and V) with the tensor-core bound close behind; this first version
+does its products on the CUDA cores in fp32, as the TPU kernel does.
+
+:func:`flash_attention_fwd` runs :func:`attention_ref` only for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises.
+``flash_attention_fwd.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -2.0 ** 30
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def attention_ref(q, k, v, *, scale=None, causal=True, window=0, prefix=0,
+                  q_offset=0):
+    """Plain mirror of ``kernels/flash_attention/ref.py::attention_ref``.
+    q [B,Sq,H,d]; k,v [B,Sk,G,d].  Returns (o [B,Sq,H,d], lse [B,H,Sq])."""
+    B, Sq, H, d = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    rep = H // G
+    scale = scale or 1.0 / math.sqrt(d)
+    kr = k.repeat_interleave(rep, dim=2)
+    vr = v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = k_pos <= q_pos
+    if prefix:
+        ok = ok | (k_pos < prefix)
+    if window:
+        ok = ok & (q_pos - k_pos < window)
+    s = torch.where(ok[None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p / l[..., None].clamp_min(1e-30),
+                     vr.float())
+    lse = m + torch.log(l.clamp_min(1e-30))
+    return o.to(q.dtype), lse
+
+
+def flash_attention_fwd(q, k, v, *, scale=None, causal=True, window=0,
+                        prefix=0, q_offset=0):
+    """q [B,Sq,H,d]; k,v [B,Sk,G,d] (H % G == 0).  ``q_offset``, ``window``
+    and ``prefix`` are host ints.  Returns (o [B,Sq,H,d] in q's type,
+    lse [B,H,Sq] fp32)."""
+    devs = {q.device, k.device, v.device}
+    if devs == {torch.device("cpu")}:
+        return attention_ref(q, k, v, scale=scale, causal=causal,
+                             window=window, prefix=prefix, q_offset=q_offset)
+    if len(devs) != 1 or q.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd: q/k/v on "
+                         f"{sorted(map(str, devs))}; all must be on one CUDA "
+                         "device (or all on the CPU)")
+    dt = str(q.dtype).removeprefix("torch.")
+    if dt not in build.DTYPE_CODES or {k.dtype, v.dtype} != {q.dtype}:
+        raise ValueError(f"flash_attention_fwd: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}; need one of float32, bfloat16 for all")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention_fwd: need q [B,Sq,H,d] and "
+                         "k, v [B,Sk,G,d] of one shape")
+    B, Sq, H, d = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != d or G == 0 or H % G:
+        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and "
+                         f"k {tuple(k.shape)} disagree (need H % G == 0)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_fwd: q, k, v must be contiguous")
+    if Sq == 0 or Sk == 0 or B == 0:
+        raise ValueError("flash_attention_fwd: empty q or kv")
+    lib = build.load_library()
+    scale = scale or 1.0 / math.sqrt(d)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = lib.flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, Sq, Sk, H, G, d, float(scale), int(bool(causal)),
+        int(window), int(prefix), int(q_offset), build.DTYPE_CODES[dt],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+flash_attention_fwd.launches = 0

@@ -1,0 +1,66 @@
+"""RMSNorm over rows: the CUDA kernel's wrapper and its plain version.
+
+Replaces ``src/repro/kernels/rmsnorm/kernel.py::rmsnorm_rows`` (body
+``_kernel``), reached through ``ops.py::rmsnorm_fused``.  The kernel is
+``csrc/rmsnorm.cu``: one CTA per row, fp32 sum of squares reduced with
+warp shuffles, then ``x * rsqrt(mean + eps) * scale`` cast to the input
+type.  It is bound by memory (``2 * R * d * bytes + d * bytes``), and its
+design reads each row from device memory once.
+
+:func:`rmsnorm_rows` runs the plain version :func:`rmsnorm_rows_ref` only
+for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+``rmsnorm_rows.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+
+def rmsnorm_rows_ref(x, scale, eps: float = 1e-6):
+    """Plain PyTorch mirror of ``models/layers.py::rmsnorm`` on rows."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rmsnorm_rows(x, scale, eps: float = 1e-6):
+    """x [R, d]; scale [d] -> [R, d] in x's type."""
+    if x.device.type == "cpu" and scale.device.type == "cpu":
+        return rmsnorm_rows_ref(x, scale, eps)
+    if x.device.type != "cuda" or scale.device != x.device:
+        raise ValueError(f"rmsnorm_rows: x on {x.device}, scale on "
+                         f"{scale.device}; both must be on one CUDA device "
+                         "(or both on the CPU)")
+    dt = str(x.dtype).removeprefix("torch.")
+    if dt not in build.DTYPE_CODES or scale.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_rows: x {x.dtype} / scale {scale.dtype}; "
+                         "need float32 or bfloat16, the same for both")
+    if x.dim() != 2 or scale.shape != (x.shape[1],):
+        raise ValueError(f"rmsnorm_rows: x {tuple(x.shape)} must be [R, d] "
+                         f"and scale {tuple(scale.shape)} [d]")
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("rmsnorm_rows: x and scale must be contiguous")
+    lib = build.load_library()
+    R, d = x.shape
+    y = torch.empty_like(x)
+    if R == 0:
+        return y
+    err = lib.rmsnorm_rows_launch(
+        x.data_ptr(), scale.data_ptr(), y.data_ptr(), R, d, float(eps),
+        build.DTYPE_CODES[dt],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "rmsnorm_rows")
+    rmsnorm_rows.launches += 1
+    return y
+
+
+rmsnorm_rows.launches = 0
+
+
+def rmsnorm_fused(x, scale, eps: float = 1e-6):
+    """Any leading shape: rows of the last axis through :func:`rmsnorm_rows`."""
+    shape = x.shape
+    return rmsnorm_rows(x.reshape(-1, shape[-1]), scale, eps).reshape(shape)

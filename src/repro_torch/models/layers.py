@@ -1,0 +1,184 @@
+"""Core building blocks of the port (mirror of ``repro/models/layers.py``).
+
+Conventions (same as the reference): activations [batch, seq, d_model];
+attention heads [B, S, H, hd]; norms and softmax run in fp32 whatever the
+compute dtype.  Weights keep the JAX layout — ``wq`` is ``[d, H*hd]`` and
+is applied as ``x @ W`` — so bridged weights are leaf-for-leaf copies.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -2.0 ** 30
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    dt = x.dtype
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(hd: int, theta: float, device=None):
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [B, S, H, hd]; positions: [B, S] (int)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
+    ang = positions.float()[..., None] * freqs               # [B, S, hd/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (swiglu / geglu / gelu)
+# ---------------------------------------------------------------------------
+
+def _act(x, act: str):
+    if act in ("silu",):
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+
+
+def mlp(params, x, act: str):
+    h = x @ params["wi"]
+    if "wg" in params:
+        h = _act(x @ params["wg"], act) * h
+    else:
+        h = _act(h, act)
+    return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed(params, tokens):
+    """tokens [B, S] -> [B, S, d]."""
+    return params["tokens"][tokens]
+
+
+def unembed(params, x):
+    if "head" in params:
+        return x @ params["head"]
+    return x @ params["tokens"].T.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def make_mask(q_pos, kv_pos, *, causal: bool, window=0,
+              prefix_len: int = 0):
+    """Boolean [.., Sq, Skv] mask. q_pos/kv_pos: [..,S] ints.
+    ``window`` may be an int or a 0-d tensor (0 => full)."""
+    qp = q_pos[..., :, None]
+    kp = kv_pos[..., None, :]
+    if causal:
+        ok = kp <= qp
+    else:
+        ok = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                        dtype=torch.bool, device=qp.device)
+    if prefix_len:
+        ok = ok | (kp < prefix_len)
+    if isinstance(window, int):
+        if window:
+            ok = ok & (qp - kp < window)
+    else:  # per-layer flag carried as data
+        ok = ok & ((window <= 0) | (qp - kp < window))
+    return ok
+
+
+def dense_attention(q, k, v, mask, scale):
+    """q [B,S,H,hd]; k,v [B,T,G,hd]; mask broadcastable to [B,1,1,S,T]."""
+    B, S, H, hd = q.shape
+    T, G = k.shape[1], k.shape[2]
+    R = H // G
+    qg = q.reshape(B, S, G, R, hd)
+    scores = torch.einsum("bsgrd,btgd->bgrst", qg.float(), k.float()) * scale
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrst,btgd->bsgrd", probs.to(v.dtype), v)
+    return out.reshape(B, S, H, hd)
+
+
+def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
+              rope_theta: float, causal: bool = True, window=0,
+              prefix_len: int = 0, cache: Optional[dict] = None,
+              cache_pos: int = 0,
+              backend=None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Self-attention: train (``cache=None``), cache prefill and decode.
+
+    With a cache, the step's K/V are written into ``cache`` **in place**
+    at ``cache_pos`` (the reference returns an updated copy; the buffers
+    here are the caller's slot caches, and writing them in place saves a
+    copy of the whole buffer per layer per step) and the returned cache
+    is the same dict.  The query then attends over the whole buffer.
+
+    A fused ``backend`` routes prefill (S > 1, static window) through the
+    flash kernel at offset ``cache_pos``; decode (S == 1) takes the dense
+    path by design.  The reference's blockwise path for buffers longer
+    than 8192 and its cross-attention paths are not ported: the dense
+    path serves every length here."""
+    B, S, _ = x.shape
+    scale = 1.0 / math.sqrt(hd)
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    q = q.reshape(B, S, num_heads, hd)
+    k = k.reshape(B, S, num_kv, hd)
+    v = v.reshape(B, S, num_kv, hd)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        cache["k"][:, cache_pos:cache_pos + S] = k.to(cache["k"].dtype)
+        cache["v"][:, cache_pos:cache_pos + S] = v.to(cache["v"].dtype)
+        new_cache = cache
+        k, v = cache["k"], cache["v"]
+    kv_len = k.shape[1]
+
+    fuse = (backend is not None and backend.fuse_attention
+            and isinstance(window, int) and S > 1
+            and (cache is None or causal))
+    if fuse:
+        # self-attention over the whole kv (train: kv_len == S; chunked
+        # prefill: the cache buffer at offset cache_pos — causal masking
+        # hides everything past the frontier)
+        out = backend.flash(q, k, v, causal=causal, window=window,
+                            prefix=prefix_len,
+                            q_offset=0 if cache is None else cache_pos)
+    elif S == 1 and cache is not None:
+        # decode: one query over the whole cache
+        kv_pos = torch.arange(kv_len, device=x.device)
+        q_pos = positions[:, -1:]                     # [B, 1]
+        msk = make_mask(q_pos, kv_pos, causal=causal, window=window,
+                        prefix_len=prefix_len)        # [B, 1, T]
+        out = dense_attention(q, k, v, msk[:, None, None, :, :], scale)
+    else:
+        kv_pos = torch.arange(kv_len, device=x.device)
+        msk = make_mask(positions[0], kv_pos, causal=causal, window=window,
+                        prefix_len=prefix_len)
+        out = dense_attention(q, k, v, msk[None, None, None], scale)
+
+    y = out.reshape(B, S, num_heads * hd) @ params["wo"]
+    return y, new_cache

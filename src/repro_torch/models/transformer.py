@@ -1,0 +1,231 @@
+"""Decoder LM of the port: the dense-attention path of
+``repro/models/transformer.py``.
+
+Parameters are a plain tree with the reference's structure and layout:
+``{"embed": {"tokens"[, "head"]}, "final_norm": {"scale"}, "layers":
+[per period position: leaves stacked [num_periods, ...]], "rem_layers":
+[...]}``, so :mod:`repro_torch.bridge` carries JAX weights across leaf
+for leaf.  The reference scans over periods; here that scan is a Python
+loop over the stacked leading axis.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import backend as B
+from repro_torch.models import layers as L
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# per-layer init / apply
+# ---------------------------------------------------------------------------
+
+def _dense(gen, shape, fan_in: int, dtype, device):
+    """``dense_init``: N(0, 1) / sqrt(fan_in), drawn in fp32, then cast."""
+    w = torch.randn(shape, generator=gen, device=gen.device)
+    return (w * (1.0 / math.sqrt(fan_in))).to(dtype).to(device)
+
+
+def _init_layers(gen, cfg: ModelConfig, n: int, device) -> Dict[str, Any]:
+    """``n`` decoder layers with leaves stacked [n, ...]."""
+    dt = _dtype(cfg.param_dtype)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, G, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+
+    def ones():
+        return torch.ones((n, d), dtype=dt, device=device)
+
+    attn = {"wq": _dense(gen, (n, d, H * hd), d, dt, device),
+            "wk": _dense(gen, (n, d, G * hd), d, dt, device),
+            "wv": _dense(gen, (n, d, G * hd), d, dt, device),
+            "wo": _dense(gen, (n, H * hd, d), H * hd, dt, device)}
+    mlp = {"wi": _dense(gen, (n, d, ff), d, dt, device),
+           "wo": _dense(gen, (n, ff, d), ff, dt, device)}
+    if cfg.act in ("silu", "geglu"):
+        mlp["wg"] = _dense(gen, (n, d, ff), d, dt, device)
+    return {"norm1": {"scale": ones()}, "attn": attn,
+            "norm2": {"scale": ones()}, "mlp": mlp}
+
+
+def _init_cache_layer(cfg: ModelConfig, idx: int, batch: int, seq: int,
+                      device) -> Dict[str, torch.Tensor]:
+    """K/V cache of one attention layer: [batch, seq, G, hd] zeros."""
+    dt = _dtype(cfg.param_dtype)
+    shape = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
+                 cache=None, cache_pos: int = 0, prefix_len: int = 0,
+                 window_override=None, gate=None, backend=None):
+    """One decoder layer.  Returns (x, new_cache).
+
+    ``window_override``: per-layer sliding window carried as data (the
+    pipeline engine's flags).  ``gate``: 0/1 multiplier on the residual
+    branches (0 = padding layer: passthrough).  ``backend``: compute
+    backend; None = the default (fused)."""
+    bk = backend if backend is not None else B.get_backend()
+    if window_override is not None:
+        window = window_override
+        if bk.fuse_attention and cfg.sliding_window == 0:
+            # every layer's true window is statically 0, so the per-layer
+            # flag carries no information — drop it to keep the flash
+            # kernel's mask static
+            window = 0
+    else:
+        window = 0 if cfg.layer_is_global(idx) else cfg.sliding_window
+    h = bk.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    y, new_cache = L.attention(
+        p["attn"], h, positions, num_heads=cfg.num_heads,
+        num_kv=cfg.num_kv_heads, hd=cfg.resolved_head_dim,
+        rope_theta=cfg.rope_theta, causal=True, window=window,
+        prefix_len=prefix_len, cache=cache, cache_pos=cache_pos,
+        backend=bk)
+    if gate is not None and gate != 1.0:     # x * 1.0 is x: skip the op
+        y = y * gate
+    x = x + y
+    h = bk.rmsnorm(p["norm2"], x, cfg.norm_eps)
+    y = L.mlp(p["mlp"], h, cfg.act)
+    if gate is not None and gate != 1.0:
+        y = y * gate
+    return x + y, new_cache
+
+
+def _index(tree, i):
+    """Leaf-wise ``a[i]`` over a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+class LM:
+    """Decoder LM (dense attention).  ``kernels`` selects the compute
+    backend ("fused" default, or "plain"); ``device`` where parameters
+    and caches live (CUDA unless the caller asks for the CPU)."""
+
+    def __init__(self, cfg: ModelConfig, *, kernels=None, device="cuda"):
+        self.cfg = cfg
+        self.backend = B.get_backend(kernels)
+        self.device = resolve_device(device)
+        self.period = cfg.period
+        self.num_periods = cfg.num_layers // self.period
+        self.num_rem = cfg.num_layers - self.num_periods * self.period
+
+    # -- init ----------------------------------------------------------------
+    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+        """Random parameters from ``generator`` (drawn on the generator's
+        device, stored on ``self.device``) at ``dense_init``'s scale; the
+        draws are not the reference's bits."""
+        cfg, dev = self.cfg, self.device
+        dt = _dtype(cfg.param_dtype)
+        d = cfg.d_model
+        params: Dict[str, Any] = {
+            "embed": {"tokens": _dense(generator, (cfg.vocab_size, d), d,
+                                       dt, dev)}}
+        if not cfg.tie_embeddings:
+            params["embed"]["head"] = _dense(generator, (d, cfg.vocab_size),
+                                             d, dt, dev)
+        params["final_norm"] = {"scale": torch.ones((d,), dtype=dt,
+                                                    device=dev)}
+        params["layers"] = [_init_layers(generator, cfg, self.num_periods,
+                                         dev)
+                            for _ in range(self.period)
+                            if self.num_periods]
+        params["rem_layers"] = [_index(_init_layers(generator, cfg, 1, dev), 0)
+                                for _ in range(self.num_rem)]
+        return params
+
+    # -- decoder stack -------------------------------------------------------
+    def _stack(self, params, x, positions, *, cache=None, cache_pos=0):
+        cfg = self.cfg
+        for i in range(self.num_periods):
+            for j in range(self.period):
+                c = None if cache is None else _index(cache["periods"][j], i)
+                x, _ = _apply_layer(
+                    _index(params["layers"][j], i), x, positions, cfg, j,
+                    cache=c, cache_pos=cache_pos, backend=self.backend)
+        for r in range(self.num_rem):
+            idx = self.num_periods * self.period + r
+            c = None if cache is None else cache["rem"][r]
+            x, _ = _apply_layer(params["rem_layers"][r], x, positions, cfg,
+                                idx, cache=c, cache_pos=cache_pos,
+                                backend=self.backend)
+        return x
+
+    def embed(self, params, tokens):
+        """Token embedding scaled by sqrt(d), in the compute dtype.  The
+        scale is rounded to the embedding's dtype first, as the
+        reference's ``jnp.asarray(d ** 0.5, x.dtype)`` does."""
+        x = L.embed(params["embed"], tokens)
+        mult = torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype).item()
+        return (x * mult).to(_dtype(self.cfg.compute_dtype))
+
+    def head(self, params, x):
+        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        return L.unembed(params["embed"], x)
+
+    def hidden(self, params, tokens, *, positions=None, cache=None,
+               cache_pos: int = 0):
+        """tokens [B, S] -> the last layer's hidden states [B, S, d] (before
+        the head).  K/V are written into ``cache`` in place."""
+        Bz, S = tokens.shape
+        if positions is None:
+            pos0 = cache_pos if cache is not None else 0
+            positions = (pos0 + torch.arange(S, device=tokens.device)
+                         )[None].expand(Bz, S)
+        x = self.embed(params, tokens)
+        return self._stack(params, x, positions, cache=cache,
+                           cache_pos=cache_pos)
+
+    # -- public entry points ---------------------------------------------
+    def forward(self, params, tokens, *, positions=None, cache=None,
+                cache_pos: int = 0):
+        """tokens [B, S] -> (logits [B, S, V], cache)."""
+        x = self.hidden(params, tokens, positions=positions, cache=cache,
+                        cache_pos=cache_pos)
+        return self.head(params, x), cache
+
+    def init_cache(self, batch: int, seq: int):
+        cfg = self.cfg
+
+        def stacked():
+            one = _init_cache_layer(cfg, 0, batch, seq, self.device)
+            return {k: a[None].repeat((self.num_periods,) + (1,) * a.dim())
+                    for k, a in one.items()}
+        return {"periods": [stacked() for _ in range(self.period)],
+                "rem": [_init_cache_layer(cfg, self.num_periods * self.period
+                                          + r, batch, seq, self.device)
+                        for r in range(self.num_rem)]}
+
+    def prefill(self, params, tokens, cache):
+        return self.prefill_chunk(params, tokens, cache, 0)
+
+    def prefill_chunk(self, params, tokens, cache, pos0: int):
+        """Seq-chunked prefill: run ``tokens`` [B, Sc] at offset ``pos0``
+        against an existing cache (the engine's unit of work).  Returns
+        the last position's logits [B, V] and the (updated in place)
+        cache.  Only the last position goes through the head."""
+        x = self.hidden(params, tokens, cache=cache, cache_pos=pos0)
+        return self.head(params, x[:, -1:])[:, -1], cache
+
+    def decode_step(self, params, tokens1, cache, pos: int):
+        """tokens1 [B, 1]; pos: host int (same position for the batch)."""
+        positions = torch.full((tokens1.shape[0], 1), pos, dtype=torch.int64,
+                               device=tokens1.device)
+        x = self.hidden(params, tokens1, positions=positions, cache=cache,
+                        cache_pos=pos)
+        return self.head(params, x)[:, -1], cache

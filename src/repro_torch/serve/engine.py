@@ -1,0 +1,249 @@
+"""Pipelined inference serving engine (port of ``repro/serve/engine.py``).
+
+The model is split into ``P`` pipeline stages by :class:`StageLayout`
+(v=1) and serves as a conveyor of per-tick waves:
+
+- **prefill**: a prompt streams through the stages in sequence chunks of
+  ``chunk`` tokens, back-to-back.  Each stage appends the chunk's K/V in
+  the request's slot cache and hands the boundary activation down the
+  wire.  Every prefill chunk runs the flash-attention kernel in every
+  layer.
+- **decode** rides steady-state ticks: a request slot re-enters the pipe
+  one token at a time, one token per pipeline revolution (``P`` ticks),
+  with every tick in between free for other slots' prefill chunks or
+  decodes — continuous batching at iteration level.  Decode is S=1 and
+  takes the dense attention path by design.
+
+The reference runs one SPMD tick over a mesh of ``P`` devices.  Here the
+``P`` stages are virtual and run in lockstep on one device: in each tick
+stage ``s`` executes the injection made ``s`` ticks ago, and the wire
+between stages is a ``[P, chunk, d]`` tensor hand-off.  Stages run from
+the last to the first, so each reads the wire row its predecessor wrote
+in the previous tick before that row is overwritten.  The greedy head
+runs on the last stage, and only for waves whose token is consumed.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.layout import StageLayout
+from repro_torch.models.transformer import LM, _apply_layer, _dtype, _index
+from repro_torch.serve.kv_slots import (init_slot_caches, read_slot,
+                                        write_slot, zero_slot)
+from repro_torch.serve.scheduler import (IDLE, IDLE_INJ, PREFILL, Injection,
+                                         Request, SlotScheduler)
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
+    """LM parameters -> stage-stacked blocks: a list over period position
+    ``jp`` of trees with leaves ``[P, M, ...]``, where ``blocks[jp]`` leaf
+    ``[d, m]`` holds global layer ``layout.global_idx(d, 0, m * period +
+    jp)``.  Padding layers (``g >= L``, gate 0) get zero parameters of the
+    right structure.  The leaves are copies of the LM's weights, so engine
+    and reference compute the identical network."""
+    cfg = lm.cfg
+    per, M = layout.period, layout.M
+    assert layout.v == 1
+
+    def lm_layer(g):
+        if g < lm.num_periods * lm.period:
+            return _index(params["layers"][g % lm.period], g // lm.period)
+        return params["rem_layers"][g - lm.num_periods * lm.period]
+
+    def pad_proto(jp):
+        real = [g for g in range(cfg.num_layers) if g % per == jp % per]
+        assert real, f"no real layer shares period position {jp}"
+        return _tree_map(torch.zeros_like, lm_layer(real[0]))
+
+    blocks = []
+    for jp in range(per):
+        rows = []
+        for d in range(layout.P):
+            col = []
+            for mi in range(M):
+                g = layout.global_idx(d, 0, mi * per + jp)
+                col.append(lm_layer(g) if g < cfg.num_layers
+                           else pad_proto(jp))
+            rows.append(_tree_map(lambda *a: torch.stack(a), *col))
+        blocks.append(_tree_map(lambda *a: torch.stack(a), *rows))
+    return blocks
+
+
+def new_telemetry() -> Dict:
+    """Per-request wall-clock anchors and the delivered-token tally."""
+    return {"t_first": {}, "t_sub": {}, "tok_times": {}, "n_out": 0}
+
+
+class PipelinedEngine:
+    """Seq-chunked prefill + steady-tick decode over ``P`` virtual stages
+    on one device.  ``lm_params`` is an ``LM.init`` (or bridged) tree on
+    ``device``; it is packed into stage blocks here."""
+
+    def __init__(self, cfg: ModelConfig, lm_params, *, P: int, chunk: int,
+                 max_seq: int, n_slots: Optional[int] = None,
+                 kernels: str = "fused", device="cuda"):
+        self.cfg = cfg
+        self.P = P
+        self.chunk = chunk
+        self.max_seq = max_seq
+        self.n_slots = n_slots if n_slots is not None else P
+        self.device = resolve_device(device)
+        self.lm = LM(cfg, kernels=kernels, device=self.device)
+        self.layout = StageLayout.build(cfg, P, 1)
+        self.blocks = pack_blocks(self.lm, lm_params, self.layout)
+        per, M = self.layout.period, self.layout.M
+        # parameter views per (stage, period-group, period position)
+        self._stage_params = [[[_index(_index(self.blocks[jp], s), mi)
+                                for jp in range(per)] for mi in range(M)]
+                              for s in range(P)]
+        self.shared = {"embed": lm_params["embed"],
+                       "final_norm": lm_params["final_norm"]}
+        fl = self.layout.flags(cfg)
+        self.flags = {k: a[:, 0] for k, a in fl.items()}    # [P, M, per]
+        self.caches = init_slot_caches(cfg, self.layout, self.n_slots,
+                                       max_seq, self.device)
+        self.wire = torch.zeros((P, chunk, cfg.d_model),
+                                dtype=_dtype(cfg.compute_dtype),
+                                device=self.device)
+        self._hist: List[Injection] = []     # hist[k] = inj at tick t-k
+        # stage executions by op, and sampled waves whose logits were not
+        # all finite — both over the engine's lifetime
+        self.stage_runs = {"prefill": 0, "decode": 0}
+        self.nonfinite_logits = 0
+
+    # -- one stage of one tick ---------------------------------------------
+    def _run_stage(self, s: int, inj: Injection) -> torch.Tensor:
+        """Run stage ``s``'s layers on wave ``inj``; returns [1, n, d] with
+        n = chunk (prefill) or 1 (decode)."""
+        cfg, dev = self.cfg, self.device
+        n = self.chunk if inj.op == PREFILL else 1
+        if s == 0:
+            toks = torch.as_tensor(inj.tokens[:n], dtype=torch.int64,
+                                   device=dev)
+            x = self.lm.embed(self.shared, toks[None])
+        else:
+            x = self.wire[s, :n][None]
+        caches_s = [{k: a[s] for k, a in t.items()} for t in self.caches]
+        view = read_slot(caches_s, inj.slot)
+        if inj.op == PREFILL and inj.first:
+            # first chunk: clear the slot so the previous tenant's K/V
+            # cannot leak (the slot then equals a fresh single-host cache)
+            zero_slot(view)
+        positions = torch.arange(inj.pos, inj.pos + n, device=dev)[None]
+        win, gate = self.flags["window"][s], self.flags["gate"][s]
+        for mi in range(self.layout.M):
+            for jp in range(self.layout.period):
+                cache = {k: a[mi] for k, a in view[jp].items()}
+                x, _ = _apply_layer(
+                    self._stage_params[s][mi][jp], x, positions, cfg, jp,
+                    cache=cache, cache_pos=inj.pos,
+                    window_override=int(win[mi, jp]),
+                    gate=float(gate[mi, jp]), backend=self.lm.backend)
+        write_slot(caches_s, view, inj.slot)
+        self.stage_runs["prefill" if inj.op == PREFILL else "decode"] += 1
+        return x
+
+    def tick(self, inj: Injection):
+        """Inject ``inj`` at stage 0 and advance every wave one stage.
+        Returns ``(retired_injection, token, logits)`` for the wave that
+        just left the last stage (the injection from ``P - 1`` ticks ago).
+        The token is -1 and the logits None unless that wave samples."""
+        self._hist.insert(0, inj)
+        token, logits = -1, None
+        for s in reversed(range(self.P)):
+            inj_s = self._hist[s] if s < len(self._hist) else IDLE_INJ
+            if inj_s.op == IDLE:
+                continue
+            x = self._run_stage(s, inj_s)
+            if s + 1 < self.P:
+                if inj_s.op == PREFILL:
+                    self.wire[s + 1].copy_(x[0])
+                else:      # decode: the next stage reads row 0 only
+                    self.wire[s + 1, 0].copy_(x[0, 0])
+            elif inj_s.sample:
+                logits = self.lm.head(self.shared, x[:, -1:])[0, -1]
+                tok = torch.argmax(logits)
+                finite = torch.isfinite(logits).all()
+                token, ok = torch.stack([tok, finite.long()]).tolist()
+                self.nonfinite_logits += int(not ok)
+        retired = self._hist.pop() if len(self._hist) == self.P \
+            else IDLE_INJ
+        return retired, token, logits
+
+    # -- serving loop -----------------------------------------------------
+    def serve(self, requests: List[Request], *,
+              preempt_after: Optional[int] = None,
+              clock: Optional[str] = "wall",
+              max_ticks: int = 1_000_000) -> Dict:
+        """Serve ``requests`` (arrivals ordered by ``arrival_s``) to
+        completion with continuous batching; greedy decoding.
+
+        ``clock="wall"`` admits arrivals by wall time (the benchmark
+        mode); ``clock=None`` admits everything immediately
+        (deterministic, used by the equivalence tests).  Returns
+        ``{"finished": {rid: FinishedRecord}, "metrics": {rid: {...}},
+        "elapsed_s", "ticks", "tokens_per_s", "outcomes", "counts",
+        "first_sample_s", "stage_runs", "nonfinite_logits"}`` with
+        per-request TTFT / per-token wall-clock latencies."""
+        sched = SlotScheduler(self.n_slots, self.chunk, self.max_seq,
+                              preempt_after=preempt_after)
+        pending = sorted(requests, key=lambda r: (r.arrival_s, r.rid))
+        tel = new_telemetry()
+        t_first, t_sub, tok_times = tel["t_first"], tel["t_sub"], \
+            tel["tok_times"]
+        t0 = time.perf_counter()
+        ticks = 0
+        first_sample_s = None
+        while ticks < max_ticks:
+            now = time.perf_counter() - t0
+            dl_now = now if clock == "wall" else None
+            while pending and (clock != "wall"
+                               or pending[0].arrival_s <= now):
+                req = pending.pop(0)
+                t_sub[req.rid] = max(req.arrival_s, now) \
+                    if clock == "wall" else 0.0
+                sched.submit(req, now=dl_now)
+            inj = sched.next_injection(now=dl_now)
+            retired, token, _ = self.tick(inj)
+            ticks += 1
+            if retired.sample and retired.op != IDLE:
+                if sched.on_result(retired, token):
+                    t = time.perf_counter() - t0
+                    if first_sample_s is None:
+                        first_sample_s = t
+                    t_first.setdefault(retired.rid, t)
+                    tok_times.setdefault(retired.rid, []).append(t)
+                    tel["n_out"] += 1
+            if not pending and sched.idle and all(
+                    h.op == IDLE for h in self._hist):
+                break
+        elapsed = time.perf_counter() - t0
+        metrics = {}
+        for rid, rec in sched.finished.items():
+            ts = tok_times.get(rid, [])
+            metrics[rid] = {
+                "ttft_s": (t_first[rid] - t_sub.get(rid, 0.0))
+                if rid in t_first else None,
+                "per_token_s": [b - a for a, b in zip(ts, ts[1:])],
+                "n_tokens": len(rec.tokens),
+                "done_s": ts[-1] if ts else None,
+            }
+        return {"finished": sched.finished, "metrics": metrics,
+                "elapsed_s": elapsed, "ticks": ticks,
+                "tokens_per_s": tel["n_out"] / max(elapsed, 1e-9),
+                "outcomes": dict(sched.outcomes),
+                "counts": sched.lifecycle_counts(),
+                "first_sample_s": first_sample_s,
+                "stage_runs": dict(self.stage_runs),
+                "nonfinite_logits": self.nonfinite_logits}
