@@ -18,14 +18,32 @@ Phases, in order; any failure exits non-zero:
    costs, and a profiled one says where the device time goes;
 5. checks: P=2 virtual stages give P=1's token streams, and the fused and
    plain backends agree on fp32 logits (2 layers, full width);
-6. a JSON ``kernels`` line, then the JSON result line.
+6. train: full-width tinyllama-1.1b (bf16, fp32 optimizer state, random
+   weights from seed 0) through ``repro_torch.launch.train.
+   train_pipeline``: chronos_zb, P=4 virtual stages, v=2, 8 microbatches
+   of one 2049-token sequence, fused kernels and the fused-AdamW update,
+   4 steps; checks losses, gradient norms, changed weights and the three
+   kernels' launch counts derived from the task table, then profiles one
+   more step;
+7. train checks (fp32, full width, 4 layers): pipeline gradients against
+   ``LM.loss`` autograd, chronos_recomp == chronos bitwise, fused vs
+   plain backend, kernel vs plain AdamW update bitwise;
+8. a JSON ``kernels`` line, then the JSON result line.
+
+Phase 3 also holds fused AdamW bitwise against its plain version, the
+RMSNorm and flash Functions' gradients against autograd through the
+plain versions (flash once more at the training length), and the chunk
+body's kernels against their plain versions at the training shapes,
+where it times them.
 
 Needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -92,7 +110,7 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
 
 
 def max_err(got, want) -> float:
-    return float((got.float() - want.float()).abs().max())
+    return float((got.detach().float() - want.detach().float()).abs().max())
 
 
 def rel_ok(got, want, atol: float, rtol: float) -> bool:
@@ -421,6 +439,522 @@ def phase_checks(torch):
         fail("fused and plain backends disagree on fp32 logits")
 
 
+# ---------------------------------------------------------------------------
+# training slice: fused AdamW, the differentiable kernel calls, the
+# ChronosPipe training step
+# ---------------------------------------------------------------------------
+
+ADAMW_STATE_BYTES = 24         # mu, nu, w read and written, fp32
+ADAMW_FLOPS = 16               # per element, csrc/fused_adamw.cu
+TRAIN_SEQ = 2049               # 2048 positions per sequence fed to the stack
+
+
+def _adamw_case(torch, gen, n, g_dtype, step, wd):
+    """(kernel inputs, plain inputs, hyper): one random AdamW state."""
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.optim.schedules import lr_at
+    ocfg = OptimizerConfig(warmup_steps=2, total_steps=20)
+    st = torch.tensor(step, dtype=torch.int32, device="cuda")
+    stepf = st.float()
+    scalars = torch.stack([lr_at(ocfg, st), 1 - torch.pow(ocfg.beta1, stepf),
+                           1 - torch.pow(ocfg.beta2, stepf)]).float()
+    g = torch.randn((n,), generator=gen, device="cuda").to(g_dtype)
+    mu = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    nu = 0.01 * torch.rand((n,), generator=gen, device="cuda")
+    w = torch.randn((n,), generator=gen, device="cuda")
+    hyper = dict(b1=ocfg.beta1, b2=ocfg.beta2, eps=ocfg.eps, wd=wd)
+    return (g, mu, nu, w, scalars), hyper
+
+
+def phase_adamw(torch, gen):
+    """fused_adamw_flat against its plain version, bitwise, then timed at
+    tinyllama's largest leaf (the stacked ``wi``)."""
+    from repro_torch.kernels.fused_adamw import (fused_adamw_flat,
+                                                 fused_adamw_flat_ref)
+    cases = 0
+    for n in (1, 1000, 65537, 2 ** 24 + 3):
+        for g_dt in (torch.float32, torch.bfloat16):
+            for step in (1, 10):
+                for wd in (0.0, 0.1):
+                    (g, mu, nu, w, sc), hp = _adamw_case(torch, gen, n, g_dt,
+                                                         step, wd)
+                    k = [a.clone() for a in (mu, nu, w)]
+                    fused_adamw_flat(g, *k, sc, **hp)
+                    torch.cuda.synchronize()
+                    fused_adamw_flat_ref(g, mu, nu, w, sc, **hp)
+                    same = all(torch.equal(a, b) for a, b in
+                               zip(k, (mu, nu, w)))
+                    if not same:
+                        errs = [max_err(a, b) for a, b in zip(k, (mu, nu, w))]
+                        fail(f"fused_adamw_flat n={n} g {g_dt} step={step} "
+                             f"wd={wd} is not bitwise equal to its plain "
+                             f"version: max|d| mu, nu, w = {errs}")
+                    cases += 1
+    print(f"[kernels] fused_adamw_flat: {cases} cases (n in 1, 1000, 65537, "
+          f"2^24+3; g fp32 and bf16; step 1 and 10; wd 0 and 0.1) bitwise "
+          f"equal to fused_adamw_flat_ref (tol 0)")
+    # main-path shape: the stacked wi leaf [P=4, v=2, M=3, 2048, 5632]
+    n = 4 * 2 * 3 * 2048 * 5632
+    (g, mu, nu, w, sc), hp = _adamw_case(torch, gen, n, torch.float32, 10,
+                                         0.1)
+    ms = time_ms(lambda: fused_adamw_flat(g, mu, nu, w, sc, **hp),
+                 iters=20, warmup=3)
+    plain_ms = time_ms(lambda: fused_adamw_flat_ref(g, mu, nu, w, sc, **hp),
+                       iters=5, warmup=1)
+    nbytes = (g.element_size() + ADAMW_STATE_BYTES) * n
+    flops = ADAMW_FLOPS * n
+    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+              "operations": flops / FP32_FLOPS * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    print(f"[kernels] fused_adamw_flat timed at n={n} (wi leaf) fp32 g "
+          f"(device time per call, CUDA events): kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bounds[bound_by]:.3f} ms ({bound_by}; "
+          f"{nbytes / 1e9:.2f} GB) = {ms / bounds[bound_by]:.2f}x bound; "
+          f"no one-call PyTorch yardstick (torch._fused_adamw_ divides "
+          f"sqrt(nu) by sqrt(bc2) before adding eps and decays w as "
+          f"w*(1-lr*wd): another function)")
+    del g, mu, nu, w
+    torch.cuda.empty_cache()
+    return {"name": "fused_adamw_flat", "route": "cuda",
+            "source": "src/repro_torch/csrc/fused_adamw.cu",
+            "replaces": "src/repro/kernels/fused_adamw/kernel.py:32",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "library_ms": None,
+            "timed_shape": f"n={n} (wi [4,2,3,2048,5632]) fp32 g"}
+
+
+def phase_functions(torch, gen):
+    """Gradients through the RMSNorm and flash-attention Functions (the
+    kernel forward) against autograd through their plain versions."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_rows_ref
+    # y within the forward tolerances of phase 3; gradients: the backward
+    # differentiates the plain version at the same inputs, so they differ
+    # only through the cotangent paths that read y (none: y is not saved)
+    tols = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+    for dt, (tol_y, tol_g) in tols.items():
+        x = torch.randn((2, 256, 2048), generator=gen, device="cuda").to(dt)
+        s = (1 + 0.1 * torch.randn((2048,), generator=gen,
+                                   device="cuda")).to(dt)
+        dy = torch.randn_like(x)
+        xs = [x.clone().requires_grad_(), x.clone().requires_grad_()]
+        ss = [s.clone().requires_grad_(), s.clone().requires_grad_()]
+        y1 = rmsnorm_fused(xs[0], ss[0])
+        y2 = rmsnorm_rows_ref(xs[1].reshape(-1, 2048), ss[1]).reshape(x.shape)
+        if y1.grad_fn is None:
+            fail("rmsnorm_fused output carries no grad_fn")
+        y1.backward(dy)
+        y2.backward(dy)
+        errs = (max_err(y1, y2), max_err(xs[0].grad, xs[1].grad),
+                max_err(ss[0].grad, ss[1].grad) / max(
+                    1.0, float(ss[1].grad.float().abs().max())))
+        ok = errs[0] <= tol_y and max(errs[1:]) <= tol_g
+        print(f"[kernels] RMSNormRows {str(dt)[6:]} x [2,256,2048]: "
+              f"max|d| y={errs[0]:.3e} dx={errs[1]:.3e} dscale(rel)="
+              f"{errs[2]:.3e} (tol y {tol_y:g}, grads {tol_g:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("RMSNormRows gradients disagree with the plain version's")
+        _flash_grad_case(torch, gen, dt, 256, tol_y, tol_g)
+    # once at the training length: 32 query tiles over 2048 keys, bf16
+    _flash_grad_case(torch, gen, torch.bfloat16, TRAIN_SEQ - 1,
+                     *tols[torch.bfloat16])
+
+
+def _flash_grad_case(torch, gen, dt, S, tol_o, tol_g):
+    """o and dq, dk, dv of the flash Function against autograd through
+    ``attention_ref`` at q [1,S,32,64] over kv [1,S,4,64]; fails beyond
+    the tolerances."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    q = torch.randn((1, S, 32, 64), generator=gen, device="cuda").to(dt)
+    k = torch.randn((1, S, 4, 64), generator=gen, device="cuda").to(dt)
+    v = torch.randn((1, S, 4, 64), generator=gen, device="cuda").to(dt)
+    do = torch.randn_like(q)
+    ins = [[a.clone().requires_grad_() for a in (q, k, v)] for _ in range(2)]
+    o1 = flash_attention(*ins[0])
+    o2, _ = attention_ref(*ins[1])
+    if o1.grad_fn is None:
+        fail("flash_attention output carries no grad_fn")
+    o1.backward(do)
+    o2.backward(do)
+    errs = [max_err(o1, o2)] + [max_err(a.grad, b.grad)
+                                for a, b in zip(*ins)]
+    ok = errs[0] <= tol_o and max(errs[1:]) <= tol_g
+    print(f"[kernels] FlashAttention {str(dt)[6:]} q [1,{S},32,64] kv "
+          f"[1,{S},4,64]: max|d| o={errs[0]:.3e} dq={errs[1]:.3e} "
+          f"dk={errs[2]:.3e} dv={errs[3]:.3e} (tol o {tol_o:g}, grads "
+          f"{tol_g:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("FlashAttention gradients disagree with the plain version's")
+
+
+def phase_train_shapes(torch, gen, rows):
+    """The two kernels of the chunk body at the training shapes, held
+    against their plain versions and timed: flash at q [1,2048,32,64]
+    over kv [1,2048,4,64] (static offset 0) and rmsnorm at x [2048,
+    2048], bf16, with phase 3's tolerances."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm_rows, rmsnorm_rows_ref
+    import torch.nn.functional as F
+    S, H, G, d, dt = TRAIN_SEQ - 1, 32, 4, 64, torch.bfloat16
+    q = torch.randn((1, S, H, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
+    o, lse = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = attention_ref(q, k, v)
+    e_o, e_l = max_err(o, o_ref), max_err(lse, lse_ref)
+    ok = e_o <= 2e-2 and e_l <= 1e-5
+    print(f"[kernels] flash_attention_fwd bf16 q [1,{S},{H},{d}] kv "
+          f"[1,{S},{G},{d}] off=0 (the training shape): max|d| o={e_o:.3e} "
+          f"(tol 0.02) lse={e_l:.3e} (tol 1e-05) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("flash_attention_fwd disagrees with attention_ref at the "
+             "training shape")
+    del o, lse, o_ref, lse_ref
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v), iters=20, warmup=3)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=5, warmup=1)
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20, warmup=3)
+    pairs = S * (S + 1) // 2
+    el = q.element_size()
+    nbytes = 2 * S * H * d * el + 2 * S * G * d * el + H * S * 4
+    flops = 4 * H * d * pairs
+    fb = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+          "operations": flops / BF16_FLOPS * 1e3}
+    fby = max(fb, key=fb.get)
+    print(f"[kernels] flash_attention_fwd timed at the training shape q "
+          f"[1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 q_offset=0 (CUDA events):"
+          f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA (is_causal, "
+          f"GQA) {lib_ms:.3f} ms, bound {fb[fby] * 1e3:.2f} us ({fby}; "
+          f"{flops / 1e9:.2f} GFLOP) = {ms / fb[fby]:.1f}x bound")
+    rows["flash_attention_fwd"]["train"] = {
+        "max_abs_err": e_o, "lse_max_abs_err": e_l, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": fb[fby],
+        "bound_by": fby,
+        "timed_shape": f"q [1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 "
+                       f"q_offset=0"}
+    x = torch.randn((S, 2048), generator=gen, device="cuda").to(dt)
+    scale = (1 + 0.1 * torch.randn((2048,), generator=gen,
+                                   device="cuda")).to(dt)
+    got = rmsnorm_rows(x, scale)
+    torch.cuda.synchronize()
+    want = rmsnorm_rows_ref(x, scale)
+    e_r = max_err(got, want)
+    ok = rel_ok(got, want, 1e-6, 2.0 ** -7)
+    print(f"[kernels] rmsnorm_rows bf16 R={S} d=2048 (the training shape): "
+          f"max|d|={e_r:.3e} tol=1e-06+0.0078125*|ref| "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("rmsnorm_rows disagrees with its plain version at the training "
+             "shape")
+    ms = graph_ms(lambda: rmsnorm_rows(x, scale))
+    plain_ms = graph_ms(lambda: rmsnorm_rows_ref(x, scale))
+    lib_ms = graph_ms(lambda: F.rms_norm(x, (2048,), scale, 1e-6)) \
+        if hasattr(F, "rms_norm") else None
+    nbytes = (2 * S * 2048 + 2048) * x.element_size()
+    rb = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+          "operations": 4 * S * 2048 / FP32_FLOPS * 1e3}
+    rby = max(rb, key=rb.get)
+    print(f"[kernels] rmsnorm_rows timed at the training shape x [{S},2048] "
+          f"bf16 (CUDA graph): kernel {ms * 1e3:.2f} us, plain "
+          f"{plain_ms * 1e3:.2f} us, F.rms_norm "
+          f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, bound "
+          f"{rb[rby] * 1e3:.3f} us ({rby})")
+    rows["rmsnorm_rows"]["train"] = {
+        "max_abs_err": e_r, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "bound_ms": rb[rby], "bound_by": rby,
+        "timed_shape": f"x [{S},2048] bf16"}
+
+
+def expected_train_launches(spec, n_leaves: int):
+    """Kernel launches of one training step, derived from the task table:
+    every op that runs the chunk body launches K flash and 2K rmsnorm
+    kernels, plus the final norm where it runs the head; a split
+    backward of the first block computes nothing (its input gradient has
+    no receiver); the update launches fused AdamW once per leaf."""
+    from repro_torch.core.tasktable import B_OPS, IDLE, R_OPS
+    tab, K = spec.table, spec.layout.K
+    flash = rms = 0
+    for t in range(tab.T):
+        for d in range(tab.P):
+            op, c = int(tab.op[t, d]), int(tab.chunk[t, d])
+            if op == IDLE or op in R_OPS:
+                continue
+            s = spec.layout.pl.stage(d, c)
+            first = c == 0 and s == 0
+            last = c == tab.v - 1 and s == tab.P - 1
+            if op in B_OPS and tab.has_w and first:
+                continue
+            flash += K
+            rms += 2 * K + (1 if last else 0)
+    return {"flash_attention_fwd": flash, "rmsnorm_rows": rms,
+            "fused_adamw_flat": n_leaves}
+
+
+def _train_config(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (OptimizerConfig, ParallelPlan,
+                                          ShapeConfig, TrainConfig)
+    return TrainConfig(
+        model=get_config("tinyllama-1.1b"),
+        shape=ShapeConfig("train_2k", seq_len=TRAIN_SEQ, global_batch=8,
+                          kind="train"),
+        plan=ParallelPlan(schedule="chronos_zb", num_chunks=2,
+                          microbatch_size=1, num_microbatches=8,
+                          kernels="fused"),
+        optimizer=OptimizerConfig(warmup_steps=2, total_steps=4),
+        seed=0, log_every=1)
+
+
+def phase_train(torch):
+    """Full-width tinyllama-1.1b trained 4 steps with chronos_zb on P=4
+    virtual stages through ``train_pipeline``; launch counts from the
+    table; then one more step under the profiler."""
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   make_pipeline_spec)
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_adamw import fused_adamw_flat
+    from repro_torch.kernels.rmsnorm import rmsnorm_rows
+    from repro_torch.launch.train import train_pipeline
+    from repro_torch.tree import tree_leaves
+    tc = _train_config(torch)
+    P, steps = 4, 4
+    plan = tc.plan
+    spec = make_pipeline_spec(
+        tc.model, P=P, v=plan.num_chunks, m=plan.num_microbatches,
+        microbatch=plan.microbatch_size, seq_len=tc.shape.seq_len,
+        schedule=plan.schedule, kernels=plan.kernels)
+    gen = torch.Generator(device="cuda").manual_seed(tc.seed)
+    params = init_pipeline_params(gen, tc.model, spec.layout, "cuda")
+    leaves = tree_leaves(params)
+    n_params = sum(a.numel() for a in leaves)
+    before = [a.flatten()[:4096].to(torch.float32, copy=True)
+              for a in leaves]
+    lay = spec.layout
+    print(f"[train] {tc.model.name} full width bf16, {tc.plan.schedule} "
+          f"P={P} v={lay.v} m={spec.table.m} mbB={spec.mbB} seq "
+          f"{spec.S}: L_pad={lay.L_pad} K={lay.K}, {n_params / 1e9:.3f} B "
+          f"parameters in {len(leaves)} leaves; table T={spec.table.T} "
+          f"act {spec.table.act_depth} wstash {spec.table.wstash_depth} "
+          f"fq {spec.table.fq_depth} bq {spec.table.bq_depth}")
+    kernels = {"rmsnorm_rows": rmsnorm_rows,
+               "flash_attention_fwd": flash_attention_fwd,
+               "fused_adamw_flat": fused_adamw_flat}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    out = train_pipeline(tc, P=P, device="cuda", steps=steps, params=params,
+                         log=lambda s: print(s, flush=True))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_step = expected_train_launches(spec, len(leaves))
+    want = {k: steps * n for k, n in per_step.items()}
+    tokens = spec.table.m * spec.mbB * spec.S
+    med = statistics.median(out["step_s"][1:])      # step 1 warms up
+    print(f"[train] steps={out['steps']} losses={out['losses']} "
+          f"grad_norms={out['grad_norms']} lrs={out['lrs']} "
+          f"step_s={out['step_s']}")
+    print(f"[train] median step {med * 1e3:.1f} ms (steps 2-4: "
+          f"{[round(s * 1e3, 1) for s in out['step_s'][1:]]}), "
+          f"{tokens} tokens/step -> {tokens / med:.1f} tokens/s; "
+          f"max_memory_allocated={peak / 2 ** 30:.3f} GiB")
+    print(f"[train] launches {launches} (per step from the table: "
+          f"{per_step})")
+    if launches != want:
+        fail(f"training kernel launches {launches} != expected {want}")
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        fail("non-finite loss or grad_norm")
+    # every fp32 master leaf moved; a bf16 weight may round back to its
+    # old value (a norm scale of 1.0 moved by lr ~ 3e-4 is 1.0 in bf16)
+    masters = tree_leaves(out["opt_state"]["master"])
+    unchanged = [i for i, (a, b) in enumerate(zip(before, masters))
+                 if torch.equal(a, b.flatten()[:4096])]
+    moved_bf16 = sum(not torch.equal(a, b.flatten()[:4096].float())
+                     for a, b in zip(before, tree_leaves(out["params"])))
+    print(f"[train] weights moved: {len(masters) - len(unchanged)} of "
+          f"{len(masters)} fp32 master leaves, {moved_bf16} of "
+          f"{len(masters)} bf16 leaves (first 4096 elements of each)")
+    if unchanged:
+        fail(f"master weight leaves {unchanged} did not change")
+    profile_train_step(torch, tc, P, out["params"], out["opt_state"], med)
+    del out, params
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in kernels}
+
+
+def profile_train_step(torch, tc, P, params, opt_state, untraced_s):
+    """One more step under ``torch.profiler``: device busy share and the
+    device time of our kernels, the matmuls, the plain attention backward
+    (its profiler range) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention.ops import BWD_RANGE
+    from repro_torch.launch.steps import make_pipeline_train_step
+    step, m, mbB, _ = make_pipeline_train_step(tc.model, tc.shape, tc.plan,
+                                               tc.optimizer, P=P,
+                                               device="cuda")
+    toks = SyntheticLM(tc.model.vocab_size, tc.shape.seq_len, seed=1
+                       ).next_batch(m * mbB).reshape(m, mbB, -1)
+    batch = {"tokens": torch.from_numpy(toks).to("cuda")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    fams = {"fused_adamw_flat (ours)": 0.0, "rmsnorm_rows (ours)": 0.0,
+            "flash_attention_fwd (ours)": 0.0, "matmul": 0.0, "other": 0.0}
+    bwd_us = None
+    rows = []
+    for e in prof.key_averages():
+        if e.key == BWD_RANGE:
+            bwd_us = getattr(e, "device_time_total", None)
+            if bwd_us is None:
+                bwd_us = getattr(e, "cuda_time_total", 0.0)
+            continue
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev <= 0:
+            continue
+        rows.append((dev, e.count, e.key))
+        name = e.key.lower()
+        if "fused_adamw_kernel" in name:
+            fams["fused_adamw_flat (ours)"] += dev
+        elif "rmsnorm_rows_kernel" in name:
+            fams["rmsnorm_rows (ours)"] += dev
+        elif "flash_fwd_kernel" in name:
+            fams["flash_attention_fwd (ours)"] += dev
+        elif any(t in name for t in ("gemm", "gemv", "xmma", "cutlass",
+                                     "nvjet", "cublas")):
+            fams["matmul"] += dev
+        else:
+            fams["other"] += dev
+    busy = sum(fams.values())
+    if busy <= 0:
+        print("[profile-train] the profiler reported no device time: device "
+              "breakdown not measured")
+        return
+    print(f"[profile-train] one chronos_zb step: wall {wall_us / 1e3:.1f} ms "
+          f"(profiled; {wall_us / 1e6 / untraced_s:.2f}x the untraced "
+          f"median), device busy {busy / 1e3:.1f} ms = "
+          f"{100 * busy / wall_us:.1f}% of wall, idle "
+          f"{100 - 100 * busy / wall_us:.1f}%")
+    for fam, us in fams.items():
+        print(f"[profile-train]   {fam}: {us / 1e3:.2f} ms "
+              f"({100 * us / busy:.1f}% of device time)")
+    if bwd_us:
+        print(f"[profile-train]   plain attention backward (range "
+              f"{BWD_RANGE}, its kernels are inside matmul/other above): "
+              f"{bwd_us / 1e3:.2f} ms ({100 * bwd_us / busy:.1f}% of device "
+              f"time)")
+    else:
+        print(f"[profile-train]   plain attention backward: range device "
+              f"time not reported by the profiler: not measured")
+    for dev, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"[profile-train]   top: {dev / 1e3:8.2f} ms x{count:<6d} "
+              f"{key[:90]}")
+
+
+def phase_train_checks(torch):
+    """fp32, full width, 4 layers, P=2, v=2, m=4, mbB=1, seq 257:
+    (a) pipeline loss and gradients (fused kernels) against LM.loss
+    autograd (plain backend, same weights), chronos and chronos_zb;
+    (b) chronos_recomp equals chronos bitwise; (c) fused against plain
+    backend; (d) the kernel update equals the plain update bitwise."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   make_pipeline_spec,
+                                                   make_train_grads_fn,
+                                                   unstage_params)
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=4,
+                              param_dtype="float32", compute_dtype="float32")
+    P, v, m, mbB, seq = 2, 2, 4, 1, 257
+
+    def spec_of(schedule, kernels):
+        return make_pipeline_spec(cfg, P=P, v=v, m=m, microbatch=mbB,
+                                  seq_len=seq, schedule=schedule,
+                                  kernels=kernels)
+
+    base = spec_of("chronos", "fused")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_pipeline_params(gen, cfg, base.layout, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (m, mbB, seq), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    batch = {"tokens": tokens}
+    lm = LM(cfg, kernels="plain", device="cuda")
+    lp = tree_map(lambda a: a.detach().clone().requires_grad_(),
+                  unstage_params(params, base.layout))
+    ref_loss = sum(lm.loss(lp, {"tokens": tokens[i]})[0] for i in range(m))
+    ref_g = torch.autograd.grad(ref_loss, tree_leaves(lp))
+    ref_l = float(ref_loss.detach()) / m
+    del lp
+
+    def diff(a, b):
+        return max(max_err(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+    grads = {}
+    for schedule, kernels in (("chronos", "fused"), ("chronos_zb", "fused"),
+                              ("chronos_recomp", "fused"),
+                              ("chronos_zb", "plain")):
+        spec = spec_of(schedule, kernels)
+        g, met = make_train_grads_fn(spec, "cuda")(params, batch)
+        grads[(schedule, kernels)] = g
+        if schedule in ("chronos", "chronos_zb") and kernels == "fused":
+            gu = tree_leaves(unstage_params(g, spec.layout))
+            err = max([abs(float(met["loss"]) - ref_l)]
+                      + [max_err(a, b) for a, b in zip(gu, ref_g)])
+            print(f"[train-check] (a) {schedule} fused, fp32 full width 4 "
+                  f"layers: loss {float(met['loss']):.6f} vs LM.loss "
+                  f"{ref_l:.6f}; max|d| loss and grads {err:.3e} (tol 5e-3)")
+            if not err <= 5e-3:
+                fail(f"(a) {schedule} pipeline gradients disagree with "
+                     f"LM.loss autograd")
+    e_b = diff(grads[("chronos_recomp", "fused")], grads[("chronos", "fused")])
+    print(f"[train-check] (b) chronos_recomp vs chronos: max|d| {e_b:.3e} "
+          f"(tol 0)")
+    if e_b != 0.0:
+        fail("(b) chronos_recomp is not bitwise equal to chronos")
+    e_c = diff(grads[("chronos_zb", "fused")], grads[("chronos_zb", "plain")])
+    print(f"[train-check] (c) chronos_zb fused vs plain backend: max|d| "
+          f"{e_c:.3e} (tol 1e-4)")
+    if not e_c <= 1e-4:
+        fail("(c) fused and plain backends disagree on gradients")
+    # (d) this step's gradients, then the kernel update and the plain
+    # update from copies of them
+    ocfg = OptimizerConfig(warmup_steps=2, total_steps=4)
+    g = grads[("chronos_zb", "fused")]
+    masters = []
+    for use_kernel in (True, False):
+        st = adamw_init(params)
+        gg = tree_map(lambda a: a / m, g)
+        masters.append(adamw_update(gg, st, ocfg, use_kernel=use_kernel)[0])
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(masters[0]),
+                                                 tree_leaves(masters[1])))
+    print(f"[train-check] (d) chronos_zb step, fused-AdamW kernel vs plain "
+          f"update: master weights {'bitwise equal' if same else 'DIFFER'} "
+          f"(max|d| {diff(masters[0], masters[1]):.3e}, tol 0)")
+    if not same:
+        fail("(d) the kernel update and the plain update differ")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -452,22 +986,40 @@ def main() -> None:
                 print(f"[build] {line.strip()}")
     build.load_library()
 
-    # 3. kernels vs plain at the serving shapes
+    # 3. kernels vs plain at the serving shapes; fused AdamW; gradients
+    #    through the kernel Functions; the chunk body's kernels timed at
+    #    the training shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [phase_rmsnorm(torch, gen), phase_flash(torch, gen)]
+    rows = [phase_rmsnorm(torch, gen), phase_flash(torch, gen),
+            phase_adamw(torch, gen)]
+    phase_functions(torch, gen)
+    phase_train_shapes(torch, gen, {r["name"]: r for r in rows})
 
     # 4. serve at full width through the CLI's main(), then a profiled
     #    second run on the same engine
-    launches, eng = phase_serve(torch)
+    serve_launches, eng = phase_serve(torch)
     phase_profile(torch, eng)
     del eng
 
     # 5. serve checks
     phase_checks(torch)
+    torch.cuda.empty_cache()
 
-    # 6. kernels line, then the result line
+    # 6. train at full width through train_pipeline, then a profiled step
+    train_launches = phase_train(torch)
+
+    # 7. train checks
+    phase_train_checks(torch)
+
+    # 8. kernels line, then the result line.  ``launches`` sums the
+    #    kernel's launches in the two main-path runs (each counted from
+    #    0 right before its run), split in ``launches_serve`` and
+    #    ``launches_train``; launches made to compare a kernel with its
+    #    plain version are in neither.
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches_serve"] = serve_launches.get(row["name"], 0)
+        row["launches_train"] = train_launches[row["name"]]
+        row["launches"] = row["launches_serve"] + row["launches_train"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

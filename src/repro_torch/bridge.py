@@ -13,13 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+from repro_torch.tree import tree_map
 
 
 def _leaf_to_torch(a, device, dtype):
@@ -36,7 +30,7 @@ def _leaf_to_torch(a, device, dtype):
 def lm_params_from_numpy(tree, device, dtype=None):
     """numpy tree -> torch tree on ``device`` (cast to ``dtype`` if given);
     the bits are kept exactly when ``dtype`` is None."""
-    return _map(lambda a: _leaf_to_torch(a, device, dtype), tree)
+    return tree_map(lambda a: _leaf_to_torch(a, device, dtype), tree)
 
 
 def _leaf_to_numpy(t):
@@ -49,4 +43,4 @@ def _leaf_to_numpy(t):
 
 def lm_params_to_numpy(tree):
     """Inverse of :func:`lm_params_from_numpy` (bitwise round trip)."""
-    return _map(_leaf_to_numpy, tree)
+    return tree_map(_leaf_to_numpy, tree)

@@ -1,13 +1,16 @@
-"""Model configuration for the port (own copy of ``repro.configs.base``).
+"""Configuration dataclasses for the port (own copy of
+``repro.configs.base``).
 
-Only the dense-attention fields that serving reads are carried over;
-MoE, SSM, encoder-decoder and VLM sub-configs arrive with the slices
-that port those paths.
+Only the dense-attention model fields are carried over; MoE, SSM,
+encoder-decoder and VLM sub-configs arrive with the slices that port
+those paths.  ``ParallelPlan`` keeps the fields the single-card pipeline
+step reads; mesh axes, ZeRO, wire compression and sequence chunking
+arrive with the multi-process slices.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 
@@ -59,3 +62,80 @@ class ModelConfig:
             p = p * self.attn_pattern_period // math.gcd(
                 p, self.attn_pattern_period)
         return p
+
+
+# ---------------------------------------------------------------------------
+# Shape config
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+# ---------------------------------------------------------------------------
+# Parallel plan
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RecomputeConfig:
+    """Chronos-Recomp policy of ``chronos_recomp``: with mode "chronos"
+    the ``num_recomp_chunks`` *shallowest* chunks are rematerialized;
+    with "none" the generator's default applies."""
+    mode: str = "none"              # none | chronos
+    num_recomp_chunks: int = 1
+
+
+@dataclass(frozen=True)
+class OffloadConfig:
+    """Chronos-Offload policy (the optimizer step of the deepest chunks on
+    the host).  Not ported yet: ``enabled=True`` raises in the train
+    step; its sizing fields arrive with the offload slice."""
+    enabled: bool = False
+
+
+@dataclass(frozen=True)
+class ParallelPlan:
+    """Pipeline plan of one training run."""
+    schedule: str = "chronos"       # pipeline schedule name (core.schedules)
+    num_chunks: int = 2             # v
+    num_microbatches: int = 0       # 0 -> global_batch // microbatch_size
+    microbatch_size: int = 2        # sequences per microbatch
+    recompute: RecomputeConfig = field(default_factory=RecomputeConfig)
+    offload: OffloadConfig = field(default_factory=OffloadConfig)
+    kernels: str = "plain"          # compute backend for the chunk body
+                                    # (repro_torch.models.backend):
+                                    # "plain" | "fused" (the CUDA rmsnorm
+                                    # and flash kernels + the fused-AdamW
+                                    # update for split-backward schedules)
+
+
+# ---------------------------------------------------------------------------
+# Train config
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    schedule: str = "cosine"        # cosine | linear | constant
+    min_lr_ratio: float = 0.1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    plan: ParallelPlan
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    seed: int = 0
+    log_every: int = 10

@@ -1,11 +1,12 @@
-"""Stage layout of the pipelined engine (own copy of
-``repro.core.placement.Placement`` with the identity striping only,
-``repro.core.pipeline_runtime.pipeline_period`` and ``StageLayout``).
+"""Stage layout shared by the pipelined serving engine and the pipeline
+training executor (own copy of ``repro.core.pipeline_runtime``'s
+``pipeline_period`` and ``StageLayout``).
 
 The decoder's ``L`` layers are padded to a multiple of ``P * v *
 period`` and cut into ``P * v`` contiguous blocks of ``K`` layers; the
-block at (device ``d``, chunk ``c``) is ``c * P + d``.  Padding layers
-(global index ``>= L``) carry gate 0.
+block at (device ``d``, chunk ``c``) is the placement's
+``block(d, c)`` — ``c * P + d`` under the interleaved striping.  Padding
+layers (global index ``>= L``) carry gate 0.
 """
 from __future__ import annotations
 
@@ -15,23 +16,7 @@ from typing import Dict
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
-
-
-@dataclass(frozen=True)
-class Placement:
-    """Identity (interleaved striping) placement: chunk ``c`` stage ``s``
-    runs on device ``s`` and holds layer-block ``c * P + s``."""
-    P: int
-    v: int
-
-    def device(self, stage: int, chunk: int) -> int:
-        return stage
-
-    def stage(self, device: int, chunk: int) -> int:
-        return device
-
-    def block(self, device: int, chunk: int) -> int:
-        return chunk * self.P + self.stage(device, chunk)
+from repro_torch.core.placement import Placement
 
 
 def pipeline_period(cfg: ModelConfig) -> int:
@@ -50,19 +35,17 @@ class StageLayout:
     K: int              # layers per (device, chunk) block
     period: int         # structural period
     M: int              # periods per block = K // period
-
-    @property
-    def pl(self) -> Placement:
-        return Placement(self.P, self.v)
+    pl: Placement       # layer-block <-> device assignment
 
     @staticmethod
-    def build(cfg: ModelConfig, P: int, v: int) -> "StageLayout":
+    def build(cfg: ModelConfig, P: int, v: int,
+              placement: Placement) -> "StageLayout":
         per = pipeline_period(cfg)
         quantum = P * v * per
         L_pad = -(-cfg.num_layers // quantum) * quantum
         K = L_pad // (P * v)
         return StageLayout(P=P, v=v, L=cfg.num_layers, L_pad=L_pad, K=K,
-                           period=per, M=K // per)
+                           period=per, M=K // per, pl=placement)
 
     def global_idx(self, d: int, c: int, j: int) -> int:
         """Global layer index of local layer ``j`` of the block at
@@ -70,7 +53,8 @@ class StageLayout:
         return self.pl.block(d, c) * self.K + j
 
     def flags(self, cfg: ModelConfig) -> Dict[str, np.ndarray]:
-        """window [P,v,M,period] int32; gate [P,v,M,period] f32."""
+        """window [P,v,M,period] int32; gate [P,v,M,period] f32 —
+        indexed by (device, chunk), following the placement."""
         win = np.zeros((self.P, self.v, self.M, self.period), np.int32)
         gate = np.zeros((self.P, self.v, self.M, self.period), np.float32)
         for d in range(self.P):

@@ -1,0 +1,401 @@
+"""Pipeline training executor on one device: a lockstep interpreter over
+a :class:`~repro_torch.core.tasktable.TaskTable` (port of
+``repro/core/pipeline_runtime.py``).
+
+The reference runs the table under ``shard_map`` with one mesh position
+per stage.  Here the ``P`` device columns are virtual stages on one
+card, run in lockstep: at every tick each column executes its F, B, W
+or R op on the chunk body (:func:`repro_torch.models.backend.chunk_fwd`,
+plus :func:`~repro_torch.models.backend.head_loss` at the last stage),
+then the tick's sends land in their consumers' queue slots.  All of a
+tick's ops run before any of its sends land, as the reference's tick
+body reads its queues before the route writes them.  The table is built
+with ``overlap=False`` (one card has no collective to overlap; the
+reference builds the same per-device op order in both modes).
+
+Memory follows the table, not the microbatch count.  Every buffer is
+preallocated per device column at the table's depths, in the compute
+dtype, ``[depth, mbB, S, d]``, and addressed only by the table's slot
+columns: the F and B receive queues (``fq_depth``, ``bq_depth``), the
+activation ring per chunk (``act_depth``), the remat ring
+(``rmt_depth``) and the W-stash rings (``wstash_depth``: boundary
+payload and upstream gradient).  This is where Chronos-Pipe's memory
+saving becomes structural.
+
+Op semantics mirror the reference's phase executor:
+
+- **F** runs under ``torch.no_grad``: the first stage of chunk 0 embeds
+  the microbatch, the last stage of the last chunk adds the head loss to
+  the loss sum; the op's input boundary goes to the activation ring.
+- **B, fused** (tables without W): recompute the chunk from its stored
+  boundary under autograd and ``torch.autograd.grad`` with explicit
+  inputs — the input gradient goes upstream, block gradients (and the
+  head's or the embedding's at the pipeline ends) accumulate in fp32.
+- **B, split**: the input gradient only; boundary and upstream gradient
+  go to the W-stash.  **W** recomputes from the stash and takes the
+  parameter gradients only.
+- **R** moves the boundary from the activation ring to the remat ring
+  and computes nothing, so ``chronos_recomp`` equals ``chronos``
+  bitwise, as in the reference.
+
+No autograd graph outlives its op.  Shared-parameter gradients sum over
+stages; the loss is the mean of the microbatches' CE.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.layout import StageLayout
+from repro_torch.core.schedules import get_schedule
+from repro_torch.core.tasktable import (F_OPS, IDLE, R_OPS, SEND_BWD,
+                                        SEND_FWD, SEND_HOPB, SEND_HOPF,
+                                        SEND_NONE, W_OPS, TaskTable,
+                                        build_task_table)
+from repro_torch.models import backend as compute_backend
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import _dense, _dtype, _init_layers
+from repro_torch.optim.adamw import adamw_update, cast_like
+from repro_torch.tree import tree_leaves, tree_map
+
+# send code -> (device delta, queue, receive column of TaskTable.arrays());
+# the interleaved placement routes only these four (the V-shape
+# placement's up/down/local codes arrive with that slice)
+_ROUTE = {SEND_FWD: (1, "f", 6), SEND_HOPF: (1, "f", 6),
+          SEND_BWD: (-1, "b", 10), SEND_HOPB: (-1, "b", 10)}
+
+_SCHEDULES_WITH_V = ("chronos", "interleaved", "chronos_zero2",
+                     "chronos_zb", "chronos_recomp")
+
+
+# ---------------------------------------------------------------------------
+# parameters (stage-stacked)
+# ---------------------------------------------------------------------------
+
+def init_pipeline_params(generator: torch.Generator, cfg: ModelConfig,
+                         layout: StageLayout, device) -> Dict[str, Any]:
+    """Random parameters at ``dense_init``'s scale (not the reference's
+    bits).  Block leaves are ``[P, v, M, ...]`` indexed by (device,
+    chunk) under ``layout``'s placement, one tree per period position;
+    embedding, head and final norm are shared by the stages."""
+    dt = _dtype(cfg.param_dtype)
+    d = cfg.d_model
+    n = layout.P * layout.v * layout.M
+    blocks = [tree_map(lambda a: a.reshape((layout.P, layout.v, layout.M)
+                                           + a.shape[1:]),
+                       _init_layers(generator, cfg, n, device))
+              for _ in range(layout.period)]
+    embed = {"tokens": _dense(generator, (cfg.vocab_size, d), d, dt, device)}
+    if not cfg.tie_embeddings:
+        embed["head"] = _dense(generator, (d, cfg.vocab_size), d, dt, device)
+    return {"blocks": blocks, "embed": embed,
+            "final_norm": {"scale": torch.ones((d,), dtype=dt,
+                                               device=device)}}
+
+
+def unstage_params(tree, layout: StageLayout) -> Dict[str, Any]:
+    """Pipeline tree (parameters or gradients) -> the single-device
+    ``LM`` tree: block leaves ``[P, v, M, ...]`` restacked
+    ``[num_layers, ...]`` in global layer order (padding layers
+    dropped), shared leaves as they are."""
+    per = layout.period
+    order: List[List[tuple]] = [[] for _ in range(per)]
+    for g in range(layout.L):
+        blk, within = divmod(g, layout.K)
+        for d in range(layout.P):
+            for c in range(layout.v):
+                if layout.pl.block(d, c) == blk:
+                    order[within % per].append((d, c, within // per))
+    layers = [tree_map(lambda a, j=j: torch.stack(
+        [a[d, c, mi] for d, c, mi in order[j]]), tree["blocks"][j])
+        for j in range(per)]
+    return {"embed": tree["embed"], "final_norm": tree["final_norm"],
+            "layers": layers, "rem_layers": []}
+
+
+# ---------------------------------------------------------------------------
+# the executor
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PipelineSpec:
+    cfg: ModelConfig
+    layout: StageLayout
+    table: TaskTable
+    mbB: int                    # microbatch size (sequences)
+    S: int                      # token positions fed to the stack
+    kernels: str = "plain"      # compute backend (repro_torch.models.backend)
+
+
+def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
+                       microbatch: int, seq_len: int, schedule: str,
+                       kernels: str = "plain", **sched_kw) -> PipelineSpec:
+    sched = get_schedule(schedule, P, m,
+                         **({"v": v} if schedule in _SCHEDULES_WITH_V
+                            else {}), **sched_kw)
+    if sched.v != v:
+        raise ValueError(f"{schedule} constructs v={sched.v}, spec asked "
+                         f"for v={v}")
+    layout = StageLayout.build(cfg, P, v, sched.pl)
+    table = build_task_table(sched, overlap=False)
+    compute_backend.get_backend(kernels)        # validate the flag early
+    return PipelineSpec(cfg=cfg, layout=layout, table=table, mbB=microbatch,
+                        S=seq_len - 1, kernels=kernels)
+
+
+def _embed_tokens(spec: PipelineSpec, shared, tokens):
+    """Token embedding scaled by sqrt(d) (the scale rounded to the
+    embedding's dtype, as the reference does), in the compute dtype."""
+    x = L.embed(shared["embed"], tokens)
+    mult = torch.tensor(spec.cfg.d_model ** 0.5, dtype=x.dtype).item()
+    return (x * mult).to(_dtype(spec.cfg.compute_dtype))
+
+
+def _with_grad(tree):
+    """Detached leaves that require grad (views of the same storage)."""
+    return tree_map(lambda a: a.detach().requires_grad_(), tree)
+
+
+class _Executor:
+    """One table's rings, allocated once, and the tick loop over them."""
+
+    def __init__(self, spec: PipelineSpec, device):
+        self.spec = spec
+        tab = spec.table
+        self.A = tab.arrays()                           # [T, P, 14]
+        self.split = tab.has_w
+        self.flags = spec.layout.flags(spec.cfg)        # host numpy
+        shape = (spec.mbB, spec.S, spec.cfg.d_model)
+        dt = _dtype(spec.cfg.compute_dtype)
+
+        def ring(depth):
+            return torch.zeros((depth,) + shape, dtype=dt, device=device)
+
+        P_ = tab.P
+        self.rings: Dict[str, Any] = {
+            "fq": [ring(tab.fq_depth) for _ in range(P_)],
+            "bq": [ring(tab.bq_depth) for _ in range(P_)],
+            "act": [{c: ring(k) for c, k in tab.act_depth.items()}
+                    for _ in range(P_)],
+            "rmt": [{c: ring(k) for c, k in tab.rmt_depth.items()}
+                    for _ in range(P_)],
+            "wx": [{c: ring(k) for c, k in tab.wstash_depth.items()}
+                   for _ in range(P_)],
+            "wdy": [{c: ring(k) for c, k in tab.wstash_depth.items()}
+                    for _ in range(P_)],
+        }
+
+    # -- helpers -------------------------------------------------------------
+    def _ends(self, d: int, c: int):
+        """(first, last): does (device d, chunk c) hold the pipeline's
+        first block (chunk 0, stage 0) or its last one?"""
+        tab = self.spec.table
+        s = self.spec.layout.pl.stage(d, c)
+        return (c == 0 and s == 0), (c == tab.v - 1 and s == tab.P - 1)
+
+    def _block(self, params, d: int, c: int, grad: bool):
+        blocks = [tree_map(lambda a: a[d, c], t) for t in params["blocks"]]
+        return _with_grad(blocks) if grad else blocks
+
+    def _boundary(self, d, c, aslot, rslot):
+        r = self.rings
+        if rslot >= 0:
+            return r["rmt"][d][c][rslot]
+        return _at(r["act"][d][c], aslot)
+
+    # -- one op --------------------------------------------------------------
+    def _op(self, d, row, params, shared, batch, acc):
+        spec, r = self.spec, self.rings
+        op, c, mb, src, aslot = (int(x) for x in row[:5])
+        wslot, rslot = int(row[12]), int(row[13])
+        first, last = self._ends(d, c)
+        flags_c = {k: a[d, c] for k, a in self.flags.items()}
+        tokens = batch["tokens"][mb]
+        tok_in, labels = tokens[:, :-1], tokens[:, 1:]
+        mask = batch["loss_mask"][mb] if "loss_mask" in batch else None
+
+        def chunk(blocks_c, x):
+            return compute_backend.chunk_fwd(spec, blocks_c, flags_c, x)
+
+        def head(sh, x):
+            return compute_backend.head_loss(spec, sh, x, labels, mask)
+
+        if op in F_OPS:
+            with torch.no_grad():
+                x_in = _embed_tokens(spec, shared, tok_in) if first \
+                    else _at(r["fq"][d], src)
+                if aslot >= 0:
+                    r["act"][d][c][aslot].copy_(x_in)
+                out = chunk(self._block(params, d, c, False), x_in)
+                if last:
+                    acc["loss"] += head(shared, out)
+                    acc["n"] += 1
+                    return None
+                return out
+
+        if op in R_OPS:
+            if rslot >= 0:
+                _at(r["rmt"][d][c], rslot).copy_(_at(r["act"][d][c], aslot))
+            return None
+
+        if op in W_OPS:
+            # parameter gradients from the stash (input gradient done)
+            blocks_c = self._block(params, d, c, True)
+            sh = _with_grad(shared) if (first or last) else shared
+            with torch.enable_grad():
+                x = _embed_tokens(spec, sh, tok_in) if first \
+                    else _at(r["wx"][d][c], wslot)
+                out = chunk(blocks_c, x)
+                if last:
+                    outs, seeds = head(sh, out), None
+                else:
+                    outs, seeds = out, _at(r["wdy"][d][c], wslot)
+                self._accumulate(acc, d, c, blocks_c, sh, first or last,
+                                 outs, seeds)
+            return None
+
+        # B ops
+        if self.split:
+            if first:
+                # the first block sends nothing upstream: stash dy for W
+                if not last:
+                    _at(r["wdy"][d][c], wslot).copy_(_at(r["bq"][d], src))
+                return None
+            bnd = self._boundary(d, c, aslot, rslot)
+            _at(r["wx"][d][c], wslot).copy_(bnd)
+            if not last:
+                _at(r["wdy"][d][c], wslot).copy_(_at(r["bq"][d], src))
+            x = bnd.detach().requires_grad_()
+            with torch.enable_grad():
+                out = chunk(self._block(params, d, c, False), x)
+                if last:
+                    (dx,) = _grad(head(shared, out), None, [x])
+                else:
+                    (dx,) = _grad(out, _at(r["bq"][d], src), [x])
+            return dx
+
+        blocks_c = self._block(params, d, c, True)
+        sh = _with_grad(shared) if (first or last) else shared
+        with torch.enable_grad():
+            if first:
+                x = _embed_tokens(spec, sh, tok_in)
+            else:
+                x = self._boundary(d, c, aslot, rslot).detach() \
+                    .requires_grad_()
+            out = chunk(blocks_c, x)
+            if last:
+                outs, seeds = head(sh, out), None
+            else:
+                outs, seeds = out, _at(r["bq"][d], src)
+            return self._accumulate(acc, d, c, blocks_c, sh, first or last,
+                                    outs, seeds, x=None if first else x)
+
+    def _accumulate(self, acc, d, c, blocks_c, sh, with_shared, outs,
+                    seeds, x=None):
+        """Gradients of ``outs`` (seeded by ``seeds``) w.r.t. the block's
+        parameters (+ the shared ones at the pipeline ends, + ``x``):
+        parameter gradients add into the fp32 accumulators, the input
+        gradient is returned."""
+        blk = tree_leaves(blocks_c)
+        shl = tree_leaves(sh) if with_shared else []
+        wrt = blk + shl + ([x] if x is not None else [])
+        gs = _grad(outs, seeds, wrt)
+        accs = [a[d, c] for a in tree_leaves(acc["gb"])]
+        if with_shared:
+            accs += tree_leaves(acc["gs"])
+        for a, g in zip(accs, gs):
+            if g is not None:          # an untied embedding at the head
+                a.add_(g)
+        return gs[-1] if x is not None else None
+
+    # -- the tick loop -----------------------------------------------------
+    def run(self, params, batch):
+        tab = self.spec.table
+        shared = {k: v for k, v in params.items() if k != "blocks"}
+        dev = params["final_norm"]["scale"].device
+        acc = {
+            "gb": tree_map(lambda a: torch.zeros(a.shape,
+                                                 dtype=torch.float32,
+                                                 device=a.device),
+                           params["blocks"]),
+            "gs": tree_map(lambda a: torch.zeros(a.shape,
+                                                 dtype=torch.float32,
+                                                 device=a.device), shared),
+            "loss": torch.zeros((), dtype=torch.float32, device=dev),
+            "n": 0,
+        }
+        for t in range(tab.T):
+            sends = []
+            for d in range(tab.P):
+                row = self.A[t, d]
+                if row[0] == IDLE:
+                    continue
+                out = self._op(d, row, params, shared, batch, acc)
+                if out is not None and row[5] != SEND_NONE:
+                    sends.append((d, int(row[5]), out))
+            # the tick's ops have read their queues: land the sends
+            for d, code, out in sends:
+                delta, q, col = _ROUTE[code]
+                dest = (d + delta) % tab.P
+                slot = int(self.A[t, dest, col])
+                assert slot >= 0, f"tick {t}: no receive slot at {dest}"
+                self.rings[q + "q"][dest][slot].copy_(out)
+        grads = {"blocks": acc["gb"], **acc["gs"]}
+        n = acc["n"]
+        metrics = {"loss": acc["loss"] / max(n, 1), "n_microbatches": n}
+        return grads, metrics
+
+
+def _at(ring, slot: int):
+    """Slot ``slot`` of a ring; the table sets every slot an op reads
+    (a -1 here would silently index the ring's last slot)."""
+    assert slot >= 0, "the task table left a read slot unset"
+    return ring[slot]
+
+
+def _grad(outputs, seeds, inputs):
+    """``torch.autograd.grad`` over a flat input list; an input the graph
+    does not use (an untied embedding at the head) gets None."""
+    return torch.autograd.grad(outputs, inputs, seeds, allow_unused=True)
+
+
+def make_train_grads_fn(spec: PipelineSpec, device):
+    """Returns ``fn(params, batch) -> (grads, metrics)`` running the full
+    schedule.  ``batch``: ``tokens`` [m, mbB, S + 1] (+ optional
+    ``loss_mask`` [m, mbB, S]) on ``device``.  ``grads`` are fp32 and
+    summed over the microbatches: ``{"blocks": [...], "embed": ...,
+    "final_norm": ...}``; ``metrics``: ``loss`` (mean CE, a device
+    tensor) and ``n_microbatches``.  ``fn.rings`` are the executor's
+    preallocated buffers."""
+    ex = _Executor(spec, device)
+
+    def fn(params, batch):
+        return ex.run(params, batch)
+
+    fn.rings = ex.rings
+    return fn
+
+
+def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
+                         use_kernel: bool = True):
+    """Gradients, then the AdamW step on them: returns ``fn(params,
+    opt_state, batch) -> (params, opt_state, metrics)``.  Gradients are
+    divided by ``m`` (the number of microbatches) and go to
+    :func:`repro_torch.optim.adamw.adamw_update` — with ``use_kernel``,
+    one fused-AdamW kernel launch per parameter leaf.  The optimizer
+    state and ``params`` are updated in place (``params`` is returned)."""
+    grads_fn = make_train_grads_fn(spec, device)
+    m_dev = torch.tensor(float(m), dtype=torch.float32, device=device)
+
+    def fn(params, opt_state, batch):
+        grads, metrics = grads_fn(params, batch)
+        tree_map(lambda g: g.div_(m_dev), grads)
+        master, opt_state, om = adamw_update(grads, opt_state, ocfg,
+                                             use_kernel=use_kernel)
+        return cast_like(master, params), opt_state, {**metrics, **om}
+
+    fn.rings = grads_fn.rings
+    return fn

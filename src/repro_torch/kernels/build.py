@@ -27,7 +27,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}   # csrc/common.cuh ReproDtype
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
+    # g, mu, nu, w, scalars [lr, bc1, bc2], n, b1, 1 - b1, b2, 1 - b2, eps,
+    # wd, g dtype, stream
+    "fused_adamw_launch": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
+                           _I, _P],
     # x, scale, y, rows, d, eps, dtype, stream
     "rmsnorm_rows_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
     # q, k, v, o, lse, B, Sq, Sk, H, G, D, scale, causal, window, prefix,

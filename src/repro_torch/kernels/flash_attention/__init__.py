@@ -1,3 +1,4 @@
-"""Flash-attention forward kernel (CUDA) and its plain version."""
+"""Flash-attention forward kernel (CUDA), its plain version and the
+differentiable static-offset call."""
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
-    attention_ref, flash_attention_fwd)
+    FlashAttention, attention_ref, flash_attention, flash_attention_fwd)

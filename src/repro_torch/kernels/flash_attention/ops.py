@@ -14,6 +14,14 @@ does its products on the CUDA cores in fp32, as the TPU kernel does.
 :func:`flash_attention_fwd` runs :func:`attention_ref` only for tensors
 on the CPU; for CUDA tensors it launches the kernel or raises.
 ``flash_attention_fwd.launches`` counts kernel launches.
+
+:func:`flash_attention` is the static-offset ``jax.custom_vjp`` of
+``repro/kernels/flash_attention/ops.py`` as a ``torch.autograd.Function``
+(:class:`FlashAttention`): the forward is the kernel, it saves only q, k
+and v, and the backward recomputes :func:`attention_ref` under autograd
+(flash-style recompute-from-(q, k, v); a dedicated backward kernel is a
+later optimisation, as it is on the TPU).  The dynamic-offset form
+(seqpipe's dKV carry) arrives with the seqpipe slice.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (16, 32, 64, 128)
+BWD_RANGE = "flash_attention_bwd_plain"   # profiler range of the backward
 
 
 def attention_ref(q, k, v, *, scale=None, causal=True, window=0, prefix=0,
@@ -104,3 +113,39 @@ def flash_attention_fwd(q, k, v, *, scale=None, causal=True, window=0,
 
 
 flash_attention_fwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Kernel forward (output only), reference-recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, prefix, q_offset)
+        o, _ = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   prefix=prefix, q_offset=q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, prefix, q_offset = ctx.mask
+        # a profiler range, so a trace can attribute the plain backward's
+        # device time (one host-side record per call)
+        with torch.enable_grad(), \
+                torch.profiler.record_function(BWD_RANGE):
+            ins = [a.detach().requires_grad_(need) for a, need in
+                   zip((q, k, v), ctx.needs_input_grad[:3])]
+            o, _ = attention_ref(*ins, causal=causal, window=window,
+                                 prefix=prefix, q_offset=q_offset)
+            wrt = [a for a in ins if a.requires_grad]
+            grads = iter(torch.autograd.grad(o, wrt, do))
+        return tuple(next(grads) if a.requires_grad else None
+                     for a in ins) + (None,) * 4
+
+
+def flash_attention(q, k, v, causal=True, window=0, prefix=0, q_offset=0):
+    """q [B,Sq,H,d]; k,v [B,Sk,G,d]; mask parameters are host ints.
+    Returns o [B,Sq,H,d] in q's type, differentiable in q, k and v."""
+    return FlashAttention.apply(q, k, v, causal, int(window), int(prefix),
+                                int(q_offset))

@@ -1,3 +1,4 @@
-"""RMSNorm rows kernel (CUDA) and its plain version."""
+"""RMSNorm rows kernel (CUDA), its plain version and the differentiable
+call."""
 from repro_torch.kernels.rmsnorm.ops import (  # noqa: F401
-    rmsnorm_fused, rmsnorm_rows, rmsnorm_rows_ref)
+    RMSNormRows, rmsnorm_fused, rmsnorm_rows, rmsnorm_rows_ref)

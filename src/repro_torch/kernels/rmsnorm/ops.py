@@ -10,6 +10,12 @@ design reads each row from device memory once.
 :func:`rmsnorm_rows` runs the plain version :func:`rmsnorm_rows_ref` only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 ``rmsnorm_rows.launches`` counts kernel launches.
+
+:class:`RMSNormRows` mirrors the reference's ``jax.custom_vjp``
+(``repro/kernels/rmsnorm/ops.py``): the forward is :func:`rmsnorm_rows`
+(the kernel on the card), the backward differentiates
+:func:`rmsnorm_rows_ref` under autograd — the same math, so gradients
+equal the plain backend's.  :func:`rmsnorm_fused` goes through it.
 """
 from __future__ import annotations
 
@@ -60,7 +66,31 @@ def rmsnorm_rows(x, scale, eps: float = 1e-6):
 rmsnorm_rows.launches = 0
 
 
+class RMSNormRows(torch.autograd.Function):
+    """Kernel forward, plain-version backward (saves x and scale)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_rows(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            x_ = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            s_ = scale.detach().requires_grad_(ctx.needs_input_grad[1])
+            y = rmsnorm_rows_ref(x_, s_, ctx.eps)
+            wrt = [a for a in (x_, s_) if a.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, dy))
+        return (next(grads) if x_.requires_grad else None,
+                next(grads) if s_.requires_grad else None, None)
+
+
 def rmsnorm_fused(x, scale, eps: float = 1e-6):
-    """Any leading shape: rows of the last axis through :func:`rmsnorm_rows`."""
+    """Any leading shape: rows of the last axis through
+    :class:`RMSNormRows` (the kernel forward, differentiable)."""
     shape = x.shape
-    return rmsnorm_rows(x.reshape(-1, shape[-1]), scale, eps).reshape(shape)
+    y = RMSNormRows.apply(x.reshape(-1, shape[-1]), scale, eps)
+    return y.reshape(shape)

@@ -1,0 +1,81 @@
+"""Training entry point of the port: ChronosPipe pipeline training on one
+device (``train_pipeline`` of ``repro/launch/train.py`` without the
+checkpointer, fault injector, watchdog and Chronos-Offload).
+
+    from repro_torch.launch.train import train_pipeline
+    out = train_pipeline(tc, P=4)                  # on the card
+    out = train_pipeline(tc, P=2, device="cpu")    # plain versions
+
+``P`` virtual stages run in lockstep on the device (the reference maps
+them onto a mesh axis).  Runs on CUDA unless ``device="cpu"``; a CUDA
+request without a card raises.
+"""
+from __future__ import annotations
+
+import statistics
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.pipeline_runtime import init_pipeline_params
+from repro_torch.data import DataPipeline, SyntheticLM
+from repro_torch.launch.steps import make_pipeline_train_step
+from repro_torch.optim import adamw_init
+
+
+def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
+                   steps: Optional[int] = None, data_source=None,
+                   params=None, log: Callable[[str], None] = print) -> Dict:
+    """Train ``steps`` (default ``tc.optimizer.total_steps``) steps.
+    Parameters are drawn from a ``torch.Generator`` seeded with
+    ``tc.seed`` unless ``params`` (a stage-stacked tree on ``device``,
+    e.g. bridged weights) is given; either tree is updated in place at
+    every step (the fp32 masters are written into it).  The data
+    come from ``data_source`` or ``SyntheticLM(seed=tc.seed)`` through
+    the prefetching :class:`DataPipeline`.
+
+    Returns ``losses``, ``final_loss``, ``steps``, ``wall_s``,
+    ``median_step_s`` and ``schedule`` as the reference does, plus
+    per-step ``grad_norms``, ``lrs`` and ``step_s`` and the final
+    ``params`` and ``opt_state``."""
+    cfg, shape, plan, ocfg = tc.model, tc.shape, tc.plan, tc.optimizer
+    dev = resolve_device(device)
+    steps = steps or ocfg.total_steps
+    step_fn, m, mbB, spec = make_pipeline_train_step(cfg, shape, plan,
+                                                     ocfg, P=P, device=dev)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(tc.seed)
+        params = init_pipeline_params(gen, cfg, spec.layout, dev)
+    opt_state = adamw_init(params)
+
+    source = data_source or SyntheticLM(cfg.vocab_size, shape.seq_len,
+                                        seed=tc.seed)
+    pipe = DataPipeline(source, global_batch=mbB * m, microbatches=m,
+                        prefetch=2).start()
+    losses, gnorms, lrs, step_s = [], [], [], []
+    t_start = time.time()
+    try:
+        for step in range(steps):
+            t0 = time.time()
+            tokens = torch.from_numpy(pipe.next()["tokens"]).to(dev)
+            params, opt_state, metrics = step_fn(params, opt_state,
+                                                 {"tokens": tokens})
+            loss = float(metrics["loss"])     # waits for the step
+            dt = time.time() - t0
+            losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            lrs.append(float(metrics["lr"]))
+            step_s.append(dt)
+            if step % tc.log_every == 0:
+                log(f"[train-pp] step {step} loss {loss:.4f} "
+                    f"gnorm {gnorms[-1]:.3f} lr {lrs[-1]:.3e} ({dt:.2f}s)")
+    finally:
+        pipe.stop()
+    return {"losses": losses, "final_loss": losses[-1] if losses else None,
+            "steps": len(losses), "wall_s": time.time() - t_start,
+            "median_step_s": statistics.median(step_s) if step_s else None,
+            "schedule": spec.table.name, "grad_norms": gnorms, "lrs": lrs,
+            "step_s": step_s, "params": params, "opt_state": opt_state}

@@ -5,16 +5,24 @@ backend, chosen by the ``kernels=`` flag, decides what runs:
 
 - ``"fused"`` (the default): the hand-written CUDA kernels
   (:mod:`repro_torch.kernels`) — RMSNorm rows for every layer norm and the
-  flash-attention forward for every prefill chunk.  On CPU tensors the
-  kernel wrappers run their plain versions.
+  flash-attention forward for every whole-sequence or prefill-chunk
+  attention — through their ``torch.autograd.Function`` s, so gradients
+  flow through them (kernel forward, plain-version backward, as the
+  reference's ``custom_vjp`` s do).  On CPU tensors the kernel wrappers
+  run their plain versions.
 - ``"plain"`` (the reference's ``"xla"`` twin): plain PyTorch ops, never
   a kernel of this package.
+
+:func:`chunk_fwd` and :func:`head_loss` are the ChunkBody seam the
+pipeline executor runs every F, B and W op through.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
 from repro_torch.models import layers as L
 
@@ -34,9 +42,7 @@ class ComputeBackend:
     def flash(self, q, k, v, *, causal: bool, window: int, prefix: int,
               q_offset: int = 0):
         """q [B,S,H,d]; k,v [B,T,G,d]; ``q_offset`` a host int."""
-        o, _ = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                   prefix=prefix, q_offset=q_offset)
-        return o
+        return flash_attention(q, k, v, causal, window, prefix, q_offset)
 
 
 PLAIN = ComputeBackend("plain")
@@ -57,3 +63,41 @@ def get_backend(kernels=None) -> ComputeBackend:
     except KeyError:
         raise ValueError(f"unknown kernels flag {kernels!r}: expected "
                          f"{sorted(_REGISTRY)}") from None
+
+
+# ---------------------------------------------------------------------------
+# the ChunkBody seam
+# ---------------------------------------------------------------------------
+
+def chunk_fwd(spec, block_params_c, flags_c, x):
+    """Run one stage's layer chunk over the boundary activation ``x``
+    [B, S, d] (whole-sequence mode) and return the new boundary.
+
+    ``block_params_c``: per period position, leaves [M, ...];
+    ``flags_c``: {window, gate} host numpy [M, period] — host values, so
+    the layer's ``gate != 1.0`` test costs no device sync.  The
+    reference wraps its scan body in ``jax.checkpoint``; here the caller
+    recomputes the chunk from its boundary at every B and W op, and the
+    flash Function saves only q, k and v."""
+    from repro_torch.models.transformer import _apply_layer, _index
+    bk = get_backend(spec.kernels)
+    cfg = spec.cfg
+    Bz, Sc, _ = x.shape
+    positions = torch.arange(Sc, device=x.device)[None].expand(Bz, Sc)
+    win, gate = flags_c["window"], flags_c["gate"]
+    for mi in range(win.shape[0]):
+        for j in range(spec.layout.period):
+            x, _ = _apply_layer(
+                _index(block_params_c[j], mi), x, positions, cfg, j,
+                window_override=int(win[mi, j]), gate=float(gate[mi, j]),
+                backend=bk)
+    return x
+
+
+def head_loss(spec, params, x, labels, loss_mask=None):
+    """Final norm + unembed + CE: the loss of one microbatch at the last
+    stage (the reference's MoE aux term is zero for dense models)."""
+    bk = get_backend(spec.kernels)
+    h = bk.rmsnorm(params["final_norm"], x, spec.cfg.norm_eps)
+    logits = L.unembed(params["embed"], h)
+    return L.softmax_xent(logits, labels, loss_mask)

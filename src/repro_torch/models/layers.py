@@ -82,6 +82,28 @@ def unembed(params, x):
     return x @ params["tokens"].T.to(x.dtype)
 
 
+def softmax_xent(logits, labels, mask=None, denom=None):
+    """Stable CE in fp32 (mirror of the reference's ``softmax_xent``; the
+    gold logit is a gather here, which picks the same value as the
+    reference's one-hot contraction).
+
+    ``denom``: fixed normalizer replacing the local mean — sequence-
+    chunked losses pass the *whole-sequence* token (or mask) count so
+    per-chunk partial losses sum to the full-sequence loss."""
+    lg = logits.float()
+    m = lg.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+    gold = lg.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        if denom is None:
+            return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    if denom is not None:
+        return nll.sum() / denom
+    return nll.mean()
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------

@@ -199,6 +199,18 @@ class LM:
                         cache_pos=cache_pos)
         return self.head(params, x), cache
 
+    def loss(self, params, batch):
+        """batch: {'tokens': [B, S], 'loss_mask': [B, S] optional}.
+        Next-token CE over the whole stack (the single-device oracle of
+        the pipeline executor).  Returns ``(loss, {"ce": ce})``; the
+        reference's MoE aux term is zero for the dense models ported."""
+        tokens = batch["tokens"]
+        logits, _ = self.forward(params, tokens[:, :-1])
+        mask = batch.get("loss_mask")
+        ce = L.softmax_xent(logits, tokens[:, 1:],
+                            None if mask is None else mask[:, 1:])
+        return ce, {"ce": ce}
+
     def init_cache(self, batch: int, seq: int):
         cfg = self.cfg
 

@@ -1,0 +1,94 @@
+"""AdamW with fp32 master weights + model-dtype weights (mixed precision),
+global-norm clipping and decoupled weight decay with a rank-based mask
+(own copy of ``repro/optim/adamw.py`` without its ZeRO spec helpers:
+nothing is sharded on one card).
+
+State: ``{"step": int32 0-d tensor, "mu": fp32 tree, "nu": fp32 tree,
+"master": fp32 tree}``, all on the parameters' device.
+
+The update runs **in place**: ``mu``, ``nu`` and ``master`` are
+overwritten leaf by leaf and the same state dict is returned (the
+reference returns new trees; here that would hold two copies of the
+optimizer state).  fp32 gradients are scaled by the clip factor in
+place too, so the caller's gradient tree is consumed.  ``use_kernel=True``
+runs each leaf's step through the fused CUDA kernel
+(:func:`repro_torch.kernels.fused_adamw.adamw_update_leaf`); the default
+is the kernel's plain version, which follows the kernel's operation
+order, so the two paths agree bitwise on the card.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import OptimizerConfig
+from repro_torch.kernels.fused_adamw.ops import (adamw_update_leaf,
+                                                 fused_adamw_flat_ref)
+from repro_torch.optim.schedules import lr_at
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _decay_masks(tree) -> Any:
+    """Decay only >=2-D tensors (matmul weights / embeddings); skip norm
+    scales, biases, per-head scalars — the classic AdamW rule."""
+    return tree_map(lambda a: a.dim() >= 2, tree)
+
+
+def adamw_init(params) -> Dict[str, Any]:
+    dev = tree_leaves(params)[0].device
+    return {
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        "mu": tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
+                                             device=a.device), params),
+        "nu": tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
+                                             device=a.device), params),
+        "master": tree_map(
+            lambda a: a.detach().to(torch.float32, copy=True), params),
+    }
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(a.float().square().sum()
+                          for a in tree_leaves(tree)) + 1e-30)
+
+
+def adamw_update(grads, state, cfg: OptimizerConfig, *,
+                 use_kernel: bool = False):
+    """Returns ``(master, state, metrics)``; ``state`` is updated in place
+    (see the module docstring).  ``grads`` may be any float dtype; the
+    math is fp32.  ``metrics`` holds ``grad_norm`` and ``lr`` as device
+    tensors."""
+    leaf_step = adamw_update_leaf if use_kernel else fused_adamw_flat_ref
+    step = state["step"] + 1
+    lr = lr_at(cfg, step)
+    gnorm = global_norm(grads)
+    if cfg.grad_clip > 0:
+        clip = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
+                           / torch.clamp(gnorm, min=1e-9), max=1.0)
+    else:
+        clip = torch.ones_like(gnorm)
+    b1, b2 = cfg.beta1, cfg.beta2
+    stepf = step.float()
+    bc1 = 1 - torch.pow(b1, stepf)
+    bc2 = 1 - torch.pow(b2, stepf)
+    scalars = torch.stack([lr, bc1, bc2]).to(torch.float32).contiguous()
+    masks = _decay_masks(grads)
+
+    def upd(g, mu, nu, w, decay_on):
+        g = g.float().mul_(clip)
+        leaf_step(g, mu, nu, w, scalars, b1=b1, b2=b2, eps=cfg.eps,
+                  wd=cfg.weight_decay if decay_on else 0.0)
+
+    tree_map(upd, grads, state["mu"], state["nu"], state["master"], masks)
+    state["step"] = step
+    return state["master"], state, {"grad_norm": gnorm, "lr": lr}
+
+
+def cast_like(tree_fp32, params):
+    """Writes each master leaf into its parameter leaf, rounded to the
+    parameter's dtype, in place, and returns ``params``: no second copy
+    of the weights is made."""
+    with torch.no_grad():
+        tree_map(lambda m, p: p.copy_(m), tree_fp32, params)
+    return params

@@ -32,17 +32,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layout import StageLayout
+from repro_torch.core.placement import Placement
 from repro_torch.models.transformer import LM, _apply_layer, _dtype, _index
 from repro_torch.serve.kv_slots import (init_slot_caches, read_slot,
                                         write_slot, zero_slot)
 from repro_torch.serve.scheduler import (IDLE, IDLE_INJ, PREFILL, Injection,
                                          Request, SlotScheduler)
-
-
-def _tree_map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
+from repro_torch.tree import tree_map
 
 
 def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
@@ -64,7 +60,7 @@ def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
     def pad_proto(jp):
         real = [g for g in range(cfg.num_layers) if g % per == jp % per]
         assert real, f"no real layer shares period position {jp}"
-        return _tree_map(torch.zeros_like, lm_layer(real[0]))
+        return tree_map(torch.zeros_like, lm_layer(real[0]))
 
     blocks = []
     for jp in range(per):
@@ -75,8 +71,8 @@ def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
                 g = layout.global_idx(d, 0, mi * per + jp)
                 col.append(lm_layer(g) if g < cfg.num_layers
                            else pad_proto(jp))
-            rows.append(_tree_map(lambda *a: torch.stack(a), *col))
-        blocks.append(_tree_map(lambda *a: torch.stack(a), *rows))
+            rows.append(tree_map(lambda *a: torch.stack(a), *col))
+        blocks.append(tree_map(lambda *a: torch.stack(a), *rows))
     return blocks
 
 
@@ -100,7 +96,7 @@ class PipelinedEngine:
         self.n_slots = n_slots if n_slots is not None else P
         self.device = resolve_device(device)
         self.lm = LM(cfg, kernels=kernels, device=self.device)
-        self.layout = StageLayout.build(cfg, P, 1)
+        self.layout = StageLayout.build(cfg, P, 1, Placement(P, 1))
         self.blocks = pack_blocks(self.lm, lm_params, self.layout)
         per, M = self.layout.period, self.layout.M
         # parameter views per (stage, period-group, period position)

@@ -1,6 +1,8 @@
 """The port's kernel wrappers (on CPU tensors: their plain versions) against
 the JAX package's Pallas kernels in interpret mode and its ``ref.py``
 oracles.  Inputs are made with numpy from a seed and handed to both.
+The autograd Functions around the kernels (kernel forward, plain-version
+backward) are checked against autograd through the plain versions.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``; here no kernel is built or launched, and the
@@ -15,6 +17,7 @@ from repro.kernels.flash_attention.kernel import \
 from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
 from repro.kernels.rmsnorm.ops import rmsnorm_fused as jax_rmsnorm_fused
 from repro.kernels.rmsnorm.ref import rmsnorm_rows_ref as jax_rmsnorm_ref
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_fwd)
 from repro_torch.kernels.rmsnorm import (rmsnorm_fused, rmsnorm_rows,
@@ -113,3 +116,146 @@ def test_attention_ref_fully_masked_row_averages_v():
     np.testing.assert_allclose(o[:, 0].numpy(), mean_v.numpy(), atol=1e-6)
     np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=FLASH_TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the autograd Functions around the kernels (kernel forward, plain backward)
+# ---------------------------------------------------------------------------
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: stands in for a CUDA
+    request on a machine that has no card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _graph_names(t):
+    """Names of the autograd nodes reachable from ``t.grad_fn``."""
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        todo.extend(f for f, _ in fn.next_functions)
+    return {type(fn).__name__ for fn in seen}
+
+
+def _layer_inputs(seed):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import LM
+    cfg = get_reduced("tinyllama-1.1b")
+    params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(seed))
+    layer = {k: {n: a[0] for n, a in v.items()}
+             for k, v in params["layers"][0].items()}
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((2, 24, cfg.d_model))
+                         .astype(np.float32))
+    return cfg, layer, x
+
+
+def test_fused_backend_outputs_carry_the_functions_grad_fn():
+    from repro_torch.models.backend import FUSED
+    x = torch.randn(2, 5, 128, requires_grad=True)
+    y = FUSED.rmsnorm({"scale": torch.ones(128)}, x)
+    assert "RMSNormRowsBackward" in _graph_names(y)
+    q = torch.randn(1, 16, 8, 16, requires_grad=True)
+    kv = torch.randn(1, 16, 2, 16, requires_grad=True)
+    o = FUSED.flash(q, kv, kv, causal=True, window=0, prefix=0)
+    assert "FlashAttentionBackward" in _graph_names(o)
+
+
+def test_fused_layer_gradients_equal_the_plain_layer_on_cpu():
+    """One decoder layer through the fused backend (the Functions) and
+    the plain one (dense attention): same forward within FLASH_TOL, same
+    gradients for the input and every weight within 1e-5."""
+    from repro_torch.models.backend import FUSED, PLAIN
+    from repro_torch.models.transformer import _apply_layer
+    cfg, layer, x = _layer_inputs(0)
+    pos = torch.arange(24)[None].expand(2, 24)
+    outs, grads = [], []
+    for bk in (FUSED, PLAIN):
+        p = {k: {n: a.clone().requires_grad_() for n, a in v.items()}
+             for k, v in layer.items()}
+        xi = x.clone().requires_grad_()
+        y, _ = _apply_layer(p, xi, pos, cfg, 0, backend=bk)
+        wrt = [xi] + [a for v in p.values() for a in v.values()]
+        grads.append(torch.autograd.grad(y.square().sum(), wrt))
+        outs.append(y.detach())
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(),
+                               atol=FLASH_TOL, rtol=0)
+    worst = max(float((a - b).abs().max() / (1 + b.abs().max()))
+                for a, b in zip(*grads))
+    print(f"fused vs plain layer gradients: max rel |d| = {worst:.3e}")
+    assert worst <= 1e-5
+
+
+def test_rmsnorm_function_gradients_are_the_plain_versions():
+    """The Function's backward is autograd through ``rmsnorm_rows_ref``:
+    on the CPU (where the forward is the plain version too) the two are
+    bitwise equal."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((3, 7, 128)).astype(np.float32))
+    s = torch.from_numpy((1 + 0.1 * rng.standard_normal(128))
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((3, 7, 128)).astype(np.float32))
+    a = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+    b = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+    rmsnorm_fused(*a).backward(dy)
+    rmsnorm_rows_ref(b[0].reshape(-1, 128), b[1]).reshape(3, 7, 128) \
+        .backward(dy)
+    for u, w in zip(a, b):
+        assert torch.equal(u.grad, w.grad)
+
+
+def test_functions_on_cuda_tensors_launch_or_raise(monkeypatch):
+    """A tensor that reports a CUDA device goes through the Function to
+    the kernel wrapper, and from there to the build (stubbed to fail):
+    never to the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    class Refused(Exception):
+        pass
+
+    def refuse():
+        raise Refused
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    before = (rmsnorm_rows.launches, flash_attention_fwd.launches)
+    x = torch.zeros((2, 4, 128)).as_subclass(_CudaLooking) \
+        .requires_grad_()
+    s = torch.ones(128).as_subclass(_CudaLooking)
+    with pytest.raises(Refused):
+        rmsnorm_fused(x, s)
+    q = torch.zeros((1, 16, 8, 16)).as_subclass(_CudaLooking) \
+        .requires_grad_()
+    kv = torch.zeros((1, 16, 2, 16)).as_subclass(_CudaLooking)
+    with pytest.raises(Refused):
+        flash_attention(q, kv, kv)
+    assert (rmsnorm_rows.launches, flash_attention_fwd.launches) == before
+
+
+def test_fused_adamw_on_cuda_tensors_launches_or_raises(monkeypatch):
+    from repro_torch.kernels.fused_adamw import fused_adamw_flat
+
+    class Refused(Exception):
+        pass
+
+    def refuse():
+        raise Refused
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    before = fused_adamw_flat.launches
+    t = [torch.zeros(64).as_subclass(_CudaLooking) for _ in range(4)]
+    sc = torch.ones(3).as_subclass(_CudaLooking)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    with pytest.raises(Refused):
+        fused_adamw_flat(*t, sc, **kw)
+    g16 = torch.zeros(64, dtype=torch.float16).as_subclass(_CudaLooking)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_adamw_flat(g16, *t[1:], sc, **kw)
+    with pytest.raises(ValueError, match="scalars"):
+        fused_adamw_flat(*t, torch.ones(4).as_subclass(_CudaLooking), **kw)
+    assert fused_adamw_flat.launches == before
