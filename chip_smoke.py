@@ -22,24 +22,30 @@ Phases, in order; any failure exits non-zero:
    weights from seed 0) through ``repro_torch.launch.train.
    train_pipeline``: chronos_zb, P=4 virtual stages, v=2, 8 microbatches
    of one 2049-token sequence, fused kernels and the fused-AdamW update,
-   4 steps; checks losses, gradient norms, changed weights and the three
-   kernels' launch counts derived from the task table, then profiles one
+   4 steps; checks losses, gradient norms, changed weights and every
+   kernel's launch count derived from the task table, then profiles one
    more step;
 7. train checks (fp32, full width, 4 layers): pipeline gradients against
    ``LM.loss`` autograd, chronos_recomp == chronos bitwise, fused vs
    plain backend, kernel vs plain AdamW update bitwise;
-8. a JSON ``kernels`` line, then the JSON result line.
+8. train mamba2-2.7b at full width as phase 6 does tinyllama (the SSD
+   scan, rmsnorm and fused-AdamW kernels), after freeing tinyllama's
+   tensors, then a profiled step;
+9. phase 7's checks on mamba2-2.7b (4 layers, two SSD chunks);
+10. a JSON ``kernels`` line, then the JSON result line.
 
 Phase 3 also holds fused AdamW bitwise against its plain version, the
-RMSNorm and flash Functions' gradients against autograd through the
-plain versions (flash once more at the training length), and the chunk
-body's kernels against their plain versions at the training shapes,
-where it times them.
+RMSNorm, flash and SSD Functions' gradients against autograd through the
+plain versions (flash and SSD once more at the training length), the
+chunk body's kernels against their plain versions at the training shapes
+of both models, where it times them, and the SSD scan at three shapes
+in fp32 and bf16.
 
 Needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -60,6 +66,18 @@ SERVE_ARGV = ["--arch", "tinyllama-1.1b", "--full", "--pipelined", "1",
               "--rate", "1e9", "--gen", "32", "--gen-min", "16",
               "--prompt-len", "224", "--device", "cuda",
               "--kernels", "fused"]          # max_seq = 224 + 32 + 4 * 64
+
+
+T0 = time.perf_counter()
+_last = [T0]
+
+
+def done(phase: str) -> None:
+    """Print the phase's wall time and the run's so far."""
+    now = time.perf_counter()
+    print(f"[time] {phase}: {now - _last[0]:.1f} s (run {now - T0:.1f} s)",
+          flush=True)
+    _last[0] = now
 
 
 def fail(msg: str) -> None:
@@ -265,15 +283,13 @@ def phase_flash(torch, gen):
 
 
 def phase_serve(torch):
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.rmsnorm import rmsnorm_rows
     from repro_torch.launch.serve import main as serve_main
+    kernels = _kernel_fns()
     torch.cuda.reset_peak_memory_stats()
-    rmsnorm_rows.launches = 0
-    flash_attention_fwd.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     out = serve_main(SERVE_ARGV)
-    launches = {"rmsnorm_rows": rmsnorm_rows.launches,
-                "flash_attention_fwd": flash_attention_fwd.launches}
+    launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     s, res, reqs, cfg = (out["summary"], out["result"], out["requests"],
                          out["config"])
@@ -300,7 +316,8 @@ def phase_serve(torch):
         fail(f"stage runs {res['stage_runs']} != prefill {n_prefill}, "
              f"decode {n_decode}")
     want = {"rmsnorm_rows": 2 * cfg.num_layers * (n_prefill + n_decode),
-            "flash_attention_fwd": cfg.num_layers * n_prefill}
+            "flash_attention_fwd": cfg.num_layers * n_prefill,
+            "fused_adamw_flat": 0, "ssd_scan": 0}
     if launches != want:
         fail(f"kernel launches {launches} != expected {want}")
     return launches, out["engine"]
@@ -631,10 +648,20 @@ def phase_train_shapes(torch, gen, rows):
           f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA (is_causal, "
           f"GQA) {lib_ms:.3f} ms, bound {fb[fby] * 1e3:.2f} us ({fby}; "
           f"{flops / 1e9:.2f} GFLOP) = {ms / fb[fby]:.1f}x bound")
+    from repro_torch.kernels.flash_attention import flash_attention
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    o = flash_attention(*leaves)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(o, leaves, do,
+                                                 retain_graph=True),
+                     iters=5, warmup=1)
+    del o, leaves
+    print(f"[kernels] the FlashAttention backward (plain VJP, recomputing "
+          f"attention_ref) at the training shape: {bwd_ms:.3f} ms")
     rows["flash_attention_fwd"]["train"] = {
         "max_abs_err": e_o, "lse_max_abs_err": e_l, "ms": ms,
         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": fb[fby],
-        "bound_by": fby,
+        "bound_by": fby, "plain_bwd_ms": bwd_ms,
         "timed_shape": f"q [1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 "
                        f"q_offset=0"}
     x = torch.randn((S, 2048), generator=gen, device="cuda").to(dt)
@@ -670,37 +697,243 @@ def phase_train_shapes(torch, gen, rows):
         "timed_shape": f"x [{S},2048] bf16"}
 
 
-def expected_train_launches(spec, n_leaves: int):
-    """Kernel launches of one training step, derived from the task table:
-    every op that runs the chunk body launches K flash and 2K rmsnorm
-    kernels, plus the final norm where it runs the head; a split
-    backward of the first block computes nothing (its input gradient has
-    no receiver); the update launches fused AdamW once per leaf."""
+# ---------------------------------------------------------------------------
+# mamba2 slice: the SSD chunk scan
+# ---------------------------------------------------------------------------
+
+SSD_TOL = 1e-4          # y and h: max|d| <= SSD_TOL * max(1, max|ref|)
+
+
+def _ssd_inputs(torch, gen, B, S, H, P, N, dtype):
+    """Random SSD inputs on the card, of the sizes the model feeds the
+    scan: x, B, C in ``dtype``; dt = softplus(N(0,1) - 2) and A = -exp(
+    U(-0.5, 0.5)) in fp32, as the block derives them from its
+    projections."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = rn(B, S, H, P).to(dtype)
+    Bc = (0.5 * rn(B, S, N)).to(dtype)
+    Cc = (0.5 * rn(B, S, N)).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H) - 2.0)
+    A = -torch.exp(torch.rand((H,), generator=gen, device="cuda") - 0.5)
+    return x, Bc, Cc, dt, A
+
+
+def _ssd_bounds(B, S, H, P, N, Q, el):
+    """(bytes, operations) the scan must move and do: x, B, C, dt and A
+    read once, y and h written once in fp32; C B^T on and below the
+    diagonal once per (batch, chunk) (every head shares it), and per
+    (batch, head, chunk) the decay mask (4 operations per pair on and
+    below the diagonal), the masked product with x, C h^T, the state
+    update and the elementwise scales."""
+    nc = S // Q
+    tri = Q * (Q + 1) // 2
+    nbytes = (B * S * H * P * el + 2 * B * S * N * el + B * S * H * 4
+              + H * 4 + B * S * H * P * 4 + B * H * P * N * 4)
+    ops = B * nc * 2 * N * tri + B * H * nc * (
+        (4 + 2 * P) * tri + 4 * Q * N * P + 2 * Q * P + 2 * P * N)
+    return nbytes, ops
+
+
+def phase_ssd(torch, gen):
+    """``ssd_scan`` against ``ssd_chunked_ref`` on the card at (a) the
+    reduced config's shape with S=17 (padded through ``ssd``), (b) S=256,
+    Q=64, H=4, P=32, N=16, batch 2, (c) mamba2-2.7b's training shape x
+    [1,2048,80,64], B and C [1,2048,128], Q=128, in bf16 and fp32; then
+    timed at (c) in bf16."""
+    from repro_torch.kernels.ssd_scan import (SSDScan, ssd, ssd_chunked_ref,
+                                              ssd_scan)
+    cases = [("a", 2, 17, 8, 32, 16, 16), ("b", 2, 256, 4, 32, 16, 64),
+             ("c", 1, TRAIN_SEQ - 1, 80, 64, 128, 128)]
+    worst, worst_rel = 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, S, H, P, N, Q in cases:
+            ins = _ssd_inputs(torch, gen, B, S, H, P, N, dtype)
+            if S % Q:
+                y, h = ssd(*ins, chunk=Q)          # pads, then the kernel
+            else:
+                y, h = ssd_scan(*ins, chunk=Q)
+            torch.cuda.synchronize()
+            y_ref, h_ref = ssd_chunked_ref(*ins, Q)
+            scale = max(1.0, float(y_ref.abs().max()),
+                        float(h_ref.abs().max()))
+            e_y, e_h = max_err(y, y_ref), max_err(h, h_ref)
+            ok = (y.shape == y_ref.shape and h.shape == h_ref.shape
+                  and max(e_y, e_h) <= SSD_TOL * scale)
+            print(f"[kernels] ssd_scan ({name}) {str(dtype)[6:]} x [{B},{S},"
+                  f"{H},{P}] N={N} Q={Q}: max|d| y={e_y:.3e} h={e_h:.3e} "
+                  f"(tol {SSD_TOL:g} * {scale:.3g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"ssd_scan disagrees with ssd_chunked_ref ({name}, "
+                     f"{dtype})")
+            worst = max(worst, e_y, e_h)
+            worst_rel = max(worst_rel, e_y / scale, e_h / scale)
+    # main-path shape: one mamba2-2.7b layer's scan in training, bf16
+    B, S, H, P, N, Q = 1, TRAIN_SEQ - 1, 80, 64, 128, 128
+    ins = _ssd_inputs(torch, gen, B, S, H, P, N, torch.bfloat16)
+    ms = time_ms(lambda: ssd_scan(*ins, chunk=Q), iters=20, warmup=3)
+    plain_ms = time_ms(lambda: ssd_chunked_ref(*ins, Q), iters=5, warmup=1)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    y, h = SSDScan.apply(*leaves, Q)
+    dy = torch.randn(y.shape, generator=gen, device="cuda")
+    bwd_ms = time_ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                                 retain_graph=True),
+                     iters=5, warmup=1)
+    del y, h, leaves
+    nbytes, ops = _ssd_bounds(B, S, H, P, N, Q, 2)
+    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+              "operations": ops / BF16_FLOPS * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    print(f"[kernels] ssd_scan timed at x [{B},{S},{H},{P}] bf16, N={N}, "
+          f"Q={Q} (CUDA events): kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {bounds[bound_by] * 1e3:.2f} us ({bound_by}; "
+          f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) = "
+          f"{ms / bounds[bound_by]:.1f}x bound; no one-call PyTorch "
+          f"yardstick; the SSDScan backward (plain VJP, recomputing "
+          f"ssd_chunked_ref) {bwd_ms:.3f} ms")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:60",
+            "max_abs_err": worst,
+            "max_err_over_scale": worst_rel,     # scale: max(1, max|ref|)
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[bound_by],
+            "bound_by": bound_by, "library_ms": None,
+            "plain_bwd_ms": bwd_ms,
+            "timed_shape": f"x [{B},{S},{H},{P}] B,C [{B},{S},{N}] bf16, "
+                           f"Q={Q}"}
+
+
+def phase_ssd_grads(torch, gen):
+    """Gradients through ``SSDScan`` (kernel forward, plain backward)
+    equal autograd through ``ssd_chunked_ref`` bitwise, fp32 and bf16, at
+    shape (b) and at the training shape; the output carries a grad_fn."""
+    from repro_torch.kernels.ssd_scan import SSDScan, ssd_chunked_ref
+    for dtype, (B, S, H, P, N, Q) in (
+            (torch.float32, (2, 256, 4, 32, 16, 64)),
+            (torch.bfloat16, (2, 256, 4, 32, 16, 64)),
+            (torch.float32, (1, TRAIN_SEQ - 1, 80, 64, 128, 128)),
+            (torch.bfloat16, (1, TRAIN_SEQ - 1, 80, 64, 128, 128))):
+        ins = _ssd_inputs(torch, gen, B, S, H, P, N, dtype)
+        dy = torch.randn((B, S, H, P), generator=gen, device="cuda")
+        dh = torch.randn((B, H, P, N), generator=gen, device="cuda")
+        a = [t.clone().requires_grad_() for t in ins]
+        b = [t.clone().requires_grad_() for t in ins]
+        y1, h1 = SSDScan.apply(*a, Q)
+        if y1.grad_fn is None or h1.grad_fn is None:
+            fail("SSDScan output carries no grad_fn")
+        g1 = torch.autograd.grad((y1, h1), a, (dy, dh))
+        y2, h2 = ssd_chunked_ref(*b, Q)
+        g2 = torch.autograd.grad((y2, h2), b, (dy, dh))
+        same = all(torch.equal(u, v) for u, v in zip(g1, g2))
+        errs = [max_err(u, v) for u, v in zip(g1, g2)]
+        print(f"[kernels] SSDScan {str(dtype)[6:]} x [{B},{S},{H},{P}] "
+              f"N={N} Q={Q}: gradients (x, B, C, dt, A) "
+              f"{'bitwise equal' if same else 'DIFFER'} to autograd through "
+              f"ssd_chunked_ref (max|d| {max(errs):.3e}, tol 0); forward "
+              f"max|d| y={max_err(y1, y2):.3e}")
+        if not same:
+            fail("SSDScan gradients differ from the plain version's")
+
+
+def phase_mamba_shapes(torch, gen, rows):
+    """rmsnorm at mamba2-2.7b's training shapes (``norm1`` x [2048, 2560]
+    and the gated norm [2048, 5120], bf16): held against its plain
+    version and timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_rows, rmsnorm_rows_ref
+    S, dt = TRAIN_SEQ - 1, torch.bfloat16
+    out = {}
+    for d in (2560, 5120):
+        x = torch.randn((S, d), generator=gen, device="cuda").to(dt)
+        scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                       device="cuda")).to(dt)
+        got = rmsnorm_rows(x, scale)
+        torch.cuda.synchronize()
+        want = rmsnorm_rows_ref(x, scale)
+        e = max_err(got, want)
+        if not rel_ok(got, want, 1e-6, 2.0 ** -7):
+            fail(f"rmsnorm_rows disagrees with its plain version at "
+                 f"[{S}, {d}]")
+        ms = graph_ms(lambda: rmsnorm_rows(x, scale))
+        plain_ms = graph_ms(lambda: rmsnorm_rows_ref(x, scale))
+        lib_ms = graph_ms(lambda: F.rms_norm(x, (d,), scale, 1e-6)) \
+            if hasattr(F, "rms_norm") else None
+        rb = {"bytes": (2 * S * d + d) * 2 / HBM_BYTES_PER_S * 1e3,
+              "operations": 4 * S * d / FP32_FLOPS * 1e3}
+        rby = max(rb, key=rb.get)
+        print(f"[kernels] rmsnorm_rows bf16 x [{S},{d}] (mamba2 training): "
+              f"max|d|={e:.3e} (tol 1e-06+0.0078125*|ref|) ok; kernel "
+              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, F.rms_norm "
+              f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
+              f"bound {rb[rby] * 1e3:.3f} us ({rby}) (CUDA graph)")
+        out[f"x [{S},{d}] bf16"] = {
+            "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": rb[rby], "bound_by": rby}
+    rows["rmsnorm_rows"]["train_mamba2"] = out
+
+
+def _body_ops(spec):
+    """(op, last) for every op of the task table that runs the chunk body:
+    F, B and W ops, except a split backward of the first block, which
+    computes nothing (its input gradient has no receiver); ``last``: the
+    op runs the head too."""
     from repro_torch.core.tasktable import B_OPS, IDLE, R_OPS
-    tab, K = spec.table, spec.layout.K
-    flash = rms = 0
+    tab, lay = spec.table, spec.layout
     for t in range(tab.T):
         for d in range(tab.P):
             op, c = int(tab.op[t, d]), int(tab.chunk[t, d])
             if op == IDLE or op in R_OPS:
                 continue
-            s = spec.layout.pl.stage(d, c)
+            s = lay.pl.stage(d, c)
             first = c == 0 and s == 0
-            last = c == tab.v - 1 and s == tab.P - 1
             if op in B_OPS and tab.has_w and first:
                 continue
-            flash += K
-            rms += 2 * K + (1 if last else 0)
-    return {"flash_attention_fwd": flash, "rmsnorm_rows": rms,
-            "fused_adamw_flat": n_leaves}
+            yield op, c == tab.v - 1 and s == tab.P - 1
 
 
-def _train_config(torch):
+def _layers_of(spec, kind: str) -> int:
+    """Layers of ``kind`` in one block (padding layers included)."""
+    lay = spec.layout
+    return lay.M * sum(spec.cfg.layer_kind(j) == kind
+                       for j in range(lay.period))
+
+
+def expected_train_launches(spec, n_leaves: int):
+    """Kernel launches of one training step, derived from the task table:
+    every op that runs the chunk body runs its K layers; an attention
+    layer launches one flash kernel, a Mamba-2 layer one SSD scan, and
+    each launches rmsnorm for ``norm1``, for the Mamba-2 block's gated
+    norm and for ``norm2`` where the config has an FFN; the final norm
+    runs where an op runs the head.  The update launches fused AdamW
+    once per leaf."""
+    cfg = spec.cfg
+    attn, mamba = _layers_of(spec, "attn"), _layers_of(spec, "mamba")
+    rms = attn + 2 * mamba + (attn + mamba) * (cfg.d_ff > 0)
+    n = {"flash_attention_fwd": 0, "rmsnorm_rows": 0, "ssd_scan": 0}
+    for _, last in _body_ops(spec):
+        n["flash_attention_fwd"] += attn
+        n["ssd_scan"] += mamba
+        n["rmsnorm_rows"] += rms + last
+    return {**n, "fused_adamw_flat": n_leaves}
+
+
+def plain_backward_calls(spec, kind: str) -> int:
+    """Calls per step of the plain backward of the ``kind`` layers'
+    kernel Function: once per layer in every B and W op that runs the
+    chunk body under autograd."""
+    from repro_torch.core.tasktable import F_OPS
+    return _layers_of(spec, kind) * sum(op not in F_OPS
+                                        for op, _ in _body_ops(spec))
+
+
+def _train_config(arch: str):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import (OptimizerConfig, ParallelPlan,
                                           ShapeConfig, TrainConfig)
     return TrainConfig(
-        model=get_config("tinyllama-1.1b"),
+        model=get_config(arch),
         shape=ShapeConfig("train_2k", seq_len=TRAIN_SEQ, global_batch=8,
                           kind="train"),
         plan=ParallelPlan(schedule="chronos_zb", num_chunks=2,
@@ -710,18 +943,28 @@ def _train_config(torch):
         seed=0, log_every=1)
 
 
-def phase_train(torch):
-    """Full-width tinyllama-1.1b trained 4 steps with chronos_zb on P=4
-    virtual stages through ``train_pipeline``; launch counts from the
-    table; then one more step under the profiler."""
-    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
-                                                   make_pipeline_spec)
+def _kernel_fns():
+    """name -> the wrapper whose ``launches`` counts that kernel."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_adamw import fused_adamw_flat
     from repro_torch.kernels.rmsnorm import rmsnorm_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"rmsnorm_rows": rmsnorm_rows,
+            "flash_attention_fwd": flash_attention_fwd,
+            "fused_adamw_flat": fused_adamw_flat, "ssd_scan": ssd_scan}
+
+
+def phase_train(torch, arch: str, tag: str, bwd_ms):
+    """Full-width ``arch`` trained 4 steps with chronos_zb on P=4 virtual
+    stages through ``train_pipeline``; launch counts from the table; then
+    one more step under the profiler.  ``bwd_ms``: layer kind -> the
+    per-call time of its kernel Function's plain backward at the training
+    shape (phase 3).  Returns the launch counts."""
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   make_pipeline_spec)
     from repro_torch.launch.train import train_pipeline
     from repro_torch.tree import tree_leaves
-    tc = _train_config(torch)
+    tc = _train_config(arch)
     P, steps = 4, 4
     plan = tc.plan
     spec = make_pipeline_spec(
@@ -735,15 +978,13 @@ def phase_train(torch):
     before = [a.flatten()[:4096].to(torch.float32, copy=True)
               for a in leaves]
     lay = spec.layout
-    print(f"[train] {tc.model.name} full width bf16, {tc.plan.schedule} "
+    print(f"[{tag}] {tc.model.name} full width bf16, {tc.plan.schedule} "
           f"P={P} v={lay.v} m={spec.table.m} mbB={spec.mbB} seq "
           f"{spec.S}: L_pad={lay.L_pad} K={lay.K}, {n_params / 1e9:.3f} B "
           f"parameters in {len(leaves)} leaves; table T={spec.table.T} "
           f"act {spec.table.act_depth} wstash {spec.table.wstash_depth} "
           f"fq {spec.table.fq_depth} bq {spec.table.bq_depth}")
-    kernels = {"rmsnorm_rows": rmsnorm_rows,
-               "flash_attention_fwd": flash_attention_fwd,
-               "fused_adamw_flat": fused_adamw_flat}
+    kernels = _kernel_fns()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
@@ -756,45 +997,51 @@ def phase_train(torch):
     want = {k: steps * n for k, n in per_step.items()}
     tokens = spec.table.m * spec.mbB * spec.S
     med = statistics.median(out["step_s"][1:])      # step 1 warms up
-    print(f"[train] steps={out['steps']} losses={out['losses']} "
+    print(f"[{tag}] steps={out['steps']} losses={out['losses']} "
           f"grad_norms={out['grad_norms']} lrs={out['lrs']} "
           f"step_s={out['step_s']}")
-    print(f"[train] median step {med * 1e3:.1f} ms (steps 2-4: "
+    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-4: "
           f"{[round(s * 1e3, 1) for s in out['step_s'][1:]]}), "
           f"{tokens} tokens/step -> {tokens / med:.1f} tokens/s; "
           f"max_memory_allocated={peak / 2 ** 30:.3f} GiB")
-    print(f"[train] launches {launches} (per step from the table: "
+    print(f"[{tag}] launches {launches} (per step from the table: "
           f"{per_step})")
     if launches != want:
-        fail(f"training kernel launches {launches} != expected {want}")
+        fail(f"{arch} training kernel launches {launches} != expected {want}")
     if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
-        fail("non-finite loss or grad_norm")
+        fail(f"{arch}: non-finite loss or grad_norm")
     # every fp32 master leaf moved; a bf16 weight may round back to its
     # old value (a norm scale of 1.0 moved by lr ~ 3e-4 is 1.0 in bf16)
     masters = tree_leaves(out["opt_state"]["master"])
     unchanged = [i for i, (a, b) in enumerate(zip(before, masters))
                  if torch.equal(a, b.flatten()[:4096])]
-    moved_bf16 = sum(not torch.equal(a, b.flatten()[:4096].float())
-                     for a, b in zip(before, tree_leaves(out["params"])))
-    print(f"[train] weights moved: {len(masters) - len(unchanged)} of "
-          f"{len(masters)} fp32 master leaves, {moved_bf16} of "
-          f"{len(masters)} bf16 leaves (first 4096 elements of each)")
+    moved_w = sum(not torch.equal(a, b.flatten()[:4096].float())
+                  for a, b in zip(before, tree_leaves(out["params"])))
+    print(f"[{tag}] weights moved: {len(masters) - len(unchanged)} of "
+          f"{len(masters)} fp32 master leaves, {moved_w} of "
+          f"{len(masters)} weight leaves (first 4096 elements of each)")
     if unchanged:
-        fail(f"master weight leaves {unchanged} did not change")
-    profile_train_step(torch, tc, P, out["params"], out["opt_state"], med)
+        fail(f"{arch}: master weight leaves {unchanged} did not change")
+    bwd = [(kind, bwd_ms[kind], plain_backward_calls(spec, kind))
+           for kind in ("attn", "mamba") if _layers_of(spec, kind)]
+    profile_train_step(torch, tc, P, out["params"], out["opt_state"], med,
+                       tag, bwd)
     del out, params
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in kernels}
+    return launches
 
 
-def profile_train_step(torch, tc, P, params, opt_state, untraced_s):
-    """One more step under ``torch.profiler``: device busy share and the
-    device time of our kernels, the matmuls, the plain attention backward
-    (its profiler range) and the rest."""
+def profile_train_step(torch, tc, P, params, opt_state, untraced_s, tag,
+                       bwd):
+    """One more step under ``torch.profiler`` (device activity only: host
+    ops of a mamba2 step number in the millions and take minutes to
+    read): device busy share and the device time of our kernels, the
+    matmuls and the rest.  ``bwd``: (layer kind, ms per call, calls per
+    step) of the kernel Functions' plain backwards, whose share is their
+    per-call time times their calls."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels.flash_attention.ops import BWD_RANGE
     from repro_torch.launch.steps import make_pipeline_train_step
     step, m, mbB, _ = make_pipeline_train_step(tc.model, tc.shape, tc.plan,
                                                tc.optimizer, P=P,
@@ -803,24 +1050,19 @@ def profile_train_step(torch, tc, P, params, opt_state, untraced_s):
                        ).next_batch(m * mbB).reshape(m, mbB, -1)
     batch = {"tokens": torch.from_numpy(toks).to("cuda")}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(params, opt_state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    t_read = time.perf_counter()
     fams = {"fused_adamw_flat (ours)": 0.0, "rmsnorm_rows (ours)": 0.0,
-            "flash_attention_fwd (ours)": 0.0, "matmul": 0.0, "other": 0.0}
-    bwd_us = None
+            "flash_attention_fwd (ours)": 0.0, "ssd_scan (ours)": 0.0,
+            "matmul": 0.0, "other": 0.0}
     rows = []
     for e in prof.key_averages():
-        if e.key == BWD_RANGE:
-            bwd_us = getattr(e, "device_time_total", None)
-            if bwd_us is None:
-                bwd_us = getattr(e, "cuda_time_total", 0.0)
-            continue
         if not str(e.device_type).endswith("CUDA"):
-            continue
+            continue                  # runtime calls; their kernels count
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0.0)
@@ -834,6 +1076,8 @@ def profile_train_step(torch, tc, P, params, opt_state, untraced_s):
             fams["rmsnorm_rows (ours)"] += dev
         elif "flash_fwd_kernel" in name:
             fams["flash_attention_fwd (ours)"] += dev
+        elif "ssd_scan_kernel" in name:
+            fams["ssd_scan (ours)"] += dev
         elif any(t in name for t in ("gemm", "gemv", "xmma", "cutlass",
                                      "nvjet", "cublas")):
             fams["matmul"] += dev
@@ -841,36 +1085,37 @@ def profile_train_step(torch, tc, P, params, opt_state, untraced_s):
             fams["other"] += dev
     busy = sum(fams.values())
     if busy <= 0:
-        print("[profile-train] the profiler reported no device time: device "
-              "breakdown not measured")
+        print(f"[profile-{tag}] the profiler reported no device time: "
+              "device breakdown not measured")
         return
-    print(f"[profile-train] one chronos_zb step: wall {wall_us / 1e3:.1f} ms "
-          f"(profiled; {wall_us / 1e6 / untraced_s:.2f}x the untraced "
+    print(f"[profile-{tag}] one chronos_zb step: wall {wall_us / 1e3:.1f} "
+          f"ms (profiled; {wall_us / 1e6 / untraced_s:.2f}x the untraced "
           f"median), device busy {busy / 1e3:.1f} ms = "
           f"{100 * busy / wall_us:.1f}% of wall, idle "
-          f"{100 - 100 * busy / wall_us:.1f}%")
+          f"{100 - 100 * busy / wall_us:.1f}%; untraced, the busy time is "
+          f"{100 * busy / 1e6 / untraced_s:.1f}% of the median step (trace "
+          f"read in {time.perf_counter() - t_read:.1f} s)")
     for fam, us in fams.items():
-        print(f"[profile-train]   {fam}: {us / 1e3:.2f} ms "
+        print(f"[profile-{tag}]   {fam}: {us / 1e3:.2f} ms "
               f"({100 * us / busy:.1f}% of device time)")
-    if bwd_us:
-        print(f"[profile-train]   plain attention backward (range "
-              f"{BWD_RANGE}, its kernels are inside matmul/other above): "
-              f"{bwd_us / 1e3:.2f} ms ({100 * bwd_us / busy:.1f}% of device "
-              f"time)")
-    else:
-        print(f"[profile-train]   plain attention backward: range device "
-              f"time not reported by the profiler: not measured")
+    names = {"attn": "FlashAttention", "mamba": "SSDScan"}
+    for kind, ms, calls in bwd:
+        print(f"[profile-{tag}]   {names[kind]} plain backward: {calls} "
+              f"calls x {ms:.3f} ms (per call, phase 3) = "
+              f"{calls * ms:.1f} ms ({100 * calls * ms * 1e3 / busy:.1f}% of "
+              f"device time; its kernels are inside matmul/other above)")
     for dev, count, key in sorted(rows, reverse=True)[:10]:
-        print(f"[profile-train]   top: {dev / 1e3:8.2f} ms x{count:<6d} "
+        print(f"[profile-{tag}]   top: {dev / 1e3:8.2f} ms x{count:<6d} "
               f"{key[:90]}")
 
 
-def phase_train_checks(torch):
-    """fp32, full width, 4 layers, P=2, v=2, m=4, mbB=1, seq 257:
-    (a) pipeline loss and gradients (fused kernels) against LM.loss
-    autograd (plain backend, same weights), chronos and chronos_zb;
-    (b) chronos_recomp equals chronos bitwise; (c) fused against plain
-    backend; (d) the kernel update equals the plain update bitwise."""
+def phase_train_checks(torch, arch: str, tag: str):
+    """``arch`` in fp32, full width, 4 layers, P=2, v=2, m=4, mbB=1, seq
+    257 (for mamba2 two SSD chunks of 128): (a) pipeline loss and
+    gradients (fused kernels) against LM.loss autograd (plain backend,
+    same weights), chronos and chronos_zb; (b) chronos_recomp equals
+    chronos bitwise; (c) fused against plain backend; (d) the kernel
+    update equals the plain update bitwise."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -882,7 +1127,7 @@ def phase_train_checks(torch):
     from repro_torch.models import LM
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=4,
+    cfg = dataclasses.replace(get_config(arch), num_layers=4,
                               param_dtype="float32", compute_dtype="float32")
     P, v, m, mbB, seq = 2, 2, 4, 1, 257
 
@@ -921,22 +1166,22 @@ def phase_train_checks(torch):
             gu = tree_leaves(unstage_params(g, spec.layout))
             err = max([abs(float(met["loss"]) - ref_l)]
                       + [max_err(a, b) for a, b in zip(gu, ref_g)])
-            print(f"[train-check] (a) {schedule} fused, fp32 full width 4 "
+            print(f"[{tag}] (a) {schedule} fused, fp32 full width 4 "
                   f"layers: loss {float(met['loss']):.6f} vs LM.loss "
                   f"{ref_l:.6f}; max|d| loss and grads {err:.3e} (tol 5e-3)")
             if not err <= 5e-3:
-                fail(f"(a) {schedule} pipeline gradients disagree with "
-                     f"LM.loss autograd")
+                fail(f"{arch} (a) {schedule} pipeline gradients disagree "
+                     f"with LM.loss autograd")
     e_b = diff(grads[("chronos_recomp", "fused")], grads[("chronos", "fused")])
-    print(f"[train-check] (b) chronos_recomp vs chronos: max|d| {e_b:.3e} "
+    print(f"[{tag}] (b) chronos_recomp vs chronos: max|d| {e_b:.3e} "
           f"(tol 0)")
     if e_b != 0.0:
-        fail("(b) chronos_recomp is not bitwise equal to chronos")
+        fail(f"{arch} (b) chronos_recomp is not bitwise equal to chronos")
     e_c = diff(grads[("chronos_zb", "fused")], grads[("chronos_zb", "plain")])
-    print(f"[train-check] (c) chronos_zb fused vs plain backend: max|d| "
+    print(f"[{tag}] (c) chronos_zb fused vs plain backend: max|d| "
           f"{e_c:.3e} (tol 1e-4)")
     if not e_c <= 1e-4:
-        fail("(c) fused and plain backends disagree on gradients")
+        fail(f"{arch} (c) fused and plain backends disagree on gradients")
     # (d) this step's gradients, then the kernel update and the plain
     # update from copies of them
     ocfg = OptimizerConfig(warmup_steps=2, total_steps=4)
@@ -948,11 +1193,11 @@ def phase_train_checks(torch):
         masters.append(adamw_update(gg, st, ocfg, use_kernel=use_kernel)[0])
     same = all(torch.equal(a, b) for a, b in zip(tree_leaves(masters[0]),
                                                  tree_leaves(masters[1])))
-    print(f"[train-check] (d) chronos_zb step, fused-AdamW kernel vs plain "
+    print(f"[{tag}] (d) chronos_zb step, fused-AdamW kernel vs plain "
           f"update: master weights {'bitwise equal' if same else 'DIFFER'} "
           f"(max|d| {diff(masters[0], masters[1]):.3e}, tol 0)")
     if not same:
-        fail("(d) the kernel update and the plain update differ")
+        fail(f"{arch} (d) the kernel update and the plain update differ")
 
 
 def main() -> None:
@@ -985,41 +1230,66 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
     build.load_library()
+    done("card and build")
 
     # 3. kernels vs plain at the serving shapes; fused AdamW; gradients
     #    through the kernel Functions; the chunk body's kernels timed at
-    #    the training shapes
+    #    the training shapes; the SSD scan at three shapes, its gradients,
+    #    rmsnorm at mamba2's shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [phase_rmsnorm(torch, gen), phase_flash(torch, gen),
-            phase_adamw(torch, gen)]
+            phase_adamw(torch, gen), phase_ssd(torch, gen)]
+    by_name = {r["name"]: r for r in rows}
     phase_functions(torch, gen)
-    phase_train_shapes(torch, gen, {r["name"]: r for r in rows})
+    phase_train_shapes(torch, gen, by_name)
+    phase_ssd_grads(torch, gen)
+    phase_mamba_shapes(torch, gen, by_name)
+    torch.cuda.empty_cache()
+    done("kernels against their plain versions")
 
     # 4. serve at full width through the CLI's main(), then a profiled
     #    second run on the same engine
-    serve_launches, eng = phase_serve(torch)
+    launches = {}
+    launches["serve_tinyllama"], eng = phase_serve(torch)
     phase_profile(torch, eng)
     del eng
+    done("serve")
 
     # 5. serve checks
     phase_checks(torch)
     torch.cuda.empty_cache()
+    done("serve checks")
 
-    # 6. train at full width through train_pipeline, then a profiled step
-    train_launches = phase_train(torch)
+    # 6. train tinyllama at full width through train_pipeline, then a
+    #    profiled step; 7. its train checks
+    bwd_ms = {
+        "attn": by_name["flash_attention_fwd"]["train"]["plain_bwd_ms"],
+        "mamba": by_name["ssd_scan"]["plain_bwd_ms"]}
+    launches["train_tinyllama"] = phase_train(torch, "tinyllama-1.1b",
+                                              "train", bwd_ms)
+    done("train tinyllama-1.1b")
+    phase_train_checks(torch, "tinyllama-1.1b", "train-check")
+    done("train checks tinyllama-1.1b")
 
-    # 7. train checks
-    phase_train_checks(torch)
+    # 8. train mamba2 at full width (all of tinyllama's tensors freed
+    #    first), then a profiled step; 9. its train checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train_mamba2"] = phase_train(torch, "mamba2-2.7b",
+                                           "train-mamba2", bwd_ms)
+    done("train mamba2-2.7b")
+    phase_train_checks(torch, "mamba2-2.7b", "train-check-mamba2")
+    done("train checks mamba2-2.7b")
 
-    # 8. kernels line, then the result line.  ``launches`` sums the
-    #    kernel's launches in the two main-path runs (each counted from
-    #    0 right before its run), split in ``launches_serve`` and
-    #    ``launches_train``; launches made to compare a kernel with its
-    #    plain version are in neither.
+    # 10. kernels line, then the result line.  ``launches`` sums the
+    #     kernel's launches in the three main-path runs (each counted from
+    #     0 right before its run), split by path in ``launches_by_path``;
+    #     launches made to compare a kernel with its plain version are in
+    #     none of them.
     for row in rows:
-        row["launches_serve"] = serve_launches.get(row["name"], 0)
-        row["launches_train"] = train_launches[row["name"]]
-        row["launches"] = row["launches_serve"] + row["launches_train"]
+        row["launches_by_path"] = {path: n.get(row["name"], 0)
+                                   for path, n in launches.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Only the architectures whose whole serving path is ported are listed.
+Only the architectures with a ported path are listed: tinyllama-1.1b
+serves and trains; mamba2-2.7b trains (its serving path, the engine's SSM
+slot state, is not ported yet).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401  (re-exported)
 
 _ARCH_MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -1,17 +1,31 @@
 """Configuration dataclasses for the port (own copy of
 ``repro.configs.base``).
 
-Only the dense-attention model fields are carried over; MoE, SSM,
-encoder-decoder and VLM sub-configs arrive with the slices that port
-those paths.  ``ParallelPlan`` keeps the fields the single-card pipeline
-step reads; mesh axes, ZeRO, wire compression and sequence chunking
-arrive with the multi-process slices.
+The dense-attention and Mamba-2 (SSD) model fields are carried over;
+MoE, encoder-decoder and VLM sub-configs arrive with the slices that
+port those paths.  ``ParallelPlan`` keeps the fields the single-card
+pipeline step reads; mesh axes, ZeRO, wire compression and sequence
+chunking arrive with the multi-process slices.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block configuration."""
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk_len: int = 64             # SSD intra-chunk length
+    # hybrid interleaving (jamba): attention on layers where
+    # idx % attn_period == attn_offset; pure SSM if attn_period == 0.
+    attn_period: int = 0
+    attn_offset: int = 0
 
 
 @dataclass(frozen=True)
@@ -33,6 +47,8 @@ class ModelConfig:
     act: str = "silu"               # silu (swiglu) | gelu (plain) | geglu
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    family: str = "dense"           # dense | ssm (| moe | hybrid | ...)
+    ssm: Optional[SSMConfig] = None
     # numerics
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -41,9 +57,18 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.ssm is not None and self.ssm.attn_period == 0
+
     def layer_kind(self, idx: int) -> str:
-        """'attn' for every decoder layer (no SSM layers in the port yet)."""
-        return "attn"
+        """'attn' | 'mamba' for decoder layer ``idx``."""
+        if self.ssm is None:
+            return "attn"
+        s = self.ssm
+        if s.attn_period and idx % s.attn_period == s.attn_offset:
+            return "attn"
+        return "mamba"
 
     def layer_is_global(self, idx: int) -> bool:
         """Full (global) attention for this layer? (vs sliding window)"""
@@ -58,10 +83,15 @@ class ModelConfig:
         """Structural period of the decoder stack (layers stacked per
         period position)."""
         p = 1
+        if self.ssm is not None and self.ssm.attn_period:
+            p = _lcm(p, self.ssm.attn_period)
         if self.attn_pattern_period:
-            p = p * self.attn_pattern_period // math.gcd(
-                p, self.attn_pattern_period)
+            p = _lcm(p, self.attn_pattern_period)
         return p
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -108,9 +138,10 @@ class ParallelPlan:
     offload: OffloadConfig = field(default_factory=OffloadConfig)
     kernels: str = "plain"          # compute backend for the chunk body
                                     # (repro_torch.models.backend):
-                                    # "plain" | "fused" (the CUDA rmsnorm
-                                    # and flash kernels + the fused-AdamW
-                                    # update for split-backward schedules)
+                                    # "plain" | "fused" (the CUDA rmsnorm,
+                                    # flash and SSD-scan kernels + the
+                                    # fused-AdamW update for
+                                    # split-backward schedules)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
     name="tinyllama-1.1b",
+    family="dense",
     num_layers=22,
     d_model=2048,
     num_heads=32,

@@ -21,8 +21,10 @@ from repro_torch.core.placement import Placement
 
 def pipeline_period(cfg: ModelConfig) -> int:
     """Structural period (param-tree shape changes); attention
-    local/global patterns are data flags, not structure.  Every ported
-    layer has the same structure, so the period is 1."""
+    local/global patterns are data flags, not structure.  The
+    reference's MoE term arrives with the MoE slice."""
+    if cfg.ssm is not None and cfg.ssm.attn_period:
+        return cfg.ssm.attn_period
     return 1
 
 

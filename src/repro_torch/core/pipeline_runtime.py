@@ -57,7 +57,7 @@ from repro_torch.core.tasktable import (F_OPS, IDLE, R_OPS, SEND_BWD,
                                         build_task_table)
 from repro_torch.models import backend as compute_backend
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dense, _dtype, _init_layers
+from repro_torch.models.transformer import _dtype, _init_layers
 from repro_torch.optim.adamw import adamw_update, cast_like
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -79,18 +79,24 @@ def init_pipeline_params(generator: torch.Generator, cfg: ModelConfig,
                          layout: StageLayout, device) -> Dict[str, Any]:
     """Random parameters at ``dense_init``'s scale (not the reference's
     bits).  Block leaves are ``[P, v, M, ...]`` indexed by (device,
-    chunk) under ``layout``'s placement, one tree per period position;
-    embedding, head and final norm are shared by the stages."""
+    chunk) under ``layout``'s placement, one tree per period position,
+    built for that position's layer kind (a Mamba-2 tree holds fp32
+    ``A_log``, ``D`` and ``dt_bias`` beside weights of the parameter
+    dtype); embedding, head and final norm are shared by the stages (with
+    tied embeddings the head is ``embed.tokens``)."""
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
     n = layout.P * layout.v * layout.M
     blocks = [tree_map(lambda a: a.reshape((layout.P, layout.v, layout.M)
                                            + a.shape[1:]),
-                       _init_layers(generator, cfg, n, device))
-              for _ in range(layout.period)]
-    embed = {"tokens": _dense(generator, (cfg.vocab_size, d), d, dt, device)}
+                       _init_layers(generator, cfg, n, device,
+                                    cfg.layer_kind(j)))
+              for j in range(layout.period)]
+    embed = {"tokens": L.dense_init(generator, (cfg.vocab_size, d), d, dt,
+                                    device)}
     if not cfg.tie_embeddings:
-        embed["head"] = _dense(generator, (d, cfg.vocab_size), d, dt, device)
+        embed["head"] = L.dense_init(generator, (d, cfg.vocab_size), d, dt,
+                                     device)
     return {"blocks": blocks, "embed": embed,
             "final_norm": {"scale": torch.ones((d,), dtype=dt,
                                                device=device)}}

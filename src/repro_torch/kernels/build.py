@@ -39,6 +39,9 @@ _SIGNATURES = {
     # q_offset, dtype, stream
     "flash_attention_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _F, _I, _I, _I, _I, _I, _P],
+    # x, B, C, dt, A, y, h, batch, S, H, P, N, Q, dtype, stream
+    "ssd_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

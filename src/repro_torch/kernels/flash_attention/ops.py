@@ -33,7 +33,6 @@ from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (16, 32, 64, 128)
-BWD_RANGE = "flash_attention_bwd_plain"   # profiler range of the backward
 
 
 def attention_ref(q, k, v, *, scale=None, causal=True, window=0, prefix=0,
@@ -130,10 +129,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         causal, window, prefix, q_offset = ctx.mask
-        # a profiler range, so a trace can attribute the plain backward's
-        # device time (one host-side record per call)
-        with torch.enable_grad(), \
-                torch.profiler.record_function(BWD_RANGE):
+        with torch.enable_grad():
             ins = [a.detach().requires_grad_(need) for a, need in
                    zip((q, k, v), ctx.needs_input_grad[:3])]
             o, _ = attention_ref(*ins, causal=causal, window=window,

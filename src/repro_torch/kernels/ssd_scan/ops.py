@@ -1,0 +1,221 @@
+"""Mamba-2 SSD chunk scan: the CUDA kernel's wrapper and its plain versions.
+
+Replaces ``src/repro/kernels/ssd_scan/kernel.py::ssd_scan`` (body
+``_kernel``), reached through ``ops.py::ssd`` on the fused backend's
+training path (``ComputeBackend.ssd`` with no carried state).  The kernel
+is ``csrc/ssd_scan.cu``: one CTA per (batch * head, 16 head-dim columns)
+loops over the chunks with its slice of the state in shared memory; B and
+C are indexed by batch, never copied per head.  It is bound by bytes (x
+in, y out in fp32); this first version does its products in fp32 on the
+CUDA cores and recomputes C B^T in every CTA.
+
+- :func:`ssd_chunked_ref` is the plain version, a copy of
+  ``repro/models/mamba.py::_ssd_chunked`` (zero-pad to a chunk multiple,
+  optional carried state ``h0``; the reference's ``lax.scan`` becomes
+  batched terms and a loop over the carried state only).
+- :func:`ssd_reference` is the sequential recurrence, the oracle of the
+  tests.
+- :func:`ssd_scan` runs :func:`ssd_chunked_ref` only for tensors on the
+  CPU; for CUDA tensors it launches the kernel or raises.
+  ``ssd_scan.launches`` counts kernel launches.
+- :class:`SSDScan` mirrors the reference's ``jax.custom_vjp``: the forward
+  pads and runs :func:`ssd_scan`, saving only x, B, C, dt and A; the
+  backward recomputes :func:`ssd_chunked_ref` under autograd (the
+  reference has no backward kernel either), so its gradients equal
+  autograd through the plain version.  :func:`ssd` goes through it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+
+MAX_CHUNK = 128            # csrc/ssd_scan.cu kMaxQ
+MAX_STATE = 256            # csrc/ssd_scan.cu kMaxN
+
+
+def _pad_to_chunk(x, Bc, Cc, dt, chunk: int):
+    """Zero-pad the sequence axis to a multiple of ``min(chunk, S)``:
+    dt = 0 rows decay by exp(0) = 1 and add nothing, so the padded steps
+    leave the state as it is.  Returns the padded tensors and the old S."""
+    S = x.shape[1]
+    pad = (-S) % min(chunk, S)
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        Bc = F.pad(Bc, (0, 0, 0, pad))
+        Cc = F.pad(Cc, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    return x, Bc, Cc, dt, S
+
+
+def ssd_chunked_ref(xh, Bc, Cc, dt, A, chunk: int, h0=None):
+    """xh [B,S,H,P]; Bc,Cc [B,S,N]; dt [B,S,H] (fp32, post-softplus);
+    A [H] (negative, fp32).  Returns y [B,S,H,P], h_final [B,H,P,N] (fp32).
+
+    Each chunk does the reference's arithmetic.  The reference's
+    ``lax.scan`` body is split: every term that does not read the carried
+    state (the decay matrix, the intra-chunk product, each chunk's state
+    contribution) is computed for all chunks at once; the carry
+    ``h <- exp(cum_end) h + add`` stays a loop over chunks, and the
+    inter-chunk term reads the stacked states the loop saw.  Eagerly,
+    a loop over whole chunk bodies would launch ~20 ops per chunk (and
+    twice that again in the backward) where this launches ~20 in all.
+    The decay matrix masks the segment sums above the diagonal to -inf
+    before the exponential, where the reference exponentiates first and
+    then selects: the values are the same, and the gradient stays finite
+    where ``exp`` of an unselected entry would overflow."""
+    Bsz, H, P = xh.shape[0], xh.shape[2], xh.shape[3]
+    N = Bc.shape[-1]
+    xh, Bc, Cc, dt, S0 = _pad_to_chunk(xh, Bc, Cc, dt, chunk)
+    S = xh.shape[1]
+    Q = min(chunk, S0)
+    nc = S // Q
+    xc = xh.reshape(Bsz, nc, Q, H, P).float()
+    Bb = Bc.reshape(Bsz, nc, Q, N).float()
+    Cb = Cc.reshape(Bsz, nc, Q, N).float()
+    dtb = dt.reshape(Bsz, nc, Q, H)
+    above = ~torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
+
+    a = dtb * A                                           # [B,c,Q,H]
+    cum = torch.cumsum(a, dim=2)                          # inclusive
+    # intra-chunk (dual quadratic form)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [B,c,Q,Q,H]
+    L = torch.exp(seg.masked_fill(above[:, :, None], float("-inf")))
+    L = L * dtb[:, :, None, :, :]                         # decay * dt_j
+    cb = torch.einsum("bcqn,bckn->bcqk", Cb, Bb)          # [B,c,Q,Q]
+    scores = cb[..., None] * L                            # [B,c,Q,Q,H]
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores, xc)
+    # each chunk's contribution to the state, and its decay
+    dec_to_end = torch.exp(cum[:, :, -1:, :] - cum) * dtb
+    add = torch.einsum("bckh,bckn,bckhp->bchpn", dec_to_end, Bb, xc)
+    decay = torch.exp(cum[:, :, -1])[..., None, None]     # [B,c,H,1,1]
+    # the carry: the state each chunk starts from
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
+         if h0 is None else h0)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay[:, c] * h + add[:, c]
+    # inter-chunk from the carried state
+    y_inter = torch.exp(cum)[..., None] * torch.einsum(
+        "bcqn,bchpn->bcqhp", Cb, torch.stack(h_in, dim=1))
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    return y[:, :S0], h
+
+
+def ssd_reference(xh, Bc, Cc, dt, A, h0=None):
+    """Naive sequential recurrence (``repro/models/mamba.py::
+    ssd_reference``): the oracle of the tests."""
+    Bsz, S, H, P = xh.shape
+    N = Bc.shape[-1]
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
+         if h0 is None else h0)
+    ys = []
+    for t in range(S):
+        a = torch.exp(dt[:, t] * A)                          # [B,H]
+        add = torch.einsum("bh,bn,bhp->bhpn", dt[:, t], Bc[:, t].float(),
+                           xh[:, t].float())
+        h = a[:, :, None, None] * h + add
+        ys.append(torch.einsum("bn,bhpn->bhp", Cc[:, t].float(), h))
+    return torch.stack(ys, dim=1), h
+
+
+def _check(x, Bc, Cc, dt, A, Q):
+    devs = {t.device for t in (x, Bc, Cc, dt, A)}
+    if len(devs) != 1 or x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: tensors on {sorted(map(str, devs))}; "
+                         "all must be on one CUDA device (or all on the CPU)")
+    dt_name = str(x.dtype).removeprefix("torch.")
+    if dt_name not in build.DTYPE_CODES or {Bc.dtype, Cc.dtype} != {x.dtype}:
+        raise ValueError(f"ssd_scan: x {x.dtype}, B {Bc.dtype}, C "
+                         f"{Cc.dtype}; need float32 or bfloat16, the same "
+                         "for all three")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"ssd_scan: dt {dt.dtype} and A {A.dtype} must be "
+                         "float32")
+    if x.dim() != 4 or Bc.dim() != 3:
+        raise ValueError(f"ssd_scan: need x [B,S,H,P] and B, C [B,S,N]; got "
+                         f"x {tuple(x.shape)}, B {tuple(Bc.shape)}")
+    Bsz, S, H, P = x.shape
+    N = Bc.shape[-1]
+    if (Bc.shape != (Bsz, S, N) or Cc.shape != Bc.shape
+            or dt.shape != (Bsz, S, H) or A.shape != (H,)):
+        raise ValueError(f"ssd_scan: shapes disagree: x {tuple(x.shape)}, "
+                         f"B {tuple(Bc.shape)}, C {tuple(Cc.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}")
+    if Q > MAX_CHUNK or N > MAX_STATE:
+        raise ValueError(f"ssd_scan: chunk {Q} / state {N} above the "
+                         f"kernel's {MAX_CHUNK} / {MAX_STATE}")
+    if not all(t.is_contiguous() for t in (x, Bc, Cc, dt, A)):
+        raise ValueError("ssd_scan: inputs must be contiguous")
+    if x.numel() == 0 or N == 0:
+        raise ValueError("ssd_scan: empty input")
+    return dt_name
+
+
+def ssd_scan(x, Bc, Cc, dt, A, *, chunk: int = 64):
+    """x [B,S,H,P]; Bc,Cc [B,S,N]; dt [B,S,H] (fp32 post-softplus);
+    A [H] negative.  S must be a multiple of ``min(chunk, S)``.
+    Returns (y [B,S,H,P] fp32, h [B,H,P,N] fp32)."""
+    S = x.shape[1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd_scan: S={S} is not a multiple of the chunk "
+                         f"{Q}: pad the sequence first")
+    if all(t.device.type == "cpu" for t in (x, Bc, Cc, dt, A)):
+        return ssd_chunked_ref(x, Bc, Cc, dt, A, chunk)
+    dt_name = _check(x, Bc, Cc, dt, A, Q)
+    Bsz, _, H, P = x.shape
+    N = Bc.shape[-1]
+    lib = build.load_library()
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    err = lib.ssd_scan_launch(
+        x.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), y.data_ptr(), h.data_ptr(), Bsz, S, H, P, N, Q,
+        build.DTYPE_CODES[dt_name],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "ssd_scan")
+    ssd_scan.launches += 1
+    return y, h
+
+
+ssd_scan.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """Kernel forward (padded to the chunk), plain-version backward."""
+
+    @staticmethod
+    def forward(ctx, x, Bc, Cc, dt, A, chunk):
+        ctx.save_for_backward(x, Bc, Cc, dt, A)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        xp, Bp, Cp, dtp, S = _pad_to_chunk(x.contiguous(), Bc.contiguous(),
+                                           Cc.contiguous(),
+                                           dt.contiguous(), chunk)
+        y, h = ssd_scan(xp, Bp, Cp, dtp, A.contiguous(), chunk=chunk)
+        return y[:, :S], h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_(need) for a, need in
+                   zip(saved, ctx.needs_input_grad[:5])]
+            y, h = ssd_chunked_ref(*ins, ctx.chunk)
+            outs = [o for o, g in ((y, dy), (h, dh)) if g is not None]
+            seeds = [g for g in (dy, dh) if g is not None]
+            wrt = [a for a in ins if a.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wrt, seeds,
+                                             allow_unused=True))
+        return tuple(next(grads) if a.requires_grad else None
+                     for a in ins) + (None,)
+
+
+def ssd(x, Bc, Cc, dt, A, *, chunk: int = 64):
+    """x [B,S,H,P]; Bc,Cc [B,S,N]; dt [B,S,H]; A [H].  Returns
+    (y [B,S,H,P] fp32, h_final [B,H,P,N] fp32), differentiable in every
+    input."""
+    return SSDScan.apply(x, Bc, Cc, dt, A, int(chunk))

@@ -95,8 +95,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.models import LM
     from repro_torch.serve import PipelinedEngine, poisson_requests, summarize
+    from repro_torch.serve.engine import check_servable
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    check_servable(cfg)
     lm = LM(cfg, kernels=args.kernels, device=args.device)
     gen = torch.Generator(device=lm.device).manual_seed(0)
     params = lm.init(gen)

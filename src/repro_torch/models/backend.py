@@ -1,15 +1,17 @@
 """Compute-backend seam (port of ``repro/models/backend.py``).
 
-The layer body calls ``backend.rmsnorm`` and ``backend.flash``; the
-backend, chosen by the ``kernels=`` flag, decides what runs:
+The layer body calls ``backend.rmsnorm``, ``backend.flash`` and
+``backend.ssd``; the backend, chosen by the ``kernels=`` flag, decides
+what runs:
 
 - ``"fused"`` (the default): the hand-written CUDA kernels
-  (:mod:`repro_torch.kernels`) — RMSNorm rows for every layer norm and the
+  (:mod:`repro_torch.kernels`) — RMSNorm rows for every layer norm, the
   flash-attention forward for every whole-sequence or prefill-chunk
-  attention — through their ``torch.autograd.Function`` s, so gradients
-  flow through them (kernel forward, plain-version backward, as the
-  reference's ``custom_vjp`` s do).  On CPU tensors the kernel wrappers
-  run their plain versions.
+  attention, and the SSD chunk scan for every Mamba-2 scan that starts
+  from a zero state (training) — through their ``torch.autograd.Function``
+  s, so gradients flow through them (kernel forward, plain-version
+  backward, as the reference's ``custom_vjp`` s do).  On CPU tensors the
+  kernel wrappers run their plain versions.
 - ``"plain"`` (the reference's ``"xla"`` twin): plain PyTorch ops, never
   a kernel of this package.
 
@@ -24,6 +26,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
+from repro_torch.kernels.ssd_scan.ops import ssd as ssd_fused
+from repro_torch.kernels.ssd_scan.ops import ssd_chunked_ref
 from repro_torch.models import layers as L
 
 
@@ -33,6 +37,7 @@ class ComputeBackend:
     name: str = "plain"
     fuse_rmsnorm: bool = False
     fuse_attention: bool = False
+    fuse_ssd: bool = False
 
     def rmsnorm(self, params, x, eps: float = 1e-6):
         if not self.fuse_rmsnorm:
@@ -44,9 +49,17 @@ class ComputeBackend:
         """q [B,S,H,d]; k,v [B,T,G,d]; ``q_offset`` a host int."""
         return flash_attention(q, k, v, causal, window, prefix, q_offset)
 
+    def ssd(self, x, Bc, Cc, dt, A, *, chunk: int, h0=None):
+        """The Mamba-2 chunk scan; the kernel takes only scans that start
+        from a zero state (a carried ``h0`` is serving's prefill)."""
+        if self.fuse_ssd and h0 is None:
+            return ssd_fused(x, Bc, Cc, dt, A, chunk=chunk)
+        return ssd_chunked_ref(x, Bc, Cc, dt, A, chunk, h0)
+
 
 PLAIN = ComputeBackend("plain")
-FUSED = ComputeBackend("fused", fuse_rmsnorm=True, fuse_attention=True)
+FUSED = ComputeBackend("fused", fuse_rmsnorm=True, fuse_attention=True,
+                       fuse_ssd=True)
 
 _REGISTRY = {"plain": PLAIN, "fused": FUSED}
 
@@ -96,7 +109,7 @@ def chunk_fwd(spec, block_params_c, flags_c, x):
 
 def head_loss(spec, params, x, labels, loss_mask=None):
     """Final norm + unembed + CE: the loss of one microbatch at the last
-    stage (the reference's MoE aux term is zero for dense models)."""
+    stage (the reference's MoE aux term is zero for the models ported)."""
     bk = get_backend(spec.kernels)
     h = bk.rmsnorm(params["final_norm"], x, spec.cfg.norm_eps)
     logits = L.unembed(params["embed"], h)

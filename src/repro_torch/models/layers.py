@@ -16,6 +16,13 @@ import torch.nn.functional as F
 NEG_INF = -2.0 ** 30
 
 
+def dense_init(gen, shape, fan_in: int, dtype, device):
+    """``dense_init``: N(0, 1) / sqrt(fan_in), drawn in fp32 on the
+    generator's device, then cast and moved to ``device``."""
+    w = torch.randn(shape, generator=gen, device=gen.device)
+    return (w * (1.0 / math.sqrt(fan_in))).to(dtype).to(device)
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------

@@ -1,0 +1,177 @@
+"""Mamba-2 block via SSD (state-space duality), chunked form (port of
+``repro/models/mamba.py``).
+
+Recurrence (per head h, state N, head_dim P):
+    h_t = exp(a_t) h_{t-1} + dt_t * B_t (x) x_t        a_t = dt_t * A
+    y_t = C_t . h_t + D * x_t
+Chunked evaluation: the intra-chunk quadratic term (the "dual",
+attention-like form) plus the inter-chunk state carried over the chunks.
+The chunk scan itself lives in :mod:`repro_torch.kernels.ssd_scan`
+(``ssd_chunked_ref``, the plain version, and the CUDA kernel, which a
+fused backend runs for scans that start from a zero state).
+
+Parameters are stacked ``[n, ...]`` as every layer tree of the port.  With
+a cache the block writes its new conv tails and state into the cache's
+tensors **in place** (the reference returns an updated copy), as the
+port's attention writes its K/V.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import SSMConfig
+from repro_torch.kernels.ssd_scan.ops import ssd_chunked_ref
+from repro_torch.models import layers as L
+
+
+def init_mamba(gen, n: int, d: int, cfg: SSMConfig, dtype,
+               device) -> Dict[str, torch.Tensor]:
+    """``n`` Mamba-2 blocks, leaves stacked ``[n, ...]``, at the
+    reference's ``dense_init`` scales (not its bits: every weight has its
+    own draw here, where the reference draws ``wo`` from ``wz``'s key).
+    ``A_log``, ``D`` and ``dt_bias`` are fp32 at any parameter dtype."""
+    d_in = cfg.expand * d
+    H = d_in // cfg.head_dim
+    N, W = cfg.state_dim, cfg.conv_width
+    f32 = torch.float32
+
+    def w(shape, fan_in):
+        return L.dense_init(gen, (n,) + shape, fan_in, dtype, device)
+
+    def full(shape, value, dt):
+        return torch.full((n,) + shape, value, dtype=dt, device=device)
+
+    return {
+        "wz": w((d, d_in), d), "wx": w((d, d_in), d), "wB": w((d, N), d),
+        "wC": w((d, N), d), "wdt": w((d, H), d),
+        "conv_x": w((W, d_in), W), "conv_B": w((W, N), W),
+        "conv_C": w((W, N), W),
+        "A_log": full((H,), 0.0, f32), "D": full((H,), 1.0, f32),
+        "dt_bias": full((H,), -2.0, f32),
+        "norm_scale": full((d_in,), 1.0, dtype),
+        "wo": w((d_in, d), d_in),
+    }
+
+
+def _causal_conv(x, w, cache=None):
+    """Depthwise causal conv. x [B,S,C]; w [W,C]; cache [B,W-1,C] or None."""
+    W, S = w.shape[0], x.shape[1]
+    if cache is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([cache.to(x.dtype), x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(W):
+        out = out + xp[:, i:i + S] * w[i]
+    return out
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` switches
+    to the identity above 20 and rounds differently below)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mamba_block(params, x, cfg: SSMConfig, *, cache: Optional[dict] = None,
+                norm_eps: float = 1e-6,
+                backend=None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x [B,S,d] -> (y [B,S,d], cache).
+
+    ``cache`` {conv_x, conv_B, conv_C, h} or None: with a cache, S == 1 is
+    a decode step and S > 1 a prefill chunk that starts from the cached
+    conv tails and state; the cache is updated in place and returned.
+    ``backend``: compute backend (:mod:`repro_torch.models.backend`); a
+    fused one routes the chunk scan through the SSD kernel (train path,
+    no carried state) and the gated norm through the RMSNorm kernel.
+    None runs the plain versions."""
+    B, S, d = x.shape
+    d_in = cfg.expand * d
+    H = d_in // cfg.head_dim
+    P, W = cfg.head_dim, cfg.conv_width
+
+    z = x @ params["wz"]
+    xr = x @ params["wx"]
+    Bc = x @ params["wB"]
+    Cc = x @ params["wC"]
+    dt_raw = x @ params["wdt"]
+
+    decode = cache is not None and S == 1
+    if decode:
+        conv_in = {k: torch.cat([cache[k].to(t.dtype), t], dim=1)
+                   for k, t in (("conv_x", xr), ("conv_B", Bc),
+                                ("conv_C", Cc))}
+        xr_c, Bc_c, Cc_c = ((conv_in[k][:, -W:] * params[k]).sum(
+            dim=1, keepdim=True) for k in ("conv_x", "conv_B", "conv_C"))
+        new_conv = {k: t[:, -(W - 1):] for k, t in conv_in.items()}
+    else:
+        # prefill: seed the conv window from the cached tail so chunked
+        # prefill matches the full-sequence pass; a fresh zero cache is
+        # bitwise the zero left-padding
+        def c_of(k):
+            return cache[k] if cache is not None else None
+        xr_c = _causal_conv(xr, params["conv_x"], c_of("conv_x"))
+        Bc_c = _causal_conv(Bc, params["conv_B"], c_of("conv_B"))
+        Cc_c = _causal_conv(Cc, params["conv_C"], c_of("conv_C"))
+        new_conv = None
+        if cache is not None:    # carry the conv tail across chunks
+            new_conv = {k: torch.cat([cache[k].to(t.dtype), t],
+                                     dim=1)[:, -(W - 1):]
+                        for k, t in (("conv_x", xr), ("conv_B", Bc),
+                                     ("conv_C", Cc))}
+
+    xr_c = F.silu(xr_c)
+    Bc_c = F.silu(Bc_c)
+    Cc_c = F.silu(Cc_c)
+
+    A = -torch.exp(params["A_log"])                      # [H], negative
+    dt = _softplus(dt_raw.float() + params["dt_bias"])
+
+    xh = xr_c.reshape(B, S, H, P)
+
+    if decode:
+        h = cache["h"]
+        a = torch.exp(dt[:, 0] * A)                      # [B,H]
+        add = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0],
+                           Bc_c[:, 0].float(), xh[:, 0].float())
+        h_final = a[:, :, None, None] * h + add
+        y = torch.einsum("bn,bhpn->bhp", Cc_c[:, 0].float(),
+                         h_final)[:, None]               # [B,1,H,P]
+    else:
+        h0 = cache["h"] if cache is not None else None
+        if backend is not None:
+            y, h_final = backend.ssd(xh, Bc_c, Cc_c, dt, A,
+                                     chunk=cfg.chunk_len, h0=h0)
+        else:
+            y, h_final = ssd_chunked_ref(xh, Bc_c, Cc_c, dt, A,
+                                         cfg.chunk_len, h0)
+
+    y = y + params["D"][None, None, :, None] * xh.float()
+    y = y.reshape(B, S, d_in).to(x.dtype)
+    nrm = L.rmsnorm if backend is None else backend.rmsnorm
+    y = nrm({"scale": params["norm_scale"]}, y * F.silu(z), norm_eps)
+    out = y @ params["wo"]
+
+    if cache is not None:
+        for k, t in new_conv.items():
+            cache[k].copy_(t)
+        cache["h"].copy_(h_final)
+    return out, cache
+
+
+def init_mamba_cache(batch: int, d: int, cfg: SSMConfig, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    d_in = cfg.expand * d
+    H = d_in // cfg.head_dim
+    W = cfg.conv_width
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    return {
+        "conv_x": zeros((batch, W - 1, d_in)),
+        "conv_B": zeros((batch, W - 1, cfg.state_dim)),
+        "conv_C": zeros((batch, W - 1, cfg.state_dim)),
+        "h": zeros((batch, H, cfg.head_dim, cfg.state_dim), torch.float32),
+    }

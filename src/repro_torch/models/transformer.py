@@ -1,5 +1,6 @@
-"""Decoder LM of the port: the dense-attention path of
-``repro/models/transformer.py``.
+"""Decoder LM of the port: the dense-attention and Mamba-2 paths of
+``repro/models/transformer.py`` (each layer is ``norm1`` + attention or
+Mamba-2 block, then ``norm2`` + MLP when the config has an FFN).
 
 Parameters are a plain tree with the reference's structure and layout:
 ``{"embed": {"tokens"[, "head"]}, "final_norm": {"scale"}, "layers":
@@ -10,7 +11,6 @@ loop over the stacked leading axis.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict
 
 import torch
@@ -19,6 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import backend as B
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -29,14 +30,11 @@ def _dtype(name: str) -> torch.dtype:
 # per-layer init / apply
 # ---------------------------------------------------------------------------
 
-def _dense(gen, shape, fan_in: int, dtype, device):
-    """``dense_init``: N(0, 1) / sqrt(fan_in), drawn in fp32, then cast."""
-    w = torch.randn(shape, generator=gen, device=gen.device)
-    return (w * (1.0 / math.sqrt(fan_in))).to(dtype).to(device)
-
-
-def _init_layers(gen, cfg: ModelConfig, n: int, device) -> Dict[str, Any]:
-    """``n`` decoder layers with leaves stacked [n, ...]."""
+def _init_layers(gen, cfg: ModelConfig, n: int, device,
+                 kind: str) -> Dict[str, Any]:
+    """``n`` decoder layers of ``kind`` ('attn' | 'mamba') with leaves
+    stacked [n, ...]: ``norm1`` and the mixer, then ``norm2`` and the MLP
+    when the config has an FFN (``d_ff > 0``; mamba2 has none)."""
     dt = _dtype(cfg.param_dtype)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, G, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
@@ -44,22 +42,33 @@ def _init_layers(gen, cfg: ModelConfig, n: int, device) -> Dict[str, Any]:
     def ones():
         return torch.ones((n, d), dtype=dt, device=device)
 
-    attn = {"wq": _dense(gen, (n, d, H * hd), d, dt, device),
-            "wk": _dense(gen, (n, d, G * hd), d, dt, device),
-            "wv": _dense(gen, (n, d, G * hd), d, dt, device),
-            "wo": _dense(gen, (n, H * hd, d), H * hd, dt, device)}
-    mlp = {"wi": _dense(gen, (n, d, ff), d, dt, device),
-           "wo": _dense(gen, (n, ff, d), ff, dt, device)}
-    if cfg.act in ("silu", "geglu"):
-        mlp["wg"] = _dense(gen, (n, d, ff), d, dt, device)
-    return {"norm1": {"scale": ones()}, "attn": attn,
-            "norm2": {"scale": ones()}, "mlp": mlp}
+    def dense(shape, fan_in):
+        return L.dense_init(gen, (n,) + shape, fan_in, dt, device)
+
+    layer: Dict[str, Any] = {"norm1": {"scale": ones()}}
+    if kind == "attn":
+        layer["attn"] = {"wq": dense((d, H * hd), d),
+                         "wk": dense((d, G * hd), d),
+                         "wv": dense((d, G * hd), d),
+                         "wo": dense((H * hd, d), H * hd)}
+    else:
+        layer["mamba"] = M.init_mamba(gen, n, d, cfg.ssm, dt, device)
+    if ff:
+        mlp = {"wi": dense((d, ff), d), "wo": dense((ff, d), ff)}
+        if cfg.act in ("silu", "geglu"):
+            mlp["wg"] = dense((d, ff), d)
+        layer["norm2"] = {"scale": ones()}
+        layer["mlp"] = mlp
+    return layer
 
 
 def _init_cache_layer(cfg: ModelConfig, idx: int, batch: int, seq: int,
                       device) -> Dict[str, torch.Tensor]:
-    """K/V cache of one attention layer: [batch, seq, G, hd] zeros."""
+    """Cache of one layer: K/V [batch, seq, G, hd] zeros for attention;
+    conv tails and the fp32 state for a Mamba-2 layer."""
     dt = _dtype(cfg.param_dtype)
+    if cfg.layer_kind(idx) == "mamba":
+        return M.init_mamba_cache(batch, cfg.d_model, cfg.ssm, dt, device)
     shape = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -75,6 +84,7 @@ def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
     branches (0 = padding layer: passthrough).  ``backend``: compute
     backend; None = the default (fused)."""
     bk = backend if backend is not None else B.get_backend()
+    kind = cfg.layer_kind(idx)
     if window_override is not None:
         window = window_override
         if bk.fuse_attention and cfg.sliding_window == 0:
@@ -85,20 +95,26 @@ def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
     else:
         window = 0 if cfg.layer_is_global(idx) else cfg.sliding_window
     h = bk.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    y, new_cache = L.attention(
-        p["attn"], h, positions, num_heads=cfg.num_heads,
-        num_kv=cfg.num_kv_heads, hd=cfg.resolved_head_dim,
-        rope_theta=cfg.rope_theta, causal=True, window=window,
-        prefix_len=prefix_len, cache=cache, cache_pos=cache_pos,
-        backend=bk)
+    if kind == "attn":
+        y, new_cache = L.attention(
+            p["attn"], h, positions, num_heads=cfg.num_heads,
+            num_kv=cfg.num_kv_heads, hd=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta, causal=True, window=window,
+            prefix_len=prefix_len, cache=cache, cache_pos=cache_pos,
+            backend=bk)
+    else:
+        y, new_cache = M.mamba_block(p["mamba"], h, cfg.ssm, cache=cache,
+                                     norm_eps=cfg.norm_eps, backend=bk)
     if gate is not None and gate != 1.0:     # x * 1.0 is x: skip the op
         y = y * gate
     x = x + y
-    h = bk.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    y = L.mlp(p["mlp"], h, cfg.act)
-    if gate is not None and gate != 1.0:
-        y = y * gate
-    return x + y, new_cache
+    if "mlp" in p:
+        h = bk.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        y = L.mlp(p["mlp"], h, cfg.act)
+        if gate is not None and gate != 1.0:
+            y = y * gate
+        x = x + y
+    return x, new_cache
 
 
 def _index(tree, i):
@@ -113,9 +129,10 @@ def _index(tree, i):
 # ---------------------------------------------------------------------------
 
 class LM:
-    """Decoder LM (dense attention).  ``kernels`` selects the compute
-    backend ("fused" default, or "plain"); ``device`` where parameters
-    and caches live (CUDA unless the caller asks for the CPU)."""
+    """Decoder LM (dense attention or Mamba-2).  ``kernels`` selects the
+    compute backend ("fused" default, or "plain"); ``device`` where
+    parameters and caches live (CUDA unless the caller asks for the
+    CPU)."""
 
     def __init__(self, cfg: ModelConfig, *, kernels=None, device="cuda"):
         self.cfg = cfg
@@ -134,19 +151,22 @@ class LM:
         dt = _dtype(cfg.param_dtype)
         d = cfg.d_model
         params: Dict[str, Any] = {
-            "embed": {"tokens": _dense(generator, (cfg.vocab_size, d), d,
-                                       dt, dev)}}
+            "embed": {"tokens": L.dense_init(generator, (cfg.vocab_size, d),
+                                             d, dt, dev)}}
         if not cfg.tie_embeddings:
-            params["embed"]["head"] = _dense(generator, (d, cfg.vocab_size),
-                                             d, dt, dev)
+            params["embed"]["head"] = L.dense_init(
+                generator, (d, cfg.vocab_size), d, dt, dev)
         params["final_norm"] = {"scale": torch.ones((d,), dtype=dt,
                                                     device=dev)}
         params["layers"] = [_init_layers(generator, cfg, self.num_periods,
-                                         dev)
-                            for _ in range(self.period)
+                                         dev, cfg.layer_kind(j))
+                            for j in range(self.period)
                             if self.num_periods]
-        params["rem_layers"] = [_index(_init_layers(generator, cfg, 1, dev), 0)
-                                for _ in range(self.num_rem)]
+        base = self.num_periods * self.period
+        params["rem_layers"] = [
+            _index(_init_layers(generator, cfg, 1, dev,
+                                cfg.layer_kind(base + r)), 0)
+            for r in range(self.num_rem)]
         return params
 
     # -- decoder stack -------------------------------------------------------
@@ -203,7 +223,7 @@ class LM:
         """batch: {'tokens': [B, S], 'loss_mask': [B, S] optional}.
         Next-token CE over the whole stack (the single-device oracle of
         the pipeline executor).  Returns ``(loss, {"ce": ce})``; the
-        reference's MoE aux term is zero for the dense models ported."""
+        reference's MoE aux term is zero for the models ported."""
         tokens = batch["tokens"]
         logits, _ = self.forward(params, tokens[:, :-1])
         mask = batch.get("loss_mask")
@@ -214,11 +234,11 @@ class LM:
     def init_cache(self, batch: int, seq: int):
         cfg = self.cfg
 
-        def stacked():
-            one = _init_cache_layer(cfg, 0, batch, seq, self.device)
+        def stacked(j):
+            one = _init_cache_layer(cfg, j, batch, seq, self.device)
             return {k: a[None].repeat((self.num_periods,) + (1,) * a.dim())
                     for k, a in one.items()}
-        return {"periods": [stacked() for _ in range(self.period)],
+        return {"periods": [stacked(j) for j in range(self.period)],
                 "rem": [_init_cache_layer(cfg, self.num_periods * self.period
                                           + r, batch, seq, self.device)
                         for r in range(self.num_rem)]}

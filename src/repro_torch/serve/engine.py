@@ -41,6 +41,17 @@ from repro_torch.serve.scheduler import (IDLE, IDLE_INJ, PREFILL, Injection,
 from repro_torch.tree import tree_map
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """The engine keeps K/V slot caches only: a config with Mamba-2 layers
+    needs SSM slot state (conv tails and the state per slot), which is
+    not ported yet."""
+    if cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: serving a model with SSM (Mamba-2) layers is not "
+            "ported yet (the engine has no SSM slot state); repro_torch "
+            "trains it through repro_torch.launch.train.train_pipeline")
+
+
 def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
     """LM parameters -> stage-stacked blocks: a list over period position
     ``jp`` of trees with leaves ``[P, M, ...]``, where ``blocks[jp]`` leaf
@@ -89,6 +100,7 @@ class PipelinedEngine:
     def __init__(self, cfg: ModelConfig, lm_params, *, P: int, chunk: int,
                  max_seq: int, n_slots: Optional[int] = None,
                  kernels: str = "fused", device="cuda"):
+        check_servable(cfg)
         self.cfg = cfg
         self.P = P
         self.chunk = chunk

@@ -1,0 +1,283 @@
+"""``repro_torch.kernels.ssd_scan`` and ``repro_torch.models.mamba`` against
+the JAX package on the CPU.
+
+Both sides get the same numpy inputs made from a seed.  The JAX chunk
+scan runs as the JAX package's own tests run it here: the Pallas kernel
+in interpret mode (``ssd_scan(..., interpret=True)`` and the ``ssd`` op,
+which picks interpret mode on the CPU), the jnp ``_ssd_chunked`` and the
+sequential ``ssd_reference``.  On CPU tensors the port's kernel wrapper
+runs its plain version, ``ssd_chunked_ref``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as jax_get_reduced
+from repro.kernels.ssd_scan.kernel import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd_scan.ops import ssd as jax_ssd
+from repro.models import backend as JB
+from repro.models import mamba as JM
+from repro_torch.configs import get_reduced
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan import (SSDScan, ssd, ssd_chunked_ref,
+                                          ssd_reference, ssd_scan)
+from repro_torch.models import backend as TB
+from repro_torch.models import mamba as TM
+
+CHUNK = 16
+SSD_TOL = 1e-5            # fp32 chunk scan, port vs JAX (three oracles)
+SSD_GRAD_TOL = 1e-4       # SSDScan gradients vs jax.vjp of the JAX op
+BLOCK_TOL = 2e-5          # mamba_block forward, port vs JAX
+BLOCK_GRAD_TOL = 2e-4     # mamba_block parameter gradients
+
+CFG = get_reduced("mamba2-2.7b")
+JCFG = jax_get_reduced("mamba2-2.7b")
+
+
+def _ssd_inputs(S, seed, B=2, H=3, P=8, N=16):
+    rng = np.random.default_rng(seed)
+    return {
+        "x": rng.standard_normal((B, S, H, P)).astype(np.float32),
+        "Bc": (0.5 * rng.standard_normal((B, S, N))).astype(np.float32),
+        "Cc": (0.5 * rng.standard_normal((B, S, N))).astype(np.float32),
+        "dt": rng.uniform(0.05, 0.5, (B, S, H)).astype(np.float32),
+        "A": -rng.uniform(0.2, 1.5, (H,)).astype(np.float32),
+        "h0": (0.5 * rng.standard_normal((B, H, P, N))).astype(np.float32),
+    }
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _err(a, b):
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return float(np.abs(a - np.asarray(b)).max())
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("S", [16, 17, 40])
+def test_ssd_matches_jax(S, with_h0):
+    """``ssd_chunked_ref`` (and, from a zero state, ``ssd``) against the
+    JAX Pallas kernel (interpret), ``_ssd_chunked`` and the sequential
+    ``ssd_reference``; the port's own ``ssd_reference`` too."""
+    inp = _ssd_inputs(S, seed=S + 100 * with_h0)
+    names = ("x", "Bc", "Cc", "dt", "A")
+    j = [jnp.asarray(inp[k]) for k in names]
+    t = [_t(inp[k]) for k in names]
+    jh0 = jnp.asarray(inp["h0"]) if with_h0 else None
+    th0 = _t(inp["h0"]) if with_h0 else None
+
+    oracles = {"_ssd_chunked": JM._ssd_chunked(*j, CHUNK, jh0),
+               "ssd_reference": JM.ssd_reference(*j, h0=jh0)}
+    ours = {"ssd_chunked_ref": ssd_chunked_ref(*t, CHUNK, th0),
+            "ssd_reference": ssd_reference(*t, h0=th0)}
+    if not with_h0:
+        oracles["pallas ssd (interpret)"] = jax_ssd(*j, chunk=CHUNK)
+        if S % CHUNK == 0:
+            oracles["pallas ssd_scan"] = jax_ssd_scan(*j, chunk=CHUNK,
+                                                      interpret=True)
+        ours["ssd"] = ssd(*t, chunk=CHUNK)
+        ours["ssd_scan"] = ssd_scan(*(_ssd_padded(t)), chunk=CHUNK)
+    for on, (yo, ho) in ours.items():
+        if on == "ssd_scan":
+            yo = yo[:, :S]
+        for jn, (yj, hj) in oracles.items():
+            ey, eh = _err(yo, yj), _err(ho, hj)
+            print(f"S={S} h0={with_h0} {on} vs {jn}: y {ey:.2e} h {eh:.2e}")
+            assert yo.shape == yj.shape and ho.shape == hj.shape
+            assert ey <= SSD_TOL and eh <= SSD_TOL, (on, jn)
+
+
+def _ssd_padded(t):
+    """x, B, C, dt zero-padded to a chunk multiple (dt = 0 rows), A."""
+    x, Bc, Cc, dt, A = t
+    pad = (-x.shape[1]) % CHUNK
+    z = torch.nn.functional.pad
+    return (z(x, (0, 0, 0, 0, 0, pad)), z(Bc, (0, 0, 0, pad)),
+            z(Cc, (0, 0, 0, pad)), z(dt, (0, 0, 0, pad)), A)
+
+
+@pytest.mark.parametrize("S", [17, 40])
+def test_ssd_scan_grads_match_jax_vjp(S):
+    """Gradients of y and the final h through ``SSDScan`` against
+    ``jax.vjp`` of the JAX package's ``ssd`` op (Pallas forward, jnp
+    backward), with the same cotangents."""
+    inp = _ssd_inputs(S, seed=7 + S)
+    rng = np.random.default_rng(S)
+    dy = rng.standard_normal(inp["x"].shape).astype(np.float32)
+    dh = rng.standard_normal(inp["h0"].shape).astype(np.float32)
+    names = ("x", "Bc", "Cc", "dt", "A")
+    (yj, hj), vjp = jax.vjp(lambda *a: jax_ssd(*a, chunk=CHUNK),
+                            *(jnp.asarray(inp[k]) for k in names))
+    gj = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    ts = [_t(inp[k]).requires_grad_() for k in names]
+    y, h = SSDScan.apply(*ts, CHUNK)
+    assert y.grad_fn is not None and h.grad_fn is not None
+    gt = torch.autograd.grad((y, h), ts, (_t(dy), _t(dh)))
+    assert _err(y, yj) <= SSD_TOL and _err(h, hj) <= SSD_TOL
+    for k, a, b in zip(names, gt, gj):
+        e = _err(a, b)
+        print(f"S={S} d{k}: {e:.2e}")
+        assert a.shape == b.shape and e <= SSD_GRAD_TOL, k
+
+
+def test_backend_routes_the_scan():
+    """FUSED sends a zero-state scan through ``SSDScan`` and a carried
+    state to the plain version; PLAIN never uses the Function.  On CPU
+    tensors no kernel launches."""
+    inp = _ssd_inputs(17, seed=3)
+    t = [_t(inp[k]).requires_grad_() for k in ("x", "Bc", "Cc", "dt", "A")]
+    before = ssd_scan.launches
+    y, _ = TB.FUSED.ssd(*t, chunk=CHUNK)
+    assert type(y.grad_fn).__name__ == "SSDScanBackward"
+    y, _ = TB.FUSED.ssd(*t, chunk=CHUNK, h0=_t(inp["h0"]))
+    assert "SSDScan" not in type(y.grad_fn).__name__
+    y, _ = TB.PLAIN.ssd(*t, chunk=CHUNK)
+    assert "SSDScan" not in type(y.grad_fn).__name__
+    assert ssd_scan.launches == before
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_ssd_scan_on_cuda_tensors_launches_or_raises(monkeypatch):
+    """For a CUDA tensor the wrapper goes to its kernel (the build,
+    stubbed to fail here) and never to the plain version; it rejects what
+    the kernel does not take."""
+    class Refused(Exception):
+        pass
+
+    def refuse():
+        raise Refused
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    inp = _ssd_inputs(32, seed=5)
+    cl = {k: torch.from_numpy(v).as_subclass(_CudaLooking)
+          for k, v in inp.items()}
+    args = [cl[k] for k in ("x", "Bc", "Cc", "dt", "A")]
+    before = ssd_scan.launches
+    with pytest.raises(Refused):
+        ssd_scan(*args, chunk=CHUNK)
+    with pytest.raises(Refused):
+        ssd(*args, chunk=CHUNK)                 # the Function's forward
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_scan(*args, chunk=24)               # 32 % 24: not padded
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(args[0], args[1], args[2], args[3].double(), args[4],
+                 chunk=CHUNK)
+    long = [torch.zeros(s).as_subclass(_CudaLooking) for s in
+            ((1, 256, 1, 8), (1, 256, 16), (1, 256, 16), (1, 256, 1), (1,))]
+    with pytest.raises(ValueError, match="kernel's"):
+        ssd_scan(*long, chunk=256)              # chunk above 128
+    assert ssd_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 block
+# ---------------------------------------------------------------------------
+
+def _block_params(seed=0):
+    """One reduced Mamba-2 block's weights: JAX ``init_mamba`` with the
+    per-head leaves and norm scale redrawn, so no gradient is trivially
+    zero and no value is the init constant."""
+    p, _ = JM.init_mamba(jax.random.key(seed), JCFG.d_model, JCFG.ssm,
+                         jnp.float32)
+    p = {k: np.asarray(v) for k, v in p.items()}
+    rng = np.random.default_rng(seed)
+    H = p["A_log"].shape[0]
+    p["A_log"] = rng.uniform(-0.5, 0.5, H).astype(np.float32)
+    p["D"] = rng.uniform(0.5, 1.5, H).astype(np.float32)
+    p["dt_bias"] = rng.uniform(-3.0, -1.0, H).astype(np.float32)
+    p["norm_scale"] = rng.uniform(0.5, 1.5,
+                                  p["norm_scale"].shape).astype(np.float32)
+    return p
+
+
+@pytest.mark.parametrize("kernels", ["fused", "plain"])
+def test_mamba_block_matches_jax(kernels):
+    """Forward and every parameter (and input) gradient of one block: the
+    port's fused backend against JAX ``backend=FUSED`` (Pallas scan in
+    interpret mode), the plain backend against JAX's default XLA path."""
+    p = _block_params()
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 17, JCFG.d_model)).astype(np.float32)
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+    jbk = JB.FUSED if kernels == "fused" else None
+
+    def jf(params, x_):
+        return (JM.mamba_block(params, x_, JCFG.ssm, backend=jbk)[0]
+                * cot).sum()
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    yj, _ = JM.mamba_block(jp, jnp.asarray(x), JCFG.ssm, backend=jbk)
+    gpj, gxj = jax.grad(jf, argnums=(0, 1))(jp, jnp.asarray(x))
+
+    tp = {k: _t(v).requires_grad_() for k, v in p.items()}
+    tx = _t(x).requires_grad_()
+    y, cache = TM.mamba_block(tp, tx, CFG.ssm,
+                              backend=TB.get_backend(kernels))
+    assert cache is None
+    names = sorted(tp)
+    grads = torch.autograd.grad(y, [tp[k] for k in names] + [tx], _t(cot))
+    e_y = _err(y, yj)
+    e_g = {k: _err(g, gpj[k]) for k, g in zip(names, grads)}
+    e_g["x"] = _err(grads[-1], gxj)
+    print(f"{kernels}: y {e_y:.2e}, grads max {max(e_g.values()):.2e}")
+    assert e_y <= BLOCK_TOL
+    assert max(e_g.values()) <= BLOCK_GRAD_TOL, e_g
+
+
+def test_mamba_block_cache_streams_match_jax():
+    """Serving's cache branches: two 16-token prefill chunks from a zero
+    cache, then four decode steps, each fed the JAX block's previous
+    output row; outputs and the cache (conv tails, state) after every step
+    against the JAX block's stream.  The port writes the cache in
+    place."""
+    p = _block_params(seed=2)
+    rng = np.random.default_rng(3)
+    d = JCFG.d_model
+    prompt = rng.standard_normal((2, 32, d)).astype(np.float32)
+    jc = JM.init_mamba_cache(2, d, JCFG.ssm, jnp.float32)
+    tc = TM.init_mamba_cache(2, d, CFG.ssm, torch.float32, "cpu")
+    assert sorted(jc) == sorted(tc)
+    for k in jc:
+        assert tuple(jc[k].shape) == tuple(tc[k].shape), k
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: _t(v) for k, v in p.items()}
+    steps = [prompt[:, :16], prompt[:, 16:]]
+    worst = 0.0
+    for i in range(6):
+        xin = steps[i] if i < 2 else nxt
+        yj, jc = JM.mamba_block(jp, jnp.asarray(xin), JCFG.ssm, cache=jc,
+                                backend=JB.FUSED)
+        with torch.no_grad():
+            yt, tc2 = TM.mamba_block(tp, _t(xin), CFG.ssm, cache=tc,
+                                     backend=TB.FUSED)
+        assert tc2 is tc
+        errs = [_err(yt, yj)] + [_err(tc[k], jc[k]) for k in jc]
+        worst = max(worst, *errs)
+        nxt = np.asarray(yj)[:, -1:]
+    print(f"prefill x2 + decode x4: max |port - jax| {worst:.2e}")
+    assert worst <= BLOCK_TOL
+
+
+def test_chunked_prefill_equals_the_full_pass():
+    """Two prefill chunks through the cache equal one pass over the whole
+    prompt (the conv tail and the state carry across the chunk edge)."""
+    p = {k: _t(v) for k, v in _block_params(seed=4).items()}
+    x = _t(np.random.default_rng(5).standard_normal(
+        (1, 32, CFG.d_model)).astype(np.float32))
+    cache = TM.init_mamba_cache(1, CFG.d_model, CFG.ssm, torch.float32,
+                                "cpu")
+    y1, _ = TM.mamba_block(p, x[:, :16], CFG.ssm, cache=cache)
+    y2, _ = TM.mamba_block(p, x[:, 16:], CFG.ssm, cache=cache)
+    full, _ = TM.mamba_block(p, x, CFG.ssm)
+    e = _err(torch.cat([y1, y2], dim=1), full.numpy())
+    print(f"chunked vs full prefill: {e:.2e}")
+    assert e <= 1e-6          # bitwise on this CPU; rows of other GEMMs
