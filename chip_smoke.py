@@ -8,9 +8,14 @@ Phases, in order; any failure exits non-zero:
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` compiles ``src/repro_torch/csrc`` for sm_90a;
 3. each kernel against its plain PyTorch version on the card, at the
-   serving shapes, in bf16 and fp32, and timed beside the plain version,
-   a one-call PyTorch yardstick and the card's bound (device time per
-   call from CUDA-graph replay; the eager call-to-call time beside it);
+   serving shapes, in bf16 and fp32 (flash also at head dims 16, 32 and
+   128, B=2, H == G, 2047 keys and rows that see no key, with each bf16
+   case's CTA printed and both CTA sizes run at every head dim; rmsnorm
+   also at d=100), and timed beside the plain version, a one-call PyTorch
+   yardstick and the card's bound (device time per call from CUDA-graph
+   replay, rmsnorm over rotating inputs larger than the L2 and, as a
+   second reading, on one L2-resident input; the eager call-to-call time
+   beside it);
 4. serve: full-width tinyllama-1.1b (bf16, random weights from seed 0)
    through ``repro_torch.launch.serve.main``: 8 requests, 4 slots,
    64-token chunks; checks every request and the kernels' launch counts;
@@ -103,7 +108,8 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
 
 def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
     """Device time of one ``fn`` call, free of host launch overhead:
-    ``reps`` calls captured in a CUDA graph, replayed ``iters`` times."""
+    ``reps`` calls captured in a CUDA graph, replayed ``iters`` times.
+    Inputs that fit in the L2 stay there from call to call."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -127,6 +133,81 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+def cold_ms(fn, inputs, iters: int = 5) -> float:
+    """Device time of one ``fn(*args)`` call whose inputs come from device
+    memory, not the L2: ``inputs`` is a list of argument tuples on
+    distinct buffers, together several times the L2 (see
+    :func:`rotating`); one call on each is captured in a CUDA graph, every
+    output kept, so that each call reads buffers evicted since their last
+    use and writes buffers of its own.  The graph is replayed ``iters``
+    times."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in inputs[:3]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [fn(*args) for args in inputs]
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        g.replay()
+    end.record()
+    end.synchronize()
+    del outs, g
+    return start.elapsed_time(end) / (iters * len(inputs))
+
+
+def rotating(torch, args, times_l2: int = 4):
+    """Copies of the tuple of tensors ``args``, as many as make their
+    bytes ``times_l2`` times the card's L2 (at least 2)."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 0) or 50 * 2 ** 20
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    n = max(2, -(-times_l2 * l2 // nbytes))
+    return [tuple(a.clone() for a in args) for _ in range(n)]
+
+
+def rmsnorm_times(torch, x, scale, eps: float = 1e-6) -> dict:
+    """rmsnorm_rows, its plain version and ``F.rms_norm`` at ``x``, each
+    read from device memory (:func:`cold_ms`, the numbers the kernels line
+    carries) and, as a second reading, with ``x`` left in the L2 by the
+    call before (:func:`graph_ms`), in ms."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_rows, rmsnorm_rows_ref
+    d = x.shape[-1]
+    sets = rotating(torch, (x, scale))
+    lib = hasattr(F, "rms_norm")
+    t = {"ms": cold_ms(lambda a, b: rmsnorm_rows(a, b, eps), sets),
+         "plain_ms": cold_ms(lambda a, b: rmsnorm_rows_ref(a, b, eps), sets),
+         "library_ms": cold_ms(lambda a, b: F.rms_norm(a, (d,), b, eps),
+                               sets) if lib else None,
+         "ms_l2_warm": graph_ms(lambda: rmsnorm_rows(x, scale, eps)),
+         "library_ms_l2_warm": graph_ms(lambda: F.rms_norm(
+             x, (d,), scale, eps)) if lib else None,
+         "rotating_inputs": len(sets)}
+    del sets
+    return t
+
+
+def rmsnorm_line(t: dict) -> str:
+    """The times of :func:`rmsnorm_times` as one line, in us."""
+    def us(v):
+        return "n/a" if v is None else f"{v * 1e3:.2f} us"
+    return (f"from device memory ({t['rotating_inputs']} rotating inputs, "
+            f"CUDA graph): kernel {us(t['ms'])}, plain {us(t['plain_ms'])}, "
+            f"F.rms_norm {us(t['library_ms'])}; L2-warm (one input, CUDA "
+            f"graph): kernel {us(t['ms_l2_warm'])}, F.rms_norm "
+            f"{us(t['library_ms_l2_warm'])}")
+
+
 def max_err(got, want) -> float:
     return float((got.detach().float() - want.detach().float()).abs().max())
 
@@ -138,55 +219,50 @@ def rel_ok(got, want, atol: float, rtol: float) -> bool:
 
 def phase_rmsnorm(torch, gen):
     from repro_torch.kernels.rmsnorm import rmsnorm_rows, rmsnorm_rows_ref
-    import torch.nn.functional as F
     d, eps = 2048, 1e-6
     # bf16 results may differ by one rounding step: 2^-7 relative
     tols = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
     worst = 0.0
+    # d = 100: not a multiple of 8, the scalar loop in bf16; 25 vectors
+    # of 4 in fp32
     for dt, (atol, rtol) in tols.items():
-        for R in (1, 64, 300):
-            x = torch.randn((R, d), generator=gen, device="cuda").to(dt)
-            scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+        for R, dd in ((1, d), (64, d), (300, d), (7, 100), (300, 100)):
+            x = torch.randn((R, dd), generator=gen, device="cuda").to(dt)
+            scale = (1 + 0.1 * torch.randn((dd,), generator=gen,
                                            device="cuda")).to(dt)
             got = rmsnorm_rows(x, scale, eps)
             torch.cuda.synchronize()
             want = rmsnorm_rows_ref(x, scale, eps)
             err = max_err(got, want)
             ok = rel_ok(got, want, atol, rtol)
-            print(f"[kernels] rmsnorm_rows {str(dt)[6:]} R={R} d={d}: "
+            print(f"[kernels] rmsnorm_rows {str(dt)[6:]} R={R} d={dd}: "
                   f"max|d|={err:.3e} tol={atol:g}+{rtol:g}*|ref| "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"rmsnorm_rows disagrees with its plain version "
-                     f"({dt}, R={R})")
+                     f"({dt}, R={R}, d={dd})")
             worst = max(worst, err)
     # main-path shape: one 64-token prefill chunk, bf16
     R, dt = 64, torch.bfloat16
     x = torch.randn((R, d), generator=gen, device="cuda").to(dt)
     scale = torch.ones((d,), dtype=dt, device="cuda")
-    ms = graph_ms(lambda: rmsnorm_rows(x, scale, eps))
+    t = rmsnorm_times(torch, x, scale, eps)
     eager_ms = time_ms(lambda: rmsnorm_rows(x, scale, eps))
-    plain_ms = graph_ms(lambda: rmsnorm_rows_ref(x, scale, eps))
-    lib_ms = graph_ms(lambda: F.rms_norm(x, (d,), scale, eps)) \
-        if hasattr(F, "rms_norm") else None
     nbytes = (2 * R * d + d) * x.element_size()
     flops = 4 * R * d
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
               "operations": flops / FP32_FLOPS * 1e3}
     bound_by = max(bounds, key=bounds.get)
     print(f"[kernels] rmsnorm_rows timed at x [{R}, {d}] bf16 (device time "
-          f"per call, CUDA graph): kernel {ms * 1e3:.2f} us (eager "
-          f"call-to-call {eager_ms * 1e3:.2f} us), plain "
-          f"{plain_ms * 1e3:.2f} us, "
-          f"F.rms_norm {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}"
-          f", bound {bounds[bound_by] * 1e3:.4f} us ({bound_by})")
+          f"per call) {rmsnorm_line(t)}; eager call-to-call "
+          f"{eager_ms * 1e3:.2f} us; bound {bounds[bound_by] * 1e3:.4f} us "
+          f"({bound_by})")
     return {"name": "rmsnorm_rows", "route": "cuda",
             "source": "src/repro_torch/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:18",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": worst, **t,
             "bound_ms": bounds[bound_by], "bound_by": bound_by,
-            "library_ms": lib_ms, "eager_ms": eager_ms,
-            "timed_shape": f"x [{R},{d}] bf16"}
+            "eager_ms": eager_ms, "timed_shape": f"x [{R},{d}] bf16"}
 
 
 def _visible_pairs(Sq, Sk, q_offset, window, prefix):
@@ -208,24 +284,51 @@ def _visible_pairs(Sq, Sk, q_offset, window, prefix):
 def phase_flash(torch, gen):
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
     import torch.nn.functional as F
     tols = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 1e-5)}
-    # (Sq, H, Sk, G, d, q_offset, window, prefix)
-    cases = [(64, 32, 512, 4, 64, 0, 0, 0), (64, 32, 512, 4, 64, 64, 0, 0),
-             (64, 32, 512, 4, 64, 448, 0, 0),
-             (64, 32, 500, 4, 64, 436, 0, 0),      # Sk not a tile multiple
-             (64, 32, 512, 4, 64, 448, 128, 0),    # sliding window
-             (64, 32, 512, 4, 64, 64, 0, 16),      # prefix
-             (50, 32, 512, 4, 64, 128, 0, 0),      # ragged q tile
-             (64, 8, 512, 2, 16, 64, 0, 0)]        # reduced config's hd
+    # (B, Sq, H, Sk, G, d, q_offset, window, prefix)
+    cases = [(1, 64, 32, 512, 4, 64, 0, 0, 0),
+             (1, 64, 32, 512, 4, 64, 64, 0, 0),
+             (1, 64, 32, 512, 4, 64, 448, 0, 0),
+             (1, 64, 32, 500, 4, 64, 436, 0, 0),   # Sk not a tile multiple
+             (1, 64, 32, 512, 4, 64, 448, 128, 0),  # sliding window
+             (1, 64, 32, 512, 4, 64, 64, 0, 16),   # prefix
+             (1, 50, 32, 512, 4, 64, 128, 0, 0),   # ragged q tile
+             (1, 64, 8, 512, 2, 16, 64, 0, 0),     # reduced config's hd
+             (1, 64, 32, 512, 4, 32, 192, 0, 0),   # hd 32
+             (1, 64, 32, 512, 4, 128, 192, 0, 0),  # hd 128 (64 KB ring)
+             (2, 100, 16, 300, 4, 128, 200, 64, 16),   # B=2, hd 128, mixed
+             (2, 64, 8, 512, 8, 64, 100, 0, 0),    # B=2, H == G
+             (1, 2047, 32, 2047, 4, 64, 0, 0, 0),  # ragged Sk, training len
+             # every row sees no key (window 2, queries past the 8-key
+             # buffer): o is the mean of v, as in attention_ref
+             (1, 16, 8, 8, 2, 64, 20, 2, 0),
+             # grids that fill the card, so bf16 runs the 4-warp CTA: its
+             # per-CTA key range, per-warp skip and edge-tile test
+             (2, 512, 32, 512, 4, 128, 0, 128, 0),   # hd 128, window
+             (2, 512, 32, 512, 4, 128, 0, 0, 64),    # hd 128, prefix
+             (2, 500, 32, 700, 4, 128, 200, 96, 40),  # hd 128, all, ragged
+             (2, 512, 32, 512, 4, 32, 0, 128, 0),    # hd 32, window
+             (2, 512, 32, 512, 4, 32, 0, 0, 64),     # hd 32, prefix
+             (2, 256, 32, 256, 32, 16, 0, 0, 0)]     # hd 16, H == G
+    lib = build.load_library()
+    ran = set()   # (d, warps per CTA, window, prefix) of the bf16 cases
     worst, worst_lse = 0.0, 0.0
     for dt, (tol_o, tol_lse) in tols.items():
-        for Sq, H, Sk, G, d, off, win, pre in cases:
-            q = torch.randn((1, Sq, H, d), generator=gen,
+        for B, Sq, H, Sk, G, d, off, win, pre in cases:
+            nw = lib.flash_attention_fwd_warps(
+                B, Sq, H, build.DTYPE_CODES[str(dt)[6:]])
+            kern = f"flash_fwd_kernel_mma<{d},{nw}>" if nw else \
+                f"flash_fwd_kernel<{d}>"
+            if nw:
+                ran.add((d, nw, bool(win), bool(pre)))
+            q = torch.randn((B, Sq, H, d), generator=gen,
                             device="cuda").to(dt)
-            k = torch.randn((1, Sk, G, d), generator=gen,
+            k = torch.randn((B, Sk, G, d), generator=gen,
                             device="cuda").to(dt)
-            v = torch.randn((1, Sk, G, d), generator=gen,
+            v = torch.randn((B, Sk, G, d), generator=gen,
                             device="cuda").to(dt)
             o, lse = flash_attention_fwd(q, k, v, causal=True, window=win,
                                          prefix=pre, q_offset=off)
@@ -234,14 +337,25 @@ def phase_flash(torch, gen):
                                            prefix=pre, q_offset=off)
             e_o, e_l = max_err(o, o_ref), max_err(lse, lse_ref)
             ok = e_o <= tol_o and e_l <= tol_lse
-            print(f"[kernels] flash_attention_fwd {str(dt)[6:]} q [1,{Sq},"
-                  f"{H},{d}] kv [1,{Sk},{G},{d}] off={off} window={win} "
-                  f"prefix={pre}: max|d| o={e_o:.3e} (tol {tol_o:g}) "
+            print(f"[kernels] flash_attention_fwd {str(dt)[6:]} q [{B},{Sq},"
+                  f"{H},{d}] kv [{B},{Sk},{G},{d}] off={off} window={win} "
+                  f"prefix={pre} [{kern}]: max|d| o={e_o:.3e} (tol "
+                  f"{tol_o:g}) "
                   f"lse={e_l:.3e} (tol {tol_lse:g}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail("flash_attention_fwd disagrees with attention_ref")
             worst, worst_lse = max(worst, e_o), max(worst_lse, e_l)
+    need = {(d, nw) for d in HEAD_DIMS for nw in (1, 4)} | {
+        (d, 4, True, False) for d in (32, 128)} | {
+        (d, 4, False, True) for d in (32, 128)}
+    have = {r[:2] for r in ran} | ran
+    if not need <= have:
+        fail(f"flash_attention_fwd: phase 3 did not run the bf16 CTAs "
+             f"{sorted(need - have)}")
+    print("[kernels] flash_fwd_kernel_mma (bf16) dynamic shared memory, "
+          "the K/V ring of 2 stages x 64 rows: 512 * D bytes = "
+          + ", ".join(f"{512 * d // 1024} KB at D={d}" for d in HEAD_DIMS))
     # main-path shape: a 64-token prefill chunk at offset 192 (the last
     # chunk of a 256-token prompt) over the 512-slot bf16 cache
     Sq, H, Sk, G, d, off, dt = 64, 32, 512, 4, 64, 192, torch.bfloat16
@@ -645,8 +759,10 @@ def phase_train_shapes(torch, gen, rows):
     fby = max(fb, key=fb.get)
     print(f"[kernels] flash_attention_fwd timed at the training shape q "
           f"[1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 q_offset=0 (CUDA events):"
-          f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA (is_causal, "
-          f"GQA) {lib_ms:.3f} ms, bound {fb[fby] * 1e3:.2f} us ({fby}; "
+          f" kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s achieved), "
+          f"plain {plain_ms:.3f} ms, SDPA (is_causal, GQA) {lib_ms:.3f} ms "
+          f"({flops / lib_ms / 1e9:.1f} TFLOP/s; kernel = "
+          f"{ms / lib_ms:.2f}x SDPA), bound {fb[fby] * 1e3:.2f} us ({fby}; "
           f"{flops / 1e9:.2f} GFLOP) = {ms / fb[fby]:.1f}x bound")
     from repro_torch.kernels.flash_attention import flash_attention
     leaves = [a.clone().requires_grad_() for a in (q, k, v)]
@@ -678,22 +794,15 @@ def phase_train_shapes(torch, gen, rows):
     if not ok:
         fail("rmsnorm_rows disagrees with its plain version at the training "
              "shape")
-    ms = graph_ms(lambda: rmsnorm_rows(x, scale))
-    plain_ms = graph_ms(lambda: rmsnorm_rows_ref(x, scale))
-    lib_ms = graph_ms(lambda: F.rms_norm(x, (2048,), scale, 1e-6)) \
-        if hasattr(F, "rms_norm") else None
+    t = rmsnorm_times(torch, x, scale)
     nbytes = (2 * S * 2048 + 2048) * x.element_size()
     rb = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
           "operations": 4 * S * 2048 / FP32_FLOPS * 1e3}
     rby = max(rb, key=rb.get)
     print(f"[kernels] rmsnorm_rows timed at the training shape x [{S},2048] "
-          f"bf16 (CUDA graph): kernel {ms * 1e3:.2f} us, plain "
-          f"{plain_ms * 1e3:.2f} us, F.rms_norm "
-          f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, bound "
-          f"{rb[rby] * 1e3:.3f} us ({rby})")
+          f"bf16 {rmsnorm_line(t)}; bound {rb[rby] * 1e3:.3f} us ({rby})")
     rows["rmsnorm_rows"]["train"] = {
-        "max_abs_err": e_r, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-        "bound_ms": rb[rby], "bound_by": rby,
+        "max_abs_err": e_r, **t, "bound_ms": rb[rby], "bound_by": rby,
         "timed_shape": f"x [{S},2048] bf16"}
 
 
@@ -840,8 +949,6 @@ def phase_mamba_shapes(torch, gen, rows):
     """rmsnorm at mamba2-2.7b's training shapes (``norm1`` x [2048, 2560]
     and the gated norm [2048, 5120], bf16): held against its plain
     version and timed."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.rmsnorm import rmsnorm_rows, rmsnorm_rows_ref
     S, dt = TRAIN_SEQ - 1, torch.bfloat16
     out = {}
@@ -856,21 +963,15 @@ def phase_mamba_shapes(torch, gen, rows):
         if not rel_ok(got, want, 1e-6, 2.0 ** -7):
             fail(f"rmsnorm_rows disagrees with its plain version at "
                  f"[{S}, {d}]")
-        ms = graph_ms(lambda: rmsnorm_rows(x, scale))
-        plain_ms = graph_ms(lambda: rmsnorm_rows_ref(x, scale))
-        lib_ms = graph_ms(lambda: F.rms_norm(x, (d,), scale, 1e-6)) \
-            if hasattr(F, "rms_norm") else None
+        t = rmsnorm_times(torch, x, scale)
         rb = {"bytes": (2 * S * d + d) * 2 / HBM_BYTES_PER_S * 1e3,
               "operations": 4 * S * d / FP32_FLOPS * 1e3}
         rby = max(rb, key=rb.get)
         print(f"[kernels] rmsnorm_rows bf16 x [{S},{d}] (mamba2 training): "
-              f"max|d|={e:.3e} (tol 1e-06+0.0078125*|ref|) ok; kernel "
-              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, F.rms_norm "
-              f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
-              f"bound {rb[rby] * 1e3:.3f} us ({rby}) (CUDA graph)")
+              f"max|d|={e:.3e} (tol 1e-06+0.0078125*|ref|) ok; "
+              f"{rmsnorm_line(t)}; bound {rb[rby] * 1e3:.3f} us ({rby})")
         out[f"x [{S},{d}] bf16"] = {
-            "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": rb[rby], "bound_by": rby}
+            "max_abs_err": e, **t, "bound_ms": rb[rby], "bound_by": rby}
     rows["rmsnorm_rows"]["train_mamba2"] = out
 
 
@@ -1200,6 +1301,30 @@ def phase_train_checks(torch, arch: str, tag: str):
         fail(f"{arch} (d) the kernel update and the plain update differ")
 
 
+def print_ptxas(log: str) -> None:
+    """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
+    static shared memory, spill stores and loads (the flash kernel's
+    K/V ring is dynamic shared memory: 512 * D bytes)."""
+    import re
+    name, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            try:
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True).stdout.strip() or name
+            except OSError:
+                pass
+            name = re.sub(r"\(.*", "", name.replace("(anonymous namespace)::",
+                                                     ""))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            print(f"[build] {name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name, spill = None, ""
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1226,9 +1351,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f}s")
     log = build.BUILD_DIR / "build.log"
     if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
+        print_ptxas(log.read_text())
     build.load_library()
     done("card and build")
 

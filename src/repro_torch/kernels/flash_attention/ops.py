@@ -4,16 +4,21 @@ Replaces ``src/repro/kernels/flash_attention/kernel.py::
 flash_attention_fwd`` in both its static-offset (``_fwd_kernel``) and
 dynamic-offset (``_fwd_kernel_dyn``) forms, reached through
 ``ops.py::flash_attention`` / ``flash_attention_dyn``.  The kernel is
-``csrc/flash_attention.cu``: one CTA per (batch * q-head, 64-row q tile)
-looping over 32-row K/V tiles in shared memory, online softmax in fp32
-registers, KV head ``h // (H // G)`` indexed in place.  ``q_offset`` is a
-launch argument.  Its bound at the serving shape is device-memory bytes
-(K and V) with the tensor-core bound close behind; this first version
-does its products on the CUDA cores in fp32, as the TPU kernel does.
+``csrc/flash_attention.cu``; ``q_offset``, ``window`` and ``prefix`` are
+launch arguments and the KV head ``h // (H // G)`` is indexed in place.
+bf16 inputs take a FlashAttention-2 forward on the tensor cores
+(``mma.sync`` m16n8k16, fp32 accumulators): 16 q rows per warp, K/V tiles
+of 64 rows kept bf16 in a two-stage ``cp.async`` ring, online softmax in
+fp32 registers, P rounded to bf16 only as the operand of P V (the running
+sum adds the fp32 p, so ``lse`` keeps fp32 accuracy).  Its bound at the
+training shape is the tensor cores' rate, at the serving shape latency.
+fp32 inputs (checks only) take an fp32 CUDA-core kernel, as the TPU
+kernel computes in fp32.
 
 :func:`flash_attention_fwd` runs :func:`attention_ref` only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
-``flash_attention_fwd.launches`` counts kernel launches.
+on the CPU; for CUDA tensors it launches the kernel or raises, also for
+a q, k or v that is not 16-byte aligned (``cp.async`` copies 16-byte
+chunks).  ``flash_attention_fwd.launches`` counts kernel launches.
 
 :func:`flash_attention` is the static-offset ``jax.custom_vjp`` of
 ``repro/kernels/flash_attention/ops.py`` as a ``torch.autograd.Function``
@@ -97,6 +102,10 @@ def flash_attention_fwd(q, k, v, *, scale=None, causal=True, window=0,
         raise ValueError("flash_attention_fwd: q, k, v must be contiguous")
     if Sq == 0 or Sk == 0 or B == 0:
         raise ValueError("flash_attention_fwd: empty q or kv")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_fwd: {name} is not 16-byte "
+                             "aligned (the kernel copies 16-byte chunks)")
     lib = build.load_library()
     scale = scale or 1.0 / math.sqrt(d)
     o = torch.empty_like(q)

@@ -2,10 +2,14 @@
 
 Replaces ``src/repro/kernels/rmsnorm/kernel.py::rmsnorm_rows`` (body
 ``_kernel``), reached through ``ops.py::rmsnorm_fused``.  The kernel is
-``csrc/rmsnorm.cu``: one CTA per row, fp32 sum of squares reduced with
-warp shuffles, then ``x * rsqrt(mean + eps) * scale`` cast to the input
-type.  It is bound by memory (``2 * R * d * bytes + d * bytes``), and its
-design reads each row from device memory once.
+``csrc/rmsnorm.cu``: one to eight warps per row read it with 16-byte
+loads into registers, reduce the fp32 sum of squares with warp shuffles
+(and shared memory across the row's warps), then write
+``(x * rsqrt(mean + eps)) * scale``, cast to the input type, from those
+registers with 16-byte stores.  It is bound by memory
+(``2 * R * d * bytes + d * bytes``), and device memory sees each byte of
+x once.  A row whose width is not a multiple of the 16-byte vector (or
+too wide for the registers) takes the kernel's scalar loop instead.
 
 :func:`rmsnorm_rows` runs the plain version :func:`rmsnorm_rows_ref` only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.

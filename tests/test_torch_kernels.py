@@ -118,6 +118,71 @@ def test_attention_ref_fully_masked_row_averages_v():
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), rtol=1e-6)
 
 
+# Widths the vector path of the RMSNorm kernel takes (mamba2's 2560 and
+# 5120) and one it cannot (100: not a multiple of 8 bf16 values), in both
+# types.  fp32 at FLASH_TOL (sum order only); bf16 within one rounding step
+# of the output, 2^-7 relative.
+@pytest.mark.parametrize("d", [2560, 5120, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_rows_matches_pallas_at_model_widths(d, dtype):
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((5, d)).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    xt, st = (torch.from_numpy(a).to(getattr(torch, dtype))
+              for a in (x, scale))
+    got = rmsnorm_rows(xt, st, 1e-6).float().numpy()
+    want = np.asarray(jax_rmsnorm_fused(
+        jnp.asarray(x, dtype=dtype), jnp.asarray(scale, dtype=dtype), 1e-6)
+        .astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=FLASH_TOL, rtol=0)
+    else:
+        np.testing.assert_allclose(got, want, atol=RMS_TOL, rtol=2.0 ** -7)
+    assert rmsnorm_rows.launches == 0
+
+
+# The cases the tensor-core tiles of the CUDA kernel can get wrong, held
+# against the Pallas kernel with a static int q_offset (``_fwd_kernel``):
+# head dims 64 and 128, Sq and Sk off every tile size (16, 64, 128), H == G,
+# window and prefix edges, and bf16 inputs.  (d, Sq, Sk, H, G, q_offset,
+# window, prefix, dtype)
+FLASH_TILE_CASES = [
+    (64, 37, 150, 4, 4, 113, 0, 0, "float32"),
+    (128, 53, 201, 4, 2, 148, 0, 0, "float32"),
+    (64, 100, 100, 2, 1, 0, 0, 0, "bfloat16"),
+    (128, 45, 133, 2, 2, 88, 16, 5, "bfloat16"),
+    (64, 70, 190, 4, 2, 120, 24, 0, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("d,Sq,Sk,H,G,q_offset,window,prefix,dtype",
+                         FLASH_TILE_CASES)
+def test_flash_matches_pallas_static_offset(d, Sq, Sk, H, G, q_offset,
+                                            window, prefix, dtype):
+    """bf16: both compute in fp32 from the same bf16 inputs and round o
+    once, so o agrees within one bf16 step (2^-7 relative) and lse within
+    FLASH_TOL."""
+    rng = np.random.default_rng(d + Sq + Sk)
+    q = rng.standard_normal((1, Sq, H, d)).astype(np.float32)
+    k = rng.standard_normal((1, Sk, G, d)).astype(np.float32)
+    v = rng.standard_normal((1, Sk, G, d)).astype(np.float32)
+    o, lse = flash_attention_fwd(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)),
+        causal=True, window=window, prefix=prefix, q_offset=q_offset)
+    o_j, lse_j = jax_flash_fwd(
+        *(jnp.asarray(a, dtype=dtype) for a in (q, k, v)), causal=True,
+        window=window, prefix=prefix, q_offset=q_offset, interpret=True)
+    o_j = np.asarray(o_j.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(o.numpy(), o_j, atol=FLASH_TOL, rtol=0)
+    else:
+        np.testing.assert_allclose(o.float().numpy(), o_j, atol=RMS_TOL,
+                                   rtol=2.0 ** -7)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j),
+                               atol=FLASH_TOL, rtol=0)
+    assert flash_attention_fwd.launches == 0
+
+
 # ---------------------------------------------------------------------------
 # the autograd Functions around the kernels (kernel forward, plain backward)
 # ---------------------------------------------------------------------------
@@ -259,3 +324,34 @@ def test_fused_adamw_on_cuda_tensors_launches_or_raises(monkeypatch):
     with pytest.raises(ValueError, match="scalars"):
         fused_adamw_flat(*t, torch.ones(4).as_subclass(_CudaLooking), **kw)
     assert fused_adamw_flat.launches == before
+
+
+def test_flash_on_misaligned_cuda_tensors_raises_before_the_build(
+        monkeypatch):
+    """The kernel copies 16-byte chunks: a q, k or v that is not 16-byte
+    aligned is refused with a ValueError before the library is loaded,
+    and nothing is counted as launched."""
+    class Refused(Exception):
+        pass
+
+    def refuse():
+        raise Refused
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    before = flash_attention_fwd.launches
+
+    def cuda_view(shape, offset):
+        n = int(np.prod(shape))
+        flat = torch.zeros(n + offset, dtype=torch.bfloat16)
+        return flat[offset:].view(shape).as_subclass(_CudaLooking)
+
+    q, kv = cuda_view((1, 16, 8, 16), 0), cuda_view((1, 16, 2, 16), 0)
+    with pytest.raises(Refused):          # aligned: on to the build
+        flash_attention_fwd(q, kv, kv)
+    for args in ((cuda_view((1, 16, 8, 16), 1), kv, kv),
+                 (q, cuda_view((1, 16, 2, 16), 4), kv),
+                 (q, kv, cuda_view((1, 16, 2, 16), 3))):
+        assert args[0].is_contiguous()
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention_fwd(*args)
+    assert flash_attention_fwd.launches == before == 0
