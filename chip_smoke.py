@@ -43,8 +43,9 @@ Phase 3 also holds fused AdamW bitwise against its plain version, the
 RMSNorm, flash and SSD Functions' gradients against autograd through the
 plain versions (flash and SSD once more at the training length), the
 chunk body's kernels against their plain versions at the training shapes
-of both models, where it times them, and the SSD scan at three shapes
-in fp32 and bf16.
+of both models, where it times them, and the SSD scan at four shapes in
+fp32 and bf16, each case's route printed and checked (bf16: the
+tensor-core passes, fp32: the CUDA-core kernel).
 
 Needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -54,6 +55,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -844,25 +846,84 @@ def _ssd_bounds(B, S, H, P, N, Q, el):
     return nbytes, ops
 
 
+def _ssd_design_bytes(B, S, H, P, N, Q, el):
+    """(device-memory bytes, L2 re-reads) of the bf16 route's three
+    passes, if nothing stayed in the L2 between them: what the call must
+    move plus the state scratch [B, S/Q, H, P, N] fp32 (written by pass a,
+    read and written by pass b, read by pass c) and cum; and, apart, the
+    chunk's B (pass a) and B and C (pass c) tiles that every head and
+    64-column block re-reads, which the L2 serves."""
+    nc, npb = S // Q, -(-P // 64)
+    must, _ = _ssd_bounds(B, S, H, P, N, Q, el)
+    states = B * nc * H * P * N * 4
+    cum = B * nc * H * Q * 4
+    rereads = 3 * B * nc * H * npb * Q * N * el + 2 * npb * B * S * H * 4
+    return must + 4 * states + 2 * cum, rereads
+
+
+def _ssd_kernel_ms(torch, fn, calls: int = 1) -> dict:
+    """Kernel name -> device ms per call of each SSD kernel that ``fn``
+    launches, from ``torch.profiler`` over ``calls`` calls after one more
+    untraced; the names tell the routes apart (``ROUTE_KERNELS``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"\bssd_scan_kernel\w*", e.key)
+        if m:
+            dev = getattr(e, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(e, "self_cuda_time_total", 0.0)
+            out[m.group(0)] = out.get(m.group(0), 0.0) + dev / 1e3 / calls
+    return out
+
+
+def _ssd_route_of(names) -> str:
+    """The route whose kernels are exactly ``names``, else 'none'."""
+    from repro_torch.kernels.ssd_scan.ops import ROUTE_KERNELS
+    return next((r for r, ks in ROUTE_KERNELS.items()
+                 if set(names) == set(ks)), "none")
+
+
 def phase_ssd(torch, gen):
     """``ssd_scan`` against ``ssd_chunked_ref`` on the card at (a) the
     reduced config's shape with S=17 (padded through ``ssd``), (b) S=256,
     Q=64, H=4, P=32, N=16, batch 2, (c) mamba2-2.7b's training shape x
-    [1,2048,80,64], B and C [1,2048,128], Q=128, in bf16 and fp32; then
-    timed at (c) in bf16."""
+    [1,2048,80,64], B and C [1,2048,128], Q=128, (d) P, N and Q off the
+    16-multiples (P=24, N=40, Q=48), (e) P above one 64-column block and
+    N at its limit (P=80, N=256, Q=64), in bf16 and fp32; each case
+    prints the route whose kernels the profiler saw it run (bf16: the
+    tensor-core passes, fp32: the CUDA-core kernel) and fails on any
+    other.  Then timed at (c) in bf16 beside the plain version and the
+    CUDA-core route on the same inputs in fp32."""
     from repro_torch.kernels.ssd_scan import (SSDScan, ssd, ssd_chunked_ref,
-                                              ssd_scan)
+                                              ssd_scan, ssd_scan_route)
     cases = [("a", 2, 17, 8, 32, 16, 16), ("b", 2, 256, 4, 32, 16, 64),
-             ("c", 1, TRAIN_SEQ - 1, 80, 64, 128, 128)]
+             ("c", 1, TRAIN_SEQ - 1, 80, 64, 128, 128),
+             ("d", 2, 96, 3, 24, 40, 48), ("e", 1, 128, 2, 80, 256, 64)]
     worst, worst_rel = 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
+        want = ssd_scan_route(dtype)
         for name, B, S, H, P, N, Q in cases:
             ins = _ssd_inputs(torch, gen, B, S, H, P, N, dtype)
             if S % Q:
-                y, h = ssd(*ins, chunk=Q)          # pads, then the kernel
+                def call():
+                    return ssd(*ins, chunk=Q)          # pads, then the kernel
             else:
-                y, h = ssd_scan(*ins, chunk=Q)
+                def call():
+                    return ssd_scan(*ins, chunk=Q)
+            before = ssd_scan.launches
+            y, h = call()
             torch.cuda.synchronize()
+            if ssd_scan.launches != before + 1:
+                fail(f"ssd_scan ({name}, {dtype}) counted "
+                     f"{ssd_scan.launches - before} launches, not 1")
+            ran = _ssd_route_of(_ssd_kernel_ms(torch, call))
             y_ref, h_ref = ssd_chunked_ref(*ins, Q)
             scale = max(1.0, float(y_ref.abs().max()),
                         float(h_ref.abs().max()))
@@ -870,9 +931,12 @@ def phase_ssd(torch, gen):
             ok = (y.shape == y_ref.shape and h.shape == h_ref.shape
                   and max(e_y, e_h) <= SSD_TOL * scale)
             print(f"[kernels] ssd_scan ({name}) {str(dtype)[6:]} x [{B},{S},"
-                  f"{H},{P}] N={N} Q={Q}: max|d| y={e_y:.3e} h={e_h:.3e} "
+                  f"{H},{P}] N={N} Q={Q}, route {ran}: "
+                  f"max|d| y={e_y:.3e} h={e_h:.3e} "
                   f"(tol {SSD_TOL:g} * {scale:.3g}) "
                   f"{'ok' if ok else 'FAIL'}")
+            if ran != want:
+                fail(f"ssd_scan ({name}, {dtype}) ran {ran}, not {want}")
             if not ok:
                 fail(f"ssd_scan disagrees with ssd_chunked_ref ({name}, "
                      f"{dtype})")
@@ -881,8 +945,12 @@ def phase_ssd(torch, gen):
     # main-path shape: one mamba2-2.7b layer's scan in training, bf16
     B, S, H, P, N, Q = 1, TRAIN_SEQ - 1, 80, 64, 128, 128
     ins = _ssd_inputs(torch, gen, B, S, H, P, N, torch.bfloat16)
-    ms = time_ms(lambda: ssd_scan(*ins, chunk=Q), iters=20, warmup=3)
+    wide = [t.float() for t in ins]
+    ms = time_ms(lambda: ssd_scan(*ins, chunk=Q), iters=50, warmup=5)
+    was_ms = time_ms(lambda: ssd_scan(*wide, chunk=Q), iters=10, warmup=2)
     plain_ms = time_ms(lambda: ssd_chunked_ref(*ins, Q), iters=5, warmup=1)
+    passes = _ssd_kernel_ms(torch, lambda: ssd_scan(*ins, chunk=Q), calls=10)
+    del wide
     leaves = [t.clone().requires_grad_() for t in ins]
     y, h = SSDScan.apply(*leaves, Q)
     dy = torch.randn(y.shape, generator=gen, device="cuda")
@@ -894,13 +962,28 @@ def phase_ssd(torch, gen):
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
               "operations": ops / BF16_FLOPS * 1e3}
     bound_by = max(bounds, key=bounds.get)
+    dram, rereads = _ssd_design_bytes(B, S, H, P, N, Q, 2)
+    route = ssd_scan_route(torch.bfloat16)
     print(f"[kernels] ssd_scan timed at x [{B},{S},{H},{P}] bf16, N={N}, "
-          f"Q={Q} (CUDA events): kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-          f"ms, bound {bounds[bound_by] * 1e3:.2f} us ({bound_by}; "
+          f"Q={Q} (CUDA events), route {route}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, the CUDA-core route on the same inputs "
+          f"widened to fp32 {was_ms:.3f} ms, bound "
+          f"{bounds[bound_by] * 1e3:.2f} us ({bound_by}; "
           f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) = "
           f"{ms / bounds[bound_by]:.1f}x bound; no one-call PyTorch "
           f"yardstick; the SSDScan backward (plain VJP, recomputing "
           f"ssd_chunked_ref) {bwd_ms:.3f} ms")
+    print(f"[kernels] ssd_scan design traffic (three passes, a model of "
+          f"the shapes, not a measurement): {dram / 1e6:.1f} MB of device "
+          f"memory if nothing stays in the L2 "
+          f"({dram / HBM_BYTES_PER_S * 1e6:.2f} us at 3.35 TB/s; the "
+          f"{nbytes / 1e6:.1f} MB the call must "
+          f"move plus the fp32 state scratch, written, read and written, "
+          f"read), and {rereads / 1e6:.1f} MB of B, C and dt re-read per "
+          f"head from the L2")
+    print(f"[kernels] ssd_scan passes (torch.profiler, device ms per call): "
+          + (", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+             or "not measured (no device time reported)"))
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:60",
@@ -908,6 +991,7 @@ def phase_ssd(torch, gen):
             "max_err_over_scale": worst_rel,     # scale: max(1, max|ref|)
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[bound_by],
             "bound_by": bound_by, "library_ms": None,
+            "kernel_route": route, "was_ms": was_ms, "pass_ms": passes,
             "plain_bwd_ms": bwd_ms,
             "timed_shape": f"x [{B},{S},{H},{P}] B,C [{B},{S},{N}] bf16, "
                            f"Q={Q}"}
@@ -1125,8 +1209,17 @@ def phase_train(torch, arch: str, tag: str, bwd_ms):
         fail(f"{arch}: master weight leaves {unchanged} did not change")
     bwd = [(kind, bwd_ms[kind], plain_backward_calls(spec, kind))
            for kind in ("attn", "mamba") if _layers_of(spec, kind)]
-    profile_train_step(torch, tc, P, out["params"], out["opt_state"], med,
-                       tag, bwd)
+    ssd_counts = profile_train_step(torch, tc, P, out["params"],
+                                    out["opt_state"], med, tag, bwd)
+    if per_step["ssd_scan"]:
+        # the device ran the tensor-core passes, once each per scan
+        from repro_torch.kernels.ssd_scan.ops import ROUTE_KERNELS
+        want_ssd = {k: per_step["ssd_scan"]
+                    for k in ROUTE_KERNELS["tensor_cores"]}
+        print(f"[{tag}] ssd_scan kernels in the profiled step: {ssd_counts}")
+        if ssd_counts != want_ssd:
+            fail(f"{arch}: the profiled step ran SSD kernels {ssd_counts}, "
+                 f"not the tensor-core route's {want_ssd}")
     del out, params
     torch.cuda.empty_cache()
     return launches
@@ -1139,7 +1232,8 @@ def profile_train_step(torch, tc, P, params, opt_state, untraced_s, tag,
     read): device busy share and the device time of our kernels, the
     matmuls and the rest.  ``bwd``: (layer kind, ms per call, calls per
     step) of the kernel Functions' plain backwards, whose share is their
-    per-call time times their calls."""
+    per-call time times their calls.  Returns SSD kernel name -> its
+    launches in the step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import SyntheticLM
@@ -1160,10 +1254,13 @@ def profile_train_step(torch, tc, P, params, opt_state, untraced_s, tag,
     fams = {"fused_adamw_flat (ours)": 0.0, "rmsnorm_rows (ours)": 0.0,
             "flash_attention_fwd (ours)": 0.0, "ssd_scan (ours)": 0.0,
             "matmul": 0.0, "other": 0.0}
-    rows = []
+    rows, ssd_counts = [], {}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue                  # runtime calls; their kernels count
+        m = re.search(r"\bssd_scan_kernel\w*", e.key)
+        if m:
+            ssd_counts[m.group(0)] = ssd_counts.get(m.group(0), 0) + e.count
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0.0)
@@ -1188,7 +1285,7 @@ def profile_train_step(torch, tc, P, params, opt_state, untraced_s, tag,
     if busy <= 0:
         print(f"[profile-{tag}] the profiler reported no device time: "
               "device breakdown not measured")
-        return
+        return ssd_counts
     print(f"[profile-{tag}] one chronos_zb step: wall {wall_us / 1e3:.1f} "
           f"ms (profiled; {wall_us / 1e6 / untraced_s:.2f}x the untraced "
           f"median), device busy {busy / 1e3:.1f} ms = "
@@ -1208,6 +1305,7 @@ def profile_train_step(torch, tc, P, params, opt_state, untraced_s, tag,
     for dev, count, key in sorted(rows, reverse=True)[:10]:
         print(f"[profile-{tag}]   top: {dev / 1e3:8.2f} ms x{count:<6d} "
               f"{key[:90]}")
+    return ssd_counts
 
 
 def phase_train_checks(torch, arch: str, tag: str):
@@ -1357,7 +1455,7 @@ def main() -> None:
 
     # 3. kernels vs plain at the serving shapes; fused AdamW; gradients
     #    through the kernel Functions; the chunk body's kernels timed at
-    #    the training shapes; the SSD scan at three shapes, its gradients,
+    #    the training shapes; the SSD scan at four shapes, its gradients,
     #    rmsnorm at mamba2's shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [phase_rmsnorm(torch, gen), phase_flash(torch, gen),

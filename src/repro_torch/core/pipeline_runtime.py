@@ -29,8 +29,10 @@ Op semantics mirror the reference's phase executor:
   the loss sum; the op's input boundary goes to the activation ring.
 - **B, fused** (tables without W): recompute the chunk from its stored
   boundary under autograd and ``torch.autograd.grad`` with explicit
-  inputs — the input gradient goes upstream, block gradients (and the
-  head's or the embedding's at the pipeline ends) accumulate in fp32.
+  inputs — the input gradient goes upstream, block gradients accumulate
+  in each block leaf's own dtype (bf16 at full width) and the head's or
+  the embedding's at the pipeline ends in fp32, as in the reference
+  (``zero_blocks_g = zeros_like(blocks)``, fp32 shared accumulators).
 - **B, split**: the input gradient only; boundary and upstream gradient
   go to the W-stash.  **W** recomputes from the stash and takes the
   parameter gradients only.
@@ -303,8 +305,9 @@ class _Executor:
                     seeds, x=None):
         """Gradients of ``outs`` (seeded by ``seeds``) w.r.t. the block's
         parameters (+ the shared ones at the pipeline ends, + ``x``):
-        parameter gradients add into the fp32 accumulators, the input
-        gradient is returned."""
+        parameter gradients add into the accumulators (a block leaf's in
+        its own dtype, a shared leaf's in fp32), the input gradient is
+        returned."""
         blk = tree_leaves(blocks_c)
         shl = tree_leaves(sh) if with_shared else []
         wrt = blk + shl + ([x] if x is not None else [])
@@ -323,10 +326,7 @@ class _Executor:
         shared = {k: v for k, v in params.items() if k != "blocks"}
         dev = params["final_norm"]["scale"].device
         acc = {
-            "gb": tree_map(lambda a: torch.zeros(a.shape,
-                                                 dtype=torch.float32,
-                                                 device=a.device),
-                           params["blocks"]),
+            "gb": tree_map(torch.zeros_like, params["blocks"]),
             "gs": tree_map(lambda a: torch.zeros(a.shape,
                                                  dtype=torch.float32,
                                                  device=a.device), shared),
@@ -371,8 +371,9 @@ def _grad(outputs, seeds, inputs):
 def make_train_grads_fn(spec: PipelineSpec, device):
     """Returns ``fn(params, batch) -> (grads, metrics)`` running the full
     schedule.  ``batch``: ``tokens`` [m, mbB, S + 1] (+ optional
-    ``loss_mask`` [m, mbB, S]) on ``device``.  ``grads`` are fp32 and
-    summed over the microbatches: ``{"blocks": [...], "embed": ...,
+    ``loss_mask`` [m, mbB, S]) on ``device``.  ``grads`` are summed over
+    the microbatches, block leaves in their parameters' dtype and shared
+    leaves in fp32: ``{"blocks": [...], "embed": ...,
     "final_norm": ...}``; ``metrics``: ``loss`` (mean CE, a device
     tensor) and ``n_microbatches``.  ``fn.rings`` are the executor's
     preallocated buffers."""
@@ -388,8 +389,9 @@ def make_train_grads_fn(spec: PipelineSpec, device):
 def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
                          use_kernel: bool = True):
     """Gradients, then the AdamW step on them: returns ``fn(params,
-    opt_state, batch) -> (params, opt_state, metrics)``.  Gradients are
-    divided by ``m`` (the number of microbatches) and go to
+    opt_state, batch) -> (params, opt_state, metrics)``.  The update reads
+    each gradient as ``g.float() / m`` (``m`` microbatches), as the
+    reference's ``g.astype(f32) / m``, in
     :func:`repro_torch.optim.adamw.adamw_update` — with ``use_kernel``,
     one fused-AdamW kernel launch per parameter leaf.  The optimizer
     state and ``params`` are updated in place (``params`` is returned)."""
@@ -398,9 +400,9 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
 
     def fn(params, opt_state, batch):
         grads, metrics = grads_fn(params, batch)
-        tree_map(lambda g: g.div_(m_dev), grads)
         master, opt_state, om = adamw_update(grads, opt_state, ocfg,
-                                             use_kernel=use_kernel)
+                                             use_kernel=use_kernel,
+                                             grad_div=m_dev)
         return cast_like(master, params), opt_state, {**metrics, **om}
 
     fn.rings = grads_fn.rings

@@ -2,12 +2,14 @@
 
 Replaces ``src/repro/kernels/ssd_scan/kernel.py::ssd_scan`` (body
 ``_kernel``), reached through ``ops.py::ssd`` on the fused backend's
-training path (``ComputeBackend.ssd`` with no carried state).  The kernel
-is ``csrc/ssd_scan.cu``: one CTA per (batch * head, 16 head-dim columns)
-loops over the chunks with its slice of the state in shared memory; B and
-C are indexed by batch, never copied per head.  It is bound by bytes (x
-in, y out in fp32); this first version does its products in fp32 on the
-CUDA cores and recomputes C B^T in every CTA.
+training path (``ComputeBackend.ssd`` with no carried state).  The kernels
+are in ``csrc/ssd_scan.cu``, bound by bytes (x in, y out in fp32).  The
+route is chosen by dtype (:func:`ssd_scan_route`): bf16 x, B and C take
+three tensor-core passes (each chunk's state contribution, the carry over
+the chunks, then each chunk's output), with an fp32 state scratch the
+wrapper allocates; fp32 inputs take the CUDA-core kernel, one CTA per
+(batch * head, 16 head-dim columns) looping over the chunks.  B and C are
+indexed by batch, never copied per head.
 
 - :func:`ssd_chunked_ref` is the plain version, a copy of
   ``repro/models/mamba.py::_ssd_chunked`` (zero-pad to a chunk multiple,
@@ -16,8 +18,10 @@ CUDA cores and recomputes C B^T in every CTA.
 - :func:`ssd_reference` is the sequential recurrence, the oracle of the
   tests.
 - :func:`ssd_scan` runs :func:`ssd_chunked_ref` only for tensors on the
-  CPU; for CUDA tensors it launches the kernel or raises.
-  ``ssd_scan.launches`` counts kernel launches.
+  CPU; for CUDA tensors it launches its route's kernels or raises.
+  ``ssd_scan.launches`` counts its calls that launched (one per scan,
+  whatever the route); :data:`ROUTE_KERNELS` names the kernels each route
+  runs, by which a profile tells the routes apart.
 - :class:`SSDScan` mirrors the reference's ``jax.custom_vjp``: the forward
   pads and runs :func:`ssd_scan`, saving only x, B, C, dt and A; the
   backward recomputes :func:`ssd_chunked_ref` under autograd (the
@@ -33,6 +37,24 @@ from repro_torch.kernels import build
 
 MAX_CHUNK = 128            # csrc/ssd_scan.cu kMaxQ
 MAX_STATE = 256            # csrc/ssd_scan.cu kMaxN
+
+TENSOR_CORES = "tensor_cores"
+CUDA_CORES = "cuda_cores"
+ROUTE_KERNELS = {
+    TENSOR_CORES: ("ssd_scan_kernel_states", "ssd_scan_kernel_pass",
+                   "ssd_scan_kernel_out"),
+    CUDA_CORES: ("ssd_scan_kernel",),
+}
+
+
+def ssd_scan_route(dtype: torch.dtype) -> str:
+    """The kernels a scan of x, B and C in ``dtype`` runs on the card:
+    bf16 takes the tensor-core passes, fp32 the CUDA-core kernel."""
+    if dtype == torch.bfloat16:
+        return TENSOR_CORES
+    if dtype == torch.float32:
+        return CUDA_CORES
+    raise ValueError(f"ssd_scan: no kernel for {dtype}")
 
 
 def _pad_to_chunk(x, Bc, Cc, dt, chunk: int):
@@ -151,13 +173,14 @@ def _check(x, Bc, Cc, dt, A, Q):
         raise ValueError("ssd_scan: inputs must be contiguous")
     if x.numel() == 0 or N == 0:
         raise ValueError("ssd_scan: empty input")
-    return dt_name
 
 
 def ssd_scan(x, Bc, Cc, dt, A, *, chunk: int = 64):
     """x [B,S,H,P]; Bc,Cc [B,S,N]; dt [B,S,H] (fp32 post-softplus);
     A [H] negative.  S must be a multiple of ``min(chunk, S)``.
-    Returns (y [B,S,H,P] fp32, h [B,H,P,N] fp32)."""
+    Returns (y [B,S,H,P] fp32, h [B,H,P,N] fp32).  The bf16 route also
+    allocates its scratch: the chunks' states [B, S/Q, H, P, N] and their
+    cum and dt [B, S/Q, H, 2, Q], fp32."""
     S = x.shape[1]
     Q = min(chunk, S)
     if S % Q:
@@ -165,18 +188,24 @@ def ssd_scan(x, Bc, Cc, dt, A, *, chunk: int = 64):
                          f"{Q}: pad the sequence first")
     if all(t.device.type == "cpu" for t in (x, Bc, Cc, dt, A)):
         return ssd_chunked_ref(x, Bc, Cc, dt, A, chunk)
-    dt_name = _check(x, Bc, Cc, dt, A, Q)
+    _check(x, Bc, Cc, dt, A, Q)
+    route = ssd_scan_route(x.dtype)
     Bsz, _, H, P = x.shape
     N = Bc.shape[-1]
     lib = build.load_library()
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    err = lib.ssd_scan_launch(
-        x.data_ptr(), Bc.data_ptr(), Cc.data_ptr(), dt.data_ptr(),
-        A.data_ptr(), y.data_ptr(), h.data_ptr(), Bsz, S, H, P, N, Q,
-        build.DTYPE_CODES[dt_name],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, err, "ssd_scan")
+    tc = route == TENSOR_CORES
+    launch = lib.ssd_scan_bf16_launch if tc else lib.ssd_scan_f32_launch
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty(x.shape, **f32)
+    h = torch.empty((Bsz, H, P, N), **f32)
+    # the bf16 route's scratch: each chunk's state contribution, then the
+    # state it starts from; each chunk's cum and dt
+    scratch = [torch.empty((Bsz, S // Q, H, P, N), **f32),
+               torch.empty((Bsz, S // Q, H, 2, Q), **f32)] if tc else []
+    err = launch(*(t.data_ptr() for t in (x, Bc, Cc, dt, A, y, h, *scratch)),
+                 Bsz, S, H, P, N, Q,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, f"ssd_scan ({route})")
     ssd_scan.launches += 1
     return y, h
 

@@ -10,8 +10,10 @@ The update runs **in place**: ``mu``, ``nu`` and ``master`` are
 overwritten leaf by leaf and the same state dict is returned (the
 reference returns new trees; here that would hold two copies of the
 optimizer state).  fp32 gradients are scaled by the clip factor in
-place too, so the caller's gradient tree is consumed.  ``use_kernel=True``
-runs each leaf's step through the fused CUDA kernel
+place too, so the caller's gradient tree is consumed; a gradient leaf of
+another dtype is widened to fp32 where the norm and the update read it,
+one leaf at a time, so no fp32 copy of a bf16 gradient tree is held.
+``use_kernel=True`` runs each leaf's step through the fused CUDA kernel
 (:func:`repro_torch.kernels.fused_adamw.adamw_update_leaf`); the default
 is the kernel's plain version, which follows the kernel's operation
 order, so the two paths agree bitwise on the card.
@@ -54,15 +56,33 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(grads, state, cfg: OptimizerConfig, *,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, grad_div=None):
     """Returns ``(master, state, metrics)``; ``state`` is updated in place
     (see the module docstring).  ``grads`` may be any float dtype; the
-    math is fp32.  ``metrics`` holds ``grad_norm`` and ``lr`` as device
-    tensors."""
+    math is fp32.  With ``grad_div`` (a device scalar) the update reads
+    ``g.float() / grad_div``, the reference's ``g.astype(f32) / m``: fp32
+    leaves are divided in place first, other leaves as they are widened.
+    ``metrics`` holds ``grad_norm`` and ``lr`` as device tensors."""
     leaf_step = adamw_update_leaf if use_kernel else fused_adamw_flat_ref
+    if grad_div is not None:
+        for g in tree_leaves(grads):
+            if g.dtype == torch.float32:
+                g.div_(grad_div)
+
+    def f32(g):
+        """Leaf ``g`` as the update reads it: an fp32 leaf itself (divided
+        above), another dtype widened to a new fp32 tensor, then divided."""
+        if g.dtype == torch.float32 or grad_div is None:
+            return g.float()
+        return g.float().div_(grad_div)
+
+    def sq_sum(g):
+        w = f32(g)         # squared in place unless it is the leaf itself
+        return (w.square() if w is g else w.square_()).sum()
+
     step = state["step"] + 1
     lr = lr_at(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = torch.sqrt(sum(sq_sum(g) for g in tree_leaves(grads)) + 1e-30)
     if cfg.grad_clip > 0:
         clip = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
                            / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -76,7 +96,7 @@ def adamw_update(grads, state, cfg: OptimizerConfig, *,
     masks = _decay_masks(grads)
 
     def upd(g, mu, nu, w, decay_on):
-        g = g.float().mul_(clip)
+        g = f32(g).mul_(clip)
         leaf_step(g, mu, nu, w, scalars, b1=b1, b2=b2, eps=cfg.eps,
                   wd=cfg.weight_decay if decay_on else 0.0)
 

@@ -7,6 +7,9 @@ in interpret mode (``ssd_scan(..., interpret=True)`` and the ``ssd`` op,
 which picks interpret mode on the CPU), the jnp ``_ssd_chunked`` and the
 sequential ``ssd_reference``.  On CPU tensors the port's kernel wrapper
 runs its plain version, ``ssd_chunked_ref``."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +24,9 @@ from repro.models import mamba as JM
 from repro_torch.configs import get_reduced
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan import (SSDScan, ssd, ssd_chunked_ref,
-                                          ssd_reference, ssd_scan)
+                                          ssd_reference, ssd_scan,
+                                          ssd_scan_route)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import backend as TB
 from repro_torch.models import mamba as TM
 
@@ -30,6 +35,7 @@ SSD_TOL = 1e-5            # fp32 chunk scan, port vs JAX (three oracles)
 SSD_GRAD_TOL = 1e-4       # SSDScan gradients vs jax.vjp of the JAX op
 BLOCK_TOL = 2e-5          # mamba_block forward, port vs JAX
 BLOCK_GRAD_TOL = 2e-4     # mamba_block parameter gradients
+SSD_ROUTE_TOL = 1e-4      # of max(1, max|ref|): chip_smoke.py's SSD_TOL
 
 CFG = get_reduced("mamba2-2.7b")
 JCFG = jax_get_reduced("mamba2-2.7b")
@@ -148,35 +154,215 @@ class _CudaLooking(torch.Tensor):
 
 
 def test_ssd_scan_on_cuda_tensors_launches_or_raises(monkeypatch):
-    """For a CUDA tensor the wrapper goes to its kernel (the build,
-    stubbed to fail here) and never to the plain version; it rejects what
-    the kernel does not take."""
+    """For a CUDA tensor the wrapper goes to its route's C entry point,
+    chosen by dtype (bf16: the tensor-core passes, fp32: the CUDA-core
+    kernel), with the build stubbed: a library whose entry points raise
+    with their name.  It never falls back to the plain version, and it
+    rejects what the kernel does not take before the build."""
     class Refused(Exception):
         pass
 
-    def refuse():
-        raise Refused
+    class Library:
+        def __getattr__(self, name):
+            raise Refused(name)
 
-    monkeypatch.setattr(build, "load_library", refuse)
+    builds = []
+
+    def load():
+        builds.append(1)
+        return Library()
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(build, "load_library", load)
+    monkeypatch.setattr(ssd_ops, "ssd_chunked_ref", no_plain)
     inp = _ssd_inputs(32, seed=5)
-    cl = {k: torch.from_numpy(v).as_subclass(_CudaLooking)
-          for k, v in inp.items()}
-    args = [cl[k] for k in ("x", "Bc", "Cc", "dt", "A")]
     before = ssd_scan.launches
-    with pytest.raises(Refused):
-        ssd_scan(*args, chunk=CHUNK)
-    with pytest.raises(Refused):
-        ssd(*args, chunk=CHUNK)                 # the Function's forward
-    with pytest.raises(ValueError, match="multiple"):
-        ssd_scan(*args, chunk=24)               # 32 % 24: not padded
-    with pytest.raises(ValueError, match="float32"):
-        ssd_scan(args[0], args[1], args[2], args[3].double(), args[4],
-                 chunk=CHUNK)
-    long = [torch.zeros(s).as_subclass(_CudaLooking) for s in
-            ((1, 256, 1, 8), (1, 256, 16), (1, 256, 16), (1, 256, 1), (1,))]
-    with pytest.raises(ValueError, match="kernel's"):
-        ssd_scan(*long, chunk=256)              # chunk above 128
+    for dtype, entry, route in (
+            (torch.float32, "ssd_scan_f32_launch", "cuda_cores"),
+            (torch.bfloat16, "ssd_scan_bf16_launch", "tensor_cores")):
+        assert ssd_scan_route(dtype) == route
+        cl = {k: torch.from_numpy(v).to(dtype if k in ("x", "Bc", "Cc")
+                                        else torch.float32)
+              .as_subclass(_CudaLooking) for k, v in inp.items()}
+        args = [cl[k] for k in ("x", "Bc", "Cc", "dt", "A")]
+        with pytest.raises(Refused, match=f"^{entry}$"):
+            ssd_scan(*args, chunk=CHUNK)
+        with pytest.raises(Refused, match=f"^{entry}$"):
+            ssd(*args, chunk=CHUNK)             # the Function's forward
+        n = len(builds)
+        with pytest.raises(ValueError, match="multiple"):
+            ssd_scan(*args, chunk=24)           # 32 % 24: not padded
+        with pytest.raises(ValueError, match="float32"):
+            ssd_scan(args[0], args[1], args[2], args[3].double(), args[4],
+                     chunk=CHUNK)
+        with pytest.raises(ValueError, match="the same"):
+            ssd_scan(args[0], args[1].double(), args[2], args[3], args[4],
+                     chunk=CHUNK)
+        long = [torch.zeros(s, dtype=dt).as_subclass(_CudaLooking)
+                for s, dt in (((1, 256, 1, 8), dtype), ((1, 256, 16), dtype),
+                              ((1, 256, 16), dtype),
+                              ((1, 256, 1), torch.float32),
+                              ((1,), torch.float32))]
+        with pytest.raises(ValueError, match="kernel's"):
+            ssd_scan(*long, chunk=256)          # chunk above 128
+        wide = [torch.zeros(s, dtype=dt).as_subclass(_CudaLooking)
+                for s, dt in (((1, 32, 1, 8), dtype), ((1, 32, 264), dtype),
+                              ((1, 32, 264), dtype),
+                              ((1, 32, 1), torch.float32),
+                              ((1,), torch.float32))]
+        with pytest.raises(ValueError, match="kernel's"):
+            ssd_scan(*wide, chunk=CHUNK)        # state above 256
+        assert len(builds) == n                 # refused before the build
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd_scan_route(torch.float16)
     assert ssd_scan.launches == before
+
+
+def test_route_kernels_are_the_sources_kernels():
+    """``ROUTE_KERNELS``, by which a profile tells the routes apart, names
+    exactly the ``__global__`` functions of ``csrc/ssd_scan.cu``, and no
+    name of one route is a name of the other."""
+    src = (Path(ssd_ops.__file__).parents[2] / "csrc" / "ssd_scan.cu"
+           ).read_text()
+    defined = set(re.findall(
+        r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", src))
+    named = [k for ks in ssd_ops.ROUTE_KERNELS.values() for k in ks]
+    assert sorted(named) == sorted(defined)
+    assert set(ssd_ops.ROUTE_KERNELS) == {ssd_scan_route(torch.bfloat16),
+                                          ssd_scan_route(torch.float32)}
+
+
+# ---------------------------------------------------------------------------
+# a mirror of the bf16 route's arithmetic (csrc/ssd_scan.cu)
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    """Round to bf16 (nearest even) and widen back to fp32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _split(a):
+    """The kernel's hi / lo pair of an fp32 operand: hi = bf16(a), lo =
+    bf16(a - hi); with ``single`` the lo half is dropped (one rounding)."""
+    hi = _bf16(a)
+    return hi, _bf16(a.astype(np.float32) - hi)
+
+
+def _mma(acc, a, b, k_axis_a, k_axis_b, spec):
+    """``acc += a b`` the way mma.sync m16n8k16 sums: bf16 operands, each
+    16-deep k-slab's products summed exactly (float64 here) and added to
+    the fp32 accumulator."""
+    K = a.shape[k_axis_a]
+    for k0 in range(0, K, 16):
+        sa = np.take(a, range(k0, min(k0 + 16, K)), axis=k_axis_a)
+        sb = np.take(b, range(k0, min(k0 + 16, K)), axis=k_axis_b)
+        acc = (acc + np.einsum(spec, sa.astype(np.float64),
+                               sb.astype(np.float64))).astype(np.float32)
+    return acc
+
+
+def _mma_split(acc, a32, b, k_axis_a, k_axis_b, spec, single):
+    """``acc += a32 b`` for an fp32 operand ``a32``: the hi product then
+    the lo product for each k-slab, as the kernel issues them (only the
+    hi one with ``single``)."""
+    hi, lo = _split(a32)
+    K = a32.shape[k_axis_a]
+    for k0 in range(0, K, 16):
+        ks = range(k0, min(k0 + 16, K))
+        sb = np.take(b, ks, axis=k_axis_b).astype(np.float64)
+        for part in ((hi,) if single else (hi, lo)):
+            acc = (acc + np.einsum(spec, np.take(part, ks, axis=k_axis_a)
+                                   .astype(np.float64), sb)).astype(
+                                       np.float32)
+    return acc
+
+
+def _ssd_bf16_route_mirror(x, Bm, Cm, dt, A, Q, single=False):
+    """The three passes of the bf16 route on one batch row at a time:
+    x, B, C already bf16 (held as fp32), dt and A fp32.  Pass a: cum per
+    chunk and head, the state contribution (x o w)^T B with w = exp(cum_end
+    - cum) dt split hi / lo; pass b: the carry over the chunks; pass c:
+    exp(cum_i) (C h_in^T) with h_in split, plus (C B^T o L) x with C B^T o
+    L split.  Returns y [B,S,H,P] and h [B,H,P,N], fp32."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = S // Q
+    f32 = np.float32
+    y = np.zeros((Bsz, S, H, P), f32)
+    hout = np.zeros((Bsz, H, P, N), f32)
+    tri = np.tril(np.ones((Q, Q), bool))
+    for b in range(Bsz):
+        xc = x[b].reshape(nc, Q, H, P).transpose(0, 2, 1, 3)    # [c,H,Q,P]
+        Bc_, Cc_ = Bm[b].reshape(nc, Q, N), Cm[b].reshape(nc, Q, N)
+        dtc = dt[b].reshape(nc, Q, H).transpose(0, 2, 1)        # [c,H,Q]
+        cum = np.cumsum(dtc * A[None, :, None], axis=-1, dtype=f32)
+        w = (np.exp(cum[..., -1:] - cum) * dtc).astype(f32)
+        # pass a: add[c, h] = (x o w)^T B  -> [c,H,P,N]
+        add = np.zeros((nc, H, P, N), f32)
+        add = _mma_split(add, (xc * w[..., None]).astype(f32), Bc_, 2, 1,
+                         "chqp,cqn->chpn", single)
+        # pass b
+        h_in = np.zeros((nc, H, P, N), f32)
+        st = np.zeros((H, P, N), f32)
+        for c in range(nc):
+            h_in[c] = st
+            st = (np.exp(cum[c, :, -1])[:, None, None] * st
+                  + add[c]).astype(f32)
+        hout[b] = st
+        # pass c
+        yc = np.zeros((nc, H, Q, P), f32)
+        yc = _mma_split(yc, h_in, Cc_, 3, 2, "chpn,cqn->chqp", single)
+        yc = (yc * np.exp(cum)[..., None]).astype(f32)
+        s = _mma(np.zeros((nc, Q, Q), f32), Cc_, Bc_, 2, 2,
+                 "cin,cjn->cij")[:, None]                     # [c,1,Q,Q]
+        L = np.where(tri, np.exp(np.where(tri, cum[..., :, None]
+                                          - cum[..., None, :], 0)), 0)
+        sl = (s * (L * dtc[..., None, :]).astype(f32)).astype(f32)
+        yc = _mma_split(yc, sl, xc, 3, 2, "chij,chjp->chip", single)
+        y[b] = yc.transpose(0, 2, 1, 3).reshape(S, H, P)
+    return y, hout
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", [
+    (2, 48, 3, 8, 16, 16),            # the reduced config's widths
+    (2, 96, 3, 24, 40, 48),           # P, N, Q off the 16-multiples
+    (1, 256, 80, 64, 128, 128),       # mamba2-2.7b's widths, two chunks
+])
+def test_ssd_bf16_route_mirror_matches_the_references(B, S, H, P, N, Q):
+    """The bf16 route's arithmetic, mirrored in numpy (bf16 x, B, C; the
+    fp32 operands as bf16 hi + lo; fp32 accumulation of 16-deep k-slabs),
+    against ``ssd_chunked_ref`` and the JAX Pallas ``ssd_scan`` (interpret
+    mode) on the same inputs, within 1e-4 * max(1, max|ref|), the bound
+    the card's check holds the kernel to.  One bf16 rounding of the fp32
+    operand instead of the split is printed beside it: it misses that
+    bound, which is why the split is there."""
+    rng = np.random.default_rng(S + H)
+    x = _bf16(rng.standard_normal((B, S, H, P)))
+    Bm = _bf16(0.5 * rng.standard_normal((B, S, N)))
+    Cm = _bf16(0.5 * rng.standard_normal((B, S, N)))
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)) - 2.0)).astype(
+        np.float32)
+    A = -np.exp(rng.uniform(-0.5, 0.5, H)).astype(np.float32)
+    refs = {"ssd_chunked_ref": [a.numpy() for a in ssd_chunked_ref(
+                *(_t(a) for a in (x, Bm, Cm, dt, A)), Q)],
+            "pallas ssd_scan": [np.asarray(a) for a in jax_ssd_scan(
+                *(jnp.asarray(a) for a in (x, Bm, Cm, dt, A)), chunk=Q,
+                interpret=True)]}
+    split = _ssd_bf16_route_mirror(x, Bm, Cm, dt, A, Q)
+    single = _ssd_bf16_route_mirror(x, Bm, Cm, dt, A, Q, single=True)
+    for name, (yr, hr) in refs.items():
+        scale = max(1.0, float(np.abs(yr).max()), float(np.abs(hr).max()))
+        e = max(_err(split[0], yr), _err(split[1], hr)) / scale
+        e1 = max(_err(single[0], yr), _err(single[1], hr)) / scale
+        print(f"x [{B},{S},{H},{P}] N={N} Q={Q} vs {name}: hi + lo "
+              f"{e:.2e}, one bf16 rounding {e1:.2e} (of max(1, max|ref|); "
+              f"bound {SSD_ROUTE_TOL:g})")
+        assert split[0].shape == yr.shape and split[1].shape == hr.shape
+        assert e <= SSD_ROUTE_TOL, name
+        assert e1 > SSD_ROUTE_TOL, name
 
 
 # ---------------------------------------------------------------------------

@@ -171,3 +171,37 @@ def test_adamw_step_counter_and_metrics_stay_on_device():
     assert isinstance(met["lr"], torch.Tensor)
     assert isinstance(met["grad_norm"], torch.Tensor)
     assert float(met["grad_norm"]) == pytest.approx(2.0)
+
+
+def test_adamw_reads_bf16_grads_as_the_reference_does():
+    """``grad_div=m`` on bf16 gradient leaves (the pipeline's bf16 block
+    accumulators): the norm and the update read ``g.float() / m`` leaf by
+    leaf, bitwise what dividing fp32 copies beforehand gives, and the
+    step matches JAX's ``adamw_update`` of ``g.astype(f32) / m``.  The
+    bf16 leaves are left as they were."""
+    rng = np.random.default_rng(3)
+    p0 = _tree(rng)
+    kw = dict(lr=1e-2, warmup_steps=1, total_steps=4, grad_clip=0.5,
+              weight_decay=0.1)
+    g = _tree(rng)
+    m = 3.0
+    tg = _to_torch(jax.tree.map(np.copy, g))    # fp32 leaves divided in place
+    kept = {k: tree_map(torch.clone, v) for k, v in tg.items()}
+    ours = adamw_update(tg, adamw_init(_to_torch(p0)), OptimizerConfig(**kw),
+                        grad_div=torch.tensor(m))
+    wide = tree_map(lambda a: a.float() / m, _to_torch(g))
+    pre = adamw_update(wide, adamw_init(_to_torch(p0)),
+                       OptimizerConfig(**kw))
+    jm, _, jmet = jax_adamw_update(
+        jax.tree.map(lambda a: a.astype(jnp.float32) / m, _to_jax(g)),
+        jax_adamw_init(_to_jax(p0)), JaxOptimizerConfig(**kw),
+        use_kernel=True)
+    assert float(ours[2]["grad_norm"]) == float(pre[2]["grad_norm"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ours[0]),
+                                                 tree_leaves(pre[0])))
+    np.testing.assert_allclose(float(ours[2]["grad_norm"]),
+                               float(jmet["grad_norm"]), rtol=1e-6)
+    worst = max(float(np.abs(a.numpy() - np.asarray(b)).max())
+                for a, b in zip(tree_leaves(ours[0]), jax.tree.leaves(jm)))
+    assert worst <= STATE_TOL
+    assert torch.equal(tg["mlp"][0], kept["mlp"][0])

@@ -6,8 +6,15 @@ The JAX side is the single-device oracle: ``jax.grad`` of ``LM.loss``
 summed over the microbatches, and ``adamw_update(use_kernel=True)``
 (Pallas interpret) for the trajectory.  Weights come from the JAX
 package's ``init_pipeline_params`` and cross as numpy; token batches are
-made with numpy from a seed and handed to both sides."""
+made with numpy from a seed and handed to both sides.
+
+At bf16 the block gradients are held against the JAX package's own
+pipeline executor, run in a child process with two host devices (this
+file, run as a script, is that child)."""
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +27,8 @@ from repro.configs.base import OptimizerConfig as JaxOptimizerConfig
 from repro.core.pipeline_runtime import StageLayout as JaxStageLayout
 from repro.core.pipeline_runtime import \
     init_pipeline_params as jax_init_pipeline_params
+from repro.core.pipeline_runtime import \
+    make_pipeline_spec as jax_make_pipeline_spec
 from repro.data import SyntheticLM as JaxSyntheticLM
 from repro.models import LM as JaxLM
 from repro.optim.adamw import adamw_init as jax_adamw_init
@@ -48,6 +57,15 @@ MU_TOL = 1e-6             # first moment after 3 steps: summed gradients
 W_TOL, W_FRAC = 1e-6, 1e-3
 SCHEDULE_V = {"chronos": 2, "chronos_zb": 2, "chronos_recomp": 2,
               "1f1b": 1, "zb_h1": 1}
+BF16 = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}
+BF16_ARCHS = ("tinyllama-1.1b", "mamba2-2.7b")
+# bf16 block gradients, port vs the JAX executor, per leaf max |d| / max
+# |jax|: both sides run the forward and backward in bf16 in different op
+# orders (measured on a CPU: 1.82e-2 tinyllama, 3.87e-2 mamba2; with the
+# block gradients added in fp32 instead, 1.88e-2 and 3.98e-2, so this
+# limit cannot tell the two accumulators apart); the loss, a mean of fp32
+# CEs, to 1e-2
+BF16_GRAD_TOL, BF16_LOSS_TOL = 6e-2, 1e-2
 
 CFG = get_reduced("tinyllama-1.1b")
 JCFG = jax_get_reduced("tinyllama-1.1b")
@@ -242,3 +260,115 @@ def test_train_pipeline_refuses_cuda_without_a_card_and_offload(
         microbatch_size=2, offload=OffloadConfig(enabled=True)))
     with pytest.raises(NotImplementedError, match="Offload"):
         train_pipeline(off, P=2, device="cpu", steps=1)
+
+
+# ---------------------------------------------------------------------------
+# bf16: block gradients accumulate in the parameter dtype
+# ---------------------------------------------------------------------------
+
+def _bf16_setup(arch, schedule):
+    """(port spec, JAX spec, port params, tokens) of the reduced ``arch``
+    at bf16, P=2, v=2; the weights are the JAX ``init_pipeline_params``
+    bits."""
+    cfg = dataclasses.replace(get_reduced(arch), **BF16)
+    jcfg = dataclasses.replace(jax_get_reduced(arch), **BF16)
+    kw = dict(P=P, v=2, m=M, microbatch=MBB, seq_len=SEQ, schedule=schedule)
+    jspec = jax_make_pipeline_spec(jcfg, kernels="xla", **kw)
+    jparams, _ = jax_init_pipeline_params(jax.random.key(0), jcfg,
+                                          jspec.layout)
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (M, MBB, SEQ)).astype(np.int32)
+    spec = make_pipeline_spec(cfg, kernels="plain", **kw)
+    return spec, jspec, jparams, params, tokens
+
+
+@pytest.mark.parametrize("arch", BF16_ARCHS)
+def test_block_grad_accumulators_take_the_parameter_dtype(arch):
+    """At bf16 every block gradient comes back in its parameter leaf's
+    dtype, as the reference's ``jax.tree.map(jnp.zeros_like, blocks)``
+    accumulators (``src/repro/core/pipeline_runtime.py:690``, ``:1396``),
+    and every shared gradient in fp32 (``:691-692``, ``:1392-1393``).  A
+    Mamba-2 block mixes fp32 leaves (``A_log``, ``D``, ``dt_bias``) with
+    bf16 ones.  chronos_zb runs the split backward (B and W ops) and the
+    fused one at the pipeline's first block."""
+    spec, _, jparams, params, tokens = _bf16_setup(arch, "chronos_zb")
+    grads, _ = make_train_grads_fn(spec, "cpu")(
+        params, {"tokens": torch.from_numpy(tokens)})
+    want = [str(a.dtype) for a in jax.tree.leaves(
+        jax.tree.map(jnp.zeros_like, jparams["blocks"]))]
+    got = [str(g.dtype).removeprefix("torch.")
+           for g in tree_leaves(grads["blocks"])]
+    assert got == want and "bfloat16" in got
+    assert ("float32" in got) == (arch == "mamba2-2.7b")
+    shared = [g for k in ("embed", "final_norm")
+              for g in tree_leaves(grads[k])]
+    assert shared and all(g.dtype == torch.float32 for g in shared)
+
+
+@pytest.fixture(scope="module")
+def jax_bf16_grads(tmp_path_factory):
+    """The JAX executor's bf16 gradients and losses for every arch of
+    ``BF16_ARCHS``, from one child process with two host devices."""
+    out = tmp_path_factory.mktemp("bf16") / "jax_grads.npz"
+    env = dict(os.environ,
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    r = subprocess.run([sys.executable, __file__, str(out), *BF16_ARCHS],
+                       env=env, capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return dict(np.load(out))
+
+
+@pytest.mark.parametrize("arch", BF16_ARCHS)
+def test_bf16_pipeline_grads_match_jax_executor(arch, jax_bf16_grads):
+    """chronos at bf16 (the schedule of the reference's bitwise recomp
+    pair): the port's loss and its block and shared gradients against
+    the JAX pipeline executor's (``kernels="xla"``, the legacy per-tick
+    executor: on this JAX version the phase executor stops at its
+    loss-head ``lax.cond`` at bf16), same weights and tokens.  This checks
+    agreement only: the bf16 forward and backward differ more between the
+    two than bf16 and fp32 accumulation do, so the accumulators' dtype is
+    held by ``test_block_grad_accumulators_take_the_parameter_dtype``."""
+    spec, _, _, params, tokens = _bf16_setup(arch, "chronos")
+    grads, met = make_train_grads_fn(spec, "cpu")(
+        params, {"tokens": torch.from_numpy(tokens)})
+    ours = tree_leaves(grads["blocks"]) + [
+        g for k in ("embed", "final_norm") for g in tree_leaves(grads[k])]
+    errs = []
+    for i, g in enumerate(ours):
+        ref = jax_bf16_grads[f"{arch}/{i}"]
+        assert ref.shape == tuple(g.shape)
+        errs.append(float(np.abs(g.float().numpy() - ref).max()
+                          / (np.abs(ref).max() + 1e-12)))
+    e_loss = abs(float(met["loss"]) - float(jax_bf16_grads[f"{arch}/loss"]))
+    print(f"{arch} bf16: loss |d| {e_loss:.2e}; per-leaf max|d| / max|jax| "
+          f"{max(errs):.2e}")
+    assert e_loss <= BF16_LOSS_TOL
+    assert max(errs) <= BF16_GRAD_TOL
+
+
+def _jax_bf16_grads_child(out, archs):
+    """Run as a script: the JAX pipeline executor's chronos gradients at
+    bf16 for ``archs``, block leaves then embed and final_norm, as fp32
+    arrays in ``out`` (bf16 widens to fp32 exactly)."""
+    from repro.core.pipeline_runtime import \
+        make_train_grads_fn as jax_make_train_grads_fn
+    from repro.jax_compat import make_mesh
+    from repro.models import shard_env
+    mesh = make_mesh((P,), ("pp",))
+    res = {}
+    for arch in archs:
+        _, jspec, jparams, _, tokens = _bf16_setup(arch, "chronos")
+        fn = jax.jit(jax_make_train_grads_fn(jspec, mesh, executor="legacy"))
+        with shard_env(mesh, {}):
+            g, met = fn(jparams, {"tokens": jnp.asarray(tokens)})
+        leaves = jax.tree.leaves(g["blocks"]) + [
+            a for k in ("embed", "final_norm") for a in jax.tree.leaves(g[k])]
+        for i, a in enumerate(leaves):
+            res[f"{arch}/{i}"] = np.asarray(a).astype(np.float32)
+        res[f"{arch}/loss"] = np.float32(met["loss"])
+    np.savez(out, **res)
+
+
+if __name__ == "__main__":
+    _jax_bf16_grads_child(sys.argv[1], sys.argv[2:])
