@@ -37,7 +37,15 @@ Phases, in order; any failure exits non-zero:
    scan, rmsnorm and fused-AdamW kernels), after freeing tinyllama's
    tensors, then a profiled step;
 9. phase 7's checks on mamba2-2.7b (4 layers, two SSD chunks);
-10. a JSON ``kernels`` line, then the JSON result line.
+10. train-single: full-width tinyllama-1.1b through ``repro_torch.launch.
+    train.train`` (8 sequences of 2049 tokens in 2 microbatches, 4 steps)
+    with the recompute modes none, chronos and full, a profiled chronos
+    step, then mamba2-2.7b in chronos (8 microbatches of one sequence);
+    checks the launch counts derived from the model and the remat, the
+    bitwise step-1 losses across modes, their gradient norms, the peak
+    memory order none > chronos > full, and in fp32 (4 layers) every
+    mode's loss and gradients bitwise against no remat;
+11. a JSON ``kernels`` line, then the JSON result line.
 
 Phase 3 also holds fused AdamW bitwise against its plain version, the
 RMSNorm, flash and SSD Functions' gradients against autograd through the
@@ -1225,29 +1233,40 @@ def phase_train(torch, arch: str, tag: str, bwd_ms):
     return launches
 
 
+def _profile_batch(torch, tc, m, mbB):
+    """A fresh batch of ``m`` microbatches of ``mbB`` sequences."""
+    from repro_torch.data import SyntheticLM
+    toks = SyntheticLM(tc.model.vocab_size, tc.shape.seq_len, seed=1
+                       ).next_batch(m * mbB).reshape(m, mbB, -1)
+    return {"tokens": torch.from_numpy(toks).to("cuda")}
+
+
 def profile_train_step(torch, tc, P, params, opt_state, untraced_s, tag,
                        bwd):
-    """One more step under ``torch.profiler`` (device activity only: host
-    ops of a mamba2 step number in the millions and take minutes to
-    read): device busy share and the device time of our kernels, the
-    matmuls and the rest.  ``bwd``: (layer kind, ms per call, calls per
-    step) of the kernel Functions' plain backwards, whose share is their
-    per-call time times their calls.  Returns SSD kernel name -> its
-    launches in the step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.data import SyntheticLM
+    """One more ``tc.plan.schedule`` step of the pipeline executor under
+    the profiler (:func:`profile_step`)."""
     from repro_torch.launch.steps import make_pipeline_train_step
     step, m, mbB, _ = make_pipeline_train_step(tc.model, tc.shape, tc.plan,
                                                tc.optimizer, P=P,
                                                device="cuda")
-    toks = SyntheticLM(tc.model.vocab_size, tc.shape.seq_len, seed=1
-                       ).next_batch(m * mbB).reshape(m, mbB, -1)
-    batch = {"tokens": torch.from_numpy(toks).to("cuda")}
+    batch = _profile_batch(torch, tc, m, mbB)
+    return profile_step(torch, lambda: step(params, opt_state, batch),
+                        untraced_s, tag, bwd, f"one {tc.plan.schedule} step")
+
+
+def profile_step(torch, run, untraced_s, tag, bwd, what):
+    """``run()`` (one training step) under ``torch.profiler`` (device
+    activity only: host ops of a mamba2 step number in the millions and
+    take minutes to read): device busy share and the device time of our
+    kernels, the matmuls and the rest.  ``bwd``: (layer kind, ms per call,
+    calls per step) of the kernel Functions' plain backwards, whose share
+    is their per-call time times their calls.  Returns SSD kernel name ->
+    its launches in the step."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, opt_state, batch)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     t_read = time.perf_counter()
@@ -1286,7 +1305,7 @@ def profile_train_step(torch, tc, P, params, opt_state, untraced_s, tag,
         print(f"[profile-{tag}] the profiler reported no device time: "
               "device breakdown not measured")
         return ssd_counts
-    print(f"[profile-{tag}] one chronos_zb step: wall {wall_us / 1e3:.1f} "
+    print(f"[profile-{tag}] {what}: wall {wall_us / 1e3:.1f} "
           f"ms (profiled; {wall_us / 1e6 / untraced_s:.2f}x the untraced "
           f"median), device busy {busy / 1e3:.1f} ms = "
           f"{100 * busy / wall_us:.1f}% of wall, idle "
@@ -1399,6 +1418,211 @@ def phase_train_checks(torch, arch: str, tag: str):
         fail(f"{arch} (d) the kernel update and the plain update differ")
 
 
+# ---------------------------------------------------------------------------
+# single-device slice: train() under Chronos-Recomp
+# ---------------------------------------------------------------------------
+
+def _single_config(arch: str, rc, mbB: int):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (OptimizerConfig, ParallelPlan,
+                                          ShapeConfig, TrainConfig)
+    return TrainConfig(
+        model=get_config(arch),
+        shape=ShapeConfig("train_2k", seq_len=TRAIN_SEQ, global_batch=8,
+                          kind="train"),
+        plan=ParallelPlan(num_chunks=2, microbatch_size=mbB, recompute=rc,
+                          kernels="fused"),
+        optimizer=OptimizerConfig(warmup_steps=2, total_steps=4),
+        seed=0, log_every=1)
+
+
+def expected_single_launches(cfg, m: int):
+    """Kernel launches of one ``train()`` step of ``m`` microbatches: every
+    layer launches flash (attention) or the SSD scan (Mamba-2) once and
+    rmsnorm for ``norm1``, the Mamba-2 gated norm and ``norm2`` where the
+    config has an FFN; a layer of the periods under a checkpoint launches
+    them again when its backward recomputes it (every recompute mode
+    wraps every period, ``none`` selectively); remainder layers run
+    once.  The final norm is the plain one of ``LM.head``, and the update
+    is the plain AdamW: no fused-AdamW launch."""
+    wrapped = cfg.num_layers // cfg.period * cfg.period
+    n = {"flash_attention_fwd": 0, "rmsnorm_rows": 0, "ssd_scan": 0,
+         "fused_adamw_flat": 0}
+    for idx in range(cfg.num_layers):
+        times = m * (2 if idx < wrapped else 1)
+        kind = cfg.layer_kind(idx)
+        n["flash_attention_fwd"] += times * (kind == "attn")
+        n["ssd_scan"] += times * (kind == "mamba")
+        n["rmsnorm_rows"] += times * (1 + (kind == "mamba")
+                                      + (cfg.d_ff > 0))
+    return n
+
+
+def train_single_run(torch, arch: str, rc, mbB: int, tag: str,
+                     steps: int = 4, profile: bool = False):
+    """Full-width ``arch`` through ``repro_torch.launch.train.train`` with
+    recompute ``rc``, ``steps`` steps from random weights (seed 0), the
+    peak counted from a reset after the earlier tensors are freed; checks
+    launches, finite losses and gradient norms and moved masters.  With
+    ``profile``, one more step under the profiler.  Returns (summary,
+    launches)."""
+    from repro_torch.launch.train import train
+    from repro_torch.models import LM
+    from repro_torch.tree import tree_leaves
+    tc = _single_config(arch, rc, mbB)
+    cfg = tc.model
+    m = tc.shape.global_batch // mbB
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = LM(cfg, kernels="fused", device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(tc.seed))
+    leaves = tree_leaves(params)
+    before = [a.flatten()[:4096].to(torch.float32, copy=True)
+              for a in leaves]
+    print(f"[{tag}] {cfg.name} full width bf16 through train(): "
+          f"{rc}, num_chunks={tc.plan.num_chunks}, m={m} microbatches of "
+          f"{mbB} x {TRAIN_SEQ - 1} positions, "
+          f"{sum(a.numel() for a in leaves) / 1e9:.3f} B parameters")
+    kernels = _kernel_fns()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    out = train(tc, device="cuda", steps=steps, params=params,
+                log=lambda s: print(f"[{tag}] {s}", flush=True))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_step = expected_single_launches(cfg, m)
+    want = {k: steps * n for k, n in per_step.items()}
+    tokens = m * mbB * (TRAIN_SEQ - 1)
+    med = statistics.median(out["step_s"][1:])      # step 1 warms up
+    print(f"[{tag}] losses={out['losses']} grad_norms={out['grad_norms']} "
+          f"step_s={out['step_s']}")
+    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-{steps}: "
+          f"{[round(t * 1e3, 1) for t in out['step_s'][1:]]}), {tokens} "
+          f"tokens/step -> {tokens / med:.1f} tokens/s; "
+          f"max_memory_allocated={peak / 2 ** 30:.3f} GiB")
+    print(f"[{tag}] launches {launches} (per step, derived: {per_step})")
+    if launches != want:
+        fail(f"{tag}: kernel launches {launches} != expected {want}")
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        fail(f"{tag}: non-finite loss or grad_norm")
+    masters = tree_leaves(out["opt_state"]["master"])
+    unchanged = [i for i, (a, b) in enumerate(zip(before, masters))
+                 if torch.equal(a, b.flatten()[:4096])]
+    print(f"[{tag}] weights moved: {len(masters) - len(unchanged)} of "
+          f"{len(masters)} fp32 master leaves (first 4096 elements)")
+    if unchanged:
+        fail(f"{tag}: master weight leaves {unchanged} did not change")
+    if profile:
+        from repro_torch.launch.steps import make_train_step
+        step, _ = make_train_step(cfg, tc.plan, tc.optimizer, m,
+                                  device="cuda")
+        batch = _profile_batch(torch, tc, m, mbB)
+        profile_step(torch, lambda: step(out["params"], out["opt_state"],
+                                         batch),
+                     med, tag, [], f"one train() step ({rc.mode})")
+    summary = {"losses": out["losses"], "grad_norms": out["grad_norms"],
+               "median_ms": med * 1e3, "tokens_per_s": tokens / med,
+               "peak_gib": peak / 2 ** 30}
+    del out, params, leaves, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def phase_train_single(torch):
+    """10. ``train()`` at full width: tinyllama-1.1b in the recompute
+    modes none, chronos (the shallow chunk fully rematerialized) and full,
+    microbatch 4 (m = 2), a profiled chronos step; mamba2-2.7b in chronos,
+    microbatch 1 (m = 8).  Step-1 losses bitwise across the modes, their
+    gradient norms to 1e-6, peaks ordered none > chronos > full.  Returns
+    the launch counts per path."""
+    from repro_torch.configs.base import RecomputeConfig
+    modes = {"none": RecomputeConfig("none"),
+             "chronos": RecomputeConfig("chronos", num_recomp_chunks=1,
+                                        policy="full"),
+             "full": RecomputeConfig("full")}
+    runs, total = {}, {}
+    for name, rc in modes.items():
+        runs[name], n = train_single_run(
+            torch, "tinyllama-1.1b", rc, 4, f"train-single-{name}",
+            profile=name == "chronos")
+        total = {k: total.get(k, 0) + v for k, v in n.items()}
+    l1 = {k: r["losses"][0] for k, r in runs.items()}
+    g1 = {k: r["grad_norms"][0] for k, r in runs.items()}
+    rel = max(abs(g - g1["none"]) / abs(g1["none"]) for g in g1.values())
+    print(f"[train-single] step-1 losses {l1}; grad norms {g1} (max rel "
+          f"|d| {rel:.3e}, tol 1e-6; "
+          f"{'bitwise' if len(set(g1.values())) == 1 else 'not bitwise'})")
+    for name, r in runs.items():
+        print(f"[train-single] {name}: median step {r['median_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_gib']:.3f} "
+              f"GiB")
+    peaks = [runs[k]["peak_gib"] for k in ("none", "chronos", "full")]
+    print(f"[train-single] peak none - chronos {peaks[0] - peaks[1]:.3f} "
+          f"GiB, none - full {peaks[0] - peaks[2]:.3f} GiB")
+    if len(set(l1.values())) != 1:
+        fail(f"train-single: step-1 losses differ across modes: {l1}")
+    if not rel <= 1e-6:
+        fail(f"train-single: step-1 gradient norms differ: {g1}")
+    if not peaks[0] > peaks[1] > peaks[2]:
+        fail(f"train-single: peaks {peaks} not ordered none > chronos > "
+             "full")
+    done("train-single tinyllama-1.1b")
+    _, mamba = train_single_run(
+        torch, "mamba2-2.7b", modes["chronos"], 1, "train-single-mamba2")
+    done("train-single mamba2-2.7b")
+    return {"train_single_tinyllama": total, "train_single_mamba2": mamba}
+
+
+def phase_train_single_checks(torch):
+    """fp32, full width, 4 layers, batch 2 of 257 tokens (for mamba2 two
+    SSD chunks): ``LM.loss(recomp=, num_chunks=2)`` loss and gradients
+    through the fused backend bitwise equal to ``LM.loss()`` without
+    remat, for every recompute mode and policy."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RecomputeConfig
+    from repro_torch.models import LM
+    from repro_torch.tree import tree_leaves, tree_map
+    modes = [RecomputeConfig("none"),
+             RecomputeConfig("chronos", policy="full"),
+             RecomputeConfig("chronos", policy="selective"),
+             RecomputeConfig("uniform"), RecomputeConfig("full")]
+    for arch in ("tinyllama-1.1b", "mamba2-2.7b"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=4,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        lm = LM(cfg, kernels="fused", device="cuda")
+        params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+        tokens = torch.randint(0, cfg.vocab_size, (2, 257), device="cuda",
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(1))
+
+        def loss_grads(rc):
+            p = tree_map(lambda a: a.detach().requires_grad_(), params)
+            loss = lm.loss(p, {"tokens": tokens}, recomp=rc, num_chunks=2)[0]
+            return loss.detach(), torch.autograd.grad(loss, tree_leaves(p))
+        l0, g0 = loss_grads(None)
+        for rc in modes:
+            l1, g1 = loss_grads(rc)
+            err = max([abs(float(l1 - l0))]
+                      + [max_err(a, b) for a, b in zip(g1, g0)])
+            same = torch.equal(l0, l1) and all(
+                torch.equal(a, b) for a, b in zip(g0, g1))
+            print(f"[train-single-check] {arch} fp32 4 layers, {rc.mode}/"
+                  f"{rc.policy}: loss {float(l1):.6f}, remat vs no remat "
+                  f"max|d| {err:.3e} ({'bitwise' if same else 'DIFFER'}, "
+                  f"tol 0)")
+            if not same:
+                fail(f"{arch}: remat {rc} changes the loss or gradients")
+        del params, lm, g0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -1502,9 +1726,18 @@ def main() -> None:
     phase_train_checks(torch, "mamba2-2.7b", "train-check-mamba2")
     done("train checks mamba2-2.7b")
 
-    # 10. kernels line, then the result line.  ``launches`` sums the
-    #     kernel's launches in the three main-path runs (each counted from
-    #     0 right before its run), split by path in ``launches_by_path``;
+    # 10. train() at full width under Chronos-Recomp (tinyllama in three
+    #     recompute modes, mamba2 in chronos), after freeing the earlier
+    #     phases' tensors; then the fp32 remat checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_train_single(torch))
+    phase_train_single_checks(torch)
+    done("train-single checks")
+
+    # 11. kernels line, then the result line.  ``launches`` sums the
+    #     kernel's launches in the main-path runs (each counted from 0
+    #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in
     #     none of them.
     for row in rows:

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of ``repro``: its pipelined serving path and its
-ChronosPipe pipeline training step, each on one device.
+"""PyTorch/CUDA port of ``repro``: its pipelined serving path, its
+ChronosPipe pipeline training step and its single-device training
+driver with Chronos-Recomp, each on one device.
 
 The package stands beside the JAX package ``repro`` and imports nothing
 of it (nor JAX): every module it needs is its own copy.  Layout and
@@ -7,12 +8,13 @@ names mirror ``repro`` so each module's counterpart is easy to find
 (``repro_torch/models/layers.py`` <-> ``repro/models/layers.py``).
 
 Entry points (:mod:`repro_torch.launch.serve`,
+:func:`repro_torch.launch.train.train`,
 :func:`repro_torch.launch.train.train_pipeline`) run on CUDA unless the
 caller passes ``device="cpu"``; a CUDA request on a machine without a
 card raises instead of falling back.  The hand-written kernels (RMSNorm
-rows, the flash-attention forward, fused AdamW) live in ``csrc/`` and
-are built by ``nvcc`` at first use (:mod:`repro_torch.kernels.build`);
-importing the package never builds.
+rows, the flash-attention forward, the Mamba-2 SSD chunk scan, fused
+AdamW) live in ``csrc/`` and are built by ``nvcc`` at first use
+(:mod:`repro_torch.kernels.build`); importing the package never builds.
 """
 from __future__ import annotations
 

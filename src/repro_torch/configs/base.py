@@ -112,11 +112,15 @@ class ShapeConfig:
 
 @dataclass(frozen=True)
 class RecomputeConfig:
-    """Chronos-Recomp policy of ``chronos_recomp``: with mode "chronos"
-    the ``num_recomp_chunks`` *shallowest* chunks are rematerialized;
-    with "none" the generator's default applies."""
-    mode: str = "none"              # none | chronos
+    """Chronos-Recomp policy: which chunks are rematerialized and how."""
+    mode: str = "none"              # none | chronos | uniform | full
+    # chronos: recompute the ``num_recomp_chunks`` *shallowest* chunks
     num_recomp_chunks: int = 1
+    # uniform: recompute this fraction of every layer (1F1B+R baseline)
+    uniform_frac: float = 0.5
+    # per-chunk policy when rematerializing: "full" drops everything,
+    # "selective" keeps the projection outputs (Megatron-style).
+    policy: str = "full"
 
 
 @dataclass(frozen=True)

@@ -13,9 +13,10 @@ import numpy as np
 class DataPipeline:
     def __init__(self, source, global_batch: int, microbatches: int = 1,
                  prefetch: int = 2):
-        """source: object with next_batch(n) -> [n, S] int32 and
-        state()/load_state().  Batches are shaped
-        [microbatches, global_batch // microbatches, S]."""
+        """source: object with next_batch(n) -> [n, S] int32 (the
+        tokens) or a dict of [n, S] arrays (``tokens`` and, e.g., a
+        ``loss_mask``), and state()/load_state().  Batches are dicts of
+        arrays shaped [microbatches, global_batch // microbatches, S]."""
         assert global_batch % microbatches == 0
         self.source = source
         self.global_batch = global_batch
@@ -30,12 +31,14 @@ class DataPipeline:
         try:
             while not self._stop.is_set():
                 flat = self.source.next_batch(self.global_batch)
-                mb = flat.reshape(self.m, self.global_batch // self.m,
-                                  flat.shape[-1])
+                if not isinstance(flat, dict):
+                    flat = {"tokens": flat}
+                mb = {k: a.reshape(self.m, self.global_batch // self.m,
+                                   a.shape[-1]) for k, a in flat.items()}
                 # snapshot the cursor *after* this batch: the consumer
                 # records it on get(), so state() is exactly "everything
                 # training consumed" regardless of prefetch races
-                item = ({"tokens": mb}, self.source.state())
+                item = (mb, self.source.state())
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.1)

@@ -1,22 +1,71 @@
-"""Pipeline training step of the port (``make_pipeline_train_step`` of
-``repro/launch/steps.py``, on one device: no shardings, no compressed
-gradient psum, no offload)."""
+"""Training steps of the port, on one device (no shardings, no
+compressed gradient psum, no offload): the single-device step of the
+reference's ``train()`` and ``make_pipeline_train_step`` of
+``repro/launch/steps.py``."""
 from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       ParallelPlan, ShapeConfig)
+from repro_torch.models import LM
+from repro_torch.optim import adamw_update, cast_like
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
+                    ocfg: OptimizerConfig, m: int, *, device):
+    """The step of the reference's single-device ``train()``.  Returns
+    ``(step, lm)``: ``step(params, opt_state, batch) -> (params,
+    opt_state, metrics)`` with every key of ``batch`` [m, mbB, S].
+
+    Each microbatch's loss is ``LM.loss(recomp=plan.recompute,
+    num_chunks=plan.num_chunks)`` on the ``plan.kernels`` backend, so each
+    period of the stack runs under the Chronos-Recomp checkpoint of its
+    chunk; its gradient is added into fp32 buffers (the reference's
+    ``a + b.astype(f32)``), and the plain AdamW update reads the sum
+    divided by ``m``.  ``params`` and the optimizer state are updated in
+    place; ``metrics`` holds device scalars ``loss`` (the microbatch
+    mean), ``grad_norm`` and ``lr``."""
+    lm = LM(cfg, kernels=plan.kernels, device=device)
+    dev = lm.device
+    m_dev = torch.tensor(float(m), dtype=torch.float32, device=dev)
+
+    def step(params, opt_state, batch):
+        gsum = tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
+                                              device=dev), params)
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(m):
+            p = tree_map(lambda a: a.detach().requires_grad_(), params)
+            loss = lm.loss(p, {k: v[i] for k, v in batch.items()},
+                           recomp=plan.recompute,
+                           num_chunks=plan.num_chunks)[0]
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            for a, g in zip(tree_leaves(gsum), grads):
+                a.add_(g)
+            lsum += loss.detach()
+            del p, loss, grads      # one microbatch's gradients at a time
+        master, opt_state, om = adamw_update(gsum, opt_state, ocfg,
+                                             grad_div=m_dev)
+        return cast_like(master, params), opt_state, {"loss": lsum / m,
+                                                      **om}
+    return step, lm
 
 
 def plan_schedule_kwargs(plan: ParallelPlan) -> Dict:
     """Schedule-generator kwargs the plan implies: the number of
-    rematerialized chunks for ``chronos_recomp``; other generators need
-    nothing."""
+    rematerialized chunks for ``chronos_recomp`` (any recompute mode but
+    "none"), the uniform-recompute fraction for ``1f1b``/``gpipe`` (the
+    1F1B+R baseline); other generators need nothing."""
     rc = plan.recompute
-    if plan.schedule == "chronos_recomp" and rc.mode == "chronos":
+    if plan.schedule == "chronos_recomp" and rc.mode != "none":
         return {"recomp_chunks": min(rc.num_recomp_chunks,
                                      max(plan.num_chunks - 1, 1))}
+    if plan.schedule in ("1f1b", "gpipe") and rc.mode == "uniform" \
+            and rc.uniform_frac > 0:
+        return {"recomp": rc.uniform_frac}
     return {}
 
 

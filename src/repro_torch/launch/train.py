@@ -1,13 +1,20 @@
-"""Training entry point of the port: ChronosPipe pipeline training on one
-device (``train_pipeline`` of ``repro/launch/train.py`` without the
-checkpointer, fault injector, watchdog and Chronos-Offload).
+"""Training entry points of the port, each on one device, without the
+reference's checkpointer, health monitor, fault injector, watchdog and
+Chronos-Offload:
 
-    from repro_torch.launch.train import train_pipeline
+- :func:`train`: the single-device driver (``train`` of
+  ``repro/launch/train.py``): every microbatch's loss through
+  ``LM.loss`` under Chronos-Recomp, gradients summed in fp32, then AdamW;
+- :func:`train_pipeline`: ChronosPipe pipeline training.
+
+    from repro_torch.launch.train import train, train_pipeline
+    out = train(tc)                                # on the card
+    out = train(tc, device="cpu")                  # plain versions
     out = train_pipeline(tc, P=4)                  # on the card
     out = train_pipeline(tc, P=2, device="cpu")    # plain versions
 
 ``P`` virtual stages run in lockstep on the device (the reference maps
-them onto a mesh axis).  Runs on CUDA unless ``device="cpu"``; a CUDA
+them onto a mesh axis).  Both run on CUDA unless ``device="cpu"``; a CUDA
 request without a card raises.
 """
 from __future__ import annotations
@@ -22,8 +29,78 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.pipeline_runtime import init_pipeline_params
 from repro_torch.data import DataPipeline, SyntheticLM
-from repro_torch.launch.steps import make_pipeline_train_step
+from repro_torch.launch.steps import (make_pipeline_train_step,
+                                      make_train_step)
 from repro_torch.optim import adamw_init
+
+
+def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
+          data_source=None, params=None,
+          log: Callable[[str], None] = print) -> Dict:
+    """Single-device training: ``steps`` (default
+    ``tc.optimizer.total_steps``) steps of ``m = global_batch //
+    microbatch_size`` microbatches each, through
+    :func:`repro_torch.launch.steps.make_train_step`: every microbatch's
+    ``LM.loss`` under the Chronos-Recomp checkpoints of
+    ``plan.recompute`` over ``plan.num_chunks`` chunks, its gradient
+    added into fp32 buffers, then AdamW on their sum divided by ``m``.
+    Every key of a batch (``tokens``, and a ``loss_mask`` where the data
+    source gives one) reaches ``LM.loss``.
+
+    Parameters are drawn from a ``torch.Generator`` seeded with
+    ``tc.seed`` unless ``params`` (an ``LM`` tree on ``device``, e.g.
+    bridged weights) is given; either tree is updated in place at every
+    step (the fp32 masters are written into it).  The data come from
+    ``data_source`` or ``SyntheticLM(seed=tc.seed)`` through the
+    prefetching :class:`DataPipeline`.
+
+    Left out against the reference: the checkpointer and the health
+    monitor (restart, straggler detection; ROADMAP A.6).  The update is
+    the plain AdamW, as the reference's ``train()`` runs it: the
+    fused-AdamW kernel runs only inside the pipeline executor.
+
+    Returns ``losses``, ``final_loss``, ``steps``, ``wall_s`` and
+    ``median_step_s`` as the reference does, plus per-step
+    ``grad_norms``, ``lrs`` and ``step_s`` and the final ``params`` and
+    ``opt_state``."""
+    cfg, shape, plan, ocfg = tc.model, tc.shape, tc.plan, tc.optimizer
+    dev = resolve_device(device)
+    steps = steps or ocfg.total_steps
+    mbB = plan.microbatch_size
+    m = max(1, shape.global_batch // mbB)
+    step_fn, lm = make_train_step(cfg, plan, ocfg, m, device=dev)
+    if params is None:
+        params = lm.init(torch.Generator(device=dev).manual_seed(tc.seed))
+    opt_state = adamw_init(params)
+
+    source = data_source or SyntheticLM(cfg.vocab_size, shape.seq_len,
+                                        seed=tc.seed)
+    pipe = DataPipeline(source, global_batch=mbB * m, microbatches=m,
+                        prefetch=2).start()
+    losses, gnorms, lrs, step_s = [], [], [], []
+    t_start = time.time()
+    try:
+        for step in range(steps):
+            t0 = time.time()
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.next().items()}
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = float(metrics["loss"])     # waits for the step
+            dt = time.time() - t0
+            losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            lrs.append(float(metrics["lr"]))
+            step_s.append(dt)
+            if step % tc.log_every == 0:
+                log(f"[train] step {step} loss {loss:.4f} "
+                    f"gnorm {gnorms[-1]:.3f} lr {lrs[-1]:.3e} ({dt:.2f}s)")
+    finally:
+        pipe.stop()
+    return {"losses": losses, "final_loss": losses[-1] if losses else None,
+            "steps": len(losses), "wall_s": time.time() - t_start,
+            "median_step_s": statistics.median(step_s) if step_s else None,
+            "grad_norms": gnorms, "lrs": lrs, "step_s": step_s,
+            "params": params, "opt_state": opt_state}
 
 
 def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",

@@ -149,10 +149,54 @@ def dense_attention(q, k, v, mask, scale):
     return out.reshape(B, S, H, hd)
 
 
+def blockwise_attention(q, k, v, scale, *, causal: bool, window: int = 0,
+                        prefix_len: int = 0, q_offset: int = 0,
+                        block: int = 1024):
+    """Flash-style O(S·block) attention for long sequences (the plain path
+    past ``dense_threshold``; the flash kernel computes the same math).
+
+    q [B,S,H,hd]; k,v [B,T,G,hd].  q position i is absolute position
+    q_offset + i; kv positions are 0..T-1.  The reference scans over the
+    kv blocks; here that scan is a Python loop."""
+    B, S, H, hd = q.shape
+    T, G = k.shape[1], k.shape[2]
+    R = H // G
+    nblk = -(-T // block)
+    Tpad = nblk * block
+    if Tpad != T:
+        k = F.pad(k, (0, 0, 0, 0, 0, Tpad - T))
+        v = F.pad(v, (0, 0, 0, 0, 0, Tpad - T))
+    qg = q.reshape(B, S, G, R, hd).float()
+    q_pos = q_offset + torch.arange(S, device=q.device)
+    m = torch.full((B, G, R, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, G, R, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, G, R, S, hd), dtype=torch.float32, device=q.device)
+    for b in range(nblk):
+        kblk = k[:, b * block:(b + 1) * block]
+        vblk = v[:, b * block:(b + 1) * block]
+        kv_pos = b * block + torch.arange(block, device=q.device)
+        s = torch.einsum("bsgrd,btgd->bgrst", qg, kblk.float()) * scale
+        msk = make_mask(q_pos, kv_pos, causal=causal, window=window,
+                        prefix_len=prefix_len)
+        msk = msk & (kv_pos < T)[None, :]
+        s = s.masked_fill(~msk[None, None, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bgrst,btgd->bgrsd", p, vblk.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    return out.to(q.dtype)
+
+
 def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
               rope_theta: float, causal: bool = True, window=0,
               prefix_len: int = 0, cache: Optional[dict] = None,
-              cache_pos: int = 0,
+              cache_pos: int = 0, dense_threshold: int = 8192,
               backend=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention: train (``cache=None``), cache prefill and decode.
 
@@ -162,11 +206,12 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
     copy of the whole buffer per layer per step) and the returned cache
     is the same dict.  The query then attends over the whole buffer.
 
-    A fused ``backend`` routes prefill (S > 1, static window) through the
-    flash kernel at offset ``cache_pos``; decode (S == 1) takes the dense
-    path by design.  The reference's blockwise path for buffers longer
-    than 8192 and its cross-attention paths are not ported: the dense
-    path serves every length here."""
+    A fused ``backend`` routes every self-attention of length S > 1 with
+    a static window (train, and prefill at offset ``cache_pos``) through
+    the flash kernel; decode (S == 1) takes the dense path by design.
+    Without it, a kv longer than ``dense_threshold`` takes
+    :func:`blockwise_attention` and a shorter one the dense path.  The
+    reference's cross-attention paths are not ported."""
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(hd)
     q = x @ params["wq"]
@@ -203,6 +248,11 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
         msk = make_mask(q_pos, kv_pos, causal=causal, window=window,
                         prefix_len=prefix_len)        # [B, 1, T]
         out = dense_attention(q, k, v, msk[:, None, None, :, :], scale)
+    elif kv_len > dense_threshold:
+        out = blockwise_attention(
+            q, k, v, scale, causal=causal, window=window,
+            prefix_len=prefix_len,
+            q_offset=0 if cache is None else cache_pos)
     else:
         kv_pos = torch.arange(kv_len, device=x.device)
         msk = make_mask(positions[0], kv_pos, causal=causal, window=window,

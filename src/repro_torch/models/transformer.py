@@ -11,12 +11,15 @@ loop over the stacked leading axis.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RecomputeConfig
 from repro_torch.models import backend as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -170,16 +173,35 @@ class LM:
         return params
 
     # -- decoder stack -------------------------------------------------------
-    def _stack(self, params, x, positions, *, cache=None, cache_pos=0):
+    def _stack(self, params, x, positions, *, cache=None, cache_pos=0,
+               recomp: Optional[RecomputeConfig] = None,
+               num_chunks: int = 1):
+        """Run all decoder layers.  The periods split into ``num_chunks``
+        Chronos chunks as the reference's do; with ``recomp`` (and no
+        cache) every period of chunk ``ci`` runs under
+        :func:`_wrap_remat`'s checkpoint.  The remainder layers (the
+        deepest, of the last chunk) run unwrapped, as in the reference."""
         cfg = self.cfg
-        for i in range(self.num_periods):
+        nper = self.num_periods
+        chunk_bounds = [round(c * nper / num_chunks)
+                        for c in range(num_chunks + 1)]
+
+        def period_body(x, i):
             for j in range(self.period):
                 c = None if cache is None else _index(cache["periods"][j], i)
                 x, _ = _apply_layer(
                     _index(params["layers"][j], i), x, positions, cfg, j,
                     cache=c, cache_pos=cache_pos, backend=self.backend)
+            return x
+
+        for ci in range(num_chunks):
+            body = period_body
+            if recomp is not None and cache is None:
+                body = _wrap_remat(period_body, recomp, ci)
+            for i in range(chunk_bounds[ci], chunk_bounds[ci + 1]):
+                x = body(x, i)
         for r in range(self.num_rem):
-            idx = self.num_periods * self.period + r
+            idx = nper * self.period + r
             c = None if cache is None else cache["rem"][r]
             x, _ = _apply_layer(params["rem_layers"][r], x, positions, cfg,
                                 idx, cache=c, cache_pos=cache_pos,
@@ -199,7 +221,7 @@ class LM:
         return L.unembed(params["embed"], x)
 
     def hidden(self, params, tokens, *, positions=None, cache=None,
-               cache_pos: int = 0):
+               cache_pos: int = 0, recomp=None, num_chunks: int = 1):
         """tokens [B, S] -> the last layer's hidden states [B, S, d] (before
         the head).  K/V are written into ``cache`` in place."""
         Bz, S = tokens.shape
@@ -209,23 +231,29 @@ class LM:
                          )[None].expand(Bz, S)
         x = self.embed(params, tokens)
         return self._stack(params, x, positions, cache=cache,
-                           cache_pos=cache_pos)
+                           cache_pos=cache_pos, recomp=recomp,
+                           num_chunks=num_chunks)
 
     # -- public entry points ---------------------------------------------
     def forward(self, params, tokens, *, positions=None, cache=None,
-                cache_pos: int = 0):
-        """tokens [B, S] -> (logits [B, S, V], cache)."""
+                cache_pos: int = 0, recomp=None, num_chunks: int = 1):
+        """tokens [B, S] -> (logits [B, S, V], cache).  ``recomp`` (a
+        :class:`RecomputeConfig`) and ``num_chunks``: Chronos-Recomp over
+        the stack's chunks (training only; ignored with a cache)."""
         x = self.hidden(params, tokens, positions=positions, cache=cache,
-                        cache_pos=cache_pos)
+                        cache_pos=cache_pos, recomp=recomp,
+                        num_chunks=num_chunks)
         return self.head(params, x), cache
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, recomp=None, num_chunks: int = 1):
         """batch: {'tokens': [B, S], 'loss_mask': [B, S] optional}.
-        Next-token CE over the whole stack (the single-device oracle of
-        the pipeline executor).  Returns ``(loss, {"ce": ce})``; the
-        reference's MoE aux term is zero for the models ported."""
+        Next-token CE over the whole stack (the single-device training
+        loss, and the oracle of the pipeline executor).  Returns ``(loss,
+        {"ce": ce})``; the reference's MoE aux term is zero for the
+        models ported."""
         tokens = batch["tokens"]
-        logits, _ = self.forward(params, tokens[:, :-1])
+        logits, _ = self.forward(params, tokens[:, :-1], recomp=recomp,
+                                 num_chunks=num_chunks)
         mask = batch.get("loss_mask")
         ce = L.softmax_xent(logits, tokens[:, 1:],
                             None if mask is None else mask[:, 1:])
@@ -261,3 +289,51 @@ class LM:
         x = self.hidden(params, tokens1, positions=positions, cache=cache,
                         cache_pos=pos)
         return self.head(params, x)[:, -1], cache
+
+
+# ---------------------------------------------------------------------------
+# Chronos-Recomp
+# ---------------------------------------------------------------------------
+
+#: The 2-D products ``x @ W`` (3-D activations fold onto ``aten.mm``):
+#: the ops JAX's ``dots_with_no_batch_dims_saveable`` saves.  The batched
+#: products of the attention scores and of the SSD scan lower to
+#: ``aten.bmm`` and are recomputed, as JAX recomputes them.
+SAVED_OPS = frozenset({torch.ops.aten.mm.default,
+                       torch.ops.aten.addmm.default})
+
+
+def dots_with_no_batch_dims_saveable(ctx, func, *args, **kwargs):
+    """Selective-checkpoint policy: save the projection outputs, recompute
+    everything else."""
+    if func in SAVED_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _selective_contexts():
+    return create_selective_checkpoint_contexts(
+        dots_with_no_batch_dims_saveable)
+
+
+def _wrap_remat(body, recomp: RecomputeConfig, chunk_idx: int):
+    """Chronos-Recomp: rematerialize the shallowest chunks fully
+    (``nothing_saveable``: only the period's input survives); other chunks
+    keep the projection outputs and recompute the attention and SSD
+    internals (the selective policy, the paper's §6.1 default).
+    Non-reentrant, so the stacked parameters the body indexes get their
+    gradients; the layers draw no random numbers, so no RNG state is
+    stashed."""
+    if recomp.mode == "full":
+        selective = False
+    elif recomp.mode == "chronos" and chunk_idx < recomp.num_recomp_chunks:
+        selective = recomp.policy != "full"
+    else:
+        # "none" / "uniform" / deep chunks: flash-attention semantics only
+        selective = True
+    context_fn = _selective_contexts if selective else noop_context_fn
+
+    def wrapped(x, i):
+        return checkpoint(body, x, i, use_reentrant=False,
+                          context_fn=context_fn, preserve_rng_state=False)
+    return wrapped

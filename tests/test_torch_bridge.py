@@ -88,7 +88,9 @@ def test_import_with_jax_and_repro_poisoned():
     assert r.returncode == 0, r.stderr
     assert "repro_torch.launch.serve" in mods and "repro_torch.bridge" in mods
     assert {"repro_torch.models.mamba", "repro_torch.kernels.ssd_scan.ops",
-            "repro_torch.configs.mamba2_2_7b"} <= set(mods)
+            "repro_torch.configs.mamba2_2_7b", "repro_torch.launch.train",
+            "repro_torch.launch.steps", "repro_torch.models.transformer",
+            "repro_torch.data.pipeline"} <= set(mods)
 
 
 def test_sources_import_no_jax_and_no_repro():
