@@ -45,7 +45,21 @@ Phases, in order; any failure exits non-zero:
     bitwise step-1 losses across modes, their gradient norms, the peak
     memory order none > chronos > full, and in fp32 (4 layers) every
     mode's loss and gradients bitwise against no remat;
-11. a JSON ``kernels`` line, then the JSON result line.
+11. train-offload: phase 6's and phase 8's runs again with
+    ``OffloadConfig(enabled=True, num_offload_chunks=1)`` (the deep
+    chunk's fp32 master, mu and nu on the host, its AdamW in numpy there,
+    gradients down and bf16 weights up through pinned buffers on a side
+    stream); checks losses, gradient norms, moved shallow masters, each
+    collect's deep weights against their host masters rounded to bf16,
+    the step-1 loss bitwise against the on-device run, the launch counts
+    (fused AdamW on the shallow and shared leaves only) and the peak's
+    fall of at least 0.9 x the deep state; prints step time, tokens/s,
+    ``collect_wait_s``, host update seconds, the copies' GB/s and the
+    Eq. (5)/(7) report; then fp32, 4 layers, 3 steps with the gradient
+    clip off: offload against the on-device optimizer (|d loss| <= 5e-3)
+    and against the on-device optimizer with its deep weights rounded
+    to bf16 after every step (<= 1e-4); with the clip on, printed only;
+12. a JSON ``kernels`` line, then the JSON result line.
 
 Phase 3 also holds fused AdamW bitwise against its plain version, the
 RMSNorm, flash and SSD Functions' gradients against autograd through the
@@ -1152,7 +1166,8 @@ def phase_train(torch, arch: str, tag: str, bwd_ms):
     stages through ``train_pipeline``; launch counts from the table; then
     one more step under the profiler.  ``bwd_ms``: layer kind -> the
     per-call time of its kernel Function's plain backward at the training
-    shape (phase 3).  Returns the launch counts."""
+    shape (phase 3).  Returns the launch counts, losses, peak memory and
+    median step (phase 11 holds its offload runs against them)."""
     from repro_torch.core.pipeline_runtime import (init_pipeline_params,
                                                    make_pipeline_spec)
     from repro_torch.launch.train import train_pipeline
@@ -1228,9 +1243,11 @@ def phase_train(torch, arch: str, tag: str, bwd_ms):
         if ssd_counts != want_ssd:
             fail(f"{arch}: the profiled step ran SSD kernels {ssd_counts}, "
                  f"not the tensor-core route's {want_ssd}")
+    summary = {"losses": out["losses"], "peak": peak, "median_s": med,
+               "launches": launches, "per_step": per_step}
     del out, params
     torch.cuda.empty_cache()
-    return launches
+    return summary
 
 
 def _profile_batch(torch, tc, m, mbB):
@@ -1623,6 +1640,260 @@ def phase_train_single_checks(torch):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# offload slice: Chronos-Offload in pipeline training
+# ---------------------------------------------------------------------------
+
+def _host_memory() -> str:
+    try:
+        with open("/proc/meminfo") as f:
+            return next(line.split(":", 1)[1].strip() for line in f
+                        if line.startswith("MemTotal"))
+    except (OSError, StopIteration):
+        return "not read"
+
+
+def train_offload_run(torch, arch: str, tag: str, base, steps: int):
+    """Phase 6's (phase 8's) run of ``arch`` with the deep chunk's AdamW on
+    the host: same weights (seed 0), data and plan plus
+    ``OffloadConfig(enabled=True, num_offload_chunks=1)``, ``steps``
+    steps, the peak counted from a reset after the earlier tensors are
+    freed.  ``base``: that phase's summary.  Checks finite losses and
+    gradient norms, every shallow master moved, each collect's deep
+    weights equal to their host masters rounded to bf16 (one slab per
+    leaf, bitwise), the step-1 loss bitwise equal to the base run's, the
+    launch counts, and the peak's fall of at least 0.9 x the deep
+    chunk's fp32 master, mu and nu.  Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch.configs.base import OffloadConfig
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   make_pipeline_spec)
+    from repro_torch.launch.steps import offload_kept
+    from repro_torch.launch.train import train_pipeline
+    from repro_torch.optim import offload as offload_mod
+    from repro_torch.tree import tree_leaves
+    tc0 = _train_config(arch)
+    tc = dataclasses.replace(tc0, plan=dataclasses.replace(
+        tc0.plan, offload=OffloadConfig(enabled=True, num_offload_chunks=1)))
+    P, plan = 4, tc.plan
+    spec = make_pipeline_spec(
+        tc.model, P=P, v=plan.num_chunks, m=plan.num_microbatches,
+        microbatch=plan.microbatch_size, seq_len=tc.shape.seq_len,
+        schedule=plan.schedule, kernels=plan.kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(tc.seed)
+    params = init_pipeline_params(gen, tc.model, spec.layout, "cuda")
+    kept, deep = offload_kept(params, plan)
+    n_deep = sum(a.numel() for a in tree_leaves(deep))
+    deep_state = 12 * n_deep                  # fp32 master, mu, nu
+    before = [a.flatten()[:4096].to(torch.float32, copy=True)
+              for a in tree_leaves(kept)]
+    print(f"[{tag}] {tc.model.name} as phase {base['phase']}, plus "
+          f"{plan.offload}: deep chunk [:, {plan.num_chunks - 1}:] of the "
+          f"block leaves = {n_deep / 1e6:.1f} M parameters, fp32 master, mu "
+          f"and nu {deep_state / 2 ** 30:.3f} GiB on the host; host "
+          f"{os.cpu_count()} CPUs, MemTotal {_host_memory()}")
+    slabs = []                                # (device slab, host want)
+    collect = offload_mod.ChronosOffloadRunner.collect
+
+    def checked_collect(self):
+        out = collect(self)
+        for w, mst in zip(tree_leaves(out), tree_leaves(self.opt.master)):
+            want = torch.from_numpy(mst[0].reshape(-1)[:4096].copy())
+            slabs.append((w[0].flatten()[:4096].clone(),
+                          want.to(torch.bfloat16).to(w.dtype)))
+        return out
+
+    kernels = _kernel_fns()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    offload_mod.ChronosOffloadRunner.collect = checked_collect
+    try:
+        out = train_pipeline(tc, P=P, device="cuda", steps=steps,
+                             params=params,
+                             log=lambda s: print(f"[{tag}] {s}", flush=True))
+    finally:
+        offload_mod.ChronosOffloadRunner.collect = collect
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    rep = out["offload"]
+    n_leaves = len(before)
+    want = {k: steps * n for k, n in base["per_step"].items()}
+    want["fused_adamw_flat"] = steps * n_leaves
+    tokens = spec.table.m * spec.mbB * spec.S
+    med = statistics.median(out["step_s"][1:])
+    fall = base["peak"] - peak
+    print(f"[{tag}] losses={out['losses']} grad_norms={out['grad_norms']} "
+          f"step_s={out['step_s']}")
+    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-{steps}: "
+          f"{[round(t * 1e3, 1) for t in out['step_s'][1:]]}; phase "
+          f"{base['phase']} {base['median_s'] * 1e3:.1f} ms), {tokens} "
+          f"tokens/step -> {tokens / med:.1f} tokens/s; "
+          f"max_memory_allocated={peak / 2 ** 30:.3f} GiB against phase "
+          f"{base['phase']}'s {base['peak'] / 2 ** 30:.3f}: fall "
+          f"{fall / 2 ** 30:.3f} GiB (need >= 0.9 x {deep_state / 2 ** 30:.3f}"
+          f" = {0.9 * deep_state / 2 ** 30:.3f})")
+    print(f"[{tag}] loss - phase {base['phase']} loss at steps 1-{steps}: "
+          f"{[a - b for a, b in zip(out['losses'], base['losses'])]}")
+    print(f"[{tag}] offload: collect_wait_s {rep['collect_wait_s']:.3f}, "
+          f"overlapped/submits {rep['overlapped']}/{rep['submits']}, host "
+          f"update s {[round(t, 3) for t in rep['host_update_s']]}, "
+          f"copy-down {rep['bytes_down'] / 1e9:.3f} GB in ms "
+          f"{[round(t, 2) for t in rep['copy_down_ms']]} (GB/s "
+          f"{[round(g, 2) for g in rep['copy_down_gbps']]}), upload "
+          f"{rep['bytes_up'] / 1e9:.3f} GB in ms "
+          f"{[round(t, 2) for t in rep['upload_ms']]} (GB/s "
+          f"{[round(g, 2) for g in rep['upload_gbps']]})")
+    print(f"[{tag}] Eq. (5)/(7) model at pcie_gbps={plan.offload.pcie_gbps}"
+          f", cpu_flops={plan.offload.cpu_flops} (its inputs, not "
+          f"measured): eq5_offload_ok {rep['eq5_offload_ok']}, "
+          f"eq7_upload_ok {rep['eq7_upload_ok']}, predicted_overlap_ratio "
+          f"{rep['predicted_overlap_ratio']:.4f}; measured_overlap_frac "
+          f"{rep['measured_overlap_frac']:.4f}")
+    print(f"[{tag}] launches {launches} (want {want})")
+    bad = [i for i, (a, b) in enumerate(slabs)
+           if not torch.equal(a.cpu(), b)]
+    print(f"[{tag}] deep weights vs host masters rounded to bf16: "
+          f"{len(slabs) - len(bad)} of {len(slabs)} leaf slabs bitwise "
+          f"({steps} collects)")
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        fail(f"{tag}: non-finite loss or grad_norm")
+    masters = tree_leaves(out["opt_state"]["master"])
+    unchanged = [i for i, (a, b) in enumerate(zip(before, masters))
+                 if torch.equal(a, b.flatten()[:4096])]
+    print(f"[{tag}] shallow and shared masters moved: "
+          f"{n_leaves - len(unchanged)} of {n_leaves}")
+    if unchanged:
+        fail(f"{tag}: shallow master leaves {unchanged} did not change")
+    if bad or len(slabs) != steps * len(tree_leaves(deep)):
+        fail(f"{tag}: deep weights differ from their bf16 host masters "
+             f"(slabs {bad} of {len(slabs)})")
+    if out["losses"][0] != base["losses"][0]:
+        fail(f"{tag}: step-1 loss {out['losses'][0]} != phase "
+             f"{base['phase']}'s {base['losses'][0]}")
+    if rep["submits"] != steps:
+        fail(f"{tag}: {rep['submits']} submits in {steps} steps")
+    if launches != want:
+        fail(f"{tag}: kernel launches {launches} != expected {want}")
+    if not fall >= 0.9 * deep_state:
+        fail(f"{tag}: peak fell {fall / 2 ** 30:.3f} GiB, less than 0.9 x "
+             f"the deep state's {deep_state / 2 ** 30:.3f} GiB")
+    del out, params, kept, deep, slabs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_offload(torch, base):
+    """11. ``train_pipeline`` with Chronos-Offload at full width:
+    tinyllama-1.1b, then mamba2-2.7b, each against its on-device run
+    (phases 6 and 8).  Returns the launch counts per path."""
+    base["tinyllama-1.1b"]["phase"] = 6
+    base["mamba2-2.7b"]["phase"] = 8
+    tiny = train_offload_run(torch, "tinyllama-1.1b", "train-offload",
+                             base["tinyllama-1.1b"], 4)
+    done("train-offload tinyllama-1.1b")
+    mamba = train_offload_run(torch, "mamba2-2.7b", "train-offload-mamba2",
+                              base["mamba2-2.7b"], 4)
+    done("train-offload mamba2-2.7b")
+    return {"train_offload_tinyllama": tiny, "train_offload_mamba2": mamba}
+
+
+def _fp32_offload_losses(torch, cfg, ocfg, mode: str):
+    """3 steps of ``cfg`` (fp32), chronos_zb P=2, v=2, m=4, mbB=1, seq 257,
+    seed 0, through ``train_pipeline``: ``mode`` "device" (the on-device
+    optimizer), "offload" (the deep chunk's AdamW on the host), or
+    "device+bf16" (the on-device step, its deep weights rounded to bf16
+    after every step as the offload upload rounds them: the same data
+    and weights, driven step by step)."""
+    from repro_torch.configs.base import (OffloadConfig, ParallelPlan,
+                                          ShapeConfig, TrainConfig)
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import (make_pipeline_train_step,
+                                          offload_kept)
+    from repro_torch.launch.train import train_pipeline
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+    tc = TrainConfig(
+        model=cfg, shape=ShapeConfig("t", 257, 4, "train"),
+        plan=ParallelPlan(schedule="chronos_zb", num_chunks=2,
+                          microbatch_size=1, num_microbatches=4,
+                          kernels="fused",
+                          offload=OffloadConfig(enabled=mode == "offload")),
+        optimizer=ocfg, seed=0)
+    if mode != "device+bf16":
+        return train_pipeline(tc, P=2, device="cuda", steps=3,
+                              log=lambda s: None)["losses"]
+    dev = torch.device("cuda")
+    step, m, mbB, spec = make_pipeline_train_step(cfg, tc.shape, tc.plan,
+                                                  ocfg, P=2, device=dev)
+    params = init_pipeline_params(
+        torch.Generator(device=dev).manual_seed(tc.seed), cfg, spec.layout,
+        dev)
+    opt = adamw_init(params)
+    src = SyntheticLM(cfg.vocab_size, 257, seed=tc.seed)
+    _, deep = offload_kept(params, tc.plan)
+    losses = []
+    for _ in range(3):
+        toks = torch.from_numpy(src.next_batch(m * mbB).reshape(m, mbB, -1))
+        params, opt, met = step(params, opt, {"tokens": toks.to(dev)})
+        losses.append(float(met["loss"]))
+        for w in tree_leaves(deep):
+            w.copy_(w.to(torch.bfloat16))
+    return losses
+
+
+def phase_train_offload_checks(torch):
+    """fp32, full width, 4 layers, the optimizer of phases 6 and 8 with
+    the gradient clip off, 3 steps, same weights and data
+    (:func:`_fp32_offload_losses`): (a) offload against the port's
+    on-device optimizer, step-1 losses bitwise, then within the
+    reference's 5e-3; (b) offload against the on-device optimizer with
+    the deep weights rounded to bf16 after every step, within 1e-4: what
+    is left is the host update's own rounding.  Then the same pair with
+    the clip on, printed and not checked: the host update never clips
+    the deep gradients and the device clip covers only the shallow and
+    shared leaves, as in the reference, so a clip coefficient that moves
+    from step to step moves Adam's normalised steps apart."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig
+    for arch in ("tinyllama-1.1b", "mamba2-2.7b"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=4,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        for clip in (0.0, 1.0):
+            ocfg = OptimizerConfig(warmup_steps=2, total_steps=4,
+                                   grad_clip=clip)
+            runs = {}
+            for mode in ("device", "offload", "device+bf16"):
+                runs[mode] = _fp32_offload_losses(torch, cfg, ocfg, mode)
+                gc.collect()
+                torch.cuda.empty_cache()
+            off = runs["offload"]
+            d_a = max(abs(a - b) for a, b in zip(runs["device"], off))
+            d_b = max(abs(a - b) for a, b in zip(runs["device+bf16"], off))
+            first = runs["device"][0] == off[0]
+            print(f"[train-offload-check] {arch} fp32 4 layers, grad_clip "
+                  f"{clip}, 3 steps: on-device {runs['device']}, offload "
+                  f"{off}, on-device with bf16 deep weights "
+                  f"{runs['device+bf16']}; offload - on-device max |d| "
+                  f"{d_a:.3e}, offload - bf16-deep on-device max |d| "
+                  f"{d_b:.3e}; step 1 "
+                  f"{'bitwise' if first else 'DIFFERS'}"
+                  + (" (tols 5e-3 and 1e-4)" if clip == 0.0 else
+                     " (printed, not checked)"))
+            if clip == 0.0 and not (first and d_a <= 5e-3 and d_b <= 1e-4):
+                fail(f"{arch}: offload training departs from the on-device "
+                     "optimizer")
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -1710,8 +1981,9 @@ def main() -> None:
     bwd_ms = {
         "attn": by_name["flash_attention_fwd"]["train"]["plain_bwd_ms"],
         "mamba": by_name["ssd_scan"]["plain_bwd_ms"]}
-    launches["train_tinyllama"] = phase_train(torch, "tinyllama-1.1b",
-                                              "train", bwd_ms)
+    base = {"tinyllama-1.1b": phase_train(torch, "tinyllama-1.1b", "train",
+                                          bwd_ms)}
+    launches["train_tinyllama"] = base["tinyllama-1.1b"]["launches"]
     done("train tinyllama-1.1b")
     phase_train_checks(torch, "tinyllama-1.1b", "train-check")
     done("train checks tinyllama-1.1b")
@@ -1720,8 +1992,9 @@ def main() -> None:
     #    first), then a profiled step; 9. its train checks
     gc.collect()
     torch.cuda.empty_cache()
-    launches["train_mamba2"] = phase_train(torch, "mamba2-2.7b",
-                                           "train-mamba2", bwd_ms)
+    base["mamba2-2.7b"] = phase_train(torch, "mamba2-2.7b", "train-mamba2",
+                                      bwd_ms)
+    launches["train_mamba2"] = base["mamba2-2.7b"]["launches"]
     done("train mamba2-2.7b")
     phase_train_checks(torch, "mamba2-2.7b", "train-check-mamba2")
     done("train checks mamba2-2.7b")
@@ -1735,7 +2008,16 @@ def main() -> None:
     phase_train_single_checks(torch)
     done("train-single checks")
 
-    # 11. kernels line, then the result line.  ``launches`` sums the
+    # 11. pipeline training with Chronos-Offload (the deep chunk's AdamW
+    #     on the host) at full width, held against phases 6 and 8; then
+    #     the fp32 offload-vs-device checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_train_offload(torch, base))
+    phase_train_offload_checks(torch)
+    done("train-offload checks")
+
+    # 12. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

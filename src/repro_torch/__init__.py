@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of ``repro``: its pipelined serving path, its
-ChronosPipe pipeline training step and its single-device training
-driver with Chronos-Recomp, each on one device.
+ChronosPipe pipeline training step (with Chronos-Offload, the deepest
+chunks' AdamW on the host) and its single-device training driver with
+Chronos-Recomp, each on one device.
 
 The package stands beside the JAX package ``repro`` and imports nothing
 of it (nor JAX): every module it needs is its own copy.  Layout and

@@ -89,6 +89,37 @@ class ModelConfig:
             p = _lcm(p, self.attn_pattern_period)
         return p
 
+    def param_count(self) -> int:
+        """Total parameter count (embedding included) of the attention,
+        Mamba-2, dense-FFN and norm terms.  MoE, encoder and vision
+        families have no fields here yet (ROADMAP A.3/A.4) and raise."""
+        if self.family not in ("dense", "ssm"):
+            raise NotImplementedError(
+                f"param_count of a {self.family!r} config is not ported")
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab_size * d                               # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d                          # lm head
+        for i in range(self.num_layers):
+            if self.layer_kind(i) == "attn":
+                q = d * self.num_heads * hd
+                kv = 2 * d * self.num_kv_heads * hd
+                o = self.num_heads * hd * d
+                n += q + kv + o
+            else:  # mamba
+                s = self.ssm
+                d_in = s.expand * d
+                nheads = d_in // s.head_dim
+                n += d * (2 * d_in + 2 * s.state_dim + nheads)   # in_proj
+                n += s.conv_width * (d_in + 2 * s.state_dim)     # conv
+                n += 2 * nheads + d_in                   # A, D, dt_bias, norm
+                n += d_in * d                                    # out_proj
+            if self.d_ff:
+                mult = 3 if self.act in ("silu", "geglu") else 2
+                n += mult * d * self.d_ff
+            n += 2 * d                                           # norms
+        return n
+
 
 def _lcm(a: int, b: int) -> int:
     return a * b // math.gcd(a, b)
@@ -125,10 +156,15 @@ class RecomputeConfig:
 
 @dataclass(frozen=True)
 class OffloadConfig:
-    """Chronos-Offload policy (the optimizer step of the deepest chunks on
-    the host).  Not ported yet: ``enabled=True`` raises in the train
-    step; its sizing fields arrive with the offload slice."""
+    """Chronos-Offload policy: optimizer step of the ``num_offload_chunks``
+    *deepest* chunks runs on host (CPU DRAM holds master weights + momenta).
+    ``pcie_gbps`` and ``cpu_flops`` are inputs of the Eq. (5)/(7) model
+    (:func:`repro_torch.core.analysis.offload_timing`), the paper
+    testbed's figures; nothing measures them."""
     enabled: bool = False
+    num_offload_chunks: int = 1
+    pcie_gbps: float = 32.0         # PCIe5 x8, per the paper's testbed
+    cpu_flops: float = 2.0e12       # host SIMD throughput for the update
 
 
 @dataclass(frozen=True)

@@ -387,23 +387,35 @@ def make_train_grads_fn(spec: PipelineSpec, device):
 
 
 def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
-                         use_kernel: bool = True):
+                         use_kernel: bool = True, split=None):
     """Gradients, then the AdamW step on them: returns ``fn(params,
     opt_state, batch) -> (params, opt_state, metrics)``.  The update reads
     each gradient as ``g.float() / m`` (``m`` microbatches), as the
     reference's ``g.astype(f32) / m``, in
     :func:`repro_torch.optim.adamw.adamw_update` — with ``use_kernel``,
     one fused-AdamW kernel launch per parameter leaf.  The optimizer
-    state and ``params`` are updated in place (``params`` is returned)."""
+    state and ``params`` are updated in place (``params`` is returned).
+
+    ``split``: ``tree -> (kept, held)``, applied alike to the gradients
+    and the parameters (Chronos-Offload: the shallow chunks and the
+    shared leaves, and the deep chunks).  The update then covers the kept
+    part only, and ``fn`` returns the held gradients (raw sums, not yet
+    divided by ``m``) as a fourth element; the held weights are left as
+    they are."""
     grads_fn = make_train_grads_fn(spec, device)
     m_dev = torch.tensor(float(m), dtype=torch.float32, device=device)
 
     def fn(params, opt_state, batch):
         grads, metrics = grads_fn(params, batch)
+        kept = params
+        if split is not None:
+            (grads, held), kept = split(grads), split(params)[0]
         master, opt_state, om = adamw_update(grads, opt_state, ocfg,
                                              use_kernel=use_kernel,
                                              grad_div=m_dev)
-        return cast_like(master, params), opt_state, {**metrics, **om}
+        cast_like(master, kept)
+        out = (params, opt_state, {**metrics, **om})
+        return out if split is None else out + (held,)
 
     fn.rings = grads_fn.rings
     return fn

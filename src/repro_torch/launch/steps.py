@@ -1,7 +1,7 @@
 """Training steps of the port, on one device (no shardings, no
-compressed gradient psum, no offload): the single-device step of the
-reference's ``train()`` and ``make_pipeline_train_step`` of
-``repro/launch/steps.py``."""
+compressed gradient psum): the single-device step of the reference's
+``train()`` and ``make_pipeline_train_step`` of
+``repro/launch/steps.py``, with its Chronos-Offload path."""
 from __future__ import annotations
 
 from typing import Dict
@@ -75,17 +75,29 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
     """ChronosPipe train step over ``P`` virtual stages on ``device``.
     Returns ``(step, m, mbB, spec)``: ``step(params, opt_state, batch)
     -> (params, opt_state, metrics)`` with ``batch["tokens"]`` [m, mbB,
-    seq_len], and the built ``PipelineSpec``.
+    seq_len] (and an optional ``loss_mask`` [m, mbB, seq_len - 1]), and
+    the built ``PipelineSpec``.
 
     The optimizer is the fused-AdamW kernel (one launch per parameter
     leaf) exactly where the reference fuses its optimizer into the
     executor: ``kernels="fused"`` and a split-backward table (W tasks);
-    otherwise the phase-separate update without the kernel."""
+    otherwise the phase-separate update without the kernel.
+
+    Chronos-Offload (``plan.offload.enabled``): ``opt_state`` covers only
+    the shallow chunks and the shared leaves (``adamw_init`` of
+    :func:`offload_kept`), so ``metrics["grad_norm"]`` and the clip do
+    too, as in the reference; the step leaves the deep chunks' weights
+    untouched and returns a 4-tuple ``(params, opt_state, metrics,
+    deep_grads)``, the deep chunks' gradient sums (views of the step's
+    accumulators, in the parameters' dtype), which the caller hands to a
+    :class:`~repro_torch.optim.offload.ChronosOffloadRunner`.  The
+    reference turns its in-executor fused optimizer off under offload
+    because its update is then split across two programs; the port's
+    update always runs after the executor and its kernel equals its
+    plain version bitwise, so the shallow update keeps the kernel under
+    the rule above."""
     from repro_torch.core.pipeline_runtime import (make_pipeline_spec,
                                                    make_train_update_fn)
-    if plan.offload.enabled:
-        raise NotImplementedError(
-            "Chronos-Offload (plan.offload.enabled) is not ported yet")
     mbB = plan.microbatch_size
     m = plan.num_microbatches or max(2, shape.global_batch // mbB)
     spec = make_pipeline_spec(
@@ -93,5 +105,24 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
         seq_len=shape.seq_len, schedule=plan.schedule, kernels=plan.kernels,
         **plan_schedule_kwargs(plan))
     fuse_opt = plan.kernels == "fused" and spec.table.has_w
-    step = make_train_update_fn(spec, device, ocfg, m, use_kernel=fuse_opt)
+    split = None
+    if plan.offload.enabled and plan.offload.num_offload_chunks > 0:
+        if not plan.offload.num_offload_chunks < plan.num_chunks:
+            raise ValueError("offload must leave at least one shallow "
+                             "chunk on device")
+
+        def split(tree):
+            return offload_kept(tree, plan)
+    step = make_train_update_fn(spec, device, ocfg, m, use_kernel=fuse_opt,
+                                split=split)
     return step, m, mbB, spec
+
+
+def offload_kept(tree, plan: ParallelPlan):
+    """``(kept, deep)`` of a pipeline tree under ``plan.offload``: kept is
+    the tree with the shallow chunks' block views, deep the deep chunks'
+    block views (:func:`~repro_torch.optim.offload.split_deep_shallow`)."""
+    from repro_torch.optim.offload import split_deep_shallow
+    shallow, deep = split_deep_shallow(tree["blocks"], plan.num_chunks,
+                                       plan.offload.num_offload_chunks)
+    return {**tree, "blocks": shallow}, deep

@@ -1,11 +1,12 @@
 """Training entry points of the port, each on one device, without the
-reference's checkpointer, health monitor, fault injector, watchdog and
-Chronos-Offload:
+reference's checkpointer, health monitor, fault injector and watchdog:
 
 - :func:`train`: the single-device driver (``train`` of
   ``repro/launch/train.py``): every microbatch's loss through
   ``LM.loss`` under Chronos-Recomp, gradients summed in fp32, then AdamW;
-- :func:`train_pipeline`: ChronosPipe pipeline training.
+- :func:`train_pipeline`: ChronosPipe pipeline training, with
+  Chronos-Offload (the deepest chunks' AdamW on the host) when
+  ``plan.offload.enabled``.
 
     from repro_torch.launch.train import train, train_pipeline
     out = train(tc)                                # on the card
@@ -30,8 +31,10 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.pipeline_runtime import init_pipeline_params
 from repro_torch.data import DataPipeline, SyntheticLM
 from repro_torch.launch.steps import (make_pipeline_train_step,
-                                      make_train_step)
+                                      make_train_step, offload_kept)
 from repro_torch.optim import adamw_init
+from repro_torch.optim.offload import (ChronosOffloadRunner,
+                                       merge_deep_shallow)
 
 
 def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
@@ -112,12 +115,23 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     e.g. bridged weights) is given; either tree is updated in place at
     every step (the fp32 masters are written into it).  The data
     come from ``data_source`` or ``SyntheticLM(seed=tc.seed)`` through
-    the prefetching :class:`DataPipeline`.
+    the prefetching :class:`DataPipeline`; every key of a batch reaches
+    the step, a source's ``loss_mask`` (aligned with the tokens, as
+    ``LM.loss`` reads it) cut to the label positions (``[..., 1:]``).
+
+    Chronos-Offload (``tc.plan.offload.enabled``), in the reference's
+    order: a :class:`ChronosOffloadRunner` over the deep chunks' views of
+    ``params``; each step's deep gradients are submitted before the loss
+    is read, and the host update is collected (its bf16 weights uploaded
+    in place) after the next batch is fetched and before the next step,
+    timed into ``collect_wait_s``; a last collect follows the loop.
 
     Returns ``losses``, ``final_loss``, ``steps``, ``wall_s``,
     ``median_step_s`` and ``schedule`` as the reference does, plus
     per-step ``grad_norms``, ``lrs`` and ``step_s`` and the final
-    ``params`` and ``opt_state``."""
+    ``params`` and ``opt_state``; under offload also ``offload``
+    (:func:`offload_report`) and ``host_optimizer`` (the runner's
+    :class:`~repro_torch.optim.offload.HostAdamW`, its numpy state)."""
     cfg, shape, plan, ocfg = tc.model, tc.shape, tc.plan, tc.optimizer
     dev = resolve_device(device)
     steps = steps or ocfg.total_steps
@@ -126,20 +140,46 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tc.seed)
         params = init_pipeline_params(gen, cfg, spec.layout, dev)
-    opt_state = adamw_init(params)
+    offload = plan.offload.enabled and plan.offload.num_offload_chunks > 0
+    runner = None
+    if offload:
+        kept, deep = offload_kept(params, plan)
+        opt_state = adamw_init(kept)
+        runner = ChronosOffloadRunner(deep, ocfg)
+    else:
+        opt_state = adamw_init(params)
+
+    def fold_pending():
+        merge_deep_shallow(kept["blocks"], runner.collect(),
+                           out=params["blocks"])
 
     source = data_source or SyntheticLM(cfg.vocab_size, shape.seq_len,
                                         seed=tc.seed)
     pipe = DataPipeline(source, global_batch=mbB * m, microbatches=m,
                         prefetch=2).start()
     losses, gnorms, lrs, step_s = [], [], [], []
+    pending, collect_wait_s = False, 0.0
     t_start = time.time()
     try:
         for step in range(steps):
             t0 = time.time()
-            tokens = torch.from_numpy(pipe.next()["tokens"]).to(dev)
-            params, opt_state, metrics = step_fn(params, opt_state,
-                                                 {"tokens": tokens})
+            batch = {k: torch.from_numpy(a).to(dev)
+                     for k, a in pipe.next().items()}
+            if "loss_mask" in batch:
+                batch["loss_mask"] = batch["loss_mask"][..., 1:]
+            if pending:
+                t_c = time.time()
+                fold_pending()            # bf16 upload of the deep chunks
+                pending = False
+                collect_wait_s += time.time() - t_c
+            out = step_fn(params, opt_state, batch)
+            params, opt_state, metrics = out[:3]
+            if offload:
+                runner.submit(out[3], grad_div=m)   # grads down, host AdamW
+                pending = True
+            # the deep gradients are views of the step's accumulators:
+            # held here, they would live through the next step
+            del out
             loss = float(metrics["loss"])     # waits for the step
             dt = time.time() - t0
             losses.append(loss)
@@ -149,10 +189,47 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
             if step % tc.log_every == 0:
                 log(f"[train-pp] step {step} loss {loss:.4f} "
                     f"gnorm {gnorms[-1]:.3f} lr {lrs[-1]:.3e} ({dt:.2f}s)")
+        if pending:
+            fold_pending()
     finally:
         pipe.stop()
-    return {"losses": losses, "final_loss": losses[-1] if losses else None,
-            "steps": len(losses), "wall_s": time.time() - t_start,
-            "median_step_s": statistics.median(step_s) if step_s else None,
-            "schedule": spec.table.name, "grad_norms": gnorms, "lrs": lrs,
-            "step_s": step_s, "params": params, "opt_state": opt_state}
+        if runner is not None:
+            runner.close()
+    res = {"losses": losses, "final_loss": losses[-1] if losses else None,
+           "steps": len(losses), "wall_s": time.time() - t_start,
+           "median_step_s": statistics.median(step_s) if step_s else None,
+           "schedule": spec.table.name, "grad_norms": gnorms, "lrs": lrs,
+           "step_s": step_s, "params": params, "opt_state": opt_state}
+    if offload:
+        res["offload"] = offload_report(tc, spec, runner,
+                                        collect_wait_s=collect_wait_s)
+        res["host_optimizer"] = runner.opt
+    return res
+
+
+def offload_report(tc: TrainConfig, spec, runner, *,
+                   collect_wait_s: float) -> Dict:
+    """Measured offload overlap against the paper's Eq. (5)/(7) model (at
+    tp=1: one card), with the reference's keys, plus what the runner
+    measured (:meth:`ChronosOffloadRunner.measured`: host update seconds,
+    and on a card the copies' milliseconds and GB/s).  The model's
+    ``pcie_gbps`` and ``cpu_flops`` are the plan's inputs, not
+    measurements."""
+    from repro_torch.core.analysis import offload_timing
+    plan, shape = tc.plan, tc.shape
+    ot = offload_timing(
+        tc.model, seq_len=shape.seq_len, microbatch=spec.mbB,
+        pp=spec.table.P, tp=1, pcie_gbps=plan.offload.pcie_gbps,
+        cpu_flops=plan.offload.cpu_flops,
+        offload_frac=plan.offload.num_offload_chunks / plan.num_chunks)
+    submits = max(int(runner.stats["submits"]), 1)
+    return {
+        "submits": int(runner.stats["submits"]),
+        "overlapped": int(runner.stats["overlapped"]),
+        "measured_overlap_frac": runner.stats["overlapped"] / submits,
+        "collect_wait_s": collect_wait_s,
+        "eq5_offload_ok": ot.offload_ok,
+        "eq7_upload_ok": ot.upload_ok,
+        "predicted_overlap_ratio": ot.overlap_ratio,
+        **runner.measured(),
+    }

@@ -1,4 +1,8 @@
-"""AdamW with fp32 master weights and its learning-rate schedules."""
+"""AdamW with fp32 master weights, its learning-rate schedules, and the
+Chronos-Offload host optimizer of the deepest chunks."""
 from repro_torch.optim.adamw import (adamw_init, adamw_update,  # noqa: F401
                                      cast_like, global_norm)
 from repro_torch.optim.schedules import lr_at  # noqa: F401
+from repro_torch.optim.offload import (ChronosOffloadRunner,  # noqa: F401
+                                       HostAdamW, merge_deep_shallow,
+                                       split_deep_shallow)

@@ -45,8 +45,12 @@ def adamw_init(params) -> Dict[str, Any]:
                                              device=a.device), params),
         "nu": tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
                                              device=a.device), params),
+        # own contiguous copies, also of strided views (an offload run's
+        # shallow chunks): the fused kernel reads flat leaves
         "master": tree_map(
-            lambda a: a.detach().to(torch.float32, copy=True), params),
+            lambda a: a.detach().to(torch.float32, copy=True,
+                                    memory_format=torch.contiguous_format),
+            params),
     }
 
 

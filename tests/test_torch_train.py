@@ -183,11 +183,45 @@ def test_rings_are_the_table_depths(schedule):
     assert all(r.dtype == torch.float32 for r in rings["fq"])
 
 
-@pytest.mark.parametrize("schedule,kernels", [("chronos_zb", "fused"),
-                                              ("chronos", "plain")])
-def test_train_pipeline_trajectory_matches_jax(schedule, kernels):
-    """3 steps of ``train_pipeline`` against ``jax.grad(LM.loss)`` / m and
-    ``adamw_update(use_kernel=True)`` on the same batches."""
+class MaskedSource:
+    """``SyntheticLM`` tokens with a ``loss_mask`` aligned with them (as
+    ``LM.loss`` reads it) that zeroes a ragged tail of each row, drawn
+    from ``seed`` and the batch count."""
+
+    def __init__(self, vocab, seq_len, seed):
+        self.tokens = SyntheticLM(vocab, seq_len, seed=seed)
+        self.seq_len, self.seed, self.n = seq_len, seed, 0
+
+    def next_batch(self, batch):
+        rng = np.random.default_rng((self.seed, self.n))
+        self.n += 1
+        keep = rng.integers(self.seq_len // 2, self.seq_len, (batch, 1))
+        return {"tokens": self.tokens.next_batch(batch),
+                "loss_mask": (np.arange(self.seq_len)[None] < keep
+                              ).astype(np.float32)}
+
+    def state(self):
+        return {"tokens": self.tokens.state(), "n": self.n}
+
+    def load_state(self, st):
+        self.tokens.load_state(st["tokens"])
+        self.n = st["n"]
+
+
+def _jax_total_masked_loss(p, tokens, mask):
+    lm = JaxLM(JCFG)
+    return sum(lm.loss(p, {"tokens": tokens[i], "loss_mask": mask[i]})[0]
+               for i in range(tokens.shape[0]))
+
+
+_jax_masked_value_and_grad = jax.jit(jax.value_and_grad(
+    _jax_total_masked_loss))
+
+
+def _trajectory(schedule, kernels, source):
+    """3 steps of ``train_pipeline`` on batches of ``source(seed)`` against
+    ``jax.grad(LM.loss)`` / m and ``adamw_update(use_kernel=True)`` on the
+    same batches (with their ``loss_mask`` where the source gives one)."""
     v = SCHEDULE_V[schedule]
     ocfg = dict(warmup_steps=1, total_steps=3, lr=1e-3)
     tc = TrainConfig(model=CFG, shape=ShapeConfig("t", SEQ, M * MBB, "train"),
@@ -200,16 +234,21 @@ def test_train_pipeline_trajectory_matches_jax(schedule, kernels):
                               seq_len=SEQ, schedule=schedule)
     jp = _jax_tree(unstage_params(params, spec.layout))
     out = train_pipeline(tc, P=P, device="cpu", steps=3, params=params,
-                         data_source=SyntheticLM(CFG.vocab_size, SEQ, seed=5),
-                         log=lambda s: None)
-    src = SyntheticLM(CFG.vocab_size, SEQ, seed=5)
+                         data_source=source(5), log=lambda s: None)
+    src = source(5)
     jstate = jax_adamw_init(jp)
     jax_update = jax.jit(lambda g, s: jax_adamw_update(
         g, s, JaxOptimizerConfig(**ocfg), use_kernel=True))
     jlosses = []
     for _ in range(3):
-        toks = src.next_batch(M * MBB).reshape(M, MBB, SEQ)
-        loss, g = _jax_value_and_grad(jp, toks)
+        b = src.next_batch(M * MBB)
+        b = b if isinstance(b, dict) else {"tokens": b}
+        toks = b["tokens"].reshape(M, MBB, SEQ)
+        if "loss_mask" in b:
+            loss, g = _jax_masked_value_and_grad(
+                jp, toks, b["loss_mask"].reshape(M, MBB, SEQ))
+        else:
+            loss, g = _jax_value_and_grad(jp, toks)
         jlosses.append(float(loss) / M)
         g = jax.tree.map(lambda a: a.astype(jnp.float32) / M, g)
         jm, jstate, _ = jax_update(g, jstate)
@@ -232,6 +271,61 @@ def test_train_pipeline_trajectory_matches_jax(schedule, kernels):
     assert out["steps"] == 3 and out["schedule"] == spec.table.name
 
 
+@pytest.mark.parametrize("schedule,kernels", [("chronos_zb", "fused"),
+                                              ("chronos", "plain")])
+def test_train_pipeline_trajectory_matches_jax(schedule, kernels):
+    """3 steps of ``train_pipeline`` against ``jax.grad(LM.loss)`` / m and
+    ``adamw_update(use_kernel=True)`` on the same batches."""
+    _trajectory(schedule, kernels,
+                lambda seed: SyntheticLM(CFG.vocab_size, SEQ, seed=seed))
+
+
+@pytest.mark.parametrize("schedule,kernels", [("chronos_zb", "fused"),
+                                              ("chronos", "plain")])
+def test_train_pipeline_passes_the_loss_mask(schedule, kernels):
+    """A data source that emits a ``loss_mask``: every batch key reaches
+    the step (the mask cut to the label positions, as ``LM.loss`` cuts
+    it), against the masked ``jax.grad(LM.loss)`` trajectory."""
+    _trajectory(schedule, kernels,
+                lambda seed: MaskedSource(CFG.vocab_size, SEQ, seed))
+
+
+def _mask(seed=3):
+    """A loss mask over the label positions [M, MBB, SEQ - 1] that drops
+    about 30% of them."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(size=(M, MBB, SEQ - 1)) > 0.3).astype(np.float32)
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULE_V))
+def test_masked_pipeline_grads_match_jax_autodiff(schedule):
+    """The executor with a ``loss_mask`` [m, mbB, S - 1] (the reference
+    executor's layout) against ``jax.grad`` of the masked ``LM.loss``,
+    which reads ``mask[:, 1:]`` of a token-aligned mask: the same mask
+    behind a leading column of ones."""
+    v = SCHEDULE_V[schedule]
+    spec = make_pipeline_spec(CFG, P=P, v=v, m=M, microbatch=MBB,
+                              seq_len=SEQ, schedule=schedule,
+                              kernels="fused")
+    params = _jax_reference(v)[0]
+    mask = _mask()
+    grads, metrics = make_train_grads_fn(spec, "cpu")(
+        params, {"tokens": torch.from_numpy(_tokens()),
+                 "loss_mask": torch.from_numpy(mask)})
+    full = np.concatenate([np.ones((M, MBB, 1), np.float32), mask], -1)
+    loss, ref = _jax_masked_value_and_grad(
+        _jax_tree(unstage_params(params, spec.layout)), _tokens(), full)
+    ours = tree_leaves(unstage_params(grads, spec.layout))
+    errs = [abs(float(metrics["loss"]) - float(loss) / M)] + [
+        float(np.abs(a.numpy() - np.asarray(b)).max())
+        for a, b in zip(ours, jax.tree.leaves(ref))]
+    unmasked = _jax_reference(v)[1]
+    print(f"{schedule} masked: loss {float(metrics['loss']):.6f} (unmasked "
+          f"{unmasked:.6f}); max |port - jax.grad| = {max(errs):.3e}")
+    assert abs(float(metrics["loss"]) - unmasked) > 1e-3   # the mask acts
+    assert max(errs) <= GRAD_TOL
+
+
 @pytest.mark.parametrize("seq_len", [16, 64])
 def test_synthetic_batches_equal_jax(seq_len):
     ours, ref = SyntheticLM(512, seq_len, seed=3), JaxSyntheticLM(
@@ -251,14 +345,17 @@ def test_synthetic_odd_length_is_the_even_stream_cut():
 
 def test_train_pipeline_refuses_cuda_without_a_card_and_offload(
         monkeypatch):
+    """No silent CPU fallback; and offload must leave a shallow chunk on
+    the device (the reference's assertion, here a ValueError)."""
     tc = TrainConfig(model=CFG, shape=ShapeConfig("t", SEQ, 8, "train"),
                      plan=ParallelPlan(microbatch_size=2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         train_pipeline(tc, P=2, steps=1)
     off = dataclasses.replace(tc, plan=ParallelPlan(
-        microbatch_size=2, offload=OffloadConfig(enabled=True)))
-    with pytest.raises(NotImplementedError, match="Offload"):
+        microbatch_size=2, num_chunks=2,
+        offload=OffloadConfig(enabled=True, num_offload_chunks=2)))
+    with pytest.raises(ValueError, match="at least one shallow chunk"):
         train_pipeline(off, P=2, device="cpu", steps=1)
 
 
