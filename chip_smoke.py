@@ -59,15 +59,34 @@ Phases, in order; any failure exits non-zero:
     clip off: offload against the on-device optimizer (|d loss| <= 5e-3)
     and against the on-device optimizer with its deep weights rounded
     to bf16 after every step (<= 1e-4); with the clip on, printed only;
-12. a JSON ``kernels`` line, then the JSON result line.
+12. train-vshape: phase 6's run with ``v_min`` (the V-shape fold-back:
+    device d holds blocks d and 7-d; split backward, fused AdamW);
+13. train-seq-chronos: phase 6's run with ``chronos_seq``, n_seq=2
+    (two 1024-position chunks per sequence, KV-carry and dKV rings) and
+    ``RecomputeConfig("chronos", num_recomp_chunks=1)``;
+14. train-seq-1f1b: phase 6's run with ``seq1f1b``, v=1, n_seq=4;
+    phases 12-14 check what phase 6 checks (launch counts from the
+    table: a sequence-chunked op runs each layer's flash at its chunk's
+    offset) and print step time, tokens/s, peak memory and the table's
+    ring depths beside phase 6's, and each profiles one step;
+15. fp32, full width, 4 layers: v_min, v_half and v_zb against
+    ``LM.loss`` autograd, v_min against the interleaved chronos on the
+    same network, chronos_seq (n_seq=2) against chronos and seq1f1b
+    (n_seq=4) against 1f1b, with and without a loss mask, each within
+    2e-5 relative;
+16. a JSON ``kernels`` line, then the JSON result line.
 
 Phase 3 also holds fused AdamW bitwise against its plain version, the
 RMSNorm, flash and SSD Functions' gradients against autograd through the
 plain versions (flash and SSD once more at the training length), the
 chunk body's kernels against their plain versions at the training shapes
-of both models, where it times them, and the SSD scan at four shapes in
-fp32 and bf16, each case's route printed and checked (bf16: the
-tensor-core passes, fp32: the CUDA-core kernel).
+of both models, where it times them, flash at the sequence-chunked
+training shapes (q chunks of 1024 and 512 rows at every offset over a
+2048-row KV-carry slot: o, lse, the Function's gradients with dK/dV
+exactly 0 past the causal frontier, times beside SDPA given the boolean
+mask and the bound), and the SSD scan at four shapes in fp32 and bf16,
+each case's route printed and checked (bf16: the tensor-core passes,
+fp32: the CUDA-core kernel).
 
 Needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -830,6 +849,108 @@ def phase_train_shapes(torch, gen, rows):
         "timed_shape": f"x [{S},2048] bf16"}
 
 
+def phase_flash_offsets(torch, gen, rows):
+    """The flash kernel at the sequence-chunked training shapes: a query
+    chunk of Sc = 2048 / n_seq rows at each offset q * Sc over the full
+    2048-row K/V of one KV-carry slot (a view of a ring [2, 3, 1, 1,
+    2048, 4, 64], contiguous and 16-byte aligned, as the executor's
+    buffers are), bf16, n_seq = 2 and 4.  Holds o and lse against
+    ``attention_ref`` (phase 3's bf16 tolerances) and the
+    ``FlashAttention`` Function's dq, dk, dv against autograd through
+    ``attention_ref`` (``_flash_grad_case``'s tolerances), with dk and dv
+    past the causal frontier exactly zero; times the kernel (CUDA
+    graph), the plain version and SDPA given the equivalent boolean
+    mask, beside the bound.  Adds ``rows["flash_attention_fwd"]
+    ["train_offsets"]``."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_fwd)
+    import torch.nn.functional as F
+    S, H, G, d, dt = TRAIN_SEQ - 1, 32, 4, 64, torch.bfloat16
+    ring = {n: torch.randn((2, 3, 1, 1, S, G, d), generator=gen,
+                           device="cuda").to(dt) for n in ("k", "v")}
+    k, v = ring["k"][1, 2, 0], ring["v"][1, 2, 0]
+    if not (k.is_contiguous() and k.data_ptr() % 16 == 0
+            and v.data_ptr() % 16 == 0):
+        fail("a KV-carry slot view is not contiguous and 16-byte aligned")
+    kt = k.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
+    out, bwd_ms = [], {}
+    for ns in (2, 4):
+        Sc = S // ns
+        # the Function's plain backward (attention_ref over the whole
+        # K/V, whatever the offset): the seq phases' profiles read it
+        leaves = [a.clone().requires_grad_() for a in (
+            torch.randn((1, Sc, H, d), generator=gen, device="cuda").to(dt),
+            k, v)]
+        o = flash_attention(*leaves, q_offset=Sc)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+        bwd_ms[Sc] = time_ms(lambda: torch.autograd.grad(
+            o, leaves, do, retain_graph=True), iters=5, warmup=1)
+        del o, leaves
+        print(f"[kernels] the FlashAttention backward (plain VJP) at q "
+              f"[1,{Sc},{H},{d}] over kv [1,{S},{G},{d}]: "
+              f"{bwd_ms[Sc]:.3f} ms")
+        for qi in range(ns):
+            off = qi * Sc
+            q = torch.randn((1, Sc, H, d), generator=gen,
+                            device="cuda").to(dt)
+            o, lse = flash_attention_fwd(q, k, v, q_offset=off)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = attention_ref(q, k, v, q_offset=off)
+            e_o, e_l = max_err(o, o_ref), max_err(lse, lse_ref)
+            # the Function: kernel forward, dq/dk/dv over the whole K/V
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+            ins = [[a.clone().requires_grad_() for a in (q, k, v)]
+                   for _ in range(2)]
+            flash_attention(*ins[0], q_offset=off).backward(do)
+            attention_ref(*ins[1], q_offset=off)[0].backward(do)
+            e_g = [max_err(a.grad, b.grad) for a, b in zip(*ins)]
+            past = max(float(a.grad[:, off + Sc:].abs().max())
+                       if off + Sc < S else 0.0 for a in ins[0][1:])
+            ok = e_o <= 2e-2 and e_l <= 1e-5 and max(e_g) <= 1e-2 \
+                and past == 0.0
+            del ins, o, lse, o_ref, lse_ref
+            ms = graph_ms(lambda: flash_attention_fwd(q, k, v, q_offset=off))
+            plain_ms = time_ms(lambda: attention_ref(q, k, v, q_offset=off),
+                               iters=5, warmup=1)
+            qt = q.transpose(1, 2).contiguous()
+            mask = torch.arange(S, device="cuda")[None, :] <= (
+                off + torch.arange(Sc, device="cuda")[:, None])
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+            pairs = Sc * off + Sc * (Sc + 1) // 2     # causal, visible
+            k_rows = off + Sc
+            el = q.element_size()
+            nbytes = 2 * Sc * H * d * el + 2 * k_rows * G * d * el \
+                + H * Sc * 4
+            flops = 4 * H * d * pairs
+            b = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": flops / BF16_FLOPS * 1e3}
+            by = max(b, key=b.get)
+            shape = (f"q [1,{Sc},{H},{d}] kv [1,{S},{G},{d}] bf16 "
+                     f"q_offset={off} (n_seq={ns})")
+            print(f"[kernels] flash_attention_fwd {shape}: max|d| o="
+                  f"{e_o:.3e} (tol 0.02) lse={e_l:.3e} (tol 1e-05); "
+                  f"FlashAttention dq={e_g[0]:.3e} dk={e_g[1]:.3e} dv="
+                  f"{e_g[2]:.3e} (tol 0.01), max|dk, dv| past the frontier "
+                  f"{past:g} (must be 0) {'ok' if ok else 'FAIL'}; "
+                  f"kernel {ms * 1e3:.2f} us (CUDA graph), plain "
+                  f"{plain_ms * 1e3:.2f} us, SDPA (boolean mask) "
+                  f"{lib_ms * 1e3:.2f} us, bound {b[by] * 1e3:.2f} us "
+                  f"({by}; {flops / 1e9:.2f} GFLOP) = {ms / b[by]:.1f}x "
+                  f"bound")
+            if not ok:
+                fail(f"flash_attention_fwd / FlashAttention disagree with "
+                     f"attention_ref at {shape}")
+            out.append({"timed_shape": shape, "max_abs_err": e_o,
+                        "lse_max_abs_err": e_l, "grad_max_abs_err": max(e_g),
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": b[by], "bound_by": by})
+    rows["flash_attention_fwd"]["train_offsets"] = out
+    rows["flash_attention_fwd"]["train_offsets_plain_bwd_ms"] = bwd_ms
+
+
 # ---------------------------------------------------------------------------
 # mamba2 slice: the SSD chunk scan
 # ---------------------------------------------------------------------------
@@ -1113,8 +1234,12 @@ def expected_train_launches(spec, n_leaves: int):
     layer launches one flash kernel, a Mamba-2 layer one SSD scan, and
     each launches rmsnorm for ``norm1``, for the Mamba-2 block's gated
     norm and for ``norm2`` where the config has an FFN; the final norm
-    runs where an op runs the head.  The update launches fused AdamW
-    once per leaf."""
+    runs where an op runs the head.  The table's rows are per device
+    under its placement (the V-shape fold-back too) and per sequence
+    chunk: a sequence-chunked F runs each layer's flash once at its
+    chunk's offset, and its B once more in the replay.  The update
+    launches fused AdamW once per leaf where the table has W tasks (the
+    split backward: zero-bubble and V-shape), else not at all."""
     cfg = spec.cfg
     attn, mamba = _layers_of(spec, "attn"), _layers_of(spec, "mamba")
     rms = attn + 2 * mamba + (attn + mamba) * (cfg.d_ff > 0)
@@ -1123,7 +1248,7 @@ def expected_train_launches(spec, n_leaves: int):
         n["flash_attention_fwd"] += attn
         n["ssd_scan"] += mamba
         n["rmsnorm_rows"] += rms + last
-    return {**n, "fused_adamw_flat": n_leaves}
+    return {**n, "fused_adamw_flat": n_leaves if spec.table.has_w else 0}
 
 
 def plain_backward_calls(spec, kind: str) -> int:
@@ -1135,7 +1260,10 @@ def plain_backward_calls(spec, kind: str) -> int:
                                         for op, _ in _body_ops(spec))
 
 
-def _train_config(arch: str):
+def _train_config(arch: str, **plan):
+    """Phase 6's configuration of ``arch``; ``plan`` overrides fields of
+    its ``ParallelPlan`` (chronos_zb, v=2, 8 microbatches of one
+    sequence, fused kernels)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import (OptimizerConfig, ParallelPlan,
                                           ShapeConfig, TrainConfig)
@@ -1143,11 +1271,23 @@ def _train_config(arch: str):
         model=get_config(arch),
         shape=ShapeConfig("train_2k", seq_len=TRAIN_SEQ, global_batch=8,
                           kind="train"),
-        plan=ParallelPlan(schedule="chronos_zb", num_chunks=2,
-                          microbatch_size=1, num_microbatches=8,
-                          kernels="fused"),
+        plan=ParallelPlan(**{**dict(schedule="chronos_zb", num_chunks=2,
+                                    microbatch_size=1, num_microbatches=8,
+                                    kernels="fused"), **plan}),
         optimizer=OptimizerConfig(warmup_steps=2, total_steps=4),
         seed=0, log_every=1)
+
+
+def _spec_of(tc, P: int):
+    """The ``PipelineSpec`` that ``train_pipeline(tc, P=P)`` builds."""
+    from repro_torch.core.pipeline_runtime import make_pipeline_spec
+    from repro_torch.launch.steps import plan_schedule_kwargs
+    plan = tc.plan
+    return make_pipeline_spec(
+        tc.model, P=P, v=plan.num_chunks, m=plan.num_microbatches,
+        microbatch=plan.microbatch_size, seq_len=tc.shape.seq_len,
+        schedule=plan.schedule, kernels=plan.kernels, n_seq=plan.seq_chunks,
+        **plan_schedule_kwargs(plan))
 
 
 def _kernel_fns():
@@ -1161,24 +1301,24 @@ def _kernel_fns():
             "fused_adamw_flat": fused_adamw_flat, "ssd_scan": ssd_scan}
 
 
-def phase_train(torch, arch: str, tag: str, bwd_ms):
-    """Full-width ``arch`` trained 4 steps with chronos_zb on P=4 virtual
-    stages through ``train_pipeline``; launch counts from the table; then
-    one more step under the profiler.  ``bwd_ms``: layer kind -> the
-    per-call time of its kernel Function's plain backward at the training
-    shape (phase 3).  Returns the launch counts, losses, peak memory and
-    median step (phase 11 holds its offload runs against them)."""
-    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
-                                                   make_pipeline_spec)
+def phase_train(torch, arch: str, tag: str, bwd_ms, **plan):
+    """Full-width ``arch`` trained 4 steps on P=4 virtual stages through
+    ``train_pipeline``, with phase 6's plan (chronos_zb) or ``plan``'s
+    overrides of it (phases 12-14: v_min, chronos_seq, seq1f1b); launch
+    counts from the table; then one more step under the profiler.
+    ``bwd_ms``: layer kind -> the per-call time of its kernel Function's
+    plain backward at the training shape (phase 3).  Returns the launch
+    counts, losses, peak memory and median step (phase 11 holds its
+    offload runs against them)."""
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
     from repro_torch.launch.train import train_pipeline
     from repro_torch.tree import tree_leaves
-    tc = _train_config(arch)
+    tc = _train_config(arch, **plan)
     P, steps = 4, 4
-    plan = tc.plan
-    spec = make_pipeline_spec(
-        tc.model, P=P, v=plan.num_chunks, m=plan.num_microbatches,
-        microbatch=plan.microbatch_size, seq_len=tc.shape.seq_len,
-        schedule=plan.schedule, kernels=plan.kernels)
+    spec = _spec_of(tc, P)
+    tab = spec.table
+    gc.collect()
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(tc.seed)
     params = init_pipeline_params(gen, tc.model, spec.layout, "cuda")
     leaves = tree_leaves(params)
@@ -1186,12 +1326,13 @@ def phase_train(torch, arch: str, tag: str, bwd_ms):
     before = [a.flatten()[:4096].to(torch.float32, copy=True)
               for a in leaves]
     lay = spec.layout
-    print(f"[{tag}] {tc.model.name} full width bf16, {tc.plan.schedule} "
-          f"P={P} v={lay.v} m={spec.table.m} mbB={spec.mbB} seq "
-          f"{spec.S}: L_pad={lay.L_pad} K={lay.K}, {n_params / 1e9:.3f} B "
-          f"parameters in {len(leaves)} leaves; table T={spec.table.T} "
-          f"act {spec.table.act_depth} wstash {spec.table.wstash_depth} "
-          f"fq {spec.table.fq_depth} bq {spec.table.bq_depth}")
+    print(f"[{tag}] {tc.model.name} full width bf16, {tab.name} "
+          f"({lay.pl.name} placement) P={P} v={lay.v} m={tab.m} n_seq="
+          f"{tab.n_seq} mbB={spec.mbB} seq {spec.S}: L_pad={lay.L_pad} "
+          f"K={lay.K}, {n_params / 1e9:.3f} B parameters in {len(leaves)} "
+          f"leaves; table T={tab.T} act {tab.act_depth} kv {tab.kv_depth} "
+          f"wstash {tab.wstash_depth} rmt {tab.rmt_depth} fq "
+          f"{tab.fq_depth} bq {tab.bq_depth}")
     kernels = _kernel_fns()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1230,7 +1371,10 @@ def phase_train(torch, arch: str, tag: str, bwd_ms):
           f"{len(masters)} weight leaves (first 4096 elements of each)")
     if unchanged:
         fail(f"{arch}: master weight leaves {unchanged} did not change")
-    bwd = [(kind, bwd_ms[kind], plain_backward_calls(spec, kind))
+    # the plain backward's per-call time at this table's chunk length
+    Sc = spec.S // spec.n_seq
+    bwd = [(kind, bwd_ms[kind] if spec.n_seq == 1 else bwd_ms[kind, Sc],
+            plain_backward_calls(spec, kind))
            for kind in ("attn", "mamba") if _layers_of(spec, kind)]
     ssd_counts = profile_train_step(torch, tc, P, out["params"],
                                     out["opt_state"], med, tag, bwd)
@@ -1244,7 +1388,8 @@ def phase_train(torch, arch: str, tag: str, bwd_ms):
             fail(f"{arch}: the profiled step ran SSD kernels {ssd_counts}, "
                  f"not the tensor-core route's {want_ssd}")
     summary = {"losses": out["losses"], "peak": peak, "median_s": med,
-               "launches": launches, "per_step": per_step}
+               "launches": launches, "per_step": per_step,
+               "schedule": tab.name, "tokens_per_s": tokens / med}
     del out, params
     torch.cuda.empty_cache()
     return summary
@@ -1894,6 +2039,129 @@ def phase_train_offload_checks(torch):
                      "optimizer")
 
 
+# ---------------------------------------------------------------------------
+# V-shape and sequence-chunked pipeline schedules
+# ---------------------------------------------------------------------------
+
+def phase_train_schedules(torch, bwd_ms, base):
+    """Phases 12-14: full-width tinyllama-1.1b through ``train_pipeline``
+    as phase 6 (seed, data, optimizer, fused kernels, P=4, m=8, one
+    2049-token sequence per microbatch, 4 steps, launch counts from the
+    table, a profiled step) with v_min (v=2, the fold-back placement,
+    split backward and fused AdamW), chronos_seq (v=2, n_seq=2,
+    ``RecomputeConfig("chronos", num_recomp_chunks=1)``) and seq1f1b
+    (v=1, n_seq=4), each printed beside phase 6.  Returns the launch
+    counts by path."""
+    from repro_torch.configs.base import RecomputeConfig
+    launches = {}
+    ref = base["tinyllama-1.1b"]
+    for tag, plan in (
+            ("train-vshape", dict(schedule="v_min")),
+            ("train-seq-chronos", dict(
+                schedule="chronos_seq", seq_chunks=2,
+                recompute=RecomputeConfig("chronos", num_recomp_chunks=1))),
+            ("train-seq-1f1b", dict(schedule="seq1f1b", num_chunks=1,
+                                    seq_chunks=4))):
+        out = phase_train(torch, "tinyllama-1.1b", tag, bwd_ms, **plan)
+        print(f"[{tag}] beside phase 6 ({ref['schedule']}): median step "
+              f"{out['median_s'] * 1e3:.1f} ms vs "
+              f"{ref['median_s'] * 1e3:.1f} ms, "
+              f"{out['tokens_per_s']:.1f} vs {ref['tokens_per_s']:.1f} "
+              f"tokens/s, peak {out['peak'] / 2 ** 30:.3f} vs "
+              f"{ref['peak'] / 2 ** 30:.3f} GiB, step-1 loss "
+              f"{out['losses'][0]:.6f} vs {ref['losses'][0]:.6f}")
+        launches[tag.replace("-", "_")] = out["launches"]
+        done(f"{tag} tinyllama-1.1b")
+    return launches
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want| over one tensor."""
+    return max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def phase_train_schedule_checks(torch):
+    """Phase 15, fp32, full width, 4 layers, P=2, m=4, mbB=1, seq 257
+    (phase 7's sizes): (a) v_min, v_half and v_zb loss and gradients
+    (fused kernels) against ``LM.loss`` autograd (plain backend, same
+    weights); (b) v_min against the interleaved chronos (v=2) on the
+    same network, its weights remapped by layer block; (c) chronos_seq
+    (n_seq=2) against chronos and seq1f1b (n_seq=4) against 1f1b, with
+    and without a loss mask.  Every pair within 2e-5 relative (per leaf:
+    max|d| / max|ref|; the loss: |d| / |ref|)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   make_pipeline_spec,
+                                                   make_train_grads_fn,
+                                                   restage_params,
+                                                   unstage_params)
+    from repro_torch.models import LM
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=4,
+                              param_dtype="float32", compute_dtype="float32")
+    P, m, mbB, seq, tol = 2, 4, 1, 257, 2e-5
+
+    def spec_of(schedule, v, **kw):
+        return make_pipeline_spec(cfg, P=P, v=v, m=m, microbatch=mbB,
+                                  seq_len=seq, schedule=schedule,
+                                  kernels="fused", **kw)
+
+    def run(spec, params, batch):
+        g, met = make_train_grads_fn(spec, "cuda")(params, batch)
+        return float(met["loss"]), tree_leaves(unstage_params(g,
+                                                              spec.layout))
+
+    def check(label, a, b):
+        err = max([abs(a[0] - b[0]) / abs(b[0])]
+                  + [_rel_err(x, y) for x, y in zip(a[1], b[1])])
+        print(f"[train-check-schedules] {label}: loss {a[0]:.6f} vs "
+              f"{b[0]:.6f}; max rel |d| loss and grads {err:.3e} (tol "
+              f"{tol:g}) {'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            fail(f"phase 15 {label} disagree")
+
+    tokens = torch.randint(0, cfg.vocab_size, (m, mbB, seq), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    mask = (torch.rand((m, mbB, seq - 1), device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(2)) > 0.3).float()
+    # (a), (b): the V-shape family
+    vmin = spec_of("v_min", 2)
+    params = init_pipeline_params(torch.Generator(device="cuda")
+                                  .manual_seed(0), cfg, vmin.layout, "cuda")
+    lm = LM(cfg, kernels="plain", device="cuda")
+    lp = tree_map(lambda a: a.detach().clone().requires_grad_(),
+                  unstage_params(params, vmin.layout))
+    ref_loss = sum(lm.loss(lp, {"tokens": tokens[i]})[0] for i in range(m))
+    ref = (float(ref_loss.detach()) / m,
+           list(torch.autograd.grad(ref_loss, tree_leaves(lp))))
+    del lp, ref_loss
+    batch = {"tokens": tokens}
+    got = {}
+    for name in ("v_min", "v_half", "v_zb"):
+        got[name] = run(spec_of(name, 2), params, batch)
+        check(f"(a) {name} fused vs LM.loss autograd", got[name], ref)
+    ch = spec_of("chronos", 2)
+    check("(b) v_min vs chronos (v=2), weights remapped by block",
+          got["v_min"], run(ch, restage_params(params, vmin.layout,
+                                               ch.layout), batch))
+    # (c): the sequence-chunked family against its whole-sequence twin
+    for seq_name, whole, v, ns in (("chronos_seq", "chronos", 2, 2),
+                                   ("seq1f1b", "1f1b", 1, 4)):
+        whole_spec = spec_of(whole, v)
+        params = init_pipeline_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg,
+            whole_spec.layout, "cuda")
+        for b in (batch, {"tokens": tokens, "loss_mask": mask}):
+            check(f"(c) {seq_name} n_seq={ns} vs {whole}"
+                  + (", masked" if "loss_mask" in b else ""),
+                  run(spec_of(seq_name, v, n_seq=ns), params, b),
+                  run(whole_spec, params, b))
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -1958,6 +2226,7 @@ def main() -> None:
     by_name = {r["name"]: r for r in rows}
     phase_functions(torch, gen)
     phase_train_shapes(torch, gen, by_name)
+    phase_flash_offsets(torch, gen, by_name)
     phase_ssd_grads(torch, gen)
     phase_mamba_shapes(torch, gen, by_name)
     torch.cuda.empty_cache()
@@ -1980,7 +2249,9 @@ def main() -> None:
     #    profiled step; 7. its train checks
     bwd_ms = {
         "attn": by_name["flash_attention_fwd"]["train"]["plain_bwd_ms"],
-        "mamba": by_name["ssd_scan"]["plain_bwd_ms"]}
+        "mamba": by_name["ssd_scan"]["plain_bwd_ms"],
+        **{("attn", Sc): ms for Sc, ms in by_name["flash_attention_fwd"][
+            "train_offsets_plain_bwd_ms"].items()}}
     base = {"tinyllama-1.1b": phase_train(torch, "tinyllama-1.1b", "train",
                                           bwd_ms)}
     launches["train_tinyllama"] = base["tinyllama-1.1b"]["launches"]
@@ -2017,7 +2288,16 @@ def main() -> None:
     phase_train_offload_checks(torch)
     done("train-offload checks")
 
-    # 12. kernels line, then the result line.  ``launches`` sums the
+    # 12-14. tinyllama-1.1b at full width with the V-shape (v_min) and
+    #     sequence-chunked (chronos_seq, seq1f1b) schedules; 15. their
+    #     fp32 checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_train_schedules(torch, bwd_ms, base))
+    phase_train_schedule_checks(torch)
+    done("train-schedule checks")
+
+    # 16. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

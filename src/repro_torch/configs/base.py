@@ -172,6 +172,9 @@ class ParallelPlan:
     """Pipeline plan of one training run."""
     schedule: str = "chronos"       # pipeline schedule name (core.schedules)
     num_chunks: int = 2             # v
+    seq_chunks: int = 1             # sequence chunks per microbatch
+                                    # (repro_torch.seqpipe; >1 only for
+                                    # the seq1f1b / chronos_seq schedules)
     num_microbatches: int = 0       # 0 -> global_batch // microbatch_size
     microbatch_size: int = 2        # sequences per microbatch
     recompute: RecomputeConfig = field(default_factory=RecomputeConfig)

@@ -53,24 +53,32 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layout import StageLayout
 from repro_torch.core.schedules import get_schedule
-from repro_torch.core.tasktable import (F_OPS, IDLE, R_OPS, SEND_BWD,
-                                        SEND_FWD, SEND_HOPB, SEND_HOPF,
-                                        SEND_NONE, W_OPS, TaskTable,
-                                        build_task_table)
+from repro_torch.core.tasktable import (F_OPS, IDLE, R_OPS, SEND_B_DOWN,
+                                        SEND_B_LOC, SEND_BWD, SEND_F_LOC,
+                                        SEND_F_UP, SEND_FWD, SEND_HOPB,
+                                        SEND_HOPF, SEND_NONE, W_OPS,
+                                        TaskTable, build_task_table)
 from repro_torch.models import backend as compute_backend
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _dtype, _init_layers
 from repro_torch.optim.adamw import adamw_update, cast_like
 from repro_torch.tree import tree_leaves, tree_map
 
-# send code -> (device delta, queue, receive column of TaskTable.arrays());
-# the interleaved placement routes only these four (the V-shape
-# placement's up/down/local codes arrive with that slice)
+# send code -> (device delta, queue, receive column of TaskTable.arrays():
+# rcf_dn 6, rcf_up 7, rcf_loc 8, rcb_dn 9, rcb_up 10, rcb_loc 11).  The
+# interleaved placement sends on the first four (the wraps land on the
+# down / up columns); the V-shape placement's folded chunk moves up the
+# devices (F) and down (B), and its chunk hops stay on the device.
 _ROUTE = {SEND_FWD: (1, "f", 6), SEND_HOPF: (1, "f", 6),
-          SEND_BWD: (-1, "b", 10), SEND_HOPB: (-1, "b", 10)}
+          SEND_BWD: (-1, "b", 10), SEND_HOPB: (-1, "b", 10),
+          SEND_F_UP: (-1, "f", 7), SEND_B_DOWN: (1, "b", 9),
+          SEND_F_LOC: (0, "f", 8), SEND_B_LOC: (0, "b", 11)}
 
+# generators that take ``v=``; the V-shape family is a fixed v=2
+# construction and ``1f1b`` / ``gpipe`` / ``zb_h1`` / ``seq1f1b`` are v=1
 _SCHEDULES_WITH_V = ("chronos", "interleaved", "chronos_zero2",
-                     "chronos_zb", "chronos_recomp")
+                     "chronos_zb", "chronos_recomp", "chronos_seq")
+SEQ_SCHEDULES = ("seq1f1b", "chronos_seq")
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +132,20 @@ def unstage_params(tree, layout: StageLayout) -> Dict[str, Any]:
             "layers": layers, "rem_layers": []}
 
 
+def restage_params(tree, src: StageLayout, dst: StageLayout):
+    """A pipeline tree under ``src``'s placement moved to ``dst``'s (same
+    P, v and block size): the block leaf at (device, chunk) holding layer
+    block b goes where ``dst`` keeps block b; shared leaves stay."""
+    where = {src.pl.block(d, c): (d, c) for d in range(src.P)
+             for c in range(src.v)}
+
+    def one(a):
+        return torch.stack([torch.stack(
+            [a[where[dst.pl.block(d, c)]] for c in range(dst.v)])
+            for d in range(dst.P)])
+    return {**tree, "blocks": [tree_map(one, t) for t in tree["blocks"]]}
+
+
 # ---------------------------------------------------------------------------
 # the executor
 # ---------------------------------------------------------------------------
@@ -136,11 +158,27 @@ class PipelineSpec:
     mbB: int                    # microbatch size (sequences)
     S: int                      # token positions fed to the stack
     kernels: str = "plain"      # compute backend (repro_torch.models.backend)
+    n_seq: int = 1              # sequence chunks per microbatch
 
 
 def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
                        microbatch: int, seq_len: int, schedule: str,
-                       kernels: str = "plain", **sched_kw) -> PipelineSpec:
+                       kernels: str = "plain", n_seq: int = 1,
+                       **sched_kw) -> PipelineSpec:
+    """Build the schedule, its layout (the schedule's placement decides
+    which device holds which layer block) and its task table.  The
+    sequence-chunked generators take ``n_seq``; the reference's
+    assertions on it raise ValueError here: every other generator needs
+    ``n_seq == 1``, and with ``n_seq > 1`` the model must be a dense
+    attention LM (the executor carries no state across chunks but K/V),
+    ``seq_len - 1`` must split into ``n_seq`` equal chunks, and the
+    table must have no W tasks (``seq1f1b(split=True)`` compiles to a
+    table, which no executor runs, as in the reference)."""
+    if schedule in SEQ_SCHEDULES:
+        sched_kw["n_seq"] = n_seq
+    elif n_seq != 1:
+        raise ValueError(f"{schedule} is not sequence-chunked "
+                         f"(n_seq={n_seq})")
     sched = get_schedule(schedule, P, m,
                          **({"v": v} if schedule in _SCHEDULES_WITH_V
                             else {}), **sched_kw)
@@ -149,9 +187,19 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
                          f"for v={v}")
     layout = StageLayout.build(cfg, P, v, sched.pl)
     table = build_task_table(sched, overlap=False)
+    if n_seq > 1:
+        if cfg.ssm is not None:
+            raise ValueError(f"the sequence-chunked executor runs dense "
+                             f"attention LMs, got {cfg.name}")
+        if (seq_len - 1) % n_seq:
+            raise ValueError(f"seq_len-1 = {seq_len - 1} not divisible by "
+                             f"n_seq={n_seq}")
+        if table.has_w:
+            raise ValueError("split-backward seq schedules compile to a "
+                             "table only; no executor runs them")
     compute_backend.get_backend(kernels)        # validate the flag early
     return PipelineSpec(cfg=cfg, layout=layout, table=table, mbB=microbatch,
-                        S=seq_len - 1, kernels=kernels)
+                        S=seq_len - 1, kernels=kernels, n_seq=n_seq)
 
 
 def _embed_tokens(spec: PipelineSpec, shared, tokens):
@@ -173,10 +221,11 @@ class _Executor:
     def __init__(self, spec: PipelineSpec, device):
         self.spec = spec
         tab = spec.table
-        self.A = tab.arrays()                           # [T, P, 14]
+        self.A = tab.arrays()                           # [T, P, 16]
         self.split = tab.has_w
         self.flags = spec.layout.flags(spec.cfg)        # host numpy
-        shape = (spec.mbB, spec.S, spec.cfg.d_model)
+        self.Sc = spec.S // spec.n_seq                  # payload positions
+        shape = (spec.mbB, self.Sc, spec.cfg.d_model)
         dt = _dtype(spec.cfg.compute_dtype)
 
         def ring(depth):
@@ -262,7 +311,7 @@ class _Executor:
                 else:
                     outs, seeds = out, _at(r["wdy"][d][c], wslot)
                 self._accumulate(acc, d, c, blocks_c, sh, first or last,
-                                 outs, seeds)
+                                 [outs], [seeds])
             return None
 
         # B ops
@@ -298,27 +347,28 @@ class _Executor:
                 outs, seeds = head(sh, out), None
             else:
                 outs, seeds = out, _at(r["bq"][d], src)
-            return self._accumulate(acc, d, c, blocks_c, sh, first or last,
-                                    outs, seeds, x=None if first else x)
+            dx = self._accumulate(acc, d, c, blocks_c, sh, first or last,
+                                  [outs], [seeds], () if first else (x,))
+        return dx[0] if dx else None
 
     def _accumulate(self, acc, d, c, blocks_c, sh, with_shared, outs,
-                    seeds, x=None):
-        """Gradients of ``outs`` (seeded by ``seeds``) w.r.t. the block's
-        parameters (+ the shared ones at the pipeline ends, + ``x``):
-        parameter gradients add into the accumulators (a block leaf's in
-        its own dtype, a shared leaf's in fp32), the input gradient is
+                    seeds, extra=()):
+        """Gradients of the list ``outs`` (seeded by ``seeds``; None for
+        a scalar loss) w.r.t. the block's parameters (+ the shared ones
+        at the pipeline ends, + the inputs ``extra``): parameter
+        gradients add into the accumulators (a block leaf's in its own
+        dtype, a shared leaf's in fp32), the gradients of ``extra`` are
         returned."""
         blk = tree_leaves(blocks_c)
         shl = tree_leaves(sh) if with_shared else []
-        wrt = blk + shl + ([x] if x is not None else [])
-        gs = _grad(outs, seeds, wrt)
+        gs = _grad(outs, seeds, blk + shl + list(extra))
         accs = [a[d, c] for a in tree_leaves(acc["gb"])]
         if with_shared:
             accs += tree_leaves(acc["gs"])
         for a, g in zip(accs, gs):
             if g is not None:          # an untied embedding at the head
                 a.add_(g)
-        return gs[-1] if x is not None else None
+        return gs[len(accs):]
 
     # -- the tick loop -----------------------------------------------------
     def run(self, params, batch):
@@ -363,8 +413,9 @@ def _at(ring, slot: int):
 
 
 def _grad(outputs, seeds, inputs):
-    """``torch.autograd.grad`` over a flat input list; an input the graph
-    does not use (an untied embedding at the head) gets None."""
+    """``torch.autograd.grad`` over flat output, seed and input lists; an
+    input the graph does not use (an untied embedding at the head) gets
+    None."""
     return torch.autograd.grad(outputs, inputs, seeds, allow_unused=True)
 
 
@@ -376,8 +427,14 @@ def make_train_grads_fn(spec: PipelineSpec, device):
     leaves in fp32: ``{"blocks": [...], "embed": ...,
     "final_norm": ...}``; ``metrics``: ``loss`` (mean CE, a device
     tensor) and ``n_microbatches``.  ``fn.rings`` are the executor's
-    preallocated buffers."""
-    ex = _Executor(spec, device)
+    preallocated buffers.  A sequence-chunked table (``spec.n_seq > 1``)
+    runs :class:`repro_torch.seqpipe.runtime.SeqExecutor`, with the same
+    gradient semantics."""
+    if spec.n_seq > 1:
+        from repro_torch.seqpipe.runtime import SeqExecutor
+        ex = SeqExecutor(spec, device)
+    else:
+        ex = _Executor(spec, device)
 
     def fn(params, batch):
         return ex.run(params, batch)

@@ -8,11 +8,16 @@ space.  Which *device* executes a (stage, chunk) pair — and therefore
 which layer-block's parameters live on that device — is a separate,
 pluggable concern: a :class:`Placement`.
 
-The port registers the interleaved striping only: chunk ``c`` stage
-``s`` runs on device ``s`` and holds layer-block ``c*P + s``, the
-placement of every chronos / interleaved / ZB generator.  The V-shape
-fold-back (``VShapePlacement`` in the reference) arrives with the slice
-that ports the V-shape schedules.
+Two placements are registered:
+
+- ``interleaved`` (the base class): chunk ``c`` stage ``s`` runs on
+  device ``s`` and holds layer-block ``c*P + s``, the placement of every
+  chronos / interleaved / ZB / seq generator;
+- ``vshape`` (:class:`VShapePlacement`, the V-shape family of *Pipeline
+  Parallelism with Controllable Memory*): odd chunks descend the devices
+  (device = ``P-1-s``), so at v=2 device ``d`` holds blocks ``d`` and
+  ``2P-1-d`` and both chunk hops (the forward's mid-network hop and the
+  backward's) stay on one device.
 
 Invariant the task-table compiler relies on: for every chunk ``c``,
 ``device(., c)`` is a bijection on ``0..P-1`` — each device hosts exactly
@@ -77,8 +82,30 @@ class InterleavedPlacement(Placement):
     """Alias of the base identity placement, for explicitness."""
 
 
+@dataclass(frozen=True)
+class VShapePlacement(Placement):
+    """Fold-back zigzag: odd chunks descend the devices, making the
+    chunk hops device-local (see module docstring)."""
+
+    name = "vshape"
+
+    def describe(self) -> str:
+        if self.v == 2:
+            return (f"fold-back: device d holds blocks d and "
+                    f"{2 * self.P - 1}-d; chunk hops are device-local")
+        return ("zigzag fold-back: odd chunks descend the devices; "
+                "chunk hops are device-local")
+
+    def device(self, stage: int, chunk: int) -> int:
+        return stage if chunk % 2 == 0 else self.P - 1 - stage
+
+    def stage(self, device: int, chunk: int) -> int:
+        return device if chunk % 2 == 0 else self.P - 1 - device
+
+
 PLACEMENTS = {
     "interleaved": InterleavedPlacement,
+    "vshape": VShapePlacement,
 }
 
 

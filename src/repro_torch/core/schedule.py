@@ -13,7 +13,7 @@ stage space); which **device** executes a (stage, chunk) pair — and
 which layer-block therefore lives there — is the schedule's pluggable
 ``placement``.  ``placement=None`` means the classic interleaved
 striping (device = stage, block = ``c*P + s``, chunk 0 shallowest);
-the reference's ``VShapePlacement`` folds odd chunks back
+:class:`~repro_torch.core.placement.VShapePlacement` folds odd chunks back
 (device = ``P-1-s``) so the chunk hops are device-local and device
 ``d`` holds blocks ``d`` and ``2P-1-d`` (the V-shape family of
 *Pipeline Parallelism with Controllable Memory*).  Occupancy (no
@@ -59,6 +59,24 @@ is a plain ``b``-grain backward (``recomp == 0``); the legacy encoding —
 a recompute *prefix* folded into ``B`` (``dur = recomp + b``) — remains
 supported for the uniform-recompute baselines (1F1B+R, GPipe+R) where
 the replay is never separately schedulable.
+
+Sequence chunking (:mod:`repro_torch.seqpipe`, Seq1F1B / SlimPipe
+lineage): a schedule may split every microbatch along the sequence
+dimension into ``n_seq`` causally-ordered chunks; ``Task.seq`` carries
+the chunk index ``q`` and the scheduling unit becomes (mb, layer-chunk,
+stage, seq).  The chunks are *not* independent — causal attention
+threads a KV prefix through the forwards and a dKV accumulation through
+the backwards, both stage-local:
+
+    F(i,c,s,q)  <- F(i,c,s,q-1)        (q>0, same stage: KV prefix)
+    B(i,c,s,q)  <- B(i,c,s,q+1)        (q<n_seq-1, same stage: dKV carry)
+
+and every cross-stage edge above applies per sequence chunk (payloads
+shrink to 1/n_seq of a microbatch boundary).  The turnaround only
+exists for the *last* chunk; earlier chunks' final-stage backwards are
+unblocked by the dKV carry plus their own loss slice.  One grain is
+then T_fwd/(v*P*n_seq) and a unit's activation grain is
+1/(v*P*n_seq) of m_a.
 
 All constructed start times are exact multiples of half a grain; the
 module-level :data:`HALF`/:func:`to_half` helpers let schedule generators
@@ -108,6 +126,7 @@ class Task:
     dur: float
     recomp: float = 0.0          # recompute prefix inside a B task
     comm: float = 0.0            # synchronous P2P stall folded into dur
+    seq: int = 0                 # sequence-chunk index (seqpipe family)
 
     @property
     def end(self) -> float:
@@ -123,7 +142,7 @@ class Task:
         return self.start + self.recomp
 
     def key(self):
-        return (self.kind, self.mb, self.chunk, self.stage)
+        return (self.kind, self.mb, self.chunk, self.stage, self.seq)
 
 
 @dataclass
@@ -143,6 +162,9 @@ class Schedule:
     # schedule has W tasks, ``b`` is the input-gradient duration and
     # ``b + w`` must equal the fused backward cost.
     w: float = 0.0
+    # sequence chunks per microbatch (seqpipe family; 1 = whole-sequence
+    # tasks)
+    n_seq: int = 1
     # (stage, chunk) -> device / layer-block mapping; None = interleaved
     # striping (device == stage), the pre-placement behavior
     placement: Optional[Placement] = None
@@ -173,9 +195,9 @@ class Schedule:
 
     # -- vectorized task-array view ---------------------------------------
     def _arrays(self):
-        """Numpy view of the task set: (kind, mb, chunk, stage, start,
-        dur, end, recomp) plus the dense key->index lookup
-        ``ind[kind, mb, chunk, stage]`` (-1 where absent) and the
+        """Numpy view of the task set: (kind, mb, chunk, stage, seq,
+        start, dur, end, recomp) plus the dense key->index lookup
+        ``ind[kind, mb, chunk, stage, seq]`` (-1 where absent) and the
         (stage, chunk) -> device map.  The vectorized ``check`` /
         ``peak_activation`` / ``retime_with_comm`` hot paths all run on
         these arrays instead of per-task Python objects."""
@@ -185,29 +207,31 @@ class Schedule:
         mb = np.fromiter((t.mb for t in ts), np.int64, n)
         chunk = np.fromiter((t.chunk for t in ts), np.int64, n)
         stage = np.fromiter((t.stage for t in ts), np.int64, n)
+        seq = np.fromiter((t.seq for t in ts), np.int64, n)
         start = np.fromiter((t.start for t in ts), np.float64, n)
         dur = np.fromiter((t.dur for t in ts), np.float64, n)
         recomp = np.fromiter((t.recomp for t in ts), np.float64, n)
-        ind = -np.ones((4, self.m, self.v, self.P), np.int64)
-        ind[kind, mb, chunk, stage] = np.arange(n)
+        ind = -np.ones((4, self.m, self.v, self.P, self.n_seq), np.int64)
+        ind[kind, mb, chunk, stage, seq] = np.arange(n)
         pl = self.pl
         dev_map = np.array([[pl.device(s, c) for c in range(self.v)]
                             for s in range(self.P)])
-        return dict(kind=kind, mb=mb, chunk=chunk, stage=stage,
+        return dict(kind=kind, mb=mb, chunk=chunk, stage=stage, seq=seq,
                     start=start, dur=dur, end=start + dur, recomp=recomp,
                     ind=ind, dev=dev_map)
 
     # -- validity ---------------------------------------------------------
     def check(self, tc: float = 0.0) -> None:
-        P, v, m = self.P, self.v, self.m
+        P, v, m, ns = self.P, self.v, self.m, self.n_seq
         rcs = self.r_chunks()
         has_b = any(t.kind == B for t in self.tasks)
         kinds = (3 if self.has_w else 2) if has_b else 1
-        n_expect = kinds * P * v * m + len(rcs) * P * m
+        n_expect = (kinds * P * v * m + len(rcs) * P * m) * ns
         assert len(self.tasks) == n_expect, \
             f"expected {n_expect} tasks, got {len(self.tasks)}"
         a = self._arrays()
-        kind, mb, chunk, stage = a["kind"], a["mb"], a["chunk"], a["stage"]
+        kind, mb, chunk, stage, seq = (a["kind"], a["mb"], a["chunk"],
+                                       a["stage"], a["seq"])
         start, end, recomp, ind, dev = (a["start"], a["end"], a["recomp"],
                                         a["ind"], a["dev"])
         assert (ind >= 0).sum() == len(self.tasks), "duplicate task keys"
@@ -244,38 +268,44 @@ class Schedule:
 
         # F deps
         m_ = is_f & (stage > 0)
-        expect(m_, ind[0, mb, chunk, np.maximum(stage - 1, 0)],
+        expect(m_, ind[0, mb, chunk, np.maximum(stage - 1, 0), seq],
                start, edge_tc(m_, np.maximum(stage - 1, 0), chunk),
                "fwd chain")
         m_ = is_f & (stage == 0) & (chunk > 0)
-        expect(m_, ind[0, mb, np.maximum(chunk - 1, 0), P - 1],
+        expect(m_, ind[0, mb, np.maximum(chunk - 1, 0), P - 1, seq],
                start, edge_tc(m_, np.full_like(stage, P - 1),
                               np.maximum(chunk - 1, 0)), "fwd chunk hop")
+        m_ = is_f & (seq > 0)
+        expect(m_, ind[0, mb, chunk, stage, np.maximum(seq - 1, 0)],
+               start, np.zeros(len(kind)), "kv prefix")
         # W / R deps
-        expect(is_w, ind[1, mb, chunk, stage], start,
+        expect(is_w, ind[1, mb, chunk, stage, seq], start,
                np.zeros(len(kind)), "own bwd")
-        expect(is_r, ind[0, mb, chunk, stage], start,
+        expect(is_r, ind[0, mb, chunk, stage, seq], start,
                np.zeros(len(kind)), "own fwd")
         # B deps
-        expect(is_b, ind[0, mb, chunk, stage], start,
+        expect(is_b, ind[0, mb, chunk, stage, seq], start,
                np.zeros(len(kind)), "own fwd")
         m_ = is_b & in_rcs
         if m_.any():
             assert (recomp[m_] == 0.0).all(), \
                 "explicit R task and recompute prefix"
-        expect(m_, ind[3, mb, chunk, stage], start,
+        expect(m_, ind[3, mb, chunk, stage, seq], start,
                np.zeros(len(kind)), "own remat")
+        m_ = is_b & (seq < ns - 1)
+        expect(m_, ind[1, mb, chunk, stage, np.minimum(seq + 1, ns - 1)],
+               gneed, np.zeros(len(kind)), "dkv carry")
         m_ = is_b & (stage < P - 1)
-        expect(m_, ind[1, mb, chunk, np.minimum(stage + 1, P - 1)],
+        expect(m_, ind[1, mb, chunk, np.minimum(stage + 1, P - 1), seq],
                gneed, edge_tc(m_, np.minimum(stage + 1, P - 1), chunk),
                "bwd chain")
         m_ = is_b & (stage == P - 1) & (chunk < v - 1)
-        expect(m_, ind[1, mb, np.minimum(chunk + 1, v - 1), 0],
+        expect(m_, ind[1, mb, np.minimum(chunk + 1, v - 1), 0, seq],
                gneed, edge_tc(m_, np.zeros_like(stage),
                               np.minimum(chunk + 1, v - 1)),
                "bwd chunk hop")
         m_ = is_b & (stage == P - 1) & (chunk == v - 1)
-        expect(m_, ind[0, mb, chunk, stage], gneed,
+        expect(m_, ind[0, mb, chunk, stage, seq], gneed,
                np.zeros(len(kind)), "turnaround")
 
         # no overlap per device (== per stage for interleaved placement)
@@ -322,12 +352,18 @@ class Schedule:
         Split-backward schedules: the activation is released at the end
         of the input-gradient ``B`` task; deferred ``W`` tasks hold no
         block activation (their residual stash is boundary-payload
-        sized and accounted by the task-table compiler, not here)."""
+        sized and accounted by the task-table compiler, not here).
+
+        Sequence-chunked schedules: the unit shrinks to a partial-
+        sequence grain 1/(v*P*n_seq) of m_a, alive from that seq
+        chunk's F until its own B — early chunks of a microbatch stay
+        resident until their (late) backwards, which the per-unit
+        accounting captures exactly."""
         a = self._arrays()
         kind, chunk, stage, start, end, ind = (
             a["kind"], a["chunk"], a["stage"], a["start"], a["end"],
             a["ind"])
-        unit = 1.0 / (self.v * self.P)
+        unit = 1.0 / (self.v * self.P * self.n_seq)
         dev = a["dev"]
         frs = np.array([self.stored_frac.get(c, 1.0)
                         for c in range(self.v)])
@@ -343,7 +379,7 @@ class Schedule:
             # (explicit R, or B's recompute prefix) until the backward
             # releases it
             tb = bi[frs[chunk[bi]] < 1.0]
-            ri = ind[3, a["mb"][tb], chunk[tb], stage[tb]]
+            ri = ind[3, a["mb"][tb], chunk[tb], stage[tb], a["seq"][tb]]
             t0 = np.where(ri >= 0, start[np.maximum(ri, 0)], start[tb])
             times += [t0, end[tb]]
             deltas += [unit * (1.0 - frs[chunk[tb]]),
@@ -370,11 +406,12 @@ def retime_with_comm(sched: Schedule, tc: float) -> Schedule:
     is asynchronous: latency delays only the consumer (the reference's
     ``sync=True`` paper accounting has no caller in the port).
     """
-    P, v = sched.P, sched.v
+    P, v, ns = sched.P, sched.v, sched.n_seq
     rcs = sched.r_chunks()
     n_total = len(sched.tasks)
     a = sched._arrays()
-    kind, mb, chunk, stage = a["kind"], a["mb"], a["chunk"], a["stage"]
+    kind, mb, chunk, stage, seq = (a["kind"], a["mb"], a["chunk"],
+                                   a["stage"], a["seq"])
     ind, dev = a["ind"], a["dev"]
     recomp_a, dur_a = a["recomp"], a["dur"]
     my_dev = dev[stage, chunk]
@@ -402,23 +439,30 @@ def retime_with_comm(sched: Schedule, tc: float) -> Schedule:
     sp1, cp1 = np.minimum(stage + 1, P - 1), np.minimum(chunk + 1, v - 1)
     pl_P1 = np.full(n_total, P - 1)
     pl_0 = np.zeros(n_total, np.int64)
-    add_deps(is_f & (stage > 0), ind[0, mb, chunk, sm1], sm1, chunk, False)
+    qm1, qp1 = np.maximum(seq - 1, 0), np.minimum(seq + 1, ns - 1)
+    add_deps(is_f & (stage > 0), ind[0, mb, chunk, sm1, seq], sm1, chunk,
+             False)
     add_deps(is_f & (stage == 0) & (chunk > 0),
-             ind[0, mb, cm1, P - 1], pl_P1, cm1, False)
-    add_deps(is_w, ind[1, mb, chunk, stage], stage, chunk, False,
+             ind[0, mb, cm1, P - 1, seq], pl_P1, cm1, False)
+    add_deps(is_f & (seq > 0), ind[0, mb, chunk, stage, qm1], stage,
+             chunk, False, local=True)
+    add_deps(is_w, ind[1, mb, chunk, stage, seq], stage, chunk, False,
              local=True)
-    add_deps(is_r, ind[0, mb, chunk, stage], stage, chunk, False,
+    add_deps(is_r, ind[0, mb, chunk, stage, seq], stage, chunk, False,
              local=True)
-    add_deps(is_b, ind[0, mb, chunk, stage], stage, chunk, False,
+    add_deps(is_b, ind[0, mb, chunk, stage, seq], stage, chunk, False,
              local=True)
-    add_deps(is_b & in_rcs, ind[3, mb, chunk, stage], stage, chunk,
+    add_deps(is_b & in_rcs, ind[3, mb, chunk, stage, seq], stage, chunk,
              False, local=True)
-    add_deps(is_b & (stage < P - 1), ind[1, mb, chunk, sp1], sp1, chunk,
-             True)
+    add_deps(is_b & (stage < P - 1), ind[1, mb, chunk, sp1, seq], sp1,
+             chunk, True)
     add_deps(is_b & (stage == P - 1) & (chunk < v - 1),
-             ind[1, mb, cp1, 0], pl_0, cp1, True)
+             ind[1, mb, cp1, 0, seq], pl_0, cp1, True)
     add_deps(is_b & (stage == P - 1) & (chunk == v - 1),
-             ind[0, mb, chunk, stage], stage, chunk, True, local=True)
+             ind[0, mb, chunk, stage, seq], stage, chunk, True,
+             local=True)
+    add_deps(is_b & (seq < ns - 1), ind[1, mb, chunk, stage, qp1], stage,
+             chunk, True, local=True)
 
     # ---- event-driven replay preserving each device's task order ----
     order = {d: [i for i in np.lexsort((a["start"],))
@@ -468,20 +512,28 @@ def retime_with_comm(sched: Schedule, tc: float) -> Schedule:
 
 
 def _dep_keys(t: Task, P: int, v: int,
-              r_chunks: FrozenSet[int] = frozenset()):
+              r_chunks: FrozenSet[int] = frozenset(), n_seq: int = 1):
+    q = t.seq
     if t.kind == F:
+        deps = []
         if t.stage > 0:
-            return [(F, t.mb, t.chunk, t.stage - 1)]
-        return [(F, t.mb, t.chunk - 1, P - 1)] if t.chunk > 0 else []
+            deps.append((F, t.mb, t.chunk, t.stage - 1, q))
+        elif t.chunk > 0:
+            deps.append((F, t.mb, t.chunk - 1, P - 1, q))
+        if q > 0:
+            deps.append((F, t.mb, t.chunk, t.stage, q - 1))
+        return deps
     if t.kind == W:
-        return [(B, t.mb, t.chunk, t.stage)]
+        return [(B, t.mb, t.chunk, t.stage, q)]
     if t.kind == R:
-        return [(F, t.mb, t.chunk, t.stage)]
-    deps = [(F, t.mb, t.chunk, t.stage)]
+        return [(F, t.mb, t.chunk, t.stage, q)]
+    deps = [(F, t.mb, t.chunk, t.stage, q)]
     if t.chunk in r_chunks:
-        deps.append((R, t.mb, t.chunk, t.stage))
+        deps.append((R, t.mb, t.chunk, t.stage, q))
+    if q < n_seq - 1:
+        deps.append((B, t.mb, t.chunk, t.stage, q + 1))
     if t.stage < P - 1:
-        deps.append((B, t.mb, t.chunk, t.stage + 1))
+        deps.append((B, t.mb, t.chunk, t.stage + 1, q))
     elif t.chunk < v - 1:
-        deps.append((B, t.mb, t.chunk + 1, 0))
+        deps.append((B, t.mb, t.chunk + 1, 0, q))
     return deps

@@ -182,10 +182,10 @@ def chronos(P: int, m: int, v: int = 2) -> Schedule:
                 if c == 0 and s == 0:
                     t = float(base)
                 elif s == 0:
-                    dep = idx[(F, i, c - 1, P - 1)].end
+                    dep = idx[(F, i, c - 1, P - 1, 0)].end
                     t = _align(dep, (0 + 3 * c) % cyc, cyc)
                 else:
-                    dep = idx[(F, i, c, s - 1)].end
+                    dep = idx[(F, i, c, s - 1, 0)].end
                     t = _align(dep, cls, cyc)
                 tk = Task(F, i, c, s, t, FWD)
                 idx[tk.key()] = tk
@@ -198,12 +198,12 @@ def chronos(P: int, m: int, v: int = 2) -> Schedule:
             for s in reversed(range(P)):
                 cls = (3 * P - 5 - 2 * s + 3 * (v - 1 - c)) % cyc
                 if c == v - 1 and s == P - 1:
-                    t = idx[(F, i, c, P - 1)].end
+                    t = idx[(F, i, c, P - 1, 0)].end
                 elif s == P - 1:
-                    dep = idx[(B, i, c + 1, 0)].end
+                    dep = idx[(B, i, c + 1, 0, 0)].end
                     t = _align(dep, cls, cyc)
                 else:
-                    dep = idx[(B, i, c, s + 1)].end
+                    dep = idx[(B, i, c, s + 1, 0)].end
                     t = _align(dep, cls, cyc)
                 tk = Task(B, i, c, s, t, BWD)
                 idx[tk.key()] = tk
@@ -284,11 +284,11 @@ def _chronos_greedy(P: int, m: int, v: int, rho: float,
                 if c == 0 and s == 0:
                     dep = 0
                 elif s == 0:
-                    dep = to_half(idx[(F, 0, c - 1, P - 1)].end)
+                    dep = to_half(idx[(F, 0, c - 1, P - 1, 0)].end)
                     if c - 1 < len(delays):
                         dep += delays[c - 1] * HALF
                 else:
-                    dep = to_half(idx[(F, 0, c, s - 1)].end)
+                    dep = to_half(idx[(F, 0, c, s - 1, 0)].end)
                 th = place(s, dep, to_half(FWD))
                 if th is None:
                     return None
@@ -302,11 +302,11 @@ def _chronos_greedy(P: int, m: int, v: int, rho: float,
             durh, rech = to_half(dur), to_half(rec)
             for s in reversed(range(P)):
                 if c == v - 1 and s == P - 1:
-                    dep = to_half(idx[(F, 0, c, P - 1)].end)
+                    dep = to_half(idx[(F, 0, c, P - 1, 0)].end)
                 elif s == P - 1:
-                    dep = to_half(idx[(B, 0, c + 1, 0)].end)
+                    dep = to_half(idx[(B, 0, c + 1, 0, 0)].end)
                 else:
-                    dep = to_half(idx[(B, 0, c, s + 1)].end)
+                    dep = to_half(idx[(B, 0, c, s + 1, 0)].end)
                 # the recompute replay may start before the gradient
                 # arrives (it only needs the boundary checkpoint)
                 th = place(s, dep - rech, durh)
@@ -514,10 +514,11 @@ REGISTRY = {
     "chronos_zb": chronos_zb,
 }
 
-# own copy of ``repro/core/schedules.py``: the V-shape and
-# sequence-chunked families are registered there by ``repro.core.vshape``
-# and ``repro.seqpipe``; the port registers them with the slices that
-# port those paths.
+# sequence-chunked generators (repro_torch.seqpipe) and the V-shape
+# family (repro_torch.core.vshape) register themselves here; the imports
+# are at module end so those modules only depend on the leaf IR modules
+# (repro_torch.core.schedule / repro_torch.core.placement), never back on
+# this one.
 
 
 def get_schedule(name: str, P: int, m: int, **kw) -> Schedule:
@@ -536,6 +537,18 @@ def get_schedule(name: str, P: int, m: int, **kw) -> Schedule:
     window, adds an R->B remat ring, and the SPMD runtime replays under
     the boundary (the backward recomputes the chunk from it) with
     gradients bitwise-equal to the no-recompute path.
+    Sequence-chunked generators (``repro_torch.seqpipe``): ``seq1f1b``
+    (``n_seq=, split=``; v=1) and ``chronos_seq`` (``v=, n_seq=,
+    rho=, recomp_chunks=``) — their tasks carry the fifth scheduling
+    coordinate ``Task.seq`` with causal KV-prefix / dKV-carry deps, and
+    the task-table compiler adds per-microbatch KV-carry + dKV rings.
+    V-shape controllable-memory generators (``repro_torch.core.vshape``):
+    ``v_min``, ``v_half``, ``v_zb`` (v=2, split backward) — their
+    schedules carry a :class:`~repro_torch.core.placement.VShapePlacement`
+    (device ``d`` hosts layer-blocks ``d`` and ``2P-1-d``; chunk hops
+    are device-local), and the task-table compiler and the executor
+    route payloads by placement-mapped device deltas.
+
     The authoritative generator list is generated from the registry —
     registered: {registry}.
     """
@@ -545,6 +558,13 @@ def get_schedule(name: str, P: int, m: int, **kw) -> Schedule:
             f"{', '.join(sorted(REGISTRY))}")
     return REGISTRY[name](P, m, **kw)
 
+
+from repro_torch.core.vshape import register as _register_vshape  # noqa: E402
+from repro_torch.seqpipe.schedules import \
+    register as _register_seqpipe  # noqa: E402
+
+_register_vshape(REGISTRY)
+_register_seqpipe(REGISTRY)
 
 # the generator list in the docstring is generated, not hand-written —
 # it cannot drift from REGISTRY

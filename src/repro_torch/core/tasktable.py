@@ -60,9 +60,24 @@ forward, and hands the payload off to a rematerialization ring
 written at F (resp. R) must stay live until its matching R (resp. B)
 reads it.
 
-The reference's sequence-chunked tables (``n_seq > 1``: the KV-carry
-ring and interval-colored activation slots) and its forward-only
-prefill tables arrive with the slices that port those runtimes.
+Sequence-chunked schedules (``n_seq > 1``, e.g. ``seq1f1b`` /
+``chronos_seq``): the stash unit becomes a (mb, seq) sequence-chunk
+payload (1/n_seq of a boundary) and two new per-microbatch rings
+appear: the KV-carry ring (``kv_depth``; prefix K/V handed from
+F[mb,q-1] to F[mb,q] and replayed by every B; lifetime F[mb,0] ->
+B[mb,0], FIFO by microbatch) and its twin dKV accumulation ring with
+the same slots.  Backwards retire units in *reverse* seq order, so the
+activation ring is no longer FIFO within a microbatch —
+``mb % depth`` slot assignment is replaced by exact interval coloring
+per stage, and ``validate_table`` switches from the FIFO check to a
+general no-overwrite-while-live check over the colored slots.  W-stash
+and remat rings stay FIFO in the *backward* unit order
+``β = mb*n_seq + (n_seq-1-seq)`` (their writers and readers share it).
+
+Forward-only schedules (``repro_torch.seqpipe.schedules.forward_only``,
+inference prefill) compile without activation, W-stash or remat rings;
+only the KV-carry ring remains, closing at the microbatch's last seq
+chunk.
 """
 from __future__ import annotations
 
@@ -101,6 +116,8 @@ class TaskTable:
     recv_b: Dict[str, np.ndarray]  # same for B payloads; wraps use "up"
     w_slot: np.ndarray           # [T, P] W-stash slot: write at B, read at W
     r_slot: np.ndarray           # [T, P] remat-ring slot: write at R, read at B
+    seq: np.ndarray              # [T, P] sequence-chunk index (0 if unused)
+    kv_slot: np.ndarray          # [T, P] KV-carry/dKV ring slot (-1)
     fq_depth: int                # F payload queue depth
     bq_depth: int
     act_depth: Dict[int, int]    # chunk -> activation slots (F->R lifetime
@@ -108,6 +125,11 @@ class TaskTable:
     wstash_depth: Dict[int, int] = dataclasses.field(default_factory=dict)
     rmt_depth: Dict[int, int] = dataclasses.field(default_factory=dict)
     name: str = ""
+    # sequence chunking (repro_torch.seqpipe)
+    n_seq: int = 1
+    kv_depth: Dict[int, int] = dataclasses.field(default_factory=dict)
+                                 # chunk -> KV-carry slots (per microbatch,
+                                 # lifetime F[mb,0] -> B[mb,0])
     placement_name: str = "interleaved"
     #: delivery contract of the wire.  ``False``: a cross-device payload
     #: produced at tick t is in its queue slot before tick t+1 runs
@@ -126,10 +148,17 @@ class TaskTable:
     def has_r(self) -> bool:
         return bool(self.rmt_depth)
 
+    @property
+    def fwd_only(self) -> bool:
+        """True for inference-prefill tables (no backward op anywhere):
+        act slots stay -1 and the KV ring closes at the last seq chunk."""
+        return not np.isin(self.op, B_OPS).any()
+
     def arrays(self):
-        """Stacked int32 [T, P, 14].  Column order: op, chunk, mb,
-        src_slot, act_slot, send, rcf_dn, rcf_up, rcf_loc, rcb_dn,
-        rcb_up, rcb_loc, w_slot, r_slot (the reference's first 14)."""
+        """Stacked int32 [T, P, 16].  Column order:
+        op, chunk, mb, src_slot, act_slot, send, rcf_dn, rcf_up,
+        rcf_loc, rcb_dn, rcb_up, rcb_loc, w_slot, r_slot, seq,
+        kv_slot."""
         return np.stack([self.op, self.chunk, self.mb, self.src_slot,
                          self.act_slot, self.send,
                          self.recv_f["dn"], self.recv_f["up"],
@@ -137,7 +166,8 @@ class TaskTable:
                          self.recv_b["dn"], self.recv_b["up"],
                          self.recv_b["loc"],
                          self.w_slot,
-                         self.r_slot], axis=-1).astype(np.int32)
+                         self.r_slot, self.seq, self.kv_slot],
+                        axis=-1).astype(np.int32)
 
 
 def _op_code(kind: str, chunk: int, stage: int, P: int, v: int) -> int:
@@ -214,9 +244,10 @@ _SEND_CHANNEL = {SEND_FWD: "dn", SEND_HOPF: "dn", SEND_F_UP: "up",
 
 
 def build_task_table(sched: Schedule, overlap: bool = False) -> TaskTable:
-    P, v, m = sched.P, sched.v, sched.m
+    P, v, m, ns = sched.P, sched.v, sched.m, sched.n_seq
     pl = sched.pl
     rcs = sched.r_chunks()
+    units = [(i, q) for i in range(m) for q in range(ns)]
 
     def dev(stage: int, chunk: int) -> int:
         return pl.device(stage, chunk)
@@ -239,7 +270,7 @@ def build_task_table(sched: Schedule, overlap: bool = False) -> TaskTable:
     for t in tasks:
         d = dev(t.stage, t.chunk)
         lo = dev_last[d] + 1
-        for dep in _dep_keys(t, P, v, rcs):
+        for dep in _dep_keys(t, P, v, rcs, ns):
             gap = xgap if dev(dep[3], dep[2]) != d else 1
             lo = max(lo, tick[dep] + gap)
         tick[t.key()] = lo
@@ -256,9 +287,9 @@ def build_task_table(sched: Schedule, overlap: bool = False) -> TaskTable:
             worst = 1
             for s in range(P):
                 events = []
-                for i in range(m):
-                    events.append((tick[(open_kind, i, c, s)], 1))
-                    events.append((tick[(ck, i, c, s)], -1))
+                for i, q in units:
+                    events.append((tick[(open_kind, i, c, s, q)], 1))
+                    events.append((tick[(ck, i, c, s, q)], -1))
                 events.sort()
                 cur = peak = 0
                 for _, d in events:
@@ -268,30 +299,107 @@ def build_task_table(sched: Schedule, overlap: bool = False) -> TaskTable:
             depth[c] = worst
         return depth
 
+    # Forward-only schedules (inference prefill, repro_torch.seqpipe
+    # ``forward_only``): no backward readers exist, so the activation /
+    # W-stash / remat rings degenerate — boundary payloads go straight
+    # to the wire and act slots stay -1.  Only the KV-carry ring
+    # survives (closing at the microbatch's last seq chunk instead of
+    # its first backward).
+    fwd_only = not any(t.kind == B for t in sched.tasks)
+
     # activation rings hold boundary payloads: lifetime F -> R for
     # rematerialized chunks (the remat tick takes over), F -> B otherwise.
     # W-stash rings (split backward: boundary payload + upstream grad
     # residuals) live B -> W; remat rings live R -> B.
-    act_depth = ring_depth(F, lambda c: R if c in rcs else B)
-    has_w = sched.has_w
-    wstash_depth = ring_depth(B, W) if has_w else {}
-    rmt_depth = ring_depth(R, B, sorted(rcs)) if rcs else {}
+    if fwd_only:
+        act_depth = {c: 1 for c in range(v)}
+        has_w = False
+        wstash_depth: Dict[int, int] = {}
+        rmt_depth: Dict[int, int] = {}
+    else:
+        act_depth = ring_depth(F, lambda c: R if c in rcs else B)
+        has_w = sched.has_w
+        wstash_depth = ring_depth(B, W) if has_w else {}
+        rmt_depth = ring_depth(R, B, sorted(rcs)) if rcs else {}
+
+    # ---- seq-chunked extras ----
+    # KV-carry ring: one slot per in-flight *microbatch* (all its seq
+    # chunks share the full-sequence K/V buffer), alive F[mb,0]->B[mb,0]
+    # — FIFO by mb, so mb % depth is sound.  The activation ring is NOT
+    # FIFO under seq chunking (backwards retire in reverse seq order
+    # within a microbatch): replace the modular slot assignment with
+    # exact per-stage interval coloring.
+    kv_depth: Dict[int, int] = {}
+    act_color: Dict[Tuple, int] = {}     # (c, s, mb, q) -> slot
+    if ns > 1:
+        for c in range(v):
+            worst = 1
+            for s in range(P):
+                events = []
+                for i in range(m):
+                    events.append((tick[(F, i, c, s, 0)], 1))
+                    # fwd-only: the table's KV lifetime ends at the last
+                    # seq chunk (the serving engine then hands the slot
+                    # to the decode phase outside the table)
+                    close = tick[(F, i, c, s, ns - 1)] if fwd_only \
+                        else tick[(B, i, c, s, 0)]
+                    events.append((close, -1))
+                events.sort()
+                cur = peak = 0
+                for _, d in events:
+                    cur += d
+                    peak = max(peak, cur)
+                worst = max(worst, peak)
+            kv_depth[c] = worst
+    if ns > 1 and not fwd_only:
+        act_depth = {}
+        close_kind = {c: (R if c in rcs else B) for c in range(v)}
+        for c in range(v):
+            worst = 1
+            for s in range(P):
+                ivs = sorted(
+                    (tick[(F, i, c, s, q)],
+                     tick[(close_kind[c], i, c, s, q)], (i, q))
+                    for i, q in units)
+                active: List[Tuple[int, int]] = []   # (free_tick, slot)
+                free_slots: List[int] = []
+                nslots = 0
+                for a, b_, unit in ivs:
+                    still = []
+                    for fb, sl in active:
+                        # reader tick b_ still *uses* the slot: free
+                        # strictly after it
+                        if fb < a:
+                            free_slots.append(sl)
+                        else:
+                            still.append((fb, sl))
+                    active = still
+                    sl = free_slots.pop() if free_slots else nslots
+                    if sl == nslots:
+                        nslots += 1
+                    active.append((b_, sl))
+                    act_color[(c, s) + unit] = sl
+                worst = max(worst, nslots)
+            act_depth[c] = worst
 
     # ---- payload edges & queue coloring ----
-    # F payload: F(i,c,s) -> F(i,c,s+1) | F(i,c,P-1) -> F(i,c+1,0)
-    # B payload: B(i,c,s) -> B(i,c,s-1) | B(i,c,0) -> B(i,c-1,P-1)
+    # F payload: F(i,c,s,q) -> F(i,c,s+1,q) | F(i,c,P-1,q) -> F(i,c+1,0,q)
+    # B payload: B(i,c,s,q) -> B(i,c,s-1,q) | B(i,c,0,q) -> B(i,c-1,P-1,q)
     f_edges, b_edges = [], []
-    for i in range(m):
+    for i, q in units:
         for c in range(v):
             for s in range(P):
                 if s < P - 1:
-                    f_edges.append(((F, i, c, s), (F, i, c, s + 1)))
+                    f_edges.append(((F, i, c, s, q), (F, i, c, s + 1, q)))
                 elif c < v - 1:
-                    f_edges.append(((F, i, c, s), (F, i, c + 1, 0)))
+                    f_edges.append(((F, i, c, s, q), (F, i, c + 1, 0, q)))
+                if fwd_only:
+                    continue
                 if s > 0:
-                    b_edges.append(((B, i, c, s), (B, i, c, s - 1)))
+                    b_edges.append(((B, i, c, s, q), (B, i, c, s - 1, q)))
                 elif c > 0:
-                    b_edges.append(((B, i, c, s), (B, i, c - 1, P - 1)))
+                    b_edges.append(((B, i, c, s, q),
+                                    (B, i, c - 1, P - 1, q)))
 
     def color(edges):
         """Greedy interval coloring per consumer *device* (the queue
@@ -344,39 +452,50 @@ def build_task_table(sched: Schedule, overlap: bool = False) -> TaskTable:
     rcb = {ch: -np.ones(shape, np.int32) for ch in RECV_CHANNELS}
     wsl = -np.ones(shape, np.int32)
     rsl = -np.ones(shape, np.int32)
+    seq = np.zeros(shape, np.int32)
+    kvs = -np.ones(shape, np.int32)
 
     for t in sched.tasks:
-        tt, s = tick[t.key()], t.stage
+        tt, s, q = tick[t.key()], t.stage, t.seq
         d = dev(s, t.chunk)              # the table column (device)
+        # backward-phase unit order (writers and readers of the W-stash
+        # and remat rings both follow it, so mod-depth stays FIFO)
+        beta = t.mb * ns + (ns - 1 - q)
         oc = _op_code(t.kind, t.chunk, s, P, v)
         op[tt, d] = oc
         chunk[tt, d] = t.chunk
         mbt[tt, d] = t.mb
+        seq[tt, d] = q
         code = _send_code(t.kind, t.chunk, s, P, v, pl)
         snd[tt, d] = code
-        # W-stash slot: written at the B tick, read at W (FIFO by mb)
+        # KV-carry/dKV ring slot (FIFO by mb): every F appends its
+        # chunk's K/V; every B replays from it and accumulates dKV
+        if ns > 1 and t.kind in (F, B):
+            kvs[tt, d] = t.mb % kv_depth[t.chunk]
+        # W-stash slot: written at the B tick, read at W
         if has_w and t.kind in (B, W):
-            wsl[tt, d] = t.mb % wstash_depth[t.chunk]
+            wsl[tt, d] = beta % wstash_depth[t.chunk]
         # remat-ring slot: written at R, read at the B.
         # First-position blocks have no boundary payload to hand off
         # (their input is the token batch, re-fetched at B time).
         if t.chunk in rcs and t.kind in (R, B) \
                 and oc not in (RCP_FIRST, BWD_FIRST):
-            rsl[tt, d] = t.mb % rmt_depth[t.chunk]
-        # boundary activation slot (FIFO by mb); rematerialized chunks
-        # retire their act slot at the R tick, so their B reads the
-        # remat ring
+            rsl[tt, d] = beta % rmt_depth[t.chunk]
+        # boundary activation slot (FIFO by mb when n_seq == 1, exact
+        # interval coloring otherwise); rematerialized chunks retire
+        # their act slot at the R tick, so their B reads the remat ring
         if t.kind != W and oc not in (FWD_FIRST, BWD_FIRST, RCP_FIRST) \
-                and not (t.kind == B and t.chunk in rcs):
-            act[tt, d] = t.mb % act_depth[t.chunk]
+                and not (t.kind == B and t.chunk in rcs) and not fwd_only:
+            act[tt, d] = (t.mb % act_depth[t.chunk] if ns == 1
+                          else act_color[(t.chunk, s, t.mb, q)])
         # input queue slot
         if t.kind == F and oc not in (FWD_FIRST,):
-            prod = (F, t.mb, t.chunk, s - 1) if s > 0 else \
-                (F, t.mb, t.chunk - 1, P - 1)
+            prod = (F, t.mb, t.chunk, s - 1, q) if s > 0 else \
+                (F, t.mb, t.chunk - 1, P - 1, q)
             src[tt, d] = f_slots[prod]
         if t.kind == B and oc not in (BWD_LAST,):
-            prod = (B, t.mb, t.chunk, s + 1) if s < P - 1 else \
-                (B, t.mb, t.chunk + 1, 0)
+            prod = (B, t.mb, t.chunk, s + 1, q) if s < P - 1 else \
+                (B, t.mb, t.chunk + 1, 0, q)
             src[tt, d] = b_slots[prod]
         # receive side: the payload I produce lands at the consumer's
         # device this tick, on the channel my send code feeds
@@ -395,10 +514,12 @@ def build_task_table(sched: Schedule, overlap: bool = False) -> TaskTable:
 
     return TaskTable(P=P, v=v, m=m, T=T, op=op, chunk=chunk, mb=mbt,
                      src_slot=src, act_slot=act, send=snd, recv_f=rcf,
-                     recv_b=rcb, w_slot=wsl, r_slot=rsl, fq_depth=fq_depth,
+                     recv_b=rcb, w_slot=wsl, r_slot=rsl, seq=seq,
+                     kv_slot=kvs, fq_depth=fq_depth,
                      bq_depth=bq_depth, act_depth=act_depth,
                      wstash_depth=wstash_depth, rmt_depth=rmt_depth,
-                     name=sched.name, placement_name=pl.name,
+                     name=sched.name, n_seq=ns, kv_depth=kv_depth,
+                     placement_name=pl.name,
                      overlap=overlap)
 
 
@@ -407,13 +528,54 @@ B_OPS = (BWD_MID, BWD_FIRST, BWD_LAST)
 W_OPS = (WGT_MID, WGT_FIRST, WGT_LAST)
 R_OPS = (RCP_MID, RCP_FIRST, RCP_LAST)
 
+# columns of TaskTable.arrays()
+COL_ACT, COL_W, COL_R, COL_KV = 4, 12, 13, 15
+
+
+def derive_slots(tab: TaskTable) -> Dict[int, np.ndarray]:
+    """The FIFO ring-slot columns of :meth:`TaskTable.arrays`,
+    recomputed from each row's ``(op, chunk, mb, seq)`` by the formulas
+    of :func:`build_task_table` (``beta % depth`` in the backward unit
+    order, the op codes deciding which rows carry a slot): the W-stash,
+    remat and KV-carry columns, and the activation column where it is
+    FIFO (``n_seq == 1``; sequence chunking colors it by interval).
+    :func:`validate_table` holds the table to them."""
+    op, chunk, mb, seq = tab.op, tab.chunk, tab.mb, tab.seq
+    v, ns = tab.v, tab.n_seq
+    rcs = np.asarray([int(c in tab.rmt_depth) for c in range(v)])
+
+    def depth_arr(d: Dict[int, int]):
+        return np.asarray([max(int(d.get(c, 0)), 1) for c in range(v)])
+
+    beta = mb * ns + (ns - 1 - seq)
+    is_f, is_b = np.isin(op, F_OPS), np.isin(op, B_OPS)
+    is_w, is_r = np.isin(op, W_OPS), np.isin(op, R_OPS)
+    is_rc = rcs[chunk] > 0
+    out = {}
+    out[COL_W] = np.where((is_b | is_w) & tab.has_w,
+                          beta % depth_arr(tab.wstash_depth)[chunk], -1)
+    out[COL_R] = np.where(
+        is_rc & (is_r | is_b) & (op != RCP_FIRST) & (op != BWD_FIRST),
+        beta % depth_arr(tab.rmt_depth)[chunk], -1)
+    if ns > 1:
+        out[COL_KV] = np.where(is_f | is_b,
+                               mb % depth_arr(tab.kv_depth)[chunk], -1)
+    else:
+        out[COL_KV] = -np.ones_like(op)
+        has_act = (is_f | is_b | is_r) & (op != FWD_FIRST) \
+            & (op != BWD_FIRST) & (op != RCP_FIRST) & ~(is_b & is_rc) \
+            & (not tab.fwd_only)        # prefill tables carry no act ring
+        out[COL_ACT] = np.where(has_act,
+                                mb % depth_arr(tab.act_depth)[chunk], -1)
+    return out
+
 
 def validate_table(tab: TaskTable) -> None:
     """Re-derive invariants: every task present once; reads see writes;
-    every stash ring (W-stash, remat, the act ring of rematerialized
-    chunks) is safe — a slot is never overwritten before its matching
-    reader retires it."""
-    P, v, m = tab.P, tab.v, tab.m
+    every stash ring (W-stash, remat, the act ring of rematerialized or
+    sequence-chunked tables, and the KV-carry ring) is safe — a slot is
+    never overwritten before its matching reader retires it."""
+    P, v, m, ns = tab.P, tab.v, tab.m, tab.n_seq
     seen = set()
     for t in range(tab.T):
         for s in range(P):
@@ -428,22 +590,24 @@ def validate_table(tab: TaskTable) -> None:
                 kind = R
             else:
                 kind = B
-            key = (kind, int(tab.mb[t, s]), int(tab.chunk[t, s]), s)
+            key = (kind, int(tab.mb[t, s]), int(tab.chunk[t, s]), s,
+                   int(tab.seq[t, s]))
             assert key not in seen, f"duplicate {key}"
             seen.add(key)
-    kinds = 3 if tab.has_w else 2
-    assert len(seen) == kinds * P * v * m + len(tab.rmt_depth) * P * m
+    kinds = 1 if tab.fwd_only else (3 if tab.has_w else 2)
+    assert len(seen) == (kinds * P * v * m
+                         + len(tab.rmt_depth) * P * m) * ns
 
     def unit(t, s):
-        return int(tab.mb[t, s])
+        return int(tab.mb[t, s]), int(tab.seq[t, s])
 
     # W-stash ring: the slot written at a B tick must stay live (not be
     # overwritten by a later B) until its matching W tick reads it.
-    # mb % depth is only sound for FIFO retirement — enforce it here
+    # beta % depth is only sound for FIFO retirement — enforce it here
     # rather than assume it of future split-backward generators.
     if tab.has_w:
         for s in range(P):
-            live: Dict[Tuple[int, int], int] = {}  # (chunk, slot) -> mb
+            live: Dict[Tuple[int, int], Tuple] = {}  # (chunk, slot) -> unit
             for t in range(tab.T):
                 o = tab.op[t, s]
                 if o in (BWD_MID, BWD_FIRST, BWD_LAST):
@@ -471,7 +635,7 @@ def validate_table(tab: TaskTable) -> None:
                 ((FWD_MID, FWD_FIRST, FWD_LAST),
                  (RCP_MID, RCP_FIRST, RCP_LAST), tab.act_slot, "act(F->R)")):
             for s in range(P):
-                live: Dict[Tuple[int, int], int] = {}
+                live: Dict[Tuple[int, int], Tuple] = {}
                 for t in range(tab.T):
                     o = tab.op[t, s]
                     c = int(tab.chunk[t, s])
@@ -490,6 +654,65 @@ def validate_table(tab: TaskTable) -> None:
                         del live[key]
                 assert not live, \
                     f"stage {s}: unread {label} ring slots {live}"
+    # sequence-chunked tables: the colored act ring (write at F, single
+    # terminal read at B — or R for rematerialized chunks) and the
+    # KV-carry ring (claimed at F[mb,0], every later F/B of the mb must
+    # see its own slot, released at B[mb,0]).
+    if ns > 1:
+        rcs = set(tab.rmt_depth)
+        fwd_o = tab.fwd_only
+        for s in range(P):
+            live_act: Dict[Tuple[int, int], Tuple] = {}
+            live_kv: Dict[Tuple[int, int], int] = {}   # (c, slot) -> mb
+            for t in range(tab.T):
+                o = tab.op[t, s]
+                if o == IDLE:
+                    continue
+                c = int(tab.chunk[t, s])
+                mb, q = unit(t, s)
+                a_sl = int(tab.act_slot[t, s])
+                kv_sl = int(tab.kv_slot[t, s])
+                is_f = o in (FWD_MID, FWD_FIRST, FWD_LAST)
+                is_b = o in (BWD_MID, BWD_FIRST, BWD_LAST)
+                is_r = o in (RCP_MID, RCP_FIRST, RCP_LAST)
+                if is_f and a_sl >= 0:
+                    key = (c, a_sl)
+                    assert key not in live_act, \
+                        f"stage {s} tick {t}: act slot {key} " \
+                        f"overwritten before {live_act[key]} read it"
+                    live_act[key] = (mb, q)
+                elif a_sl >= 0 and (is_r or (is_b and c not in rcs)):
+                    key = (c, a_sl)
+                    assert live_act.get(key) == (mb, q), \
+                        f"stage {s} tick {t}: act read {key} not " \
+                        f"holding its unit"
+                    del live_act[key]
+                if kv_sl >= 0 and (is_f or is_b):
+                    key = (c, kv_sl)
+                    if is_f and q == 0:
+                        assert key not in live_kv, \
+                            f"stage {s} tick {t}: KV slot {key} " \
+                            f"reclaimed while mb {live_kv.get(key)} live"
+                        live_kv[key] = mb
+                        # fwd-only, ns-boundary: release below
+                    else:
+                        assert live_kv.get(key) == mb, \
+                            f"stage {s} tick {t}: KV slot {key} does " \
+                            f"not hold mb {mb}"
+                    # fwd-only tables release at the last seq chunk
+                    # (serving hands the slot to decode outside the
+                    # table); training tables release at B[mb, 0]
+                    if (is_b and q == 0) or \
+                            (fwd_o and is_f and q == ns - 1):
+                        if key in live_kv:
+                            del live_kv[key]
+            assert not live_act, f"stage {s}: unread act slots {live_act}"
+            assert not live_kv, f"stage {s}: unreleased KV slots {live_kv}"
+    # the FIFO ring columns follow their formulas
+    arr = tab.arrays()
+    for col, want in derive_slots(tab).items():
+        assert (arr[..., col] == want).all(), \
+            f"ring column {col} is not its FIFO formula"
     # queue writes land in range and at most one payload per (tick,
     # device, channel); a device receives at most one F and one B
     # payload per (tick, channel) by construction

@@ -54,13 +54,22 @@ def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
     return step, lm
 
 
+VSHAPE_SCHEDULES = ("v_min", "v_half", "v_zb")
+
+
 def plan_schedule_kwargs(plan: ParallelPlan) -> Dict:
     """Schedule-generator kwargs the plan implies: the number of
     rematerialized chunks for ``chronos_recomp`` (any recompute mode but
-    "none"), the uniform-recompute fraction for ``1f1b``/``gpipe`` (the
-    1F1B+R baseline); other generators need nothing."""
+    "none") and for ``chronos_seq`` (mode "chronos" with
+    ``num_recomp_chunks > 0``; ``plan.seq_chunks`` rides separately
+    through ``make_pipeline_spec(n_seq=)``), the uniform-recompute
+    fraction for ``1f1b``/``gpipe`` (the 1F1B+R baseline); other
+    generators need nothing (the V-shape family, :data:`VSHAPE_SCHEDULES`,
+    is a fixed v=2 construction that carries its own placement)."""
     rc = plan.recompute
-    if plan.schedule == "chronos_recomp" and rc.mode != "none":
+    if (plan.schedule == "chronos_recomp" and rc.mode != "none") or \
+            (plan.schedule == "chronos_seq" and rc.mode == "chronos"
+             and rc.num_recomp_chunks > 0):
         return {"recomp_chunks": min(rc.num_recomp_chunks,
                                      max(plan.num_chunks - 1, 1))}
     if plan.schedule in ("1f1b", "gpipe") and rc.mode == "uniform" \
@@ -80,8 +89,13 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
 
     The optimizer is the fused-AdamW kernel (one launch per parameter
     leaf) exactly where the reference fuses its optimizer into the
-    executor: ``kernels="fused"`` and a split-backward table (W tasks);
-    otherwise the phase-separate update without the kernel.
+    executor: ``kernels="fused"`` and a split-backward table (W tasks:
+    the zero-bubble and V-shape families); otherwise (the sequence-
+    chunked family too) the phase-separate update without the kernel.
+
+    ``plan.seq_chunks`` is the ``n_seq`` of the sequence-chunked
+    schedules; a V-shape schedule needs ``num_chunks == 2`` (ValueError
+    otherwise, the reference's assertion).
 
     Chronos-Offload (``plan.offload.enabled``): ``opt_state`` covers only
     the shallow chunks and the shared leaves (``adamw_init`` of
@@ -100,10 +114,13 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
                                                    make_train_update_fn)
     mbB = plan.microbatch_size
     m = plan.num_microbatches or max(2, shape.global_batch // mbB)
+    if plan.schedule in VSHAPE_SCHEDULES and plan.num_chunks != 2:
+        raise ValueError(f"{plan.schedule} is a fixed v=2 V-shape "
+                         f"construction, got num_chunks={plan.num_chunks}")
     spec = make_pipeline_spec(
         cfg, P=P, v=plan.num_chunks, m=m, microbatch=mbB,
         seq_len=shape.seq_len, schedule=plan.schedule, kernels=plan.kernels,
-        **plan_schedule_kwargs(plan))
+        n_seq=plan.seq_chunks, **plan_schedule_kwargs(plan))
     fuse_opt = plan.kernels == "fused" and spec.table.has_w
     split = None
     if plan.offload.enabled and plan.offload.num_offload_chunks > 0:

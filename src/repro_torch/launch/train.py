@@ -4,9 +4,11 @@ reference's checkpointer, health monitor, fault injector and watchdog:
 - :func:`train`: the single-device driver (``train`` of
   ``repro/launch/train.py``): every microbatch's loss through
   ``LM.loss`` under Chronos-Recomp, gradients summed in fp32, then AdamW;
-- :func:`train_pipeline`: ChronosPipe pipeline training, with
-  Chronos-Offload (the deepest chunks' AdamW on the host) when
-  ``plan.offload.enabled``.
+- :func:`train_pipeline`: ChronosPipe pipeline training under any
+  generator of the schedule registry (the V-shape family with its
+  fold-back placement; the sequence-chunked family with
+  ``plan.seq_chunks`` chunks per microbatch), with Chronos-Offload (the
+  deepest chunks' AdamW on the host) when ``plan.offload.enabled``.
 
     from repro_torch.launch.train import train, train_pipeline
     out = train(tc)                                # on the card
@@ -118,6 +120,12 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     the prefetching :class:`DataPipeline`; every key of a batch reaches
     the step, a source's ``loss_mask`` (aligned with the tokens, as
     ``LM.loss`` reads it) cut to the label positions (``[..., 1:]``).
+
+    ``plan.schedule`` names any registered generator; the plan's
+    ``seq_chunks`` reaches the sequence-chunked ones, and the reference's
+    refusals raise ValueError (a V-shape schedule with ``num_chunks !=
+    2``, ``seq_chunks > 1`` with another schedule or on a model with SSM
+    layers, a sequence length that does not split into the chunks).
 
     Chronos-Offload (``tc.plan.offload.enabled``), in the reference's
     order: a :class:`ChronosOffloadRunner` over the deep chunks' views of

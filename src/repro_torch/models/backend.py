@@ -82,35 +82,55 @@ def get_backend(kernels=None) -> ComputeBackend:
 # the ChunkBody seam
 # ---------------------------------------------------------------------------
 
-def chunk_fwd(spec, block_params_c, flags_c, x):
+def chunk_fwd(spec, block_params_c, flags_c, x, *, kv=None, pos0=0):
     """Run one stage's layer chunk over the boundary activation ``x``
-    [B, S, d] (whole-sequence mode) and return the new boundary.
+    [B, Sc, d] and return the new boundary.
 
     ``block_params_c``: per period position, leaves [M, ...];
     ``flags_c``: {window, gate} host numpy [M, period] — host values, so
     the layer's ``gate != 1.0`` test costs no device sync.  The
     reference wraps its scan body in ``jax.checkpoint``; here the caller
     recomputes the chunk from its boundary at every B and W op, and the
-    flash Function saves only q, k and v."""
+    flash Function saves only q, k and v.
+
+    Sequence-chunked mode (``kv`` = {"k", "v"} with leaves [M, period,
+    B, S, G, hd], the microbatch's full-sequence K/V of every layer of
+    the chunk; ``pos0`` the host offset of the chunk's first position):
+    the positions are ``pos0 + arange(Sc)``, every layer attends over its
+    buffer with the chunk's K/V merged in out of place, and the call
+    returns ``(x, kv_out)``, ``kv_out`` the merged buffers stacked as
+    ``kv``'s leaves."""
     from repro_torch.models.transformer import _apply_layer, _index
     bk = get_backend(spec.kernels)
     cfg = spec.cfg
     Bz, Sc, _ = x.shape
-    positions = torch.arange(Sc, device=x.device)[None].expand(Bz, Sc)
+    positions = (pos0 + torch.arange(Sc, device=x.device))[None].expand(
+        Bz, Sc)
     win, gate = flags_c["window"], flags_c["gate"]
+    outs = []
     for mi in range(win.shape[0]):
         for j in range(spec.layout.period):
-            x, _ = _apply_layer(
+            x, nc = _apply_layer(
                 _index(block_params_c[j], mi), x, positions, cfg, j,
-                window_override=int(win[mi, j]), gate=float(gate[mi, j]),
-                backend=bk)
-    return x
+                kv=None if kv is None else {"k": kv["k"][mi, j],
+                                            "v": kv["v"][mi, j]},
+                cache_pos=pos0, window_override=int(win[mi, j]),
+                gate=float(gate[mi, j]), backend=bk)
+            outs.append(nc)
+    if kv is None:
+        return x
+    shape = kv["k"].shape
+    return x, {n: torch.stack([o[n] for o in outs]).view(shape)
+               for n in ("k", "v")}
 
 
-def head_loss(spec, params, x, labels, loss_mask=None):
+def head_loss(spec, params, x, labels, loss_mask=None, denom=None):
     """Final norm + unembed + CE: the loss of one microbatch at the last
-    stage (the reference's MoE aux term is zero for the models ported)."""
+    stage (the reference's MoE aux term is zero for the models ported).
+    ``denom``: the sequence-chunked executor's fixed normalizer (the
+    whole microbatch's token or mask count), so chunk losses sum to the
+    microbatch's mean."""
     bk = get_backend(spec.kernels)
     h = bk.rmsnorm(params["final_norm"], x, spec.cfg.norm_eps)
     logits = L.unembed(params["embed"], h)
-    return L.softmax_xent(logits, labels, loss_mask)
+    return L.softmax_xent(logits, labels, loss_mask, denom=denom)

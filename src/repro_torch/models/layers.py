@@ -196,19 +196,32 @@ def blockwise_attention(q, k, v, scale, *, causal: bool, window: int = 0,
 def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
               rope_theta: float, causal: bool = True, window=0,
               prefix_len: int = 0, cache: Optional[dict] = None,
-              cache_pos: int = 0, dense_threshold: int = 8192,
+              kv: Optional[dict] = None, cache_pos: int = 0,
+              dense_threshold: int = 8192,
               backend=None) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention: train (``cache=None``), cache prefill and decode.
+    """Self-attention: train (``cache=None``, ``kv=None``), sequence-
+    chunked train over a KV buffer (``kv``), cache prefill and decode
+    (``cache``).
 
-    With a cache, the step's K/V are written into ``cache`` **in place**
-    at ``cache_pos`` (the reference returns an updated copy; the buffers
-    here are the caller's slot caches, and writing them in place saves a
-    copy of the whole buffer per layer per step) and the returned cache
-    is the same dict.  The query then attends over the whole buffer.
+    Serving (``cache``): the step's K/V are written into ``cache`` **in
+    place** at ``cache_pos`` (the reference returns an updated copy; the
+    buffers here are the caller's slot caches, and writing them in place
+    saves a copy of the whole buffer per layer per step) and the returned
+    cache is the same dict.  Never under autograd: an in-place write into
+    a buffer that needs a gradient breaks the dKV carry.
+
+    Sequence-chunked training (``kv``, the full-sequence K/V buffer
+    {"k", "v"} [B, S_full, G, hd] of the chunk's microbatch): the chunk's
+    K/V enter the buffer through
+    :func:`~repro_torch.seqpipe.attention.merge_kv`, out of place, and
+    the returned dict is the merged buffer, so the cotangent of the
+    prefix reaches ``kv``.  In both modes the query (absolute positions
+    from ``cache_pos``) then attends over the whole buffer.
 
     A fused ``backend`` routes every self-attention of length S > 1 with
-    a static window (train, and prefill at offset ``cache_pos``) through
-    the flash kernel; decode (S == 1) takes the dense path by design.
+    a static window (train, sequence-chunked train and prefill at offset
+    ``cache_pos``) through the flash kernel; decode (S == 1) takes the
+    dense path by design.
     Without it, a kv longer than ``dense_threshold`` takes
     :func:`blockwise_attention` and a shorter one the dense path.  The
     reference's cross-attention paths are not ported."""
@@ -228,20 +241,24 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
         cache["k"][:, cache_pos:cache_pos + S] = k.to(cache["k"].dtype)
         cache["v"][:, cache_pos:cache_pos + S] = v.to(cache["v"].dtype)
         new_cache = cache
-        k, v = cache["k"], cache["v"]
+    elif kv is not None:
+        from repro_torch.seqpipe.attention import merge_kv
+        new_cache = merge_kv(kv, k, v, cache_pos)
+    if new_cache is not None:
+        k, v = new_cache["k"], new_cache["v"]
+    q_offset = 0 if new_cache is None else cache_pos
     kv_len = k.shape[1]
 
     fuse = (backend is not None and backend.fuse_attention
             and isinstance(window, int) and S > 1
-            and (cache is None or causal))
+            and (new_cache is None or causal))
     if fuse:
         # self-attention over the whole kv (train: kv_len == S; chunked
-        # prefill: the cache buffer at offset cache_pos — causal masking
-        # hides everything past the frontier)
+        # train and prefill: the buffer at offset cache_pos — causal
+        # masking hides everything past the frontier)
         out = backend.flash(q, k, v, causal=causal, window=window,
-                            prefix=prefix_len,
-                            q_offset=0 if cache is None else cache_pos)
-    elif S == 1 and cache is not None:
+                            prefix=prefix_len, q_offset=q_offset)
+    elif S == 1 and new_cache is not None:
         # decode: one query over the whole cache
         kv_pos = torch.arange(kv_len, device=x.device)
         q_pos = positions[:, -1:]                     # [B, 1]
@@ -251,8 +268,7 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
     elif kv_len > dense_threshold:
         out = blockwise_attention(
             q, k, v, scale, causal=causal, window=window,
-            prefix_len=prefix_len,
-            q_offset=0 if cache is None else cache_pos)
+            prefix_len=prefix_len, q_offset=q_offset)
     else:
         kv_pos = torch.arange(kv_len, device=x.device)
         msk = make_mask(positions[0], kv_pos, causal=causal, window=window,

@@ -78,9 +78,15 @@ def _init_cache_layer(cfg: ModelConfig, idx: int, batch: int, seq: int,
 
 
 def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
-                 cache=None, cache_pos: int = 0, prefix_len: int = 0,
-                 window_override=None, gate=None, backend=None):
+                 cache=None, kv=None, cache_pos: int = 0,
+                 prefix_len: int = 0, window_override=None, gate=None,
+                 backend=None):
     """One decoder layer.  Returns (x, new_cache).
+
+    ``cache``: serving's slot cache, written in place; ``kv``: a
+    sequence-chunked training step's full-sequence K/V buffer, merged
+    out of place (:func:`repro_torch.models.layers.attention`); both at
+    ``cache_pos``.  Attention layers only take ``kv``.
 
     ``window_override``: per-layer sliding window carried as data (the
     pipeline engine's flags).  ``gate``: 0/1 multiplier on the residual
@@ -103,9 +109,12 @@ def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
             p["attn"], h, positions, num_heads=cfg.num_heads,
             num_kv=cfg.num_kv_heads, hd=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta, causal=True, window=window,
-            prefix_len=prefix_len, cache=cache, cache_pos=cache_pos,
+            prefix_len=prefix_len, cache=cache, kv=kv, cache_pos=cache_pos,
             backend=bk)
     else:
+        if kv is not None:
+            raise ValueError("a KV buffer needs an attention layer; "
+                             "sequence chunking is dense-attention only")
         y, new_cache = M.mamba_block(p["mamba"], h, cfg.ssm, cache=cache,
                                      norm_eps=cfg.norm_eps, backend=bk)
     if gate is not None and gate != 1.0:     # x * 1.0 is x: skip the op
