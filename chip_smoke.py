@@ -74,7 +74,16 @@ Phases, in order; any failure exits non-zero:
     same network, chronos_seq (n_seq=2) against chronos and seq1f1b
     (n_seq=4) against 1f1b, with and without a loss mask, each within
     2e-5 relative;
-16. a JSON ``kernels`` line, then the JSON result line.
+16. train-planner: the memory-budget planner (``repro_torch.plan``) on
+    the card, each stage's budget a quarter of the card's memory: (a) its
+    pick for tinyllama-1.1b trained 4 steps as phase 6; (b) deepseek-7b's
+    width: ``max_trainable_layers`` of ``1f1b`` and of the best point,
+    then the pick at that depth trained 3 steps (``ep.m`` sequences of
+    2049 tokens), both gated as phase 6 (finite losses, moved masters,
+    launch counts from the table); (c) for every pipeline training run
+    of phases 6-16 the planner's per-stage total, the one-card prediction
+    with its terms and the measured peak (printed, not gated);
+17. a JSON ``kernels`` line, then the JSON result line.
 
 Phase 3 also holds fused AdamW bitwise against its plain version, the
 RMSNorm, flash and SSD Functions' gradients against autograd through the
@@ -84,7 +93,9 @@ of both models, where it times them, flash at the sequence-chunked
 training shapes (q chunks of 1024 and 512 rows at every offset over a
 2048-row KV-carry slot: o, lse, the Function's gradients with dK/dV
 exactly 0 past the causal frontier, times beside SDPA given the boolean
-mask and the bound), and the SSD scan at four shapes in fp32 and bf16,
+mask and the bound; again at phase 16's deepseek-7b shape, 512-row
+chunks of 32 heads of 128 over as many K/V heads, with rmsnorm at x
+[512, 4096]), and the SSD scan at four shapes in fp32 and bf16,
 each case's route printed and checked (bf16: the tensor-core passes,
 fp32: the CUDA-core kernel).
 
@@ -621,6 +632,9 @@ def phase_checks(torch):
 ADAMW_STATE_BYTES = 24         # mu, nu, w read and written, fp32
 ADAMW_FLOPS = 16               # per element, csrc/fused_adamw.cu
 TRAIN_SEQ = 2049               # 2048 positions per sequence fed to the stack
+# (tag, TrainConfig, P, peak bytes) of every pipeline training run, for
+# phase 16's predicted-against-measured lines
+TRAIN_RUNS = []
 
 
 def _adamw_case(torch, gen, n, g_dtype, step, wd):
@@ -849,24 +863,27 @@ def phase_train_shapes(torch, gen, rows):
         "timed_shape": f"x [{S},2048] bf16"}
 
 
-def phase_flash_offsets(torch, gen, rows):
+def phase_flash_offsets(torch, gen, rows, H=32, G=4, d=64, n_seqs=(2, 4),
+                        key="train_offsets"):
     """The flash kernel at the sequence-chunked training shapes: a query
     chunk of Sc = 2048 / n_seq rows at each offset q * Sc over the full
     2048-row K/V of one KV-carry slot (a view of a ring [2, 3, 1, 1,
-    2048, 4, 64], contiguous and 16-byte aligned, as the executor's
-    buffers are), bf16, n_seq = 2 and 4.  Holds o and lse against
+    2048, G, d], contiguous and 16-byte aligned, as the executor's
+    buffers are), bf16; tinyllama's heads (H 32, G 4, d 64) at n_seq = 2
+    and 4, and deepseek-7b's (H = G = 32, d 128, phase 16's pick) at
+    n_seq = 4.  Holds o and lse against
     ``attention_ref`` (phase 3's bf16 tolerances) and the
     ``FlashAttention`` Function's dq, dk, dv against autograd through
     ``attention_ref`` (``_flash_grad_case``'s tolerances), with dk and dv
     past the causal frontier exactly zero; times the kernel (CUDA
     graph), the plain version and SDPA given the equivalent boolean
-    mask, beside the bound.  Adds ``rows["flash_attention_fwd"]
-    ["train_offsets"]``."""
+    mask, beside the bound.  Adds ``rows["flash_attention_fwd"][key]``
+    and the plain backward's ms by Sc under ``key + "_plain_bwd_ms"``."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention,
                                                      flash_attention_fwd)
     import torch.nn.functional as F
-    S, H, G, d, dt = TRAIN_SEQ - 1, 32, 4, 64, torch.bfloat16
+    S, dt = TRAIN_SEQ - 1, torch.bfloat16
     ring = {n: torch.randn((2, 3, 1, 1, S, G, d), generator=gen,
                            device="cuda").to(dt) for n in ("k", "v")}
     k, v = ring["k"][1, 2, 0], ring["v"][1, 2, 0]
@@ -876,7 +893,7 @@ def phase_flash_offsets(torch, gen, rows):
     kt = k.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
     out, bwd_ms = [], {}
-    for ns in (2, 4):
+    for ns in n_seqs:
         Sc = S // ns
         # the Function's plain backward (attention_ref over the whole
         # K/V, whatever the offset): the seq phases' profiles read it
@@ -947,8 +964,39 @@ def phase_flash_offsets(torch, gen, rows):
                         "lse_max_abs_err": e_l, "grad_max_abs_err": max(e_g),
                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": b[by], "bound_by": by})
-    rows["flash_attention_fwd"]["train_offsets"] = out
-    rows["flash_attention_fwd"]["train_offsets_plain_bwd_ms"] = bwd_ms
+    rows["flash_attention_fwd"][key] = out
+    rows["flash_attention_fwd"][key + "_plain_bwd_ms"] = bwd_ms
+
+
+def phase_deepseek_rmsnorm(torch, gen, rows):
+    """rmsnorm at phase 16's deepseek-7b chunk shape, x [512, 4096] bf16
+    (a 512-position sequence chunk), held against its plain version with
+    phase 3's tolerance and timed beside ``F.rms_norm`` and the bound."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_rows, rmsnorm_rows_ref
+    R, D, dt = (TRAIN_SEQ - 1) // 4, 4096, torch.bfloat16
+    x = torch.randn((R, D), generator=gen, device="cuda").to(dt)
+    scale = (1 + 0.1 * torch.randn((D,), generator=gen,
+                                   device="cuda")).to(dt)
+    got = rmsnorm_rows(x, scale)
+    torch.cuda.synchronize()
+    want = rmsnorm_rows_ref(x, scale)
+    e_r = max_err(got, want)
+    ok = rel_ok(got, want, 1e-6, 2.0 ** -7)
+    t = rmsnorm_times(torch, x, scale)
+    nbytes = (2 * R * D + D) * x.element_size()
+    rb = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+          "operations": 4 * R * D / FP32_FLOPS * 1e3}
+    rby = max(rb, key=rb.get)
+    print(f"[kernels] rmsnorm_rows bf16 x [{R},{D}] (deepseek-7b's chunk): "
+          f"max|d|={e_r:.3e} tol=1e-06+0.0078125*|ref| "
+          f"{'ok' if ok else 'FAIL'}; {rmsnorm_line(t)}; bound "
+          f"{rb[rby] * 1e3:.3f} us ({rby})")
+    if not ok:
+        fail("rmsnorm_rows disagrees with its plain version at deepseek-7b's "
+             "chunk shape")
+    rows["rmsnorm_rows"]["train_planner_deepseek"] = {
+        "max_abs_err": e_r, **t, "bound_ms": rb[rby], "bound_by": rby,
+        "timed_shape": f"x [{R},{D}] bf16"}
 
 
 # ---------------------------------------------------------------------------
@@ -1283,8 +1331,10 @@ def _spec_of(tc, P: int):
     from repro_torch.core.pipeline_runtime import make_pipeline_spec
     from repro_torch.launch.steps import plan_schedule_kwargs
     plan = tc.plan
+    m = plan.num_microbatches or max(
+        2, tc.shape.global_batch // plan.microbatch_size)
     return make_pipeline_spec(
-        tc.model, P=P, v=plan.num_chunks, m=plan.num_microbatches,
+        tc.model, P=P, v=plan.num_chunks, m=m,
         microbatch=plan.microbatch_size, seq_len=tc.shape.seq_len,
         schedule=plan.schedule, kernels=plan.kernels, n_seq=plan.seq_chunks,
         **plan_schedule_kwargs(plan))
@@ -1390,6 +1440,7 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, **plan):
     summary = {"losses": out["losses"], "peak": peak, "median_s": med,
                "launches": launches, "per_step": per_step,
                "schedule": tab.name, "tokens_per_s": tokens / med}
+    TRAIN_RUNS.append((tag, tc, P, peak))
     del out, params
     torch.cuda.empty_cache()
     return summary
@@ -1927,6 +1978,7 @@ def train_offload_run(torch, arch: str, tag: str, base, steps: int):
     if not fall >= 0.9 * deep_state:
         fail(f"{tag}: peak fell {fall / 2 ** 30:.3f} GiB, less than 0.9 x "
              f"the deep state's {deep_state / 2 ** 30:.3f} GiB")
+    TRAIN_RUNS.append((tag, tc, P, peak))
     del out, params, kept, deep, slabs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2162,6 +2214,271 @@ def phase_train_schedule_checks(torch):
                   run(whole_spec, params, b))
 
 
+# ---------------------------------------------------------------------------
+# the memory-budget planner: its picks trained, its peaks against the card's
+# ---------------------------------------------------------------------------
+
+PHASE_OF = {"train": 6, "train-mamba2": 8, "train-offload": 11,
+            "train-offload-mamba2": 11, "train-vshape": 12,
+            "train-seq-chronos": 13, "train-seq-1f1b": 14,
+            "train-planner": "16a", "train-planner-deepseek": "16b"}
+PLANNER_RESERVE = 2.0e9          # PlannerQuery's default reserve
+
+
+def planner_query(cfg, hbm_bytes: float):
+    """The one-card query: P = 4 virtual stages share the card, so each
+    gets a quarter of its memory; one 2049-token sequence per
+    microbatch."""
+    from repro_torch.plan import PlannerQuery
+    return PlannerQuery(cfg=cfg, pp=4, tp=1, hbm_bytes=hbm_bytes,
+                        microbatch=1, seq_len=TRAIN_SEQ)
+
+
+def _point_of(tc, q):
+    """The planner's point for ``tc``'s plan under query ``q``."""
+    from repro_torch.plan import enumerate_points
+    plan = tc.plan
+    from repro_torch.launch.steps import plan_schedule_kwargs
+    kw = plan_schedule_kwargs(plan)
+    n_off = plan.offload.num_offload_chunks if plan.offload.enabled else 0
+    want = (plan.schedule, plan.num_chunks, plan.seq_chunks,
+            kw.get("recomp_chunks", 0), kw.get("recomp", 0.0), n_off)
+    for p in enumerate_points(q):
+        if (p.schedule, p.v, p.seq_chunks, p.recomp_chunks,
+                p.uniform_recomp, p.offload_chunks) == want:
+            return p
+    return None
+
+
+def predicted_card_peak(tc, P: int):
+    """The one-card reading of the planner's per-device model: the P
+    virtual stages' model state, ``P x model_state``; the activations
+    each stage's schedule holds at its own peak, ``sum_s
+    peak_activation(per_stage=True)[s] x m_a``, at the run's microbatch
+    count; for a sequence-chunked plan the planner's KV-carry term (a
+    full-sequence K/V buffer and its dKV twin per in-flight microbatch)
+    on each stage; and the planner's reserve once.  Returns (total, state,
+    act, kv) in bytes."""
+    from repro_torch.core.analysis import MemoryModel
+    from repro_torch.core.pipeline_runtime import (SEQ_SCHEDULES,
+                                                   _SCHEDULES_WITH_V)
+    from repro_torch.core.schedules import get_schedule
+    from repro_torch.launch.steps import plan_schedule_kwargs
+    from repro_torch.plan.planner import _metrics
+    cfg, plan = tc.model, tc.plan
+    m = plan.num_microbatches or max(
+        2, tc.shape.global_batch // plan.microbatch_size)
+    kw = plan_schedule_kwargs(plan)
+    if plan.schedule in SEQ_SCHEDULES:
+        kw["n_seq"] = plan.seq_chunks
+    if plan.schedule in _SCHEDULES_WITH_V:
+        kw["v"] = plan.num_chunks
+    sched = get_schedule(plan.schedule, P, m, **kw)
+    mm = MemoryModel.build(cfg)
+    L, tokens = cfg.num_layers, plan.microbatch_size * tc.shape.seq_len
+    off = plan.offload.num_offload_chunks / plan.num_chunks \
+        if plan.offload.enabled else 0.0
+    state = P * mm.model_state(L, P, 1, offload_frac=off)
+    act = sum(sched.peak_activation(per_stage=True)) * mm.m_a(tokens, L)
+    kv = 0.0
+    if sched.n_seq > 1:
+        kv_frac = _metrics(plan.schedule, P, m, tuple(sorted(kw.items())))[4]
+        kv = P * 2.0 * kv_frac * mm.kv_a(tokens, L)
+    return state + act + kv + PLANNER_RESERVE, state, act, kv
+
+
+def planner_run(torch, tag: str, tc, steps: int):
+    """``tc`` (a planner pick's plan) trained ``steps`` steps through
+    ``train_pipeline`` on P=4 virtual stages at full width, bf16, seed 0.
+    Gates: finite losses and gradient norms, every master leaf the card
+    updates moved (under offload: the shallow and shared ones; the deep
+    ones move on the host), every launch count equal to the one derived
+    from the task table (fused AdamW once per updated leaf where the
+    table has W tasks).  Prints the step time, tokens/s and peak, and
+    under offload ``collect_wait_s`` and the host update seconds; each
+    step's peak up to its optimizer update and within it are read apart
+    by wrapping the update (the peak counter reset around it).
+    Returns (launches, peak, median step)."""
+    from repro_torch.core import pipeline_runtime as prt
+    from repro_torch.launch.steps import offload_kept
+    from repro_torch.launch.train import train_pipeline
+    from repro_torch.tree import tree_leaves
+    P, plan = 4, tc.plan
+    spec = _spec_of(tc, P)
+    tab, lay = spec.table, spec.layout
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(tc.seed)
+    params = prt.init_pipeline_params(gen, tc.model, spec.layout, "cuda")
+    offload = plan.offload.enabled
+    kept = offload_kept(params, plan)[0] if offload else params
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    before = [a.flatten()[:4096].to(torch.float32, copy=True)
+              for a in tree_leaves(kept)]
+    print(f"[{tag}] {tc.model.name} full width bf16 ({tc.model.num_layers} "
+          f"layers), {tab.name} ({lay.pl.name} placement) P={P} v={lay.v} "
+          f"m={tab.m} n_seq={tab.n_seq} mbB={spec.mbB} seq {spec.S}, "
+          f"recompute {plan.recompute.mode}/{plan.recompute.num_recomp_chunks}"
+          f", offload {plan.offload.num_offload_chunks if offload else 0}/"
+          f"{plan.num_chunks}: L_pad={lay.L_pad} K={lay.K}, "
+          f"{n_params / 1e9:.3f} B parameters; table T={tab.T} act "
+          f"{tab.act_depth} kv {tab.kv_depth} wstash {tab.wstash_depth} rmt "
+          f"{tab.rmt_depth}; host {os.cpu_count()} CPUs, MemTotal "
+          f"{_host_memory()}")
+    kernels = _kernel_fns()
+    before_upd, in_upd = [], []         # peak bytes of each step's parts
+    update = prt.adamw_update
+
+    def marked_update(*a, **k):
+        before_upd.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        out = update(*a, **k)
+        in_upd.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    prt.adamw_update = marked_update
+    try:
+        out = train_pipeline(tc, P=P, device="cuda", steps=steps,
+                             params=params,
+                             log=lambda s: print(f"[{tag}] {s}", flush=True))
+    finally:
+        prt.adamw_update = update
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = max(before_upd + in_upd + [torch.cuda.max_memory_allocated()])
+    per_step = expected_train_launches(spec, len(before))
+    want = {k: steps * n for k, n in per_step.items()}
+    tokens = tab.m * spec.mbB * spec.S
+    med = statistics.median(out["step_s"][1:])      # step 1 warms up
+    print(f"[{tag}] losses={out['losses']} grad_norms={out['grad_norms']} "
+          f"step_s={out['step_s']}")
+    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-{steps}: "
+          f"{[round(t * 1e3, 1) for t in out['step_s'][1:]]}), {tokens} "
+          f"tokens/step -> {tokens / med:.1f} tokens/s; "
+          f"max_memory_allocated={peak / 2 ** 30:.3f} GiB; per step, the "
+          f"peak up to the optimizer update "
+          f"{[round(b / 2 ** 30, 3) for b in before_upd]} GiB and within "
+          f"it {[round(b / 2 ** 30, 3) for b in in_upd]} GiB")
+    if offload:
+        rep = out["offload"]
+        print(f"[{tag}] offload: collect_wait_s {rep['collect_wait_s']:.3f}"
+              f", host update s {[round(t, 3) for t in rep['host_update_s']]}"
+              f", overlapped/submits {rep['overlapped']}/{rep['submits']}")
+    print(f"[{tag}] launches {launches} (want {want})")
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        fail(f"{tag}: non-finite loss or grad_norm")
+    masters = tree_leaves(out["opt_state"]["master"])
+    unchanged = [i for i, (a, b) in enumerate(zip(before, masters))
+                 if torch.equal(a, b.flatten()[:4096])]
+    print(f"[{tag}] masters moved: {len(masters) - len(unchanged)} of "
+          f"{len(masters)} leaves updated on the card")
+    if unchanged or len(masters) != len(before):
+        fail(f"{tag}: master leaves {unchanged} did not change")
+    if launches != want:
+        fail(f"{tag}: kernel launches {launches} != expected {want}")
+    TRAIN_RUNS.append((tag, tc, P, peak))
+    del out, params, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, peak, med
+
+
+def phase_train_planner(torch):
+    """16. The memory-budget planner on the card: (a) its pick for
+    tinyllama-1.1b under a quarter of the card per stage, trained 4
+    steps as phase 6 (8 sequences of 2049 tokens); (b) for deepseek-7b's
+    published width, ``max_trainable_layers`` of ``1f1b`` and of the
+    best point under the same budget, then the pick at the best depth
+    trained 3 steps with ``ep.m`` sequences; (c) for every pipeline
+    training plan of this run, the planner's per-stage total, the
+    one-card prediction with its terms and the measured peak.  Returns
+    the launch counts by path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (OptimizerConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.plan import enumerate_points, plan_under_budget
+    hbm = torch.cuda.get_device_properties(0).total_memory / 4
+    print(f"[train-planner] per-stage budget: total_memory / 4 = "
+          f"{hbm / 1e9:.3f} GB")
+    launches = {}
+
+    def trained(tag, cfg, ep, m, steps):
+        plan = ep.parallel_plan()
+        print(f"[{tag}] pick {json.dumps(ep.summary())}")
+        print(f"[{tag}] plan {plan}")
+        tc = TrainConfig(model=cfg, shape=ShapeConfig(
+            "train_2k", seq_len=TRAIN_SEQ, global_batch=m, kind="train"),
+            plan=plan, optimizer=OptimizerConfig(warmup_steps=2,
+                                                 total_steps=4),
+            seed=0, log_every=1)
+        return planner_run(torch, tag, tc, steps)
+
+    # (a) tinyllama-1.1b
+    cfg = get_config("tinyllama-1.1b")
+    ep = plan_under_budget(cfg, pp=4, tp=1, hbm_bytes=hbm, microbatch=1,
+                           seq_len=TRAIN_SEQ)
+    launches["train_planner_tinyllama"] = trained(
+        "train-planner", cfg, ep, 8, 4)[0]
+    done("train-planner tinyllama-1.1b")
+
+    # (b) the largest deepseek-7b one card trains
+    wide = get_config("deepseek-7b")
+    pts = enumerate_points(planner_query(wide, hbm))
+    ladder = {}
+    for p in pts:
+        ladder.setdefault(p.describe(), p.max_layers)
+    best = max(pts, key=lambda p: p.max_layers)
+    depth = best.max_layers
+    print(f"[train-planner-deepseek] deepseek-7b width (d 4096, 32 heads, "
+          f"d_ff 11008, vocab 102400) under {hbm / 1e9:.3f} GB per stage: "
+          f"max_trainable_layers 1f1b {ladder['1f1b']}, best "
+          f"{best.describe()} {depth} ({depth / max(ladder['1f1b'], 1):.2f}"
+          f"x); at its 30 published layers {sum(p.fits for p in pts)} of "
+          f"{len(pts)} points fit")
+    if depth < 1:
+        fail("train-planner-deepseek: no depth of deepseek-7b fits")
+    deep_cfg = dataclasses.replace(wide, num_layers=depth)
+    ep = plan_under_budget(deep_cfg, pp=4, tp=1, hbm_bytes=hbm,
+                           microbatch=1, seq_len=TRAIN_SEQ)
+    unit = 4 * ep.point.v
+    if depth % unit:
+        print(f"[train-planner-deepseek] {depth} layers pad to "
+              f"{-(-depth // unit) * unit}: the padding layers hold weights "
+              f"and optimizer state the model does not count")
+    n, peak_b, med_b = trained("train-planner-deepseek", deep_cfg, ep, ep.m,
+                               3)
+    launches["train_planner_deepseek"] = n
+    tokens = ep.m * (TRAIN_SEQ - 1)
+    print(f"[train-planner-deepseek] {depth} layers "
+          f"({deep_cfg.param_count() / 1e9:.3f} B parameters) trained on "
+          f"one card: step {med_b * 1e3:.1f} ms, {tokens / med_b:.1f} "
+          f"tokens/s, peak {peak_b / 2 ** 30:.3f} GiB; 1f1b fits "
+          f"{ladder['1f1b']} layers")
+    done("train-planner deepseek-7b")
+
+    # (c) every pipeline training plan: predicted against measured
+    for tag, tc, P, peak in TRAIN_RUNS:
+        total, state, act, kv = predicted_card_peak(tc, P)
+        pt = _point_of(tc, planner_query(tc.model, hbm))
+        per_stage = f"{pt.total_bytes / 2 ** 30:.3f} GiB ({pt.describe()})" \
+            if pt is not None else "not a point of the design space"
+        print(f"[train-planner-model] phase {PHASE_OF[tag]} {tag} "
+              f"{tc.model.name} {tc.plan.schedule}: planner per-stage total "
+              f"{per_stage}; card prediction {total / 2 ** 30:.3f} GiB = "
+              f"{P} x model_state {state / 2 ** 30:.3f} + activations "
+              f"{act / 2 ** 30:.3f} + kv-carry {kv / 2 ** 30:.3f} + reserve "
+              f"{PLANNER_RESERVE / 2 ** 30:.3f}; measured peak "
+              f"{peak / 2 ** 30:.3f} GiB; measured / predicted "
+              f"{peak / total:.3f}")
+    return launches
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -2227,6 +2544,9 @@ def main() -> None:
     phase_functions(torch, gen)
     phase_train_shapes(torch, gen, by_name)
     phase_flash_offsets(torch, gen, by_name)
+    phase_flash_offsets(torch, gen, by_name, H=32, G=32, d=128, n_seqs=(4,),
+                        key="train_planner_deepseek")
+    phase_deepseek_rmsnorm(torch, gen, by_name)
     phase_ssd_grads(torch, gen)
     phase_mamba_shapes(torch, gen, by_name)
     torch.cuda.empty_cache()
@@ -2297,7 +2617,13 @@ def main() -> None:
     phase_train_schedule_checks(torch)
     done("train-schedule checks")
 
-    # 16. kernels line, then the result line.  ``launches`` sums the
+    # 16. the memory-budget planner's picks trained at full width, and
+    #     its predicted peaks against the measured ones
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_train_planner(torch))
+
+    # 17. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

@@ -1,8 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Only the architectures with a ported path are listed: tinyllama-1.1b
-serves and trains; mamba2-2.7b trains (its serving path, the engine's SSM
-slot state, is not ported yet).
+Only the architectures with a ported path are listed.  The dense ones
+(tinyllama-1.1b, deepseek-7b, qwen2-72b with its q/k/v biases, and the
+paper's llama70b-paper) serve and train; mamba2-2.7b trains (its serving
+path, the engine's SSM slot state, is not ported yet).  All five are
+inputs of the memory-budget planner (:mod:`repro_torch.plan`).
 """
 from __future__ import annotations
 
@@ -14,9 +16,12 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401  (re-exported)
 _ARCH_MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "llama70b-paper": "repro_torch.configs.llama70b_paper",
 }
 
-ARCH_IDS = tuple(_ARCH_MODULES)
+ARCH_IDS = tuple(k for k in _ARCH_MODULES if k != "llama70b-paper")
 
 
 def _module(arch: str):

@@ -4,8 +4,8 @@
 The dense-attention and Mamba-2 (SSD) model fields are carried over;
 MoE, encoder-decoder and VLM sub-configs arrive with the slices that
 port those paths.  ``ParallelPlan`` keeps the fields the single-card
-pipeline step reads; mesh axes, ZeRO, wire compression and sequence
-chunking arrive with the multi-process slices.
+pipeline step reads; mesh axes, ZeRO and wire compression arrive with
+the multi-process slice (ROADMAP A.1d).
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ class ModelConfig:
     d_ff: int                       # dense FFN hidden
     vocab_size: int
     head_dim: int = 0               # 0 -> d_model // num_heads
+    qkv_bias: bool = False          # biases on the q, k, v projections
     rope_theta: float = 10000.0
     # local/global attention mix: layers with idx % period in
     # ``global_offsets`` are global, the rest use ``sliding_window``.
@@ -78,6 +79,11 @@ class ModelConfig:
             return False
         return (idx % self.attn_pattern_period) in self.global_offsets
 
+    def layer_is_moe(self, idx: int) -> bool:
+        """MoE FFN on this layer?  Always False: the port has no MoE
+        field yet (ROADMAP A.3)."""
+        return False
+
     @property
     def period(self) -> int:
         """Structural period of the decoder stack (layers stacked per
@@ -106,6 +112,8 @@ class ModelConfig:
                 kv = 2 * d * self.num_kv_heads * hd
                 o = self.num_heads * hd * d
                 n += q + kv + o
+                if self.qkv_bias:
+                    n += (self.num_heads + 2 * self.num_kv_heads) * hd
             else:  # mamba
                 s = self.ssm
                 d_in = s.expand * d
@@ -119,6 +127,11 @@ class ModelConfig:
                 n += mult * d * self.d_ff
             n += 2 * d                                           # norms
         return n
+
+    def active_param_count(self) -> int:
+        """Active parameters per token; without MoE every parameter is
+        active, so this is :meth:`param_count`."""
+        return self.param_count()
 
 
 def _lcm(a: int, b: int) -> int:

@@ -86,7 +86,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, FrozenSet, List, Optional
+from typing import Dict, FrozenSet, List, Optional, Tuple
 
 import numpy as np
 
@@ -189,8 +189,19 @@ class Schedule:
         return frozenset(t.chunk for t in self.tasks if t.kind == R)
 
     # -- indexing ---------------------------------------------------------
+    def by_key(self) -> Dict[Tuple, Task]:
+        return {t.key(): t for t in self.tasks}
+
     def stage_tasks(self, s: int) -> List[Task]:
         return sorted([t for t in self.tasks if t.stage == s],
+                      key=lambda t: t.start)
+
+    def device_tasks(self, d: int) -> List[Task]:
+        """Tasks executing on device ``d`` (== :meth:`stage_tasks` for
+        the interleaved placement), in start order."""
+        pl = self.pl
+        return sorted([t for t in self.tasks
+                       if pl.device(t.stage, t.chunk) == d],
                       key=lambda t: t.start)
 
     # -- vectorized task-array view ---------------------------------------
@@ -327,12 +338,27 @@ class Schedule:
         return max(t.end for t in self.tasks) - min(t.start
                                                     for t in self.tasks)
 
+    def total_time_rel(self) -> float:
+        """Total time in units of T_fwd (one microbatch full forward):
+        grains are T_fwd/(v*P*n_seq), so divide by v*P*n_seq.  Use this
+        to compare schedules with different chunk counts."""
+        return self.total_time() / (self.v * self.P * self.n_seq)
+
     def bubble_ratio(self) -> float:
         """Mean idle+comm fraction inside the span (paper's bubble:
         synchronous P2P stalls count as bubble, not compute)."""
         span = self.total_time()
         busy = sum(t.dur - t.comm for t in self.tasks) / self.P
         return 1.0 - busy / span
+
+    def ideal_compute_fraction(self) -> float:
+        """1 - bubble - recompute overhead (paper Figs. 12/13).  Both
+        recompute encodings count as overhead: the prefix inside legacy
+        ``B`` tasks and the whole duration of explicit ``R`` tasks."""
+        span = self.total_time()
+        useful = sum(0.0 if t.kind == R else t.dur - t.recomp - t.comm
+                     for t in self.tasks) / self.P
+        return useful / span
 
     def peak_activation(self, per_stage: bool = False,
                         count_transient: bool = True):
@@ -395,6 +421,21 @@ class Schedule:
             run = np.cumsum(deltas[m_][o])
             peaks.append(float(run.max(initial=0.0)))
         return peaks if per_stage else max(peaks)
+
+    def warmup_cooldown_bubbles(self, stage: Optional[int] = None):
+        """Idle intervals on a device before its first B-of-last-chunk
+        cooldown task etc. — used by the Chronos-Offload planner.
+        Returns list of (t0, t1) idle gaps on the device (the ``stage``
+        argument names a device; they coincide for the interleaved
+        placement).  Gap detection runs on the exact integer half-grain
+        lattice — no float slop."""
+        d = self.P - 1 if stage is None else stage
+        ts = self.device_tasks(d)
+        gaps = []
+        for a, bb in zip(ts, ts[1:]):
+            if to_half(bb.start) > to_half(a.end):
+                gaps.append((a.end, bb.start))
+        return gaps
 
 
 def retime_with_comm(sched: Schedule, tc: float) -> Schedule:

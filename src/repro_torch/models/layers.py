@@ -230,6 +230,8 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(B, S, num_heads, hd)
     k = k.reshape(B, S, num_kv, hd)
     v = v.reshape(B, S, num_kv, hd)

@@ -54,6 +54,11 @@ def _init_layers(gen, cfg: ModelConfig, n: int, device,
                          "wk": dense((d, G * hd), d),
                          "wv": dense((d, G * hd), d),
                          "wo": dense((H * hd, d), H * hd)}
+        if cfg.qkv_bias:
+            for name, width in (("bq", H * hd), ("bk", G * hd),
+                                ("bv", G * hd)):
+                layer["attn"][name] = torch.zeros((n, width), dtype=dt,
+                                                  device=device)
     else:
         layer["mamba"] = M.init_mamba(gen, n, d, cfg.ssm, dt, device)
     if ff:

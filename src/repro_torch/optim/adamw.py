@@ -16,7 +16,12 @@ one leaf at a time, so no fp32 copy of a bf16 gradient tree is held.
 ``use_kernel=True`` runs each leaf's step through the fused CUDA kernel
 (:func:`repro_torch.kernels.fused_adamw.adamw_update_leaf`); the default
 is the kernel's plain version, which follows the kernel's operation
-order, so the two paths agree bitwise on the card.
+order, so the two paths agree bitwise on the card.  The plain version
+runs over flat slabs of at most :data:`SLAB` elements of each leaf, so
+its fp32 temporaries (the widened gradient and the update's
+intermediates) are bounded by a slab, not by the stacked leaf; every
+element sees the same operations, so the result is bitwise that of one
+call over the whole leaf.
 """
 from __future__ import annotations
 
@@ -29,6 +34,23 @@ from repro_torch.kernels.fused_adamw.ops import (adamw_update_leaf,
                                                  fused_adamw_flat_ref)
 from repro_torch.optim.schedules import lr_at
 from repro_torch.tree import tree_leaves, tree_map
+
+
+SLAB = 1 << 24          # elements per slab of the plain update (64 MiB fp32)
+
+
+def _slabs(g, *state):
+    """Aligned flat slabs of ``g`` and the same-shape ``state`` tensors
+    (contiguous): ``g`` is split along its leading dimension until each
+    piece is contiguous (an offload run's shallow gradients are strided
+    views), then each piece into runs of :data:`SLAB` elements."""
+    if not g.is_contiguous():
+        for i in range(g.shape[0]):
+            yield from _slabs(g[i], *(t[i] for t in state))
+        return
+    flat = [t.view(-1) for t in (g,) + state]
+    for i in range(0, flat[0].numel(), SLAB):
+        yield tuple(t[i:i + SLAB] for t in flat)
 
 
 def _decay_masks(tree) -> Any:
@@ -67,7 +89,6 @@ def adamw_update(grads, state, cfg: OptimizerConfig, *,
     ``g.float() / grad_div``, the reference's ``g.astype(f32) / m``: fp32
     leaves are divided in place first, other leaves as they are widened.
     ``metrics`` holds ``grad_norm`` and ``lr`` as device tensors."""
-    leaf_step = adamw_update_leaf if use_kernel else fused_adamw_flat_ref
     if grad_div is not None:
         for g in tree_leaves(grads):
             if g.dtype == torch.float32:
@@ -100,9 +121,14 @@ def adamw_update(grads, state, cfg: OptimizerConfig, *,
     masks = _decay_masks(grads)
 
     def upd(g, mu, nu, w, decay_on):
-        g = f32(g).mul_(clip)
-        leaf_step(g, mu, nu, w, scalars, b1=b1, b2=b2, eps=cfg.eps,
+        kw = dict(b1=b1, b2=b2, eps=cfg.eps,
                   wd=cfg.weight_decay if decay_on else 0.0)
+        if use_kernel:
+            adamw_update_leaf(f32(g).mul_(clip), mu, nu, w, scalars, **kw)
+            return
+        for gs, ms, ns, ws in _slabs(g, mu, nu, w):
+            fused_adamw_flat_ref(f32(gs).mul_(clip), ms, ns, ws, scalars,
+                                 **kw)
 
     tree_map(upd, grads, state["mu"], state["nu"], state["master"], masks)
     state["step"] = step

@@ -79,6 +79,37 @@ def test_attention_no_cache_matches_jax():
                                rtol=0)
 
 
+@pytest.mark.parametrize("kernels", ["fused", "plain"])
+def test_attention_qkv_bias_matches_jax(kernels):
+    """q/k/v biases (qwen2's ``qkv_bias``), drawn nonzero: the output
+    matches JAX (1e-5) and the gradients of the biases match ``jax.grad``
+    to 1e-5 of each leaf's largest entry (they reach ~900 in fp32)."""
+    import jax
+    rng = np.random.default_rng(5)
+    params = _attn_params(rng)
+    for name, width in (("bq", H * HD), ("bk", G * HD), ("bv", G * HD)):
+        params[name] = rng.standard_normal(width).astype(np.float32)
+    x = rng.standard_normal((2, 24, D)).astype(np.float32)
+    positions = np.broadcast_to(np.arange(24), (2, 24)).astype(np.int32)
+    kw = dict(num_heads=H, num_kv=G, hd=HD, rope_theta=THETA, causal=True)
+
+    def jloss(p):
+        y, _ = JL.attention(p, jnp.asarray(x), jnp.asarray(positions), **kw)
+        return jnp.sum(y * y), y
+    (_, y_j), g_j = jax.value_and_grad(jloss, has_aux=True)(_j(params))
+    tp = {k: v.requires_grad_() for k, v in _t(params).items()}
+    y_t, _ = TL.attention(tp, torch.from_numpy(x),
+                          torch.from_numpy(positions).long(),
+                          backend=TB.get_backend(kernels), **kw)
+    g_t = torch.autograd.grad((y_t * y_t).sum(), [tp[n] for n in
+                                                  ("bq", "bk", "bv")])
+    np.testing.assert_allclose(y_t.detach().numpy(), np.asarray(y_j),
+                               atol=1e-5, rtol=0)
+    for n, g in zip(("bq", "bk", "bv"), g_t):
+        ref = np.asarray(g_j[n])
+        assert np.abs(g.numpy() - ref).max() <= 1e-5 * np.abs(ref).max(), n
+
+
 def test_apply_rope_matches_jax():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 8, 4, HD)).astype(np.float32)
@@ -143,3 +174,95 @@ def test_rmsnorm_layer_matches_jax():
     want = JL.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# qwen2-72b (reduced: 4 layers, d 128, GQA 8/2, q/k/v biases), fp32
+# ---------------------------------------------------------------------------
+
+def _qwen2_models():
+    """The reduced qwen2 in both packages, the JAX ``LM.init`` weights
+    with the q/k/v biases redrawn nonzero, as numpy."""
+    import jax
+    from repro.configs import get_reduced as jax_get_reduced
+    from repro.models import LM as JaxLM
+    from repro_torch.configs import get_reduced
+    jcfg, cfg = jax_get_reduced("qwen2-72b"), get_reduced("qwen2-72b")
+    params, _ = JaxLM(jcfg).init(jax.random.key(0))
+    params = jax.tree.map(np.asarray, params)
+    rng = np.random.default_rng(9)
+    for layer in params["layers"]:
+        for n in ("bq", "bk", "bv"):
+            a = layer["attn"][n]
+            layer["attn"][n] = (0.5 * rng.standard_normal(a.shape)).astype(
+                a.dtype)
+    return jcfg, cfg, params
+
+
+def test_qwen2_reduced_loss_and_grads_match_jax():
+    """``LM.loss`` and every gradient leaf of the reduced qwen2 against
+    JAX ``jax.grad`` (1e-5, as the other archs' pairs)."""
+    import jax
+    from repro.models import LM as JaxLM
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.models import LM
+    from repro_torch.tree import tree_leaves, tree_map
+    jcfg, cfg, np_params = _qwen2_models()
+    assert cfg.qkv_bias and "bq" in np_params["layers"][0]["attn"]
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    lm_j = JaxLM(jcfg)
+    ref_loss, ref_g = jax.jit(jax.value_and_grad(
+        lambda p: lm_j.loss(p, {"tokens": jnp.asarray(tokens)})[0]))(
+        jax.tree.map(jnp.asarray, np_params))
+    p = tree_map(lambda a: a.requires_grad_(),
+                 lm_params_from_numpy(np_params, "cpu"))
+    loss = LM(cfg, kernels="fused", device="cpu").loss(
+        p, {"tokens": torch.from_numpy(tokens)})[0]
+    grads = torch.autograd.grad(loss, tree_leaves(p))
+    assert abs(float(loss.detach()) - float(ref_loss)) <= 1e-5
+    ref_leaves = jax.tree.leaves(ref_g)
+    assert len(grads) == len(ref_leaves)
+    for g, r in zip(grads, ref_leaves):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5,
+                                   rtol=0)
+
+
+def test_qwen2_reduced_serves_as_jax():
+    """The pipelined engine (P=2) serves the reduced qwen2: its greedy
+    streams equal the JAX single-host ``prefill_chunk`` /
+    ``decode_step`` streams."""
+    import jax
+    from repro.models import LM as JaxLM
+    from repro_torch.bridge import lm_params_from_numpy
+    from repro_torch.serve import PipelinedEngine, Request
+    jcfg, cfg, np_params = _qwen2_models()
+    chunk, max_seq = 16, 64
+    rng = np.random.default_rng(4)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, chunk * (i + 1)).tolist(), max_new=4)
+        for i in range(2)]
+    lm_j = JaxLM(jcfg)
+    pj = jax.tree.map(jnp.asarray, np_params)
+    want = {}
+    for req in reqs:
+        cache = lm_j.init_cache(1, max_seq)
+        toks = np.asarray(req.prompt)[None]
+        for q in range(len(req.prompt) // chunk):
+            logits, cache = lm_j.prefill_chunk(
+                pj, toks[:, q * chunk:(q + 1) * chunk], cache, q * chunk)
+        pos = len(req.prompt)
+        stream = [int(np.argmax(np.asarray(logits)[0]))]
+        while len(stream) < req.max_new:
+            logits, cache = lm_j.decode_step(pj, np.asarray([[stream[-1]]]),
+                                             cache, pos)
+            pos += 1
+            stream.append(int(np.argmax(np.asarray(logits)[0])))
+        want[req.rid] = stream
+    eng = PipelinedEngine(cfg, lm_params_from_numpy(np_params, "cpu"), P=2,
+                          chunk=chunk, max_seq=max_seq, n_slots=2,
+                          device="cpu")
+    res = eng.serve(reqs, clock=None)
+    assert res["nonfinite_logits"] == 0
+    for r in reqs:
+        assert res["finished"][r.rid].tokens == want[r.rid], r.rid

@@ -205,3 +205,35 @@ def test_adamw_reads_bf16_grads_as_the_reference_does():
                 for a, b in zip(tree_leaves(ours[0]), jax.tree.leaves(jm)))
     assert worst <= STATE_TOL
     assert torch.equal(tg["mlp"][0], kept["mlp"][0])
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_plain_update_in_slabs_is_bitwise_the_whole_leaf(monkeypatch,
+                                                         g_dtype):
+    """The plain update over slabs of 7 elements (leaves of 6 to 300
+    elements, one gradient a strided view as an offload run's shallow
+    half is, clip and ``grad_div`` on) equals, bitwise, the update over
+    whole leaves (``use_kernel=True``: on CPU tensors the kernel's plain
+    version over each whole leaf), in mu, nu and the masters, for three
+    steps."""
+    from repro_torch.optim import adamw as adamw_mod
+    gen = torch.Generator().manual_seed(3)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen)
+    params = {"w": rn(4, 1, 5, 6), "b": rn(6), "e": rn(30, 10)}
+    cfg = OptimizerConfig(warmup_steps=1, total_steps=5, grad_clip=0.5)
+    states = [adamw_init(params) for _ in range(2)]
+    m = torch.tensor(3.0)
+    monkeypatch.setattr(adamw_mod, "SLAB", 7)
+    for _ in range(3):
+        full = {"w": rn(4, 2, 5, 6), "b": rn(6), "e": rn(30, 10)}
+        for state, use_kernel in zip(states, (False, True)):
+            grads = {k: v.clone().to(g_dtype) for k, v in full.items()}
+            grads["w"] = grads["w"][:, :1]            # strided view
+            adamw_update(grads, state, cfg, use_kernel=use_kernel,
+                         grad_div=m)
+    for name in ("mu", "nu", "master"):
+        for a, b in zip(tree_leaves(states[0][name]),
+                        tree_leaves(states[1][name])):
+            assert torch.equal(a, b), name
