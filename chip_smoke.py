@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero:
 3. each kernel against its plain PyTorch version on the card, at the
    serving shapes, in bf16 and fp32 (flash also at head dims 16, 32 and
    128, B=2, H == G, 2047 keys and rows that see no key, with each bf16
-   case's CTA printed and both CTA sizes run at every head dim; rmsnorm
+   case's CTA printed and both CTA sizes run at every head dim, and at
+   qwen2-moe's 16 heads of 128: a 64-row serving chunk at offsets 192
+   and 448 over 512 slots, and 2048 rows at the training length; rmsnorm
    also at d=100), and timed beside the plain version, a one-call PyTorch
    yardstick and the card's bound (device time per call from CUDA-graph
    replay, rmsnorm over rotating inputs larger than the L2 and, as a
@@ -23,6 +25,16 @@ Phases, in order; any failure exits non-zero:
    costs, and a profiled one says where the device time goes;
 5. checks: P=2 virtual stages give P=1's token streams, and the fused and
    plain backends agree on fp32 logits (2 layers, full width);
+5a. serve-mamba2: full-width mamba2-2.7b through the same ``main``, 128-
+   token chunks (its SSD chunk), 8 requests of 128 or 256 prompt tokens
+   and 16-32 new ones: every prefill scan runs the SSD kernel from the
+   slot's carried fp32 state (launches 64 x the prefill chunks, no call
+   of the plain ``ssd_chunked_ref``), gated as phase 4, profiled as
+   phase 4's re-run, with phase 5's checks at 128-token chunks;
+5b. serve-qwen2-moe: full-width qwen2-moe-a2.7b (60 routed experts top
+   4 plus 4 shared, MHA 16 x 128) with phase 4's traffic and gates, the
+   decode tick's weight-read bound beside its per-token time, and phase
+   5's checks;
 6. train: full-width tinyllama-1.1b (bf16, fp32 optimizer state, random
    weights from seed 0) through ``repro_torch.launch.train.
    train_pipeline``: chronos_zb, P=4 virtual stages, v=2, 8 microbatches
@@ -33,9 +45,9 @@ Phases, in order; any failure exits non-zero:
 7. train checks (fp32, full width, 4 layers): pipeline gradients against
    ``LM.loss`` autograd, chronos_recomp == chronos bitwise, fused vs
    plain backend, kernel vs plain AdamW update bitwise;
-8. train mamba2-2.7b at full width as phase 6 does tinyllama (the SSD
-   scan, rmsnorm and fused-AdamW kernels), after freeing tinyllama's
-   tensors, then a profiled step;
+8. train mamba2-2.7b at full width, cut to 32 of its 64 layers, as
+   phase 6 does tinyllama (the SSD scan, rmsnorm and fused-AdamW
+   kernels), after freeing tinyllama's tensors, then a profiled step;
 9. phase 7's checks on mamba2-2.7b (4 layers, two SSD chunks);
 10. train-single: full-width tinyllama-1.1b through ``repro_torch.launch.
     train.train`` (8 sequences of 2049 tokens in 2 microbatches, 4 steps)
@@ -74,6 +86,17 @@ Phases, in order; any failure exits non-zero:
     same network, chronos_seq (n_seq=2) against chronos and seq1f1b
     (n_seq=4) against 1f1b, with and without a loss mask, each within
     2e-5 relative;
+15a. train-qwen2-moe: full-width qwen2-moe-a2.7b cut to 4 layers,
+    chronos_zb on P=2 virtual stages (v=2), 8 microbatches of one
+    2049-token sequence, the MoE aux sum carried in the payload; gated
+    as phase 6, then every MoE layer's lb_loss and dropped fraction under
+    the trained weights;
+15b. MoE checks, fp32, full width: one layer's ``moe_ffn`` (T=2048,
+    skewed routing that drops tokens) against an independent plain MoE
+    FFN, outputs, lb_loss, dropped fraction and gradients; pipeline
+    loss and gradients (4 layers, P=2, v=2, capacity factor 0.5 so that
+    every layer drops) against ``LM.loss`` autograd, chronos_zb and
+    chronos, within 2e-5 relative;
 16. train-planner: the memory-budget planner (``repro_torch.plan``) on
     the card, each stage's budget a quarter of the card's memory: (a) its
     pick for tinyllama-1.1b trained 4 steps as phase 6; (b) deepseek-7b's
@@ -81,16 +104,20 @@ Phases, in order; any failure exits non-zero:
     then the pick at that depth trained 3 steps (``ep.m`` sequences of
     2049 tokens), both gated as phase 6 (finite losses, moved masters,
     launch counts from the table); (c) for every pipeline training run
-    of phases 6-16 the planner's per-stage total, the one-card prediction
-    with its terms and the measured peak (printed, not gated);
+    of phases 6-16 (15a included) the planner's per-stage total, the
+    one-card prediction with its terms and the measured peak (printed,
+    not gated);
 17. a JSON ``kernels`` line, then the JSON result line.
 
-Phase 3 also holds fused AdamW bitwise against its plain version, the
+Phase 3 also holds fused AdamW bitwise against its plain version (up
+to qwen2-moe's stacked expert leaf of 692 M elements), the
 RMSNorm, flash and SSD Functions' gradients against autograd through the
 plain versions (flash and SSD once more at the training length), the
 chunk body's kernels against their plain versions at the training shapes
-of both models, where it times them, flash at the sequence-chunked
-training shapes (q chunks of 1024 and 512 rows at every offset over a
+of both models, where it times them, the SSD scan with a carried state
+at mamba2's serving prefill shape (both routes, h0 = 0 bitwise the
+launch without h0, timed beside the plain version and the bound), flash
+at the sequence-chunked training shapes (q chunks of 1024 and 512 rows at every offset over a
 2048-row KV-carry slot: o, lse, the Function's gradients with dK/dV
 exactly 0 past the causal frontier, times beside SDPA given the boolean
 mask and the bound; again at phase 16's deepseek-7b shape, 512-row
@@ -366,7 +393,12 @@ def phase_flash(torch, gen):
              (2, 500, 32, 700, 4, 128, 200, 96, 40),  # hd 128, all, ragged
              (2, 512, 32, 512, 4, 32, 0, 128, 0),    # hd 32, window
              (2, 512, 32, 512, 4, 32, 0, 0, 64),     # hd 32, prefix
-             (2, 256, 32, 256, 32, 16, 0, 0, 0)]     # hd 16, H == G
+             (2, 256, 32, 256, 32, 16, 0, 0, 0),     # hd 16, H == G
+             # qwen2-moe's MHA 16 x 128: a serving prefill chunk at an
+             # offset over the 512-slot cache, and the training length
+             (1, 64, 16, 512, 16, 128, 192, 0, 0),
+             (1, 64, 16, 512, 16, 128, 448, 0, 0),
+             (1, TRAIN_SEQ - 1, 16, TRAIN_SEQ - 1, 16, 128, 0, 0, 0)]
     lib = build.load_library()
     ran = set()   # (d, warps per CTA, window, prefix) of the bf16 cases
     worst, worst_lse = 0.0, 0.0
@@ -450,28 +482,112 @@ def phase_flash(torch, gen):
                            f"q_offset={off}"}
 
 
-def phase_serve(torch):
+def serve_launches(cfg, n_prefill: int, n_decode: int) -> dict:
+    """Kernel launches of serving ``n_prefill`` chunks and ``n_decode``
+    decode ticks: every tick runs rmsnorm for each layer's ``norm1``, a
+    Mamba-2 layer's gated norm and ``norm2`` where the layer has an FFN
+    (MLP or MoE); every prefill chunk runs flash in each attention layer
+    and the SSD scan, from the slot's carried state, in each Mamba-2
+    layer.  Decode takes the dense attention path and the plain
+    recurrence; the head's final norm is the plain one."""
+    L = cfg.num_layers
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(L))
+    mamba = L - attn
+    ffn = sum(cfg.layer_is_moe(i) or cfg.d_ff > 0 for i in range(L))
+    return {"rmsnorm_rows": (L + mamba + ffn) * (n_prefill + n_decode),
+            "flash_attention_fwd": attn * n_prefill,
+            "fused_adamw_flat": 0, "ssd_scan": mamba * n_prefill}
+
+
+class PlainScanCounter:
+    """Counts the calls of ``ssd_chunked_ref`` (the SSD scan's plain
+    version) through every module that can reach it, while active."""
+    MODULES = ("repro_torch.kernels.ssd_scan.ops",
+               "repro_torch.models.backend", "repro_torch.models.mamba")
+
+    def __enter__(self):
+        import importlib
+        self.calls, self.saved = 0, []
+        for name in self.MODULES:
+            mod = importlib.import_module(name)
+            orig = mod.ssd_chunked_ref
+
+            def counted(*a, _orig=orig, **k):
+                self.calls += 1
+                return _orig(*a, **k)
+            self.saved.append((mod, orig))
+            mod.ssd_chunked_ref = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod, orig in self.saved:
+            mod.ssd_chunked_ref = orig
+
+
+def serve_argv(arch: str, chunk: int = 64, prompt_chunks: int = 4,
+               prompt_len: int = 224):
+    """Phase 4's traffic for ``arch``: 8 requests at once, 4 slots,
+    prompts of 1 to ``prompt_chunks`` chunks of ``chunk`` tokens, 16 to
+    32 new tokens, greedy, full width, fused kernels; the defaults are
+    phase 4's own."""
+    argv = list(SERVE_ARGV)
+    for flag, val in (("--arch", arch), ("--chunk", str(chunk)),
+                      ("--prompt-len", str(prompt_len))):
+        argv[argv.index(flag) + 1] = val
+    return argv + ["--prompt-chunks", str(prompt_chunks)]
+
+
+def decode_bound_ms(eng) -> tuple:
+    """(bytes, ms) a decode tick must move at the least: every layer
+    weight of the engine's blocks and the head, read once at 3.35 TB/s
+    (an MoE layer's capacity dispatch runs every expert, so all of its
+    experts are read), K/V, conv tails and states not counted."""
+    from repro_torch.tree import tree_leaves
+    emb = eng.shared["embed"]
+    head = emb.get("head", emb["tokens"])
+    nbytes = sum(a.numel() * a.element_size()
+                 for a in tree_leaves(eng.blocks)) \
+        + head.numel() * head.element_size()
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_serve(torch, argv=None, tag="serve"):
+    """``argv`` (default :data:`SERVE_ARGV`) through the CLI's ``main``:
+    every request completes with its token count, finite logits, the
+    stage runs and every kernel's launches as :func:`serve_launches`
+    derives them, and no call of the SSD scan's plain version.  Returns
+    the launch counts, the engine and the run's summary (with its peak
+    memory)."""
     from repro_torch.launch.serve import main as serve_main
+    argv = SERVE_ARGV if argv is None else argv
     kernels = _kernel_fns()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
-    out = serve_main(SERVE_ARGV)
+    with PlainScanCounter() as plain:
+        out = serve_main(argv)
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    s, res, reqs, cfg = (out["summary"], out["result"], out["requests"],
-                         out["config"])
-    chunk = 64
+    s, res, reqs, cfg, eng = (out["summary"], out["result"], out["requests"],
+                              out["config"], out["engine"])
+    chunk = eng.chunk
     n_prefill = sum(len(r.prompt) // chunk for r in reqs)
     n_decode = sum(r.max_new - 1 for r in reqs)
-    print(f"[serve] {cfg.name} full width bf16: requests={s['requests']} "
-          f"prefill_chunks={n_prefill} decode_ticks={n_decode} "
-          f"ticks={s['ticks']} tokens/s={s['tokens_per_s']:.2f} "
+    dbytes, dms = decode_bound_ms(eng)
+    print(f"[{tag}] {cfg.name} full width bf16, chunk {chunk}: requests="
+          f"{s['requests']} prefill_chunks={n_prefill} decode_ticks="
+          f"{n_decode} ticks={s['ticks']} tokens/s={s['tokens_per_s']:.2f} "
           f"ttft p50={s['ttft_p50_s'] * 1e3:.2f}ms "
           f"p99={s['ttft_p99_s'] * 1e3:.2f}ms per-token "
           f"p50={s['tok_p50_s'] * 1e3:.3f}ms p99={s['tok_p99_s'] * 1e3:.3f}ms"
-          f" max_memory_allocated={peak / 2 ** 30:.3f}GiB")
-    print(f"[serve] launches {launches}")
+          f" max_memory_allocated={peak / 2 ** 30:.3f}GiB (after: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f}GiB allocated)")
+    print(f"[{tag}] decode-tick bound: {dbytes / 1e9:.2f} GB of weights "
+          f"read once = {dms:.3f} ms at 3.35 TB/s, against the per-token "
+          f"p50 {s['tok_p50_s'] * 1e3:.3f} ms")
+    print(f"[{tag}] launches {launches}; ssd_chunked_ref calls "
+          f"{plain.calls}")
     if len(reqs) != 8 or set(res["finished"]) != {r.rid for r in reqs}:
         fail(f"not every request completed: {sorted(res['finished'])}")
     for r in reqs:
@@ -483,42 +599,44 @@ def phase_serve(torch):
     if res["stage_runs"] != {"prefill": n_prefill, "decode": n_decode}:
         fail(f"stage runs {res['stage_runs']} != prefill {n_prefill}, "
              f"decode {n_decode}")
-    want = {"rmsnorm_rows": 2 * cfg.num_layers * (n_prefill + n_decode),
-            "flash_attention_fwd": cfg.num_layers * n_prefill,
-            "fused_adamw_flat": 0, "ssd_scan": 0}
+    want = serve_launches(cfg, n_prefill, n_decode)
     if launches != want:
         fail(f"kernel launches {launches} != expected {want}")
-    return launches, out["engine"]
+    if plain.calls:
+        fail(f"the serve path called the SSD scan's plain version "
+             f"{plain.calls} times")
+    return launches, eng, {**s, "peak": peak, "decode_bound_ms": dms}
 
 
-def phase_profile(torch, eng):
-    """Where the serve path's time goes, on the warm engine of phase 4:
-    4 more requests served once with tracing off (the warm end-to-end
-    numbers), then the same 4 again under ``torch.profiler`` for the
-    device busy share and the device time by kernel family.  The ratio of
-    the two wall times is the profiler's overhead."""
+def phase_profile(torch, eng, tag="serve"):
+    """Where the serve path's time goes, on the warm engine of a serve
+    phase: 4 more requests served once with tracing off (the warm
+    end-to-end numbers), then the same 4 again under ``torch.profiler``
+    for the device busy share and the device time by kernel family.  The
+    ratio of the two wall times is the profiler's overhead."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import poisson_requests, summarize
-    reqs = poisson_requests(4, 1e9, chunk=64, max_seq=eng.max_seq,
+    reqs = poisson_requests(4, 1e9, chunk=eng.chunk, max_seq=eng.max_seq,
                             gen_range=(16, 16), vocab=eng.cfg.vocab_size,
                             seed=1)
     warm = summarize(eng.serve(reqs))
-    print(f"[serve-warm] same engine, {warm['requests']} more requests, "
+    print(f"[{tag}-warm] same engine, {warm['requests']} more requests, "
           f"tracing off: tokens/s={warm['tokens_per_s']:.2f} "
           f"ticks={warm['ticks']} wall/tick="
           f"{warm['elapsed_s'] / warm['ticks'] * 1e3:.3f}ms "
           f"ttft p50={warm['ttft_p50_s'] * 1e3:.2f}ms "
           f"per-token p50={warm['tok_p50_s'] * 1e3:.3f}ms "
           f"p99={warm['tok_p99_s'] * 1e3:.3f}ms")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: a mamba2 tick's host ops number in the
+    # thousands and would take minutes to read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = eng.serve(reqs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     fams = {"rmsnorm_rows (ours)": 0.0, "flash_attention_fwd (ours)": 0.0,
-            "matmul": 0.0, "other": 0.0}
+            "ssd_scan (ours)": 0.0, "matmul": 0.0, "other": 0.0}
     rows = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -534,6 +652,8 @@ def phase_profile(torch, eng):
             fams["rmsnorm_rows (ours)"] += dev
         elif "flash_fwd_kernel" in name:
             fams["flash_attention_fwd (ours)"] += dev
+        elif "ssd_scan_kernel" in name:
+            fams["ssd_scan (ours)"] += dev
         elif any(t in name for t in ("gemm", "gemv", "xmma", "cutlass",
                                      "nvjet", "cublas")):
             fams["matmul"] += dev
@@ -542,10 +662,10 @@ def phase_profile(torch, eng):
     busy = sum(fams.values())
     ticks = res["ticks"]
     if busy <= 0:
-        print("[profile] the profiler reported no device time: device "
-              "breakdown not measured")
+        print(f"[profile-{tag}] the profiler reported no device time: "
+              "device breakdown not measured")
         return
-    print(f"[profile] serve of {len(reqs)} requests, {ticks} ticks, "
+    print(f"[profile-{tag}] serve of {len(reqs)} requests, {ticks} ticks, "
           f"{sum(len(r.tokens) for r in res['finished'].values())} tokens: "
           f"wall {wall_us / 1e3:.1f} ms (profiled; "
           f"{wall_us / 1e6 / warm['elapsed_s']:.2f}x the untraced run), "
@@ -554,48 +674,73 @@ def phase_profile(torch, eng):
           f"idle {100 - 100 * busy / wall_us:.1f}%; "
           f"{wall_us / ticks / 1e3:.2f} ms wall per tick")
     for fam, us in fams.items():
-        print(f"[profile]   {fam}: {us / 1e3:.2f} ms "
+        print(f"[profile-{tag}]   {fam}: {us / 1e3:.2f} ms "
               f"({100 * us / busy:.1f}% of device time)")
     for dev, count, key in sorted(rows, reverse=True)[:8]:
-        print(f"[profile]   top: {dev / 1e3:8.2f} ms x{count:<6d} {key[:90]}")
+        print(f"[profile-{tag}]   top: {dev / 1e3:8.2f} ms x{count:<6d} "
+              f"{key[:90]}")
 
 
-def phase_checks(torch):
+def phase_serve_family(torch, argv, tag, launches, key):
+    """Full width served from ``argv`` (:func:`serve_argv`) through
+    :func:`phase_serve`, gated as phase 4, its launches under
+    ``launches[key]``; its warm re-run and profile; then phase 5's
+    checks on the same architecture and chunk."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches[key], eng, _ = phase_serve(torch, argv, tag)
+    arch, chunk = eng.cfg.name, eng.chunk
+    phase_profile(torch, eng, tag)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_checks(torch, arch, chunk, f"{tag}-check")
+
+
+def phase_checks(torch, arch="tinyllama-1.1b", chunk=64, tag="check"):
+    """(a) P=2 virtual stages give P=1's token streams (2 requests of one
+    and two chunks, 8 new tokens each); (b) full width, fp32, 2 layers:
+    the fused and plain backends agree on the logits of two prefill
+    chunks and four decode steps within 1e-3."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     from repro_torch.serve import PipelinedEngine, Request
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(arch)
     # (a) P=2 virtual stages vs P=1 on the same card: identical streams
     lm = LM(cfg, device="cuda")
     params = lm.init(torch.Generator(device="cuda").manual_seed(0))
     rng = torch.Generator().manual_seed(1)
     reqs = [Request(rid=i, prompt=torch.randint(
-        0, cfg.vocab_size, (64 * (i + 1),), generator=rng).tolist(),
+        0, cfg.vocab_size, (chunk * (i + 1),), generator=rng).tolist(),
         max_new=8) for i in range(2)]
     streams = {}
     for P in (1, 2):
-        eng = PipelinedEngine(cfg, params, P=P, chunk=64, max_seq=256,
-                              n_slots=2, device="cuda")
+        eng = PipelinedEngine(cfg, params, P=P, chunk=chunk,
+                              max_seq=4 * chunk, n_slots=2, device="cuda")
         res = eng.serve(reqs, clock=None)
         streams[P] = {rid: rec.tokens for rid, rec in res["finished"].items()}
         del eng
-    print(f"[check] P=2 streams {'==' if streams[1] == streams[2] else '!='}"
-          f" P=1 streams: {streams[1]}")
+    print(f"[{tag}] {cfg.name}: P=2 streams "
+          f"{'==' if streams[1] == streams[2] else '!='} P=1 streams: "
+          f"{streams[1]}")
     if streams[1] != streams[2]:
-        fail(f"P=2 token streams {streams[2]} differ from P=1 {streams[1]}")
+        fail(f"{arch}: P=2 token streams {streams[2]} differ from P=1 "
+             f"{streams[1]}")
     del params, lm
+    gc.collect()
+    torch.cuda.empty_cache()
     # (b) full width, fp32, 2 layers: fused kernels vs plain backend
     cfg32 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
                                 compute_dtype="float32")
     fused = LM(cfg32, kernels="fused", device="cuda")
     plain = LM(cfg32, kernels="plain", device="cuda")
     params = fused.init(torch.Generator(device="cuda").manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=rng
+    prompt = torch.randint(0, cfg.vocab_size, (1, 2 * chunk), generator=rng
                            ).to("cuda")
-    caches = {"fused": fused.init_cache(1, 256),
-              "plain": plain.init_cache(1, 256)}
+    caches = {"fused": fused.init_cache(1, 4 * chunk),
+              "plain": plain.init_cache(1, 4 * chunk)}
     worst, steps = 0.0, 0
     tok = None
     pos = 0
@@ -604,7 +749,7 @@ def phase_checks(torch):
         for name, lm_ in (("fused", fused), ("plain", plain)):
             if step < 2:
                 logits[name], _ = lm_.prefill_chunk(
-                    params, prompt[:, 64 * step:64 * (step + 1)],
+                    params, prompt[:, chunk * step:chunk * (step + 1)],
                     caches[name], pos)
             else:
                 logits[name], _ = lm_.decode_step(params, tok, caches[name],
@@ -614,14 +759,17 @@ def phase_checks(torch):
         if logits["fused"].shape != (1, cfg.vocab_size):
             fail(f"logits shape {tuple(logits['fused'].shape)}")
         worst = max(worst, max_err(logits["fused"], logits["plain"]))
-        pos += 64 if step < 2 else 1
+        pos += chunk if step < 2 else 1
         tok = logits["fused"].argmax(-1, keepdim=True)   # teacher forcing
         steps += 1
     tol = 1e-3
-    print(f"[check] fp32 full width 2 layers, fused vs plain logits over "
-          f"{steps} steps: max|d|={worst:.3e} (tol {tol:g})")
+    print(f"[{tag}] {cfg.name} fp32 full width 2 layers, fused vs plain "
+          f"logits over {steps} steps: max|d|={worst:.3e} (tol {tol:g})")
     if not worst <= tol:
-        fail("fused and plain backends disagree on fp32 logits")
+        fail(f"{arch}: fused and plain backends disagree on fp32 logits")
+    del fused, plain, params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -632,6 +780,9 @@ def phase_checks(torch):
 ADAMW_STATE_BYTES = 24         # mu, nu, w read and written, fp32
 ADAMW_FLOPS = 16               # per element, csrc/fused_adamw.cu
 TRAIN_SEQ = 2049               # 2048 positions per sequence fed to the stack
+# mamba2-2.7b's pipeline runs (phases 8 and 11) at full width, cut to 32
+# of its 64 layers so that the whole smoke keeps inside its time limit
+MAMBA2_TRAIN_LAYERS = 32
 # (tag, TrainConfig, P, peak bytes) of every pipeline training run, for
 # phase 16's predicted-against-measured lines
 TRAIN_RUNS = []
@@ -681,6 +832,28 @@ def phase_adamw(torch, gen):
     print(f"[kernels] fused_adamw_flat: {cases} cases (n in 1, 1000, 65537, "
           f"2^24+3; g fp32 and bf16; step 1 and 10; wd 0 and 0.1) bitwise "
           f"equal to fused_adamw_flat_ref (tol 0)")
+    # qwen2-moe's stacked expert leaf wi [P=2, v=2, M=1, 60, 2048, 1408]
+    # (phase 15a), and 3 more elements for the scalar tail at that size
+    big = 4 * 60 * 2048 * 1408
+    for n in (big, big + 3):
+        for g_dt in (torch.float32, torch.bfloat16):
+            (g, mu, nu, w, sc), hp = _adamw_case(torch, gen, n, g_dt, 10,
+                                                 0.1)
+            k = [a.clone() for a in (mu, nu, w)]
+            fused_adamw_flat(g, *k, sc, **hp)
+            torch.cuda.synchronize()
+            fused_adamw_flat_ref(g, mu, nu, w, sc, **hp)
+            same = all(torch.equal(a, b) for a, b in zip(k, (mu, nu, w)))
+            print(f"[kernels] fused_adamw_flat n={n} (qwen2-moe expert wi"
+                  f"{' + 3' if n > big else ''}) g {str(g_dt)[6:]}: "
+                  f"{'bitwise equal to' if same else 'DIFFERS from'} "
+                  f"fused_adamw_flat_ref (tol 0)")
+            if not same:
+                errs = [max_err(a, b) for a, b in zip(k, (mu, nu, w))]
+                fail(f"fused_adamw_flat n={n} g {g_dt} is not bitwise equal "
+                     f"to its plain version: max|d| mu, nu, w = {errs}")
+            del g, mu, nu, w, k
+            torch.cuda.empty_cache()
     # main-path shape: the stacked wi leaf [P=4, v=2, M=3, 2048, 5632]
     n = 4 * 2 * 3 * 2048 * 5632
     (g, mu, nu, w, sc), hp = _adamw_case(torch, gen, n, torch.float32, 10,
@@ -1143,7 +1316,7 @@ def phase_ssd(torch, gen):
     passes = _ssd_kernel_ms(torch, lambda: ssd_scan(*ins, chunk=Q), calls=10)
     del wide
     leaves = [t.clone().requires_grad_() for t in ins]
-    y, h = SSDScan.apply(*leaves, Q)
+    y, h = SSDScan.apply(*leaves, None, Q)
     dy = torch.randn(y.shape, generator=gen, device="cuda")
     bwd_ms = time_ms(lambda: torch.autograd.grad(y, leaves, dy,
                                                  retain_graph=True),
@@ -1188,6 +1361,79 @@ def phase_ssd(torch, gen):
                            f"Q={Q}"}
 
 
+def phase_ssd_h0(torch, gen, rows):
+    """``ssd_scan`` with a carried state ``h0`` at mamba2-2.7b's serving
+    prefill shape (x [1,128,80,64], B and C [1,128,128], Q=128, h0
+    [1,80,64,128] fp32), on the bf16 tensor-core route and the fp32
+    CUDA-core route: against ``ssd_chunked_ref(h0=)`` at phase 3's
+    tolerance, an h0 of zeros bitwise the launch without h0 (y and h),
+    then timed in bf16 beside the plain version and the bound (the call
+    must also read h0)."""
+    from repro_torch.kernels.ssd_scan import (ssd_chunked_ref, ssd_scan,
+                                              ssd_scan_route)
+    B, S, H, P, N, Q = 1, 128, 80, 64, 128, 128
+    h0 = 0.5 * torch.randn((B, H, P, N), generator=gen, device="cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = _ssd_inputs(torch, gen, B, S, H, P, N, dtype)
+        y, h = ssd_scan(*ins, chunk=Q, h0=h0)
+        torch.cuda.synchronize()
+        ran = _ssd_route_of(_ssd_kernel_ms(
+            torch, lambda: ssd_scan(*ins, chunk=Q, h0=h0)))
+        y_ref, h_ref = ssd_chunked_ref(*ins, Q, h0)
+        scale = max(1.0, float(y_ref.abs().max()), float(h_ref.abs().max()))
+        e_y, e_h = max_err(y, y_ref), max_err(h, h_ref)
+        z = ssd_scan(*ins, chunk=Q, h0=torch.zeros_like(h0))
+        n = ssd_scan(*ins, chunk=Q)
+        bitwise = torch.equal(z[0], n[0]) and torch.equal(z[1], n[1])
+        ok = max(e_y, e_h) <= SSD_TOL * scale
+        print(f"[kernels] ssd_scan h0 {str(dtype)[6:]} x [{B},{S},{H},{P}] "
+              f"N={N} Q={Q}, route {ran}: max|d| vs ssd_chunked_ref(h0) "
+              f"y={e_y:.3e} h={e_h:.3e} (tol {SSD_TOL:g} * {scale:.3g}) "
+              f"{'ok' if ok else 'FAIL'}; h0=zeros "
+              f"{'bitwise ==' if bitwise else 'DIFFERS from'} no h0")
+        if ran != ssd_scan_route(dtype):
+            fail(f"ssd_scan h0 ({dtype}) ran {ran}")
+        if not ok:
+            fail(f"ssd_scan with h0 disagrees with its plain version "
+                 f"({dtype})")
+        if not bitwise:
+            fail(f"ssd_scan with h0 = 0 is not bitwise the launch without "
+                 f"h0 ({dtype})")
+        out[str(dtype)[6:]] = {"max_abs_err": max(e_y, e_h),
+                               "route": ran, "zeros_bitwise": bitwise}
+    # device time per call from CUDA-graph replay (each call is three
+    # short pass kernels, so call-to-call eager time is the host's)
+    ms = graph_ms(lambda: ssd_scan(*ins, chunk=Q, h0=h0))
+    ms0 = graph_ms(lambda: ssd_scan(*ins, chunk=Q))
+    eager_ms = time_ms(lambda: ssd_scan(*ins, chunk=Q, h0=h0), iters=100,
+                       warmup=10)
+    passes = _ssd_kernel_ms(torch, lambda: ssd_scan(*ins, chunk=Q, h0=h0),
+                            calls=10)
+    plain_ms = time_ms(lambda: ssd_chunked_ref(*ins, Q, h0), iters=20,
+                       warmup=2)
+    nbytes, ops = _ssd_bounds(B, S, H, P, N, Q, 2)
+    nbytes += B * H * P * N * 4                           # h0 read once
+    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+              "operations": ops / BF16_FLOPS * 1e3}
+    by = max(bounds, key=bounds.get)
+    print(f"[kernels] ssd_scan h0 timed at x [{B},{S},{H},{P}] bf16 "
+          f"(device time per call, CUDA graph): kernel {ms * 1e3:.2f} us "
+          f"with h0, {ms0 * 1e3:.2f} us without (eager call-to-call "
+          f"{eager_ms * 1e3:.2f} us), plain {plain_ms:.3f} ms (CUDA "
+          f"events), bound "
+          f"{bounds[by] * 1e3:.2f} us ({by}; {nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e9:.3f} GFLOP) = {ms / bounds[by]:.1f}x bound; passes "
+          f"(torch.profiler, device us per call): "
+          + (", ".join(f"{k} {v * 1e3:.2f}" for k, v in passes.items())
+             or "not measured (no device time reported)"))
+    rows["ssd_scan"]["serve_h0"] = {
+        **out, "shape": f"x [{B},{S},{H},{P}] bf16, h0 [{B},{H},{P},{N}] "
+        f"fp32, Q={Q}", "ms": ms, "ms_without_h0": ms0,
+        "eager_ms": eager_ms, "pass_ms": passes,
+        "plain_ms": plain_ms, "bound_ms": bounds[by], "bound_by": by}
+
+
 def phase_ssd_grads(torch, gen):
     """Gradients through ``SSDScan`` (kernel forward, plain backward)
     equal autograd through ``ssd_chunked_ref`` bitwise, fp32 and bf16, at
@@ -1203,7 +1449,7 @@ def phase_ssd_grads(torch, gen):
         dh = torch.randn((B, H, P, N), generator=gen, device="cuda")
         a = [t.clone().requires_grad_() for t in ins]
         b = [t.clone().requires_grad_() for t in ins]
-        y1, h1 = SSDScan.apply(*a, Q)
+        y1, h1 = SSDScan.apply(*a, None, Q)
         if y1.grad_fn is None or h1.grad_fn is None:
             fail("SSDScan output carries no grad_fn")
         g1 = torch.autograd.grad((y1, h1), a, (dy, dh))
@@ -1308,15 +1554,20 @@ def plain_backward_calls(spec, kind: str) -> int:
                                         for op, _ in _body_ops(spec))
 
 
-def _train_config(arch: str, **plan):
-    """Phase 6's configuration of ``arch``; ``plan`` overrides fields of
-    its ``ParallelPlan`` (chronos_zb, v=2, 8 microbatches of one
-    sequence, fused kernels)."""
+def _train_config(arch: str, layers=None, **plan):
+    """Phase 6's configuration of ``arch`` (cut to ``layers`` layers if
+    given); ``plan`` overrides fields of its ``ParallelPlan``
+    (chronos_zb, v=2, 8 microbatches of one sequence, fused kernels)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import (OptimizerConfig, ParallelPlan,
                                           ShapeConfig, TrainConfig)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     return TrainConfig(
-        model=get_config(arch),
+        model=cfg,
         shape=ShapeConfig("train_2k", seq_len=TRAIN_SEQ, global_batch=8,
                           kind="train"),
         plan=ParallelPlan(**{**dict(schedule="chronos_zb", num_chunks=2,
@@ -1351,20 +1602,23 @@ def _kernel_fns():
             "fused_adamw_flat": fused_adamw_flat, "ssd_scan": ssd_scan}
 
 
-def phase_train(torch, arch: str, tag: str, bwd_ms, **plan):
-    """Full-width ``arch`` trained 4 steps on P=4 virtual stages through
-    ``train_pipeline``, with phase 6's plan (chronos_zb) or ``plan``'s
-    overrides of it (phases 12-14: v_min, chronos_seq, seq1f1b); launch
-    counts from the table; then one more step under the profiler.
-    ``bwd_ms``: layer kind -> the per-call time of its kernel Function's
-    plain backward at the training shape (phase 3).  Returns the launch
-    counts, losses, peak memory and median step (phase 11 holds its
-    offload runs against them)."""
+def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
+                inspect=None, **plan):
+    """Full-width ``arch`` (cut to ``layers`` layers if given) trained 4
+    steps on ``P`` virtual stages through ``train_pipeline``, with phase
+    6's plan (chronos_zb) or ``plan``'s overrides of it (phases 12-14:
+    v_min, chronos_seq, seq1f1b); launch counts from the table; then one
+    more step under the profiler.  ``bwd_ms``: layer kind -> the per-call
+    time of its kernel Function's plain backward at the training shape
+    (phase 3), or None where phase 3 did not time this model's shape.
+    ``inspect(tc, spec, out)`` runs on the trained state before it is
+    freed.  Returns the launch counts, losses, peak memory and median
+    step (phase 11 holds its offload runs against them)."""
     from repro_torch.core.pipeline_runtime import init_pipeline_params
     from repro_torch.launch.train import train_pipeline
     from repro_torch.tree import tree_leaves
-    tc = _train_config(arch, **plan)
-    P, steps = 4, 4
+    tc = _train_config(arch, layers=layers, **plan)
+    steps = 4
     spec = _spec_of(tc, P)
     tab = spec.table
     gc.collect()
@@ -1425,7 +1679,8 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, **plan):
     Sc = spec.S // spec.n_seq
     bwd = [(kind, bwd_ms[kind] if spec.n_seq == 1 else bwd_ms[kind, Sc],
             plain_backward_calls(spec, kind))
-           for kind in ("attn", "mamba") if _layers_of(spec, kind)]
+           for kind in ("attn", "mamba")
+           if _layers_of(spec, kind) and bwd_ms is not None]
     ssd_counts = profile_train_step(torch, tc, P, out["params"],
                                     out["opt_state"], med, tag, bwd)
     if per_step["ssd_scan"]:
@@ -1439,11 +1694,204 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, **plan):
                  f"not the tensor-core route's {want_ssd}")
     summary = {"losses": out["losses"], "peak": peak, "median_s": med,
                "launches": launches, "per_step": per_step,
-               "schedule": tab.name, "tokens_per_s": tokens / med}
+               "schedule": tab.name, "tokens_per_s": tokens / med,
+               "layers": tc.model.num_layers}
+    if inspect is not None:
+        summary.update(inspect(tc, spec, out))
     TRAIN_RUNS.append((tag, tc, P, peak))
     del out, params
     torch.cuda.empty_cache()
     return summary
+
+
+def moe_router_stats(torch, tc, spec, out):
+    """Every MoE layer's ``lb_loss`` and dropped fraction under the
+    trained weights, on one fresh training sequence: one more forward
+    through ``LM.loss`` (the blocks unstaged, a copy) under ``no_grad``
+    with ``moe_ffn``'s aux recorded.  Fails on a non-finite value."""
+    from repro_torch.core.pipeline_runtime import unstage_params
+    from repro_torch.models import LM
+    from repro_torch.models import moe as MOE
+    lm_params = unstage_params(out["params"], spec.layout)
+    tokens = _profile_batch(torch, tc, 1, 1)["tokens"][0]
+    rec, orig = [], MOE.moe_ffn
+
+    def recording(*a, **k):
+        y, aux = orig(*a, **k)
+        rec.append(aux)
+        return y, aux
+    MOE.moe_ffn = recording
+    try:
+        with torch.no_grad():
+            loss, parts = LM(tc.model, device="cuda").loss(
+                lm_params, {"tokens": tokens})
+    finally:
+        MOE.moe_ffn = orig
+    lb = [float(a["lb_loss"]) for a in rec]
+    dropped = [float(a["router_fraction_dropped"]) for a in rec]
+    print(f"[train-moe] trained weights, one {tokens.shape[1]}-token "
+          f"sequence: loss {float(loss):.4f} = ce {float(parts['ce']):.4f} "
+          f"+ 0.01 x aux {float(parts['aux']):.4f}; per MoE layer lb_loss "
+          f"{[round(x, 4) for x in lb]}, dropped fraction "
+          f"{[round(x, 4) for x in dropped]}")
+    if not all(math.isfinite(x) for x in lb + dropped + [float(loss)]):
+        fail("non-finite MoE router statistics")
+    del lm_params
+    return {"lb_loss": lb, "dropped": dropped}
+
+
+def _moe_ffn_plain(torch, p, x, cfg, act: str):
+    """An independent plain MoE FFN for the card check: ``torch.topk``
+    routing and a loop over the experts, each taking the tokens that
+    picked it in token order up to its capacity and adding its gated
+    output to them, then the shared experts.  x [T, d]; returns (y,
+    lb_loss, dropped fraction as a host float)."""
+    import torch.nn.functional as F
+    T = x.shape[0]
+    E, K = cfg.num_experts, cfg.top_k
+    if act != "silu":
+        raise ValueError(f"_moe_ffn_plain covers silu experts, not {act}")
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    vals, idx = torch.topk(probs, K, dim=-1)
+    gates = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+    cap = int(max(1, -(-T * K // E) * cfg.capacity_factor))
+    cap = -(-cap // (128 if cap >= 128 else 16)) * (128 if cap >= 128 else 16)
+    y = torch.zeros_like(x)
+    counts = torch.zeros(E, device=x.device)
+    kept = 0
+    for e in range(E):
+        hit = idx == e                                       # [T, K]
+        toks = hit.any(1).nonzero().squeeze(1)               # ascending
+        counts[e] = toks.numel()
+        toks = toks[:cap]
+        kept += toks.numel()
+        g = (gates * hit).sum(1)[toks]
+        xe = x[toks]
+        h = F.silu(xe @ p["wg"][e]) * (xe @ p["wi"][e])
+        y = y.index_add(0, toks, g[:, None] * (h @ p["wo"][e]))
+    sh = p["shared"]
+    y = y + (F.silu(x @ sh["wg"]) * (x @ sh["wi"])) @ sh["wo"]
+    lb = E * (probs.mean(0) * counts / T).sum()
+    return y, lb, 1.0 - kept / (T * K)
+
+
+def phase_moe_checks(torch, tag: str):
+    """qwen2-moe-a2.7b's MoE path on the card, fp32 at full width.  (a)
+    One layer's ``moe_ffn`` at T = 2048 (phase 15a's sequence) against
+    :func:`_moe_ffn_plain` on the same weights: inputs x = z + 0.5 u
+    (z per token, u shared by all, both N(0, 1)) skew the routing so
+    that the capacity of 256 drops tokens; y and the gradients of
+    sum(y dy) + lb_loss for x and every leaf within 2e-5 relative,
+    lb_loss within 1e-6, the dropped fraction equal and above 0, and the
+    port's picks the same expert sets as ``torch.topk``'s.  (b) Pipeline
+    loss and gradients against ``LM.loss`` autograd, 4 layers, P=2, v=2,
+    m=4, seq 257, chronos_zb and chronos, with the capacity factor at 0.5
+    (16 slots per expert for 1024 picks: every layer drops), each within
+    2e-5 relative (phase 15's measure).  Both sides run the plain
+    kernels, so they route every token alike (a last-bit difference in
+    the hidden state could flip a near-tie pick); the kernels are held
+    in phases 3 and 5b."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   make_pipeline_spec,
+                                                   make_train_grads_fn,
+                                                   unstage_params)
+    from repro_torch.models import LM
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("qwen2-moe-a2.7b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # (a)
+    T, d = TRAIN_SEQ - 1, cfg.d_model
+    p0 = MOE.init_moe(gen, 1, d, cfg.moe, cfg.act, torch.float32, "cuda")
+    ps = [tree_map(lambda a: a[0].clone().requires_grad_(), p0)
+          for _ in range(2)]
+    del p0
+    x = torch.randn((T, d), generator=gen, device="cuda") + 0.5 * torch.randn(
+        (d,), generator=gen, device="cuda")
+    dy = torch.randn((T, d), generator=gen, device="cuda")
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    y1, aux = MOE.moe_ffn(ps[0], xs[0][None], cfg.moe, cfg.act)
+    y1 = y1[0]
+    y2, lb2, drop2 = _moe_ffn_plain(torch, ps[1], xs[1], cfg.moe, cfg.act)
+    _, _, gidx = MOE.route(x, ps[0]["router"].detach(), cfg.moe.top_k)
+    picks = torch.equal(gidx.sort(1).values, torch.topk(
+        torch.softmax(x @ ps[1]["router"].detach(), -1), cfg.moe.top_k,
+        -1).indices.sort(1).values)
+    ((y1 * dy).sum() + aux["lb_loss"]).backward()
+    ((y2 * dy).sum() + lb2).backward()
+    e_y = _rel_err(y1.detach(), y2.detach())
+    lb1, lb2 = float(aux["lb_loss"].detach()), float(lb2.detach())
+    e_lb = abs(lb1 - lb2)
+    drop1 = float(aux["router_fraction_dropped"])
+    e_g = max([_rel_err(xs[0].grad, xs[1].grad)]
+              + [_rel_err(a.grad, b.grad) for a, b in
+                 zip(tree_leaves(ps[0]), tree_leaves(ps[1]))])
+    ok = (picks and e_y <= 2e-5 and e_lb <= 1e-6 and drop1 == drop2
+          and drop1 > 0 and e_g <= 2e-5)
+    print(f"[{tag}] (a) moe_ffn fp32 full width, T={T}, capacity "
+          f"{MOE.capacity(T, cfg.moe)}: picks {'==' if picks else '!='} "
+          f"torch.topk's sets; y rel {e_y:.3e} (tol 2e-5), lb_loss "
+          f"{lb1:.6f} vs {lb2:.6f} (|d| "
+          f"{e_lb:.3e}, tol 1e-6), dropped {drop1:.6f} vs {drop2:.6f} "
+          f"(equal and > 0), grads of x and {len(tree_leaves(ps[0]))} "
+          f"leaves rel {e_g:.3e} (tol 2e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("moe_ffn on the card disagrees with the plain MoE FFN")
+    del ps, xs, x, dy, y1, y2, aux, lb2
+    torch.cuda.empty_cache()
+    # (b)
+    cfg = dataclasses.replace(
+        cfg, num_layers=4, param_dtype="float32", compute_dtype="float32",
+        moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    P, v, m, mbB, seq = 2, 2, 4, 1, 257
+    spec = {s: make_pipeline_spec(cfg, P=P, v=v, m=m, microbatch=mbB,
+                                  seq_len=seq, schedule=s, kernels="plain")
+            for s in ("chronos_zb", "chronos")}
+    layout = spec["chronos_zb"].layout
+    params = init_pipeline_params(gen, cfg, layout, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (m, mbB, seq), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    lp = tree_map(lambda a: a.detach().clone().requires_grad_(),
+                  unstage_params(params, layout))
+    rec, orig = [], MOE.moe_ffn
+
+    def recording(*a, **k):
+        y, aux = orig(*a, **k)
+        rec.append(float(aux["router_fraction_dropped"]))
+        return y, aux
+    MOE.moe_ffn = recording
+    try:
+        ref_loss = sum(LM(cfg, kernels="plain", device="cuda").loss(
+            lp, {"tokens": tokens[i]})[0] for i in range(m))
+    finally:
+        MOE.moe_ffn = orig
+    ref_g = torch.autograd.grad(ref_loss, tree_leaves(lp))
+    ref_l = float(ref_loss.detach()) / m
+    del lp, ref_loss
+    if not min(rec) > 0:
+        fail(f"qwen2-moe (b): a layer dropped no token ({rec})")
+    for schedule, sp in spec.items():
+        g, met = make_train_grads_fn(sp, "cuda")(params, {"tokens": tokens})
+        gu = tree_leaves(unstage_params(g, sp.layout))
+        e_l = abs(float(met["loss"]) - ref_l) / abs(ref_l)
+        e_g = max(_rel_err(a, b) for a, b in zip(gu, ref_g))
+        ok = e_l <= 2e-5 and e_g <= 2e-5
+        print(f"[{tag}] (b) {schedule} plain, fp32 full width 4 layers, "
+              f"capacity factor 0.5 (dropped per layer and microbatch "
+              f"{min(rec):.4f}-{max(rec):.4f}): loss "
+              f"{float(met['loss']):.6f} vs LM.loss {ref_l:.6f} (rel "
+              f"{e_l:.3e}), grads rel {e_g:.3e} (tol 2e-5) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"qwen2-moe (b) {schedule} pipeline gradients disagree "
+                 f"with LM.loss autograd")
+        del g, gu
+    del params, ref_g
+    torch.cuda.empty_cache()
 
 
 def _profile_batch(torch, tc, m, mbB):
@@ -1869,7 +2317,7 @@ def train_offload_run(torch, arch: str, tag: str, base, steps: int):
     from repro_torch.launch.train import train_pipeline
     from repro_torch.optim import offload as offload_mod
     from repro_torch.tree import tree_leaves
-    tc0 = _train_config(arch)
+    tc0 = _train_config(arch, layers=base["layers"])
     tc = dataclasses.replace(tc0, plan=dataclasses.replace(
         tc0.plan, offload=OffloadConfig(enabled=True, num_offload_chunks=1)))
     P, plan = 4, tc.plan
@@ -2221,16 +2669,17 @@ def phase_train_schedule_checks(torch):
 PHASE_OF = {"train": 6, "train-mamba2": 8, "train-offload": 11,
             "train-offload-mamba2": 11, "train-vshape": 12,
             "train-seq-chronos": 13, "train-seq-1f1b": 14,
-            "train-planner": "16a", "train-planner-deepseek": "16b"}
+            "train-planner": "16a", "train-planner-deepseek": "16b",
+            "train-qwen2-moe": "15a"}
 PLANNER_RESERVE = 2.0e9          # PlannerQuery's default reserve
 
 
-def planner_query(cfg, hbm_bytes: float):
-    """The one-card query: P = 4 virtual stages share the card, so each
-    gets a quarter of its memory; one 2049-token sequence per
+def planner_query(cfg, hbm_bytes: float, pp: int = 4):
+    """The one-card query: ``pp`` virtual stages (4 unless given) share
+    the card, each with ``hbm_bytes``; one 2049-token sequence per
     microbatch."""
     from repro_torch.plan import PlannerQuery
-    return PlannerQuery(cfg=cfg, pp=4, tp=1, hbm_bytes=hbm_bytes,
+    return PlannerQuery(cfg=cfg, pp=pp, tp=1, hbm_bytes=hbm_bytes,
                         microbatch=1, seq_len=TRAIN_SEQ)
 
 
@@ -2465,7 +2914,7 @@ def phase_train_planner(torch):
     # (c) every pipeline training plan: predicted against measured
     for tag, tc, P, peak in TRAIN_RUNS:
         total, state, act, kv = predicted_card_peak(tc, P)
-        pt = _point_of(tc, planner_query(tc.model, hbm))
+        pt = _point_of(tc, planner_query(tc.model, hbm * 4 / P, pp=P))
         per_stage = f"{pt.total_bytes / 2 ** 30:.3f} GiB ({pt.describe()})" \
             if pt is not None else "not a point of the design space"
         print(f"[train-planner-model] phase {PHASE_OF[tag]} {tag} "
@@ -2548,6 +2997,7 @@ def main() -> None:
                         key="train_planner_deepseek")
     phase_deepseek_rmsnorm(torch, gen, by_name)
     phase_ssd_grads(torch, gen)
+    phase_ssd_h0(torch, gen, by_name)
     phase_mamba_shapes(torch, gen, by_name)
     torch.cuda.empty_cache()
     done("kernels against their plain versions")
@@ -2555,7 +3005,7 @@ def main() -> None:
     # 4. serve at full width through the CLI's main(), then a profiled
     #    second run on the same engine
     launches = {}
-    launches["serve_tinyllama"], eng = phase_serve(torch)
+    launches["serve_tinyllama"], eng, _ = phase_serve(torch)
     phase_profile(torch, eng)
     del eng
     done("serve")
@@ -2564,6 +3014,16 @@ def main() -> None:
     phase_checks(torch)
     torch.cuda.empty_cache()
     done("serve checks")
+
+    # 5a-5b. serve mamba2-2.7b (every prefill scan on the SSD kernel from
+    #     the slot's carried state) and qwen2-moe-a2.7b at full width,
+    #     each with phase 4's gates, a profiled re-run and phase 5's checks
+    phase_serve_family(torch, serve_argv("mamba2-2.7b", 128, 2, 256),
+                       "serve-mamba2", launches, "serve_mamba2")
+    done("serve mamba2-2.7b")
+    phase_serve_family(torch, serve_argv("qwen2-moe-a2.7b"),
+                       "serve-qwen2-moe", launches, "serve_qwen2_moe")
+    done("serve qwen2-moe-a2.7b")
 
     # 6. train tinyllama at full width through train_pipeline, then a
     #    profiled step; 7. its train checks
@@ -2579,12 +3039,12 @@ def main() -> None:
     phase_train_checks(torch, "tinyllama-1.1b", "train-check")
     done("train checks tinyllama-1.1b")
 
-    # 8. train mamba2 at full width (all of tinyllama's tensors freed
-    #    first), then a profiled step; 9. its train checks
+    # 8. train mamba2 at full width, 32 layers (all of tinyllama's
+    #    tensors freed first), then a profiled step; 9. its train checks
     gc.collect()
     torch.cuda.empty_cache()
     base["mamba2-2.7b"] = phase_train(torch, "mamba2-2.7b", "train-mamba2",
-                                      bwd_ms)
+                                      bwd_ms, layers=MAMBA2_TRAIN_LAYERS)
     launches["train_mamba2"] = base["mamba2-2.7b"]["launches"]
     done("train mamba2-2.7b")
     phase_train_checks(torch, "mamba2-2.7b", "train-check-mamba2")
@@ -2617,8 +3077,23 @@ def main() -> None:
     phase_train_schedule_checks(torch)
     done("train-schedule checks")
 
+    # 15a. qwen2-moe-a2.7b at full width, 4 layers, chronos_zb on P=2
+    #     virtual stages (v=2): the MoE aux sum in the payload, gated as
+    #     phase 6, with its router statistics
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train_qwen2_moe"] = phase_train(
+        torch, "qwen2-moe-a2.7b", "train-qwen2-moe", None, P=2, layers=4,
+        inspect=lambda tc, spec, out: moe_router_stats(torch, tc, spec,
+                                                       out))["launches"]
+    done("train qwen2-moe-a2.7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_checks(torch, "train-check-qwen2-moe")
+    done("MoE checks qwen2-moe-a2.7b")
+
     # 16. the memory-budget planner's picks trained at full width, and
-    #     its predicted peaks against the measured ones
+    #     its predicted peaks against the measured ones (phases 6-15a)
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_train_planner(torch))

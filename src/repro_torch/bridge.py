@@ -7,6 +7,10 @@ The tree keeps its structure and layout leaf for leaf:
 params)`` on the JAX side), so this module imports neither JAX nor
 ``ml_dtypes``: a bfloat16 leaf (numpy dtype name ``"bfloat16"``) crosses
 as its raw 16-bit pattern.
+
+Every leaf keeps its own dtype, so the reference's fp32 leaves in a bf16
+tree (an MoE layer's router, a Mamba-2 layer's ``A_log``, ``D`` and
+``dt_bias``) cross as fp32, as the port's ``LM.init`` builds them.
 """
 from __future__ import annotations
 
@@ -16,21 +20,19 @@ import torch
 from repro_torch.tree import tree_map
 
 
-def _leaf_to_torch(a, device, dtype):
+def _leaf_to_torch(a, device):
     a = np.array(a, order="C")     # a private, writable, contiguous copy
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    if dtype is not None:
-        t = t.to(dtype)
     return t.to(device)
 
 
-def lm_params_from_numpy(tree, device, dtype=None):
-    """numpy tree -> torch tree on ``device`` (cast to ``dtype`` if given);
-    the bits are kept exactly when ``dtype`` is None."""
-    return tree_map(lambda a: _leaf_to_torch(a, device, dtype), tree)
+def lm_params_from_numpy(tree, device):
+    """numpy tree -> torch tree on ``device``, every leaf's bits and dtype
+    kept exactly."""
+    return tree_map(lambda a: _leaf_to_torch(a, device), tree)
 
 
 def _leaf_to_numpy(t):

@@ -1,10 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Only the architectures with a ported path are listed.  The dense ones
+Only the architectures with a ported path are listed: the dense ones
 (tinyllama-1.1b, deepseek-7b, qwen2-72b with its q/k/v biases, and the
-paper's llama70b-paper) serve and train; mamba2-2.7b trains (its serving
-path, the engine's SSM slot state, is not ported yet).  All five are
-inputs of the memory-budget planner (:mod:`repro_torch.plan`).
+paper's llama70b-paper), the SSM one (mamba2-2.7b), the MoE ones
+(qwen2-moe-a2.7b with shared experts, grok-1-314b with ungated gelu
+experts) and the hybrid jamba-v0.1-52b (Mamba-2 and attention layers,
+MoE on every other layer).  Every one serves and trains, and is an
+input of the memory-budget planner (:mod:`repro_torch.plan`).
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     "llama70b-paper": "repro_torch.configs.llama70b_paper",
 }
 

@@ -1,9 +1,9 @@
 """Configuration dataclasses for the port (own copy of
 ``repro.configs.base``).
 
-The dense-attention and Mamba-2 (SSD) model fields are carried over;
-MoE, encoder-decoder and VLM sub-configs arrive with the slices that
-port those paths.  ``ParallelPlan`` keeps the fields the single-card
+The dense-attention, Mamba-2 (SSD) and mixture-of-experts model fields
+are carried over; encoder-decoder and VLM sub-configs arrive with the
+slices that port those paths.  ``ParallelPlan`` keeps the fields the single-card
 pipeline step reads; mesh axes, ZeRO and wire compression arrive with
 the multi-process slice (ROADMAP A.1d).
 """
@@ -12,6 +12,20 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN configuration."""
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    d_ff_shared: int = 0            # per shared expert
+    layer_period: int = 1           # MoE on layers where idx % period == offset
+    layer_offset: int = 0
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -48,7 +62,8 @@ class ModelConfig:
     act: str = "silu"               # silu (swiglu) | gelu (plain) | geglu
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    family: str = "dense"           # dense | ssm (| moe | hybrid | ...)
+    family: str = "dense"           # dense | ssm | moe | hybrid (| ...)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # numerics
     param_dtype: str = "bfloat16"
@@ -80,9 +95,9 @@ class ModelConfig:
         return (idx % self.attn_pattern_period) in self.global_offsets
 
     def layer_is_moe(self, idx: int) -> bool:
-        """MoE FFN on this layer?  Always False: the port has no MoE
-        field yet (ROADMAP A.3)."""
-        return False
+        if self.moe is None:
+            return False
+        return idx % self.moe.layer_period == self.moe.layer_offset
 
     @property
     def period(self) -> int:
@@ -91,15 +106,17 @@ class ModelConfig:
         p = 1
         if self.ssm is not None and self.ssm.attn_period:
             p = _lcm(p, self.ssm.attn_period)
+        if self.moe is not None and self.moe.layer_period > 1:
+            p = _lcm(p, self.moe.layer_period)
         if self.attn_pattern_period:
             p = _lcm(p, self.attn_pattern_period)
         return p
 
     def param_count(self) -> int:
         """Total parameter count (embedding included) of the attention,
-        Mamba-2, dense-FFN and norm terms.  MoE, encoder and vision
-        families have no fields here yet (ROADMAP A.3/A.4) and raise."""
-        if self.family not in ("dense", "ssm"):
+        Mamba-2, MoE, dense-FFN and norm terms.  Encoder and vision
+        families have no fields here yet (ROADMAP A.4) and raise."""
+        if self.family not in ("dense", "ssm", "moe", "hybrid"):
             raise NotImplementedError(
                 f"param_count of a {self.family!r} config is not ported")
         d, hd = self.d_model, self.resolved_head_dim
@@ -122,16 +139,28 @@ class ModelConfig:
                 n += s.conv_width * (d_in + 2 * s.state_dim)     # conv
                 n += 2 * nheads + d_in                   # A, D, dt_bias, norm
                 n += d_in * d                                    # out_proj
-            if self.d_ff:
+            if self.layer_is_moe(i):
+                m = self.moe
+                n += m.num_experts * 3 * d * m.d_ff_expert
+                n += d * m.num_experts                           # router
+                n += m.num_shared_experts * 3 * d * m.d_ff_shared
+            elif self.d_ff:
                 mult = 3 if self.act in ("silu", "geglu") else 2
                 n += mult * d * self.d_ff
             n += 2 * d                                           # norms
         return n
 
     def active_param_count(self) -> int:
-        """Active parameters per token; without MoE every parameter is
-        active, so this is :meth:`param_count`."""
-        return self.param_count()
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        n = self.param_count()
+        n_moe_layers = sum(1 for i in range(self.num_layers)
+                           if self.layer_is_moe(i))
+        inactive = n_moe_layers * (m.num_experts - m.top_k) * 3 * \
+            self.d_model * m.d_ff_expert
+        return n - inactive
 
 
 def _lcm(a: int, b: int) -> int:

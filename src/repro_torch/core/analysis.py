@@ -205,10 +205,14 @@ class MemoryModel:
                 a += 4 * (d_in // s.head_dim)       # dt (fp32)
                 a += BF16 * d_in / tp               # ssd out (pre-gate)
             a += 2 * h / (tp if sp else 1)          # mlp-in residual
-            # (the reference's MoE term arrives with ROADMAP A.3; until
-            # then ``param_count`` below raises on an MoE config)
-            if cfg.d_ff and (kind == "attn" or cfg.ssm is None
-                             or cfg.family == "hybrid"):
+            if cfg.layer_is_moe(i):
+                m = cfg.moe
+                ff_act = m.top_k * m.d_ff_expert + \
+                    m.num_shared_experts * m.d_ff_shared
+                a += BF16 * (2 if gated else 1) * ff_act / tp
+                a += 4 * m.num_experts              # router logits fp32
+            elif cfg.d_ff and (kind == "attn" or cfg.ssm is None
+                               or cfg.family == "hybrid"):
                 a += BF16 * (2 if gated else 1) * cfg.d_ff / tp
             acts.append(a)
         act_mean = sum(acts) / max(len(acts), 1)

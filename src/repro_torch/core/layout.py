@@ -10,6 +10,7 @@ layers (global index ``>= L``) carry gate 0.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict
 
@@ -21,11 +22,13 @@ from repro_torch.core.placement import Placement
 
 def pipeline_period(cfg: ModelConfig) -> int:
     """Structural period (param-tree shape changes); attention
-    local/global patterns are data flags, not structure.  The
-    reference's MoE term arrives with the MoE slice."""
+    local/global patterns are data flags, not structure."""
+    p = 1
     if cfg.ssm is not None and cfg.ssm.attn_period:
-        return cfg.ssm.attn_period
-    return 1
+        p = math.lcm(p, cfg.ssm.attn_period)
+    if cfg.moe is not None and cfg.moe.layer_period > 1:
+        p = math.lcm(p, cfg.moe.layer_period)
+    return p
 
 
 @dataclass(frozen=True)

@@ -22,11 +22,19 @@ activation ring per chunk (``act_depth``), the remat ring
 payload and upstream gradient).  This is where Chronos-Pipe's memory
 saving becomes structural.
 
+The payload between virtual stages is the reference's: the boundary
+activation ``x`` and the fp32 MoE aux sum ``aux`` [1] (each MoE layer
+adds its gate-weighted load-balancing loss; the last stage adds
+``aux_weight`` times it to the CE).  Every ring has an ``aux`` twin
+``[depth, 1]`` fp32 at the same slots (``_Executor.aux_rings``): the
+forward rings carry ``aux``, the backward ones its cotangent.
+
 Op semantics mirror the reference's phase executor:
 
 - **F** runs under ``torch.no_grad``: the first stage of chunk 0 embeds
-  the microbatch, the last stage of the last chunk adds the head loss to
-  the loss sum; the op's input boundary goes to the activation ring.
+  the microbatch (aux 0), the last stage of the last chunk adds the head
+  loss to the loss sum; the op's input boundary goes to the activation
+  ring.
 - **B, fused** (tables without W): recompute the chunk from its stored
   boundary under autograd and ``torch.autograd.grad`` with explicit
   inputs — the input gradient goes upstream, block gradients accumulate
@@ -41,7 +49,8 @@ Op semantics mirror the reference's phase executor:
   bitwise, as in the reference.
 
 No autograd graph outlives its op.  Shared-parameter gradients sum over
-stages; the loss is the mean of the microbatches' CE.
+stages; the loss is the mean of the microbatches' ``CE + aux_weight *
+aux``.
 """
 from __future__ import annotations
 
@@ -90,17 +99,16 @@ def init_pipeline_params(generator: torch.Generator, cfg: ModelConfig,
     """Random parameters at ``dense_init``'s scale (not the reference's
     bits).  Block leaves are ``[P, v, M, ...]`` indexed by (device,
     chunk) under ``layout``'s placement, one tree per period position,
-    built for that position's layer kind (a Mamba-2 tree holds fp32
-    ``A_log``, ``D`` and ``dt_bias`` beside weights of the parameter
-    dtype); embedding, head and final norm are shared by the stages (with
+    built for that position's layer kind and FFN (a Mamba-2 tree holds
+    fp32 ``A_log``, ``D`` and ``dt_bias``, an MoE tree its fp32 router,
+    beside weights of the parameter dtype); embedding, head and final norm are shared by the stages (with
     tied embeddings the head is ``embed.tokens``)."""
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
     n = layout.P * layout.v * layout.M
     blocks = [tree_map(lambda a: a.reshape((layout.P, layout.v, layout.M)
                                            + a.shape[1:]),
-                       _init_layers(generator, cfg, n, device,
-                                    cfg.layer_kind(j)))
+                       _init_layers(generator, cfg, n, device, j))
               for j in range(layout.period)]
     embed = {"tokens": L.dense_init(generator, (cfg.vocab_size, d), d, dt,
                                     device)}
@@ -159,6 +167,7 @@ class PipelineSpec:
     S: int                      # token positions fed to the stack
     kernels: str = "plain"      # compute backend (repro_torch.models.backend)
     n_seq: int = 1              # sequence chunks per microbatch
+    aux_weight: float = 0.01    # weight of the MoE aux sum in the loss
 
 
 def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
@@ -173,7 +182,9 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
     attention LM (the executor carries no state across chunks but K/V),
     ``seq_len - 1`` must split into ``n_seq`` equal chunks, and the
     table must have no W tasks (``seq1f1b(split=True)`` compiles to a
-    table, which no executor runs, as in the reference)."""
+    table, which no executor runs, as in the reference).  A dense
+    attention LM here excludes SSM and MoE layers, as the reference's
+    assertion does (the seq executor carries no aux sum)."""
     if schedule in SEQ_SCHEDULES:
         sched_kw["n_seq"] = n_seq
     elif n_seq != 1:
@@ -188,7 +199,7 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
     layout = StageLayout.build(cfg, P, v, sched.pl)
     table = build_task_table(sched, overlap=False)
     if n_seq > 1:
-        if cfg.ssm is not None:
+        if cfg.ssm is not None or cfg.moe is not None:
             raise ValueError(f"the sequence-chunked executor runs dense "
                              f"attention LMs, got {cfg.name}")
         if (seq_len - 1) % n_seq:
@@ -228,22 +239,27 @@ class _Executor:
         shape = (spec.mbB, self.Sc, spec.cfg.d_model)
         dt = _dtype(spec.cfg.compute_dtype)
 
-        def ring(depth):
-            return torch.zeros((depth,) + shape, dtype=dt, device=device)
-
-        P_ = tab.P
-        self.rings: Dict[str, Any] = {
-            "fq": [ring(tab.fq_depth) for _ in range(P_)],
-            "bq": [ring(tab.bq_depth) for _ in range(P_)],
-            "act": [{c: ring(k) for c, k in tab.act_depth.items()}
-                    for _ in range(P_)],
-            "rmt": [{c: ring(k) for c, k in tab.rmt_depth.items()}
-                    for _ in range(P_)],
-            "wx": [{c: ring(k) for c, k in tab.wstash_depth.items()}
-                   for _ in range(P_)],
-            "wdy": [{c: ring(k) for c, k in tab.wstash_depth.items()}
-                    for _ in range(P_)],
-        }
+        def rings(shape, dt):
+            def ring(depth):
+                return torch.zeros((depth,) + shape, dtype=dt, device=device)
+            P_ = tab.P
+            return {
+                "fq": [ring(tab.fq_depth) for _ in range(P_)],
+                "bq": [ring(tab.bq_depth) for _ in range(P_)],
+                "act": [{c: ring(k) for c, k in tab.act_depth.items()}
+                        for _ in range(P_)],
+                "rmt": [{c: ring(k) for c, k in tab.rmt_depth.items()}
+                        for _ in range(P_)],
+                "wx": [{c: ring(k) for c, k in tab.wstash_depth.items()}
+                       for _ in range(P_)],
+                "wdy": [{c: ring(k) for c, k in tab.wstash_depth.items()}
+                        for _ in range(P_)],
+            }
+        self.rings: Dict[str, Any] = rings(shape, dt)
+        # the payload's aux sum (forward rings) and its cotangent
+        # (backward rings), slot for slot
+        self.aux_rings: Dict[str, Any] = rings((1,), torch.float32)
+        self.aux0 = torch.zeros((1,), dtype=torch.float32, device=device)
 
     # -- helpers -------------------------------------------------------------
     def _ends(self, d: int, c: int):
@@ -258,14 +274,30 @@ class _Executor:
         return _with_grad(blocks) if grad else blocks
 
     def _boundary(self, d, c, aslot, rslot):
-        r = self.rings
+        """The stored input payload ``(x, aux)`` of a backward op."""
         if rslot >= 0:
-            return r["rmt"][d][c][rslot]
-        return _at(r["act"][d][c], aslot)
+            return self._get("rmt", d, c, rslot)
+        return self._get("act", d, c, aslot)
+
+    def _get(self, name, d, c, slot):
+        """Slot ``slot`` of ring ``name`` at device ``d`` (chunk ``c``;
+        None for the receive queues) and its aux twin."""
+        out = []
+        for r in (self.rings, self.aux_rings):
+            ring = r[name][d] if c is None else r[name][d][c]
+            out.append(_at(ring, slot))
+        return tuple(out)
+
+    def _put(self, name, d, c, slot, payload):
+        for r, a in zip((self.rings, self.aux_rings), payload):
+            ring = r[name][d] if c is None else r[name][d][c]
+            _at(ring, slot).copy_(a)
 
     # -- one op --------------------------------------------------------------
     def _op(self, d, row, params, shared, batch, acc):
-        spec, r = self.spec, self.rings
+        """Run one op; returns the payload it sends (``(x, aux)`` forward,
+        their cotangents backward) or None."""
+        spec = self.spec
         op, c, mb, src, aslot = (int(x) for x in row[:5])
         wslot, rslot = int(row[12]), int(row[13])
         first, last = self._ends(d, c)
@@ -274,28 +306,36 @@ class _Executor:
         tok_in, labels = tokens[:, :-1], tokens[:, 1:]
         mask = batch["loss_mask"][mb] if "loss_mask" in batch else None
 
-        def chunk(blocks_c, x):
-            return compute_backend.chunk_fwd(spec, blocks_c, flags_c, x)
+        def chunk(blocks_c, x, aux):
+            return compute_backend.chunk_fwd(spec, blocks_c, flags_c, x, aux)
 
-        def head(sh, x):
-            return compute_backend.head_loss(spec, sh, x, labels, mask)
+        def head(sh, x, aux):
+            return compute_backend.head_loss(spec, sh, x, labels, mask,
+                                             aux=aux)
+
+        def terms(out, seed):
+            """Outputs and seeds of a non-last chunk: ``x`` always, the
+            aux sum where it depends on what is differentiated."""
+            (x, a), (dx, da) = out, seed
+            return ([x, a], [dx, da]) if a.requires_grad else ([x], [dx])
 
         if op in F_OPS:
             with torch.no_grad():
-                x_in = _embed_tokens(spec, shared, tok_in) if first \
-                    else _at(r["fq"][d], src)
+                x_in = (_embed_tokens(spec, shared, tok_in), self.aux0) \
+                    if first else self._get("fq", d, None, src)
                 if aslot >= 0:
-                    r["act"][d][c][aslot].copy_(x_in)
-                out = chunk(self._block(params, d, c, False), x_in)
+                    self._put("act", d, c, aslot, x_in)
+                out = chunk(self._block(params, d, c, False), *x_in)
                 if last:
-                    acc["loss"] += head(shared, out)
+                    acc["loss"] += head(shared, *out)
                     acc["n"] += 1
                     return None
                 return out
 
         if op in R_OPS:
             if rslot >= 0:
-                _at(r["rmt"][d][c], rslot).copy_(_at(r["act"][d][c], aslot))
+                self._put("rmt", d, c, rslot,
+                          self._get("act", d, c, aslot))
             return None
 
         if op in W_OPS:
@@ -303,15 +343,15 @@ class _Executor:
             blocks_c = self._block(params, d, c, True)
             sh = _with_grad(shared) if (first or last) else shared
             with torch.enable_grad():
-                x = _embed_tokens(spec, sh, tok_in) if first \
-                    else _at(r["wx"][d][c], wslot)
-                out = chunk(blocks_c, x)
+                x = (_embed_tokens(spec, sh, tok_in), self.aux0) if first \
+                    else self._get("wx", d, c, wslot)
+                out = chunk(blocks_c, *x)
                 if last:
-                    outs, seeds = head(sh, out), None
+                    outs, seeds = [head(sh, *out)], [None]
                 else:
-                    outs, seeds = out, _at(r["wdy"][d][c], wslot)
+                    outs, seeds = terms(out, self._get("wdy", d, c, wslot))
                 self._accumulate(acc, d, c, blocks_c, sh, first or last,
-                                 [outs], [seeds])
+                                 outs, seeds)
             return None
 
         # B ops
@@ -319,37 +359,37 @@ class _Executor:
             if first:
                 # the first block sends nothing upstream: stash dy for W
                 if not last:
-                    _at(r["wdy"][d][c], wslot).copy_(_at(r["bq"][d], src))
+                    self._put("wdy", d, c, wslot,
+                              self._get("bq", d, None, src))
                 return None
             bnd = self._boundary(d, c, aslot, rslot)
-            _at(r["wx"][d][c], wslot).copy_(bnd)
+            self._put("wx", d, c, wslot, bnd)
             if not last:
-                _at(r["wdy"][d][c], wslot).copy_(_at(r["bq"][d], src))
-            x = bnd.detach().requires_grad_()
+                self._put("wdy", d, c, wslot, self._get("bq", d, None, src))
+            x = [a.detach().requires_grad_() for a in bnd]
             with torch.enable_grad():
-                out = chunk(self._block(params, d, c, False), x)
+                out = chunk(self._block(params, d, c, False), *x)
                 if last:
-                    (dx,) = _grad(head(shared, out), None, [x])
-                else:
-                    (dx,) = _grad(out, _at(r["bq"][d], src), [x])
-            return dx
+                    return _grad(head(shared, *out), None, x)
+                outs, seeds = terms(out, self._get("bq", d, None, src))
+                return _grad(outs, seeds, x)
 
         blocks_c = self._block(params, d, c, True)
         sh = _with_grad(shared) if (first or last) else shared
         with torch.enable_grad():
             if first:
-                x = _embed_tokens(spec, sh, tok_in)
+                x = [_embed_tokens(spec, sh, tok_in), self.aux0]
             else:
-                x = self._boundary(d, c, aslot, rslot).detach() \
-                    .requires_grad_()
-            out = chunk(blocks_c, x)
+                x = [a.detach().requires_grad_()
+                     for a in self._boundary(d, c, aslot, rslot)]
+            out = chunk(blocks_c, *x)
             if last:
-                outs, seeds = head(sh, out), None
+                outs, seeds = [head(sh, *out)], [None]
             else:
-                outs, seeds = out, _at(r["bq"][d], src)
+                outs, seeds = terms(out, self._get("bq", d, None, src))
             dx = self._accumulate(acc, d, c, blocks_c, sh, first or last,
-                                  [outs], [seeds], () if first else (x,))
-        return dx[0] if dx else None
+                                  outs, seeds, () if first else x)
+        return None if first else dx
 
     def _accumulate(self, acc, d, c, blocks_c, sh, with_shared, outs,
                     seeds, extra=()):
@@ -392,13 +432,16 @@ class _Executor:
                 out = self._op(d, row, params, shared, batch, acc)
                 if out is not None and row[5] != SEND_NONE:
                     sends.append((d, int(row[5]), out))
-            # the tick's ops have read their queues: land the sends
+            # the tick's ops have read their queues: land the sends (a
+            # payload (x, aux); an aux of None is not carried)
             for d, code, out in sends:
                 delta, q, col = _ROUTE[code]
                 dest = (d + delta) % tab.P
                 slot = int(self.A[t, dest, col])
                 assert slot >= 0, f"tick {t}: no receive slot at {dest}"
-                self.rings[q + "q"][dest][slot].copy_(out)
+                for r, a in zip((self.rings, self.aux_rings), out):
+                    if a is not None:
+                        r[q + "q"][dest][slot].copy_(a)
         grads = {"blocks": acc["gb"], **acc["gs"]}
         n = acc["n"]
         metrics = {"loss": acc["loss"] / max(n, 1), "n_microbatches": n}
@@ -425,8 +468,9 @@ def make_train_grads_fn(spec: PipelineSpec, device):
     ``loss_mask`` [m, mbB, S]) on ``device``.  ``grads`` are summed over
     the microbatches, block leaves in their parameters' dtype and shared
     leaves in fp32: ``{"blocks": [...], "embed": ...,
-    "final_norm": ...}``; ``metrics``: ``loss`` (mean CE, a device
-    tensor) and ``n_microbatches``.  ``fn.rings`` are the executor's
+    "final_norm": ...}``; ``metrics``: ``loss`` (the microbatches' mean
+    of CE plus ``aux_weight`` times the MoE aux sum, a device tensor)
+    and ``n_microbatches``.  ``fn.rings`` are the executor's
     preallocated buffers.  A sequence-chunked table (``spec.n_seq > 1``)
     runs :class:`repro_torch.seqpipe.runtime.SeqExecutor`, with the same
     gradient semantics."""

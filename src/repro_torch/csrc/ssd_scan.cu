@@ -2,7 +2,8 @@
 //
 //   h_t = exp(dt_t * A) h_{t-1} + dt_t * x_t (outer) B_t,   y_t = C_t . h_t
 //
-// evaluated chunk by chunk (chunk length Q), per (batch, head), from h = 0:
+// evaluated chunk by chunk (chunk length Q), per (batch, head), from h = h0
+// (the carried state of a serving prefill chunk) or from h = 0:
 //
 //   cum  = cumsum(dt * A)           (inclusive, within the chunk)
 //   L    = tril(exp(cum_i - cum_j)) * dt_j
@@ -11,9 +12,13 @@
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py::ssd_scan
 // (body _kernel).  x [B, S, H, P]; Bc and Cc [B, S, N] of x's type (one
-// group: every head shares them); dt [B, S, H] and A [H] fp32; y [B, S, H,
-// P] and h [B, H, P, N] are written in fp32.  S is a multiple of Q (the
-// wrapper pads with dt = 0 rows, which leave the state as it is).
+// group: every head shares them); dt [B, S, H] and A [H] fp32; h0 [B, H, P,
+// N] fp32 or null; y [B, S, H, P] and h [B, H, P, N] are written in fp32.
+// S is a multiple of Q (the wrapper pads with dt = 0 rows, which leave the
+// state as it is).  The TPU kernel always starts from zero (the reference
+// sends a carried state to its XLA scan); here h0 only seeds the carry:
+// pass b's running state, or the CUDA-core kernel's shared state rows.  An
+// h0 of zeros therefore gives bitwise the result of a null h0.
 //
 // Bound on the H100, at x [1, 2048, 80, 64] bf16, Q = 128, N = 128: bytes.
 // The call must read x (21 MB), B, C and dt (1.7 MB) and write y in fp32
@@ -31,8 +36,9 @@
 //      (x o exp(cum_end - cum) dt)^T B -> [P, N] fp32, into a scratch
 //      [B, nc, H, P, N] (42 MB at the training shape).
 //   b. ssd_scan_kernel_pass, one thread per state element: runs over the
-//      chunks, h_in[c] = exp(cum_end[c-1]) h_in[c-1] + add[c-1], writing
-//      h_in in place over the contributions, and the final h.
+//      chunks from h_in[0] = h0 (or 0), h_in[c] = exp(cum_end[c-1])
+//      h_in[c-1] + add[c-1], writing h_in in place over the
+//      contributions, and the final h.
 //   c. ssd_scan_kernel_out, one CTA per (batch * chunk, head, 64 head-dim
 //      columns), the flash forward's shape: y = exp(cum_i) (C h_in^T) +
 //      (C B^T o L) x, each warp owning 16 rows of the chunk.  C B^T stays
@@ -111,8 +117,9 @@ __device__ __forceinline__ void chunk_cumsum(const float* dts, float a_h,
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ dt,
-                const float* __restrict__ A, float* __restrict__ y,
-                float* __restrict__ hout, int S, int H, int P, int N, int Q) {
+                const float* __restrict__ A, const float* __restrict__ h0,
+                float* __restrict__ y, float* __restrict__ hout, int S, int H,
+                int P, int N, int Q) {
   extern __shared__ float smem[];
   float* cum = smem;
   float* dts = cum + kMaxQ;
@@ -137,7 +144,14 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
   const int op = tid % kPT, oi = tid / kPT;
   const int sn = tid % kNT, sp = tid / kNT;
 
-  for (int i = tid; i < kPT * kHS; i += kThreads) hs[i] = 0.f;
+  // the state rows p0 .. p0 + kPT - 1 start from h0 (or 0)
+  for (int i = tid; i < kPT * kHS; i += kThreads) {
+    const int p = i / kHS, n = i % kHS;
+    float v = 0.f;
+    if (h0 != nullptr && n < N && p0 + p < P)
+      v = h0[((static_cast<size_t>(b) * H + h) * P + p0 + p) * N + n];
+    hs[i] = v;
+  }
 
   for (int c = 0; c < nchunks; ++c) {
     const size_t row0 =
@@ -479,14 +493,16 @@ ssd_scan_kernel_states(const bf16* __restrict__ x, const bf16* __restrict__ Bm,
   }
 }
 
-// Pass b: per state element, over the chunks: states[c] <- h_in[c] (the
-// state before chunk c), h <- exp(cum_end[c]) h + add[c]; hout <- h.  The
-// loads of kPassBatch chunks are issued before any is used.
+// Pass b: per state element, from h = h0 (or 0), over the chunks:
+// states[c] <- h_in[c] (the state before chunk c), h <- exp(cum_end[c]) h +
+// add[c]; hout <- h.  The loads of kPassBatch chunks are issued before any
+// is used.
 constexpr int kPassBatch = 8;
 
 __global__ void __launch_bounds__(kTcThreads)
 ssd_scan_kernel_pass(float* __restrict__ states,
-                     const float* __restrict__ cdt, float* __restrict__ hout,
+                     const float* __restrict__ cdt,
+                     const float* __restrict__ h0, float* __restrict__ hout,
                      long long total, TcDims d) {
   const long long pn = static_cast<long long>(d.P) * d.N;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -494,7 +510,7 @@ ssd_scan_kernel_pass(float* __restrict__ states,
        e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long bh = e / pn, r = e % pn;
     const long long b = bh / d.H, h = bh % d.H;
-    float s = 0.f;
+    float s = h0 != nullptr ? h0[e] : 0.f;  // h0 [B, H, P, N]: element e
     for (int c0 = 0; c0 < d.nc; c0 += kPassBatch) {
       float add[kPassBatch], cend[kPassBatch];
 #pragma unroll
@@ -730,9 +746,10 @@ bool aligned16(const void* p) {
 }
 
 cudaError_t launch_tc(const bf16* x, const bf16* Bc, const bf16* Cc,
-                      const float* dt, const float* A, float* y, float* h,
-                      float* states, float* cum, int batch, int S, int H,
-                      int P, int N, int Q, cudaStream_t s) {
+                      const float* dt, const float* A, const float* h0,
+                      float* y, float* h, float* states, float* cum,
+                      int batch, int S, int H, int P, int N, int Q,
+                      cudaStream_t s) {
   // above 48 KB the launch needs the opt-in; the whole unified L1 as
   // shared memory lets two pass-c CTAs (three pass-a CTAs) share an SM
   static bool attr_set = false;
@@ -772,7 +789,7 @@ cudaError_t launch_tc(const bf16* x, const bf16* Bc, const bf16* Cc,
   const long long need = (total + kTcThreads - 1) / kTcThreads;
   const long long blocks = need < 64LL * sm_count() ? need : 64LL * sm_count();
   ssd_scan_kernel_pass<<<static_cast<int>(blocks), kTcThreads, 0, s>>>(
-      states, cum, h, total, d);
+      states, cum, h0, h, total, d);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int smem_c =
@@ -789,12 +806,13 @@ bool sizes_ok(int batch, int S, int H, int P, int N, int Q) {
 
 }  // namespace
 
-// fp32 x, B, C: the CUDA-core kernel
+// fp32 x, B, C: the CUDA-core kernel.  h0 [batch, H, P, N] fp32, or null
+// for a scan from zero.
 extern "C" int ssd_scan_f32_launch(const void* x, const void* Bc,
                                    const void* Cc, const void* dt,
-                                   const void* A, void* y, void* h, int batch,
-                                   int S, int H, int P, int N, int Q,
-                                   void* stream) {
+                                   const void* A, const void* h0, void* y,
+                                   void* h, int batch, int S, int H, int P,
+                                   int N, int Q, void* stream) {
   if (!sizes_ok(batch, S, H, P, N, Q))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -806,27 +824,29 @@ extern "C" int ssd_scan_f32_launch(const void* x, const void* Bc,
   ssd_scan_kernel<<<grid, block, kSmemBytes, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(Bc),
       static_cast<const float*>(Cc), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<float*>(y),
-      static_cast<float*>(h), S, H, P, N, Q);
+      static_cast<const float*>(A), static_cast<const float*>(h0),
+      static_cast<float*>(y), static_cast<float*>(h), S, H, P, N, Q);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 x, B, C: the three tensor-core passes.  states [batch, S / Q, H, P,
-// N] and cum [batch, S / Q, H, 2, Q] (each chunk's cum, then its dt) are
-// fp32 scratch from the caller.
+// bf16 x, B, C: the three tensor-core passes.  h0 [batch, H, P, N] fp32,
+// or null for a scan from zero.  states [batch, S / Q, H, P, N] and cum
+// [batch, S / Q, H, 2, Q] (each chunk's cum, then its dt) are fp32 scratch
+// from the caller.
 extern "C" int ssd_scan_bf16_launch(const void* x, const void* Bc,
                                     const void* Cc, const void* dt,
-                                    const void* A, void* y, void* h,
-                                    void* states, void* cum, int batch, int S,
-                                    int H, int P, int N, int Q,
-                                    void* stream) {
+                                    const void* A, const void* h0, void* y,
+                                    void* h, void* states, void* cum,
+                                    int batch, int S, int H, int P, int N,
+                                    int Q, void* stream) {
   if (!sizes_ok(batch, S, H, P, N, Q) || states == nullptr || cum == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_tc(
       static_cast<const bf16*>(x), static_cast<const bf16*>(Bc),
       static_cast<const bf16*>(Cc), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<float*>(y),
-      static_cast<float*>(h), static_cast<float*>(states),
+      static_cast<const float*>(A), static_cast<const float*>(h0),
+      static_cast<float*>(y), static_cast<float*>(h),
+      static_cast<float*>(states),
       static_cast<float*>(cum), batch, S, H, P, N, Q,
       static_cast<cudaStream_t>(stream)));
 }

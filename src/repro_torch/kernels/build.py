@@ -41,12 +41,13 @@ _SIGNATURES = {
                                    _I, _F, _I, _I, _I, _I, _I, _P],
     # B, Sq, H, dtype -> warps per CTA of the flash kernel (0: fp32 kernel)
     "flash_attention_fwd_warps": [_I, _I, _I, _I],
-    # x, B, C, dt, A, y, h, batch, S, H, P, N, Q, stream
-    "ssd_scan_f32_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P],
-    # x, B, C, dt, A, y, h, states, cum, batch, S, H, P, N, Q, stream
-    "ssd_scan_bf16_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _P],
+    # x, B, C, dt, A, h0 (or NULL), y, h, batch, S, H, P, N, Q, stream
+    "ssd_scan_f32_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _P],
+    # x, B, C, dt, A, h0 (or NULL), y, h, states, cum, batch, S, H, P, N,
+    # Q, stream
+    "ssd_scan_bf16_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

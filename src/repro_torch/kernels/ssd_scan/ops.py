@@ -2,7 +2,9 @@
 
 Replaces ``src/repro/kernels/ssd_scan/kernel.py::ssd_scan`` (body
 ``_kernel``), reached through ``ops.py::ssd`` on the fused backend's
-training path (``ComputeBackend.ssd`` with no carried state).  The kernels
+training path (``ComputeBackend.ssd`` with no carried state).  The port's
+kernel also takes a carried fp32 state ``h0`` (serving's prefill chunks),
+which the reference sends to its XLA ``_ssd_chunked`` instead.  The kernels
 are in ``csrc/ssd_scan.cu``, bound by bytes (x in, y out in fp32).  The
 route is chosen by dtype (:func:`ssd_scan_route`): bf16 x, B and C take
 three tensor-core passes (each chunk's state contribution, the carry over
@@ -23,10 +25,11 @@ indexed by batch, never copied per head.
   whatever the route); :data:`ROUTE_KERNELS` names the kernels each route
   runs, by which a profile tells the routes apart.
 - :class:`SSDScan` mirrors the reference's ``jax.custom_vjp``: the forward
-  pads and runs :func:`ssd_scan`, saving only x, B, C, dt and A; the
+  pads and runs :func:`ssd_scan`, saving only x, B, C, dt, A and h0; the
   backward recomputes :func:`ssd_chunked_ref` under autograd (the
-  reference has no backward kernel either), so its gradients equal
-  autograd through the plain version.  :func:`ssd` goes through it.
+  reference has no backward kernel either), so its gradients, h0's too,
+  equal autograd through the plain version.  :func:`ssd` goes through
+  it.
 """
 from __future__ import annotations
 
@@ -143,8 +146,9 @@ def ssd_reference(xh, Bc, Cc, dt, A, h0=None):
     return torch.stack(ys, dim=1), h
 
 
-def _check(x, Bc, Cc, dt, A, Q):
-    devs = {t.device for t in (x, Bc, Cc, dt, A)}
+def _check(x, Bc, Cc, dt, A, Q, h0=None):
+    devs = {t.device for t in (x, Bc, Cc, dt, A)
+            + (() if h0 is None else (h0,))}
     if len(devs) != 1 or x.device.type != "cuda":
         raise ValueError(f"ssd_scan: tensors on {sorted(map(str, devs))}; "
                          "all must be on one CUDA device (or all on the CPU)")
@@ -169,16 +173,23 @@ def _check(x, Bc, Cc, dt, A, Q):
     if Q > MAX_CHUNK or N > MAX_STATE:
         raise ValueError(f"ssd_scan: chunk {Q} / state {N} above the "
                          f"kernel's {MAX_CHUNK} / {MAX_STATE}")
-    if not all(t.is_contiguous() for t in (x, Bc, Cc, dt, A)):
+    if h0 is not None and (h0.dtype != torch.float32
+                           or h0.shape != (Bsz, H, P, N)):
+        raise ValueError(f"ssd_scan: h0 {h0.dtype} {tuple(h0.shape)}; "
+                         f"need float32 {(Bsz, H, P, N)}")
+    if not all(t.is_contiguous() for t in (x, Bc, Cc, dt, A)
+               + (() if h0 is None else (h0,))):
         raise ValueError("ssd_scan: inputs must be contiguous")
     if x.numel() == 0 or N == 0:
         raise ValueError("ssd_scan: empty input")
 
 
-def ssd_scan(x, Bc, Cc, dt, A, *, chunk: int = 64):
+def ssd_scan(x, Bc, Cc, dt, A, *, chunk: int = 64, h0=None):
     """x [B,S,H,P]; Bc,Cc [B,S,N]; dt [B,S,H] (fp32 post-softplus);
-    A [H] negative.  S must be a multiple of ``min(chunk, S)``.
-    Returns (y [B,S,H,P] fp32, h [B,H,P,N] fp32).  The bf16 route also
+    A [H] negative; ``h0`` None (the scan starts from zero) or the
+    carried state [B,H,P,N] fp32.  S must be a multiple of
+    ``min(chunk, S)``.  Returns (y [B,S,H,P] fp32, h [B,H,P,N] fp32); an
+    ``h0`` of zeros gives bitwise what ``h0=None`` gives.  The bf16 route also
     allocates its scratch: the chunks' states [B, S/Q, H, P, N] and their
     cum and dt [B, S/Q, H, 2, Q], fp32."""
     S = x.shape[1]
@@ -186,9 +197,10 @@ def ssd_scan(x, Bc, Cc, dt, A, *, chunk: int = 64):
     if S % Q:
         raise ValueError(f"ssd_scan: S={S} is not a multiple of the chunk "
                          f"{Q}: pad the sequence first")
-    if all(t.device.type == "cpu" for t in (x, Bc, Cc, dt, A)):
-        return ssd_chunked_ref(x, Bc, Cc, dt, A, chunk)
-    _check(x, Bc, Cc, dt, A, Q)
+    ins = (x, Bc, Cc, dt, A) + (() if h0 is None else (h0,))
+    if all(t.device.type == "cpu" for t in ins):
+        return ssd_chunked_ref(x, Bc, Cc, dt, A, chunk, h0)
+    _check(x, Bc, Cc, dt, A, Q, h0)
     route = ssd_scan_route(x.dtype)
     Bsz, _, H, P = x.shape
     N = Bc.shape[-1]
@@ -202,7 +214,9 @@ def ssd_scan(x, Bc, Cc, dt, A, *, chunk: int = 64):
     # state it starts from; each chunk's cum and dt
     scratch = [torch.empty((Bsz, S // Q, H, P, N), **f32),
                torch.empty((Bsz, S // Q, H, 2, Q), **f32)] if tc else []
-    err = launch(*(t.data_ptr() for t in (x, Bc, Cc, dt, A, y, h, *scratch)),
+    err = launch(*(t.data_ptr() for t in (x, Bc, Cc, dt, A)),
+                 None if h0 is None else h0.data_ptr(),
+                 *(t.data_ptr() for t in (y, h, *scratch)),
                  Bsz, S, H, P, N, Q,
                  torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, f"ssd_scan ({route})")
@@ -217,34 +231,36 @@ class SSDScan(torch.autograd.Function):
     """Kernel forward (padded to the chunk), plain-version backward."""
 
     @staticmethod
-    def forward(ctx, x, Bc, Cc, dt, A, chunk):
-        ctx.save_for_backward(x, Bc, Cc, dt, A)
+    def forward(ctx, x, Bc, Cc, dt, A, h0, chunk):
+        ctx.save_for_backward(x, Bc, Cc, dt, A, h0)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         xp, Bp, Cp, dtp, S = _pad_to_chunk(x.contiguous(), Bc.contiguous(),
                                            Cc.contiguous(),
                                            dt.contiguous(), chunk)
-        y, h = ssd_scan(xp, Bp, Cp, dtp, A.contiguous(), chunk=chunk)
+        y, h = ssd_scan(xp, Bp, Cp, dtp, A.contiguous(), chunk=chunk,
+                        h0=None if h0 is None else h0.contiguous())
         return y[:, :S], h
 
     @staticmethod
     def backward(ctx, dy, dh):
         saved = ctx.saved_tensors
         with torch.enable_grad():
-            ins = [a.detach().requires_grad_(need) for a, need in
-                   zip(saved, ctx.needs_input_grad[:5])]
-            y, h = ssd_chunked_ref(*ins, ctx.chunk)
+            ins = [None if a is None else a.detach().requires_grad_(need)
+                   for a, need in zip(saved, ctx.needs_input_grad[:6])]
+            y, h = ssd_chunked_ref(*ins[:5], ctx.chunk, ins[5])
             outs = [o for o, g in ((y, dy), (h, dh)) if g is not None]
             seeds = [g for g in (dy, dh) if g is not None]
-            wrt = [a for a in ins if a.requires_grad]
+            needs = [a is not None and a.requires_grad for a in ins]
+            wrt = [a for a, need in zip(ins, needs) if need]
             grads = iter(torch.autograd.grad(outs, wrt, seeds,
                                              allow_unused=True))
-        return tuple(next(grads) if a.requires_grad else None
-                     for a in ins) + (None,)
+        return tuple(next(grads) if need else None
+                     for need in needs) + (None,)
 
 
-def ssd(x, Bc, Cc, dt, A, *, chunk: int = 64):
-    """x [B,S,H,P]; Bc,Cc [B,S,N]; dt [B,S,H]; A [H].  Returns
-    (y [B,S,H,P] fp32, h_final [B,H,P,N] fp32), differentiable in every
-    input."""
-    return SSDScan.apply(x, Bc, Cc, dt, A, int(chunk))
+def ssd(x, Bc, Cc, dt, A, *, chunk: int = 64, h0=None):
+    """x [B,S,H,P]; Bc,Cc [B,S,N]; dt [B,S,H]; A [H]; ``h0`` None or the
+    carried fp32 state [B,H,P,N].  Returns (y [B,S,H,P] fp32, h_final
+    [B,H,P,N] fp32), differentiable in every input."""
+    return SSDScan.apply(x, Bc, Cc, dt, A, h0, int(chunk))

@@ -4,6 +4,14 @@ prefill + steady-tick decode with continuous batching) on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --full --pipelined 1
     PYTHONPATH=src python -m repro_torch.launch.serve --pipelined 2 \
         --requests 8 --rate 4.0 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --full --chunk 128 --prompt-chunks 2 --prompt-len 256
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2-moe-a2.7b --pipelined 2 --device cpu
+
+Every registered architecture serves (dense, Mamba-2, MoE, hybrid); a
+config with Mamba-2 layers needs ``--chunk`` a multiple of its SSD chunk
+length (128 for the full mamba2-2.7b, 16 reduced).
 
 Runs on CUDA unless ``--device cpu``; ``--kernels plain`` swaps the
 hand-written kernels for plain PyTorch.  Weights are random, drawn from
@@ -25,6 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32,
                     help="sizes the slot buffer: max_seq = prompt-len + "
                          "gen + 4 * chunk")
+    ap.add_argument("--prompt-chunks", type=int, default=4,
+                    help="most prefill chunks per prompt (prompts are 1 "
+                         "to this many chunks long)")
     ap.add_argument("--gen", type=int, default=16,
                     help="most new tokens per request")
     ap.add_argument("--gen-min", type=int, default=4,
@@ -77,6 +88,8 @@ def validate_args(args) -> None:
         die(f"--rate must be > 0 req/s, got {args.rate}")
     if args.chunk < 1:
         die(f"--chunk must be >= 1, got {args.chunk}")
+    if args.prompt_chunks < 1:
+        die(f"--prompt-chunks must be >= 1, got {args.prompt_chunks}")
     if args.slots < 0:
         die(f"--slots must be >= 0, got {args.slots}")
     if not 1 <= args.gen_min <= args.gen:
@@ -98,19 +111,20 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     from repro_torch.serve.engine import check_servable
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    check_servable(cfg)
+    check_servable(cfg, args.chunk)
     lm = LM(cfg, kernels=args.kernels, device=args.device)
     gen = torch.Generator(device=lm.device).manual_seed(0)
     params = lm.init(gen)
     max_seq = args.prompt_len + args.gen + 4 * args.chunk
     reqs = poisson_requests(args.requests, args.rate, chunk=args.chunk,
                             max_seq=max_seq,
+                            prompt_range=(1, args.prompt_chunks),
                             gen_range=(args.gen_min, args.gen),
                             vocab=cfg.vocab_size, seed=0)
     eng = PipelinedEngine(cfg, params, P=args.pipelined, chunk=args.chunk,
                           max_seq=max_seq, n_slots=args.slots or None,
                           kernels=args.kernels, device=lm.device)
-    del params      # the engine holds the stage-packed copy
+    del params      # the engine holds the stage-packed weights
     res = eng.serve(reqs)
     s = summarize(res)
     print(f"[serve] arch={cfg.name} device={lm.device} kernels="

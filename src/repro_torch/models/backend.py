@@ -7,11 +7,12 @@ what runs:
 - ``"fused"`` (the default): the hand-written CUDA kernels
   (:mod:`repro_torch.kernels`) — RMSNorm rows for every layer norm, the
   flash-attention forward for every whole-sequence or prefill-chunk
-  attention, and the SSD chunk scan for every Mamba-2 scan that starts
-  from a zero state (training) — through their ``torch.autograd.Function``
-  s, so gradients flow through them (kernel forward, plain-version
-  backward, as the reference's ``custom_vjp`` s do).  On CPU tensors the
-  kernel wrappers run their plain versions.
+  attention, and the SSD chunk scan for every Mamba-2 scan, from a zero
+  state (training) or from a carried one (serving's prefill chunks) —
+  through their ``torch.autograd.Function`` s, so gradients flow through
+  them (kernel forward, plain-version backward, as the reference's
+  ``custom_vjp`` s do).  On CPU tensors the kernel wrappers run their
+  plain versions.
 - ``"plain"`` (the reference's ``"xla"`` twin): plain PyTorch ops, never
   a kernel of this package.
 
@@ -50,10 +51,12 @@ class ComputeBackend:
         return flash_attention(q, k, v, causal, window, prefix, q_offset)
 
     def ssd(self, x, Bc, Cc, dt, A, *, chunk: int, h0=None):
-        """The Mamba-2 chunk scan; the kernel takes only scans that start
-        from a zero state (a carried ``h0`` is serving's prefill)."""
-        if self.fuse_ssd and h0 is None:
-            return ssd_fused(x, Bc, Cc, dt, A, chunk=chunk)
+        """The Mamba-2 chunk scan, from a zero state or from a carried
+        fp32 ``h0`` [B,H,P,N] (serving's prefill chunks).  The kernel
+        takes both, where the reference's Pallas kernel starts only from
+        zero and sends a carried state to its XLA scan."""
+        if self.fuse_ssd:
+            return ssd_fused(x, Bc, Cc, dt, A, chunk=chunk, h0=h0)
         return ssd_chunked_ref(x, Bc, Cc, dt, A, chunk, h0)
 
 
@@ -82,9 +85,12 @@ def get_backend(kernels=None) -> ComputeBackend:
 # the ChunkBody seam
 # ---------------------------------------------------------------------------
 
-def chunk_fwd(spec, block_params_c, flags_c, x, *, kv=None, pos0=0):
-    """Run one stage's layer chunk over the boundary activation ``x``
-    [B, Sc, d] and return the new boundary.
+def chunk_fwd(spec, block_params_c, flags_c, x, aux=None, *, kv=None,
+              pos0=0):
+    """Run one stage's layer chunk over the boundary payload (``x`` [B,
+    Sc, d] and the fp32 aux sum ``aux`` [1]) and return the new boundary
+    ``(x, aux)``: each MoE layer adds its gate-weighted load-balancing
+    loss to ``aux`` (None reads as 0).
 
     ``block_params_c``: per period position, leaves [M, ...];
     ``flags_c``: {window, gate} host numpy [M, period] — host values, so
@@ -98,8 +104,8 @@ def chunk_fwd(spec, block_params_c, flags_c, x, *, kv=None, pos0=0):
     the chunk; ``pos0`` the host offset of the chunk's first position):
     the positions are ``pos0 + arange(Sc)``, every layer attends over its
     buffer with the chunk's K/V merged in out of place, and the call
-    returns ``(x, kv_out)``, ``kv_out`` the merged buffers stacked as
-    ``kv``'s leaves."""
+    returns ``(x, aux, kv_out)``, ``kv_out`` the merged buffers stacked
+    as ``kv``'s leaves."""
     from repro_torch.models.transformer import _apply_layer, _index
     bk = get_backend(spec.kernels)
     cfg = spec.cfg
@@ -107,30 +113,38 @@ def chunk_fwd(spec, block_params_c, flags_c, x, *, kv=None, pos0=0):
     positions = (pos0 + torch.arange(Sc, device=x.device))[None].expand(
         Bz, Sc)
     win, gate = flags_c["window"], flags_c["gate"]
+    acc = aux[0] if aux is not None else 0.0
     outs = []
     for mi in range(win.shape[0]):
         for j in range(spec.layout.period):
-            x, nc = _apply_layer(
+            x, nc, acc = _apply_layer(
                 _index(block_params_c[j], mi), x, positions, cfg, j,
                 kv=None if kv is None else {"k": kv["k"][mi, j],
                                             "v": kv["v"][mi, j]},
-                cache_pos=pos0, window_override=int(win[mi, j]),
-                gate=float(gate[mi, j]), backend=bk)
+                cache_pos=pos0, aux_sum=acc,
+                window_override=int(win[mi, j]), gate=float(gate[mi, j]),
+                backend=bk)
             outs.append(nc)
+    if isinstance(acc, torch.Tensor):
+        aux = acc.reshape(1)
     if kv is None:
-        return x
+        return x, aux
     shape = kv["k"].shape
-    return x, {n: torch.stack([o[n] for o in outs]).view(shape)
-               for n in ("k", "v")}
+    return x, aux, {n: torch.stack([o[n] for o in outs]).view(shape)
+                    for n in ("k", "v")}
 
 
-def head_loss(spec, params, x, labels, loss_mask=None, denom=None):
-    """Final norm + unembed + CE: the loss of one microbatch at the last
-    stage (the reference's MoE aux term is zero for the models ported).
-    ``denom``: the sequence-chunked executor's fixed normalizer (the
-    whole microbatch's token or mask count), so chunk losses sum to the
-    microbatch's mean."""
+def head_loss(spec, params, x, labels, loss_mask=None, denom=None,
+              aux=None):
+    """Final norm + unembed + CE, plus ``spec.aux_weight`` times the
+    payload's MoE aux sum ``aux`` [1] where one is given: the loss of one
+    microbatch at the last stage.  ``denom``: the sequence-chunked
+    executor's fixed normalizer (the whole microbatch's token or mask
+    count), so chunk losses sum to the microbatch's mean."""
     bk = get_backend(spec.kernels)
     h = bk.rmsnorm(params["final_norm"], x, spec.cfg.norm_eps)
     logits = L.unembed(params["embed"], h)
-    return L.softmax_xent(logits, labels, loss_mask, denom=denom)
+    ce = L.softmax_xent(logits, labels, loss_mask, denom=denom)
+    if aux is None:
+        return ce
+    return ce + spec.aux_weight * aux[0]

@@ -20,7 +20,9 @@ def dense_init(gen, shape, fan_in: int, dtype, device):
     """``dense_init``: N(0, 1) / sqrt(fan_in), drawn in fp32 on the
     generator's device, then cast and moved to ``device``."""
     w = torch.randn(shape, generator=gen, device=gen.device)
-    return (w * (1.0 / math.sqrt(fan_in))).to(dtype).to(device)
+    # scaled in place: one fp32 draw alive at a time (a full-width MoE
+    # expert stack is 4.2 G elements)
+    return w.mul_(1.0 / math.sqrt(fan_in)).to(dtype).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -58,6 +60,16 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 # MLP (swiglu / geglu / gelu)
 # ---------------------------------------------------------------------------
+
+def init_mlp(gen, n: int, d: int, ff: int, act: str, dtype, device):
+    """``n`` MLPs, leaves stacked ``[n, ...]``: ``wi`` [d, ff], ``wo``
+    [ff, d], and the gate ``wg`` [d, ff] for the gated activations."""
+    p = {"wi": dense_init(gen, (n, d, ff), d, dtype, device),
+         "wo": dense_init(gen, (n, ff, d), ff, dtype, device)}
+    if act in ("silu", "geglu"):
+        p["wg"] = dense_init(gen, (n, d, ff), d, dtype, device)
+    return p
+
 
 def _act(x, act: str):
     if act in ("silu",):

@@ -1,0 +1,143 @@
+"""Mixture-of-Experts FFN with top-k routing and capacity-based
+sort/scatter dispatch (port of ``repro/models/moe.py``).
+
+The router runs in fp32: softmax, top-k, gates renormalised over the k
+picks.  Tokens are dispatched by a stable sort on their expert id into
+``[E, cap, d]`` buffers (each token's rank within its expert decides
+whether it fits; the rest go to a drop slot), the experts' products are
+batched matmuls over that buffer, and the outputs come back gate-weighted
+to their tokens.  A layer with shared experts adds their MLP.
+
+Ties in the top-k break as ``lax.top_k`` breaks them, the lower expert
+first: the picks are a stable descending sort of the probabilities.  The
+combine is a gather, not the reference's scatter-add: each token sums its
+``k`` outputs in the order of their sorted positions (ascending expert),
+the order in which a sequential scatter-add adds them, so the forward is
+deterministic on the card (CUDA's ``index_add`` adds by atomics in no
+fixed order).  The backward's scatter of the dispatch gather still adds
+a token's ``k`` input gradients by atomics on CUDA.  Nothing here syncs
+with the host: the counts are an integer scatter-add, not
+``bincount``.
+
+Parameters are stacked ``[n, ...]`` as every layer tree of the port; the
+functions below take one layer's (unstacked) tree.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.models import layers as L
+
+
+def init_moe(gen, n: int, d: int, cfg: MoEConfig, act: str, dtype,
+             device) -> Dict:
+    """``n`` MoE FFNs, leaves stacked ``[n, ...]``, at the reference's
+    ``dense_init`` scales (not its bits): the router ``[d, E]`` in fp32
+    at any parameter dtype, experts ``wi``/``wg`` ``[E, d, F]`` and
+    ``wo`` ``[E, F, d]``, and the shared experts' MLP at
+    ``num_shared_experts * d_ff_shared``."""
+    E, F = cfg.num_experts, cfg.d_ff_expert
+    p = {"router": L.dense_init(gen, (n, d, E), d, torch.float32, device),
+         "wi": L.dense_init(gen, (n, E, d, F), d, dtype, device),
+         "wo": L.dense_init(gen, (n, E, F, d), F, dtype, device)}
+    if act in ("silu", "geglu"):
+        p["wg"] = L.dense_init(gen, (n, E, d, F), d, dtype, device)
+    if cfg.num_shared_experts:
+        p["shared"] = L.init_mlp(gen, n, d,
+                                 cfg.num_shared_experts * cfg.d_ff_shared,
+                                 act, dtype, device)
+    return p
+
+
+def capacity(T: int, cfg: MoEConfig) -> int:
+    """Slots per expert for ``T`` tokens: ``ceil(T k / E)`` times the
+    capacity factor, rounded up to a multiple of 128 (or of 16 below
+    128), as the reference rounds it."""
+    K, E = cfg.top_k, cfg.num_experts
+    cap = int(max(1, -(-T * K // E) * cfg.capacity_factor))
+    quantum = 128 if cap >= 128 else 16
+    return -(-cap // quantum) * quantum
+
+
+def route(xt, router, K: int):
+    """fp32 router: ``(probs [T, E], gate_vals [T, K], gate_idx [T, K])``
+    with the gates renormalised over the picks; ties pick the lower
+    expert first (``lax.top_k``'s order)."""
+    probs = torch.softmax(xt.float() @ router, dim=-1)
+    _, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_idx = order[:, :K]
+    gate_vals = probs.gather(1, gate_idx)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def moe_ffn(params, x, cfg: MoEConfig, act: str) -> Tuple[torch.Tensor,
+                                                          Dict]:
+    """x: [B, S, d] -> (y, aux) with aux = {"lb_loss",
+    "router_fraction_dropped"} (fp32 scalars)."""
+    Bz, S, d = x.shape
+    T = Bz * S
+    E, K = cfg.num_experts, cfg.top_k
+    xt = x.reshape(T, d)
+    dev = x.device
+
+    probs, gate_vals, gate_idx = route(xt, params["router"], K)
+
+    # ---- load-balancing auxiliary loss (Switch-style) ----
+    flat_exp = gate_idx.reshape(-1)                           # [T*K]
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).index_add_(
+        0, flat_exp, torch.ones_like(flat_exp))
+    me = probs.mean(dim=0)                                    # [E]
+    ce = counts.float() / T          # mean over tokens of the k-hot rows
+    lb_loss = E * (me * ce).sum()
+
+    # ---- sort-based capacity dispatch ----
+    cap = capacity(T, cfg)
+    flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
+    flat_w = gate_vals.reshape(-1)
+    order = torch.argsort(flat_exp, stable=True)
+    sorted_exp = flat_exp[order]
+    sorted_tok = flat_tok[order]
+    sorted_w = flat_w[order]
+    offsets = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * K, device=dev) - offsets[sorted_exp]
+    keep = rank < cap
+    dest = torch.where(keep, sorted_exp * cap + rank,
+                       torch.full_like(rank, E * cap))        # drop slot
+
+    # scatter tokens into [E*cap (+1 drop slot), d]; only the drop slot
+    # takes more than one row, and it is cut off
+    src = xt[sorted_tok] * keep[:, None].to(x.dtype)
+    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype,
+                      device=dev).index_copy(0, dest, src)
+    eb = buf[:E * cap].reshape(E, cap, d)
+
+    h = torch.bmm(eb, params["wi"])
+    if "wg" in params:
+        h = L._act(torch.bmm(eb, params["wg"]), act) * h
+    else:
+        h = L._act(h, act)
+    out = torch.bmm(h, params["wo"])                          # [E, cap, d]
+
+    # gather back + weighted combine: token t's rows of ``back`` sit at
+    # the sorted positions of its k picks, added in ascending position
+    out_flat = torch.cat([out.reshape(E * cap, d),
+                          torch.zeros((1, d), dtype=out.dtype, device=dev)])
+    back = out_flat[dest] * (sorted_w * keep)[:, None].to(out.dtype)
+    pos = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * K, device=dev))
+    pos = pos.view(T, K).sort(dim=1).values
+    y = back[pos[:, 0]]
+    for k in range(1, K):
+        y = y + back[pos[:, k]]
+
+    if "shared" in params:
+        y = y + L.mlp(params["shared"], xt, act)
+
+    aux = {"lb_loss": lb_loss,
+           "router_fraction_dropped": 1.0 - keep.float().mean()}
+    return y.reshape(Bz, S, d), aux

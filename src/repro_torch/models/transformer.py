@@ -1,6 +1,9 @@
-"""Decoder LM of the port: the dense-attention and Mamba-2 paths of
-``repro/models/transformer.py`` (each layer is ``norm1`` + attention or
-Mamba-2 block, then ``norm2`` + MLP when the config has an FFN).
+"""Decoder LM of the port: the dense-attention, Mamba-2, MoE and hybrid
+paths of ``repro/models/transformer.py`` (each layer is ``norm1`` +
+attention or Mamba-2 block, then ``norm2`` + an MoE FFN on the config's
+MoE layers, else an MLP when the config has an FFN).  MoE layers add
+their load-balancing loss, weighted by the layer's gate, into the aux
+sum that ``LM.loss`` adds at 0.01.
 
 Parameters are a plain tree with the reference's structure and layout:
 ``{"embed": {"tokens"[, "head"]}, "final_norm": {"scale"}, "layers":
@@ -23,6 +26,7 @@ from repro_torch.configs.base import ModelConfig, RecomputeConfig
 from repro_torch.models import backend as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -34,10 +38,12 @@ def _dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def _init_layers(gen, cfg: ModelConfig, n: int, device,
-                 kind: str) -> Dict[str, Any]:
-    """``n`` decoder layers of ``kind`` ('attn' | 'mamba') with leaves
-    stacked [n, ...]: ``norm1`` and the mixer, then ``norm2`` and the MLP
-    when the config has an FFN (``d_ff > 0``; mamba2 has none)."""
+                 idx: int) -> Dict[str, Any]:
+    """``n`` decoder layers shaped as layer ``idx`` (its period position
+    decides the kind and the FFN) with leaves stacked [n, ...]:
+    ``norm1`` and the mixer (attention or Mamba-2), then ``norm2`` and
+    the MoE FFN on an MoE layer, else the MLP when the config has an FFN
+    (``d_ff > 0``; mamba2 has none, jamba's Mamba-2 layers have one)."""
     dt = _dtype(cfg.param_dtype)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, G, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
@@ -49,7 +55,7 @@ def _init_layers(gen, cfg: ModelConfig, n: int, device,
         return L.dense_init(gen, (n,) + shape, fan_in, dt, device)
 
     layer: Dict[str, Any] = {"norm1": {"scale": ones()}}
-    if kind == "attn":
+    if cfg.layer_kind(idx) == "attn":
         layer["attn"] = {"wq": dense((d, H * hd), d),
                          "wk": dense((d, G * hd), d),
                          "wv": dense((d, G * hd), d),
@@ -61,12 +67,13 @@ def _init_layers(gen, cfg: ModelConfig, n: int, device,
                                                   device=device)
     else:
         layer["mamba"] = M.init_mamba(gen, n, d, cfg.ssm, dt, device)
-    if ff:
-        mlp = {"wi": dense((d, ff), d), "wo": dense((ff, d), ff)}
-        if cfg.act in ("silu", "geglu"):
-            mlp["wg"] = dense((d, ff), d)
+    if cfg.layer_is_moe(idx):
         layer["norm2"] = {"scale": ones()}
-        layer["mlp"] = mlp
+        layer["moe"] = MOE.init_moe(gen, n, d, cfg.moe, cfg.act, dt,
+                                    device)
+    elif ff:
+        layer["norm2"] = {"scale": ones()}
+        layer["mlp"] = L.init_mlp(gen, n, d, ff, cfg.act, dt, device)
     return layer
 
 
@@ -84,9 +91,10 @@ def _init_cache_layer(cfg: ModelConfig, idx: int, batch: int, seq: int,
 
 def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
                  cache=None, kv=None, cache_pos: int = 0,
-                 prefix_len: int = 0, window_override=None, gate=None,
-                 backend=None):
-    """One decoder layer.  Returns (x, new_cache).
+                 prefix_len: int = 0, aux_sum=0.0, window_override=None,
+                 gate=None, backend=None):
+    """One decoder layer.  Returns (x, new_cache, aux_sum): an MoE layer
+    adds its ``lb_loss`` (times ``gate``) to ``aux_sum``.
 
     ``cache``: serving's slot cache, written in place; ``kv``: a
     sequence-chunked training step's full-sequence K/V buffer, merged
@@ -95,10 +103,11 @@ def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
 
     ``window_override``: per-layer sliding window carried as data (the
     pipeline engine's flags).  ``gate``: 0/1 multiplier on the residual
-    branches (0 = padding layer: passthrough).  ``backend``: compute
-    backend; None = the default (fused)."""
+    branches and the aux term (0 = padding layer: passthrough).
+    ``backend``: compute backend; None = the default (fused)."""
     bk = backend if backend is not None else B.get_backend()
     kind = cfg.layer_kind(idx)
+    scaled = gate is not None and gate != 1.0   # x * 1.0 is x: skip the op
     if window_override is not None:
         window = window_override
         if bk.fuse_attention and cfg.sliding_window == 0:
@@ -122,16 +131,24 @@ def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
                              "sequence chunking is dense-attention only")
         y, new_cache = M.mamba_block(p["mamba"], h, cfg.ssm, cache=cache,
                                      norm_eps=cfg.norm_eps, backend=bk)
-    if gate is not None and gate != 1.0:     # x * 1.0 is x: skip the op
+    if scaled:
         y = y * gate
     x = x + y
-    if "mlp" in p:
+    if "moe" in p:
+        h = bk.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        y, aux = MOE.moe_ffn(p["moe"], h, cfg.moe, cfg.act)
+        lb = aux["lb_loss"]
+        if scaled:
+            y, lb = y * gate, lb * gate
+        aux_sum = aux_sum + lb
+        x = x + y
+    elif "mlp" in p:
         h = bk.rmsnorm(p["norm2"], x, cfg.norm_eps)
         y = L.mlp(p["mlp"], h, cfg.act)
-        if gate is not None and gate != 1.0:
+        if scaled:
             y = y * gate
         x = x + y
-    return x, new_cache
+    return x, new_cache, aux_sum
 
 
 def _index(tree, i):
@@ -146,9 +163,9 @@ def _index(tree, i):
 # ---------------------------------------------------------------------------
 
 class LM:
-    """Decoder LM (dense attention or Mamba-2).  ``kernels`` selects the
-    compute backend ("fused" default, or "plain"); ``device`` where
-    parameters and caches live (CUDA unless the caller asks for the
+    """Decoder LM (dense attention, Mamba-2, MoE or hybrid).  ``kernels``
+    selects the compute backend ("fused" default, or "plain"); ``device``
+    where parameters and caches live (CUDA unless the caller asks for the
     CPU)."""
 
     def __init__(self, cfg: ModelConfig, *, kernels=None, device="cuda"):
@@ -176,13 +193,12 @@ class LM:
         params["final_norm"] = {"scale": torch.ones((d,), dtype=dt,
                                                     device=dev)}
         params["layers"] = [_init_layers(generator, cfg, self.num_periods,
-                                         dev, cfg.layer_kind(j))
+                                         dev, j)
                             for j in range(self.period)
                             if self.num_periods]
         base = self.num_periods * self.period
         params["rem_layers"] = [
-            _index(_init_layers(generator, cfg, 1, dev,
-                                cfg.layer_kind(base + r)), 0)
+            _index(_init_layers(generator, cfg, 1, dev, base + r), 0)
             for r in range(self.num_rem)]
         return params
 
@@ -190,37 +206,41 @@ class LM:
     def _stack(self, params, x, positions, *, cache=None, cache_pos=0,
                recomp: Optional[RecomputeConfig] = None,
                num_chunks: int = 1):
-        """Run all decoder layers.  The periods split into ``num_chunks``
-        Chronos chunks as the reference's do; with ``recomp`` (and no
-        cache) every period of chunk ``ci`` runs under
-        :func:`_wrap_remat`'s checkpoint.  The remainder layers (the
-        deepest, of the last chunk) run unwrapped, as in the reference."""
+        """Run all decoder layers; returns ``(x, aux)``, ``aux`` the fp32
+        sum of the MoE layers' load-balancing losses (0 without MoE).
+        The periods split into ``num_chunks`` Chronos chunks as the
+        reference's do; with ``recomp`` (and no cache) every period of
+        chunk ``ci`` runs under :func:`_wrap_remat`'s checkpoint.  The
+        remainder layers (the deepest, of the last chunk) run unwrapped,
+        as in the reference."""
         cfg = self.cfg
         nper = self.num_periods
         chunk_bounds = [round(c * nper / num_chunks)
                         for c in range(num_chunks + 1)]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def period_body(x, i):
+        def period_body(x, aux, i):
             for j in range(self.period):
                 c = None if cache is None else _index(cache["periods"][j], i)
-                x, _ = _apply_layer(
+                x, _, aux = _apply_layer(
                     _index(params["layers"][j], i), x, positions, cfg, j,
-                    cache=c, cache_pos=cache_pos, backend=self.backend)
-            return x
+                    cache=c, cache_pos=cache_pos, aux_sum=aux,
+                    backend=self.backend)
+            return x, aux
 
         for ci in range(num_chunks):
             body = period_body
             if recomp is not None and cache is None:
                 body = _wrap_remat(period_body, recomp, ci)
             for i in range(chunk_bounds[ci], chunk_bounds[ci + 1]):
-                x = body(x, i)
+                x, aux = body(x, aux, i)
         for r in range(self.num_rem):
             idx = nper * self.period + r
             c = None if cache is None else cache["rem"][r]
-            x, _ = _apply_layer(params["rem_layers"][r], x, positions, cfg,
-                                idx, cache=c, cache_pos=cache_pos,
-                                backend=self.backend)
-        return x
+            x, _, aux = _apply_layer(params["rem_layers"][r], x, positions,
+                                     cfg, idx, cache=c, cache_pos=cache_pos,
+                                     aux_sum=aux, backend=self.backend)
+        return x, aux
 
     def embed(self, params, tokens):
         """Token embedding scaled by sqrt(d), in the compute dtype.  The
@@ -236,8 +256,9 @@ class LM:
 
     def hidden(self, params, tokens, *, positions=None, cache=None,
                cache_pos: int = 0, recomp=None, num_chunks: int = 1):
-        """tokens [B, S] -> the last layer's hidden states [B, S, d] (before
-        the head).  K/V are written into ``cache`` in place."""
+        """tokens [B, S] -> (the last layer's hidden states [B, S, d]
+        before the head, the MoE aux sum).  K/V and SSM state are written
+        into ``cache`` in place."""
         Bz, S = tokens.shape
         if positions is None:
             pos0 = cache_pos if cache is not None else 0
@@ -254,24 +275,25 @@ class LM:
         """tokens [B, S] -> (logits [B, S, V], cache).  ``recomp`` (a
         :class:`RecomputeConfig`) and ``num_chunks``: Chronos-Recomp over
         the stack's chunks (training only; ignored with a cache)."""
-        x = self.hidden(params, tokens, positions=positions, cache=cache,
-                        cache_pos=cache_pos, recomp=recomp,
-                        num_chunks=num_chunks)
+        x, _ = self.hidden(params, tokens, positions=positions, cache=cache,
+                           cache_pos=cache_pos, recomp=recomp,
+                           num_chunks=num_chunks)
         return self.head(params, x), cache
 
     def loss(self, params, batch, *, recomp=None, num_chunks: int = 1):
         """batch: {'tokens': [B, S], 'loss_mask': [B, S] optional}.
-        Next-token CE over the whole stack (the single-device training
-        loss, and the oracle of the pipeline executor).  Returns ``(loss,
-        {"ce": ce})``; the reference's MoE aux term is zero for the
-        models ported."""
+        Next-token CE over the whole stack plus 0.01 times the MoE
+        layers' load-balancing sum (the single-device training loss, and
+        the oracle of the pipeline executor).  Returns ``(ce + 0.01 *
+        aux, {"ce": ce, "aux": aux})``."""
         tokens = batch["tokens"]
-        logits, _ = self.forward(params, tokens[:, :-1], recomp=recomp,
-                                 num_chunks=num_chunks)
+        x, aux = self.hidden(params, tokens[:, :-1], recomp=recomp,
+                             num_chunks=num_chunks)
+        logits = self.head(params, x)
         mask = batch.get("loss_mask")
         ce = L.softmax_xent(logits, tokens[:, 1:],
                             None if mask is None else mask[:, 1:])
-        return ce, {"ce": ce}
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, seq: int):
         cfg = self.cfg
@@ -293,15 +315,15 @@ class LM:
         against an existing cache (the engine's unit of work).  Returns
         the last position's logits [B, V] and the (updated in place)
         cache.  Only the last position goes through the head."""
-        x = self.hidden(params, tokens, cache=cache, cache_pos=pos0)
+        x, _ = self.hidden(params, tokens, cache=cache, cache_pos=pos0)
         return self.head(params, x[:, -1:])[:, -1], cache
 
     def decode_step(self, params, tokens1, cache, pos: int):
         """tokens1 [B, 1]; pos: host int (same position for the batch)."""
         positions = torch.full((tokens1.shape[0], 1), pos, dtype=torch.int64,
                                device=tokens1.device)
-        x = self.hidden(params, tokens1, positions=positions, cache=cache,
-                        cache_pos=pos)
+        x, _ = self.hidden(params, tokens1, positions=positions,
+                           cache=cache, cache_pos=pos)
         return self.head(params, x)[:, -1], cache
 
 
@@ -347,7 +369,7 @@ def _wrap_remat(body, recomp: RecomputeConfig, chunk_idx: int):
         selective = True
     context_fn = _selective_contexts if selective else noop_context_fn
 
-    def wrapped(x, i):
-        return checkpoint(body, x, i, use_reentrant=False,
+    def wrapped(x, aux, i):
+        return checkpoint(body, x, aux, i, use_reentrant=False,
                           context_fn=context_fn, preserve_rng_state=False)
     return wrapped

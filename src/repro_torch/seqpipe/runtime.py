@@ -32,9 +32,9 @@ is its partial sum over the whole microbatch's count (``mbB * S``
 tokens, or the microbatch's mask sum under ``batch["loss_mask"]``), so
 the chunk losses, and their gradient seeds, sum to the unchunked mean.
 
-Scope, as in the reference: dense attention LMs, the interleaved
-placement and fused backwards (no W ops); ``make_pipeline_spec``
-refuses the rest.
+Scope, as in the reference: dense attention LMs (no SSM or MoE layers,
+so the payload's aux sum is not carried), the interleaved placement and
+fused backwards (no W ops); ``make_pipeline_spec`` refuses the rest.
 """
 from __future__ import annotations
 
@@ -107,8 +107,8 @@ class SeqExecutor(_Executor):
                     else _at(r["fq"][d], src)
                 if aslot >= 0:
                     r["act"][d][c][aslot].copy_(x_in)
-                out, kv_out = chunk(self._block(params, d, c, False), x_in,
-                                    kv)
+                out, _, kv_out = chunk(self._block(params, d, c, False),
+                                       x_in, kv)
                 for n in KV:
                     kv[n].copy_(kv_out[n])
                 if last:
@@ -116,7 +116,7 @@ class SeqExecutor(_Executor):
                     if q == 0:
                         acc["n"] += 1
                     return None
-                return out
+                return out, None
 
         # B: replay the chunk over the slot's K/V; the K/V input needs its
         # cotangent only when an earlier chunk (q > 0) will read it
@@ -127,9 +127,9 @@ class SeqExecutor(_Executor):
             if first:
                 x = _embed_tokens(spec, sh, tok_in)
             else:
-                x = self._boundary(d, c, aslot, rslot).detach() \
+                x = self._boundary(d, c, aslot, rslot)[0].detach() \
                     .requires_grad_()
-            out, kv_out = chunk(blocks_c, x, kv_in)
+            out, _, kv_out = chunk(blocks_c, x, kv_in)
             outs = [head(sh, out) if last else out]
             seeds = [None if last else _at(r["bq"][d], src)]
             if q < spec.n_seq - 1:
@@ -142,4 +142,4 @@ class SeqExecutor(_Executor):
         if q > 0:
             for n, g in zip(KV, gs):
                 dkv[n].copy_(g)
-        return None if first else gs[-1]
+        return None if first else (gs[-1], None)

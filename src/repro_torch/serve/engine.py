@@ -5,9 +5,11 @@ The model is split into ``P`` pipeline stages by :class:`StageLayout`
 
 - **prefill**: a prompt streams through the stages in sequence chunks of
   ``chunk`` tokens, back-to-back.  Each stage appends the chunk's K/V in
-  the request's slot cache and hands the boundary activation down the
+  the request's slot cache (a Mamba-2 layer carries its conv tails and
+  SSM state there instead) and hands the boundary activation down the
   wire.  Every prefill chunk runs the flash-attention kernel in every
-  layer.
+  attention layer and the SSD scan kernel, from the slot's carried
+  state, in every Mamba-2 layer.
 - **decode** rides steady-state ticks: a request slot re-enters the pipe
   one token at a time, one token per pipeline revolution (``P`` ticks),
   with every tick in between free for other slots' prefill chunks or
@@ -41,15 +43,24 @@ from repro_torch.serve.scheduler import (IDLE, IDLE_INJ, PREFILL, Injection,
 from repro_torch.tree import tree_map
 
 
-def check_servable(cfg: ModelConfig) -> None:
-    """The engine keeps K/V slot caches only: a config with Mamba-2 layers
-    needs SSM slot state (conv tails and the state per slot), which is
-    not ported yet."""
-    if cfg.ssm is not None:
+SERVED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
+
+
+def check_servable(cfg: ModelConfig, chunk: int) -> None:
+    """Raise for what the engine cannot serve: a family the port has not
+    ported (encoder-decoder, VLM: NotImplementedError) and, for a config
+    with Mamba-2 layers, a prefill ``chunk`` that is not a multiple of
+    ``cfg.ssm.chunk_len`` (ValueError, the reference's assertion: the SSD
+    scan's chunk grid must land on the same boundaries as the
+    whole-prompt pass)."""
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: serving a model with SSM (Mamba-2) layers is not "
-            "ported yet (the engine has no SSM slot state); repro_torch "
-            "trains it through repro_torch.launch.train.train_pipeline")
+            f"{cfg.name}: serving a {cfg.family!r} model is not ported yet "
+            f"(the port serves {', '.join(SERVED_FAMILIES)})")
+    if cfg.ssm is not None and chunk % cfg.ssm.chunk_len:
+        raise ValueError(f"prefill chunk {chunk} must align with the SSD "
+                         f"scan grid (cfg.ssm.chunk_len="
+                         f"{cfg.ssm.chunk_len})")
 
 
 def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
@@ -57,11 +68,23 @@ def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
     ``jp`` of trees with leaves ``[P, M, ...]``, where ``blocks[jp]`` leaf
     ``[d, m]`` holds global layer ``layout.global_idx(d, 0, m * period +
     jp)``.  Padding layers (``g >= L``, gate 0) get zero parameters of the
-    right structure.  The leaves are copies of the LM's weights, so engine
-    and reference compute the identical network."""
+    right structure.
+
+    Where the layout allows (no padding and no remainder layers: the
+    stage-major order is then the LM's stacking order), a block leaf is a
+    view of the LM's stacked leaf, so the engine adds no second copy of
+    the weights; otherwise the leaves are copies.
+    Either way engine and reference compute the identical network."""
     cfg = lm.cfg
     per, M = layout.period, layout.M
     assert layout.v == 1
+    order = [[layout.global_idx(d, 0, mi * per + jp) for d in range(layout.P)
+              for mi in range(M)] for jp in range(per)]
+    if not lm.num_rem and lm.num_periods == layout.P * M and all(
+            gs == [k * per + jp for k in range(lm.num_periods)]
+            for jp, gs in enumerate(order)):
+        return [tree_map(lambda a: a.view((layout.P, M) + a.shape[1:]),
+                         params["layers"][jp]) for jp in range(per)]
 
     def lm_layer(g):
         if g < lm.num_periods * lm.period:
@@ -95,12 +118,13 @@ def new_telemetry() -> Dict:
 class PipelinedEngine:
     """Seq-chunked prefill + steady-tick decode over ``P`` virtual stages
     on one device.  ``lm_params`` is an ``LM.init`` (or bridged) tree on
-    ``device``; it is packed into stage blocks here."""
+    ``device``; it is packed into stage blocks here (views of its layer
+    leaves where the layout allows, see :func:`pack_blocks`)."""
 
     def __init__(self, cfg: ModelConfig, lm_params, *, P: int, chunk: int,
                  max_seq: int, n_slots: Optional[int] = None,
                  kernels: str = "fused", device="cuda"):
-        check_servable(cfg)
+        check_servable(cfg, chunk)
         self.cfg = cfg
         self.P = P
         self.chunk = chunk
@@ -145,15 +169,16 @@ class PipelinedEngine:
         caches_s = [{k: a[s] for k, a in t.items()} for t in self.caches]
         view = read_slot(caches_s, inj.slot)
         if inj.op == PREFILL and inj.first:
-            # first chunk: clear the slot so the previous tenant's K/V
-            # cannot leak (the slot then equals a fresh single-host cache)
+            # first chunk: clear the slot so the previous tenant's K/V,
+            # conv tails and SSM state cannot leak (the slot then equals
+            # a fresh single-host cache)
             zero_slot(view)
         positions = torch.arange(inj.pos, inj.pos + n, device=dev)[None]
         win, gate = self.flags["window"][s], self.flags["gate"][s]
         for mi in range(self.layout.M):
             for jp in range(self.layout.period):
                 cache = {k: a[mi] for k, a in view[jp].items()}
-                x, _ = _apply_layer(
+                x, _, _ = _apply_layer(    # aux: a training term only
                     self._stage_params[s][mi][jp], x, positions, cfg, jp,
                     cache=cache, cache_pos=inj.pos,
                     window_override=int(win[mi, jp]),

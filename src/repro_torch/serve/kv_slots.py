@@ -2,10 +2,17 @@
 ``repro/serve/kv_slots.py``).
 
 Each pipeline stage owns the caches of its layers only, stacked
-``[P, M, n_slots, max_seq, G, hd]``: the slot axis sits where
-``LM.init_cache`` puts its batch axis, so one slot's view is shaped like
-a single-host batch-1 cache.  The cache tree is a list over the period
-position ``jp``.
+``[P, M, n_slots, ...]``: the slot axis sits where ``LM.init_cache``
+puts its batch axis, so one slot's view is shaped like a single-host
+batch-1 cache.  The cache tree is a list over the period position
+``jp``, each entry the leaves of that position's layer kind:
+
+- attention: ``k`` and ``v`` ``[P, M, n_slots, max_seq, G, hd]`` in the
+  parameter dtype;
+- Mamba-2: the conv tails ``conv_x`` ``[P, M, n_slots, W-1, d_in]``,
+  ``conv_B`` and ``conv_C`` ``[P, M, n_slots, W-1, N]`` in the parameter
+  dtype, and the SSM state ``h`` ``[P, M, n_slots, H, head_dim, N]`` in
+  fp32 (``max_seq`` does not size them).
 
 Unlike the reference, whose arrays are immutable, these buffers are
 updated **in place**: :func:`read_slot` returns views into the stacked
@@ -27,8 +34,9 @@ from repro_torch.models.transformer import _init_cache_layer
 def init_slot_caches(cfg, layout: StageLayout, n_slots: int, max_seq: int,
                      device) -> List:
     """Zero caches for every (stage, period-group, layer, slot): a list
-    over ``jp < layout.period`` of dicts with leaves
-    ``[P, M, n_slots, max_seq, G, hd]``."""
+    over ``jp < layout.period`` of dicts with leaves ``[P, M, n_slots,
+    ...]`` (K/V, or conv tails and SSM state, as the module docstring
+    lists)."""
     assert layout.v == 1, "serving uses v=1 (no interleaving)"
     out = []
     for jp in range(layout.period):
@@ -57,7 +65,8 @@ def write_slot(caches_local: List, view: List, slot: int) -> None:
 
 
 def zero_slot(view: List) -> None:
-    """Clear a slot view in place (a request's first prefill chunk)."""
+    """Clear a slot view in place (a request's first prefill chunk): K/V,
+    conv tails and SSM state alike."""
     for t in view:
         for a in t.values():
             a.zero_()

@@ -16,9 +16,11 @@ from repro.core.schedules import get_schedule as jax_get_schedule
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core import analysis as TA
 from repro_torch.core.schedules import REGISTRY, get_schedule
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ("tinyllama-1.1b", "mamba2-2.7b", "deepseek-7b", "qwen2-72b",
-         "llama70b-paper")
+         "llama70b-paper", "qwen2-moe-a2.7b", "grok-1-314b",
+         "jamba-v0.1-52b")
 V1 = ("gpipe", "1f1b", "zb_h1", "v_min", "v_half", "v_zb", "seq1f1b")
 SIZES = ((2, 4), (4, 8))                # (P, m); v = 2 where it applies
 GRID_P = (2, 3, 4, 6, 8, 16)
@@ -37,7 +39,8 @@ def _pair(name, P, m):
 
 def test_registered_archs():
     assert set(ARCH_IDS) == {"tinyllama-1.1b", "mamba2-2.7b", "deepseek-7b",
-                             "qwen2-72b"}
+                             "qwen2-72b", "qwen2-moe-a2.7b", "grok-1-314b",
+                             "jamba-v0.1-52b"}
     get_config("llama70b-paper")          # registered, not an ARCH_ID
     from repro_torch.configs.llama70b_paper import with_layers
     from repro.configs.llama70b_paper import with_layers as jax_with_layers
@@ -163,8 +166,26 @@ def test_max_trainable_layers_matches_jax(arch):
 
 
 def test_moe_config_raises():
-    """No MoE term yet (ROADMAP A.3): the model raises as param_count
-    does."""
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), family="moe")
+    """The MoE terms of ``MemoryModel`` (the experts' activations, the
+    router logits) and of ``param_count`` equal the reference's on an MoE
+    layout the registry does not hold (MoE on every third layer, from
+    layer 1, beside dense layers); a family the port has no fields for
+    (VLM) still raises as ``param_count`` does."""
+    moe = dataclasses.replace(get_config("qwen2-moe-a2.7b").moe,
+                              layer_period=3, layer_offset=1)
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), moe=moe)
+    jcfg = dataclasses.replace(
+        jax_get_config("qwen2-moe-a2.7b"),
+        moe=dataclasses.replace(jax_get_config("qwen2-moe-a2.7b").moe,
+                                layer_period=3, layer_offset=1))
+    assert cfg.period == jcfg.period == 3
+    assert [cfg.layer_is_moe(i) for i in range(cfg.num_layers)] == \
+        [jcfg.layer_is_moe(i) for i in range(jcfg.num_layers)]
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    for tp in (1, 4):
+        assert dataclasses.asdict(TA.MemoryModel.build(cfg, tp=tp)) == \
+            dataclasses.asdict(JA.MemoryModel.build(jcfg, tp=tp))
+    vlm = dataclasses.replace(get_config("tinyllama-1.1b"), family="vlm")
     with pytest.raises(NotImplementedError):
-        TA.MemoryModel.build(cfg)
+        TA.MemoryModel.build(vlm)

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rmsnorm import rmsnorm_rows
 from repro_torch.models import LM
 from repro_torch.serve import PipelinedEngine
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "src" / "repro_torch"
@@ -72,6 +73,30 @@ def test_bridge_tree_structure_matches_port_init():
         assert x.shape == y.shape and x.dtype == y.dtype, path
 
 
+def test_moe_tree_crosses_with_its_fp32_router():
+    """A bf16 qwen2-moe tree (reduced widths) crosses leaf for leaf with
+    the port's own ``LM.init`` tree: the same structure, shapes and
+    dtypes, the fp32 router beside bf16 experts and shared MLP, and every
+    bit kept."""
+    dt = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}
+    jcfg = dataclasses.replace(jax_get_reduced("qwen2-moe-a2.7b"), **dt)
+    cfg = dataclasses.replace(get_reduced("qwen2-moe-a2.7b"), **dt)
+    tree = jax.tree.map(np.asarray, JaxLM(jcfg).init(jax.random.key(0))[0])
+    bridged = lm_params_from_numpy(tree, "cpu")
+    own = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    a, b = list(_leaves(bridged)), list(_leaves(own))
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (path, x), (_, y) in zip(a, b):
+        assert x.shape == y.shape and x.dtype == y.dtype, path
+    dtypes = {p.rsplit("/", 1)[-1]: str(x.dtype) for p, x in a
+              if "/moe/" in p and "/shared/" not in p}
+    assert dtypes == {"router": "torch.float32", "wi": "torch.bfloat16",
+                      "wg": "torch.bfloat16", "wo": "torch.bfloat16"}
+    for (path, x), (_, y) in zip(_leaves(tree),
+                                 _leaves(lm_params_to_numpy(bridged))):
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), path
+
+
 def test_import_with_jax_and_repro_poisoned():
     mods = sorted(
         ".".join(("repro_torch",) + p.relative_to(PKG).with_suffix("").parts)
@@ -90,7 +115,10 @@ def test_import_with_jax_and_repro_poisoned():
     assert {"repro_torch.models.mamba", "repro_torch.kernels.ssd_scan.ops",
             "repro_torch.configs.mamba2_2_7b", "repro_torch.launch.train",
             "repro_torch.launch.steps", "repro_torch.models.transformer",
-            "repro_torch.data.pipeline"} <= set(mods)
+            "repro_torch.data.pipeline", "repro_torch.models.moe",
+            "repro_torch.configs.qwen2_moe_a2_7b",
+            "repro_torch.configs.grok1_314b",
+            "repro_torch.configs.jamba_v0_1_52b"} <= set(mods)
 
 
 def test_sources_import_no_jax_and_no_repro():

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_fwd)
 from repro_torch.kernels.rmsnorm import (rmsnorm_fused, rmsnorm_rows,
                                          rmsnorm_rows_ref)
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RMS_TOL = 1e-6
 FLASH_TOL = 1e-5
@@ -245,7 +246,8 @@ def test_fused_layer_gradients_equal_the_plain_layer_on_cpu():
         p = {k: {n: a.clone().requires_grad_() for n, a in v.items()}
              for k, v in layer.items()}
         xi = x.clone().requires_grad_()
-        y, _ = _apply_layer(p, xi, pos, cfg, 0, backend=bk)
+        y, _, aux = _apply_layer(p, xi, pos, cfg, 0, backend=bk)
+        assert aux == 0.0           # no MoE layer: the aux sum is untouched
         wrt = [xi] + [a for v in p.values() for a in v.values()]
         grads.append(torch.autograd.grad(y.square().sum(), wrt))
         outs.append(y.detach())

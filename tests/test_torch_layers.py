@@ -13,6 +13,7 @@ from repro.models import backend as JB
 from repro.models import layers as JL
 from repro_torch.models import backend as TB
 from repro_torch.models import layers as TL
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 D, H, G, HD, T = 128, 8, 2, 16, 64
 THETA = 10000.0

@@ -29,6 +29,7 @@ from repro_torch.kernels.ssd_scan import (SSDScan, ssd, ssd_chunked_ref,
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import backend as TB
 from repro_torch.models import mamba as TM
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CHUNK = 16
 SSD_TOL = 1e-5            # fp32 chunk scan, port vs JAX (three oracles)
@@ -78,14 +79,17 @@ def test_ssd_matches_jax(S, with_h0):
     oracles = {"_ssd_chunked": JM._ssd_chunked(*j, CHUNK, jh0),
                "ssd_reference": JM.ssd_reference(*j, h0=jh0)}
     ours = {"ssd_chunked_ref": ssd_chunked_ref(*t, CHUNK, th0),
-            "ssd_reference": ssd_reference(*t, h0=th0)}
+            "ssd_reference": ssd_reference(*t, h0=th0),
+            # the kernel's wrappers take the carried state too (on the
+            # CPU they run ssd_chunked_ref)
+            "ssd": ssd(*t, chunk=CHUNK, h0=th0),
+            "ssd_scan": ssd_scan(*(_ssd_padded(t)), chunk=CHUNK, h0=th0)}
     if not with_h0:
+        # the Pallas kernel starts from zero only
         oracles["pallas ssd (interpret)"] = jax_ssd(*j, chunk=CHUNK)
         if S % CHUNK == 0:
             oracles["pallas ssd_scan"] = jax_ssd_scan(*j, chunk=CHUNK,
                                                       interpret=True)
-        ours["ssd"] = ssd(*t, chunk=CHUNK)
-        ours["ssd_scan"] = ssd_scan(*(_ssd_padded(t)), chunk=CHUNK)
     for on, (yo, ho) in ours.items():
         if on == "ssd_scan":
             yo = yo[:, :S]
@@ -110,16 +114,33 @@ def test_ssd_scan_grads_match_jax_vjp(S):
     """Gradients of y and the final h through ``SSDScan`` against
     ``jax.vjp`` of the JAX package's ``ssd`` op (Pallas forward, jnp
     backward), with the same cotangents."""
+    _ssd_grads_case(S, with_h0=False)
+
+
+@pytest.mark.parametrize("S", [17, 40])
+def test_ssd_scan_h0_grads_match_jax_vjp(S):
+    """With a carried state: ``SSDScan`` against ``jax.vjp`` of
+    ``_ssd_chunked(h0=)`` (the reference's route for a carried state),
+    h0's gradient included."""
+    _ssd_grads_case(S, with_h0=True)
+
+
+def _ssd_grads_case(S, with_h0):
     inp = _ssd_inputs(S, seed=7 + S)
     rng = np.random.default_rng(S)
     dy = rng.standard_normal(inp["x"].shape).astype(np.float32)
     dh = rng.standard_normal(inp["h0"].shape).astype(np.float32)
-    names = ("x", "Bc", "Cc", "dt", "A")
-    (yj, hj), vjp = jax.vjp(lambda *a: jax_ssd(*a, chunk=CHUNK),
-                            *(jnp.asarray(inp[k]) for k in names))
+    names = ("x", "Bc", "Cc", "dt", "A") + (("h0",) if with_h0 else ())
+    if with_h0:
+        def jfn(*a):
+            return JM._ssd_chunked(*a[:5], CHUNK, a[5])
+    else:
+        def jfn(*a):
+            return jax_ssd(*a, chunk=CHUNK)
+    (yj, hj), vjp = jax.vjp(jfn, *(jnp.asarray(inp[k]) for k in names))
     gj = vjp((jnp.asarray(dy), jnp.asarray(dh)))
     ts = [_t(inp[k]).requires_grad_() for k in names]
-    y, h = SSDScan.apply(*ts, CHUNK)
+    y, h = SSDScan.apply(*ts[:5], ts[5] if with_h0 else None, CHUNK)
     assert y.grad_fn is not None and h.grad_fn is not None
     gt = torch.autograd.grad((y, h), ts, (_t(dy), _t(dh)))
     assert _err(y, yj) <= SSD_TOL and _err(h, hj) <= SSD_TOL
@@ -130,16 +151,17 @@ def test_ssd_scan_grads_match_jax_vjp(S):
 
 
 def test_backend_routes_the_scan():
-    """FUSED sends a zero-state scan through ``SSDScan`` and a carried
-    state to the plain version; PLAIN never uses the Function.  On CPU
-    tensors no kernel launches."""
+    """FUSED sends a zero-state scan and a carried state (serving's
+    prefill) alike through ``SSDScan``, where the reference sends the
+    carried state to its XLA scan; PLAIN never uses the Function.  On
+    CPU tensors no kernel launches."""
     inp = _ssd_inputs(17, seed=3)
     t = [_t(inp[k]).requires_grad_() for k in ("x", "Bc", "Cc", "dt", "A")]
     before = ssd_scan.launches
     y, _ = TB.FUSED.ssd(*t, chunk=CHUNK)
     assert type(y.grad_fn).__name__ == "SSDScanBackward"
     y, _ = TB.FUSED.ssd(*t, chunk=CHUNK, h0=_t(inp["h0"]))
-    assert "SSDScan" not in type(y.grad_fn).__name__
+    assert type(y.grad_fn).__name__ == "SSDScanBackward"
     y, _ = TB.PLAIN.ssd(*t, chunk=CHUNK)
     assert "SSDScan" not in type(y.grad_fn).__name__
     assert ssd_scan.launches == before
@@ -191,7 +213,13 @@ def test_ssd_scan_on_cuda_tensors_launches_or_raises(monkeypatch):
             ssd_scan(*args, chunk=CHUNK)
         with pytest.raises(Refused, match=f"^{entry}$"):
             ssd(*args, chunk=CHUNK)             # the Function's forward
+        with pytest.raises(Refused, match=f"^{entry}$"):
+            ssd(*args, chunk=CHUNK, h0=cl["h0"].float())  # a carried state
         n = len(builds)
+        with pytest.raises(ValueError, match="h0"):
+            ssd_scan(*args, chunk=CHUNK, h0=cl["h0"][:, :1].contiguous())
+        with pytest.raises(ValueError, match="h0"):
+            ssd_scan(*args, chunk=CHUNK, h0=cl["h0"].double())
         with pytest.raises(ValueError, match="multiple"):
             ssd_scan(*args, chunk=24)           # 32 % 24: not padded
         with pytest.raises(ValueError, match="float32"):

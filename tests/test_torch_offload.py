@@ -50,6 +50,7 @@ from repro_torch.optim import adamw_init, lr_at
 from repro_torch.optim.offload import (SLAB, ChronosOffloadRunner, HostAdamW,
                                        merge_deep_shallow, split_deep_shallow)
 from repro_torch.tree import tree_leaves, tree_map
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ("tinyllama-1.1b", "mamba2-2.7b")
 P, V, M, MBB, SEQ = 2, 2, 4, 2, 17

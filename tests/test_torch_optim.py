@@ -27,6 +27,7 @@ from repro_torch.kernels.fused_adamw import (fused_adamw_flat,
                                              fused_adamw_flat_ref)
 from repro_torch.optim import adamw_init, adamw_update, cast_like, lr_at
 from repro_torch.tree import tree_leaves, tree_map
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR_RTOL = 1e-6
 STATE_TOL = 1e-6          # mu, nu, master after 5 steps (atol)

@@ -41,6 +41,7 @@ from repro_torch.plan import (ExecutablePlan, PlannerQuery,  # noqa: E402
                               enumerate_points, plan_under_budget,
                               replan_for_pp)
 from repro_torch.tree import tree_leaves  # noqa: E402
+from helpers.torch_threads import one_torch_thread  # noqa: E402,F401 (autouse)
 
 ONE_CARD = dict(pp=4, tp=1, hbm_bytes=85.0e9 / 4, microbatch=1,
                 seq_len=2049)

@@ -34,6 +34,7 @@ from repro_torch.models import backend as TBK
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.tree import tree_leaves, tree_map
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ("tinyllama-1.1b", "mamba2-2.7b")
 # projections per layer: q, k, v, o, wi, wg, mlp-wo; z, x, B, C, dt, out

@@ -14,6 +14,7 @@ from repro.core.tasktable import build_task_table as jax_build_task_table
 from repro_torch.core.placement import get_placement
 from repro_torch.core.schedules import REGISTRY, get_schedule
 from repro_torch.core.tasktable import build_task_table, validate_table
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PORTED = ("gpipe", "1f1b", "interleaved", "chronos", "chronos_recomp",
           "chronos_zero2", "zb_h1", "chronos_zb", "v_min", "v_half", "v_zb",

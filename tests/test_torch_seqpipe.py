@@ -40,6 +40,7 @@ from repro_torch.launch.train import train_pipeline
 from repro_torch.seqpipe.attention import chunked_flash_attention, merge_kv
 from repro_torch.seqpipe.schedules import forward_only
 from repro_torch.tree import tree_leaves, tree_map
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P, M, MBB, SEQ = 2, 4, 2, 17
 # chunked vs whole-sequence gradients in fp32: the chunk losses are

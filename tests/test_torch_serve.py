@@ -1,5 +1,7 @@
 """The port's LM and pipelined engine against the JAX single-host reference
-on the CPU (reduced tinyllama: 4 layers, d=128, 8 heads, kv=2, fp32).
+on the CPU (reduced tinyllama: 4 layers, d=128, 8 heads, kv=2, fp32; and
+the other served families at their reduced sizes: mamba2, qwen2-moe and
+jamba).
 
 Weights come from ``repro``'s ``LM.init(jax.random.key(0))`` and cross
 through ``repro_torch.bridge``.  The reference token streams are the
@@ -19,6 +21,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.models import LM
 from repro_torch.serve import PipelinedEngine, Request
 from repro_torch.serve import scheduler as port_sched
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CHUNK = 16
 MAX_SEQ = 4 * CHUNK + 32
@@ -142,6 +145,110 @@ def test_engine_with_preemption_matches_reference(models, reference):
     for r in reqs:
         assert res["finished"][r.rid].tokens == reference[r.rid]
         assert res["finished"][r.rid].preemptions <= 1
+
+
+# ---------------------------------------------------------------------------
+# the other families: Mamba-2 (SSM slot state), MoE, hybrid
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("mamba2-2.7b", "qwen2-moe-a2.7b", "jamba-v0.1-52b")
+LOGIT_TOL = 1e-4          # fp32 logits, engine vs JAX single host
+_FAMILY = {}
+
+
+def _family(arch):
+    """Bridged weights, three requests (16 or 32 prompt tokens, a
+    multiple of every reduced SSD chunk) and the JAX single-host greedy
+    streams with their logits, computed once per arch."""
+    if arch not in _FAMILY:
+        lm_j = JaxLM(jax_get_reduced(arch))
+        params_j, _ = lm_j.init(jax.random.key(0))
+        prefill_j, decode_j = jax.jit(lm_j.prefill_chunk), \
+            jax.jit(lm_j.decode_step)
+        cfg = get_reduced(arch)
+        rng = np.random.default_rng(5)
+        reqs = [Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, CHUNK * (1 + i % 2)).tolist(), max_new=3 + i)
+            for i in range(3)]
+        ref = {}
+        for req in reqs:
+            cache = lm_j.init_cache(1, MAX_SEQ)
+            toks = np.asarray(req.prompt)[None]
+            for q in range(len(req.prompt) // CHUNK):
+                logits, cache = prefill_j(
+                    params_j, toks[:, q * CHUNK:(q + 1) * CHUNK], cache,
+                    q * CHUNK)
+            pos, stream, lgs = len(req.prompt), [], []
+            while True:
+                lgs.append(np.asarray(logits)[0])
+                stream.append(int(np.argmax(lgs[-1])))
+                if len(stream) == req.max_new:
+                    break
+                logits, cache = decode_j(params_j, np.asarray(
+                    [[stream[-1]]]), cache, pos)
+                pos += 1
+            ref[req.rid] = (stream, lgs)
+        _FAMILY[arch] = (cfg, lm_params_from_numpy(
+            jax.tree.map(np.asarray, params_j), "cpu"), reqs, ref)
+    return _FAMILY[arch]
+
+
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_engine_streams_match_single_host_jax(arch, P):
+    """Greedy tokens equal and the sampled fp32 logits within 1e-4 of the
+    JAX single-host ``prefill_chunk`` / ``decode_step`` streams, at P=1
+    and P=2 (jamba's 8-layer period pads to 16 layers at P=2).  Three
+    requests share two slots, so a slot is reused: its Mamba-2 conv tails
+    and state are cleared on the new request's first chunk, or its stream
+    would not be the fresh-cache one."""
+    cfg, params, reqs, ref = _family(arch)
+    eng = PipelinedEngine(cfg, params, P=P, chunk=CHUNK, max_seq=MAX_SEQ,
+                          n_slots=N_SLOTS, kernels="fused", device="cpu")
+    got = {}
+    tick = eng.tick
+
+    def recording_tick(inj):
+        retired, tok, logits = tick(inj)
+        if logits is not None:
+            got.setdefault(retired.rid, []).append(logits.numpy())
+        return retired, tok, logits
+    eng.tick = recording_tick
+    res = eng.serve(reqs, clock=None)
+    worst = 0.0
+    for r in reqs:
+        stream, lgs = ref[r.rid]
+        assert res["finished"][r.rid].tokens == stream, r.rid
+        worst = max(worst, max(float(np.abs(a - b).max())
+                               for a, b in zip(got[r.rid], lgs)))
+    print(f"{arch} P={P}: logits max |d| {worst:.2e}")
+    assert worst <= LOGIT_TOL
+
+
+def test_unported_family_is_refused():
+    """A family the port has no fields for (a VLM) is refused before
+    anything is built."""
+    import dataclasses
+
+    from repro_torch.serve.engine import check_servable
+    with pytest.raises(NotImplementedError, match="not ported"):
+        check_servable(dataclasses.replace(get_reduced("tinyllama-1.1b"),
+                                           family="vlm"), CHUNK)
+
+
+def test_engine_blocks_alias_the_lm_weights():
+    """Where the layout needs no padding the engine's blocks are views of
+    the LM's layer leaves (no second copy of the weights); a padded
+    layout (P=3 over 4 layers) copies."""
+    m = _family("qwen2-moe-a2.7b")
+    cfg, params = m[0], m[1]
+    leaf = params["layers"][0]["moe"]["wi"]
+    for P, shared in ((1, True), (2, True), (3, False)):
+        eng = PipelinedEngine(cfg, params, P=P, chunk=CHUNK,
+                              max_seq=MAX_SEQ, device="cpu")
+        blk = eng.blocks[0]["moe"]["wi"]
+        assert (blk.data_ptr() == leaf.data_ptr()) == shared, P
+        assert blk.shape[:2] == (P, eng.layout.M)
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ from repro_torch.core.pipeline_runtime import (make_pipeline_spec,
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.train import train_pipeline
 from repro_torch.tree import tree_leaves, tree_map
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P, M, MBB, SEQ = 2, 4, 2, 17
 GRAD_TOL = 5e-3           # pipeline vs single-device autodiff (JAX's bound)

@@ -39,6 +39,7 @@ from repro_torch.launch.train import train_pipeline
 from repro_torch.models import LM
 from repro_torch.serve import PipelinedEngine
 from repro_torch.tree import tree_leaves, tree_map
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "mamba2-2.7b"
 CFG = get_reduced(ARCH)
@@ -288,11 +289,15 @@ def test_port_init_trees_match_jax():
 
 
 def test_serving_an_ssm_config_raises():
-    """The engine has no SSM slot state yet: the CLI and the engine raise
-    a clear NotImplementedError for mamba2 instead of serving wrongly."""
-    with pytest.raises(NotImplementedError, match="SSM"):
-        serve_main(["--arch", ARCH, "--reduced", "--device", "cpu"])
+    """A prefill chunk off the SSD chunk grid (24 tokens against the
+    reduced config's chunk of 16) is refused with a clear ValueError by
+    the CLI and the engine, as the reference asserts; on the grid the
+    config serves."""
+    with pytest.raises(ValueError, match="chunk_len=16"):
+        serve_main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                    "--chunk", "24"])
     params = LM(CFG, device="cpu").init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="SSM"):
-        PipelinedEngine(CFG, params, P=1, chunk=16, max_seq=64,
+    with pytest.raises(ValueError, match="SSD scan grid"):
+        PipelinedEngine(CFG, params, P=1, chunk=24, max_seq=64,
                         device="cpu")
+    PipelinedEngine(CFG, params, P=1, chunk=32, max_seq=64, device="cpu")

@@ -30,6 +30,7 @@ from repro_torch.data import DataPipeline, SyntheticLM
 from repro_torch.launch.steps import plan_schedule_kwargs
 from repro_torch.launch.train import train, train_pipeline
 from repro_torch.tree import tree_leaves, tree_map
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOSS_TOL = 1e-5           # test_torch_train.py's trajectory bounds
 MU_TOL = 1e-6

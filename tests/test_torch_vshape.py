@@ -33,6 +33,7 @@ from repro_torch.core.placement import VShapePlacement, get_placement
 from repro_torch.core.tasktable import SEND_F_LOC, SEND_F_UP
 from repro_torch.launch.train import train_pipeline
 from repro_torch.tree import tree_leaves, tree_map
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P, M, MBB, SEQ = 2, 4, 2, 17
 VSHAPE = ("v_min", "v_half", "v_zb")
