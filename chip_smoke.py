@@ -45,7 +45,7 @@ Phases, in order; any failure exits non-zero:
 7. train checks (fp32, full width, 4 layers): pipeline gradients against
    ``LM.loss`` autograd, chronos_recomp == chronos bitwise, fused vs
    plain backend, kernel vs plain AdamW update bitwise;
-8. train mamba2-2.7b at full width, cut to 32 of its 64 layers, as
+8. train mamba2-2.7b at full width, cut to 16 of its 64 layers, as
    phase 6 does tinyllama (the SSD scan, rmsnorm and fused-AdamW
    kernels), after freeing tinyllama's tensors, then a profiled step;
 9. phase 7's checks on mamba2-2.7b (4 layers, two SSD chunks);
@@ -101,14 +101,46 @@ Phases, in order; any failure exits non-zero:
     the card, each stage's budget a quarter of the card's memory: (a) its
     pick for tinyllama-1.1b trained 4 steps as phase 6; (b) deepseek-7b's
     width: ``max_trainable_layers`` of ``1f1b`` and of the best point,
-    then the pick at that depth trained 3 steps (``ep.m`` sequences of
+    then the pick at that depth trained 2 steps (``ep.m`` sequences of
     2049 tokens), both gated as phase 6 (finite losses, moved masters,
     launch counts from the table); (c) for every pipeline training run
     of phases 6-16 (15a included) the planner's per-stage total, the
     one-card prediction with its terms and the measured peak (printed,
     not gated);
-17. a JSON ``kernels`` line, then the JSON result line.
+17. serve-gemma3: full-width gemma3-27b (62 layers, 52 of them with a
+    1024-token sliding window; 27.0 B parameters, 54.0 GB bf16) through
+    ``launch.serve.main``: P=1, 4 slots, 128-token chunks, prompts of 1
+    to 12 chunks (at least two past the window), 16-32 new tokens,
+    gated as phase 4; the peak beside its reckoning (the copying pack
+    frees each LM leaf as it packs it: weights plus one block leaf), the
+    decode tick's bound, a warm profiled re-run; 17a. reduced gemma3 in
+    fp32: the engine's streams and logits at P=2 equal P=1's, and at
+    full width (6 layers, fp32) fused vs plain logits past the window;
+18. train-paligemma: full-width paligemma-3b (head dim 256, a 256-patch
+    prefix of fp32 embeddings from the seed) through ``train_pipeline``,
+    chronos_zb P=3 v=2, 8 microbatches of 256 patches + 2048 tokens, 4
+    steps and a profiled one, gated as phase 6 (every flash launch on
+    the head-dim-256 kernel), the peak beside ``predicted_card_peak``;
+    then single-host ``prefill(patch_embeds=)`` and 8 greedy decode
+    steps (flash launches: one a layer in prefill, none in decode);
+19. train-whisper: full-width whisper-base (6 encoder and 6 decoder
+    layers, 1500 fp32 frame embeddings) likewise, 449-token sequences,
+    the encoder on the first chunk's ops (its launches in the table's
+    count); then ``prefill(frame_embeds=)`` and greedy decode over the
+    cached cross K/V (no encoder launch in decode);
+20. fp32 pipeline loss and gradients against ``LM.loss`` autograd
+    within 2e-5: gemma3 at full width, 6 layers, window 256 under 512
+    positions; paligemma at head dim 256 (d 512, 4 heads) with its
+    patches; whisper-base at full width, the encoder's gradients in;
+21. a JSON ``kernels`` line, then the JSON result line.
 
+Phase 3 also runs flash at the shapes of phases 17-19 (head dim 256
+with paligemma's prefix: its training shape, prefill chunks at offsets,
+B=2 ragged, H == G on both CTAs; whisper's non-causal encoder and causal
+decoder; gemma3's prefill chunks past the window), printing each bf16
+case's CTA shape, and times the head-dim-256 kernel at paligemma's
+training shape beside its bound, the plain version and SDPA with the
+boolean prefix-LM mask, with the Function's gradients there.
 Phase 3 also holds fused AdamW bitwise against its plain version (up
 to qwen2-moe's stacked expert leaf of 692 M elements), the
 RMSNorm, flash and SSD Functions' gradients against autograd through the
@@ -346,6 +378,39 @@ def phase_rmsnorm(torch, gen):
             "eager_ms": eager_ms, "timed_shape": f"x [{R},{d}] bf16"}
 
 
+def phase_rmsnorm_widths(torch, gen):
+    """rmsnorm_rows at the widths of phases 17-19: gemma3's 5376,
+    paligemma's 2048 and whisper's 512, bf16 and fp32, against the plain
+    version at phase 3's tolerances; each launch's kernel, read from the
+    profiler, says whether the width takes the vector path (rows of a
+    16-byte multiple, at most 1280 vectors: 8 warps x 32 lanes x 5) or
+    the scalar one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_rows, rmsnorm_rows_ref
+    tols = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
+    for d in (5376, 2048, 512):
+        for dt, (atol, rtol) in tols.items():
+            x = torch.randn((300, d), generator=gen, device="cuda").to(dt)
+            scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                           device="cuda")).to(dt)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                got = rmsnorm_rows(x, scale)
+                torch.cuda.synchronize()
+            names = {e.key for e in prof.key_averages()
+                     if "rmsnorm_rows_kernel" in e.key}
+            route = ("vector" if any("_vec" in n for n in names)
+                     else "scalar" if names else "not seen by the profiler")
+            want = rmsnorm_rows_ref(x, scale)
+            ok = rel_ok(got, want, atol, rtol)
+            print(f"[kernels] rmsnorm_rows {str(dt)[6:]} R=300 d={d}: "
+                  f"max|d|={max_err(got, want):.3e} tol={atol:g}+{rtol:g}"
+                  f"*|ref| {'ok' if ok else 'FAIL'}; {route} path")
+            if not ok:
+                fail(f"rmsnorm_rows disagrees with its plain version at "
+                     f"d={d}")
+
+
 def _visible_pairs(Sq, Sk, q_offset, window, prefix):
     """(visible (q, k) pairs, kv rows the visible pairs touch), causal."""
     pairs, k_rows = 0, 0
@@ -360,6 +425,46 @@ def _visible_pairs(Sq, Sk, q_offset, window, prefix):
         if ks:
             k_rows = max(k_rows, max(ks) + 1)
     return pairs, k_rows
+
+
+def cta_desc(d: int, nw: int) -> str:
+    """The bf16 kernel's CTA shape at head dim ``d`` and ``nw`` warps."""
+    bn, qs = (32, True) if d > 128 else (64, False)
+    return (f"{16 * nw} q rows in {nw} warp(s), {bn}-row K/V tiles, Q "
+            f"{'staged in shared memory, ldmatrix per k16 step' if qs else 'in registers'}")
+
+
+def mma_smem_kb(d: int, nw: int) -> float:
+    """Dynamic shared memory of ``flash_fwd_kernel_mma<d, nw>``, KB: the
+    two-stage K/V ring, plus the Q tile at d > 128."""
+    bn = 32 if d > 128 else 64
+    return (2 * 2 * bn + (16 * nw if d > 128 else 0)) * d * 2 / 1024
+
+
+# flash cases beyond the serving ones: (B, Sq, H, Sk, G, d, q_offset,
+# window, prefix, causal)
+FLASH_A4_CASES = [
+    # paligemma-3b at head dim 256: the training shape (2304 = 256
+    # patches + 2048 tokens, prefix 256), prefill chunks over a cache
+    # with the patch prefix, B=2 ragged, H == G on both CTAs, and every
+    # mask at once
+    (1, 2304, 8, 2304, 1, 256, 0, 0, 256, True),
+    (1, 384, 8, 1024, 1, 256, 0, 0, 256, True),
+    (1, 128, 8, 1024, 1, 256, 384, 0, 256, True),
+    (1, 64, 8, 1024, 1, 256, 700, 0, 256, True),
+    (2, 100, 8, 300, 2, 256, 200, 0, 16, True),
+    (2, 256, 8, 512, 8, 256, 100, 0, 0, True),
+    (2, 512, 16, 512, 16, 256, 0, 0, 0, True),
+    (2, 500, 16, 700, 4, 256, 200, 96, 40, True),
+    # whisper-base: the encoder (1500 frames, non-causal, not a tile
+    # multiple) and the decoder's 448 positions
+    (8, 1500, 8, 1500, 8, 64, 0, 0, 0, False),
+    (8, 448, 8, 448, 8, 64, 0, 0, 0, True),
+    # gemma3-27b's prefill chunks past the 1024-token window over its
+    # 2080-slot cache
+    (1, 128, 32, 2080, 16, 128, 1152, 1024, 0, True),
+    (1, 128, 32, 2080, 16, 128, 1408, 1024, 0, True),
+]
 
 
 def phase_flash(torch, gen):
@@ -399,15 +504,16 @@ def phase_flash(torch, gen):
              (1, 64, 16, 512, 16, 128, 192, 0, 0),
              (1, 64, 16, 512, 16, 128, 448, 0, 0),
              (1, TRAIN_SEQ - 1, 16, TRAIN_SEQ - 1, 16, 128, 0, 0, 0)]
+    cases = [c + (True,) for c in cases] + FLASH_A4_CASES
     lib = build.load_library()
     ran = set()   # (d, warps per CTA, window, prefix) of the bf16 cases
     worst, worst_lse = 0.0, 0.0
     for dt, (tol_o, tol_lse) in tols.items():
-        for B, Sq, H, Sk, G, d, off, win, pre in cases:
+        for B, Sq, H, Sk, G, d, off, win, pre, causal in cases:
             nw = lib.flash_attention_fwd_warps(
                 B, Sq, H, build.DTYPE_CODES[str(dt)[6:]])
-            kern = f"flash_fwd_kernel_mma<{d},{nw}>" if nw else \
-                f"flash_fwd_kernel<{d}>"
+            kern = f"flash_fwd_kernel_mma<{d},{nw}>: {cta_desc(d, nw)}" \
+                if nw else f"flash_fwd_kernel<{d}>"
             if nw:
                 ran.add((d, nw, bool(win), bool(pre)))
             q = torch.randn((B, Sq, H, d), generator=gen,
@@ -416,16 +522,18 @@ def phase_flash(torch, gen):
                             device="cuda").to(dt)
             v = torch.randn((B, Sk, G, d), generator=gen,
                             device="cuda").to(dt)
-            o, lse = flash_attention_fwd(q, k, v, causal=True, window=win,
+            o, lse = flash_attention_fwd(q, k, v, causal=causal, window=win,
                                          prefix=pre, q_offset=off)
             torch.cuda.synchronize()
-            o_ref, lse_ref = attention_ref(q, k, v, causal=True, window=win,
-                                           prefix=pre, q_offset=off)
+            o_ref, lse_ref = attention_ref(q, k, v, causal=causal,
+                                           window=win, prefix=pre,
+                                           q_offset=off)
             e_o, e_l = max_err(o, o_ref), max_err(lse, lse_ref)
             ok = e_o <= tol_o and e_l <= tol_lse
             print(f"[kernels] flash_attention_fwd {str(dt)[6:]} q [{B},{Sq},"
                   f"{H},{d}] kv [{B},{Sk},{G},{d}] off={off} window={win} "
-                  f"prefix={pre} [{kern}]: max|d| o={e_o:.3e} (tol "
+                  f"prefix={pre} causal={causal} [{kern}]: max|d| "
+                  f"o={e_o:.3e} (tol "
                   f"{tol_o:g}) "
                   f"lse={e_l:.3e} (tol {tol_lse:g}) "
                   f"{'ok' if ok else 'FAIL'}")
@@ -440,8 +548,11 @@ def phase_flash(torch, gen):
         fail(f"flash_attention_fwd: phase 3 did not run the bf16 CTAs "
              f"{sorted(need - have)}")
     print("[kernels] flash_fwd_kernel_mma (bf16) dynamic shared memory, "
-          "the K/V ring of 2 stages x 64 rows: 512 * D bytes = "
-          + ", ".join(f"{512 * d // 1024} KB at D={d}" for d in HEAD_DIMS))
+          "the K/V ring of 2 stages x 64 rows (32 at D=256, plus the Q "
+          "tile): " + ", ".join(
+              f"{mma_smem_kb(d, 4):g} KB at D={d} (4 warps)"
+              for d in HEAD_DIMS) + f", {mma_smem_kb(256, 1):g} KB at "
+          "D=256 (1 warp)")
     # main-path shape: a 64-token prefill chunk at offset 192 (the last
     # chunk of a 256-token prompt) over the 512-slot bf16 cache
     Sq, H, Sk, G, d, off, dt = 64, 32, 512, 4, 64, 192, torch.bfloat16
@@ -610,15 +721,16 @@ def phase_serve(torch, argv=None, tag="serve"):
 
 def phase_profile(torch, eng, tag="serve"):
     """Where the serve path's time goes, on the warm engine of a serve
-    phase: 4 more requests served once with tracing off (the warm
-    end-to-end numbers), then the same 4 again under ``torch.profiler``
+    phase: 4 more requests of 8 new tokens each served once with tracing
+    off (the warm end-to-end numbers), then the same 4 again under
+    ``torch.profiler``
     for the device busy share and the device time by kernel family.  The
     ratio of the two wall times is the profiler's overhead."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import poisson_requests, summarize
     reqs = poisson_requests(4, 1e9, chunk=eng.chunk, max_seq=eng.max_seq,
-                            gen_range=(16, 16), vocab=eng.cfg.vocab_size,
+                            gen_range=(8, 8), vocab=eng.cfg.vocab_size,
                             seed=1)
     warm = summarize(eng.serve(reqs))
     print(f"[{tag}-warm] same engine, {warm['requests']} more requests, "
@@ -780,9 +892,10 @@ def phase_checks(torch, arch="tinyllama-1.1b", chunk=64, tag="check"):
 ADAMW_STATE_BYTES = 24         # mu, nu, w read and written, fp32
 ADAMW_FLOPS = 16               # per element, csrc/fused_adamw.cu
 TRAIN_SEQ = 2049               # 2048 positions per sequence fed to the stack
-# mamba2-2.7b's pipeline runs (phases 8 and 11) at full width, cut to 32
-# of its 64 layers so that the whole smoke keeps inside its time limit
-MAMBA2_TRAIN_LAYERS = 32
+# mamba2-2.7b's pipeline runs (phases 8 and 11) at full width, cut to 16
+# of its 64 layers so that the whole smoke, with phases 17-20, keeps well
+# inside its time limit on a slow host (an H100 run took 1064.5 s with 32)
+MAMBA2_TRAIN_LAYERS = 16
 # (tag, TrainConfig, P, peak bytes) of every pipeline training run, for
 # phase 16's predicted-against-measured lines
 TRAIN_RUNS = []
@@ -922,19 +1035,20 @@ def phase_functions(torch, gen):
                      *tols[torch.bfloat16])
 
 
-def _flash_grad_case(torch, gen, dt, S, tol_o, tol_g):
+def _flash_grad_case(torch, gen, dt, S, tol_o, tol_g, H=32, G=4, d=64,
+                     prefix=0):
     """o and dq, dk, dv of the flash Function against autograd through
-    ``attention_ref`` at q [1,S,32,64] over kv [1,S,4,64]; fails beyond
-    the tolerances."""
+    ``attention_ref`` at q [1,S,H,d] over kv [1,S,G,d] (causal, with
+    ``prefix``); fails beyond the tolerances."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
-    q = torch.randn((1, S, 32, 64), generator=gen, device="cuda").to(dt)
-    k = torch.randn((1, S, 4, 64), generator=gen, device="cuda").to(dt)
-    v = torch.randn((1, S, 4, 64), generator=gen, device="cuda").to(dt)
+    q = torch.randn((1, S, H, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
     do = torch.randn_like(q)
     ins = [[a.clone().requires_grad_() for a in (q, k, v)] for _ in range(2)]
-    o1 = flash_attention(*ins[0])
-    o2, _ = attention_ref(*ins[1])
+    o1 = flash_attention(*ins[0], prefix=prefix)
+    o2, _ = attention_ref(*ins[1], prefix=prefix)
     if o1.grad_fn is None:
         fail("flash_attention output carries no grad_fn")
     o1.backward(do)
@@ -942,8 +1056,9 @@ def _flash_grad_case(torch, gen, dt, S, tol_o, tol_g):
     errs = [max_err(o1, o2)] + [max_err(a.grad, b.grad)
                                 for a, b in zip(*ins)]
     ok = errs[0] <= tol_o and max(errs[1:]) <= tol_g
-    print(f"[kernels] FlashAttention {str(dt)[6:]} q [1,{S},32,64] kv "
-          f"[1,{S},4,64]: max|d| o={errs[0]:.3e} dq={errs[1]:.3e} "
+    print(f"[kernels] FlashAttention {str(dt)[6:]} q [1,{S},{H},{d}] kv "
+          f"[1,{S},{G},{d}] prefix={prefix}: max|d| o={errs[0]:.3e} "
+          f"dq={errs[1]:.3e} "
           f"dk={errs[2]:.3e} dv={errs[3]:.3e} (tol o {tol_o:g}, grads "
           f"{tol_g:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1034,6 +1149,89 @@ def phase_train_shapes(torch, gen, rows):
     rows["rmsnorm_rows"]["train"] = {
         "max_abs_err": e_r, **t, "bound_ms": rb[rby], "bound_by": rby,
         "timed_shape": f"x [{S},2048] bf16"}
+
+
+PALI_PREFIX = 256               # paligemma-3b's patches
+
+
+def prefix_causal_pairs(S: int, prefix: int) -> int:
+    """Visible (q, k) pairs of one head under the causal prefix-LM mask
+    over S positions: a row below the prefix sees the whole prefix, a
+    later row its own causal past."""
+    return prefix * prefix + sum(i + 1 for i in range(prefix, S))
+
+
+def phase_flash_d256(torch, gen, rows):
+    """Flash at head dim 256, paligemma-3b's training shape (q [1, 2304,
+    8, 256] over kv [1, 2304, 1, 256], prefix 256, causal, bf16): held
+    against ``attention_ref`` (phase 3's tolerances), timed by CUDA-graph
+    replay beside the plain version, SDPA (given the boolean prefix-LM
+    mask) and the bound; the Function's gradients once against autograd
+    through the plain version."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    import torch.nn.functional as F
+    S, H, G, d, pre, dt = PALI_PREFIX + TRAIN_SEQ - 1, 8, 1, 256, \
+        PALI_PREFIX, torch.bfloat16
+    q = torch.randn((1, S, H, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
+    o, lse = flash_attention_fwd(q, k, v, prefix=pre)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = attention_ref(q, k, v, prefix=pre)
+    e_o, e_l = max_err(o, o_ref), max_err(lse, lse_ref)
+    if not (e_o <= 2e-2 and e_l <= 1e-5):
+        fail("flash_attention_fwd disagrees with attention_ref at "
+             "paligemma's training shape")
+    del o, lse, o_ref, lse_ref
+    ms = graph_ms(lambda: flash_attention_fwd(q, k, v, prefix=pre))
+    plain_ms = graph_ms(lambda: attention_ref(q, k, v, prefix=pre), reps=3,
+                        iters=3)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) | (pos[None, :] < pre)
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    pairs = prefix_causal_pairs(S, pre)
+    el = q.element_size()
+    nbytes = 2 * S * H * d * el + 2 * S * G * d * el + H * S * 4
+    flops = 4 * H * d * pairs
+    b = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+         "operations": flops / BF16_FLOPS * 1e3}
+    by = max(b, key=b.get)
+    print(f"[kernels] flash_attention_fwd at head dim 256, paligemma's "
+          f"training shape q [1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 prefix="
+          f"{pre} [flash_fwd_kernel_mma<256,4>: {cta_desc(256, 4)}]: max|d| "
+          f"o={e_o:.3e} lse={e_l:.3e}; device time per call (CUDA graph): "
+          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, SDPA (boolean prefix-LM mask) {lib_ms:.4f} ms"
+          f" (kernel = {ms / lib_ms:.2f}x SDPA), bound {b[by] * 1e3:.2f} us "
+          f"({by}; {pairs} visible pairs a head, {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB) = {ms / b[by]:.1f}x bound")
+    del qt, kt, vt, mask
+    from repro_torch.kernels.flash_attention import flash_attention
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    o = flash_attention(*leaves, prefix=pre)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(dt)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(o, leaves, do,
+                                                 retain_graph=True),
+                     iters=5, warmup=1)
+    del o, leaves
+    print(f"[kernels] the FlashAttention backward (plain VJP) at "
+          f"paligemma's training shape: {bwd_ms:.3f} ms")
+    rows["flash_attention_fwd"]["train_d256"] = {
+        "max_abs_err": e_o, "lse_max_abs_err": e_l, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b[by],
+        "bound_by": by, "plain_bwd_ms": bwd_ms,
+        "timed_shape": f"q [1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 "
+                       f"prefix={pre}"}
+    # the Function's gradients at D=256 with the prefix, both dtypes
+    for gdt, tol_o, tol_g in ((torch.float32, 2e-5, 1e-5),
+                              (torch.bfloat16, 2e-2, 1e-2)):
+        _flash_grad_case(torch, gen, gdt, 512, tol_o, tol_g, H=8, G=1,
+                         d=256, prefix=64)
 
 
 def phase_flash_offsets(torch, gen, rows, H=32, G=4, d=64, n_seqs=(2, 4),
@@ -1497,10 +1695,11 @@ def phase_mamba_shapes(torch, gen, rows):
 
 
 def _body_ops(spec):
-    """(op, last) for every op of the task table that runs the chunk body:
-    F, B and W ops, except a split backward of the first block, which
-    computes nothing (its input gradient has no receiver); ``last``: the
-    op runs the head too."""
+    """(op, first, last) for every op of the task table that runs the
+    chunk body: F, B and W ops, except a split backward of the first
+    block, which computes nothing (its input gradient has no receiver);
+    ``first``: the op embeds the microbatch (and runs an encoder-decoder
+    config's encoder); ``last``: the op runs the head too."""
     from repro_torch.core.tasktable import B_OPS, IDLE, R_OPS
     tab, lay = spec.table, spec.layout
     for t in range(tab.T):
@@ -1512,7 +1711,7 @@ def _body_ops(spec):
             first = c == 0 and s == 0
             if op in B_OPS and tab.has_w and first:
                 continue
-            yield op, c == tab.v - 1 and s == tab.P - 1
+            yield op, first, c == tab.v - 1 and s == tab.P - 1
 
 
 def _layers_of(spec, kind: str) -> int:
@@ -1527,8 +1726,11 @@ def expected_train_launches(spec, n_leaves: int):
     every op that runs the chunk body runs its K layers; an attention
     layer launches one flash kernel, a Mamba-2 layer one SSD scan, and
     each launches rmsnorm for ``norm1``, for the Mamba-2 block's gated
-    norm and for ``norm2`` where the config has an FFN; the final norm
-    runs where an op runs the head.  The table's rows are per device
+    norm, for ``norm_x`` before an encoder-decoder's cross-attention
+    (which takes the plain path) and for ``norm2`` where the config has
+    an FFN; the final norm runs where an op runs the head, and where an
+    op embeds the microbatch of an encoder-decoder config the encoder
+    runs (per layer one flash kernel, rmsnorm twice; then ``enc_norm``).  The table's rows are per device
     under its placement (the V-shape fold-back too) and per sequence
     chunk: a sequence-chunked F runs each layer's flash once at its
     chunk's offset, and its B once more in the replay.  The update
@@ -1536,28 +1738,35 @@ def expected_train_launches(spec, n_leaves: int):
     split backward: zero-bubble and V-shape), else not at all."""
     cfg = spec.cfg
     attn, mamba = _layers_of(spec, "attn"), _layers_of(spec, "mamba")
-    rms = attn + 2 * mamba + (attn + mamba) * (cfg.d_ff > 0)
+    rms = attn + 2 * mamba + (attn + mamba) * (cfg.d_ff > 0) \
+        + (attn + mamba) * (cfg.encdec is not None)
+    n_enc = cfg.encdec.num_encoder_layers if cfg.encdec is not None else 0
     n = {"flash_attention_fwd": 0, "rmsnorm_rows": 0, "ssd_scan": 0}
-    for _, last in _body_ops(spec):
-        n["flash_attention_fwd"] += attn
+    for _, first, last in _body_ops(spec):
+        n["flash_attention_fwd"] += attn + first * n_enc
         n["ssd_scan"] += mamba
-        n["rmsnorm_rows"] += rms + last
+        n["rmsnorm_rows"] += rms + last + first * (2 * n_enc + (n_enc > 0))
     return {**n, "fused_adamw_flat": n_leaves if spec.table.has_w else 0}
 
 
 def plain_backward_calls(spec, kind: str) -> int:
     """Calls per step of the plain backward of the ``kind`` layers'
     kernel Function: once per layer in every B and W op that runs the
-    chunk body under autograd."""
+    chunk body under autograd (and per encoder layer where such an op
+    runs the encoder)."""
     from repro_torch.core.tasktable import F_OPS
-    return _layers_of(spec, kind) * sum(op not in F_OPS
-                                        for op, _ in _body_ops(spec))
+    cfg = spec.cfg
+    n_enc = cfg.encdec.num_encoder_layers \
+        if cfg.encdec is not None and kind == "attn" else 0
+    return sum((_layers_of(spec, kind) + first * n_enc)
+               for op, first, _ in _body_ops(spec) if op not in F_OPS)
 
 
-def _train_config(arch: str, layers=None, **plan):
+def _train_config(arch: str, layers=None, seq=TRAIN_SEQ, **plan):
     """Phase 6's configuration of ``arch`` (cut to ``layers`` layers if
-    given); ``plan`` overrides fields of its ``ParallelPlan``
-    (chronos_zb, v=2, 8 microbatches of one sequence, fused kernels)."""
+    given; ``seq`` tokens a sequence); ``plan`` overrides fields of its
+    ``ParallelPlan`` (chronos_zb, v=2, 8 microbatches of one sequence,
+    fused kernels)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1568,7 +1777,7 @@ def _train_config(arch: str, layers=None, **plan):
         cfg = dataclasses.replace(cfg, num_layers=layers)
     return TrainConfig(
         model=cfg,
-        shape=ShapeConfig("train_2k", seq_len=TRAIN_SEQ, global_batch=8,
+        shape=ShapeConfig("train_2k", seq_len=seq, global_batch=8,
                           kind="train"),
         plan=ParallelPlan(**{**dict(schedule="chronos_zb", num_chunks=2,
                                     microbatch_size=1, num_microbatches=8,
@@ -1603,7 +1812,7 @@ def _kernel_fns():
 
 
 def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
-                inspect=None, **plan):
+                inspect=None, seq=TRAIN_SEQ, **plan):
     """Full-width ``arch`` (cut to ``layers`` layers if given) trained 4
     steps on ``P`` virtual stages through ``train_pipeline``, with phase
     6's plan (chronos_zb) or ``plan``'s overrides of it (phases 12-14:
@@ -1617,7 +1826,7 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
     from repro_torch.core.pipeline_runtime import init_pipeline_params
     from repro_torch.launch.train import train_pipeline
     from repro_torch.tree import tree_leaves
-    tc = _train_config(arch, layers=layers, **plan)
+    tc = _train_config(arch, layers=layers, seq=seq, **plan)
     steps = 4
     spec = _spec_of(tc, P)
     tab = spec.table
@@ -1895,11 +2104,15 @@ def phase_moe_checks(torch, tag: str):
 
 
 def _profile_batch(torch, tc, m, mbB):
-    """A fresh batch of ``m`` microbatches of ``mbB`` sequences."""
-    from repro_torch.data import SyntheticLM
-    toks = SyntheticLM(tc.model.vocab_size, tc.shape.seq_len, seed=1
-                       ).next_batch(m * mbB).reshape(m, mbB, -1)
-    return {"tokens": torch.from_numpy(toks).to("cuda")}
+    """A fresh batch of ``m`` microbatches of ``mbB`` sequences (with a
+    VLM's patch or an encoder's frame embeddings)."""
+    from repro_torch.data import synthetic_source
+    flat = synthetic_source(tc.model, tc.shape.seq_len, seed=1
+                            ).next_batch(m * mbB)
+    if not isinstance(flat, dict):
+        flat = {"tokens": flat}
+    return {k: torch.from_numpy(a.reshape((m, mbB) + a.shape[1:]))
+            .to("cuda") for k, a in flat.items()}
 
 
 def profile_train_step(torch, tc, P, params, opt_state, untraced_s, tag,
@@ -2842,7 +3055,7 @@ def phase_train_planner(torch):
     steps as phase 6 (8 sequences of 2049 tokens); (b) for deepseek-7b's
     published width, ``max_trainable_layers`` of ``1f1b`` and of the
     best point under the same budget, then the pick at the best depth
-    trained 3 steps with ``ep.m`` sequences; (c) for every pipeline
+    trained 2 steps with ``ep.m`` sequences; (c) for every pipeline
     training plan of this run, the planner's per-stage total, the
     one-card prediction with its terms and the measured peak.  Returns
     the launch counts by path."""
@@ -2901,7 +3114,7 @@ def phase_train_planner(torch):
               f"{-(-depth // unit) * unit}: the padding layers hold weights "
               f"and optimizer state the model does not count")
     n, peak_b, med_b = trained("train-planner-deepseek", deep_cfg, ep, ep.m,
-                               3)
+                               2)
     launches["train_planner_deepseek"] = n
     tokens = ep.m * (TRAIN_SEQ - 1)
     print(f"[train-planner-deepseek] {depth} layers "
@@ -2926,6 +3139,311 @@ def phase_train_planner(torch):
               f"{peak / 2 ** 30:.3f} GiB; measured / predicted "
               f"{peak / total:.3f}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# windowed layers, the VLM patch prefix and the encoder-decoder (gemma3-27b,
+# paligemma-3b, whisper-base)
+# ---------------------------------------------------------------------------
+
+GEMMA3_ARGV = ["--chunk", "128", "--prompt-chunks", "12",
+               "--prompt-len", "1536"]     # max_seq = 1536 + 32 + 512
+
+
+def phase_serve_gemma3(torch):
+    """17. gemma3-27b served at full width through ``launch.serve.main``
+    (P=1, 4 slots, 128-token chunks, prompts of 1-12 chunks, 16-32 new
+    tokens, 8 requests at t=0), gated as phase 4; the requests whose
+    prompts pass the 1024-token window (at least two), the peak beside
+    its reckoning, then the warm profiled re-run.  Returns the launch
+    counts."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-27b")
+    argv = serve_argv("gemma3-27b")
+    for i in range(0, len(GEMMA3_ARGV), 2):
+        argv[argv.index(GEMMA3_ARGV[i]) + 1] = GEMMA3_ARGV[i + 1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, eng, s = phase_serve(torch, argv, "serve-gemma3")
+    from repro_torch.serve import poisson_requests
+    reqs = poisson_requests(8, 1e9, chunk=eng.chunk, max_seq=eng.max_seq,
+                            prompt_range=(1, 12), gen_range=(16, 32),
+                            vocab=cfg.vocab_size, seed=0)
+    past = [len(r.prompt) for r in reqs if len(r.prompt) > cfg.sliding_window]
+    print(f"[serve-gemma3] prompts past the {cfg.sliding_window}-token "
+          f"window: {len(past)} of {len(reqs)} ({past} tokens; their "
+          f"prefill chunks and decode steps mask real keys in the 52 local "
+          f"layers)")
+    if len(past) < 2:
+        fail("serve-gemma3: fewer than two prompts pass the window")
+    wbytes = cfg.param_count() * 2
+    kv = 2 * cfg.num_layers * eng.n_slots * eng.max_seq * \
+        cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    leaf = cfg.num_layers * cfg.d_model * cfg.d_ff * 2
+    print(f"[serve-gemma3] peak {s['peak'] / 2 ** 30:.3f} GiB against the "
+          f"reckoning: weights {wbytes / 1e9:.1f} GB + the largest block "
+          f"leaf while the pack builds it {leaf / 1e9:.1f} GB = "
+          f"{(wbytes + leaf) / 2 ** 30:.1f} GiB; serving: weights + K/V "
+          f"{kv / 1e9:.2f} GB = {(wbytes + kv) / 2 ** 30:.1f} GiB and "
+          f"the activations (the old copying pack needed "
+          f"{2 * wbytes / 1e9:.1f} GB)")
+    phase_profile(torch, eng, "serve-gemma3")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_gemma3_checks(torch):
+    """17a. (a) reduced gemma3 (window 32) in fp32 on the card: the
+    engine's greedy streams and logits at P=2 equal P=1's, over prompts of
+    48 and 64 tokens; (b) full width, fp32, 6 layers (five local, one
+    global): the fused and plain backends agree on the logits of three
+    512-token prefill chunks and four decode steps (positions past the
+    1024-token window) within 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models import LM
+    from repro_torch.serve import PipelinedEngine, Request
+    cfg = get_reduced("gemma3-27b")
+    lm = LM(cfg, device="cuda")
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(rid=i, prompt=torch.randint(
+        0, cfg.vocab_size, (16 * (3 + i),), generator=rng).tolist(),
+        max_new=8) for i in range(2)]
+    streams, logits = {}, {}
+    for P in (1, 2):
+        eng = PipelinedEngine(cfg, params, P=P, chunk=16, max_seq=96,
+                              n_slots=2, device="cuda")
+        got, tick = {}, eng.tick
+
+        def recording(inj, tick=tick, got=got):
+            retired, tok, lg = tick(inj)
+            if lg is not None:
+                got.setdefault(retired.rid, []).append(lg.float().cpu())
+            return retired, tok, lg
+        eng.tick = recording
+        res = eng.serve(reqs, clock=None)
+        streams[P] = {r: rec.tokens for r, rec in res["finished"].items()}
+        logits[P] = got
+    worst = max(float((a - b).abs().max()) for r in logits[1]
+                for a, b in zip(logits[1][r], logits[2][r]))
+    print(f"[serve-gemma3-check] (a) reduced gemma3 fp32 (window "
+          f"{cfg.sliding_window}, prompts 48 and 64): P=2 streams "
+          f"{'==' if streams[1] == streams[2] else '!='} P=1 streams "
+          f"{streams[1]}; logits max|d| {worst:.3e} (tol 1e-5)")
+    if streams[1] != streams[2] or not worst <= 1e-5:
+        fail("gemma3: the engine's P=2 streams differ from P=1's")
+    cfg32 = dataclasses.replace(get_config("gemma3-27b"), num_layers=6,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    fused = LM(cfg32, kernels="fused", device="cuda")
+    plain = LM(cfg32, kernels="plain", device="cuda")
+    params = fused.init(torch.Generator(device="cuda").manual_seed(0))
+    chunk, n_chunks = 512, 3
+    prompt = torch.randint(0, cfg32.vocab_size, (1, chunk * n_chunks),
+                           generator=rng).to("cuda")
+    caches = {"fused": fused.init_cache(1, chunk * n_chunks + 8),
+              "plain": plain.init_cache(1, chunk * n_chunks + 8)}
+    worst, pos, tok = 0.0, 0, None
+    for step in range(n_chunks + 4):
+        out = {}
+        for name, lm_ in (("fused", fused), ("plain", plain)):
+            if step < n_chunks:
+                out[name], _ = lm_.prefill_chunk(
+                    params, prompt[:, chunk * step:chunk * (step + 1)],
+                    caches[name], pos)
+            else:
+                out[name], _ = lm_.decode_step(params, tok, caches[name], pos)
+        if not bool(torch.isfinite(out["fused"]).all()):
+            fail("gemma3: non-finite fp32 logits")
+        worst = max(worst, max_err(out["fused"], out["plain"]))
+        pos += chunk if step < n_chunks else 1
+        tok = out["fused"].argmax(-1, keepdim=True)
+    print(f"[serve-gemma3-check] (b) full width fp32, 6 layers, fused vs "
+          f"plain logits over {n_chunks} prefill chunks of {chunk} and 4 "
+          f"decode steps (to position {pos}): max|d| {worst:.3e} (tol 1e-3)")
+    if not worst <= 1e-3:
+        fail("gemma3: fused and plain backends disagree on fp32 logits")
+    del fused, plain, params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def single_host_stream(torch, arch: str, tag: str, prompt_len: int,
+                       n_new: int = 9):
+    """Full width, bf16, one request on the single-host ``LM``:
+    ``prefill`` of a ``prompt_len``-token prompt with the config's patch
+    or frame embeddings (fp32, from the seed), then ``n_new - 1`` greedy
+    ``decode_step`` s.  Checks finite logits, every prefill layer on the
+    flash kernel (an encoder's layers too) and none in decode (which
+    reads cached cross K/V); prints the tokens, times and the peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_source
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import LM
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device="cuda")
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0))
+    flat = synthetic_source(cfg, prompt_len, seed=2).next_batch(1)
+    kw = {k: torch.from_numpy(a).to("cuda") for k, a in flat.items()}
+    tokens = kw.pop("tokens")
+    pre = cfg.vision.num_patches if cfg.vision is not None else 0
+    cache = lm.init_cache(1, pre + prompt_len + n_new)
+    n_enc = cfg.encdec.num_encoder_layers if cfg.encdec is not None else 0
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, tokens, cache, **kw)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    n_pre = flash_attention_fwd.launches
+    out, finite, pos = [], bool(torch.isfinite(logits).all()), \
+        pre + prompt_len
+    t0 = time.perf_counter()
+    for _ in range(n_new):
+        tok = logits.argmax(-1, keepdim=True)
+        out.append(int(tok))
+        if len(out) == n_new:
+            break
+        logits, cache = lm.decode_step(params, tok, cache, pos)
+        finite &= bool(torch.isfinite(logits).all())
+        pos += 1
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / (n_new - 1)
+    n_dec = flash_attention_fwd.launches - n_pre
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] {cfg.name} full width bf16, single-host prefill of "
+          f"{f'{pre} patches + ' if pre else ''}{prompt_len} tokens"
+          f"{f' over {cfg.encdec.num_frames} frames' if n_enc else ''}: "
+          f"{t_pre * 1e3:.1f} ms, then {n_new - 1} greedy decode steps at "
+          f"{t_dec * 1e3:.2f} ms each; tokens {out}; flash launches "
+          f"prefill {n_pre} (want {cfg.num_layers + n_enc}), decode {n_dec} "
+          f"(want 0); launches {launches}; max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB")
+    if not finite:
+        fail(f"{tag}: non-finite logits")
+    if n_pre != cfg.num_layers + n_enc or n_dec:
+        fail(f"{tag}: flash launches prefill {n_pre}, decode {n_dec}")
+    del lm, params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_a4(torch, arch: str, tag: str, P: int, seq: int):
+    """18-19. ``arch`` trained 4 steps at full width through
+    ``train_pipeline`` (chronos_zb, v=2, 8 microbatches of one sequence of
+    ``seq`` tokens, with the synthetic source's fp32 patch or frame
+    embeddings), gated as phase 6 (launch counts from the task table,
+    with the encoder on the first chunk's ops), the peak printed beside
+    ``predicted_card_peak``."""
+    out = phase_train(torch, arch, tag, None, P=P, seq=seq)
+    tc = _train_config(arch, seq=seq)
+    total, state, act, kv = predicted_card_peak(tc, P)
+    print(f"[{tag}] peak {out['peak'] / 2 ** 30:.3f} GiB against the card "
+          f"prediction {total / 2 ** 30:.3f} GiB ({P} x model_state "
+          f"{state / 2 ** 30:.3f} + activations {act / 2 ** 30:.3f} + "
+          f"reserve {PLANNER_RESERVE / 2 ** 30:.3f}); measured / predicted "
+          f"{out['peak'] / total:.3f}")
+    return out
+
+
+def _fp32_pipe_check(torch, tag, cfg, P, v, seq, schedules, m=4):
+    """``cfg`` (fp32) on the card: pipeline loss and gradients (fused
+    kernels) of each of ``schedules`` against ``LM.loss`` autograd (plain
+    backend, same weights) over ``m`` microbatches of one ``seq``-token
+    sequence with the config's fp32 patch or frame embeddings; every leaf
+    (the encoder's too) within 2e-5 of its largest element, the loss
+    within 2e-5 relative."""
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   make_pipeline_spec,
+                                                   make_train_grads_fn,
+                                                   unstage_params)
+    from repro_torch.data import synthetic_source
+    from repro_torch.models import LM
+    from repro_torch.tree import tree_leaves, tree_map
+    tol = 2e-5
+    gc.collect()
+    torch.cuda.empty_cache()
+    flat = synthetic_source(cfg, seq, seed=3).next_batch(m)
+    if not isinstance(flat, dict):
+        flat = {"tokens": flat}
+    batch = {k: torch.from_numpy(a.reshape((m, 1) + a.shape[1:])).to("cuda")
+             for k, a in flat.items()}
+    specs = {s: make_pipeline_spec(cfg, P=P, v=v, m=m, microbatch=1,
+                                   seq_len=seq, schedule=s, kernels="fused")
+             for s in schedules}
+    base = specs[schedules[0]]
+    assert all(sp.layout == base.layout for sp in specs.values())
+    params = init_pipeline_params(torch.Generator(device="cuda")
+                                  .manual_seed(0), cfg, base.layout, "cuda")
+    lm = LM(cfg, kernels="plain", device="cuda")
+    lp = tree_map(lambda a: a.detach().clone().requires_grad_(),
+                  unstage_params(params, base.layout))
+    ref_loss = 0.0
+    ref = None
+    for i in range(m):
+        loss = lm.loss(lp, {k: a[i] for k, a in batch.items()})[0]
+        g = torch.autograd.grad(loss, tree_leaves(lp))
+        ref = list(g) if ref is None else [a.add_(b) for a, b in zip(ref, g)]
+        ref_loss += float(loss.detach()) / m
+        del loss, g
+    del lp
+    for s in schedules:
+        g, met = make_train_grads_fn(specs[s], "cuda")(params, batch)
+        gu = unstage_params(g, specs[s].layout)
+        del g
+        got = tree_leaves(gu)
+        n_enc = len(tree_leaves(gu.get("encoder", []))) + \
+            len(tree_leaves(gu.get("enc_norm", {})))
+        err = max([abs(float(met["loss"]) - ref_loss) / abs(ref_loss)]
+                  + [_rel_err(a, b) for a, b in zip(got, ref)])
+        print(f"[{tag}] {cfg.name} fp32 ({cfg.num_layers} layers, d "
+              f"{cfg.d_model}, head dim {cfg.resolved_head_dim}, window "
+              f"{cfg.sliding_window}, seq {seq}) {s} P={P} fused vs "
+              f"LM.loss autograd: loss {float(met['loss']):.6f} vs "
+              f"{ref_loss:.6f}; max rel |d| loss and {len(got)} grads "
+              f"({n_enc} of the encoder) {err:.3e} (tol {tol:g}) "
+              f"{'ok' if err <= tol else 'FAIL'}")
+        if len(got) != len(ref) or not err <= tol:
+            fail(f"{tag}: {cfg.name} {s} pipeline gradients disagree with "
+                 f"LM.loss autograd")
+        del gu, got
+    del params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_a4_checks(torch):
+    """20. fp32 on the card, reduced depth: pipeline loss and gradients
+    against ``LM.loss`` autograd at 2e-5 for gemma3 at full width, 6
+    layers (five local, one global) with its window cut to 256 under
+    512 positions; paligemma at head dim 256 (d 512, 4 heads over 1 K/V
+    head) with its 256 patches; whisper-base at full width with its
+    encoder's gradients."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    _fp32_pipe_check(torch, "train-check-gemma3", dataclasses.replace(
+        get_config("gemma3-27b"), num_layers=6, sliding_window=256, **f32),
+        P=3, v=2, seq=513, schedules=("chronos_zb",))
+    _fp32_pipe_check(torch, "train-check-paligemma", dataclasses.replace(
+        get_config("paligemma-3b"), num_layers=4, d_model=512, num_heads=4,
+        d_ff=2048, **f32), P=2, v=2, seq=257,
+        schedules=("chronos_zb", "chronos"))
+    _fp32_pipe_check(torch, "train-check-whisper", dataclasses.replace(
+        get_config("whisper-base"), **f32), P=3, v=2, seq=449,
+        schedules=("chronos_zb", "chronos"))
 
 
 def print_ptxas(log: str) -> None:
@@ -2992,6 +3510,8 @@ def main() -> None:
     by_name = {r["name"]: r for r in rows}
     phase_functions(torch, gen)
     phase_train_shapes(torch, gen, by_name)
+    phase_flash_d256(torch, gen, by_name)
+    phase_rmsnorm_widths(torch, gen)
     phase_flash_offsets(torch, gen, by_name)
     phase_flash_offsets(torch, gen, by_name, H=32, G=32, d=128, n_seqs=(4,),
                         key="train_planner_deepseek")
@@ -3039,7 +3559,7 @@ def main() -> None:
     phase_train_checks(torch, "tinyllama-1.1b", "train-check")
     done("train checks tinyllama-1.1b")
 
-    # 8. train mamba2 at full width, 32 layers (all of tinyllama's
+    # 8. train mamba2 at full width, 16 layers (all of tinyllama's
     #    tensors freed first), then a profiled step; 9. its train checks
     gc.collect()
     torch.cuda.empty_cache()
@@ -3097,8 +3617,32 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_train_planner(torch))
+    done("train-planner checks")
 
-    # 17. kernels line, then the result line.  ``launches`` sums the
+    # 17. gemma3-27b served at full width (its 52 windowed layers past the
+    #     window), 17a. its checks; 18. paligemma-3b trained at full width
+    #     through the head-dim-256 kernel with its patch prefix, then its
+    #     single-host prefill and decode; 19. whisper-base likewise with
+    #     the encoder in the first chunk; 20. their fp32 pipeline checks
+    launches["serve_gemma3"] = phase_serve_gemma3(torch)
+    done("serve gemma3-27b")
+    phase_gemma3_checks(torch)
+    done("serve checks gemma3-27b")
+    launches["train_paligemma"] = phase_train_a4(
+        torch, "paligemma-3b", "train-paligemma", P=3,
+        seq=TRAIN_SEQ)["launches"]
+    launches["single_paligemma"] = single_host_stream(
+        torch, "paligemma-3b", "single-paligemma", prompt_len=64)
+    done("train paligemma-3b")
+    launches["train_whisper"] = phase_train_a4(
+        torch, "whisper-base", "train-whisper", P=3, seq=449)["launches"]
+    launches["single_whisper"] = single_host_stream(
+        torch, "whisper-base", "single-whisper", prompt_len=32)
+    done("train whisper-base")
+    phase_a4_checks(torch)
+    done("A.4 checks")
+
+    # 21. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

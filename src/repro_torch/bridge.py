@@ -3,7 +3,8 @@
 The tree keeps its structure and layout leaf for leaf:
 ``{"embed": {"tokens"[, "head"]}, "final_norm": {"scale"}, "layers":
 [per period position, leaves stacked [num_periods, ...]], "rem_layers":
-[...]}``.  Leaves cross as numpy arrays (``jax.tree.map(np.asarray,
+[...]}``, and an encoder-decoder's ``encoder`` (a list of layer trees),
+``enc_norm`` and each decoder layer's ``cross`` and ``norm_x``.  Leaves cross as numpy arrays (``jax.tree.map(np.asarray,
 params)`` on the JAX side), so this module imports neither JAX nor
 ``ml_dtypes``: a bfloat16 leaf (numpy dtype name ``"bfloat16"``) crosses
 as its raw 16-bit pattern.

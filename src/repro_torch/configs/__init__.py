@@ -1,12 +1,16 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Only the architectures with a ported path are listed: the dense ones
-(tinyllama-1.1b, deepseek-7b, qwen2-72b with its q/k/v biases, and the
-paper's llama70b-paper), the SSM one (mamba2-2.7b), the MoE ones
+Every architecture of the reference's registry: the dense ones
+(tinyllama-1.1b, deepseek-7b, qwen2-72b with its q/k/v biases, gemma3-27b
+with its 5:1 local/global sliding windows, and the paper's
+llama70b-paper), the SSM one (mamba2-2.7b), the MoE ones
 (qwen2-moe-a2.7b with shared experts, grok-1-314b with ungated gelu
-experts) and the hybrid jamba-v0.1-52b (Mamba-2 and attention layers,
-MoE on every other layer).  Every one serves and trains, and is an
-input of the memory-budget planner (:mod:`repro_torch.plan`).
+experts), the hybrid jamba-v0.1-52b (Mamba-2 and attention layers, MoE
+on every other layer), the VLM paligemma-3b (a patch prefix) and the
+encoder-decoder whisper-base.  Every one trains and is an input of the
+memory-budget planner (:mod:`repro_torch.plan`); every decoder family
+serves (the reference's engine serves neither the VLM nor the
+encoder-decoder).
 """
 from __future__ import annotations
 
@@ -23,6 +27,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "grok-1-314b": "repro_torch.configs.grok1_314b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
+    "whisper-base": "repro_torch.configs.whisper_base",
     "llama70b-paper": "repro_torch.configs.llama70b_paper",
 }
 

@@ -1,9 +1,9 @@
 """Configuration dataclasses for the port (own copy of
 ``repro.configs.base``).
 
-The dense-attention, Mamba-2 (SSD) and mixture-of-experts model fields
-are carried over; encoder-decoder and VLM sub-configs arrive with the
-slices that port those paths.  ``ParallelPlan`` keeps the fields the single-card
+Every model field is carried over: dense attention (with gemma3's
+local/global sliding windows), Mamba-2 (SSD), mixture-of-experts, the
+encoder-decoder (whisper) and the VLM patch prefix (paligemma).  ``ParallelPlan`` keeps the fields the single-card
 pipeline step reads; mesh axes, ZeRO and wire compression arrive with
 the multi-process slice (ROADMAP A.1d).
 """
@@ -43,6 +43,23 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder (whisper-style) configuration.  The modality
+    frontend (conv mel-spectrogram downsampling) is a stub: the caller
+    hands in precomputed frame embeddings [batch, num_frames, d_model]."""
+    num_encoder_layers: int
+    num_frames: int = 1500          # whisper-base encoder positions
+
+
+@dataclass(frozen=True)
+class VisionStubConfig:
+    """VLM (paligemma-style) frontend stub: precomputed patch embeddings
+    [batch, num_patches, d_model] form a prefix that attends
+    bidirectionally (prefix-LM masking)."""
+    num_patches: int = 256
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     num_layers: int                 # decoder layers
@@ -62,9 +79,11 @@ class ModelConfig:
     act: str = "silu"               # silu (swiglu) | gelu (plain) | geglu
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    family: str = "dense"           # dense | ssm | moe | hybrid (| ...)
+    family: str = "dense"           # dense | moe | hybrid | ssm | vlm | audio
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vision: Optional[VisionStubConfig] = None
     # numerics
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -113,12 +132,10 @@ class ModelConfig:
         return p
 
     def param_count(self) -> int:
-        """Total parameter count (embedding included) of the attention,
-        Mamba-2, MoE, dense-FFN and norm terms.  Encoder and vision
-        families have no fields here yet (ROADMAP A.4) and raise."""
-        if self.family not in ("dense", "ssm", "moe", "hybrid"):
-            raise NotImplementedError(
-                f"param_count of a {self.family!r} config is not ported")
+        """Total parameter count (embedding included): the attention,
+        Mamba-2, MoE, dense-FFN and norm terms of the decoder, plus an
+        encoder-decoder config's encoder layers and the decoder's
+        cross-attention (its projections and ``norm_x``)."""
         d, hd = self.d_model, self.resolved_head_dim
         n = self.vocab_size * d                               # embed
         if not self.tie_embeddings:
@@ -148,6 +165,13 @@ class ModelConfig:
                 mult = 3 if self.act in ("silu", "geglu") else 2
                 n += mult * d * self.d_ff
             n += 2 * d                                           # norms
+        if self.encdec is not None:
+            mult = 3 if self.act in ("silu", "geglu") else 2
+            attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                    + self.num_heads * hd * d)
+            n += self.encdec.num_encoder_layers * (attn + mult * d * self.d_ff
+                                                   + 2 * d)
+            n += self.num_layers * (attn + d)            # cross + norm_x
         return n
 
     def active_param_count(self) -> int:

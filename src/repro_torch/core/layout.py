@@ -41,6 +41,7 @@ class StageLayout:
     period: int         # structural period
     M: int              # periods per block = K // period
     pl: Placement       # layer-block <-> device assignment
+    lm_period: int = 1  # the LM's stacking period (cfg.period)
 
     @staticmethod
     def build(cfg: ModelConfig, P: int, v: int,
@@ -50,7 +51,8 @@ class StageLayout:
         L_pad = -(-cfg.num_layers // quantum) * quantum
         K = L_pad // (P * v)
         return StageLayout(P=P, v=v, L=cfg.num_layers, L_pad=L_pad, K=K,
-                           period=per, M=K // per, pl=placement)
+                           period=per, M=K // per, pl=placement,
+                           lm_period=cfg.period)
 
     def global_idx(self, d: int, c: int, j: int) -> int:
         """Global layer index of local layer ``j`` of the block at

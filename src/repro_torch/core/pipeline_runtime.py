@@ -25,16 +25,26 @@ saving becomes structural.
 The payload between virtual stages is the reference's: the boundary
 activation ``x`` and the fp32 MoE aux sum ``aux`` [1] (each MoE layer
 adds its gate-weighted load-balancing loss; the last stage adds
-``aux_weight`` times it to the CE).  Every ring has an ``aux`` twin
-``[depth, 1]`` fp32 at the same slots (``_Executor.aux_rings``): the
-forward rings carry ``aux``, the backward ones its cotangent.
+``aux_weight`` times it to the CE), and in an encoder-decoder config the
+encoder output ``enc`` [mbB, enc_len, d].  Every ring has an ``aux``
+twin ``[depth, 1]`` fp32 at the same slots (``_Executor.aux_rings``),
+and an ``enc`` twin where the payload carries one (``enc_rings``): the
+forward rings carry ``aux`` and ``enc``, the backward ones their
+cotangents.  ``enc`` rides every chunk unchanged and every decoder
+layer's cross-attention reads it, so its cotangent grows on the way
+back: each B op sends upstream its chunk's own ``enc`` cotangent plus
+the one it received, and the first chunk, which ran the encoder (on
+the shared ``encoder`` and ``enc_norm`` parameters), takes the sum back
+through it.  A VLM's patch embeddings join ``x`` at the first chunk
+(``spec.prefix`` positions ahead of the tokens, attending
+bidirectionally) and the head drops them.
 
 Op semantics mirror the reference's phase executor:
 
 - **F** runs under ``torch.no_grad``: the first stage of chunk 0 embeds
-  the microbatch (aux 0), the last stage of the last chunk adds the head
-  loss to the loss sum; the op's input boundary goes to the activation
-  ring.
+  the microbatch (aux 0; the patch prefix; the encoder over the frames),
+  the last stage of the last chunk adds the head loss to the loss sum;
+  the op's input boundary goes to the activation ring.
 - **B, fused** (tables without W): recompute the chunk from its stored
   boundary under autograd and ``torch.autograd.grad`` with explicit
   inputs — the input gradient goes upstream, block gradients accumulate
@@ -55,7 +65,7 @@ aux``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict
 
 import torch
 
@@ -69,7 +79,8 @@ from repro_torch.core.tasktable import (F_OPS, IDLE, R_OPS, SEND_B_DOWN,
                                         TaskTable, build_task_table)
 from repro_torch.models import backend as compute_backend
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dtype, _init_layers
+from repro_torch.models.transformer import (_dtype, _init_encoder,
+                                            _init_layers, encode)
 from repro_torch.optim.adamw import adamw_update, cast_like
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -101,8 +112,10 @@ def init_pipeline_params(generator: torch.Generator, cfg: ModelConfig,
     chunk) under ``layout``'s placement, one tree per period position,
     built for that position's layer kind and FFN (a Mamba-2 tree holds
     fp32 ``A_log``, ``D`` and ``dt_bias``, an MoE tree its fp32 router,
-    beside weights of the parameter dtype); embedding, head and final norm are shared by the stages (with
-    tied embeddings the head is ``embed.tokens``)."""
+    beside weights of the parameter dtype); embedding, head and final
+    norm (and an encoder-decoder config's ``encoder`` and ``enc_norm``)
+    are shared by the stages (with tied embeddings the head is
+    ``embed.tokens``)."""
     dt = _dtype(cfg.param_dtype)
     d = cfg.d_model
     n = layout.P * layout.v * layout.M
@@ -115,29 +128,42 @@ def init_pipeline_params(generator: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         embed["head"] = L.dense_init(generator, (d, cfg.vocab_size), d, dt,
                                      device)
-    return {"blocks": blocks, "embed": embed,
-            "final_norm": {"scale": torch.ones((d,), dtype=dt,
-                                               device=device)}}
+    params = {"blocks": blocks, "embed": embed,
+              "final_norm": {"scale": torch.ones((d,), dtype=dt,
+                                                 device=device)}}
+    if cfg.encdec is not None:
+        params.update(_init_encoder(generator, cfg, device))
+    return params
 
 
 def unstage_params(tree, layout: StageLayout) -> Dict[str, Any]:
     """Pipeline tree (parameters or gradients) -> the single-device
-    ``LM`` tree: block leaves ``[P, v, M, ...]`` restacked
-    ``[num_layers, ...]`` in global layer order (padding layers
-    dropped), shared leaves as they are."""
-    per = layout.period
-    order: List[List[tuple]] = [[] for _ in range(per)]
-    for g in range(layout.L):
-        blk, within = divmod(g, layout.K)
-        for d in range(layout.P):
-            for c in range(layout.v):
-                if layout.pl.block(d, c) == blk:
-                    order[within % per].append((d, c, within // per))
-    layers = [tree_map(lambda a, j=j: torch.stack(
-        [a[d, c, mi] for d, c, mi in order[j]]), tree["blocks"][j])
-        for j in range(per)]
-    return {"embed": tree["embed"], "final_norm": tree["final_norm"],
-            "layers": layers, "rem_layers": []}
+    ``LM`` tree: block leaves ``[P, v, M, ...]`` restacked as the LM
+    stacks its layers (per position of the model's period, leaves
+    ``[num_periods, ...]`` in global layer order, then the remainder
+    layers; gemma3's local/global pattern makes that period 6 where the
+    layout's is 1), padding layers dropped; shared leaves (the
+    encoder's too) as they are."""
+    per, lper = layout.period, layout.lm_period
+    where = {}
+    for d in range(layout.P):
+        for c in range(layout.v):
+            blk = layout.pl.block(d, c)
+            for w in range(layout.K):
+                if blk * layout.K + w < layout.L:
+                    where[blk * layout.K + w] = (d, c, w)
+
+    def layer(g):
+        d, c, w = where[g]
+        return tree_map(lambda a: a[d, c, w // per], tree["blocks"][w % per])
+
+    nper = layout.L // lper
+    layers = [tree_map(lambda *a: torch.stack(a),
+                       *[layer(k * lper + j) for k in range(nper)])
+              for j in range(lper) if nper]
+    rem = [layer(nper * lper + r) for r in range(layout.L - nper * lper)]
+    shared = {k: v for k, v in tree.items() if k != "blocks"}
+    return {**shared, "layers": layers, "rem_layers": rem}
 
 
 def restage_params(tree, src: StageLayout, dst: StageLayout):
@@ -164,8 +190,10 @@ class PipelineSpec:
     layout: StageLayout
     table: TaskTable
     mbB: int                    # microbatch size (sequences)
-    S: int                      # token positions fed to the stack
+    S: int                      # positions fed to the stack (patches too)
     kernels: str = "plain"      # compute backend (repro_torch.models.backend)
+    prefix: int = 0             # VLM patch prefix length
+    enc_len: int = 0            # encoder positions (0 if none)
     n_seq: int = 1              # sequence chunks per microbatch
     aux_weight: float = 0.01    # weight of the MoE aux sum in the loss
 
@@ -183,8 +211,10 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
     ``seq_len - 1`` must split into ``n_seq`` equal chunks, and the
     table must have no W tasks (``seq1f1b(split=True)`` compiles to a
     table, which no executor runs, as in the reference).  A dense
-    attention LM here excludes SSM and MoE layers, as the reference's
-    assertion does (the seq executor carries no aux sum)."""
+    attention LM here excludes SSM and MoE layers, an encoder and a patch
+    prefix, as the reference's assertion does (the seq executor carries
+    no aux sum and no encoder output, and its chunks would cut the
+    prefix).  ``S`` is ``seq_len - 1`` plus a VLM's patches."""
     if schedule in SEQ_SCHEDULES:
         sched_kw["n_seq"] = n_seq
     elif n_seq != 1:
@@ -199,7 +229,8 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
     layout = StageLayout.build(cfg, P, v, sched.pl)
     table = build_task_table(sched, overlap=False)
     if n_seq > 1:
-        if cfg.ssm is not None or cfg.moe is not None:
+        if cfg.ssm is not None or cfg.moe is not None \
+                or cfg.encdec is not None or cfg.vision is not None:
             raise ValueError(f"the sequence-chunked executor runs dense "
                              f"attention LMs, got {cfg.name}")
         if (seq_len - 1) % n_seq:
@@ -209,16 +240,23 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
             raise ValueError("split-backward seq schedules compile to a "
                              "table only; no executor runs them")
     compute_backend.get_backend(kernels)        # validate the flag early
+    prefix = cfg.vision.num_patches if cfg.vision is not None else 0
+    enc_len = cfg.encdec.num_frames if cfg.encdec is not None else 0
     return PipelineSpec(cfg=cfg, layout=layout, table=table, mbB=microbatch,
-                        S=seq_len - 1, kernels=kernels, n_seq=n_seq)
+                        S=seq_len - 1 + prefix, kernels=kernels,
+                        n_seq=n_seq, prefix=prefix, enc_len=enc_len)
 
 
-def _embed_tokens(spec: PipelineSpec, shared, tokens):
+def _embed_tokens(spec: PipelineSpec, shared, tokens, patch=None):
     """Token embedding scaled by sqrt(d) (the scale rounded to the
-    embedding's dtype, as the reference does), in the compute dtype."""
+    embedding's dtype, as the reference does), with a VLM's patch
+    embeddings [mbB, P, d] ahead of it, in the compute dtype."""
     x = L.embed(shared["embed"], tokens)
     mult = torch.tensor(spec.cfg.d_model ** 0.5, dtype=x.dtype).item()
-    return (x * mult).to(_dtype(spec.cfg.compute_dtype))
+    x = x * mult
+    if patch is not None:
+        x = torch.cat([patch.to(x.dtype), x], dim=1)
+    return x.to(_dtype(spec.cfg.compute_dtype))
 
 
 def _with_grad(tree):
@@ -256,9 +294,14 @@ class _Executor:
                         for _ in range(P_)],
             }
         self.rings: Dict[str, Any] = rings(shape, dt)
-        # the payload's aux sum (forward rings) and its cotangent
-        # (backward rings), slot for slot
+        # the payload's aux sum and encoder output (forward rings) and
+        # their cotangents (backward rings), slot for slot
         self.aux_rings: Dict[str, Any] = rings((1,), torch.float32)
+        self.ring_sets = [self.rings, self.aux_rings]
+        if spec.enc_len:
+            self.enc_rings = rings((spec.mbB, spec.enc_len,
+                                    spec.cfg.d_model), dt)
+            self.ring_sets.append(self.enc_rings)
         self.aux0 = torch.zeros((1,), dtype=torch.float32, device=device)
 
     # -- helpers -------------------------------------------------------------
@@ -273,30 +316,44 @@ class _Executor:
         blocks = [tree_map(lambda a: a[d, c], t) for t in params["blocks"]]
         return _with_grad(blocks) if grad else blocks
 
+    def _first_input(self, shared, tok_in, batch, mb):
+        """The payload entering the pipeline's first block: the embedded
+        tokens (after the patch prefix), aux 0, and the encoder output
+        where the config has an encoder (from ``shared``'s encoder
+        parameters, under autograd where they require grad)."""
+        spec = self.spec
+        patch = batch["patch_embeds"][mb] if spec.prefix else None
+        out = [_embed_tokens(spec, shared, tok_in, patch), self.aux0]
+        if spec.enc_len:
+            out.append(encode(spec.cfg, shared, batch["frame_embeds"][mb],
+                              compute_backend.get_backend(spec.kernels)))
+        return out
+
     def _boundary(self, d, c, aslot, rslot):
-        """The stored input payload ``(x, aux)`` of a backward op."""
+        """The stored input payload (``x``, ``aux`` [, ``enc``]) of a
+        backward op."""
         if rslot >= 0:
             return self._get("rmt", d, c, rslot)
         return self._get("act", d, c, aslot)
 
     def _get(self, name, d, c, slot):
         """Slot ``slot`` of ring ``name`` at device ``d`` (chunk ``c``;
-        None for the receive queues) and its aux twin."""
+        None for the receive queues) and its aux (and enc) twins."""
         out = []
-        for r in (self.rings, self.aux_rings):
+        for r in self.ring_sets:
             ring = r[name][d] if c is None else r[name][d][c]
             out.append(_at(ring, slot))
         return tuple(out)
 
     def _put(self, name, d, c, slot, payload):
-        for r, a in zip((self.rings, self.aux_rings), payload):
+        for r, a in zip(self.ring_sets, payload):
             ring = r[name][d] if c is None else r[name][d][c]
             _at(ring, slot).copy_(a)
 
     # -- one op --------------------------------------------------------------
     def _op(self, d, row, params, shared, batch, acc):
-        """Run one op; returns the payload it sends (``(x, aux)`` forward,
-        their cotangents backward) or None."""
+        """Run one op; returns the payload it sends (``(x, aux[, enc])``
+        forward, their cotangents backward) or None."""
         spec = self.spec
         op, c, mb, src, aslot = (int(x) for x in row[:5])
         wslot, rslot = int(row[12]), int(row[13])
@@ -305,23 +362,45 @@ class _Executor:
         tokens = batch["tokens"][mb]
         tok_in, labels = tokens[:, :-1], tokens[:, 1:]
         mask = batch["loss_mask"][mb] if "loss_mask" in batch else None
+        enc = bool(spec.enc_len)
 
-        def chunk(blocks_c, x, aux):
-            return compute_backend.chunk_fwd(spec, blocks_c, flags_c, x, aux)
+        def chunk(blocks_c, x, aux, enc_in=None):
+            return compute_backend.chunk_fwd(spec, blocks_c, flags_c, x, aux,
+                                             enc_in)
 
         def head(sh, x, aux):
             return compute_backend.head_loss(spec, sh, x, labels, mask,
                                              aux=aux)
 
-        def terms(out, seed):
+        def terms(out, seed, enc_out=None):
             """Outputs and seeds of a non-last chunk: ``x`` always, the
-            aux sum where it depends on what is differentiated."""
-            (x, a), (dx, da) = out, seed
-            return ([x, a], [dx, da]) if a.requires_grad else ([x], [dx])
+            aux sum where it depends on what is differentiated, and the
+            encoder output ``enc_out`` where this op computed it (the
+            first block), seeded with the cotangent the next chunk
+            sent."""
+            (x, a), (dx, da) = out, seed[:2]
+            outs, seeds = ([x, a], [dx, da]) if a.requires_grad \
+                else ([x], [dx])
+            if enc_out is not None:
+                outs.append(enc_out)
+                seeds.append(seed[2])
+            return outs, seeds
+
+        def upstream(g, recv):
+            """The input cotangents ``g`` a B op sends upstream: the enc
+            input's is this chunk's own plus the one it received, since
+            the payload carried enc on unchanged."""
+            if not enc or recv is None:
+                return g
+            # a copy: ``recv`` is a view of this device's receive slot,
+            # which this tick's landings may overwrite before this send
+            # lands
+            denc = recv[2].clone() if g[2] is None else g[2] + recv[2]
+            return tuple(g[:2]) + (denc,)
 
         if op in F_OPS:
             with torch.no_grad():
-                x_in = (_embed_tokens(spec, shared, tok_in), self.aux0) \
+                x_in = self._first_input(shared, tok_in, batch, mb) \
                     if first else self._get("fq", d, None, src)
                 if aslot >= 0:
                     self._put("act", d, c, aslot, x_in)
@@ -330,7 +409,10 @@ class _Executor:
                     acc["loss"] += head(shared, *out)
                     acc["n"] += 1
                     return None
-                return out
+                # enc rides on, copied: ``x_in`` views this device's receive
+                # slot, which this tick's landings may overwrite before this
+                # send lands
+                return tuple(out) + tuple(a.clone() for a in x_in[2:])
 
         if op in R_OPS:
             if rslot >= 0:
@@ -343,13 +425,14 @@ class _Executor:
             blocks_c = self._block(params, d, c, True)
             sh = _with_grad(shared) if (first or last) else shared
             with torch.enable_grad():
-                x = (_embed_tokens(spec, sh, tok_in), self.aux0) if first \
+                x = self._first_input(sh, tok_in, batch, mb) if first \
                     else self._get("wx", d, c, wslot)
                 out = chunk(blocks_c, *x)
                 if last:
                     outs, seeds = [head(sh, *out)], [None]
                 else:
-                    outs, seeds = terms(out, self._get("wdy", d, c, wslot))
+                    outs, seeds = terms(out, self._get("wdy", d, c, wslot),
+                                        x[2] if first and enc else None)
                 self._accumulate(acc, d, c, blocks_c, sh, first or last,
                                  outs, seeds)
             return None
@@ -371,14 +454,16 @@ class _Executor:
                 out = chunk(self._block(params, d, c, False), *x)
                 if last:
                     return _grad(head(shared, *out), None, x)
-                outs, seeds = terms(out, self._get("bq", d, None, src))
-                return _grad(outs, seeds, x)
+                recv = self._get("bq", d, None, src)
+                outs, seeds = terms(out, recv)
+                return upstream(_grad(outs, seeds, x), recv)
 
         blocks_c = self._block(params, d, c, True)
         sh = _with_grad(shared) if (first or last) else shared
+        recv = None if last else self._get("bq", d, None, src)
         with torch.enable_grad():
             if first:
-                x = [_embed_tokens(spec, sh, tok_in), self.aux0]
+                x = self._first_input(sh, tok_in, batch, mb)
             else:
                 x = [a.detach().requires_grad_()
                      for a in self._boundary(d, c, aslot, rslot)]
@@ -386,10 +471,11 @@ class _Executor:
             if last:
                 outs, seeds = [head(sh, *out)], [None]
             else:
-                outs, seeds = terms(out, self._get("bq", d, None, src))
+                outs, seeds = terms(out, recv,
+                                    x[2] if first and enc else None)
             dx = self._accumulate(acc, d, c, blocks_c, sh, first or last,
                                   outs, seeds, () if first else x)
-        return None if first else dx
+        return None if first else upstream(dx, recv)
 
     def _accumulate(self, acc, d, c, blocks_c, sh, with_shared, outs,
                     seeds, extra=()):
@@ -433,13 +519,13 @@ class _Executor:
                 if out is not None and row[5] != SEND_NONE:
                     sends.append((d, int(row[5]), out))
             # the tick's ops have read their queues: land the sends (a
-            # payload (x, aux); an aux of None is not carried)
+            # payload (x, aux[, enc]); an aux of None is not carried)
             for d, code, out in sends:
                 delta, q, col = _ROUTE[code]
                 dest = (d + delta) % tab.P
                 slot = int(self.A[t, dest, col])
                 assert slot >= 0, f"tick {t}: no receive slot at {dest}"
-                for r, a in zip((self.rings, self.aux_rings), out):
+                for r, a in zip(self.ring_sets, out):
                     if a is not None:
                         r[q + "q"][dest][slot].copy_(a)
         grads = {"blocks": acc["gb"], **acc["gs"]}
@@ -464,8 +550,10 @@ def _grad(outputs, seeds, inputs):
 
 def make_train_grads_fn(spec: PipelineSpec, device):
     """Returns ``fn(params, batch) -> (grads, metrics)`` running the full
-    schedule.  ``batch``: ``tokens`` [m, mbB, S + 1] (+ optional
-    ``loss_mask`` [m, mbB, S]) on ``device``.  ``grads`` are summed over
+    schedule.  ``batch``: ``tokens`` [m, mbB, seq_len] (+ optional
+    ``loss_mask`` [m, mbB, seq_len - 1], and ``patch_embeds`` [m, mbB,
+    prefix, d] for a VLM or ``frame_embeds`` [m, mbB, enc_len, d] for an
+    encoder-decoder config) on ``device``.  ``grads`` are summed over
     the microbatches, block leaves in their parameters' dtype and shared
     leaves in fp32: ``{"blocks": [...], "embed": ...,
     "final_norm": ...}``; ``metrics``: ``loss`` (the microbatches' mean

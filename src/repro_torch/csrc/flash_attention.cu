@@ -47,8 +47,18 @@
 //   * Causal q tiles are launched heaviest (last) first; where the grid of
 //     64-row tiles would not fill the SMs (the serving shape: 32 CTAs),
 //     CTAs of one warp (16 rows) are launched instead.
+//   * Head dim 256 (paligemma-3b) changes the CTA's shape: Q fragments held
+//     in registers would take 64 registers a lane beside the 128 of the
+//     fp32 O accumulators, so at D > 128 the CTA's Q tile is staged once in
+//     shared memory (cp.async, same swizzle) and each k16 step's fragment
+//     is read by ldmatrix; K/V tiles are 32 rows, so S takes 16 registers
+//     and the two-stage ring 64 KB (plus 32 KB of Q at 4 warps).  Bound at
+//     paligemma's training shape (q [1, 2304, 8, 256], kv [1, 2304, 1,
+//     256], prefix 256, causal): 2.688 M visible pairs a head, 22.0 GFLOP,
+//     22.3 us at 989 TFLOP/s; 21 MB, 6.3 us: the tensor cores bound it.
 // fp32 inputs: flash_fwd_kernel, fp32 FMAs on the CUDA cores, four threads
-// per q row, K and V staged as fp32.  fp32 attention appears only in checks,
+// per q row, K and V staged as fp32 in tiles of 32 rows (16 at D = 256, so
+// that the static tiles stay within 48 KB).  fp32 attention appears only in checks,
 // whose 2e-5 tolerances are the TPU kernel's fp32 arithmetic, which the
 // tensor cores' bf16 or TF32 operands would not meet.
 #include <math_constants.h>
@@ -90,7 +100,12 @@ __device__ __forceinline__ int keys_to_visit(int q0, int rows, int Sq, int Sk,
 constexpr int kBlockQ = 64;  // q rows per CTA
 constexpr int kTpr = 4;      // threads per q row
 constexpr int kThreads = kBlockQ * kTpr;
-constexpr int kBlockK = 32;  // kv rows per shared-memory tile
+// kv rows per shared-memory tile: 2 x kBlockK x D fp32 stay within the 48 KB
+// of static shared memory
+template <int D>
+__host__ __device__ constexpr int block_k_f32() {
+  return D > 128 ? 16 : 32;
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -101,6 +116,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int q_offset) {
   static_assert(D % kTpr == 0, "head dim must split over the row's threads");
   constexpr int E = D / kTpr;
+  constexpr int kBlockK = block_k_f32<D>();
   __shared__ float ks[kBlockK][D];
   __shared__ float vs[kBlockK][D];
 
@@ -208,7 +224,26 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // Warps (16 q rows each) per CTA where the grid of such CTAs fills the SMs:
 // 4 was faster than 2 or 8 at the training shape on an H100 (PERF.md, PR 14)
 constexpr int kWarps = 4;
-constexpr int kBlockN = 64;  // kv rows per shared-memory tile
+
+// kv rows per shared-memory tile: 64, or 32 at D > 128 where S shares the
+// registers with the 128 O accumulators
+template <int D>
+__host__ __device__ constexpr int block_n() {
+  return D > 128 ? 32 : 64;
+}
+// Q staged in shared memory and read by ldmatrix per k16 step (D > 128),
+// else held as register fragments for the whole kv loop
+template <int D>
+__host__ __device__ constexpr bool q_in_smem() {
+  return D > 128;
+}
+// dynamic shared memory of flash_fwd_kernel_mma<D, NW>: the two-stage K/V
+// ring, and the Q tile where it is staged
+template <int D, int NW>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return (2 * 2 * block_n<D>() + (q_in_smem<D>() ? 16 * NW : 0)) * D *
+         (int)sizeof(__nv_bfloat16);
+}
 
 using bf16 = __nv_bfloat16;
 
@@ -237,14 +272,17 @@ flash_fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float scale, int causal, int window, int prefix,
                      int q_offset) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int BM = 16 * NW, BN = kBlockN;
+  constexpr int BM = 16 * NW, BN = block_n<D>();
+  constexpr bool kQs = q_in_smem<D>();
   constexpr int KS = D / 16;   // k16 steps of Q K^T; d16 pairs of P V
   constexpr int NT = BN / 8;   // n8 tiles of S
   constexpr int DT = D / 8;    // n8 tiles of O
   constexpr int CH = D / 8;    // 16-byte chunks per row
   constexpr int TILE = BN * D;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);  // [stage][K, V][BN * D]
+  // [stage][K, V][BN * D], then (kQs) the Q tile [BM * D]
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qsm = smem + 2 * 2 * TILE;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int g = h / (H / G);
@@ -273,13 +311,24 @@ flash_fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async16(smem_u32(vs + so), vb + off, ok);
     }
   };
+  if constexpr (kQs) {
+    // the CTA's Q rows, swizzled as the K/V tiles; rows past Sq are zero
+    const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
+    for (int idx = threadIdx.x; idx < BM * CH; idx += NW * 32) {
+      const int r = idx / CH, c = idx % CH, qi = q0 + r;
+      const bool ok = qi < Sq;
+      cp_async16(smem_u32(qsm + swz<D>(r, c)),
+                 qb + (ok ? (size_t)qi * H * D : 0) + c * 8, ok);
+    }
+  }
   load_tile(0);
   cp_async_commit();
 
   // Q fragments (A operand, 16 x D): rows gr and gr + 8, columns
-  // 16 ks + 2 tg + {0, 1} and + 8; rows past Sq are zero
-  uint32_t qa[KS][4];
-  {
+  // 16 ks + 2 tg + {0, 1} and + 8; rows past Sq are zero (held here only
+  // where Q is not staged in shared memory)
+  uint32_t qa[kQs ? 1 : KS][4];
+  if constexpr (!kQs) {
     const size_t qs = (size_t)H * D;
     const bf16* q_lo = q + ((size_t)b * Sq * H + h) * D;
     const int r0 = q0w + gr, r1 = r0 + 8;
@@ -326,13 +375,23 @@ flash_fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // 8..15}) -> B fragments of n8 tiles 2np and 2np + 1
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
+        // this k16 step's Q fragment: matrices (rows {0..7, 8..15}) x (d
+        // 16kk + {0..7, 8..15}) of the warp's 16 rows
+        uint32_t qf[4];
+        if constexpr (kQs) {
+          ldsm_x4(qf, smem_u32(qsm + swz<D>(warp * 16 + (lm_m & 1) * 8 + lm_r,
+                                            kk * 2 + (lm_m >> 1))));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+        }
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t r[4];
           ldsm_x4(r, smem_u32(ks + swz<D>(np * 16 + (lm_m >> 1) * 8 + lm_r,
                                           kk * 2 + (lm_m & 1))));
-          mma_bf16(s[2 * np], qa[kk], r[0], r[1]);
-          mma_bf16(s[2 * np + 1], qa[kk], r[2], r[3]);
+          mma_bf16(s[2 * np], qf, r[0], r[1]);
+          mma_bf16(s[2 * np + 1], qf, r[2], r[3]);
         }
       }
       const bool full =
@@ -431,7 +490,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int Sq, int Sk, int H, int G, float scale,
                int causal, int window, int prefix, int q_offset,
                cudaStream_t s) {
-  constexpr int smem = 2 * 2 * kBlockN * D * (int)sizeof(bf16);
+  constexpr int smem = mma_smem_bytes<D, NW>();
   static bool attr_set = false;  // above 48 KB the launch needs the opt-in
   if (smem > 48 * 1024 && !attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -488,6 +547,7 @@ extern "C" int flash_attention_fwd_launch(
       case 32: return launch_f32<32>(FLASH_ARGS);
       case 64: return launch_f32<64>(FLASH_ARGS);
       case 128: return launch_f32<128>(FLASH_ARGS);
+      case 256: return launch_f32<256>(FLASH_ARGS);
     }
   } else if (dtype == DTYPE_BF16) {
     switch (D) {
@@ -495,6 +555,7 @@ extern "C" int flash_attention_fwd_launch(
       case 32: return launch_bf16<32>(FLASH_ARGS);
       case 64: return launch_bf16<64>(FLASH_ARGS);
       case 128: return launch_bf16<128>(FLASH_ARGS);
+      case 256: return launch_bf16<256>(FLASH_ARGS);
     }
   }
 #undef FLASH_ARGS

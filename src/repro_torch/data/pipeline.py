@@ -14,9 +14,10 @@ class DataPipeline:
     def __init__(self, source, global_batch: int, microbatches: int = 1,
                  prefetch: int = 2):
         """source: object with next_batch(n) -> [n, S] int32 (the
-        tokens) or a dict of [n, S] arrays (``tokens`` and, e.g., a
-        ``loss_mask``), and state()/load_state().  Batches are dicts of
-        arrays shaped [microbatches, global_batch // microbatches, S]."""
+        tokens) or a dict of [n, ...] arrays (``tokens`` and, e.g., a
+        ``loss_mask``, ``patch_embeds`` [n, P, d] or ``frame_embeds`` [n,
+        T, d]), and state()/load_state().  Batches are dicts of arrays
+        shaped [microbatches, global_batch // microbatches, ...]."""
         assert global_batch % microbatches == 0
         self.source = source
         self.global_batch = global_batch
@@ -33,8 +34,8 @@ class DataPipeline:
                 flat = self.source.next_batch(self.global_batch)
                 if not isinstance(flat, dict):
                     flat = {"tokens": flat}
-                mb = {k: a.reshape(self.m, self.global_batch // self.m,
-                                   a.shape[-1]) for k, a in flat.items()}
+                mb = {k: a.reshape((self.m, self.global_batch // self.m)
+                                   + a.shape[1:]) for k, a in flat.items()}
                 # snapshot the cursor *after* this batch: the consumer
                 # records it on get(), so state() is exactly "everything
                 # training consumed" regardless of prefetch races

@@ -5,6 +5,11 @@ Generates Zipf-distributed tokens with short-range structure (enough for
 a 100M model to show a decreasing loss in the examples) from a counter-
 based RNG: state is just (seed, position), so resuming from a checkpoint
 reproduces the exact stream.
+
+:class:`SyntheticEmbeds` adds the stub frontends' inputs a VLM or an
+encoder-decoder config trains on (the reference's pipeline emits tokens
+only): fp32 patch or frame embeddings drawn from ``torch.Generator`` s
+seeded by (seed, position), beside the same token stream.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -46,3 +52,45 @@ class SyntheticLM:
     def load_state(self, st: Dict) -> None:
         self.seed = int(st["seed"])
         self.position = int(st["position"])
+
+
+@dataclass
+class SyntheticEmbeds:
+    """:class:`SyntheticLM`'s tokens plus N(0, 1) fp32 embeddings
+    ``[batch, length, d_model]`` under ``key`` (``"patch_embeds"`` or
+    ``"frame_embeds"``); each sequence's embeddings come from a
+    ``torch.Generator`` seeded by its (seed, position), so the stream
+    resumes exactly from ``state()``."""
+    tokens: SyntheticLM
+    key: str
+    length: int
+    d_model: int
+
+    def next_batch(self, batch: int) -> Dict[str, np.ndarray]:
+        tok = self.tokens
+        emb = np.empty((batch, self.length, self.d_model), np.float32)
+        for b in range(batch):
+            gen = torch.Generator().manual_seed(
+                tok.seed * 1_000_003 + tok.position + b)
+            emb[b] = torch.randn((self.length, self.d_model),
+                                 generator=gen).numpy()
+        return {"tokens": tok.next_batch(batch), self.key: emb}
+
+    def state(self) -> Dict:
+        return self.tokens.state()
+
+    def load_state(self, st: Dict) -> None:
+        self.tokens.load_state(st)
+
+
+def synthetic_source(cfg, seq_len: int, seed: int = 0):
+    """The default training stream of ``cfg``: tokens, plus the patch
+    embeddings of a VLM or the frame embeddings of an encoder-decoder."""
+    tokens = SyntheticLM(cfg.vocab_size, seq_len, seed=seed)
+    if cfg.vision is not None:
+        return SyntheticEmbeds(tokens, "patch_embeds",
+                               cfg.vision.num_patches, cfg.d_model)
+    if cfg.encdec is not None:
+        return SyntheticEmbeds(tokens, "frame_embeds", cfg.encdec.num_frames,
+                               cfg.d_model)
+    return tokens

@@ -10,7 +10,10 @@ bf16 inputs take a FlashAttention-2 forward on the tensor cores
 (``mma.sync`` m16n8k16, fp32 accumulators): 16 q rows per warp, K/V tiles
 of 64 rows kept bf16 in a two-stage ``cp.async`` ring, online softmax in
 fp32 registers, P rounded to bf16 only as the operand of P V (the running
-sum adds the fp32 p, so ``lse`` keeps fp32 accuracy).  Its bound at the
+sum adds the fp32 p, so ``lse`` keeps fp32 accuracy).  At head dim 256
+(paligemma-3b) the CTA stages its Q tile in shared memory and reads each
+k16 step's fragment by ``ldmatrix``, over K/V tiles of 32 rows, so that
+the fp32 O accumulators keep their 128 registers a lane.  Its bound at the
 training shape is the tensor cores' rate, at the serving shape latency.
 fp32 inputs (checks only) take an fp32 CUDA-core kernel, as the TPU
 kernel computes in fp32.
@@ -37,7 +40,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -2.0 ** 30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def attention_ref(q, k, v, *, scale=None, causal=True, window=0, prefix=0,

@@ -9,9 +9,14 @@ prefill + steady-tick decode with continuous batching) on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2-moe-a2.7b --pipelined 2 --device cpu
 
-Every registered architecture serves (dense, Mamba-2, MoE, hybrid); a
-config with Mamba-2 layers needs ``--chunk`` a multiple of its SSD chunk
-length (128 for the full mamba2-2.7b, 16 reduced).
+Every registered decoder architecture serves (dense, gemma3's sliding
+windows among them, Mamba-2, MoE, hybrid); the VLM and the
+encoder-decoder are refused, as the reference's engine serves neither.
+A config with Mamba-2 layers needs ``--chunk`` a multiple of its SSD
+chunk length (128 for the full mamba2-2.7b, 16 reduced).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
+        --full --chunk 128 --prompt-chunks 12 --prompt-len 1536
 
 Runs on CUDA unless ``--device cpu``; ``--kernels plain`` swaps the
 hand-written kernels for plain PyTorch.  Weights are random, drawn from
@@ -121,9 +126,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                             prompt_range=(1, args.prompt_chunks),
                             gen_range=(args.gen_min, args.gen),
                             vocab=cfg.vocab_size, seed=0)
+    # the engine takes the layer leaves over: a copying pack (gemma3's
+    # period-6 stacking against the layout's 1) frees each as it packs it
     eng = PipelinedEngine(cfg, params, P=args.pipelined, chunk=args.chunk,
                           max_seq=max_seq, n_slots=args.slots or None,
-                          kernels=args.kernels, device=lm.device)
+                          kernels=args.kernels, device=lm.device,
+                          consume_params=True)
     del params      # the engine holds the stage-packed weights
     res = eng.serve(reqs)
     s = summarize(res)

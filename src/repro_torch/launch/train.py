@@ -31,7 +31,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.pipeline_runtime import init_pipeline_params
-from repro_torch.data import DataPipeline, SyntheticLM
+from repro_torch.data import DataPipeline, synthetic_source
 from repro_torch.launch.steps import (make_pipeline_train_step,
                                       make_train_step, offload_kept)
 from repro_torch.optim import adamw_init
@@ -56,7 +56,8 @@ def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
     ``tc.seed`` unless ``params`` (an ``LM`` tree on ``device``, e.g.
     bridged weights) is given; either tree is updated in place at every
     step (the fp32 masters are written into it).  The data come from
-    ``data_source`` or ``SyntheticLM(seed=tc.seed)`` through the
+    ``data_source`` or ``synthetic_source(cfg, seed=tc.seed)`` (tokens,
+    and a VLM's patch or an encoder's frame embeddings) through the
     prefetching :class:`DataPipeline`.
 
     Left out against the reference: the checkpointer and the health
@@ -78,8 +79,8 @@ def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
         params = lm.init(torch.Generator(device=dev).manual_seed(tc.seed))
     opt_state = adamw_init(params)
 
-    source = data_source or SyntheticLM(cfg.vocab_size, shape.seq_len,
-                                        seed=tc.seed)
+    source = data_source or synthetic_source(cfg, shape.seq_len,
+                                             seed=tc.seed)
     pipe = DataPipeline(source, global_batch=mbB * m, microbatches=m,
                         prefetch=2).start()
     losses, gnorms, lrs, step_s = [], [], [], []
@@ -116,7 +117,8 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     ``tc.seed`` unless ``params`` (a stage-stacked tree on ``device``,
     e.g. bridged weights) is given; either tree is updated in place at
     every step (the fp32 masters are written into it).  The data
-    come from ``data_source`` or ``SyntheticLM(seed=tc.seed)`` through
+    come from ``data_source`` or ``synthetic_source(cfg, seed=tc.seed)``
+    (tokens, and a VLM's patch or an encoder's frame embeddings) through
     the prefetching :class:`DataPipeline`; every key of a batch reaches
     the step, a source's ``loss_mask`` (aligned with the tokens, as
     ``LM.loss`` reads it) cut to the label positions (``[..., 1:]``).
@@ -161,8 +163,8 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
         merge_deep_shallow(kept["blocks"], runner.collect(),
                            out=params["blocks"])
 
-    source = data_source or SyntheticLM(cfg.vocab_size, shape.seq_len,
-                                        seed=tc.seed)
+    source = data_source or synthetic_source(cfg, shape.seq_len,
+                                             seed=tc.seed)
     pipe = DataPipeline(source, global_batch=mbB * m, microbatches=m,
                         prefetch=2).start()
     losses, gnorms, lrs, step_s = [], [], [], []

@@ -85,12 +85,16 @@ def get_backend(kernels=None) -> ComputeBackend:
 # the ChunkBody seam
 # ---------------------------------------------------------------------------
 
-def chunk_fwd(spec, block_params_c, flags_c, x, aux=None, *, kv=None,
-              pos0=0):
+def chunk_fwd(spec, block_params_c, flags_c, x, aux=None, enc=None, *,
+              kv=None, pos0=0):
     """Run one stage's layer chunk over the boundary payload (``x`` [B,
-    Sc, d] and the fp32 aux sum ``aux`` [1]) and return the new boundary
-    ``(x, aux)``: each MoE layer adds its gate-weighted load-balancing
-    loss to ``aux`` (None reads as 0).
+    Sc, d], the fp32 aux sum ``aux`` [1] and, in an encoder-decoder
+    config, the encoder output ``enc`` [B, T, d]) and return the new
+    boundary ``(x, aux)``: each MoE layer adds its gate-weighted
+    load-balancing loss to ``aux`` (None reads as 0); every layer's
+    cross-attention reads ``enc``, which the payload carries on
+    unchanged.  ``spec.prefix`` leading positions of ``x`` (a VLM's
+    patches) attend bidirectionally.
 
     ``block_params_c``: per period position, leaves [M, ...];
     ``flags_c``: {window, gate} host numpy [M, period] — host values, so
@@ -121,7 +125,8 @@ def chunk_fwd(spec, block_params_c, flags_c, x, aux=None, *, kv=None,
                 _index(block_params_c[j], mi), x, positions, cfg, j,
                 kv=None if kv is None else {"k": kv["k"][mi, j],
                                             "v": kv["v"][mi, j]},
-                cache_pos=pos0, aux_sum=acc,
+                cache_pos=pos0, enc_out=enc, prefix_len=spec.prefix,
+                aux_sum=acc,
                 window_override=int(win[mi, j]), gate=float(gate[mi, j]),
                 backend=bk)
             outs.append(nc)
@@ -138,10 +143,13 @@ def head_loss(spec, params, x, labels, loss_mask=None, denom=None,
               aux=None):
     """Final norm + unembed + CE, plus ``spec.aux_weight`` times the
     payload's MoE aux sum ``aux`` [1] where one is given: the loss of one
-    microbatch at the last stage.  ``denom``: the sequence-chunked
+    microbatch at the last stage.  The ``spec.prefix`` patch positions
+    are dropped before the head.  ``denom``: the sequence-chunked
     executor's fixed normalizer (the whole microbatch's token or mask
     count), so chunk losses sum to the microbatch's mean."""
     bk = get_backend(spec.kernels)
+    if spec.prefix:
+        x = x[:, spec.prefix:]
     h = bk.rmsnorm(params["final_norm"], x, spec.cfg.norm_eps)
     logits = L.unembed(params["embed"], h)
     ce = L.softmax_xent(logits, labels, loss_mask, denom=denom)

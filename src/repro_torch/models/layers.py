@@ -209,11 +209,17 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
               rope_theta: float, causal: bool = True, window=0,
               prefix_len: int = 0, cache: Optional[dict] = None,
               kv: Optional[dict] = None, cache_pos: int = 0,
-              dense_threshold: int = 8192,
+              kv_x=None, kv_direct=None, use_rope: bool = True,
+              return_kv: bool = False, dense_threshold: int = 8192,
               backend=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention: train (``cache=None``, ``kv=None``), sequence-
     chunked train over a KV buffer (``kv``), cache prefill and decode
-    (``cache``).
+    (``cache``); cross-attention: K/V projected from the encoder output
+    ``kv_x`` [B, T, d], or read from precomputed heads ``kv_direct`` =
+    (k, v) [B, T, G, hd] (the decode path over cached cross K/V).
+    ``use_rope=False`` skips the rotary embedding (cross-attention);
+    ``return_kv=True`` returns ``(y, (k, v))`` in place of ``(y,
+    new_cache)`` (the cross K/V a prefill caches).
 
     Serving (``cache``): the step's K/V are written into ``cache`` **in
     place** at ``cache_pos`` (the reference returns an updated copy; the
@@ -235,23 +241,41 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
     ``cache_pos``) through the flash kernel; decode (S == 1) takes the
     dense path by design.
     Without it, a kv longer than ``dense_threshold`` takes
-    :func:`blockwise_attention` and a shorter one the dense path.  The
-    reference's cross-attention paths are not ported."""
+    :func:`blockwise_attention` and a shorter one the dense path.
+    Cross-attention (no mask: every query sees every encoder position)
+    stays on the plain dense path, as the reference keeps it out of its
+    kernel."""
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(hd)
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
     if "bq" in params:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q = q + params["bq"]
     q = q.reshape(B, S, num_heads, hd)
-    k = k.reshape(B, S, num_kv, hd)
-    v = v.reshape(B, S, num_kv, hd)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if kv_direct is not None:
+        k, v = kv_direct
+    else:
+        src = x if kv_x is None else kv_x
+        Skv = src.shape[1]
+        k = src @ params["wk"]
+        v = src @ params["wv"]
+        if "bk" in params:
+            k, v = k + params["bk"], v + params["bv"]
+        k = k.reshape(B, Skv, num_kv, hd)
+        v = v.reshape(B, Skv, num_kv, hd)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        if kv_x is None:
+            k = apply_rope(k, positions, rope_theta)
+        else:
+            Skv = k.shape[1]
+            k = apply_rope(k, torch.arange(Skv, device=x.device)[None]
+                           .expand(B, Skv), rope_theta)
+    cross = kv_x is not None or kv_direct is not None
 
     new_cache = None
-    if cache is not None:
+    if cross:
+        pass
+    elif cache is not None:
         cache["k"][:, cache_pos:cache_pos + S] = k.to(cache["k"].dtype)
         cache["v"][:, cache_pos:cache_pos + S] = v.to(cache["v"].dtype)
         new_cache = cache
@@ -263,10 +287,13 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
     q_offset = 0 if new_cache is None else cache_pos
     kv_len = k.shape[1]
 
-    fuse = (backend is not None and backend.fuse_attention
+    fuse = (backend is not None and backend.fuse_attention and not cross
             and isinstance(window, int) and S > 1
             and (new_cache is None or causal))
-    if fuse:
+    if cross:
+        out = dense_attention(q, k, v, torch.ones(
+            (1, 1, 1, S, kv_len), dtype=torch.bool, device=x.device), scale)
+    elif fuse:
         # self-attention over the whole kv (train: kv_len == S; chunked
         # train and prefill: the buffer at offset cache_pos — causal
         # masking hides everything past the frontier)
@@ -290,4 +317,6 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
         out = dense_attention(q, k, v, msk[None, None, None], scale)
 
     y = out.reshape(B, S, num_heads * hd) @ params["wo"]
+    if return_kv:
+        return y, (k, v)
     return y, new_cache

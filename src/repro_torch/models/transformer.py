@@ -1,16 +1,23 @@
-"""Decoder LM of the port: the dense-attention, Mamba-2, MoE and hybrid
-paths of ``repro/models/transformer.py`` (each layer is ``norm1`` +
-attention or Mamba-2 block, then ``norm2`` + an MoE FFN on the config's
-MoE layers, else an MLP when the config has an FFN).  MoE layers add
-their load-balancing loss, weighted by the layer's gate, into the aux
-sum that ``LM.loss`` adds at 0.01.
+"""LM of the port: the dense-attention (with local/global sliding
+windows), Mamba-2, MoE, hybrid, VLM-prefix (paligemma) and
+encoder-decoder (whisper) paths of ``repro/models/transformer.py``.
+Each decoder layer is ``norm1`` + attention or Mamba-2 block, then, in
+an encoder-decoder config, ``norm_x`` + cross-attention into the encoder
+output, then ``norm2`` + an MoE FFN on the config's MoE layers, else an
+MLP when the config has an FFN.  MoE layers add their load-balancing
+loss, weighted by the layer's gate, into the aux sum that ``LM.loss``
+adds at 0.01.  A VLM's patch embeddings are a prefix of the sequence
+that attends bidirectionally (the prefix-LM mask); ``LM.loss`` drops
+their positions.
 
 Parameters are a plain tree with the reference's structure and layout:
 ``{"embed": {"tokens"[, "head"]}, "final_norm": {"scale"}, "layers":
 [per period position: leaves stacked [num_periods, ...]], "rem_layers":
-[...]}``, so :mod:`repro_torch.bridge` carries JAX weights across leaf
-for leaf.  The reference scans over periods; here that scan is a Python
-loop over the stacked leading axis.
+[...]}``, plus ``"encoder"`` (a list of per-layer trees) and
+``"enc_norm"`` in an encoder-decoder config, so
+:mod:`repro_torch.bridge` carries JAX weights across leaf for leaf.  The
+reference scans over periods; here that scan is a Python loop over the
+stacked leading axis.
 """
 from __future__ import annotations
 
@@ -41,9 +48,11 @@ def _init_layers(gen, cfg: ModelConfig, n: int, device,
                  idx: int) -> Dict[str, Any]:
     """``n`` decoder layers shaped as layer ``idx`` (its period position
     decides the kind and the FFN) with leaves stacked [n, ...]:
-    ``norm1`` and the mixer (attention or Mamba-2), then ``norm2`` and
-    the MoE FFN on an MoE layer, else the MLP when the config has an FFN
-    (``d_ff > 0``; mamba2 has none, jamba's Mamba-2 layers have one)."""
+    ``norm1`` and the mixer (attention or Mamba-2), ``norm_x`` and the
+    bias-free ``cross``-attention in an encoder-decoder config, then
+    ``norm2`` and the MoE FFN on an MoE layer, else the MLP when the
+    config has an FFN (``d_ff > 0``; mamba2 has none, jamba's Mamba-2
+    layers have one)."""
     dt = _dtype(cfg.param_dtype)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, G, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
@@ -56,10 +65,7 @@ def _init_layers(gen, cfg: ModelConfig, n: int, device,
 
     layer: Dict[str, Any] = {"norm1": {"scale": ones()}}
     if cfg.layer_kind(idx) == "attn":
-        layer["attn"] = {"wq": dense((d, H * hd), d),
-                         "wk": dense((d, G * hd), d),
-                         "wv": dense((d, G * hd), d),
-                         "wo": dense((H * hd, d), H * hd)}
+        layer["attn"] = _attn_leaves(dense, cfg)
         if cfg.qkv_bias:
             for name, width in (("bq", H * hd), ("bk", G * hd),
                                 ("bv", G * hd)):
@@ -67,6 +73,9 @@ def _init_layers(gen, cfg: ModelConfig, n: int, device,
                                                   device=device)
     else:
         layer["mamba"] = M.init_mamba(gen, n, d, cfg.ssm, dt, device)
+    if cfg.encdec is not None:
+        layer["norm_x"] = {"scale": ones()}
+        layer["cross"] = _attn_leaves(dense, cfg)
     if cfg.layer_is_moe(idx):
         layer["norm2"] = {"scale": ones()}
         layer["moe"] = MOE.init_moe(gen, n, d, cfg.moe, cfg.act, dt,
@@ -77,20 +86,58 @@ def _init_layers(gen, cfg: ModelConfig, n: int, device,
     return layer
 
 
+def _attn_leaves(dense, cfg: ModelConfig) -> Dict[str, Any]:
+    """Bias-free attention projections ``wq``, ``wk``, ``wv``, ``wo``
+    drawn by ``dense(shape, fan_in)``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, G = cfg.num_heads, cfg.num_kv_heads
+    return {"wq": dense((d, H * hd), d), "wk": dense((d, G * hd), d),
+            "wv": dense((d, G * hd), d), "wo": dense((H * hd, d), H * hd)}
+
+
+def _init_encoder(gen, cfg: ModelConfig, device) -> Dict[str, Any]:
+    """The encoder of an encoder-decoder config: ``encoder``, a list of
+    per-layer trees (``norm1``, bias-free ``attn``, ``norm2``, ``mlp``),
+    and ``enc_norm``."""
+    dt = _dtype(cfg.param_dtype)
+    d = cfg.d_model
+
+    def dense(shape, fan_in):
+        return L.dense_init(gen, shape, fan_in, dt, device)
+
+    def ones():
+        return {"scale": torch.ones((d,), dtype=dt, device=device)}
+
+    enc = [{"norm1": ones(), "attn": _attn_leaves(dense, cfg),
+            "norm2": ones(),
+            "mlp": _index(L.init_mlp(gen, 1, d, cfg.d_ff, cfg.act, dt,
+                                     device), 0)}
+           for _ in range(cfg.encdec.num_encoder_layers)]
+    return {"encoder": enc, "enc_norm": ones()}
+
+
 def _init_cache_layer(cfg: ModelConfig, idx: int, batch: int, seq: int,
-                      device) -> Dict[str, torch.Tensor]:
+                      device, enc_len: int = 0) -> Dict[str, torch.Tensor]:
     """Cache of one layer: K/V [batch, seq, G, hd] zeros for attention;
-    conv tails and the fp32 state for a Mamba-2 layer."""
+    conv tails and the fp32 state for a Mamba-2 layer; in an
+    encoder-decoder config also the cross K/V ``xk``, ``xv`` [batch,
+    enc_len, G, hd]."""
     dt = _dtype(cfg.param_dtype)
     if cfg.layer_kind(idx) == "mamba":
-        return M.init_mamba_cache(batch, cfg.d_model, cfg.ssm, dt, device)
-    shape = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+        c = M.init_mamba_cache(batch, cfg.d_model, cfg.ssm, dt, device)
+    else:
+        shape = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.encdec is not None:
+        shape = (batch, enc_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        c["xk"] = torch.zeros(shape, dtype=dt, device=device)
+        c["xv"] = torch.zeros(shape, dtype=dt, device=device)
+    return c
 
 
 def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
-                 cache=None, kv=None, cache_pos: int = 0,
+                 cache=None, kv=None, cache_pos: int = 0, enc_out=None,
                  prefix_len: int = 0, aux_sum=0.0, window_override=None,
                  gate=None, backend=None):
     """One decoder layer.  Returns (x, new_cache, aux_sum): an MoE layer
@@ -100,6 +147,13 @@ def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
     sequence-chunked training step's full-sequence K/V buffer, merged
     out of place (:func:`repro_torch.models.layers.attention`); both at
     ``cache_pos``.  Attention layers only take ``kv``.
+
+    Cross-attention (a layer with ``cross``): with ``enc_out`` (the
+    encoder output [B, T, d]) its K/V are projected from it, and written
+    into ``cache["xk"]``/``["xv"]`` in place where a cache is given (a
+    prefill); without it, a cache's ``xk``/``xv`` are read (decode).
+    ``prefix_len``: the bidirectional prefix of the self-attention mask
+    (a VLM's patch positions).
 
     ``window_override``: per-layer sliding window carried as data (the
     pipeline engine's flags).  ``gate``: 0/1 multiplier on the residual
@@ -134,6 +188,26 @@ def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
     if scaled:
         y = y * gate
     x = x + y
+    if "cross" in p and (enc_out is not None
+                         or (cache is not None and "xk" in cache)):
+        h = bk.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+        kw = dict(num_heads=cfg.num_heads, num_kv=cfg.num_kv_heads,
+                  hd=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                  causal=False, use_rope=False)
+        if enc_out is not None:
+            # train / prefill: the cross K/V from the encoder output
+            y, (xk, xv) = L.attention(p["cross"], h, positions,
+                                      kv_x=enc_out, return_kv=True, **kw)
+            if cache is not None:
+                cache["xk"].copy_(xk)
+                cache["xv"].copy_(xv)
+        else:
+            # decode: the cached cross K/V
+            y, _ = L.attention(p["cross"], h, positions,
+                               kv_direct=(cache["xk"], cache["xv"]), **kw)
+        if scaled:
+            y = y * gate
+        x = x + y
     if "moe" in p:
         h = bk.rmsnorm(p["norm2"], x, cfg.norm_eps)
         y, aux = MOE.moe_ffn(p["moe"], h, cfg.moe, cfg.act)
@@ -151,6 +225,27 @@ def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
     return x, new_cache, aux_sum
 
 
+def encode(cfg: ModelConfig, params, frame_embeds, backend):
+    """The encoder of an encoder-decoder config over precomputed frame
+    embeddings [B, T, d]: pre-norm layers of bidirectional self-attention
+    (the flash kernel with ``causal=False`` on the fused backend) and an
+    MLP, then ``enc_norm``.  ``params`` holds ``encoder`` and
+    ``enc_norm``."""
+    x = frame_embeds.to(_dtype(cfg.compute_dtype))
+    Bz, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)[None].expand(Bz, T)
+    for pe in params["encoder"]:
+        h = backend.rmsnorm(pe["norm1"], x, cfg.norm_eps)
+        y, _ = L.attention(
+            pe["attn"], h, positions, num_heads=cfg.num_heads,
+            num_kv=cfg.num_kv_heads, hd=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta, causal=False, backend=backend)
+        x = x + y
+        h = backend.rmsnorm(pe["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp(pe["mlp"], h, cfg.act)
+    return backend.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
 def _index(tree, i):
     """Leaf-wise ``a[i]`` over a nested dict."""
     if isinstance(tree, dict):
@@ -163,9 +258,10 @@ def _index(tree, i):
 # ---------------------------------------------------------------------------
 
 class LM:
-    """Decoder LM (dense attention, Mamba-2, MoE or hybrid).  ``kernels``
-    selects the compute backend ("fused" default, or "plain"); ``device``
-    where parameters and caches live (CUDA unless the caller asks for the
+    """Decoder LM (dense attention, Mamba-2, MoE or hybrid; a VLM's patch
+    prefix; an encoder-decoder's encoder).  ``kernels`` selects the
+    compute backend ("fused" default, or "plain"); ``device`` where
+    parameters and caches live (CUDA unless the caller asks for the
     CPU)."""
 
     def __init__(self, cfg: ModelConfig, *, kernels=None, device="cuda"):
@@ -200,10 +296,18 @@ class LM:
         params["rem_layers"] = [
             _index(_init_layers(generator, cfg, 1, dev, base + r), 0)
             for r in range(self.num_rem)]
+        if cfg.encdec is not None:
+            params.update(_init_encoder(generator, cfg, dev))
         return params
+
+    # -- encoder -------------------------------------------------------------
+    def encode(self, params, frame_embeds):
+        """The encoder over frame embeddings [B, T, d] (:func:`encode`)."""
+        return encode(self.cfg, params, frame_embeds, self.backend)
 
     # -- decoder stack -------------------------------------------------------
     def _stack(self, params, x, positions, *, cache=None, cache_pos=0,
+               enc_out=None, prefix_len: int = 0,
                recomp: Optional[RecomputeConfig] = None,
                num_chunks: int = 1):
         """Run all decoder layers; returns ``(x, aux)``, ``aux`` the fp32
@@ -224,7 +328,8 @@ class LM:
                 c = None if cache is None else _index(cache["periods"][j], i)
                 x, _, aux = _apply_layer(
                     _index(params["layers"][j], i), x, positions, cfg, j,
-                    cache=c, cache_pos=cache_pos, aux_sum=aux,
+                    cache=c, cache_pos=cache_pos, enc_out=enc_out,
+                    prefix_len=prefix_len, aux_sum=aux,
                     backend=self.backend)
             return x, aux
 
@@ -239,6 +344,7 @@ class LM:
             c = None if cache is None else cache["rem"][r]
             x, _, aux = _apply_layer(params["rem_layers"][r], x, positions,
                                      cfg, idx, cache=c, cache_pos=cache_pos,
+                                     enc_out=enc_out, prefix_len=prefix_len,
                                      aux_sum=aux, backend=self.backend)
         return x, aux
 
@@ -254,41 +360,70 @@ class LM:
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return L.unembed(params["embed"], x)
 
+    def embed_prefix(self, params, tokens, patch_embeds=None):
+        """:meth:`embed`, with a VLM's patch embeddings [B, P, d] ahead of
+        the tokens (cast to the embedding's dtype, then with it to the
+        compute dtype, as the reference concatenates them)."""
+        x = self.embed(params, tokens)
+        if patch_embeds is None:
+            return x
+        patch = patch_embeds.to(params["embed"]["tokens"].dtype)
+        return torch.cat([patch.to(x.dtype), x], dim=1)
+
     def hidden(self, params, tokens, *, positions=None, cache=None,
-               cache_pos: int = 0, recomp=None, num_chunks: int = 1):
-        """tokens [B, S] -> (the last layer's hidden states [B, S, d]
-        before the head, the MoE aux sum).  K/V and SSM state are written
-        into ``cache`` in place."""
-        Bz, S = tokens.shape
+               cache_pos: int = 0, recomp=None, num_chunks: int = 1,
+               patch_embeds=None, frame_embeds=None):
+        """tokens [B, S] -> (the last layer's hidden states [B, P + S, d]
+        before the head, the MoE aux sum).  ``patch_embeds`` [B, P, d]:
+        a VLM's patch prefix (P positions ahead of the tokens, attending
+        bidirectionally); ``frame_embeds`` [B, T, d]: the encoder's input,
+        encoded once and cross-attended by every decoder layer.  K/V
+        (cross K/V too) and SSM state are written into ``cache`` in
+        place."""
+        x = self.embed_prefix(params, tokens, patch_embeds)
+        Bz, S = x.shape[:2]
         if positions is None:
             pos0 = cache_pos if cache is not None else 0
             positions = (pos0 + torch.arange(S, device=tokens.device)
                          )[None].expand(Bz, S)
-        x = self.embed(params, tokens)
+        enc_out = None
+        if frame_embeds is not None:
+            enc_out = self.encode(params, frame_embeds)
         return self._stack(params, x, positions, cache=cache,
-                           cache_pos=cache_pos, recomp=recomp,
-                           num_chunks=num_chunks)
+                           cache_pos=cache_pos, enc_out=enc_out,
+                           prefix_len=0 if patch_embeds is None
+                           else patch_embeds.shape[1],
+                           recomp=recomp, num_chunks=num_chunks)
 
     # -- public entry points ---------------------------------------------
     def forward(self, params, tokens, *, positions=None, cache=None,
-                cache_pos: int = 0, recomp=None, num_chunks: int = 1):
-        """tokens [B, S] -> (logits [B, S, V], cache).  ``recomp`` (a
+                cache_pos: int = 0, recomp=None, num_chunks: int = 1,
+                patch_embeds=None, frame_embeds=None):
+        """tokens [B, S] -> (logits [B, P + S, V], cache).  ``recomp`` (a
         :class:`RecomputeConfig`) and ``num_chunks``: Chronos-Recomp over
-        the stack's chunks (training only; ignored with a cache)."""
+        the stack's chunks (training only; ignored with a cache);
+        ``patch_embeds``, ``frame_embeds``: as :meth:`hidden`."""
         x, _ = self.hidden(params, tokens, positions=positions, cache=cache,
                            cache_pos=cache_pos, recomp=recomp,
-                           num_chunks=num_chunks)
+                           num_chunks=num_chunks, patch_embeds=patch_embeds,
+                           frame_embeds=frame_embeds)
         return self.head(params, x), cache
 
     def loss(self, params, batch, *, recomp=None, num_chunks: int = 1):
-        """batch: {'tokens': [B, S], 'loss_mask': [B, S] optional}.
-        Next-token CE over the whole stack plus 0.01 times the MoE
-        layers' load-balancing sum (the single-device training loss, and
-        the oracle of the pipeline executor).  Returns ``(ce + 0.01 *
-        aux, {"ce": ce, "aux": aux})``."""
+        """batch: {'tokens': [B, S], 'loss_mask': [B, S] optional,
+        'patch_embeds' [B, P, d] / 'frame_embeds' [B, T, d] optional}.
+        Next-token CE over the token positions (a VLM's patch positions
+        are dropped before the head) plus 0.01 times the MoE layers'
+        load-balancing sum (the single-device training loss, and the
+        oracle of the pipeline executor).  Returns ``(ce + 0.01 * aux,
+        {"ce": ce, "aux": aux})``."""
         tokens = batch["tokens"]
+        patch = batch.get("patch_embeds")
         x, aux = self.hidden(params, tokens[:, :-1], recomp=recomp,
-                             num_chunks=num_chunks)
+                             num_chunks=num_chunks, patch_embeds=patch,
+                             frame_embeds=batch.get("frame_embeds"))
+        if patch is not None:
+            x = x[:, patch.shape[1]:]
         logits = self.head(params, x)
         mask = batch.get("loss_mask")
         ce = L.softmax_xent(logits, tokens[:, 1:],
@@ -296,34 +431,46 @@ class LM:
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, seq: int):
+        """Zero caches for ``batch`` sequences of ``seq`` positions (an
+        encoder-decoder config's layers also hold the cross K/V of its
+        ``num_frames`` encoder positions)."""
         cfg = self.cfg
+        enc_len = cfg.encdec.num_frames if cfg.encdec is not None else 0
+
+        def layer(idx):
+            return _init_cache_layer(cfg, idx, batch, seq, self.device,
+                                     enc_len)
 
         def stacked(j):
-            one = _init_cache_layer(cfg, j, batch, seq, self.device)
+            one = layer(j)
             return {k: a[None].repeat((self.num_periods,) + (1,) * a.dim())
                     for k, a in one.items()}
         return {"periods": [stacked(j) for j in range(self.period)],
-                "rem": [_init_cache_layer(cfg, self.num_periods * self.period
-                                          + r, batch, seq, self.device)
+                "rem": [layer(self.num_periods * self.period + r)
                         for r in range(self.num_rem)]}
 
-    def prefill(self, params, tokens, cache):
-        return self.prefill_chunk(params, tokens, cache, 0)
+    def prefill(self, params, tokens, cache, **kw):
+        return self.prefill_chunk(params, tokens, cache, 0, **kw)
 
-    def prefill_chunk(self, params, tokens, cache, pos0: int):
+    def prefill_chunk(self, params, tokens, cache, pos0: int, **kw):
         """Seq-chunked prefill: run ``tokens`` [B, Sc] at offset ``pos0``
         against an existing cache (the engine's unit of work).  Returns
         the last position's logits [B, V] and the (updated in place)
-        cache.  Only the last position goes through the head."""
-        x, _ = self.hidden(params, tokens, cache=cache, cache_pos=pos0)
+        cache.  Only the last position goes through the head.  ``kw``:
+        ``patch_embeds`` (a VLM prompt's first chunk: the patches take
+        the positions from ``pos0``) and ``frame_embeds`` (the encoder
+        runs and its cross K/V are cached), as :meth:`hidden`."""
+        x, _ = self.hidden(params, tokens, cache=cache, cache_pos=pos0,
+                           **kw)
         return self.head(params, x[:, -1:])[:, -1], cache
 
-    def decode_step(self, params, tokens1, cache, pos: int):
-        """tokens1 [B, 1]; pos: host int (same position for the batch)."""
+    def decode_step(self, params, tokens1, cache, pos: int, **kw):
+        """tokens1 [B, 1]; pos: host int (same position for the batch).
+        An encoder-decoder config reads its cached cross K/V."""
         positions = torch.full((tokens1.shape[0], 1), pos, dtype=torch.int64,
                                device=tokens1.device)
         x, _ = self.hidden(params, tokens1, positions=positions,
-                           cache=cache, cache_pos=pos)
+                           cache=cache, cache_pos=pos, **kw)
         return self.head(params, x)[:, -1], cache
 
 

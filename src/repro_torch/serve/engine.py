@@ -63,7 +63,23 @@ def check_servable(cfg: ModelConfig, chunk: int) -> None:
                          f"{cfg.ssm.chunk_len})")
 
 
-def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
+def _paths(tree, pre=()):
+    """Key paths of a nested dict's leaves."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, pre + (k,))
+        else:
+            yield pre + (k,)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def pack_blocks(lm: LM, params, layout: StageLayout, *,
+                consume: bool = False) -> List:
     """LM parameters -> stage-stacked blocks: a list over period position
     ``jp`` of trees with leaves ``[P, M, ...]``, where ``blocks[jp]`` leaf
     ``[d, m]`` holds global layer ``layout.global_idx(d, 0, m * period +
@@ -73,8 +89,14 @@ def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
     Where the layout allows (no padding and no remainder layers: the
     stage-major order is then the LM's stacking order), a block leaf is a
     view of the LM's stacked leaf, so the engine adds no second copy of
-    the weights; otherwise the leaves are copies.
-    Either way engine and reference compute the identical network."""
+    the weights.  Otherwise (padding; or gemma3, whose local/global
+    pattern stacks the LM by periods of 6 with 2 remainder layers while
+    the layout's period is 1) each block leaf is built as a copy, one
+    leaf at a time; with ``consume`` the caller hands ``params``' layer
+    leaves over, and each is dropped from ``params["layers"]`` and
+    ``["rem_layers"]`` once its rows are copied, so the peak is the
+    weights plus one block leaf.  Either way engine and reference compute
+    the identical network."""
     cfg = lm.cfg
     per, M = layout.period, layout.M
     assert layout.v == 1
@@ -86,27 +108,43 @@ def pack_blocks(lm: LM, params, layout: StageLayout) -> List:
         return [tree_map(lambda a: a.view((layout.P, M) + a.shape[1:]),
                          params["layers"][jp]) for jp in range(per)]
 
-    def lm_layer(g):
-        if g < lm.num_periods * lm.period:
-            return _index(params["layers"][g % lm.period], g // lm.period)
-        return params["rem_layers"][g - lm.num_periods * lm.period]
+    lper, nstk = lm.period, lm.num_periods * lm.period
 
-    def pad_proto(jp):
-        real = [g for g in range(cfg.num_layers) if g % per == jp % per]
-        assert real, f"no real layer shares period position {jp}"
-        return tree_map(torch.zeros_like, lm_layer(real[0]))
+    def source(g):
+        """The LM tree holding layer ``g`` and its row there (None: an
+        unstacked remainder layer)."""
+        if g < nstk:
+            return params["layers"][g % lper], g // lper
+        return params["rem_layers"][g - nstk], None
 
     blocks = []
     for jp in range(per):
-        rows = []
-        for d in range(layout.P):
-            col = []
-            for mi in range(M):
-                g = layout.global_idx(d, 0, mi * per + jp)
-                col.append(lm_layer(g) if g < cfg.num_layers
-                           else pad_proto(jp))
-            rows.append(tree_map(lambda *a: torch.stack(a), *col))
-        blocks.append(tree_map(lambda *a: torch.stack(a), *rows))
+        real = [g for g in range(cfg.num_layers) if g % per == jp]
+        assert real, f"no real layer shares period position {jp}"
+        owners = {id(source(g)[0]): source(g)[0] for g in real}
+        block: Dict = {}
+        for path in list(_paths(source(real[0])[0])):
+            def row(g):
+                tree, i = source(g)
+                leaf = _get(tree, path)
+                return leaf if i is None else leaf[i]
+            first = row(real[0])
+            buf = torch.zeros((layout.P, M) + tuple(first.shape),
+                              dtype=first.dtype, device=first.device)
+            del first
+            for d in range(layout.P):
+                for mi in range(M):
+                    g = layout.global_idx(d, 0, mi * per + jp)
+                    if g < cfg.num_layers:
+                        buf[d, mi].copy_(row(g))
+            node = block
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = buf
+            if consume:
+                for tree in owners.values():
+                    del _get(tree, path[:-1])[path[-1]]
+        blocks.append(block)
     return blocks
 
 
@@ -119,11 +157,15 @@ class PipelinedEngine:
     """Seq-chunked prefill + steady-tick decode over ``P`` virtual stages
     on one device.  ``lm_params`` is an ``LM.init`` (or bridged) tree on
     ``device``; it is packed into stage blocks here (views of its layer
-    leaves where the layout allows, see :func:`pack_blocks`)."""
+    leaves where the layout allows, see :func:`pack_blocks`).  With
+    ``consume_params`` the engine takes ownership of ``lm_params``' layer
+    leaves: a copying pack drops each from the tree as it is packed, so
+    the weights never sit on the card twice."""
 
     def __init__(self, cfg: ModelConfig, lm_params, *, P: int, chunk: int,
                  max_seq: int, n_slots: Optional[int] = None,
-                 kernels: str = "fused", device="cuda"):
+                 kernels: str = "fused", device="cuda",
+                 consume_params: bool = False):
         check_servable(cfg, chunk)
         self.cfg = cfg
         self.P = P
@@ -133,7 +175,8 @@ class PipelinedEngine:
         self.device = resolve_device(device)
         self.lm = LM(cfg, kernels=kernels, device=self.device)
         self.layout = StageLayout.build(cfg, P, 1, Placement(P, 1))
-        self.blocks = pack_blocks(self.lm, lm_params, self.layout)
+        self.blocks = pack_blocks(self.lm, lm_params, self.layout,
+                                  consume=consume_params)
         per, M = self.layout.period, self.layout.M
         # parameter views per (stage, period-group, period position)
         self._stage_params = [[[_index(_index(self.blocks[jp], s), mi)

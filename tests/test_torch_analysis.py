@@ -20,7 +20,7 @@ from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ("tinyllama-1.1b", "mamba2-2.7b", "deepseek-7b", "qwen2-72b",
          "llama70b-paper", "qwen2-moe-a2.7b", "grok-1-314b",
-         "jamba-v0.1-52b")
+         "jamba-v0.1-52b", "gemma3-27b", "paligemma-3b", "whisper-base")
 V1 = ("gpipe", "1f1b", "zb_h1", "v_min", "v_half", "v_zb", "seq1f1b")
 SIZES = ((2, 4), (4, 8))                # (P, m); v = 2 where it applies
 GRID_P = (2, 3, 4, 6, 8, 16)
@@ -38,9 +38,11 @@ def _pair(name, P, m):
 # ---------------------------------------------------------------------------
 
 def test_registered_archs():
-    assert set(ARCH_IDS) == {"tinyllama-1.1b", "mamba2-2.7b", "deepseek-7b",
-                             "qwen2-72b", "qwen2-moe-a2.7b", "grok-1-314b",
-                             "jamba-v0.1-52b"}
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS) == {
+        "tinyllama-1.1b", "mamba2-2.7b", "deepseek-7b", "qwen2-72b",
+        "qwen2-moe-a2.7b", "grok-1-314b", "jamba-v0.1-52b", "gemma3-27b",
+        "paligemma-3b", "whisper-base"}
     get_config("llama70b-paper")          # registered, not an ARCH_ID
     from repro_torch.configs.llama70b_paper import with_layers
     from repro.configs.llama70b_paper import with_layers as jax_with_layers
@@ -169,8 +171,10 @@ def test_moe_config_raises():
     """The MoE terms of ``MemoryModel`` (the experts' activations, the
     router logits) and of ``param_count`` equal the reference's on an MoE
     layout the registry does not hold (MoE on every third layer, from
-    layer 1, beside dense layers); a family the port has no fields for
-    (VLM) still raises as ``param_count`` does."""
+    layer 1, beside dense layers); the VLM and encoder-decoder families,
+    which ``MemoryModel.build`` used to refuse, build the reference's
+    model (paligemma-3b, and whisper-base with its encoder and
+    cross-attention terms)."""
     moe = dataclasses.replace(get_config("qwen2-moe-a2.7b").moe,
                               layer_period=3, layer_offset=1)
     cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), moe=moe)
@@ -186,6 +190,8 @@ def test_moe_config_raises():
     for tp in (1, 4):
         assert dataclasses.asdict(TA.MemoryModel.build(cfg, tp=tp)) == \
             dataclasses.asdict(JA.MemoryModel.build(jcfg, tp=tp))
-    vlm = dataclasses.replace(get_config("tinyllama-1.1b"), family="vlm")
-    with pytest.raises(NotImplementedError):
-        TA.MemoryModel.build(vlm)
+    for arch in ("paligemma-3b", "whisper-base"):
+        for tp in (1, 4):
+            assert dataclasses.asdict(TA.MemoryModel.build(
+                get_config(arch), tp=tp)) == dataclasses.asdict(
+                JA.MemoryModel.build(jax_get_config(arch), tp=tp))

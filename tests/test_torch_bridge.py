@@ -118,7 +118,10 @@ def test_import_with_jax_and_repro_poisoned():
             "repro_torch.data.pipeline", "repro_torch.models.moe",
             "repro_torch.configs.qwen2_moe_a2_7b",
             "repro_torch.configs.grok1_314b",
-            "repro_torch.configs.jamba_v0_1_52b"} <= set(mods)
+            "repro_torch.configs.jamba_v0_1_52b",
+            "repro_torch.configs.gemma3_27b",
+            "repro_torch.configs.paligemma_3b",
+            "repro_torch.configs.whisper_base"} <= set(mods)
 
 
 def test_sources_import_no_jax_and_no_repro():

@@ -151,15 +151,18 @@ def test_engine_with_preemption_matches_reference(models, reference):
 # the other families: Mamba-2 (SSM slot state), MoE, hybrid
 # ---------------------------------------------------------------------------
 
-FAMILY_ARCHS = ("mamba2-2.7b", "qwen2-moe-a2.7b", "jamba-v0.1-52b")
+FAMILY_ARCHS = ("mamba2-2.7b", "qwen2-moe-a2.7b", "jamba-v0.1-52b",
+                "gemma3-27b")
 LOGIT_TOL = 1e-4          # fp32 logits, engine vs JAX single host
 _FAMILY = {}
 
 
 def _family(arch):
     """Bridged weights, three requests (16 or 32 prompt tokens, a
-    multiple of every reduced SSD chunk) and the JAX single-host greedy
-    streams with their logits, computed once per arch."""
+    multiple of every reduced SSD chunk; 48 or 64 where the config has a
+    sliding window, so that prompts pass reduced gemma3's window of 32)
+    and the JAX single-host greedy streams with their logits, computed
+    once per arch."""
     if arch not in _FAMILY:
         lm_j = JaxLM(jax_get_reduced(arch))
         params_j, _ = lm_j.init(jax.random.key(0))
@@ -167,9 +170,10 @@ def _family(arch):
             jax.jit(lm_j.decode_step)
         cfg = get_reduced(arch)
         rng = np.random.default_rng(5)
+        extra = 2 if cfg.sliding_window else 0
         reqs = [Request(rid=i, prompt=rng.integers(
-            0, cfg.vocab_size, CHUNK * (1 + i % 2)).tolist(), max_new=3 + i)
-            for i in range(3)]
+            0, cfg.vocab_size, CHUNK * (1 + extra + i % 2)).tolist(),
+            max_new=3 + i) for i in range(3)]
         ref = {}
         for req in reqs:
             cache = lm_j.init_cache(1, MAX_SEQ)
