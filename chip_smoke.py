@@ -73,10 +73,12 @@ Phases, in order; any failure exits non-zero:
     to bf16 after every step (<= 1e-4); with the clip on, printed only;
 12. train-vshape: phase 6's run with ``v_min`` (the V-shape fold-back:
     device d holds blocks d and 7-d; split backward, fused AdamW);
-13. train-seq-chronos: phase 6's run with ``chronos_seq``, n_seq=2
-    (two 1024-position chunks per sequence, KV-carry and dKV rings) and
-    ``RecomputeConfig("chronos", num_recomp_chunks=1)``;
-14. train-seq-1f1b: phase 6's run with ``seq1f1b``, v=1, n_seq=4;
+13. train-seq-chronos: phase 6's run, cut to 8 layers, with
+    ``chronos_seq``, n_seq=2 (two 1024-position chunks per sequence,
+    KV-carry and dKV rings) and ``RecomputeConfig("chronos",
+    num_recomp_chunks=1)``;
+14. train-seq-1f1b: phase 6's run, cut to 8 layers, with ``seq1f1b``,
+    v=1, n_seq=4;
     phases 12-14 check what phase 6 checks (launch counts from the
     table: a sequence-chunked op runs each layer's flash at its chunk's
     offset) and print step time, tokens/s, peak memory and the table's
@@ -132,7 +134,26 @@ Phases, in order; any failure exits non-zero:
     within 2e-5: gemma3 at full width, 6 layers, window 256 under 512
     positions; paligemma at head dim 256 (d 512, 4 heads) with its
     patches; whisper-base at full width, the encoder's gradients in;
-21. a JSON ``kernels`` line, then the JSON result line.
+21. train-elastic: the elastic drill (``repro_torch.ft.elastic_pipeline.
+    train_elastic``): full-width tinyllama-1.1b cut to 8 layers (a save
+    is 14 B a parameter: 6.8 GB at P=4, 9.2 GB at P=3, where L_pad rises
+    from 8 to 12), chronos_zb v=2, 4 microbatches of one sequence, 6
+    steps, a checkpoint every 2 steps in a temporary directory (its free
+    bytes printed first, at least 3 saves needed), on P=4 virtual stages
+    with a checkpoint-writer death before its rename at step 2, stage
+    slot 1 lost at step 3 and back at step 5; against ``train_pipeline``
+    at P=4 without checkpoints: P [4, 3, 4], the recoveries
+    ``device_loss:4->3`` and ``scale_up:3->4`` with restore and remap,
+    every step's loss within 1e-4 of the baseline, the LATEST checkpoint
+    bitwise the returned state, launches from the tables of the steps
+    each incarnation ran; prints each save's and restore's GB, seconds
+    and GB/s, the recovery records, the step time at P=4 and P=3 and the
+    peak;
+22. train-resume: ``train()`` at full width, 2 layers, recompute chronos:
+    5 steps, against 3 steps with a checkpoint every step and a second
+    call that restores and runs steps 3-4 (losses and fp32 masters,
+    expected bitwise), launch counts;
+23. a JSON ``kernels`` line, then the JSON result line.
 
 Phase 3 also runs flash at the shapes of phases 17-19 (head dim 256
 with paligemma's prefix: its training shape, prefill chunks at offsets,
@@ -896,6 +917,10 @@ TRAIN_SEQ = 2049               # 2048 positions per sequence fed to the stack
 # of its 64 layers so that the whole smoke, with phases 17-20, keeps well
 # inside its time limit on a slow host (an H100 run took 1064.5 s with 32)
 MAMBA2_TRAIN_LAYERS = 16
+# the sequence-chunked runs (phases 13-14) at full width, cut to 8 of
+# tinyllama-1.1b's 22 layers: their host-paced steps and long traces
+# (seq1f1b: 84.2 s at 22 layers) made room for phases 21-22
+SEQ_TRAIN_LAYERS = 8
 # (tag, TrainConfig, P, peak bytes) of every pipeline training run, for
 # phase 16's predicted-against-measured lines
 TRAIN_RUNS = []
@@ -2761,10 +2786,10 @@ def phase_train_schedules(torch, bwd_ms, base):
     as phase 6 (seed, data, optimizer, fused kernels, P=4, m=8, one
     2049-token sequence per microbatch, 4 steps, launch counts from the
     table, a profiled step) with v_min (v=2, the fold-back placement,
-    split backward and fused AdamW), chronos_seq (v=2, n_seq=2,
-    ``RecomputeConfig("chronos", num_recomp_chunks=1)``) and seq1f1b
-    (v=1, n_seq=4), each printed beside phase 6.  Returns the launch
-    counts by path."""
+    split backward and fused AdamW), and at ``SEQ_TRAIN_LAYERS`` layers
+    chronos_seq (v=2, n_seq=2, ``RecomputeConfig("chronos",
+    num_recomp_chunks=1)``) and seq1f1b (v=1, n_seq=4), each printed
+    beside phase 6.  Returns the launch counts by path."""
     from repro_torch.configs.base import RecomputeConfig
     launches = {}
     ref = base["tinyllama-1.1b"]
@@ -2772,11 +2797,13 @@ def phase_train_schedules(torch, bwd_ms, base):
             ("train-vshape", dict(schedule="v_min")),
             ("train-seq-chronos", dict(
                 schedule="chronos_seq", seq_chunks=2,
-                recompute=RecomputeConfig("chronos", num_recomp_chunks=1))),
+                recompute=RecomputeConfig("chronos", num_recomp_chunks=1),
+                layers=SEQ_TRAIN_LAYERS)),
             ("train-seq-1f1b", dict(schedule="seq1f1b", num_chunks=1,
-                                    seq_chunks=4))):
+                                    seq_chunks=4, layers=SEQ_TRAIN_LAYERS))):
         out = phase_train(torch, "tinyllama-1.1b", tag, bwd_ms, **plan)
-        print(f"[{tag}] beside phase 6 ({ref['schedule']}): median step "
+        print(f"[{tag}] beside phase 6 ({ref['schedule']}; layers "
+              f"{out['layers']} vs {ref['layers']}): median step "
               f"{out['median_s'] * 1e3:.1f} ms vs "
               f"{ref['median_s'] * 1e3:.1f} ms, "
               f"{out['tokens_per_s']:.1f} vs {ref['tokens_per_s']:.1f} "
@@ -3446,6 +3473,255 @@ def phase_a4_checks(torch):
         schedules=("chronos_zb", "chronos"))
 
 
+ELASTIC_LAYERS = 8       # tinyllama-1.1b cut from 22: a save is 14 B a
+#                          parameter (bf16 weight, fp32 mu, nu, master)
+ELASTIC_STEPS = 6
+# faulted against baseline losses.  The gradients of a layer are the same
+# at any P (same ops per position, microbatches in the same order); the
+# gradient norm sums leaves of other shapes at P=3, so the clip factor
+# may move by an fp32 ulp, which AdamW's mu / sqrt(nu) all but cancels:
+# a few bf16 weights may round the other way.  1e-4 is ~100 ulps of the
+# fp32 loss at 10.4 (the reference's CPU drill: 1e-5).
+ELASTIC_LOSS_TOL = 1e-4
+# train() resumed against uninterrupted: the same ops on the same inputs,
+# expected bitwise; the bound is _train_pair's (losses 1e-5, fp32
+# masters 1e-6 but for a 1e-3 share)
+RESUME_LOSS_TOL, RESUME_W_TOL, RESUME_W_FRAC = 1e-5, 1e-6, 1e-3
+
+
+def save_bytes(cfg, P: int, v: int = 2) -> int:
+    """Bytes of one pipeline checkpoint of ``cfg`` (bf16 weights) at P
+    virtual stages: every parameter of the L_pad layers the layout holds
+    and the shared ones, 2 B of weight and 12 B of fp32 mu, nu and
+    master each, and the int32 step."""
+    import dataclasses
+
+    from repro_torch.core.layout import StageLayout
+    from repro_torch.core.placement import get_placement
+    lay = StageLayout.build(cfg, P, v, get_placement("interleaved", P, v))
+    n = dataclasses.replace(cfg, num_layers=lay.L_pad).param_count()
+    return 14 * (n + cfg.d_model) + 4
+
+
+def print_checkpoint_records(tag: str, records) -> None:
+    """One line per save (GB; device-to-host and to-disk seconds and
+    GB/s) and per restore (GB; disk and host-to-device)."""
+    def rate(gb, s):
+        return f"{s:.3f} s ({gb / s:.2f} GB/s)" if s else "0 s"
+    for r in records:
+        gb = r["bytes"] / 1e9
+        if r["op"] == "save":
+            w = r["write_s"]
+            print(f"[{tag}] save step {r['step']} ({r['mode']}): {gb:.3f} "
+                  f"GB, device->host {rate(gb, r['d2h_s'])}, to disk "
+                  + (rate(gb, w) if w is not None
+                     else f"died: {r.get('error')}"))
+        else:
+            print(f"[{tag}] restore step {r['step']}: {gb:.3f} GB, from "
+                  f"disk {rate(gb, r['read_s'])}, host->device "
+                  f"{rate(gb, r['h2d_s'])}")
+
+
+def phase_train_elastic(torch):
+    """21. The elastic drill (``train_elastic``): full-width tinyllama-1.1b
+    cut to ``ELASTIC_LAYERS`` layers, chronos_zb v=2, fused kernels, 4
+    microbatches of one 2049-token sequence, ``ELASTIC_STEPS`` steps,
+    checkpoints every 2 steps (keep 2) in a temporary directory, on P=4
+    virtual stages with the reference drill's faults: the checkpoint
+    writer dies before its rename at step 2, stage slot 1 is lost at step
+    3 and rejoins at step 5.  Held against ``train_pipeline`` at P=4
+    without checkpoints: P [4, 3, 4], both recoveries with restore and
+    remap, every step's loss within ``ELASTIC_LOSS_TOL``, the LATEST
+    checkpoint bitwise the returned state, launches from the tables of
+    the steps each incarnation ran, each save the reckoned size.
+    Returns the launch counts."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.ft.checkpoint import Checkpointer
+    from repro_torch.ft.elastic_pipeline import train_elastic
+    from repro_torch.ft.inject import CheckpointCrash, DeviceJoin, DeviceLoss
+    from repro_torch.launch.train import train_pipeline
+    from repro_torch.tree import tree_leaves
+    tag = "train-elastic"
+    tc = _train_config("tinyllama-1.1b", layers=ELASTIC_LAYERS,
+                       num_microbatches=4)
+    tc = dataclasses.replace(
+        tc, shape=dataclasses.replace(tc.shape, global_batch=4),
+        optimizer=dataclasses.replace(tc.optimizer,
+                                      total_steps=ELASTIC_STEPS),
+        checkpoint_every=2, keep_checkpoints=2)
+    sizes = {P: save_bytes(tc.model, P) for P in (4, 3)}
+
+    def log(s):
+        print(f"[{tag}] {s}", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        print(f"[{tag}] {tc.model.name} full width bf16, {ELASTIC_LAYERS} "
+              f"layers, chronos_zb v=2, 4 x 1 x {TRAIN_SEQ} tokens, "
+              f"{ELASTIC_STEPS} steps; checkpoint dir {d}: {free} bytes "
+              f"free; a save is {sizes[4]} B at P=4 (L_pad 8), {sizes[3]} "
+              f"B at P=3 (L_pad 12)")
+        if free < 3 * sizes[3]:
+            fail(f"{tag}: {free} bytes free in {d}, below 3 saves "
+                 f"({3 * sizes[3]} B)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = train_pipeline(tc, P=4, device="cuda", steps=ELASTIC_STEPS,
+                              log=log)
+        base_losses, base_s = base["losses"], base["step_s"]
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels = _kernel_fns()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        faults = [CheckpointCrash(step=2, at="rename"),
+                  DeviceLoss(step=3, device=1), DeviceJoin(step=5, device=1)]
+        t0 = time.perf_counter()
+        out = train_elastic(dataclasses.replace(tc, checkpoint_dir=d),
+                            n_devices=4, faults=faults, steps=ELASTIC_STEPS,
+                            device="cuda", log=log)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        tree = {"params": out["params"], "opt": out["opt_state"]}
+        restored, _ = Checkpointer(d).restore(tree)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(tree),
+                                                     tree_leaves(restored)))
+        del restored
+        latest = Checkpointer(d).latest_step()
+    incs, recs = out["incarnations"], out["recoveries"]
+    print_checkpoint_records(tag, out["checkpoint_records"])
+    for r in recs:
+        print(f"[{tag}] recovery {r.kind}:{r.p_from}->{r.p_to} at step "
+              f"{r.step}: detect {r.detect_s:.3f} s, replan "
+              f"{r.replan_s:.3f} s, restore {r.restore_s:.3f} s, remap + "
+              f"re-save {r.remap_s:.3f} s, resume (to the first step's "
+              f"end) {r.resume_s:.3f} s")
+    for i in incs:
+        print(f"[{tag}] incarnation P={i['P']} {i['status']}: {i['steps']} "
+              f"steps, step_s {[round(t, 4) for t in i['step_s']]}")
+    step_ms = {P: [t * 1e3 for i in incs if i["P"] == P
+                   for t in i["step_s"][1:]] for P in (4, 3)}
+    print(f"[{tag}] median step at P=4 {statistics.median(step_ms[4]):.1f} "
+          f"ms, at P=3 {statistics.median(step_ms[3]):.1f} ms (each "
+          f"incarnation's first step left out); baseline P=4 "
+          f"{statistics.median(base_s[1:]) * 1e3:.1f} ms; drill wall "
+          f"{wall:.1f} s; max_memory_allocated {peak / 2 ** 30:.3f} GiB")
+    ps = [i["P"] for i in incs]
+    kinds = [(r.kind, r.p_from, r.p_to) for r in recs]
+    steps_seen = sorted(out["loss_by_step"])
+    err = max(abs(out["loss_by_step"][s] - base_losses[s])
+              for s in range(ELASTIC_STEPS))
+    print(f"[{tag}] P {ps}; recoveries {kinds}; steps {steps_seen}; max "
+          f"|faulted - baseline| loss {err:.3e} (tol {ELASTIC_LOSS_TOL:g}"
+          f"{', bitwise' if err == 0 else ''}); LATEST step {latest} "
+          f"restored == returned state: {same}")
+    n_leaves = len(tree_leaves(out["params"]))
+    want = {}
+    for i in incs:
+        per = expected_train_launches(_spec_of(tc, i["P"]), n_leaves)
+        want = {k: want.get(k, 0) + i["steps"] * n for k, n in per.items()}
+    print(f"[{tag}] launches {launches} (from the tables of the steps "
+          f"each incarnation ran: {want})")
+    save_sizes = {r["bytes"] for r in out["checkpoint_records"]
+                  if r["op"] == "save"}
+    if ps != [4, 3, 4]:
+        fail(f"{tag}: incarnations ran P {ps}, not [4, 3, 4]")
+    if kinds != [("device_loss", 4, 3), ("scale_up", 3, 4)] or not all(
+            r.restore_s > 0 and r.remap_s > 0 for r in recs):
+        fail(f"{tag}: recoveries {recs}")
+    if steps_seen != list(range(ELASTIC_STEPS)):
+        fail(f"{tag}: not step-count exact: steps {steps_seen}")
+    if not err <= ELASTIC_LOSS_TOL:
+        fail(f"{tag}: faulted losses {out['losses']} against baseline "
+             f"{base_losses}: max |d| {err:.3e} > {ELASTIC_LOSS_TOL}")
+    if not same or latest != ELASTIC_STEPS:
+        fail(f"{tag}: the LATEST checkpoint (step {latest}) does not "
+             "restore to the returned state")
+    if launches != want:
+        fail(f"{tag}: kernel launches {launches} != expected {want}")
+    if not save_sizes <= set(sizes.values()):
+        fail(f"{tag}: save sizes {save_sizes} not the reckoned {sizes}")
+    del out, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_resume(torch):
+    """22. ``train()`` resumed: full-width tinyllama-1.1b cut to 2 layers,
+    recompute chronos, 2 microbatches of 4 x 2049 tokens, the plain
+    AdamW update.  5 uninterrupted steps, against 3 steps with a
+    checkpoint every step and a second ``train()`` call on the same
+    directory that restores and runs steps 3-4: their losses and the
+    final fp32 masters within ``RESUME_*`` (expected bitwise).  Returns
+    the resumed calls' launch counts."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs.base import RecomputeConfig
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+    tag = "train-resume"
+    tc = _single_config("tinyllama-1.1b", RecomputeConfig(
+        "chronos", num_recomp_chunks=1, policy="full"), 4)
+    tc = dataclasses.replace(
+        tc, model=dataclasses.replace(tc.model, num_layers=2),
+        optimizer=dataclasses.replace(tc.optimizer, total_steps=5))
+    m = tc.shape.global_batch // tc.plan.microbatch_size
+
+    def log(s):
+        print(f"[{tag}] {s}", flush=True)
+    print(f"[{tag}] {tc.model.name} full width bf16, 2 layers, through "
+          f"train(): recompute chronos, {m} microbatches of 4 x "
+          f"{TRAIN_SEQ} tokens; 5 steps, then 3 + a resumed 2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = train(tc, device="cuda", steps=5, log=log)
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        tcr = dataclasses.replace(tc, checkpoint_dir=d, checkpoint_every=1)
+        first = train(tcr, device="cuda", steps=3, log=log)
+        rest = train(tcr, device="cuda", steps=5, log=log)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print_checkpoint_records(tag, first["checkpoint_records"]
+                             + rest["checkpoint_records"])
+    d_loss = max(abs(a - b) for a, b in zip(rest["losses"],
+                                            full["losses"][3:]))
+    d_w = torch.cat([(a - b).abs().flatten() for a, b in zip(
+        tree_leaves(rest["opt_state"]["master"]),
+        tree_leaves(full["opt_state"]["master"]))])
+    frac = float((d_w > RESUME_W_TOL).float().mean())
+    bitwise = d_loss == 0 and float(d_w.max()) == 0
+    print(f"[{tag}] resumed at step {rest['start_step']}: losses "
+          f"{rest['losses']} against {full['losses'][3:]} (max |d| "
+          f"{d_loss:.3e}, tol {RESUME_LOSS_TOL:g}); fp32 masters max |d| "
+          f"{float(d_w.max()):.3e}, share beyond {RESUME_W_TOL:g} "
+          f"{frac:.2e} (tol {RESUME_W_FRAC:g}){'; bitwise' if bitwise else ''}")
+    per = expected_single_launches(tc.model, m)
+    want = {k: 5 * n for k, n in per.items()}
+    print(f"[{tag}] launches {launches} (3 + 2 steps, derived: {want})")
+    if rest["start_step"] != 3 or len(rest["losses"]) != 2:
+        fail(f"{tag}: the second call started at {rest['start_step']} and "
+             f"ran {len(rest['losses'])} steps")
+    if not (d_loss <= RESUME_LOSS_TOL and frac <= RESUME_W_FRAC
+            and float(d_w.max()) <= 2 * tc.optimizer.lr * 2):
+        fail(f"{tag}: resumed run left the uninterrupted one")
+    if launches != want:
+        fail(f"{tag}: kernel launches {launches} != expected {want}")
+    del full, first, rest, d_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -3642,7 +3918,19 @@ def main() -> None:
     phase_a4_checks(torch)
     done("A.4 checks")
 
-    # 21. kernels line, then the result line.  ``launches`` sums the
+    # 21. the elastic drill: tinyllama-1.1b at full width over 8 layers on
+    #     P=4 virtual stages through a checkpoint-writer crash, a lost
+    #     stage (P=3) and its return (P=4), against the uninterrupted run;
+    #     22. train() resumed from its checkpoint against an uninterrupted
+    #     train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train_elastic"] = phase_train_elastic(torch)
+    done("train-elastic")
+    launches["train_resume"] = phase_train_resume(torch)
+    done("train-resume")
+
+    # 23. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

@@ -279,3 +279,9 @@ class TrainConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     seed: int = 0
     log_every: int = 10
+    checkpoint_every: int = 500
+    # None: no checkpointer and no restore (the reference defaults to
+    # "/tmp/repro_ckpt" and always restores from it; here a run touches
+    # the disk only when asked to)
+    checkpoint_dir: Optional[str] = None
+    keep_checkpoints: int = 3

@@ -168,16 +168,65 @@ def unstage_params(tree, layout: StageLayout) -> Dict[str, Any]:
 
 def restage_params(tree, src: StageLayout, dst: StageLayout):
     """A pipeline tree under ``src``'s placement moved to ``dst``'s (same
-    P, v and block size): the block leaf at (device, chunk) holding layer
-    block b goes where ``dst`` keeps block b; shared leaves stay."""
-    where = {src.pl.block(d, c): (d, c) for d in range(src.P)
-             for c in range(src.v)}
+    P, v and block size): the blocks re-indexed by
+    :func:`remap_blocks_elastic`; shared leaves stay."""
+    return {**tree, "blocks": remap_blocks_elastic(tree["blocks"], src, dst)}
+
+
+def remap_blocks_elastic(blocks, layout_src: StageLayout,
+                         layout_dst: StageLayout, init_blocks=None):
+    """Re-index stacked block leaves across *different* layouts — the
+    elastic live-migration path (the reference's function, on torch
+    leaves).  Source and destination may differ in P, v and placement
+    (:func:`restage_params` is the placement-only case): every
+    destination position ``(d, c, mi)`` of period
+    phase ``j`` holds global layer ``dst.pl.block(d, c) * dst.K + mi *
+    period + j`` and is gathered from wherever the source layout stored
+    that layer, one shared ``(idx_d, idx_c, idx_m)`` index triple per
+    tree.
+
+    Destination positions whose global layer lies beyond the source's
+    padded span (L_pad grows when P does not divide it, e.g. 8 layers at
+    P=4 -> 12 at P=3, and shrinks back) are padding layers (gate 0, no
+    forward effect, zero gradients); they are taken from
+    ``init_blocks`` — a freshly initialized parameter / zeroed moment
+    tree under ``layout_dst`` — by ``torch.where``, which is required
+    exactly then."""
+    per = layout_src.period
+    assert per == layout_dst.period and layout_src.L == layout_dst.L, \
+        "elastic remap requires the same model (period, num_layers)"
+    Pd, vd, Md = layout_dst.P, layout_dst.v, layout_dst.M
+    Ks = layout_src.K
+    src_of = {layout_src.pl.block(d, c): (d, c)
+              for d in range(layout_src.P) for c in range(layout_src.v)}
+    idx = torch.zeros((3, Pd, vd, Md), dtype=torch.int64)
+    have = torch.zeros((Pd, vd, Md), dtype=torch.bool)
+    for d in range(Pd):
+        for c in range(vd):
+            for mi in range(Md):
+                g = layout_dst.pl.block(d, c) * layout_dst.K + mi * per
+                if g < layout_src.L_pad:
+                    blk, within = divmod(g, Ks)
+                    idx[0, d, c, mi], idx[1, d, c, mi] = src_of[blk]
+                    idx[2, d, c, mi] = within // per
+                    have[d, c, mi] = True
 
     def one(a):
-        return torch.stack([torch.stack(
-            [a[where[dst.pl.block(d, c)]] for c in range(dst.v)])
-            for d in range(dst.P)])
-    return {**tree, "blocks": [tree_map(one, t) for t in tree["blocks"]]}
+        i = idx.to(a.device)
+        return a[i[0], i[1], i[2]]
+
+    if bool(have.all()):
+        return [tree_map(one, t) for t in blocks]
+    assert init_blocks is not None, \
+        "destination has padding positions absent from the source; " \
+        "pass init_blocks (freshly-initialized under layout_dst)"
+
+    def one2(a, a0):
+        g = one(a)
+        mask = have.to(a.device).reshape(have.shape + (1,) * (g.dim() - 3))
+        return torch.where(mask, g, a0)
+
+    return [tree_map(one2, t, t0) for t, t0 in zip(blocks, init_blocks)]
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,8 @@ Public API:
   trains.
 - :func:`replan_for_pp` — elastic re-solve: the same query at a new
   pipeline depth (device loss -> P-1, rejoin -> back to P), the
-  elastic path's re-plan (its elastic trainer is ROADMAP A.6).
+  elastic path's re-plan (the elastic trainer is
+  :func:`repro_torch.ft.elastic_pipeline.train_elastic`).
 """
 from repro_torch.plan.planner import (  # noqa: F401
     DesignPoint, ExecutablePlan, PlannerQuery, enumerate_points,

@@ -104,6 +104,7 @@ def test_import_with_jax_and_repro_poisoned():
         for p in PKG.rglob("*.py"))
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             + "".join(f"import {m}\n" for m in mods)
             + "print('imported', len(sys.modules))\n")
     env = dict(os.environ)
@@ -121,7 +122,11 @@ def test_import_with_jax_and_repro_poisoned():
             "repro_torch.configs.jamba_v0_1_52b",
             "repro_torch.configs.gemma3_27b",
             "repro_torch.configs.paligemma_3b",
-            "repro_torch.configs.whisper_base"} <= set(mods)
+            "repro_torch.configs.whisper_base",
+            "repro_torch.ft", "repro_torch.ft.checkpoint",
+            "repro_torch.ft.elastic", "repro_torch.ft.elastic_pipeline",
+            "repro_torch.ft.health", "repro_torch.ft.inject",
+            "repro_torch.data.tokenshards"} <= set(mods)
 
 
 def test_sources_import_no_jax_and_no_repro():
