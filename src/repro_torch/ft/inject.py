@@ -31,14 +31,14 @@ back, ``should_yield`` tells the driver to checkpoint and hand control
 back so the elastic loop can warm-restart scaled back up to P.
 
 **Serving-shaped faults** key on the engine's pipeline *tick* instead
-of the training step — the reference's serving tick loop
-(``PipelinedEngine.serve``; the port's engine gains it with resilient
-serving) calls the mirrored seams ``on_tick_start`` / ``on_tick_end`` /
-``tick_time`` / ``take_slot_corruption``:
+of the training step — the serving tick loop
+(:meth:`repro_torch.serve.engine.PipelinedEngine.serve`) calls the
+mirrored seams ``on_tick_start`` / ``on_tick_end`` / ``tick_time`` /
+``take_slot_corruption``:
 
 - :class:`TickDeviceLoss` — a pipeline stage dies at a tick boundary
   (raised from ``on_tick_start`` before the tick runs);
-  the reference's ``serve_resilient`` recovers at P-1.
+  :func:`repro_torch.serve.resilience.serve_resilient` recovers at P-1.
 - :class:`SlotCorruption` — one request slot's KV/SSM cache turns to
   garbage at the end of a tick (``take_slot_corruption`` hands the slot
   to the driver, which scribbles the cache and re-admits the victim via

@@ -33,8 +33,16 @@ Scheduling rules (all deterministic, identical to the reference):
 terminal state, recorded in :attr:`SlotScheduler.outcomes`:
 ``completed`` (all ``max_new`` tokens delivered), ``expired`` (its
 deadline passed, queued or active), ``shed`` (rejected at admission
-with the queue at ``max_queue``) or ``failed`` (reserved for the fault
-re-admission path, which arrives with the resilience slice).  A
+with the queue at ``max_queue``) or ``failed`` (a slot corruption
+evicted it more than ``max_retries`` times).
+
+Fault re-admission (:meth:`SlotScheduler.fail_slot` for an injected
+corruption, :meth:`SlotScheduler.fail_all` for a device loss) frees the
+victim's slot and requeues the request *at the front* for
+**re-prefill**: its cache is gone, so the prompt streams through the
+prefill path again and greedy decoding regenerates the identical stream.
+Corruption evictions are bounded by ``max_retries``; device-loss
+re-admissions are the system's fault and never consume retry budget.  A
 per-admission ``gen`` counter travels with every injection so waves
 sampled before an eviction are recognised as stale and discarded.
 """
@@ -248,10 +256,49 @@ class SlotScheduler:
             self.ready.append(inj.slot)
         return True
 
+    # -- fault re-admission ----------------------------------------------
+    def fail_slot(self, slot: int, reason: str = "slot_corruption",
+                  count_retry: bool = True) -> Optional[int]:
+        """Evict ``slot``'s request (its cache is corrupted or gone) and
+        re-admit it via re-prefill at the front of the queue; its
+        generated tokens are discarded.  Past ``max_retries`` counted
+        evictions the request is terminally ``failed``.  Returns the
+        victim rid (None if the slot was empty)."""
+        a = self.active.get(slot)
+        if a is None:
+            return None
+        self._evict(slot)
+        rid = a.req.rid
+        self.retries[rid] = self.retries.get(rid, 0) + 1
+        if count_retry and self.retries[rid] > self.max_retries:
+            self._drop(rid, FAILED, prompt_len=len(a.req.prompt),
+                       n_generated=len(a.generated))
+        else:
+            self.queue.appendleft(a.req)
+        return rid
+
+    def fail_all(self, reason: str = "device_loss") -> List[int]:
+        """Device-loss re-admission: every active request lost its slot
+        cache with the failed stage.  Evicts all of them (stale waves die
+        with the old engine) and requeues them at the front in admission
+        order for re-prefill, without consuming retry budget.  Returns
+        the victim rids oldest-first."""
+        victims = sorted(self.active.values(),
+                         key=lambda a: (a.admit_tick, a.slot))
+        rids = []
+        for a in victims:
+            self._evict(a.slot)
+            rid = a.req.rid
+            self.retries[rid] = self.retries.get(rid, 0) + 1
+            rids.append(rid)
+        for a in reversed(victims):
+            self.queue.appendleft(a.req)
+        return rids
+
     # -- lifecycle summary -------------------------------------------------
     def lifecycle_counts(self) -> Dict[str, Optional[int]]:
         """Terminal-state tally + fault/deadline counters (the fields
-        ``repro.serve.traffic.summarize`` publishes)."""
+        :func:`repro_torch.serve.traffic.summarize` publishes)."""
         tally = {s: 0 for s in TERMINAL_STATES}
         for s in self.outcomes.values():
             tally[s] += 1
@@ -364,3 +411,19 @@ class SlotScheduler:
             retries=self.retries.get(rid, 0))
         del self.active[slot]              # slot drains -> next admit
 
+
+def prefill_injection_order(P: int, m: int, n_seq: int,
+                            schedule: str = "seq1f1b") -> List[Tuple[int,
+                                                                     int]]:
+    """Stage-0 (mb, seq-chunk) injection order of the forward-only task
+    table: what the pipeline executes when ``m`` prompts of ``n_seq``
+    chunks stream through ``P`` stages.  The admission layer's
+    back-to-back chunk policy replays exactly this order
+    (microbatch-major)."""
+    from repro_torch.core.tasktable import IDLE as OP_IDLE
+    from repro_torch.core.tasktable import build_task_table
+    from repro_torch.seqpipe.schedules import forward_only, seq1f1b
+    assert schedule == "seq1f1b", "only seq1f1b prefill tables for now"
+    tab = build_task_table(forward_only(seq1f1b(P, m, n_seq)))
+    return [(int(tab.mb[t, 0]), int(tab.seq[t, 0]))
+            for t in range(tab.T) if tab.op[t, 0] != OP_IDLE]

@@ -126,7 +126,9 @@ def test_import_with_jax_and_repro_poisoned():
             "repro_torch.ft", "repro_torch.ft.checkpoint",
             "repro_torch.ft.elastic", "repro_torch.ft.elastic_pipeline",
             "repro_torch.ft.health", "repro_torch.ft.inject",
-            "repro_torch.data.tokenshards"} <= set(mods)
+            "repro_torch.data.tokenshards", "repro_torch.serve.resilience",
+            "repro_torch.serve.scheduler",
+            "repro_torch.serve.traffic"} <= set(mods)
 
 
 def test_sources_import_no_jax_and_no_repro():

@@ -8,6 +8,8 @@ through ``repro_torch.bridge``.  The reference token streams are the
 single-host ``LM.prefill_chunk`` / ``LM.decode_step`` greedy streams, as
 ``tests/helpers/serve_check.py`` computes them (the JAX pipelined engine
 itself is not used as an oracle)."""
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -18,8 +20,9 @@ from repro.models import LM as JaxLM
 from repro.serve import scheduler as jax_sched
 from repro_torch.bridge import lm_params_from_numpy
 from repro_torch.configs import get_reduced
+from repro_torch.ft import FaultInjector, HealthMonitor, Watchdog
 from repro_torch.models import LM
-from repro_torch.serve import PipelinedEngine, Request
+from repro_torch.serve import PipelinedEngine, Request, new_telemetry
 from repro_torch.serve import scheduler as port_sched
 from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -111,16 +114,48 @@ def test_lm_teacher_forced_logits_match_jax(models, kernels):
                                    atol=1e-5)
 
 
+def _seams(name):
+    """serve() keyword arguments: none (the defaults), the caller-owned
+    scheduler, telemetry and clock anchor, or those plus a fault injector
+    with no faults, a watchdog and a health monitor: every seam off."""
+    if name == "default":
+        return {}
+    kw = {"sched": port_sched.SlotScheduler(N_SLOTS, CHUNK, MAX_SEQ),
+          "telemetry": new_telemetry(), "t0": time.perf_counter()}
+    if name == "armed":
+        inj = FaultInjector([])
+        kw.update(injector=inj, watchdog=Watchdog(60.0, clock=inj.clock),
+                  monitor=HealthMonitor())
+    return kw
+
+
+@pytest.mark.parametrize("seams", ["default", "owned", "armed"])
 @pytest.mark.parametrize("P,kernels", [(1, "fused"), (2, "fused"),
                                        (2, "plain"), (3, "fused")])
-def test_engine_streams_match_single_host_jax(models, reference, P, kernels):
-    """P=3 pads the 4 layers to 6: two gate-0 padding layers pass through."""
+def test_engine_streams_match_single_host_jax(models, reference, P, kernels,
+                                              seams):
+    """P=3 pads the 4 layers to 6: two gate-0 padding layers pass through.
+    With the resilience seams present but no fault, the engine makes the
+    reference scheduler's decisions (driven through a fake pipeline of the
+    same depth) and gives the same streams."""
     m = models
     reqs = _requests(m["cfg"].vocab_size)
     eng = PipelinedEngine(m["cfg"], m["params"], P=P, chunk=CHUNK,
                           max_seq=MAX_SEQ, n_slots=N_SLOTS, kernels=kernels,
                           device="cpu")
-    res = eng.serve(reqs, clock=None)
+    tick, log = eng.tick, []
+
+    def logging_tick(inj):
+        log.append((inj.op, inj.slot, inj.pos, inj.first, inj.rid))
+        return tick(inj)
+    eng.tick = logging_tick
+    res = eng.serve(reqs, clock=None, **_seams(seams))
+    _, want = _drive(jax_sched, reqs, n_slots=N_SLOTS, P=P, chunk=CHUNK,
+                     max_seq=MAX_SEQ)
+    assert log == want
+    assert res["dropped"] == {} and res["stale_nonfinite_logits"] == 0
+    if seams != "armed":        # a monitor may flag real tick times
+        assert res["health_actions"] == []
     assert set(res["finished"]) == {r.rid for r in reqs}
     assert res["outcomes"] == {r.rid: "completed" for r in reqs}
     for r in reqs:
@@ -213,10 +248,10 @@ def test_family_engine_streams_match_single_host_jax(arch, P):
     tick = eng.tick
 
     def recording_tick(inj):
-        retired, tok, logits = tick(inj)
+        retired, tok, logits, finite = tick(inj)
         if logits is not None:
             got.setdefault(retired.rid, []).append(logits.numpy())
-        return retired, tok, logits
+        return retired, tok, logits, finite
     eng.tick = recording_tick
     res = eng.serve(reqs, clock=None)
     worst = 0.0
@@ -259,11 +294,13 @@ def test_engine_blocks_alias_the_lm_weights():
 # the scheduler copy decides exactly as the reference scheduler
 # ---------------------------------------------------------------------------
 
-def _drive(mod, reqs, *, n_slots, P=3, preempt_after=None):
+def _drive(mod, reqs, *, n_slots, P=3, preempt_after=None, chunk=4,
+           max_seq=64):
     """Run scheduler module ``mod`` against a depth-P fake pipeline whose
     model maps (rid, step) -> 1000 * rid + step; returns the scheduler and
     the injection sequence."""
-    sched = mod.SlotScheduler(n_slots, 4, 64, preempt_after=preempt_after)
+    sched = mod.SlotScheduler(n_slots, chunk, max_seq,
+                              preempt_after=preempt_after)
     for r in reqs:
         sched.submit(mod.Request(rid=r.rid, prompt=r.prompt,
                                  max_new=r.max_new))
