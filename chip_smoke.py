@@ -172,7 +172,27 @@ Phases, in order; any failure exits non-zero:
     rmsnorm twice per layer per call, finite logits; prefill and decode
     times beside the weight-read bound, cold and warm; fp32 2-layer fused
     vs plain logits within 1e-3;
-25. a JSON ``kernels`` line, then the JSON result line.
+25. train-wire: phase 6's run with the compressed boundary wire and
+    shared-gradient sum (``ParallelPlan.wire``, ``grad_compression``):
+    25a ``wire="bf16"`` (at bf16 compute the exact wire: losses and
+    gradient norms bitwise phase 6's, its launches); 25b ``wire="int8"``
+    with ``grad_compression="int8_ef"`` (int8 codes and a per-row fp32
+    scale in the rings, the shared gradients summed over the stages on
+    an int8 grid with error feedback): the rings' bytes, 25a's and
+    25b's each equal to the reckoning from the task table, every leaf's
+    ``ef_abs_max`` within half its grid step, moved masters, phase 6's
+    launches, loss_4 within 0.03 of phase 6's; 25c phase 11's offload
+    run with ``int8_ef`` (the deep
+    gradients shipped as int8 codes and scales, dequantized on the host):
+    phase 11's launches, its peak plus the EF's 0.524 GB plus 0.1 GiB at
+    most, the shipped bytes, copy GB/s and ``collect_wait_s`` beside
+    phase 11's; 25d the reduced tinyllama in fp32, wire bf16 and int8
+    with int8_ef, 3 steps: gradients, loss and EF on the card against
+    the CPU (each wire its own tolerances, the shared gradients and EF in
+    codes of their scale), and the int8 wire's codes, scales and
+    read-back for a 2048 x
+    2048 bf16 payload and ``compressed_sum`` bitwise the CPU's;
+26. a JSON ``kernels`` line, then the JSON result line.
 
 Phase 3 also runs flash at the shapes of phases 17-19 (head dim 256
 with paligemma's prefix: its training shape, prefill chunks at offsets,
@@ -1981,7 +2001,8 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
         if ssd_counts != want_ssd:
             fail(f"{arch}: the profiled step ran SSD kernels {ssd_counts}, "
                  f"not the tensor-core route's {want_ssd}")
-    summary = {"losses": out["losses"], "peak": peak, "median_s": med,
+    summary = {"losses": out["losses"], "grad_norms": out["grad_norms"],
+               "peak": peak, "median_s": med,
                "launches": launches, "per_step": per_step,
                "schedule": tab.name, "tokens_per_s": tokens / med,
                "layers": tc.model.num_layers}
@@ -2725,6 +2746,11 @@ def train_offload_run(torch, arch: str, tag: str, base, steps: int):
         fail(f"{tag}: peak fell {fall / 2 ** 30:.3f} GiB, less than 0.9 x "
              f"the deep state's {deep_state / 2 ** 30:.3f} GiB")
     TRAIN_RUNS.append((tag, tc, P, peak))
+    base["offload_run"] = {"peak": peak, "launches": launches,
+                           "median_s": med, "losses": out["losses"],
+                           "bytes_down": rep["bytes_down"],
+                           "copy_down_gbps": rep["copy_down_gbps"],
+                           "collect_wait_s": rep["collect_wait_s"]}
     del out, params, kept, deep, slabs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2784,7 +2810,7 @@ def _fp32_offload_losses(torch, cfg, ocfg, mode: str):
     losses = []
     for _ in range(3):
         toks = torch.from_numpy(src.next_batch(m * mbB).reshape(m, mbB, -1))
-        params, opt, met = step(params, opt, {"tokens": toks.to(dev)})
+        params, opt, met = step(params, opt, {"tokens": toks.to(dev)})[:3]
         losses.append(float(met["loss"]))
         for w in tree_leaves(deep):
             w.copy_(w.to(torch.bfloat16))
@@ -4185,6 +4211,312 @@ def phase_serve_batched(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 25. the compressed wire, the compressed shared-gradient sum and the
+#     quantized offload shipment
+# ---------------------------------------------------------------------------
+
+# |loss_4 - phase 6's loss_4| of 25b: the card read 0.0088 in three runs
+# (PR 24's chip runs 1, 3 and 5, NVIDIA H100 80GB HBM3, 700.00 W), the
+# same bits each time (tinyllama's steps repeat bitwise); the bound is a
+# few times that
+WIRE_INT8_LOSS_TOL = 0.03
+EF_BYTES_TINYLLAMA = 0.524e9     # fp32 EF: embed 65.5 M + head 65.5 M + norm
+# 25d: the card against the CPU, same wire on both.  Block leaves: per
+# leaf max |d| / max |cpu|, a few times each wire's reading (PR 24's chip
+# runs 1, 3, 5, NVIDIA H100 80GB HBM3, 700.00 W: bf16 wire 3.246e-3,
+# where an ulp of difference at a bf16 rounding edge moves an element one
+# bf16 step; int8 wire 7.26e-7, no code moved).  Shared leaves (through
+# the int8 sum) and the error feedback, element by element in codes of
+# the leaf's shared scale (one code is 1/127 of the largest partial):
+# on the int8 wire only an ulp at a rounding edge moves an element, one
+# code in the sum and in that stage's residual, so at most
+# WIRE_CARD_CODES_MOVED elements move past CODE_NOISE; on the bf16 wire
+# the boundaries themselves differ by bf16 steps, so every shared
+# gradient moves a little (34,322 of 262,400 elements past CODE_NOISE,
+# at most 1.996 codes, PR 24's chip run 6) and only the largest move is
+# held, at twice that reading.
+WIRE_CARD_BLOCK_TOL = {"bf16": 1e-2, "int8": 3e-6}
+WIRE_CARD_CODE_TOL = {"bf16": 4, "int8": 2}
+CODE_NOISE = 1e-3
+WIRE_CARD_CODES_MOVED = {"bf16": None, "int8": 8}
+WIRE_CARD_LOSS_TOL = 2e-6        # 4 ulps of the loss (read: 1 ulp and 0)
+
+
+def _ring_reckoning(spec, wire):
+    """The payload rings' bytes, reckoned from the task table: one
+    payload a slot of every ring (fq, bq, act, rmt, the W stash's two),
+    each the boundary ``[mbB, S, d]`` in bf16 or in int8 codes with an
+    fp32 scale a row, beside the fp32 aux sum."""
+    tab = spec.table
+    n = tab.P * (tab.fq_depth + tab.bq_depth + sum(tab.act_depth.values())
+                 + sum(tab.rmt_depth.values())
+                 + 2 * sum(tab.wstash_depth.values()))
+    x = spec.mbB * spec.S * spec.cfg.d_model
+    per = {"bf16": 2 * x, "int8": x + 4 * spec.mbB}[wire] + 4
+    return n, n * per
+
+
+def _wire_run(torch, tag: str, steps: int = 4, **plan):
+    """Phase 6's run (tinyllama-1.1b at full width, chronos_zb, P=4, v=2,
+    8 microbatches of one 2049-token sequence, seed 0, fused kernels)
+    with ``plan``'s overrides, through ``train_pipeline``: the result,
+    the launch counts, the peak from a reset after the weights are made,
+    and whether every fp32 master moved."""
+    import dataclasses
+
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
+    from repro_torch.launch.steps import offload_kept
+    from repro_torch.launch.train import train_pipeline
+    from repro_torch.tree import tree_leaves
+    tc0 = _train_config("tinyllama-1.1b")
+    tc = dataclasses.replace(tc0, plan=dataclasses.replace(tc0.plan, **plan))
+    spec = _spec_of(tc, 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(tc.seed)
+    params = init_pipeline_params(gen, tc.model, spec.layout, "cuda")
+    kept = offload_kept(params, tc.plan)[0] if tc.plan.offload.enabled \
+        else params
+    before = [a.flatten()[:4096].to(torch.float32, copy=True)
+              for a in tree_leaves(kept)]
+    kernels = _kernel_fns()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    out = train_pipeline(tc, P=4, device="cuda", steps=steps, params=params,
+                         log=lambda s: print(f"[{tag}] {s}", flush=True))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    masters = tree_leaves(out["opt_state"]["master"])
+    moved = all(not torch.equal(a, b.flatten()[:4096])
+                for a, b in zip(before, masters))
+    med = statistics.median(out["step_s"][1:])
+    print(f"[{tag}] losses={out['losses']} grad_norms={out['grad_norms']} "
+          f"step_s={out['step_s']}")
+    print(f"[{tag}] median step {med * 1e3:.1f} ms, max_memory_allocated="
+          f"{peak / 2 ** 30:.3f} GiB, payload rings "
+          f"{out['wire']['ring_bytes'] / 2 ** 30:.4f} GiB "
+          f"({out['wire']['wire']} wire), launches {launches}, fp32 masters "
+          f"{'all moved' if moved else 'NOT all moved'}")
+    res = {"out": out, "launches": launches, "peak": peak, "median_s": med,
+           "moved": moved, "spec": spec}
+    del params, kept, before, masters
+    return res
+
+
+def phase_train_wire(torch, base):
+    """25a-c at full width (tinyllama-1.1b, phase 6's configuration):
+    25a ``wire="bf16"`` (the exact wire at bf16 compute: losses and
+    gradient norms bitwise phase 6's); 25b ``wire="int8"`` with
+    ``grad_compression="int8_ef"`` (finite, every ``ef_abs_max`` within
+    half its grid step, masters moved, phase 6's launches, loss_4 within
+    ``WIRE_INT8_LOSS_TOL`` of phase 6's; the rings' bytes, 25a's and
+    25b's each equal to :func:`_ring_reckoning`); 25c phase 11's offload run with ``int8_ef`` (finite,
+    phase 11's launches, a peak within phase 11's plus the EF's 0.524 GB
+    plus 0.1 GiB; the shipped bytes beside phase 11's bf16 shipment, the
+    copy's GB/s, ``collect_wait_s``).  Returns the launch counts per
+    path."""
+    b6 = base["tinyllama-1.1b"]
+    b11 = b6["offload_run"]
+    finite = (lambda r: all(math.isfinite(x) for x in
+                            r["out"]["losses"] + r["out"]["grad_norms"]))
+
+    a = _wire_run(torch, "train-wire-bf16", wire="bf16")
+    same = (a["out"]["losses"] == b6["losses"]
+            and a["out"]["grad_norms"] == b6["grad_norms"])
+    print(f"[train-wire-bf16] 25a against phase 6: losses and gradient "
+          f"norms {'bitwise equal' if same else 'DIFFER'} (phase 6 "
+          f"{b6['losses']}, {b6['grad_norms']}); median step "
+          f"{a['median_s'] * 1e3:.1f} ms (phase 6 {b6['median_s'] * 1e3:.1f}"
+          f"), peak {a['peak'] / 2 ** 30:.3f} GiB (phase 6 "
+          f"{b6['peak'] / 2 ** 30:.3f})")
+    if not same:
+        fail("25a: the bf16 wire at bf16 compute departs from phase 6")
+    if a["launches"] != b6["launches"]:
+        fail(f"25a: launches {a['launches']} != phase 6's {b6['launches']}")
+    bf16_rings = a["out"]["wire"]["ring_bytes"]
+    n_slots, want = _ring_reckoning(a["spec"], "bf16")
+    print(f"[train-wire-bf16] 25a: payload rings {bf16_rings} B against "
+          f"{want} B reckoned ({n_slots} slots)")
+    if bf16_rings != want:
+        fail(f"25a: payload rings {bf16_rings} B, reckoned {want}")
+    launches = {"train_wire_bf16": a["launches"]}
+    del a
+    done("train-wire bf16 (25a)")
+
+    b = _wire_run(torch, "train-wire-int8", wire="int8",
+                  grad_compression="int8_ef")
+    w = b["out"]["wire"]
+    moves = sum(abs(x - y) for x, y in zip(b6["losses"][1:],
+                                           b6["losses"][:-1]))
+    d4 = abs(b["out"]["losses"][-1] - b6["losses"][-1])
+    _, int8_want = _ring_reckoning(b["spec"], "int8")
+    print(f"[train-wire-int8] 25b: payload rings {w['ring_bytes']} B "
+          f"({w['ring_bytes'] / 2 ** 30:.4f} GiB, int8 codes plus fp32 "
+          f"scales; reckoned {int8_want} B: the bf16 wire's halved, plus "
+          f"4 B of scale a row) against the bf16 wire's {bf16_rings} B "
+          f"({bf16_rings / 2 ** 30:.4f} GiB): x{bf16_rings / w['ring_bytes']:.4f}")
+    for k, e in w["ef_abs_max"].items():
+        s_ = w["psum_scale"][k]
+        print(f"[train-wire-int8] ef_abs_max {k}: {e:.6e} against half its "
+              f"grid step {s_ / 2:.6e}")
+    print(f"[train-wire-int8] loss_4 {b['out']['losses'][-1]} against phase "
+          f"6's {b6['losses'][-1]}: |d| {d4:.6f} (bound "
+          f"{WIRE_INT8_LOSS_TOL}; phase 6's loss moved {moves:.4f} over its "
+          f"steps); median step "
+          f"{b['median_s'] * 1e3:.1f} ms against phase 6's "
+          f"{b6['median_s'] * 1e3:.1f} ms ({b['median_s'] / b6['median_s']:.4f}"
+          f"x); peak {b['peak'] / 2 ** 30:.3f} GiB against phase 6's "
+          f"{b6['peak'] / 2 ** 30:.3f} GiB")
+    if not finite(b):
+        fail("25b: non-finite loss or gradient norm")
+    bad = [k for k, e in w["ef_abs_max"].items()
+           if not e <= w["psum_scale"][k] / 2 + 1e-6]
+    if bad:
+        fail(f"25b: error feedback past half a grid step in {bad}")
+    if not b["moved"]:
+        fail("25b: an fp32 master did not move")
+    if b["launches"] != b6["launches"]:
+        fail(f"25b: launches {b['launches']} != phase 6's {b6['launches']}")
+    if w["ring_bytes"] != int8_want:
+        fail(f"25b: payload rings {w['ring_bytes']} B, reckoned {int8_want}")
+    if not d4 <= WIRE_INT8_LOSS_TOL:
+        fail(f"25b: loss_4 departs from phase 6's by {d4}")
+    launches["train_wire_int8"] = b["launches"]
+    del b, w                  # w holds the run's EF (0.524 GB): free it
+    done("train-wire int8 (25b)")
+
+    from repro_torch.configs.base import OffloadConfig
+    c = _wire_run(torch, "train-offload-int8", grad_compression="int8_ef",
+                  offload=OffloadConfig(enabled=True, num_offload_chunks=1))
+    rep = c["out"]["offload"]
+    limit = b11["peak"] + EF_BYTES_TINYLLAMA + 0.1 * 2 ** 30
+    print(f"[train-offload-int8] 25c: median step {c['median_s'] * 1e3:.1f} "
+          f"ms (phase 11 {b11['median_s'] * 1e3:.1f}); peak "
+          f"{c['peak'] / 2 ** 30:.3f} GiB against phase 11's "
+          f"{b11['peak'] / 2 ** 30:.3f} (limit {limit / 2 ** 30:.3f}); "
+          f"shipped {rep['bytes_down']} B ({rep['bytes_down'] / 1e9:.4f} "
+          f"GB: int8 codes plus scales) against phase 11's bf16 "
+          f"{b11['bytes_down']} B ({b11['bytes_down'] / 1e9:.4f} GB); copy "
+          f"ms {[round(t, 2) for t in rep['copy_down_ms']]} (GB/s "
+          f"{[round(g, 2) for g in rep['copy_down_gbps']]}; phase 11 "
+          f"{[round(g, 2) for g in b11['copy_down_gbps']]}); host update s "
+          f"{[round(t, 3) for t in rep['host_update_s']]}; collect_wait_s "
+          f"{rep['collect_wait_s']:.3f} (phase 11 "
+          f"{b11['collect_wait_s']:.3f}); losses {c['out']['losses']} "
+          f"(phase 11 {b11['losses']})")
+    if not finite(c):
+        fail("25c: non-finite loss or gradient norm")
+    if c["launches"] != b11["launches"]:
+        fail(f"25c: launches {c['launches']} != phase 11's "
+             f"{b11['launches']}")
+    if not c["peak"] <= limit:
+        fail(f"25c: peak {c['peak']} past phase 11's plus the EF ({limit})")
+    if rep["submits"] != 4:
+        fail(f"25c: {rep['submits']} submits in 4 steps")
+    launches["train_offload_int8"] = c["launches"]
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("train-offload int8 (25c)")
+    return launches
+
+
+def phase_wire_checks(torch):
+    """25d: the reduced tinyllama in fp32, chronos P=2 v=2 m=4 (two
+    sequences of 17 tokens a microbatch), ``wire`` bf16 and int8 with
+    the int8 shared-gradient sum, 3 steps with the error feedback
+    threaded: the gradients, the loss and the EF on the card against the
+    same calls on the CPU (the tier-1 pairs hold the CPU against JAX);
+    then the int8 wire's codes and scales for a 2048 x 2048 bf16 payload,
+    its read-back, and ``compressed_sum`` on the card against the CPU,
+    bitwise."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   init_psum_ef,
+                                                   make_pipeline_spec,
+                                                   make_train_grads_fn,
+                                                   wire_decode, wire_encode)
+    from repro_torch.optim import compressed_sum
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_reduced("tinyllama-1.1b")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 2, 17))
+    for wire in ("bf16", "int8"):
+        spec = make_pipeline_spec(cfg, P=2, v=2, m=4, microbatch=2,
+                                  seq_len=17, schedule="chronos",
+                                  kernels="fused", wire=wire,
+                                  grad_psum_bits=8)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            params = tree_map(lambda a: a.to(dev), init_pipeline_params(
+                torch.Generator().manual_seed(0), cfg, spec.layout, "cpu"))
+            fn = make_train_grads_fn(spec, dev)
+            ef = init_psum_ef(spec, params)
+            batch = {"tokens": torch.from_numpy(toks).to(dev)}
+            for _ in range(3):
+                g, met, ef = fn(params, batch, ef)
+            res[dev] = (tree_map(lambda a: a.cpu(), g), float(met["loss"]),
+                        tree_map(lambda a: a.cpu(), ef),
+                        [float(x) for x in tree_leaves(met["psum_scale"])])
+        got, want = res["cuda"][0], res["cpu"][0]
+        e_blk = max(float((a.float() - b.float()).abs().max()
+                          / (b.float().abs().max() + 1e-12))
+                    for a, b in zip(tree_leaves(got["blocks"]),
+                                    tree_leaves(want["blocks"])))
+        # shared gradients and EF rows, |d| in codes of the CPU's scale
+        scales = res["cpu"][3]
+        shared = [k for k in sorted(want) if k != "blocks"]
+        codes = torch.cat(
+            [((a - b).abs() / s_).flatten() for a, b, s_ in zip(
+                [x for k in shared for x in tree_leaves(got[k])],
+                [x for k in shared for x in tree_leaves(want[k])], scales)]
+            + [((a - b).abs() / s_).flatten() for a, b, s_ in zip(
+                tree_leaves(res["cuda"][2]), tree_leaves(res["cpu"][2]),
+                scales)])
+        c_max = float(codes.max())
+        moved = int((codes > CODE_NOISE).sum())
+        d_loss = abs(res["cuda"][1] - res["cpu"][1])
+        print(f"[wire-check] reduced tinyllama fp32 chronos P=2 v=2 m=4, "
+              f"wire {wire} + int8_ef, step 3: card vs CPU per-leaf max "
+              f"|d| / max |cpu| of the blocks {e_blk:.3e} (tol "
+              f"{WIRE_CARD_BLOCK_TOL[wire]}); shared gradients and EF: max "
+              f"|d| {c_max:.4f} codes (tol {WIRE_CARD_CODE_TOL[wire]}), "
+              f"{moved} of {codes.numel()} elements past {CODE_NOISE} codes "
+              f"(tol {WIRE_CARD_CODES_MOVED[wire]}); |d loss| {d_loss:.3e} "
+              f"(tol {WIRE_CARD_LOSS_TOL})")
+        most = WIRE_CARD_CODES_MOVED[wire]
+        if not (e_blk <= WIRE_CARD_BLOCK_TOL[wire]
+                and c_max <= WIRE_CARD_CODE_TOL[wire]
+                and (most is None or moved <= most)
+                and d_loss <= WIRE_CARD_LOSS_TOL):
+            fail(f"25d: the {wire} wire on the card departs from the CPU")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = (torch.randn((1, 2048, 2048), generator=gen)
+         * torch.logspace(-2, 1, 2048)).to(torch.bfloat16)
+    q_c, s_c = wire_encode(x, "int8")
+    q_g, s_g = wire_encode(x.cuda(), "int8")
+    y_c = wire_decode(q_c, s_c, torch.bfloat16)
+    y_g = wire_decode(q_g, s_g, torch.bfloat16)
+    parts = [torch.randn((2048, 2048), generator=gen) * (i + 1)
+             for i in range(2)]
+    ef = torch.randn((2, 2048, 2048), generator=gen) * 1e-3
+    r_c, e_c = compressed_sum([p.clone() for p in parts], ef.clone(), 8)
+    r_g, e_g = compressed_sum([p.cuda() for p in parts], ef.cuda(), 8)
+    same = (torch.equal(q_c, q_g.cpu()) and torch.equal(s_c, s_g.cpu())
+            and torch.equal(y_c, y_g.cpu()) and torch.equal(r_c, r_g.cpu())
+            and torch.equal(e_c, e_g.cpu()))
+    print(f"[wire-check] int8 wire of a [1, 2048, 2048] bf16 payload (codes, "
+          f"scale, read-back) and compressed_sum of two [2048, 2048] fp32 "
+          f"partials with EF: card vs CPU "
+          f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        fail("25d: the quantizer on the card departs from the CPU's")
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -4403,7 +4735,17 @@ def main() -> None:
     launches["serve_batched"] = phase_serve_batched(torch)
     done("serve-batched")
 
-    # 25. kernels line, then the result line.  ``launches`` sums the
+    # 25. the compressed wire at full width: 25a bf16 (bitwise phase 6),
+    #     25b int8 with the int8 shared-gradient sum, 25c phase 11's offload
+    #     with the int8 shipment; 25d their fp32 checks, card against CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire_launches = phase_train_wire(torch, base)
+    launches.update(wire_launches)
+    phase_wire_checks(torch)
+    done("train-wire checks (25d)")
+
+    # 26. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

@@ -245,6 +245,18 @@ class ParallelPlan:
     microbatch_size: int = 2        # sequences per microbatch
     recompute: RecomputeConfig = field(default_factory=RecomputeConfig)
     offload: OffloadConfig = field(default_factory=OffloadConfig)
+    grad_compression: str = "none"  # none | int8_ef | int16_ef: compress
+                                    # the shared-parameter gradient sum
+                                    # over the stages (optim.compression
+                                    # compressed_sum, persistent
+                                    # error-feedback threaded by the
+                                    # train driver); under offload the
+                                    # deep-chunk host shipment
+                                    # quantizes to the same width
+    wire: str = "fp32"              # boundary-activation wire dtype of
+                                    # the pipeline executor: fp32
+                                    # (exact), bf16, int8 (per-row
+                                    # scale beside the codes)
     kernels: str = "plain"          # compute backend for the chunk body
                                     # (repro_torch.models.backend):
                                     # "plain" | "fused" (the CUDA rmsnorm,

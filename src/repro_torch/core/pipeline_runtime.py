@@ -27,9 +27,9 @@ activation ``x`` and the fp32 MoE aux sum ``aux`` [1] (each MoE layer
 adds its gate-weighted load-balancing loss; the last stage adds
 ``aux_weight`` times it to the CE), and in an encoder-decoder config the
 encoder output ``enc`` [mbB, enc_len, d].  Every ring has an ``aux``
-twin ``[depth, 1]`` fp32 at the same slots (``_Executor.aux_rings``),
-and an ``enc`` twin where the payload carries one (``enc_rings``): the
-forward rings carry ``aux`` and ``enc``, the backward ones their
+twin ``[depth, 1]`` fp32 at the same slots, and an ``enc`` twin where
+the payload carries one (``_Executor.leaves``: one ring set per leaf):
+the forward rings carry ``aux`` and ``enc``, the backward ones their
 cotangents.  ``enc`` rides every chunk unchanged and every decoder
 layer's cross-attention reads it, so its cotangent grows on the way
 back: each B op sends upstream its chunk's own ``enc`` cotangent plus
@@ -61,11 +61,33 @@ Op semantics mirror the reference's phase executor:
 No autograd graph outlives its op.  Shared-parameter gradients sum over
 stages; the loss is the mean of the microbatches' ``CE + aux_weight *
 aux``.
+
+**The wire** (``spec.wire``, the reference's ``_leaf_exact`` /
+``_pack_payload`` / ``_unpack_payload`` without the byte packing, which
+exists to move one array per collective): the rings store each payload
+leaf as the wire delivers it.  On the fp32 wire every leaf is exact and
+the rings hold the compute dtype; on the bf16 wire an fp32 leaf is
+stored in bf16; on the int8 wire ``x`` and ``enc`` are quantized per
+batch row (int8 codes beside an fp32 ``[depth, mbB]`` scale twin).
+``aux`` is never quantized.  A send is encoded where it lands, an op
+decodes where it reads, and a boundary handed from one ring to another
+(receive queue to activation ring, activation to remat ring, to the
+W-stash) is copied in its stored form, so B and W recompute at exactly
+the point F consumed.  The first block's input (the embedding) and the
+last stage's upstream gradient (from the head) never touch the wire.
+
+**The compressed shared-gradient sum** (``spec.grad_psum_bits``): each
+stage that writes a shared leaf (:func:`psum_writers`) keeps its own
+fp32 partial, and the step ends with
+:func:`~repro_torch.optim.compression.compressed_sum` over them against
+the caller's error-feedback state (:func:`init_psum_ef`): the
+reference's ``compressed_psum`` over the pipe axis.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -82,7 +104,10 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_dtype, _init_encoder,
                                             _init_layers, encode)
 from repro_torch.optim.adamw import adamw_update, cast_like
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.optim.compression import (compressed_sum, grid_scale,
+                                          quantize_with)
+from repro_torch.tree import (tree_leaves, tree_map, tree_paths,
+                              tree_unflatten)
 
 # send code -> (device delta, queue, receive column of TaskTable.arrays():
 # rcf_dn 6, rcf_up 7, rcf_loc 8, rcb_dn 9, rcb_up 10, rcb_loc 11).  The
@@ -99,6 +124,9 @@ _ROUTE = {SEND_FWD: (1, "f", 6), SEND_HOPF: (1, "f", 6),
 _SCHEDULES_WITH_V = ("chronos", "interleaved", "chronos_zero2",
                      "chronos_zb", "chronos_recomp", "chronos_seq")
 SEQ_SCHEDULES = ("seq1f1b", "chronos_seq")
+WIRES = ("fp32", "bf16", "int8")
+# the payload's rings, one set per leaf (x, aux, enc)
+RING_NAMES = ("fq", "bq", "act", "rmt", "wx", "wdy")
 
 
 # ---------------------------------------------------------------------------
@@ -245,11 +273,22 @@ class PipelineSpec:
     enc_len: int = 0            # encoder positions (0 if none)
     n_seq: int = 1              # sequence chunks per microbatch
     aux_weight: float = 0.01    # weight of the MoE aux sum in the loss
+    #: boundary-payload wire dtype: "fp32" (exact, the rings in the
+    #: compute dtype), "bf16" (cast), or "int8" (per-row symmetric
+    #: quantization, an fp32 scale per row beside the codes)
+    wire: str = "fp32"
+    #: int width of the compressed shared-parameter gradient sum over
+    #: the stages (``optim.compression.compressed_sum``), or None for the
+    #: exact fp32 sum.  The caller threads persistent error-feedback
+    #: state (:func:`init_psum_ef`).
+    grad_psum_bits: Optional[int] = None
 
 
 def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
                        microbatch: int, seq_len: int, schedule: str,
                        kernels: str = "plain", n_seq: int = 1,
+                       wire: str = "fp32",
+                       grad_psum_bits: Optional[int] = None,
                        **sched_kw) -> PipelineSpec:
     """Build the schedule, its layout (the schedule's placement decides
     which device holds which layer block) and its task table.  The
@@ -263,7 +302,14 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
     attention LM here excludes SSM and MoE layers, an encoder and a patch
     prefix, as the reference's assertion does (the seq executor carries
     no aux sum and no encoder output, and its chunks would cut the
-    prefix).  ``S`` is ``seq_len - 1`` plus a VLM's patches."""
+    prefix).  ``S`` is ``seq_len - 1`` plus a VLM's patches.  ``wire``
+    must be one of :data:`WIRES` and ``grad_psum_bits`` None, 8 or 16
+    (ValueError otherwise)."""
+    if wire not in WIRES:
+        raise ValueError(f"unknown wire {wire!r}: expected one of {WIRES}")
+    if grad_psum_bits not in (None, 8, 16):
+        raise ValueError(f"grad_psum_bits must be None, 8 or 16, got "
+                         f"{grad_psum_bits!r}")
     if schedule in SEQ_SCHEDULES:
         sched_kw["n_seq"] = n_seq
     elif n_seq != 1:
@@ -293,7 +339,8 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
     enc_len = cfg.encdec.num_frames if cfg.encdec is not None else 0
     return PipelineSpec(cfg=cfg, layout=layout, table=table, mbB=microbatch,
                         S=seq_len - 1 + prefix, kernels=kernels,
-                        n_seq=n_seq, prefix=prefix, enc_len=enc_len)
+                        n_seq=n_seq, prefix=prefix, enc_len=enc_len,
+                        wire=wire, grad_psum_bits=grad_psum_bits)
 
 
 def _embed_tokens(spec: PipelineSpec, shared, tokens, patch=None):
@@ -313,6 +360,128 @@ def _with_grad(tree):
     return tree_map(lambda a: a.detach().requires_grad_(), tree)
 
 
+# ---------------------------------------------------------------------------
+# the wire: what a payload leaf's rings store
+# ---------------------------------------------------------------------------
+
+def leaf_exact(key: str, dtype: torch.dtype, wire: str) -> bool:
+    """True when this payload leaf travels unchanged: the ``aux`` sum
+    always (a loss term, never quantized), every leaf on the fp32 wire,
+    and 16-bit leaves on the bf16 wire (the cast would be the
+    identity) -- the reference's ``_leaf_exact``."""
+    return key == "aux" or wire == "fp32" or (
+        wire == "bf16" and dtype.itemsize <= 2)
+
+
+def wire_encode(a: torch.Tensor, wire: str, key: str = "x"):
+    """``(stored, scale)``: leaf ``a`` in the wire's storage form.  An
+    exact leaf is itself (scale None); on the bf16 wire an fp32 leaf is
+    cast to bf16; on the int8 wire each batch row is quantized over its
+    whole flattened leaf, ``scale = max(amax_row, 1e-30) / 127`` (fp32
+    ``[B]``) and codes ``clamp(round(x / scale), +-127)`` (int8, ``a``'s
+    shape), as the reference's ``_pack_payload``."""
+    if leaf_exact(key, a.dtype, wire):
+        return a, None
+    if wire == "bf16":
+        return a.to(torch.bfloat16), None
+    B = a.shape[0]
+    flat = a.reshape(B, -1).float()
+    scale = grid_scale(flat.abs().amax(dim=1, keepdim=True), 8)
+    return quantize_with(flat, scale, 8).view(a.shape), scale.view(B)
+
+
+def wire_decode(stored: torch.Tensor, scale: Optional[torch.Tensor],
+                dtype: torch.dtype) -> torch.Tensor:
+    """What the reader of a stored leaf sees (the reference's
+    ``_unpack_payload``): a stored leaf of the compute dtype as it is,
+    bf16 widened, int8 codes as ``(codes * scale).to(dtype)`` in fp32."""
+    if scale is None:
+        return stored if stored.dtype == dtype else stored.to(dtype)
+    B = stored.shape[0]
+    return (stored.reshape(B, -1).float() * scale.view(B, 1)) \
+        .view(stored.shape).to(dtype)
+
+
+def _wire_storage(key: str, dtype: torch.dtype, wire: str):
+    """``(stored dtype, scaled)`` of a payload leaf on ``wire``: an exact
+    leaf as it is, bf16 on the bf16 wire, int8 codes with a per-row fp32
+    scale on the int8 wire."""
+    if leaf_exact(key, dtype, wire):
+        return dtype, False
+    return (torch.bfloat16, False) if wire == "bf16" else (torch.int8, True)
+
+
+def _payload_leaves(spec: PipelineSpec):
+    """The payload's leaves, ``(key, shape, dtype)``: the boundary
+    activation over the payload positions (``S / n_seq``), its fp32 aux
+    sum, and the encoder output where the config has an encoder."""
+    dt, d = _dtype(spec.cfg.compute_dtype), spec.cfg.d_model
+    out = [("x", (spec.mbB, spec.S // spec.n_seq, d), dt),
+           ("aux", (1,), torch.float32)]
+    if spec.enc_len:
+        out.append(("enc", (spec.mbB, spec.enc_len, d), dt))
+    return out
+
+
+def payload_ring_bytes(spec: PipelineSpec) -> int:
+    """Bytes of the executor's payload rings as the wire stores them:
+    one payload a slot of every ring (``fq``, ``bq``, ``act``, ``rmt``,
+    and the W stash's ``wx`` and ``wdy``) on every device, each leaf in
+    its wire storage, an int8 leaf with its per-row fp32 scale."""
+    tab = spec.table
+    slots = tab.P * (tab.fq_depth + tab.bq_depth
+                     + sum(tab.act_depth.values())
+                     + sum(tab.rmt_depth.values())
+                     + 2 * sum(tab.wstash_depth.values()))
+    per_slot = 0
+    for key, shape, dt in _payload_leaves(spec):
+        store, scaled = _wire_storage(key, dt, spec.wire)
+        per_slot += math.prod(shape) * store.itemsize \
+            + (4 * shape[0] if scaled else 0)
+    return slots * per_slot
+
+
+class _PayloadLeaf:
+    """One payload leaf's rings (``RING_NAMES``, each per device; the
+    chunked ones per chunk too) in the wire's storage form: the compute
+    dtype for an exact leaf, bf16 on the bf16 wire, int8 codes with an
+    fp32 ``[depth, mbB]`` scale twin (``scales``) on the int8 wire.
+    ``write`` encodes where a send lands, ``read`` decodes where an op
+    reads, ``move`` copies a stored slot unchanged (a boundary handed
+    from one ring to another stays the bytes the wire delivered)."""
+
+    def __init__(self, key: str, make, shape, dtype, wire: str):
+        self.key, self.dtype, self.wire = key, dtype, wire
+        self.exact = leaf_exact(key, dtype, wire)
+        store, scaled = _wire_storage(key, dtype, wire)
+        self.rings = make(shape, store)
+        self.scales = make((shape[0],), torch.float32) if scaled else None
+
+    @staticmethod
+    def _slot(rings, name, d, c, slot):
+        return _at(rings[name][d] if c is None else rings[name][d][c], slot)
+
+    def read(self, name, d, c, slot) -> torch.Tensor:
+        a = self._slot(self.rings, name, d, c, slot)
+        if self.exact:
+            return a                        # a view of the slot
+        s = None if self.scales is None else \
+            self._slot(self.scales, name, d, c, slot)
+        return wire_decode(a, s, self.dtype)
+
+    def write(self, name, d, c, slot, a) -> None:
+        stored, s = wire_encode(a, self.wire, self.key)
+        self._slot(self.rings, name, d, c, slot).copy_(stored)
+        if s is not None:
+            self._slot(self.scales, name, d, c, slot).copy_(s)
+
+    def move(self, src, dst) -> None:
+        """``src``, ``dst``: ``(name, d, c, slot)``."""
+        for rings in (self.rings, self.scales):
+            if rings is not None:
+                self._slot(rings, *dst).copy_(self._slot(rings, *src))
+
+
 class _Executor:
     """One table's rings, allocated once, and the tick loop over them."""
 
@@ -323,8 +492,6 @@ class _Executor:
         self.split = tab.has_w
         self.flags = spec.layout.flags(spec.cfg)        # host numpy
         self.Sc = spec.S // spec.n_seq                  # payload positions
-        shape = (spec.mbB, self.Sc, spec.cfg.d_model)
-        dt = _dtype(spec.cfg.compute_dtype)
 
         def rings(shape, dt):
             def ring(depth):
@@ -342,15 +509,11 @@ class _Executor:
                 "wdy": [{c: ring(k) for c, k in tab.wstash_depth.items()}
                         for _ in range(P_)],
             }
-        self.rings: Dict[str, Any] = rings(shape, dt)
-        # the payload's aux sum and encoder output (forward rings) and
-        # their cotangents (backward rings), slot for slot
-        self.aux_rings: Dict[str, Any] = rings((1,), torch.float32)
-        self.ring_sets = [self.rings, self.aux_rings]
-        if spec.enc_len:
-            self.enc_rings = rings((spec.mbB, spec.enc_len,
-                                    spec.cfg.d_model), dt)
-            self.ring_sets.append(self.enc_rings)
+        # the payload's leaves (forward rings) and their cotangents
+        # (backward rings), slot for slot, each stored in the wire's form
+        self.leaves = [_PayloadLeaf(key, rings, shape, dt, spec.wire)
+                       for key, shape, dt in _payload_leaves(spec)]
+        self.rings: Dict[str, Any] = self.leaves[0].rings
         self.aux0 = torch.zeros((1,), dtype=torch.float32, device=device)
 
     # -- helpers -------------------------------------------------------------
@@ -378,26 +541,35 @@ class _Executor:
                               compute_backend.get_backend(spec.kernels)))
         return out
 
+    @staticmethod
+    def _boundary_at(d, c, aslot, rslot):
+        """Where a backward op's stored input payload lies: the remat
+        ring's slot where the table sets one, else the activation ring's."""
+        return ("rmt", d, c, rslot) if rslot >= 0 else ("act", d, c, aslot)
+
     def _boundary(self, d, c, aslot, rslot):
         """The stored input payload (``x``, ``aux`` [, ``enc``]) of a
-        backward op."""
-        if rslot >= 0:
-            return self._get("rmt", d, c, rslot)
-        return self._get("act", d, c, aslot)
+        backward op, as the wire delivered it."""
+        return self._get(*self._boundary_at(d, c, aslot, rslot))
 
     def _get(self, name, d, c, slot):
         """Slot ``slot`` of ring ``name`` at device ``d`` (chunk ``c``;
-        None for the receive queues) and its aux (and enc) twins."""
-        out = []
-        for r in self.ring_sets:
-            ring = r[name][d] if c is None else r[name][d][c]
-            out.append(_at(ring, slot))
-        return tuple(out)
+        None for the receive queues), every payload leaf as its reader
+        sees it (decoded from the wire's storage form)."""
+        return tuple(leaf.read(name, d, c, slot) for leaf in self.leaves)
 
     def _put(self, name, d, c, slot, payload):
-        for r, a in zip(self.ring_sets, payload):
-            ring = r[name][d] if c is None else r[name][d][c]
-            _at(ring, slot).copy_(a)
+        """Land ``payload`` in a slot, encoded for the wire (a leaf of
+        None is not carried)."""
+        for leaf, a in zip(self.leaves, payload):
+            if a is not None:
+                leaf.write(name, d, c, slot, a)
+
+    def _move(self, src, dst):
+        """Copy a stored payload from slot ``src`` to slot ``dst`` (each
+        ``(ring, device, chunk, slot)``) unchanged."""
+        for leaf in self.leaves:
+            leaf.move(src, dst)
 
     # -- one op --------------------------------------------------------------
     def _op(self, d, row, params, shared, batch, acc):
@@ -451,8 +623,11 @@ class _Executor:
             with torch.no_grad():
                 x_in = self._first_input(shared, tok_in, batch, mb) \
                     if first else self._get("fq", d, None, src)
-                if aslot >= 0:
-                    self._put("act", d, c, aslot, x_in)
+                # the input boundary, as the wire delivered it; the first
+                # block's B and W recompute the embedding instead, so its
+                # slot is never read and nothing goes there
+                if aslot >= 0 and not first:
+                    self._move(("fq", d, None, src), ("act", d, c, aslot))
                 out = chunk(self._block(params, d, c, False), *x_in)
                 if last:
                     acc["loss"] += head(shared, *out)
@@ -465,8 +640,7 @@ class _Executor:
 
         if op in R_OPS:
             if rslot >= 0:
-                self._put("rmt", d, c, rslot,
-                          self._get("act", d, c, aslot))
+                self._move(("act", d, c, aslot), ("rmt", d, c, rslot))
             return None
 
         if op in W_OPS:
@@ -491,14 +665,13 @@ class _Executor:
             if first:
                 # the first block sends nothing upstream: stash dy for W
                 if not last:
-                    self._put("wdy", d, c, wslot,
-                              self._get("bq", d, None, src))
+                    self._move(("bq", d, None, src), ("wdy", d, c, wslot))
                 return None
-            bnd = self._boundary(d, c, aslot, rslot)
-            self._put("wx", d, c, wslot, bnd)
+            bnd_at = self._boundary_at(d, c, aslot, rslot)
+            self._move(bnd_at, ("wx", d, c, wslot))
             if not last:
-                self._put("wdy", d, c, wslot, self._get("bq", d, None, src))
-            x = [a.detach().requires_grad_() for a in bnd]
+                self._move(("bq", d, None, src), ("wdy", d, c, wslot))
+            x = [a.detach().requires_grad_() for a in self._get(*bnd_at)]
             with torch.enable_grad():
                 out = chunk(self._block(params, d, c, False), *x)
                 if last:
@@ -532,32 +705,50 @@ class _Executor:
         a scalar loss) w.r.t. the block's parameters (+ the shared ones
         at the pipeline ends, + the inputs ``extra``): parameter
         gradients add into the accumulators (a block leaf's in its own
-        dtype, a shared leaf's in fp32), the gradients of ``extra`` are
-        returned."""
+        dtype, a shared leaf's in fp32: the one accumulator, or device
+        ``d``'s partial under the compressed sum), the gradients of
+        ``extra`` are returned."""
         blk = tree_leaves(blocks_c)
         shl = tree_leaves(sh) if with_shared else []
         gs = _grad(outs, seeds, blk + shl + list(extra))
         accs = [a[d, c] for a in tree_leaves(acc["gb"])]
         if with_shared:
-            accs += tree_leaves(acc["gs"])
+            accs += acc["gs_at"][d]
         for a, g in zip(accs, gs):
             if g is not None:          # an untied embedding at the head
+                assert a is not None, \
+                    f"device {d} wrote a gradient of a shared leaf that " \
+                    "psum_writers does not give it"
                 a.add_(g)
         return gs[len(accs):]
 
     # -- the tick loop -----------------------------------------------------
-    def run(self, params, batch):
-        tab = self.spec.table
+    def run(self, params, batch, psum_ef=None):
+        spec = self.spec
+        tab, bits = spec.table, spec.grad_psum_bits
+        if bits and psum_ef is None:
+            raise ValueError("grad_psum_bits needs the error-feedback "
+                             "state (init_psum_ef)")
         shared = {k: v for k, v in params.items() if k != "blocks"}
         dev = params["final_norm"]["scale"].device
         acc = {
             "gb": tree_map(torch.zeros_like, params["blocks"]),
-            "gs": tree_map(lambda a: torch.zeros(a.shape,
-                                                 dtype=torch.float32,
-                                                 device=a.device), shared),
             "loss": torch.zeros((), dtype=torch.float32, device=dev),
             "n": 0,
         }
+        if bits:
+            # one fp32 partial per stage that writes the leaf
+            writers = psum_writers(spec, shared)
+            parts = [torch.zeros((len(w),) + a.shape, dtype=torch.float32,
+                                 device=a.device)
+                     for a, w in zip(tree_leaves(shared), writers)]
+            acc["gs_at"] = [[p[w.index(d)] if d in w else None
+                             for p, w in zip(parts, writers)]
+                            for d in range(tab.P)]
+        else:
+            gs = tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
+                                                device=a.device), shared)
+            acc["gs_at"] = [tree_leaves(gs)] * tab.P
         for t in range(tab.T):
             sends = []
             for d in range(tab.P):
@@ -574,13 +765,65 @@ class _Executor:
                 dest = (d + delta) % tab.P
                 slot = int(self.A[t, dest, col])
                 assert slot >= 0, f"tick {t}: no receive slot at {dest}"
-                for r, a in zip(self.ring_sets, out):
-                    if a is not None:
-                        r[q + "q"][dest][slot].copy_(a)
-        grads = {"blocks": acc["gb"], **acc["gs"]}
+                self._put(q + "q", dest, None, slot, out)
         n = acc["n"]
         metrics = {"loss": acc["loss"] / max(n, 1), "n_microbatches": n}
-        return grads, metrics
+        if not bits:
+            return {"blocks": acc["gb"], **gs}, metrics
+        red, scales = [], []
+        for p, e in zip(parts, tree_leaves(psum_ef)):
+            r, _, sc = compressed_sum(list(p.unbind(0)), e, bits,
+                                      with_scales=True)
+            red.append(r)
+            scales.append(sc)
+        metrics["psum_scale"] = tree_unflatten(shared, scales)
+        return ({"blocks": acc["gb"], **tree_unflatten(shared, red)},
+                metrics, psum_ef)
+
+
+def psum_writers(spec: PipelineSpec, shared):
+    """For each shared leaf (in ``tree_leaves`` order), the devices whose
+    ops write a gradient into it: the first block's device (the token
+    embedding; an encoder-decoder config's encoder), the last block's
+    (the final norm and the head: ``embed.head``, or ``embed.tokens``
+    when tied).  Derived from the layout (under ``v_min``'s fold-back the
+    last block is device 0's).  Every other stage's partial is zero, and
+    so is its error feedback, so the compressed sum over these stages
+    equals the one over all ``P`` bitwise; a leaf of no known writer
+    keeps a partial on every stage."""
+    tab, pl = spec.table, spec.layout.pl
+    d_first = next(d for d in range(tab.P) if pl.stage(d, 0) == 0)
+    d_last = next(d for d in range(tab.P)
+                  if pl.stage(d, tab.v - 1) == tab.P - 1)
+    head = "head" if "head" in shared.get("embed", {}) else "tokens"
+    every = tuple(range(tab.P))
+
+    def of(path):
+        top = path[0]
+        if top == "embed" and path[1] in ("tokens", "head"):
+            w = ([d_first] if path[1] == "tokens" else []) \
+                + ([d_last] if path[1] == head else [])
+        elif top == "final_norm":
+            w = [d_last]
+        elif top in ("encoder", "enc_norm"):
+            w = [d_first]
+        else:
+            w = every
+        return tuple(sorted(set(w)))
+    return [of(p) for p in tree_paths(shared)]
+
+
+def init_psum_ef(spec: PipelineSpec, params):
+    """Zero error-feedback state for ``spec.grad_psum_bits``: one fp32
+    residual per shared leaf and writing stage (:func:`psum_writers`),
+    each leaf stacked ``[n_writers, ...]`` -- the rows of the reference's
+    ``[P, ...]`` stack that can be nonzero.  Thread it through the grads
+    fn: ``grads, metrics, ef = fn(params, batch, ef)``."""
+    shared = {k: v for k, v in params.items() if k != "blocks"}
+    return tree_unflatten(shared, [
+        torch.zeros((len(w),) + a.shape, dtype=torch.float32,
+                    device=a.device)
+        for a, w in zip(tree_leaves(shared), psum_writers(spec, shared))])
 
 
 def _at(ring, slot: int):
@@ -608,52 +851,81 @@ def make_train_grads_fn(spec: PipelineSpec, device):
     "final_norm": ...}``; ``metrics``: ``loss`` (the microbatches' mean
     of CE plus ``aux_weight`` times the MoE aux sum, a device tensor)
     and ``n_microbatches``.  ``fn.rings`` are the executor's
-    preallocated buffers.  A sequence-chunked table (``spec.n_seq > 1``)
-    runs :class:`repro_torch.seqpipe.runtime.SeqExecutor`, with the same
-    gradient semantics."""
+    preallocated buffers (the boundary leaf's, in the wire's storage
+    form; :func:`payload_ring_bytes` counts every payload ring).  A
+    sequence-chunked table (``spec.n_seq > 1``) runs
+    :class:`repro_torch.seqpipe.runtime.SeqExecutor`, with the same
+    gradient semantics.
+
+    With ``spec.grad_psum_bits`` the shared gradients are summed over
+    the stages by :func:`~repro_torch.optim.compression.compressed_sum`
+    (the reference's ``compressed_psum`` over the pipe axis): ``fn(params,
+    batch, psum_ef) -> (grads, metrics, new_ef)``, ``psum_ef`` from
+    :func:`init_psum_ef` and updated in place, ``metrics["psum_scale"]``
+    each leaf's shared scale.  Sequence-chunked specs refuse it
+    (ValueError), as in the reference."""
     if spec.n_seq > 1:
+        if spec.grad_psum_bits:
+            raise ValueError("compressed gradient psum is not implemented "
+                             "for sequence-chunked specs")
         from repro_torch.seqpipe.runtime import SeqExecutor
         ex = SeqExecutor(spec, device)
     else:
         ex = _Executor(spec, device)
 
-    def fn(params, batch):
-        return ex.run(params, batch)
+    def fn(params, batch, psum_ef=None):
+        return ex.run(params, batch, psum_ef)
 
     fn.rings = ex.rings
     return fn
 
 
+class TrainStepOut(NamedTuple):
+    """What a pipeline training step returns.  ``shipment``: under
+    Chronos-Offload what goes to the host, the deep chunks' gradient
+    sums (raw, not yet divided by ``m``) or, with a compressed shipment,
+    their ``(codes, scales)``; else None.  ``ef``: with
+    ``spec.grad_psum_bits`` the new error-feedback state, else None."""
+    params: Any
+    opt_state: Any
+    metrics: Dict[str, Any]
+    shipment: Any = None
+    ef: Any = None
+
+
 def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
                          use_kernel: bool = True, split=None):
     """Gradients, then the AdamW step on them: returns ``fn(params,
-    opt_state, batch) -> (params, opt_state, metrics)``.  The update reads
-    each gradient as ``g.float() / m`` (``m`` microbatches), as the
+    opt_state, batch[, psum_ef]) ->`` :class:`TrainStepOut`.  The update
+    reads each gradient as ``g.float() / m`` (``m`` microbatches), as the
     reference's ``g.astype(f32) / m``, in
-    :func:`repro_torch.optim.adamw.adamw_update` — with ``use_kernel``,
+    :func:`repro_torch.optim.adamw.adamw_update` -- with ``use_kernel``,
     one fused-AdamW kernel launch per parameter leaf.  The optimizer
     state and ``params`` are updated in place (``params`` is returned).
 
     ``split``: ``tree -> (kept, held)``, applied alike to the gradients
     and the parameters (Chronos-Offload: the shallow chunks and the
     shared leaves, and the deep chunks).  The update then covers the kept
-    part only, and ``fn`` returns the held gradients (raw sums, not yet
-    divided by ``m``) as a fourth element; the held weights are left as
-    they are."""
+    part only, and the held gradients are the ``shipment``; the held
+    weights are left as they are.
+
+    With ``spec.grad_psum_bits`` the step takes the error-feedback state
+    ``psum_ef`` and returns the new one as ``ef``."""
     grads_fn = make_train_grads_fn(spec, device)
     m_dev = torch.tensor(float(m), dtype=torch.float32, device=device)
 
-    def fn(params, opt_state, batch):
-        grads, metrics = grads_fn(params, batch)
-        kept = params
+    def fn(params, opt_state, batch, psum_ef=None):
+        res = grads_fn(params, batch, psum_ef)
+        grads, metrics = res[:2]
+        kept, held = params, None
         if split is not None:
             (grads, held), kept = split(grads), split(params)[0]
         master, opt_state, om = adamw_update(grads, opt_state, ocfg,
                                              use_kernel=use_kernel,
                                              grad_div=m_dev)
         cast_like(master, kept)
-        out = (params, opt_state, {**metrics, **om})
-        return out if split is None else out + (held,)
+        return TrainStepOut(params, opt_state, {**metrics, **om}, held,
+                            res[2] if spec.grad_psum_bits else None)
 
     fn.rings = grads_fn.rings
     return fn

@@ -1,10 +1,12 @@
-"""Training steps of the port, on one device (no shardings, no
-compressed gradient psum): the single-device step of the reference's
-``train()`` and ``make_pipeline_train_step`` of
-``repro/launch/steps.py``, with its Chronos-Offload path."""
+"""Training steps of the port, on one device (no shardings): the
+single-device step of the reference's ``train()`` and
+``make_pipeline_train_step`` of ``repro/launch/steps.py``, with its
+Chronos-Offload path, its compressed boundary wire (``plan.wire``) and
+its compressed shared-gradient sum and deep-gradient shipment
+(``plan.grad_compression``)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -12,7 +14,13 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       ParallelPlan, ShapeConfig)
 from repro_torch.models import LM
 from repro_torch.optim import adamw_update, cast_like
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.optim.adamw import _slabs
+from repro_torch.optim.compression import (_wire_dtype, grid_scale,
+                                          quantize_with)
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+# plan.grad_compression -> int width of the compressed sum and shipment
+PSUM_BITS = {"none": None, "int8_ef": 8, "int16_ef": 16}
 
 
 def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
@@ -83,9 +91,10 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
                              P: int, device):
     """ChronosPipe train step over ``P`` virtual stages on ``device``.
     Returns ``(step, m, mbB, spec)``: ``step(params, opt_state, batch)
-    -> (params, opt_state, metrics)`` with ``batch["tokens"]`` [m, mbB,
-    seq_len] (and an optional ``loss_mask`` [m, mbB, seq_len - 1]), and
-    the built ``PipelineSpec``.
+    ->`` :class:`~repro_torch.core.pipeline_runtime.TrainStepOut`
+    (``params``, ``opt_state``, ``metrics``, ``shipment``, ``ef``) with
+    ``batch["tokens"]`` [m, mbB, seq_len] (and an optional ``loss_mask``
+    [m, mbB, seq_len - 1]), and the built ``PipelineSpec``.
 
     The optimizer is the fused-AdamW kernel (one launch per parameter
     leaf) exactly where the reference fuses its optimizer into the
@@ -101,15 +110,29 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
     the shallow chunks and the shared leaves (``adamw_init`` of
     :func:`offload_kept`), so ``metrics["grad_norm"]`` and the clip do
     too, as in the reference; the step leaves the deep chunks' weights
-    untouched and returns a 4-tuple ``(params, opt_state, metrics,
-    deep_grads)``, the deep chunks' gradient sums (views of the step's
-    accumulators, in the parameters' dtype), which the caller hands to a
+    untouched and its ``shipment`` is the deep chunks' gradient sums
+    (views of the step's accumulators, in the parameters' dtype), which
+    the caller hands to a
     :class:`~repro_torch.optim.offload.ChronosOffloadRunner`.  The
     reference turns its in-executor fused optimizer off under offload
     because its update is then split across two programs; the port's
     update always runs after the executor and its kernel equals its
     plain version bitwise, so the shallow update keeps the kernel under
-    the rule above."""
+    the rule above.
+
+    ``plan.wire`` reaches the executor (the boundary payloads' storage
+    form).  ``plan.grad_compression`` ``"int8_ef"`` / ``"int16_ef"``
+    (:data:`PSUM_BITS`) sums the shared gradients over the stages on an
+    int wire with error feedback: ``step(params, opt_state, batch,
+    psum_ef)``, ``psum_ef`` from
+    :func:`~repro_torch.core.pipeline_runtime.init_psum_ef`, the new one
+    the result's ``ef``.  Under offload the ``shipment`` is then the
+    quantized ``(codes, scales)`` of :func:`ship_deep`.  With
+    ``seq_chunks > 1`` it
+    raises ValueError, as the reference.  The reference also refuses it
+    with ``kernels="fused"``, because its fused AdamW then runs inside
+    the executor; the port's update always runs after the executor, so
+    it is allowed there (a deliberate divergence)."""
     from repro_torch.core.pipeline_runtime import (make_pipeline_spec,
                                                    make_train_update_fn)
     mbB = plan.microbatch_size
@@ -117,10 +140,16 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
     if plan.schedule in VSHAPE_SCHEDULES and plan.num_chunks != 2:
         raise ValueError(f"{plan.schedule} is a fixed v=2 V-shape "
                          f"construction, got num_chunks={plan.num_chunks}")
+    bits = psum_bits_of(plan)
+    if bits and plan.seq_chunks > 1:
+        raise ValueError("grad_compression composes with the whole-"
+                         "sequence pipeline step only (not seq-chunked "
+                         "runs)")
     spec = make_pipeline_spec(
         cfg, P=P, v=plan.num_chunks, m=m, microbatch=mbB,
         seq_len=shape.seq_len, schedule=plan.schedule, kernels=plan.kernels,
-        n_seq=plan.seq_chunks, **plan_schedule_kwargs(plan))
+        n_seq=plan.seq_chunks, wire=plan.wire, grad_psum_bits=bits,
+        **plan_schedule_kwargs(plan))
     fuse_opt = plan.kernels == "fused" and spec.table.has_w
     split = None
     if plan.offload.enabled and plan.offload.num_offload_chunks > 0:
@@ -132,7 +161,48 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
             return offload_kept(tree, plan)
     step = make_train_update_fn(spec, device, ocfg, m, use_kernel=fuse_opt,
                                 split=split)
+    if split is None or not bits:
+        return step, m, mbB, spec
+    update = step
+    m_dev = torch.tensor(float(m), dtype=torch.float32, device=device)
+
+    def step(params, opt_state, batch, psum_ef):
+        out = update(params, opt_state, batch, psum_ef)
+        return out._replace(shipment=ship_deep(out.shipment, m_dev, bits))
+
     return step, m, mbB, spec
+
+
+def psum_bits_of(plan: ParallelPlan) -> Optional[int]:
+    """The int width ``plan.grad_compression`` asks for, or None."""
+    if plan.grad_compression not in PSUM_BITS:
+        raise ValueError(f"unknown grad_compression "
+                         f"{plan.grad_compression!r}: expected one of "
+                         f"{tuple(PSUM_BITS)}")
+    return PSUM_BITS[plan.grad_compression]
+
+
+def ship_deep(held, m_dev, bits: int):
+    """The deep chunks' gradient sums quantized for the host shipment
+    (the reference's ``ship_deep``): each leaf read as ``g.float() / m``,
+    then one symmetric scale over the whole ``[P, n_off, ...]`` leaf,
+    ``max(amax, 1e-30) / qmax``, and codes ``clamp(round(g / scale),
+    +-qmax)`` -- int8 (qmax 127) or int16 (32767).  No error feedback:
+    a shipment is sent once.  The leaf is read in slabs, a first pass
+    for the amax and a second for the codes, so no fp32 copy of a whole
+    leaf is held.  Returns ``(codes, scales)``: trees shaped as ``held``
+    of contiguous codes and of 0-d fp32 scales."""
+    codes, scales = [], []
+    for g in tree_leaves(held):
+        q = torch.empty(g.shape, dtype=_wire_dtype(bits), device=g.device)
+        scale = grid_scale(torch.stack([(gs.float() / m_dev).abs().max()
+                                        for gs, _ in _slabs(g, q)]).max(),
+                           bits)
+        for gs, qs in _slabs(g, q):
+            qs.copy_(quantize_with(gs.float() / m_dev, scale, bits))
+        codes.append(q)
+        scales.append(scale)
+    return tree_unflatten(held, codes), tree_unflatten(held, scales)
 
 
 def offload_kept(tree, plan: ParallelPlan):

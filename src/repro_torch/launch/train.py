@@ -45,16 +45,20 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.pipeline_runtime import init_pipeline_params
+from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                               init_psum_ef,
+                                               payload_ring_bytes)
 from repro_torch.data import DataPipeline, synthetic_source
 from repro_torch.ft.checkpoint import Checkpointer
 from repro_torch.ft.health import Action, HealthMonitor
 from repro_torch.ft.inject import DeviceLossError
 from repro_torch.launch.steps import (make_pipeline_train_step,
-                                      make_train_step, offload_kept)
+                                      make_train_step, offload_kept,
+                                      psum_bits_of)
 from repro_torch.optim import adamw_init
 from repro_torch.optim.offload import (ChronosOffloadRunner,
                                        merge_deep_shallow)
+from repro_torch.tree import tree_leaves, tree_paths
 
 
 def _checkpointer(tc: TrainConfig) -> Optional[Checkpointer]:
@@ -271,6 +275,15 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
       the restored weights (host momenta are not checkpointed, as in the
       reference).
 
+    Compression (``plan.wire``, ``plan.grad_compression``; see
+    :func:`~repro_torch.launch.steps.make_pipeline_train_step`): the
+    boundary payloads travel in the wire's storage form; with
+    ``grad_compression`` the driver holds the error-feedback state of the
+    compressed shared-gradient sum, made zero at every start (a restore
+    included, so a re-plan to another P starts a fresh one) and never
+    checkpointed, as in the reference; under offload the deep gradients
+    ship quantized to the same width.
+
     Returns ``losses``, ``loss_by_step``, ``final_loss``, ``steps``,
     ``start_step``, ``next_step``, ``status`` (``"complete"``,
     ``"restart"`` or ``"preempted"``), ``first_step_s`` (the resume
@@ -279,7 +292,11 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     ``lrs`` and ``step_s``, the final ``params`` and ``opt_state`` and
     ``checkpoint_records``; under offload also ``offload``
     (:func:`offload_report`) and ``host_optimizer`` (the runner's
-    :class:`~repro_torch.optim.offload.HostAdamW`, its numpy state)."""
+    :class:`~repro_torch.optim.offload.HostAdamW`, its numpy state);
+    ``wire``: the wire, the payload rings' bytes as it stores them, and
+    under ``grad_compression`` the final ``psum_ef``, and per shared
+    leaf (``"embed/tokens"``, ...) its ``ef_abs_max`` and the last
+    step's shared scale ``psum_scale``."""
     cfg, shape, plan, ocfg = tc.model, tc.shape, tc.plan, tc.optimizer
     dev = resolve_device(device)
     steps = steps or ocfg.total_steps
@@ -288,6 +305,7 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tc.seed)
         params = init_pipeline_params(gen, cfg, spec.layout, dev)
+    bits = psum_bits_of(plan)
     offload = plan.offload.enabled and plan.offload.num_offload_chunks > 0
     if offload:
         kept, deep = offload_kept(params, plan)
@@ -309,7 +327,12 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     start_step = resumed or 0
     # built after the restore: the host masters start from the restored
     # deep weights
-    runner = ChronosOffloadRunner(deep, ocfg) if offload else None
+    runner = ChronosOffloadRunner(deep, ocfg, ship_bits=bits) \
+        if offload else None
+    # the compressed sum's error feedback: zero at every start, never
+    # checkpointed (a restart costs one step's quantization error)
+    psum_ef = init_psum_ef(spec, params) if bits else None
+    scales = None
 
     def fold_pending():
         merge_deep_shallow(kept["blocks"], runner.collect(),
@@ -354,11 +377,18 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
                 collect_wait_s += time.time() - t_c
             if watchdog is not None:
                 watchdog.arm()
-            out = step_fn(params, opt_state, batch)
-            params, opt_state, metrics = out[:3]
-            if offload:
-                runner.submit(out[3], grad_div=m)   # grads down, host AdamW
+            out = step_fn(params, opt_state, batch, psum_ef)
+            params, opt_state, metrics, psum_ef = (
+                out.params, out.opt_state, out.metrics, out.ef)
+            if offload:                         # grads down, host AdamW
+                if bits:
+                    codes, ship_scales = out.shipment
+                    runner.submit(codes, scales=ship_scales)
+                    del codes, ship_scales
+                else:
+                    runner.submit(out.shipment, grad_div=m)
                 pending = True
+            scales = metrics.get("psum_scale")
             # the deep gradients are views of the step's accumulators:
             # held here, they would live through the next step
             del out
@@ -430,6 +460,16 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
            "schedule": spec.table.name, "grad_norms": gnorms, "lrs": lrs,
            "step_s": step_s, "params": params, "opt_state": opt_state,
            "checkpoint_records": ck.records if ck is not None else []}
+    res["wire"] = {"wire": plan.wire,
+                   "ring_bytes": payload_ring_bytes(spec)}
+    if bits:
+        names = ["/".join(map(str, p)) for p in tree_paths(psum_ef)]
+        res["wire"].update(
+            psum_ef=psum_ef,
+            ef_abs_max=dict(zip(names, (float(e.abs().max())
+                                        for e in tree_leaves(psum_ef)))),
+            psum_scale=None if scales is None else dict(zip(
+                names, (float(x) for x in tree_leaves(scales)))))
     if offload:
         res["offload"] = offload_report(tc, spec, runner,
                                         collect_wait_s=collect_wait_s)

@@ -15,7 +15,8 @@ their fp32 master and moments.
   elementwise, so any split gives the same bits).  numpy, not torch:
   torch's CPU ``sqrt`` on fp32 can differ from numpy's in the last bit.
 - :class:`ChronosOffloadRunner` moves the data.  ``submit`` copies each
-  deep gradient leaf, in its own dtype, into a pinned host buffer on a
+  deep gradient leaf, in its own dtype (or, under gradient compression,
+  as int8 / int16 codes and a scale), into a pinned host buffer on a
   side stream ordered after the compute stream, then starts the host
   update in a thread that first waits for that copy.  ``collect`` joins
   the thread and uploads the bf16 weights from a pinned staging buffer
@@ -83,12 +84,16 @@ class HostAdamW:
             if self.threads > 1 else None
 
     def update(self, grads_host, clip_coef: float = 1.0,
-               grad_div: Optional[float] = None) -> Any:
+               grad_div: Optional[float] = None, scales=None) -> Any:
         """``grads_host``: a tree of numpy fp32 arrays or CPU tensors (fp32
         or bf16, widened exactly).  With ``grad_div`` each gradient is
         first divided by it in fp32, the reference's device-side
-        ``g.astype(f32) / m``.  Updates the state in place and returns
-        the master tree (numpy fp32; the caller casts on upload)."""
+        ``g.astype(f32) / m``.  With ``scales`` (one fp32 scale per leaf,
+        in ``tree_leaves`` order) the leaves are int8 or int16 codes of a
+        quantized shipment, dequantized slab by slab as ``codes * scale``
+        in fp32 (bitwise the reference's ``dequantize_int8``).  Updates
+        the state in place and returns the master tree (numpy fp32; the
+        caller casts on upload)."""
         cfg = self.cfg
         self.step += 1
         lr = float(lr_at(cfg, self.step))
@@ -97,8 +102,11 @@ class HostAdamW:
         bc2 = 1 - b2 ** self.step
         div = None if grad_div is None else np.float32(grad_div)
 
-        def upd(g, mu, nu, w):
-            g = np.array(_host_f32(g), np.float32, copy=True)
+        def upd(g, mu, nu, w, scale=None):
+            if scale is None:
+                g = np.array(_host_f32(g), np.float32, copy=True)
+            else:
+                g = _host_f32(g).astype(np.float32) * scale
             if div is not None:
                 g /= div
             g *= clip_coef
@@ -116,9 +124,12 @@ class HostAdamW:
                  for i, flat in enumerate(leaves)
                  for a in range(0, len(flat[3]), SLAB)]
 
+        sc = None if scales is None else np.asarray(scales, np.float32)
+
         def run(item):
             i, a, b = item
-            upd(*(x[a:b] for x in leaves[i]))
+            upd(*(x[a:b] for x in leaves[i]),
+                scale=None if sc is None else sc[i])
 
         if self._pool is None:
             for item in items:
@@ -144,22 +155,37 @@ class ChronosOffloadRunner:
         ...
         runner.collect()                        # before the next step
 
+    With ``ship_bits`` (8 or 16: ``plan.grad_compression``) the shipment
+    is quantized (:func:`repro_torch.launch.steps.ship_deep`): ``submit``
+    takes the int8 / int16 codes and their per-leaf scales, copies both
+    into pinned buffers of that width (half or the same bytes as a bf16
+    shipment) and the host update dequantizes inside its slab workers.
+    The reference dequantizes on the device before the copy, so its copy
+    moves fp32; the numbers are the same.
+
     ``stats``: ``submits`` and ``overlapped`` (the host update had ended
     when ``collect`` came).  :meth:`measured` gives the host update's
     seconds and, on a card, the copies' times from CUDA events."""
 
     def __init__(self, deep_params, cfg: OptimizerConfig,
-                 target_dtype=torch.bfloat16):
+                 target_dtype=torch.bfloat16, ship_bits: Optional[int] = None):
         self.deep = deep_params
+        self.ship_bits = ship_bits
         self.opt = HostAdamW(deep_params, cfg)
         dev = tree_leaves(deep_params)[0].device
         self.device = dev
         self.cuda = dev.type == "cuda"
         # pinned host buffers, allocated once: the gradients in their own
-        # dtype, the upload in the target dtype
+        # dtype (or the shipment's codes and per-leaf scales), the upload
+        # in the target dtype
+        ship = None if ship_bits is None else \
+            (torch.int8 if ship_bits <= 8 else torch.int16)
         self._grads = tree_map(
-            lambda a: torch.empty(a.shape, dtype=a.dtype,
+            lambda a: torch.empty(a.shape, dtype=ship or a.dtype,
                                   pin_memory=self.cuda), deep_params)
+        self._scales = None if ship is None else torch.empty(
+            (len(tree_leaves(deep_params)),), dtype=torch.float32,
+            pin_memory=self.cuda)
         self._staging = [torch.empty(a.shape, dtype=target_dtype,
                                      pin_memory=self.cuda)
                          for a in tree_leaves(deep_params)]
@@ -172,7 +198,8 @@ class ChronosOffloadRunner:
         self._down: List[tuple] = []           # (start, end) CUDA events
         self._up: List[tuple] = []
         self.bytes_down = sum(a.numel() * a.element_size()
-                              for a in tree_leaves(self._grads))
+                              for a in tree_leaves(self._grads)) + (
+            0 if self._scales is None else 4 * self._scales.numel())
         self.bytes_up = sum(a.numel() * a.element_size()
                             for a in self._staging)
 
@@ -181,14 +208,20 @@ class ChronosOffloadRunner:
                 torch.cuda.Event(enable_timing=True))
 
     def submit(self, deep_grads, clip_coef: float = 1.0,
-               grad_div: Optional[float] = None) -> None:
+               grad_div: Optional[float] = None, scales=None) -> None:
         """Copy ``deep_grads`` (device leaves shaped as ``deep_params``)
         down and start the host update; ``grad_div`` divides each
-        gradient on the host (the step's ``m``)."""
+        gradient on the host (the step's ``m``).  A quantized shipment
+        (``ship_bits``) passes its codes as ``deep_grads`` and their
+        scales (a tree of 0-d fp32 device tensors) as ``scales``."""
         if self._thread is not None:
             raise RuntimeError("previous offload not collected")
+        if (scales is None) != (self.ship_bits is None):
+            raise ValueError("a quantized shipment needs its scales, and "
+                             "only it takes them")
         bufs = tree_leaves(self._grads)
         grads = tree_leaves(deep_grads)
+        sc = None if scales is None else torch.stack(tree_leaves(scales))
         copied = None
         with torch.no_grad():
             if self.cuda:
@@ -204,11 +237,16 @@ class ChronosOffloadRunner:
                         # allocator when the caller drops them: keep
                         # them until this stream has read them
                         g.record_stream(self._side)
+                    if sc is not None:
+                        self._scales.copy_(sc, non_blocking=True)
+                        sc.record_stream(self._side)
                     copied[1].record(self._side)
                 self._down.append(copied)
             else:
                 for buf, g in zip(bufs, grads):
                     buf.copy_(g)
+                if sc is not None:
+                    self._scales.copy_(sc)
         uploaded = self._uploaded
 
         def work():
@@ -216,7 +254,9 @@ class ChronosOffloadRunner:
                 if copied is not None:
                     copied[1].synchronize()
                 t0 = time.perf_counter()
-                master = self.opt.update(self._grads, clip_coef, grad_div)
+                master = self.opt.update(
+                    self._grads, clip_coef, grad_div,
+                    scales=None if sc is None else self._scales.numpy())
                 if uploaded is not None:
                     uploaded.synchronize()      # staging read by the card
                 for st, w in zip(self._staging, tree_leaves(master)):

@@ -27,7 +27,9 @@ microbatch, one slot per in-flight microbatch (``kv_depth``, the table's
   dKV slot for chunk ``q-1``.
 
 R ops move the boundary to the remat ring as the base executor's do
-(``chronos_seq`` with ``recomp_chunks``).  Each last-stage chunk's loss
+(``chronos_seq`` with ``recomp_chunks``).  The boundary payloads of
+``Sc`` positions travel in the wire's form (``spec.wire``) through the
+base executor's rings; the KV-carry and dKV rings stay exact.  Each last-stage chunk's loss
 is its partial sum over the whole microbatch's count (``mbB * S``
 tokens, or the microbatch's mask sum under ``batch["loss_mask"]``), so
 the chunk losses, and their gradient seeds, sum to the unchunked mean.
@@ -56,6 +58,7 @@ class SeqExecutor(_Executor):
 
     def __init__(self, spec: PipelineSpec, device):
         super().__init__(spec, device)
+        self.x = self.leaves[0]         # the payload: x alone, no aux sum
         tab, cfg, lay = spec.table, spec.cfg, spec.layout
         assert spec.n_seq > 1 and not tab.has_w
         assert tab.placement_name == "interleaved", \
@@ -104,9 +107,9 @@ class SeqExecutor(_Executor):
         if op in F_OPS:
             with torch.no_grad():
                 x_in = _embed_tokens(spec, shared, tok_in) if first \
-                    else _at(r["fq"][d], src)
-                if aslot >= 0:
-                    r["act"][d][c][aslot].copy_(x_in)
+                    else self.x.read("fq", d, None, src)
+                if aslot >= 0 and not first:   # as the base executor's F
+                    self._move(("fq", d, None, src), ("act", d, c, aslot))
                 out, _, kv_out = chunk(self._block(params, d, c, False),
                                        x_in, kv)
                 for n in KV:
@@ -131,7 +134,7 @@ class SeqExecutor(_Executor):
                     .requires_grad_()
             out, _, kv_out = chunk(blocks_c, x, kv_in)
             outs = [head(sh, out) if last else out]
-            seeds = [None if last else _at(r["bq"][d], src)]
+            seeds = [None if last else self.x.read("bq", d, None, src)]
             if q < spec.n_seq - 1:
                 outs += [kv_out[n] for n in KV]
                 seeds += [dkv[n] for n in KV]

@@ -270,12 +270,12 @@ def test_offload_step_returns_the_deep_gradients():
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                              (M, MBB, SEQ)).astype(np.int32)
     out = step(params, opt, {"tokens": torch.from_numpy(toks)})
-    assert len(out) == 4
+    assert out.shipment is not None and out.ef is None
     n_opt = sum(a.numel() for a in tree_leaves(opt["mu"]))
     n_par = sum(a.numel() for a in tree_leaves(params))
-    n_deep = sum(a.numel() for a in tree_leaves(out[3]))
+    n_deep = sum(a.numel() for a in tree_leaves(out.shipment))
     assert 0 < n_opt < n_par <= n_opt + n_deep
-    assert [tuple(g.shape) for g in tree_leaves(out[3])] == \
+    assert [tuple(g.shape) for g in tree_leaves(out.shipment)] == \
         [tuple(a.shape) for a in tree_leaves(deep)]
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(deep),
                                                  tree_leaves(deep0)))
