@@ -192,8 +192,24 @@ Phases, in order; any failure exits non-zero:
     codes of their scale), and the int8 wire's codes, scales and
     read-back for a 2048 x
     2048 bf16 payload and ``compressed_sum`` bitwise the CPU's;
-26. a JSON ``kernels`` line, then the JSON result line.
+26. roofline: one more (untimed) step of phases 6, 8, 10 (none,
+    chronos, full) and 15a, counted on the card by
+    ``repro_torch.roofline.count_work`` right after each phase's timed
+    steps (no model is rebuilt), against the dry run of the same
+    configuration and plan on the meta device
+    (``repro_torch.launch.dryrun``, counted by a child process that
+    phase 6 starts: it needs no card): the configurations equal, the
+    FLOPs and every kernel's ``kernel_cost`` sums equal exactly; each
+    printed with the bytes
+    moved (score-class apart), ``model_flops_for``, ``useful_ratio``,
+    the three roofline terms on H100 peaks, the dominant one and ``mfu``
+    against the phase's median step, beside the card's name and power
+    limit; and phase 4's decode tick counted there, its bytes at least
+    the weights ``decode_bound_ms`` reads;
+27. a JSON ``kernels`` line, then the JSON result line.
 
+Every bound phase 3 prints is ``repro_torch.roofline.kernel_cost``'s
+work of the kernel's function over the H100's peaks (``kernel_bound``).
 Phase 3 also runs flash at the shapes of phases 17-19 (head dim 256
 with paligemma's prefix: its training shape, prefill chunks at offsets,
 B=2 ragged, H == G on both CTAs; whisper's non-causal encoder and causal
@@ -218,6 +234,12 @@ chunks of 32 heads of 128 over as many K/V heads, with rmsnorm at x
 each case's route printed and checked (bf16: the tensor-core passes,
 fp32: the CUDA-core kernel).
 
+Each phase prints a ``[time]`` line.  On an NVIDIA H100 80GB HBM3 at
+700.00 W the whole run took 857.9 s of its 1200 s limit; the roofline's
+share was 26.1 s: the counted steps 25.9 s in phases 6-15a and phase 26
+0.2 s (the dry run's 26.0 s of CPU passed in its child process during
+phase 6).  Host speed moves the host-paced phases by up to ~45%.
+
 Needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -235,9 +257,6 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
-FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 
 SERVE_ARGV = ["--arch", "tinyllama-1.1b", "--full", "--pipelined", "1",
               "--slots", "4", "--chunk", "64", "--requests", "8",
@@ -381,6 +400,26 @@ def rmsnorm_line(t: dict) -> str:
             f"{us(t['library_ms_l2_warm'])}")
 
 
+def kernel_bound(name: str, peak: str = "bf16", **shapes):
+    """``(ms, "bytes" | "operations", flops, bytes)``: the least time the
+    card takes for one call of kernel ``name`` at ``shapes``, from
+    ``repro_torch.roofline.kernel_cost`` (the work of the function) over
+    the H100's memory rate and its ``peak`` ("bf16" tensor cores or
+    "fp32")."""
+    from repro_torch.roofline.analysis import (PEAK_FLOPS, PEAK_FLOPS_FP32,
+                                               bound_ms, kernel_cost)
+    flops, nbytes = kernel_cost(name, **shapes)
+    ms, by = bound_ms(flops, nbytes,
+                      PEAK_FLOPS if peak == "bf16" else PEAK_FLOPS_FP32)
+    return ms, by, flops, nbytes
+
+
+def hbm_ms(nbytes: float) -> float:
+    """``nbytes`` read once at the H100's memory rate, in ms."""
+    from repro_torch.roofline.analysis import HBM_BW
+    return nbytes / HBM_BW * 1e3
+
+
 def max_err(got, want) -> float:
     return float((got.detach().float() - want.detach().float()).abs().max())
 
@@ -421,20 +460,17 @@ def phase_rmsnorm(torch, gen):
     scale = torch.ones((d,), dtype=dt, device="cuda")
     t = rmsnorm_times(torch, x, scale, eps)
     eager_ms = time_ms(lambda: rmsnorm_rows(x, scale, eps))
-    nbytes = (2 * R * d + d) * x.element_size()
-    flops = 4 * R * d
-    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-              "operations": flops / FP32_FLOPS * 1e3}
-    bound_by = max(bounds, key=bounds.get)
+    b_ms, bound_by, _, _ = kernel_bound("rmsnorm_rows", R=R, d=d,
+                                        itemsize=x.element_size())
     print(f"[kernels] rmsnorm_rows timed at x [{R}, {d}] bf16 (device time "
           f"per call) {rmsnorm_line(t)}; eager call-to-call "
-          f"{eager_ms * 1e3:.2f} us; bound {bounds[bound_by] * 1e3:.4f} us "
-          f"({bound_by})")
+          f"{eager_ms * 1e3:.2f} us; bound {b_ms * 1e3:.4f} us "
+          f"({bound_by}, kernel_cost)")
     return {"name": "rmsnorm_rows", "route": "cuda",
             "source": "src/repro_torch/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:18",
             "max_abs_err": worst, **t,
-            "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "bound_ms": b_ms, "bound_by": bound_by,
             "eager_ms": eager_ms, "timed_shape": f"x [{R},{d}] bf16"}
 
 
@@ -469,22 +505,6 @@ def phase_rmsnorm_widths(torch, gen):
             if not ok:
                 fail(f"rmsnorm_rows disagrees with its plain version at "
                      f"d={d}")
-
-
-def _visible_pairs(Sq, Sk, q_offset, window, prefix):
-    """(visible (q, k) pairs, kv rows the visible pairs touch), causal."""
-    pairs, k_rows = 0, 0
-    for i in range(Sq):
-        qp = q_offset + i
-        hi = min(qp, Sk - 1)                        # causal: k <= q
-        lo = max(0, qp - window + 1) if window else 0
-        ks = set(range(lo, hi + 1)) if hi >= lo else set()
-        if prefix:
-            ks |= set(range(min(prefix, Sk)))
-        pairs += len(ks)
-        if ks:
-            k_rows = max(k_rows, max(ks) + 1)
-    return pairs, k_rows
 
 
 def cta_desc(d: int, nw: int) -> str:
@@ -632,25 +652,23 @@ def phase_flash(torch, gen):
     mask = torch.arange(Sk, device="cuda")[None, :] <= pos_q
     lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
-    pairs, k_rows = _visible_pairs(Sq, Sk, off, 0, 0)
-    el = q.element_size()
-    nbytes = 2 * Sq * H * d * el + 2 * k_rows * G * d * el + H * Sq * 4
-    flops = 4 * H * d * pairs
-    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-              "operations": flops / BF16_FLOPS * 1e3}
-    bound_by = max(bounds, key=bounds.get)
+    from repro_torch.roofline.analysis import visible_pairs
+    pairs, k_rows = visible_pairs(Sq, Sk, q_offset=off)
+    b_ms, bound_by, _, _ = kernel_bound(
+        "flash_attention_fwd", B=1, Sq=Sq, Sk=Sk, H=H, G=G, d=d,
+        itemsize=q.element_size(), q_offset=off)
     print(f"[kernels] flash_attention_fwd timed at q [1,{Sq},{H},{d}] kv "
           f"[1,{Sk},{G},{d}] bf16 q_offset={off} (device time per call, "
           f"CUDA graph): kernel {ms * 1e3:.2f} us (eager call-to-call "
           f"{eager_ms * 1e3:.2f} us), "
           f"plain {plain_ms * 1e3:.2f} us, SDPA {lib_ms * 1e3:.2f} us, "
-          f"bound {bounds[bound_by] * 1e3:.4f} us ({bound_by}; {pairs} "
+          f"bound {b_ms * 1e3:.4f} us ({bound_by}, kernel_cost; {pairs} "
           f"visible pairs per head, {k_rows} kv rows)")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
             "max_abs_err": worst, "lse_max_abs_err": worst_lse, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bounds[bound_by],
+            "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "eager_ms": eager_ms,
             "timed_shape": f"q [1,{Sq},{H},{d}] kv [1,{Sk},{G},{d}] bf16 "
                            f"q_offset={off}"}
@@ -722,7 +740,7 @@ def decode_bound_ms(eng) -> tuple:
     nbytes = sum(a.numel() * a.element_size()
                  for a in tree_leaves(eng.blocks)) \
         + head.numel() * head.element_size()
-    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+    return nbytes, hbm_ms(nbytes)
 
 
 def phase_serve(torch, argv=None, tag="serve"):
@@ -954,8 +972,6 @@ def phase_checks(torch, arch="tinyllama-1.1b", chunk=64, tag="check"):
 # ChronosPipe training step
 # ---------------------------------------------------------------------------
 
-ADAMW_STATE_BYTES = 24         # mu, nu, w read and written, fp32
-ADAMW_FLOPS = 16               # per element, csrc/fused_adamw.cu
 TRAIN_SEQ = 2049               # 2048 positions per sequence fed to the stack
 # mamba2-2.7b's pipeline runs (phases 8 and 11) at full width, cut to 16
 # of its 64 layers so that the whole smoke, with phases 17-20, keeps well
@@ -1048,15 +1064,12 @@ def phase_adamw(torch, gen):
                  iters=20, warmup=3)
     plain_ms = time_ms(lambda: fused_adamw_flat_ref(g, mu, nu, w, sc, **hp),
                        iters=5, warmup=1)
-    nbytes = (g.element_size() + ADAMW_STATE_BYTES) * n
-    flops = ADAMW_FLOPS * n
-    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-              "operations": flops / FP32_FLOPS * 1e3}
-    bound_by = max(bounds, key=bounds.get)
+    b_ms, bound_by, _, nbytes = kernel_bound(
+        "fused_adamw_flat", peak="fp32", n=n, g_itemsize=g.element_size())
     print(f"[kernels] fused_adamw_flat timed at n={n} (wi leaf) fp32 g "
           f"(device time per call, CUDA events): kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bounds[bound_by]:.3f} ms ({bound_by}; "
-          f"{nbytes / 1e9:.2f} GB) = {ms / bounds[bound_by]:.2f}x bound; "
+          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({bound_by}, kernel_cost; "
+          f"{nbytes / 1e9:.2f} GB) = {ms / b_ms:.2f}x bound; "
           f"no one-call PyTorch yardstick (torch._fused_adamw_ divides "
           f"sqrt(nu) by sqrt(bc2) before adding eps and decays w as "
           f"w*(1-lr*wd): another function)")
@@ -1066,7 +1079,7 @@ def phase_adamw(torch, gen):
             "source": "src/repro_torch/csrc/fused_adamw.cu",
             "replaces": "src/repro/kernels/fused_adamw/kernel.py:32",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "bound_ms": b_ms, "bound_by": bound_by,
             "library_ms": None,
             "timed_shape": f"n={n} (wi [4,2,3,2048,5632]) fp32 g"}
 
@@ -1168,20 +1181,17 @@ def phase_train_shapes(torch, gen, rows):
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), iters=20, warmup=3)
-    pairs = S * (S + 1) // 2
-    el = q.element_size()
-    nbytes = 2 * S * H * d * el + 2 * S * G * d * el + H * S * 4
-    flops = 4 * H * d * pairs
-    fb = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-          "operations": flops / BF16_FLOPS * 1e3}
-    fby = max(fb, key=fb.get)
+    fb_ms, fby, flops, _ = kernel_bound(
+        "flash_attention_fwd", B=1, Sq=S, Sk=S, H=H, G=G, d=d,
+        itemsize=q.element_size())
     print(f"[kernels] flash_attention_fwd timed at the training shape q "
           f"[1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 q_offset=0 (CUDA events):"
           f" kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s achieved), "
           f"plain {plain_ms:.3f} ms, SDPA (is_causal, GQA) {lib_ms:.3f} ms "
           f"({flops / lib_ms / 1e9:.1f} TFLOP/s; kernel = "
-          f"{ms / lib_ms:.2f}x SDPA), bound {fb[fby] * 1e3:.2f} us ({fby}; "
-          f"{flops / 1e9:.2f} GFLOP) = {ms / fb[fby]:.1f}x bound")
+          f"{ms / lib_ms:.2f}x SDPA), bound {fb_ms * 1e3:.2f} us ({fby}, "
+          f"kernel_cost; {flops / 1e9:.2f} GFLOP) = {ms / fb_ms:.1f}x "
+          f"bound")
     from repro_torch.kernels.flash_attention import flash_attention
     leaves = [a.clone().requires_grad_() for a in (q, k, v)]
     o = flash_attention(*leaves)
@@ -1194,7 +1204,7 @@ def phase_train_shapes(torch, gen, rows):
           f"attention_ref) at the training shape: {bwd_ms:.3f} ms")
     rows["flash_attention_fwd"]["train"] = {
         "max_abs_err": e_o, "lse_max_abs_err": e_l, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": fb[fby],
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": fb_ms,
         "bound_by": fby, "plain_bwd_ms": bwd_ms,
         "timed_shape": f"q [1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 "
                        f"q_offset=0"}
@@ -1213,25 +1223,17 @@ def phase_train_shapes(torch, gen, rows):
         fail("rmsnorm_rows disagrees with its plain version at the training "
              "shape")
     t = rmsnorm_times(torch, x, scale)
-    nbytes = (2 * S * 2048 + 2048) * x.element_size()
-    rb = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-          "operations": 4 * S * 2048 / FP32_FLOPS * 1e3}
-    rby = max(rb, key=rb.get)
+    rb_ms, rby, _, _ = kernel_bound("rmsnorm_rows", R=S, d=2048,
+                                    itemsize=x.element_size())
     print(f"[kernels] rmsnorm_rows timed at the training shape x [{S},2048] "
-          f"bf16 {rmsnorm_line(t)}; bound {rb[rby] * 1e3:.3f} us ({rby})")
+          f"bf16 {rmsnorm_line(t)}; bound {rb_ms * 1e3:.3f} us ({rby}, "
+          f"kernel_cost)")
     rows["rmsnorm_rows"]["train"] = {
-        "max_abs_err": e_r, **t, "bound_ms": rb[rby], "bound_by": rby,
+        "max_abs_err": e_r, **t, "bound_ms": rb_ms, "bound_by": rby,
         "timed_shape": f"x [{S},2048] bf16"}
 
 
 PALI_PREFIX = 256               # paligemma-3b's patches
-
-
-def prefix_causal_pairs(S: int, prefix: int) -> int:
-    """Visible (q, k) pairs of one head under the causal prefix-LM mask
-    over S positions: a row below the prefix sees the whole prefix, a
-    later row its own causal past."""
-    return prefix * prefix + sum(i + 1 for i in range(prefix, S))
 
 
 def phase_flash_d256(torch, gen, rows):
@@ -1267,22 +1269,21 @@ def phase_flash_d256(torch, gen, rows):
     mask = (pos[None, :] <= pos[:, None]) | (pos[None, :] < pre)
     lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
-    pairs = prefix_causal_pairs(S, pre)
-    el = q.element_size()
-    nbytes = 2 * S * H * d * el + 2 * S * G * d * el + H * S * 4
-    flops = 4 * H * d * pairs
-    b = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-         "operations": flops / BF16_FLOPS * 1e3}
-    by = max(b, key=b.get)
+    from repro_torch.roofline.analysis import visible_pairs
+    pairs = visible_pairs(S, S, prefix=pre)[0]
+    b_ms, by, flops, nbytes = kernel_bound(
+        "flash_attention_fwd", B=1, Sq=S, Sk=S, H=H, G=G, d=d,
+        itemsize=q.element_size(), prefix=pre)
     print(f"[kernels] flash_attention_fwd at head dim 256, paligemma's "
           f"training shape q [1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 prefix="
           f"{pre} [flash_fwd_kernel_mma<256,4>: {cta_desc(256, 4)}]: max|d| "
           f"o={e_o:.3e} lse={e_l:.3e}; device time per call (CUDA graph): "
           f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
           f"{plain_ms:.4f} ms, SDPA (boolean prefix-LM mask) {lib_ms:.4f} ms"
-          f" (kernel = {ms / lib_ms:.2f}x SDPA), bound {b[by] * 1e3:.2f} us "
-          f"({by}; {pairs} visible pairs a head, {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB) = {ms / b[by]:.1f}x bound")
+          f" (kernel = {ms / lib_ms:.2f}x SDPA), bound {b_ms * 1e3:.2f} us "
+          f"({by}, kernel_cost; {pairs} visible pairs a head, "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) = "
+          f"{ms / b_ms:.1f}x bound")
     del qt, kt, vt, mask
     from repro_torch.kernels.flash_attention import flash_attention
     leaves = [a.clone().requires_grad_() for a in (q, k, v)]
@@ -1296,7 +1297,7 @@ def phase_flash_d256(torch, gen, rows):
           f"paligemma's training shape: {bwd_ms:.3f} ms")
     rows["flash_attention_fwd"]["train_d256"] = {
         "max_abs_err": e_o, "lse_max_abs_err": e_l, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b[by],
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
         "bound_by": by, "plain_bwd_ms": bwd_ms,
         "timed_shape": f"q [1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 "
                        f"prefix={pre}"}
@@ -1380,15 +1381,9 @@ def phase_flash_offsets(torch, gen, rows, H=32, G=4, d=64, n_seqs=(2, 4),
                 off + torch.arange(Sc, device="cuda")[:, None])
             lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask))
-            pairs = Sc * off + Sc * (Sc + 1) // 2     # causal, visible
-            k_rows = off + Sc
-            el = q.element_size()
-            nbytes = 2 * Sc * H * d * el + 2 * k_rows * G * d * el \
-                + H * Sc * 4
-            flops = 4 * H * d * pairs
-            b = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                 "operations": flops / BF16_FLOPS * 1e3}
-            by = max(b, key=b.get)
+            b_ms, by, flops, _ = kernel_bound(
+                "flash_attention_fwd", B=1, Sq=Sc, Sk=S, H=H, G=G, d=d,
+                itemsize=q.element_size(), q_offset=off)
             shape = (f"q [1,{Sc},{H},{d}] kv [1,{S},{G},{d}] bf16 "
                      f"q_offset={off} (n_seq={ns})")
             print(f"[kernels] flash_attention_fwd {shape}: max|d| o="
@@ -1398,16 +1393,16 @@ def phase_flash_offsets(torch, gen, rows, H=32, G=4, d=64, n_seqs=(2, 4),
                   f"{past:g} (must be 0) {'ok' if ok else 'FAIL'}; "
                   f"kernel {ms * 1e3:.2f} us (CUDA graph), plain "
                   f"{plain_ms * 1e3:.2f} us, SDPA (boolean mask) "
-                  f"{lib_ms * 1e3:.2f} us, bound {b[by] * 1e3:.2f} us "
-                  f"({by}; {flops / 1e9:.2f} GFLOP) = {ms / b[by]:.1f}x "
-                  f"bound")
+                  f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+                  f"({by}, kernel_cost; {flops / 1e9:.2f} GFLOP) = "
+                  f"{ms / b_ms:.1f}x bound")
             if not ok:
                 fail(f"flash_attention_fwd / FlashAttention disagree with "
                      f"attention_ref at {shape}")
             out.append({"timed_shape": shape, "max_abs_err": e_o,
                         "lse_max_abs_err": e_l, "grad_max_abs_err": max(e_g),
                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bound_ms": b[by], "bound_by": by})
+                        "bound_ms": b_ms, "bound_by": by})
     rows["flash_attention_fwd"][key] = out
     rows["flash_attention_fwd"][key + "_plain_bwd_ms"] = bwd_ms
 
@@ -1427,19 +1422,17 @@ def phase_deepseek_rmsnorm(torch, gen, rows):
     e_r = max_err(got, want)
     ok = rel_ok(got, want, 1e-6, 2.0 ** -7)
     t = rmsnorm_times(torch, x, scale)
-    nbytes = (2 * R * D + D) * x.element_size()
-    rb = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-          "operations": 4 * R * D / FP32_FLOPS * 1e3}
-    rby = max(rb, key=rb.get)
+    rb_ms, rby, _, _ = kernel_bound("rmsnorm_rows", R=R, d=D,
+                                    itemsize=x.element_size())
     print(f"[kernels] rmsnorm_rows bf16 x [{R},{D}] (deepseek-7b's chunk): "
           f"max|d|={e_r:.3e} tol=1e-06+0.0078125*|ref| "
           f"{'ok' if ok else 'FAIL'}; {rmsnorm_line(t)}; bound "
-          f"{rb[rby] * 1e3:.3f} us ({rby})")
+          f"{rb_ms * 1e3:.3f} us ({rby}, kernel_cost)")
     if not ok:
         fail("rmsnorm_rows disagrees with its plain version at deepseek-7b's "
              "chunk shape")
     rows["rmsnorm_rows"]["train_planner_deepseek"] = {
-        "max_abs_err": e_r, **t, "bound_ms": rb[rby], "bound_by": rby,
+        "max_abs_err": e_r, **t, "bound_ms": rb_ms, "bound_by": rby,
         "timed_shape": f"x [{R},{D}] bf16"}
 
 
@@ -1465,22 +1458,6 @@ def _ssd_inputs(torch, gen, B, S, H, P, N, dtype):
     return x, Bc, Cc, dt, A
 
 
-def _ssd_bounds(B, S, H, P, N, Q, el):
-    """(bytes, operations) the scan must move and do: x, B, C, dt and A
-    read once, y and h written once in fp32; C B^T on and below the
-    diagonal once per (batch, chunk) (every head shares it), and per
-    (batch, head, chunk) the decay mask (4 operations per pair on and
-    below the diagonal), the masked product with x, C h^T, the state
-    update and the elementwise scales."""
-    nc = S // Q
-    tri = Q * (Q + 1) // 2
-    nbytes = (B * S * H * P * el + 2 * B * S * N * el + B * S * H * 4
-              + H * 4 + B * S * H * P * 4 + B * H * P * N * 4)
-    ops = B * nc * 2 * N * tri + B * H * nc * (
-        (4 + 2 * P) * tri + 4 * Q * N * P + 2 * Q * P + 2 * P * N)
-    return nbytes, ops
-
-
 def _ssd_design_bytes(B, S, H, P, N, Q, el):
     """(device-memory bytes, L2 re-reads) of the bf16 route's three
     passes, if nothing stayed in the L2 between them: what the call must
@@ -1488,8 +1465,10 @@ def _ssd_design_bytes(B, S, H, P, N, Q, el):
     read and written by pass b, read by pass c) and cum; and, apart, the
     chunk's B (pass a) and B and C (pass c) tiles that every head and
     64-column block re-reads, which the L2 serves."""
+    from repro_torch.roofline.analysis import kernel_cost
     nc, npb = S // Q, -(-P // 64)
-    must, _ = _ssd_bounds(B, S, H, P, N, Q, el)
+    _, must = kernel_cost("ssd_scan", B=B, S=S, H=H, P=P, N=N, Q=Q,
+                          itemsize=el)
     states = B * nc * H * P * N * 4
     cum = B * nc * H * Q * 4
     rereads = 3 * B * nc * H * npb * Q * N * el + 2 * npb * B * S * H * 4
@@ -1611,25 +1590,23 @@ def phase_ssd(torch, gen):
                                                  retain_graph=True),
                      iters=5, warmup=1)
     del y, h, leaves
-    nbytes, ops = _ssd_bounds(B, S, H, P, N, Q, 2)
-    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-              "operations": ops / BF16_FLOPS * 1e3}
-    bound_by = max(bounds, key=bounds.get)
+    b_ms, bound_by, ops, nbytes = kernel_bound(
+        "ssd_scan", B=B, S=S, H=H, P=P, N=N, Q=Q, itemsize=2)
     dram, rereads = _ssd_design_bytes(B, S, H, P, N, Q, 2)
     route = ssd_scan_route(torch.bfloat16)
     print(f"[kernels] ssd_scan timed at x [{B},{S},{H},{P}] bf16, N={N}, "
           f"Q={Q} (CUDA events), route {route}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, the CUDA-core route on the same inputs "
           f"widened to fp32 {was_ms:.3f} ms, bound "
-          f"{bounds[bound_by] * 1e3:.2f} us ({bound_by}; "
+          f"{b_ms * 1e3:.2f} us ({bound_by}, kernel_cost; "
           f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) = "
-          f"{ms / bounds[bound_by]:.1f}x bound; no one-call PyTorch "
+          f"{ms / b_ms:.1f}x bound; no one-call PyTorch "
           f"yardstick; the SSDScan backward (plain VJP, recomputing "
           f"ssd_chunked_ref) {bwd_ms:.3f} ms")
     print(f"[kernels] ssd_scan design traffic (three passes, a model of "
           f"the shapes, not a measurement): {dram / 1e6:.1f} MB of device "
           f"memory if nothing stays in the L2 "
-          f"({dram / HBM_BYTES_PER_S * 1e6:.2f} us at 3.35 TB/s; the "
+          f"({hbm_ms(dram) * 1e3:.2f} us at 3.35 TB/s; the "
           f"{nbytes / 1e6:.1f} MB the call must "
           f"move plus the fp32 state scratch, written, read and written, "
           f"read), and {rereads / 1e6:.1f} MB of B, C and dt re-read per "
@@ -1642,7 +1619,7 @@ def phase_ssd(torch, gen):
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:60",
             "max_abs_err": worst,
             "max_err_over_scale": worst_rel,     # scale: max(1, max|ref|)
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[bound_by],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": bound_by, "library_ms": None,
             "kernel_route": route, "was_ms": was_ms, "pass_ms": passes,
             "plain_bwd_ms": bwd_ms,
@@ -1701,18 +1678,15 @@ def phase_ssd_h0(torch, gen, rows):
                             calls=10)
     plain_ms = time_ms(lambda: ssd_chunked_ref(*ins, Q, h0), iters=20,
                        warmup=2)
-    nbytes, ops = _ssd_bounds(B, S, H, P, N, Q, 2)
-    nbytes += B * H * P * N * 4                           # h0 read once
-    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-              "operations": ops / BF16_FLOPS * 1e3}
-    by = max(bounds, key=bounds.get)
+    b_ms, by, ops, nbytes = kernel_bound(               # h0 read once
+        "ssd_scan", B=B, S=S, H=H, P=P, N=N, Q=Q, itemsize=2, h0=True)
     print(f"[kernels] ssd_scan h0 timed at x [{B},{S},{H},{P}] bf16 "
           f"(device time per call, CUDA graph): kernel {ms * 1e3:.2f} us "
           f"with h0, {ms0 * 1e3:.2f} us without (eager call-to-call "
           f"{eager_ms * 1e3:.2f} us), plain {plain_ms:.3f} ms (CUDA "
           f"events), bound "
-          f"{bounds[by] * 1e3:.2f} us ({by}; {nbytes / 1e6:.2f} MB, "
-          f"{ops / 1e9:.3f} GFLOP) = {ms / bounds[by]:.1f}x bound; passes "
+          f"{b_ms * 1e3:.2f} us ({by}, kernel_cost; {nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e9:.3f} GFLOP) = {ms / b_ms:.1f}x bound; passes "
           f"(torch.profiler, device us per call): "
           + (", ".join(f"{k} {v * 1e3:.2f}" for k, v in passes.items())
              or "not measured (no device time reported)"))
@@ -1720,7 +1694,7 @@ def phase_ssd_h0(torch, gen, rows):
         **out, "shape": f"x [{B},{S},{H},{P}] bf16, h0 [{B},{H},{P},{N}] "
         f"fp32, Q={Q}", "ms": ms, "ms_without_h0": ms0,
         "eager_ms": eager_ms, "pass_ms": passes,
-        "plain_ms": plain_ms, "bound_ms": bounds[by], "bound_by": by}
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
 
 
 def phase_ssd_grads(torch, gen):
@@ -1774,14 +1748,14 @@ def phase_mamba_shapes(torch, gen, rows):
             fail(f"rmsnorm_rows disagrees with its plain version at "
                  f"[{S}, {d}]")
         t = rmsnorm_times(torch, x, scale)
-        rb = {"bytes": (2 * S * d + d) * 2 / HBM_BYTES_PER_S * 1e3,
-              "operations": 4 * S * d / FP32_FLOPS * 1e3}
-        rby = max(rb, key=rb.get)
+        rb_ms, rby, _, _ = kernel_bound("rmsnorm_rows", R=S, d=d,
+                                        itemsize=2)
         print(f"[kernels] rmsnorm_rows bf16 x [{S},{d}] (mamba2 training): "
               f"max|d|={e:.3e} (tol 1e-06+0.0078125*|ref|) ok; "
-              f"{rmsnorm_line(t)}; bound {rb[rby] * 1e3:.3f} us ({rby})")
+              f"{rmsnorm_line(t)}; bound {rb_ms * 1e3:.3f} us ({rby}, "
+              f"kernel_cost)")
         out[f"x [{S},{d}] bf16"] = {
-            "max_abs_err": e, **t, "bound_ms": rb[rby], "bound_by": rby}
+            "max_abs_err": e, **t, "bound_ms": rb_ms, "bound_by": rby}
     rows["rmsnorm_rows"]["train_mamba2"] = out
 
 
@@ -1903,7 +1877,7 @@ def _kernel_fns():
 
 
 def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
-                inspect=None, seq=TRAIN_SEQ, **plan):
+                inspect=None, seq=TRAIN_SEQ, count=False, **plan):
     """Full-width ``arch`` (cut to ``layers`` layers if given) trained 4
     steps on ``P`` virtual stages through ``train_pipeline``, with phase
     6's plan (chronos_zb) or ``plan``'s overrides of it (phases 12-14:
@@ -1912,8 +1886,10 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
     time of its kernel Function's plain backward at the training shape
     (phase 3), or None where phase 3 did not time this model's shape.
     ``inspect(tc, spec, out)`` runs on the trained state before it is
-    freed.  Returns the launch counts, losses, peak memory and median
-    step (phase 11 holds its offload runs against them)."""
+    freed.  With ``count``, one more step is counted for phase 26
+    (:func:`count_train_step`).  Returns the launch counts, losses, peak
+    memory and median step (phase 11 holds its offload runs against
+    them)."""
     from repro_torch.core.pipeline_runtime import init_pipeline_params
     from repro_torch.launch.train import train_pipeline
     from repro_torch.tree import tree_leaves
@@ -2001,6 +1977,9 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
         if ssd_counts != want_ssd:
             fail(f"{arch}: the profiled step ran SSD kernels {ssd_counts}, "
                  f"not the tensor-core route's {want_ssd}")
+    if count:
+        count_train_step(torch, tag, tc, P, out["params"], out["opt_state"],
+                         med)
     summary = {"losses": out["losses"], "grad_norms": out["grad_norms"],
                "peak": peak, "median_s": med,
                "launches": launches, "per_step": per_step,
@@ -2438,13 +2417,15 @@ def expected_single_launches(cfg, m: int):
 
 
 def train_single_run(torch, arch: str, rc, mbB: int, tag: str,
-                     steps: int = 4, profile: bool = False, layers=None):
+                     steps: int = 4, profile: bool = False, layers=None,
+                     count: bool = False):
     """Full-width ``arch`` through ``repro_torch.launch.train.train`` with
     recompute ``rc``, ``steps`` steps from random weights (seed 0), the
     peak counted from a reset after the earlier tensors are freed; checks
     launches, finite losses and gradient norms and moved masters.  With
-    ``profile``, one more step under the profiler.  Returns (summary,
-    launches).  ``layers`` cuts the depth."""
+    ``profile``, one more step under the profiler; with ``count``, one
+    more counted for phase 26.  Returns (summary, launches).  ``layers``
+    cuts the depth."""
     from repro_torch.launch.train import train
     from repro_torch.models import LM
     from repro_torch.tree import tree_leaves
@@ -2501,6 +2482,9 @@ def train_single_run(torch, arch: str, rc, mbB: int, tag: str,
         profile_step(torch, lambda: step(out["params"], out["opt_state"],
                                          batch),
                      med, tag, [], f"one train() step ({rc.mode})")
+    if count:
+        count_train_step(torch, tag, tc, None, out["params"],
+                         out["opt_state"], med)
     summary = {"losses": out["losses"], "grad_norms": out["grad_norms"],
                "median_ms": med * 1e3, "tokens_per_s": tokens / med,
                "peak_gib": peak / 2 ** 30}
@@ -2510,6 +2494,15 @@ def train_single_run(torch, arch: str, rc, mbB: int, tag: str,
     return summary, launches
 
 
+def single_modes():
+    """Phase 10's recompute modes of tinyllama-1.1b, by name."""
+    from repro_torch.configs.base import RecomputeConfig
+    return {"none": RecomputeConfig("none"),
+            "chronos": RecomputeConfig("chronos", num_recomp_chunks=1,
+                                       policy="full"),
+            "full": RecomputeConfig("full")}
+
+
 def phase_train_single(torch):
     """10. ``train()`` at full width: tinyllama-1.1b in the recompute
     modes none, chronos (the shallow chunk fully rematerialized) and full,
@@ -2517,16 +2510,12 @@ def phase_train_single(torch):
     ``MAMBA2_TRAIN_LAYERS`` layers in chronos, microbatch 1 (m = 8).  Step-1 losses bitwise across the modes, their
     gradient norms to 1e-6, peaks ordered none > chronos > full.  Returns
     the launch counts per path."""
-    from repro_torch.configs.base import RecomputeConfig
-    modes = {"none": RecomputeConfig("none"),
-             "chronos": RecomputeConfig("chronos", num_recomp_chunks=1,
-                                        policy="full"),
-             "full": RecomputeConfig("full")}
+    modes = single_modes()
     runs, total = {}, {}
     for name, rc in modes.items():
         runs[name], n = train_single_run(
             torch, "tinyllama-1.1b", rc, 4, f"train-single-{name}",
-            profile=name == "chronos")
+            profile=name == "chronos", count=True)
         total = {k: total.get(k, 0) + v for k, v in n.items()}
     l1 = {k: r["losses"][0] for k, r in runs.items()}
     g1 = {k: r["grad_norms"][0] for k, r in runs.items()}
@@ -2999,7 +2988,6 @@ PHASE_OF = {"train": 6, "train-mamba2": 8, "train-offload": 11,
             "train-seq-chronos": 13, "train-seq-1f1b": 14,
             "train-planner": "16a", "train-planner-deepseek": "16b",
             "train-qwen2-moe": "15a"}
-PLANNER_RESERVE = 2.0e9          # PlannerQuery's default reserve
 
 
 def planner_query(cfg, hbm_bytes: float, pp: int = 4):
@@ -3025,43 +3013,6 @@ def _point_of(tc, q):
                 p.uniform_recomp, p.offload_chunks) == want:
             return p
     return None
-
-
-def predicted_card_peak(tc, P: int):
-    """The one-card reading of the planner's per-device model: the P
-    virtual stages' model state, ``P x model_state``; the activations
-    each stage's schedule holds at its own peak, ``sum_s
-    peak_activation(per_stage=True)[s] x m_a``, at the run's microbatch
-    count; for a sequence-chunked plan the planner's KV-carry term (a
-    full-sequence K/V buffer and its dKV twin per in-flight microbatch)
-    on each stage; and the planner's reserve once.  Returns (total, state,
-    act, kv) in bytes."""
-    from repro_torch.core.analysis import MemoryModel
-    from repro_torch.core.pipeline_runtime import (SEQ_SCHEDULES,
-                                                   _SCHEDULES_WITH_V)
-    from repro_torch.core.schedules import get_schedule
-    from repro_torch.launch.steps import plan_schedule_kwargs
-    from repro_torch.plan.planner import _metrics
-    cfg, plan = tc.model, tc.plan
-    m = plan.num_microbatches or max(
-        2, tc.shape.global_batch // plan.microbatch_size)
-    kw = plan_schedule_kwargs(plan)
-    if plan.schedule in SEQ_SCHEDULES:
-        kw["n_seq"] = plan.seq_chunks
-    if plan.schedule in _SCHEDULES_WITH_V:
-        kw["v"] = plan.num_chunks
-    sched = get_schedule(plan.schedule, P, m, **kw)
-    mm = MemoryModel.build(cfg)
-    L, tokens = cfg.num_layers, plan.microbatch_size * tc.shape.seq_len
-    off = plan.offload.num_offload_chunks / plan.num_chunks \
-        if plan.offload.enabled else 0.0
-    state = P * mm.model_state(L, P, 1, offload_frac=off)
-    act = sum(sched.peak_activation(per_stage=True)) * mm.m_a(tokens, L)
-    kv = 0.0
-    if sched.n_seq > 1:
-        kv_frac = _metrics(plan.schedule, P, m, tuple(sorted(kw.items())))[4]
-        kv = P * 2.0 * kv_frac * mm.kv_a(tokens, L)
-    return state + act + kv + PLANNER_RESERVE, state, act, kv
 
 
 def planner_run(torch, tag: str, tc, steps: int):
@@ -3246,8 +3197,10 @@ def phase_train_planner(torch):
     done("train-planner deepseek-7b")
 
     # (c) every pipeline training plan: predicted against measured
+    from repro_torch.launch.dryrun import predicted_card_peak
     for tag, tc, P, peak in TRAIN_RUNS:
-        total, state, act, kv = predicted_card_peak(tc, P)
+        total, state, act, kv = predicted_card_peak(tc.model, tc.shape,
+                                                    tc.plan, P)
         pt = _point_of(tc, planner_query(tc.model, hbm * 4 / P, pp=P))
         per_stage = f"{pt.total_bytes / 2 ** 30:.3f} GiB ({pt.describe()})" \
             if pt is not None else "not a point of the design space"
@@ -3256,7 +3209,7 @@ def phase_train_planner(torch):
               f"{per_stage}; card prediction {total / 2 ** 30:.3f} GiB = "
               f"{P} x model_state {state / 2 ** 30:.3f} + activations "
               f"{act / 2 ** 30:.3f} + kv-carry {kv / 2 ** 30:.3f} + reserve "
-              f"{PLANNER_RESERVE / 2 ** 30:.3f}; measured peak "
+              f"{(total - state - act - kv) / 2 ** 30:.3f}; measured peak "
               f"{peak / 2 ** 30:.3f} GiB; measured / predicted "
               f"{peak / total:.3f}")
     return launches
@@ -3466,12 +3419,15 @@ def phase_train_a4(torch, arch: str, tag: str, P: int, seq: int):
     with the encoder on the first chunk's ops), the peak printed beside
     ``predicted_card_peak``."""
     out = phase_train(torch, arch, tag, None, P=P, seq=seq)
+    from repro_torch.launch.dryrun import predicted_card_peak
     tc = _train_config(arch, seq=seq)
-    total, state, act, kv = predicted_card_peak(tc, P)
+    total, state, act, kv = predicted_card_peak(tc.model, tc.shape, tc.plan,
+                                                P)
     print(f"[{tag}] peak {out['peak'] / 2 ** 30:.3f} GiB against the card "
           f"prediction {total / 2 ** 30:.3f} GiB ({P} x model_state "
           f"{state / 2 ** 30:.3f} + activations {act / 2 ** 30:.3f} + "
-          f"reserve {PLANNER_RESERVE / 2 ** 30:.3f}); measured / predicted "
+          f"reserve {(total - state - act - kv) / 2 ** 30:.3f}); measured / "
+          f"predicted "
           f"{out['peak'] / total:.3f}")
     return out
 
@@ -4156,7 +4112,7 @@ def phase_serve_batched(torch):
     nbytes = sum(a.numel() * a.element_size()
                  for a in tree_leaves(params["layers"])) \
         + head.numel() * head.element_size()
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = hbm_ms(nbytes)
     dec = res["decode_s"] / steps * 1e3
     toks = res["tokens"]
     print(f"[{tag}] {cfg.name} full width bf16, batch {B} x {S} prompt "
@@ -4517,6 +4473,218 @@ def phase_wire_checks(torch):
         fail("25d: the quantizer on the card departs from the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# 26. the roofline: counted steps against the dry run on the meta device
+# ---------------------------------------------------------------------------
+
+# tag -> one more step of a training run counted on the card (phases 6,
+# 8, 10, 15a), and the serving decode tick of phase 4
+COUNTED = {}
+COUNTED_PHASE = {"train": "6", "train-mamba2": "8",
+                 "train-single-none": "10", "train-single-chronos": "10",
+                 "train-single-full": "10", "train-qwen2-moe": "15a"}
+
+
+def counted_configs():
+    """tag -> ``(TrainConfig, P)`` of each step phase 26 holds a card
+    count against: the configurations phases 6, 8, 10 and 15a train
+    (``P`` None: ``train()``'s step)."""
+    return {
+        "train": (_train_config("tinyllama-1.1b"), 4),
+        "train-mamba2": (_train_config("mamba2-2.7b",
+                                       layers=MAMBA2_TRAIN_LAYERS), 4),
+        **{f"train-single-{name}": (_single_config("tinyllama-1.1b", rc, 4),
+                                    None)
+           for name, rc in single_modes().items()},
+        "train-qwen2-moe": (_train_config("qwen2-moe-a2.7b", layers=4), 2)}
+
+
+def _dry_counts(conn) -> None:
+    """The child of :class:`DryRun`: counts every step of
+    :func:`counted_configs` on the meta device
+    (``repro_torch.launch.dryrun``) and sends ``("ok", tag -> (tc, count,
+    seconds))``, or ``("error", traceback)``."""
+    try:
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.launch import dryrun
+        out = {}
+        for tag, (tc, P) in counted_configs().items():
+            t0 = time.perf_counter()
+            if P is None:
+                wc = dryrun.count_single_step(tc.model, tc.shape, tc.plan,
+                                              tc.optimizer)
+            else:
+                wc = dryrun.count_pipeline_step(tc.model, tc.shape, tc.plan,
+                                                tc.optimizer, P)
+            out[tag] = (tc, wc, time.perf_counter() - t0)
+        conn.send(("ok", out))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class DryRun:
+    """Phase 26's dry run on the meta device, in a child process started
+    before phase 6: it needs no card, so its host seconds pass while the
+    training phases keep the card busy.  A daemon: it ends with this
+    process."""
+
+    def __init__(self):
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.t0 = time.perf_counter()
+        self.proc = ctx.Process(target=_dry_counts, args=(child,),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+
+    def result(self, timeout: float = 600.0):
+        """tag -> (tc, count, seconds); how long this call waited."""
+        t0 = time.perf_counter()
+        if not self.conn.poll(timeout):
+            self.proc.kill()
+            fail(f"the dry run on meta sent nothing in {timeout:.0f} s")
+        try:
+            status, out = self.conn.recv()
+        except EOFError:
+            status, out = "error", f"the child exited {self.proc.exitcode}"
+        self.proc.join(30)
+        if status != "ok":
+            fail(f"the dry run on meta failed:\n{out}")
+        return out, time.perf_counter() - t0
+
+
+def count_train_step(torch, tag: str, tc, P, params, opt_state,
+                     median_s: float) -> None:
+    """One more step of ``tc`` on the trained state, under
+    ``repro_torch.roofline.count_work`` (never a timed step: every op
+    pays a Python call): the pipeline step over ``P`` virtual stages, or
+    with ``P`` None ``train()``'s step.  Kept for phase 26 beside the
+    run's median step time."""
+    from repro_torch.launch.steps import (make_pipeline_train_step,
+                                          make_train_step)
+    from repro_torch.roofline import count_work
+    mbB = tc.plan.microbatch_size
+    if P is None:
+        m = tc.shape.global_batch // mbB
+        step, _ = make_train_step(tc.model, tc.plan, tc.optimizer, m,
+                                  device="cuda")
+    else:
+        step, m, mbB, _ = make_pipeline_train_step(
+            tc.model, tc.shape, tc.plan, tc.optimizer, P=P, device="cuda")
+    batch = _profile_batch(torch, tc, m, mbB)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with count_work() as wc:
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    COUNTED[tag] = {"count": wc, "tc": tc, "P": P, "median_s": median_s,
+                    "count_s": took}
+    print(f"[roofline] {tag}: one more step counted on the card in "
+          f"{took:.2f} s (untimed; the median step {median_s * 1e3:.1f} "
+          f"ms): {wc.flops} FLOP, {wc.bytes_traffic_raw} B")
+
+
+def count_decode_tick(torch, eng) -> None:
+    """One decode tick of phase 4's warm engine (slot 0, the last cache
+    position) counted on the card; its bytes must cover the weights
+    ``decode_bound_ms`` reads."""
+    from repro_torch.roofline import count_work
+    from repro_torch.serve.scheduler import DECODE, Injection
+    inj = Injection(op=DECODE, slot=0, pos=eng.max_seq - 1, tokens=(1,),
+                    sample=True)
+    torch.cuda.synchronize()
+    with count_work() as wc:
+        eng.tick(inj)
+        torch.cuda.synchronize()
+    wbytes, wms = decode_bound_ms(eng)
+    COUNTED["serve-decode-tick"] = {"count": wc, "weight_bytes": wbytes,
+                                    "weight_ms": wms}
+    print(f"[roofline] serve decode tick ({eng.cfg.name}, P={eng.P}, "
+          f"{eng.max_seq} cache positions): counted {wc.bytes_traffic_raw} "
+          f"B ({hbm_ms(wc.bytes_traffic_raw) * 1e3:.1f} us at 3.35 TB/s), "
+          f"{wc.flops} FLOP; decode_bound_ms's weights {wbytes} B "
+          f"({wms * 1e3:.1f} us): counted / weights "
+          f"{wc.bytes_traffic_raw / wbytes:.3f}")
+    if wc.bytes_traffic_raw < wbytes:
+        fail(f"the counted decode tick moves {wc.bytes_traffic_raw} B, "
+             f"less than its weights' {wbytes} B")
+
+
+def phase_roofline(torch, smi: str, dry: DryRun) -> None:
+    """26. Each step counted on the card (phases 6, 8, 10, 15a) against
+    the dry run of the same configuration and plan on the meta device
+    (``repro_torch.launch.dryrun``, run by ``dry`` since phase 6: each
+    distinct op once, multiplied by the task table): the configurations
+    equal, FLOPs and every kernel's calls, FLOPs and bytes equal exactly;
+    printed beside ``model_flops_for``, ``useful_ratio``, the three
+    roofline terms, the dominant one and ``mfu`` against the run's median
+    step, with the card's name and power limit; then the decode tick's
+    bytes against its weights (gated in phase 4)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analysis import (CollectiveStats,
+                                               cost_to_roofline, mfu,
+                                               model_flops_for)
+    want = set(COUNTED_PHASE)
+    if not want <= set(COUNTED):
+        fail(f"roofline: no counted step for {sorted(want - set(COUNTED))}")
+    counts, waited = dry.result()
+    print(f"[roofline] the dry run on meta (a child process since phase 6) "
+          f"took {sum(c[2] for c in counts.values()):.2f} s; phase 26 "
+          f"waited {waited:.2f} s for it")
+    for tag in COUNTED_PHASE:
+        e = COUNTED[tag]
+        tc, P, wc = e["tc"], e["P"], e["count"]
+        dry_tc, meta, dry_s = counts[tag]
+        if dry_tc != tc:
+            fail(f"roofline {tag}: the dry run's configuration is not the "
+                 f"one the card trained")
+        if P is None:
+            mbB = tc.plan.microbatch_size
+            coll = CollectiveStats({}, {})
+            what = (f"train() m={tc.shape.global_batch // mbB} mbB={mbB}, "
+                    f"recompute {tc.plan.recompute.mode}")
+        else:
+            coll = dryrun.collective_stats(_spec_of(tc, P))
+            what = f"{tc.plan.schedule} P={P} v={tc.plan.num_chunks}"
+        mf = model_flops_for(tc.model, tc.shape, "train")
+        roof = cost_to_roofline(wc, coll, 1, mf)
+        u = mfu(mf, e["median_s"])
+        print(f"[roofline] {smi} | phase {COUNTED_PHASE[tag]} {tag} "
+              f"{tc.model.name} ({tc.model.num_layers} layers, {what}): "
+              f"counted on the card {wc.flops} FLOP, "
+              f"{wc.bytes_traffic_raw / 1e9:.3f} GB "
+              f"({wc.score_bytes / 1e9:.3f} GB score-class); dry run on "
+              f"meta {meta.flops} FLOP, {meta.bytes_traffic_raw / 1e9:.3f} GB "
+              f"in {dry_s:.2f} s; model_flops_for {mf:.6g}; useful_ratio "
+              f"{roof.useful_ratio:.4f}; t_compute "
+              f"{roof.t_compute * 1e3:.1f} ms, t_memory "
+              f"{roof.t_memory * 1e3:.1f} ms, t_collective "
+              f"{roof.t_collective * 1e3:.2f} ms "
+              f"({coll.total_bytes / 1e9:.3f} GB across virtual stages); "
+              f"dominant {roof.dominant}; "
+              f"mfu {100 * u:.3f}% at the median step "
+              f"{e['median_s'] * 1e3:.1f} ms (bf16 peak 989 TFLOP/s)")
+        print(f"[roofline]   {tag} kernels (calls, FLOP, B), card: "
+              f"{dict(sorted(wc.kernels.items()))}; meta: "
+              f"{dict(sorted(meta.kernels.items()))}")
+        if wc.flops != meta.flops:
+            fail(f"roofline {tag}: the card counted {wc.flops} FLOP, the "
+                 f"dry run {meta.flops}")
+        if wc.kernels != meta.kernels:
+            fail(f"roofline {tag}: kernel_cost sums differ, card "
+                 f"{wc.kernels}, meta {meta.kernels}")
+    d = COUNTED["serve-decode-tick"]
+    print(f"[roofline] {smi} | phase 4 decode tick: counted "
+          f"{d['count'].bytes_traffic_raw} B against decode_bound_ms's "
+          f"weights {d['weight_bytes']} B")
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -4554,7 +4722,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    smi = smi.splitlines()[0]
+    print(smi)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -4598,6 +4767,7 @@ def main() -> None:
     launches = {}
     launches["serve_tinyllama"], eng, _ = phase_serve(torch)
     phase_profile(torch, eng)
+    count_decode_tick(torch, eng)
     del eng
     done("serve")
 
@@ -4617,14 +4787,16 @@ def main() -> None:
     done("serve qwen2-moe-a2.7b")
 
     # 6. train tinyllama at full width through train_pipeline, then a
-    #    profiled step; 7. its train checks
+    #    profiled step; 7. its train checks.  Phase 26's dry run on the
+    #    meta device starts beside it, in a child process
+    dry = DryRun()
     bwd_ms = {
         "attn": by_name["flash_attention_fwd"]["train"]["plain_bwd_ms"],
         "mamba": by_name["ssd_scan"]["plain_bwd_ms"],
         **{("attn", Sc): ms for Sc, ms in by_name["flash_attention_fwd"][
             "train_offsets_plain_bwd_ms"].items()}}
     base = {"tinyllama-1.1b": phase_train(torch, "tinyllama-1.1b", "train",
-                                          bwd_ms)}
+                                          bwd_ms, count=True)}
     launches["train_tinyllama"] = base["tinyllama-1.1b"]["launches"]
     done("train tinyllama-1.1b")
     phase_train_checks(torch, "tinyllama-1.1b", "train-check")
@@ -4635,7 +4807,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     base["mamba2-2.7b"] = phase_train(torch, "mamba2-2.7b", "train-mamba2",
-                                      bwd_ms, layers=MAMBA2_TRAIN_LAYERS)
+                                      bwd_ms, layers=MAMBA2_TRAIN_LAYERS,
+                                      count=True)
     launches["train_mamba2"] = base["mamba2-2.7b"]["launches"]
     done("train mamba2-2.7b")
     phase_train_checks(torch, "mamba2-2.7b", "train-check-mamba2")
@@ -4675,8 +4848,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches["train_qwen2_moe"] = phase_train(
         torch, "qwen2-moe-a2.7b", "train-qwen2-moe", None, P=2, layers=4,
-        inspect=lambda tc, spec, out: moe_router_stats(torch, tc, spec,
-                                                       out))["launches"]
+        count=True, inspect=lambda tc, spec, out: moe_router_stats(
+            torch, tc, spec, out))["launches"]
     done("train qwen2-moe-a2.7b")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4745,7 +4918,15 @@ def main() -> None:
     phase_wire_checks(torch)
     done("train-wire checks (25d)")
 
-    # 26. kernels line, then the result line.  ``launches`` sums the
+    # 26. the roofline: the steps counted on the card in phases 6, 8, 10
+    #     and 15a against the dry run on the meta device (FLOPs and kernel
+    #     sums equal), with mfu, useful_ratio and the dominant term
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_roofline(torch, smi, dry)
+    done("roofline")
+
+    # 27. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

@@ -10,14 +10,17 @@ on every other layer), the VLM paligemma-3b (a patch prefix) and the
 encoder-decoder whisper-base.  Every one trains and is an input of the
 memory-budget planner (:mod:`repro_torch.plan`); every decoder family
 serves (the reference's engine serves neither the VLM nor the
-encoder-decoder).
+encoder-decoder).  :data:`SHAPES` are the reference's four input shapes,
+and :func:`cell_is_skipped` its rule for which (arch, shape) cells run.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401  (re-exported)
+from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K, ModelConfig,
+    ShapeConfig)
 
 _ARCH_MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
@@ -48,3 +51,17 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cell_is_skipped(cfg: ModelConfig, shape: ShapeConfig) -> str:
+    """A reason string if this (arch, shape) cell is skipped, else '' (the
+    reference's rule): ``long_500k`` needs sub-quadratic attention, so a
+    pure full-attention architecture skips it."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return "long_500k skipped: pure full-attention arch (O(S) KV cache " \
+               "is fine but the paper-pool rule excludes quadratic-attn archs)"
+    return ""

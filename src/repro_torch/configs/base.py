@@ -96,6 +96,14 @@ class ModelConfig:
     def is_attention_free(self) -> bool:
         return self.ssm is not None and self.ssm.attn_period == 0
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if long-context (500k) decode is feasible: SSM, hybrid, or
+        sliding-window-dominated attention."""
+        if self.ssm is not None:
+            return True
+        return self.sliding_window > 0
+
     def layer_kind(self, idx: int) -> str:
         """'attn' | 'mamba' for decoder layer ``idx``."""
         if self.ssm is None:
@@ -201,6 +209,14 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                       # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 # ---------------------------------------------------------------------------

@@ -423,6 +423,17 @@ def _payload_leaves(spec: PipelineSpec):
     return out
 
 
+def _payload_bytes(spec: PipelineSpec) -> int:
+    """Bytes of one payload as the wire stores it: each leaf in its wire
+    storage, an int8 leaf with its per-row fp32 scale."""
+    n = 0
+    for key, shape, dt in _payload_leaves(spec):
+        store, scaled = _wire_storage(key, dt, spec.wire)
+        n += math.prod(shape) * store.itemsize \
+            + (4 * shape[0] if scaled else 0)
+    return n
+
+
 def payload_ring_bytes(spec: PipelineSpec) -> int:
     """Bytes of the executor's payload rings as the wire stores them:
     one payload a slot of every ring (``fq``, ``bq``, ``act``, ``rmt``,
@@ -433,12 +444,18 @@ def payload_ring_bytes(spec: PipelineSpec) -> int:
                      + sum(tab.act_depth.values())
                      + sum(tab.rmt_depth.values())
                      + 2 * sum(tab.wstash_depth.values()))
-    per_slot = 0
-    for key, shape, dt in _payload_leaves(spec):
-        store, scaled = _wire_storage(key, dt, spec.wire)
-        per_slot += math.prod(shape) * store.itemsize \
-            + (4 * shape[0] if scaled else 0)
-    return slots * per_slot
+    return slots * _payload_bytes(spec)
+
+
+def stage_crossing_sends(spec: PipelineSpec):
+    """``(sends, bytes)`` of one step's payloads that cross virtual
+    stages (a send to another device column; the V-shape's hops stay on
+    their device): on P cards these are the point-to-point transfers,
+    each payload as the wire stores it."""
+    codes = spec.table.arrays()[:, :, 5]
+    sends = int(sum((codes == c).sum() for c, (delta, _, _) in
+                    _ROUTE.items() if delta))
+    return sends, sends * _payload_bytes(spec)
 
 
 class _PayloadLeaf:
@@ -572,6 +589,17 @@ class _Executor:
             leaf.move(src, dst)
 
     # -- one op --------------------------------------------------------------
+    @staticmethod
+    def op_key(d, row):
+        """What fixes the work of the op in ``row`` (a row of
+        ``TaskTable.arrays()``) at device column ``d``, whatever
+        microbatch it carries: the column, op code, chunk, send code and
+        sequence chunk, and which of its activation, W-stash, remat and
+        KV slots it uses.  Two ops of one key run the same aten ops on
+        tensors of the same shapes."""
+        return (d,) + tuple(int(row[i]) for i in (0, 1, 5, 14)) \
+            + tuple(int(row[i]) >= 0 for i in (4, 12, 13, 15))
+
     def _op(self, d, row, params, shared, batch, acc):
         """Run one op; returns the payload it sends (``(x, aux[, enc])``
         forward, their cotangents backward) or None."""
@@ -840,7 +868,7 @@ def _grad(outputs, seeds, inputs):
     return torch.autograd.grad(outputs, inputs, seeds, allow_unused=True)
 
 
-def make_train_grads_fn(spec: PipelineSpec, device):
+def make_train_grads_fn(spec: PipelineSpec, device, *, wrap_executor=None):
     """Returns ``fn(params, batch) -> (grads, metrics)`` running the full
     schedule.  ``batch``: ``tokens`` [m, mbB, seq_len] (+ optional
     ``loss_mask`` [m, mbB, seq_len - 1], and ``patch_embeds`` [m, mbB,
@@ -863,15 +891,19 @@ def make_train_grads_fn(spec: PipelineSpec, device):
     batch, psum_ef) -> (grads, metrics, new_ef)``, ``psum_ef`` from
     :func:`init_psum_ef` and updated in place, ``metrics["psum_scale"]``
     each leaf's shared scale.  Sequence-chunked specs refuse it
-    (ValueError), as in the reference."""
+    (ValueError), as in the reference.
+
+    ``wrap_executor``: a function of the executor class to the class to
+    build (the dry run's, which counts each distinct op once)."""
     if spec.n_seq > 1:
         if spec.grad_psum_bits:
             raise ValueError("compressed gradient psum is not implemented "
                              "for sequence-chunked specs")
         from repro_torch.seqpipe.runtime import SeqExecutor
-        ex = SeqExecutor(spec, device)
+        cls = SeqExecutor
     else:
-        ex = _Executor(spec, device)
+        cls = _Executor
+    ex = (cls if wrap_executor is None else wrap_executor(cls))(spec, device)
 
     def fn(params, batch, psum_ef=None):
         return ex.run(params, batch, psum_ef)
@@ -894,7 +926,8 @@ class TrainStepOut(NamedTuple):
 
 
 def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
-                         use_kernel: bool = True, split=None):
+                         use_kernel: bool = True, split=None,
+                         wrap_executor=None):
     """Gradients, then the AdamW step on them: returns ``fn(params,
     opt_state, batch[, psum_ef]) ->`` :class:`TrainStepOut`.  The update
     reads each gradient as ``g.float() / m`` (``m`` microbatches), as the
@@ -910,8 +943,9 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
     weights are left as they are.
 
     With ``spec.grad_psum_bits`` the step takes the error-feedback state
-    ``psum_ef`` and returns the new one as ``ef``."""
-    grads_fn = make_train_grads_fn(spec, device)
+    ``psum_ef`` and returns the new one as ``ef``.  ``wrap_executor``: as
+    :func:`make_train_grads_fn`."""
+    grads_fn = make_train_grads_fn(spec, device, wrap_executor=wrap_executor)
     m_dev = torch.tensor(float(m), dtype=torch.float32, device=device)
 
     def fn(params, opt_state, batch, psum_ef=None):

@@ -19,9 +19,13 @@ fp32 inputs (checks only) take an fp32 CUDA-core kernel, as the TPU
 kernel computes in fp32.
 
 :func:`flash_attention_fwd` runs :func:`attention_ref` only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises, also for
-a q, k or v that is not 16-byte aligned (``cp.async`` copies 16-byte
-chunks).  ``flash_attention_fwd.launches`` counts kernel launches.
+on the CPU; for meta tensors it returns empty outputs of the right
+shapes and types; for CUDA tensors it launches the kernel or raises,
+also for a q, k or v that is not 16-byte aligned (``cp.async`` copies
+16-byte chunks).  ``flash_attention_fwd.launches`` counts kernel
+launches.  Under :func:`repro_torch.roofline.count_work` a call counts
+as ``kernel_cost("flash_attention_fwd", ...)`` (the visible pairs' work),
+its body's ops hidden.
 
 :func:`flash_attention` is the static-offset ``jax.custom_vjp`` of
 ``repro/kernels/flash_attention/ops.py`` as a ``torch.autograd.Function``
@@ -38,6 +42,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import analysis as roofline
 
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -78,10 +83,31 @@ def flash_attention_fwd(q, k, v, *, scale=None, causal=True, window=0,
     """q [B,Sq,H,d]; k,v [B,Sk,G,d] (H % G == 0).  ``q_offset``, ``window``
     and ``prefix`` are host ints.  Returns (o [B,Sq,H,d] in q's type,
     lse [B,H,Sq] fp32)."""
+    if roofline.ACTIVE is not None:
+        B, Sq, H, d = q.shape
+        return roofline.kernel(
+            "flash_attention_fwd", lambda: _flash_attention_fwd(
+                q, k, v, scale, causal, window, prefix, q_offset),
+            B=B, Sq=Sq, Sk=k.shape[1], H=H, G=k.shape[2], d=d,
+            itemsize=q.element_size(), causal=causal, window=window,
+            prefix=prefix, q_offset=q_offset)
+    return _flash_attention_fwd(q, k, v, scale, causal, window, prefix,
+                                q_offset)
+
+
+def _flash_attention_fwd(q, k, v, scale, causal, window, prefix, q_offset):
     devs = {q.device, k.device, v.device}
     if devs == {torch.device("cpu")}:
-        return attention_ref(q, k, v, scale=scale, causal=causal,
-                             window=window, prefix=prefix, q_offset=q_offset)
+        # o in the kernel's layout (the plain einsum's is permuted), so
+        # the ops after it run alike on the CPU, the card and meta
+        o, lse = attention_ref(q, k, v, scale=scale, causal=causal,
+                               window=window, prefix=prefix,
+                               q_offset=q_offset)
+        return o.contiguous(), lse
+    if devs == {torch.device("meta")}:
+        return torch.empty_like(q), torch.empty(
+            (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32,
+            device=q.device)
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: q/k/v on "
                          f"{sorted(map(str, devs))}; all must be on one CUDA "

@@ -17,14 +17,18 @@ bitwise.
 counter, so the update needs no host sync.
 
 :func:`fused_adamw_flat` runs the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
-``fused_adamw_flat.launches`` counts kernel launches.
+CPU; for meta tensors it returns the state as it is; for CUDA tensors it
+launches the kernel or raises.  ``fused_adamw_flat.launches`` counts
+kernel launches.  Under :func:`repro_torch.roofline.count_work` a call
+counts as ``kernel_cost("fused_adamw_flat", ...)``, its body's ops
+hidden.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import analysis as roofline
 
 
 def fused_adamw_flat_ref(g, mu, nu, w, scalars, *, b1, b2, eps, wd):
@@ -69,9 +73,21 @@ def _check(g, mu, nu, w, scalars):
 def fused_adamw_flat(g, mu, nu, w, scalars, *, b1, b2, eps, wd):
     """All flat [n]: g fp32 or bf16; mu, nu, w fp32, updated in place and
     returned.  ``b1``, ``b2``, ``eps``, ``wd`` are host floats."""
-    if all(t.device.type == "cpu" for t in (g, mu, nu, w, scalars)):
+    if roofline.ACTIVE is not None:
+        return roofline.kernel(
+            "fused_adamw_flat", lambda: _fused_adamw_flat(
+                g, mu, nu, w, scalars, b1, b2, eps, wd),
+            n=w.numel(), g_itemsize=g.element_size())
+    return _fused_adamw_flat(g, mu, nu, w, scalars, b1, b2, eps, wd)
+
+
+def _fused_adamw_flat(g, mu, nu, w, scalars, b1, b2, eps, wd):
+    ins = (g, mu, nu, w, scalars)
+    if all(t.device.type == "cpu" for t in ins):
         return fused_adamw_flat_ref(g, mu, nu, w, scalars, b1=b1, b2=b2,
                                     eps=eps, wd=wd)
+    if all(t.device.type == "meta" for t in ins):
+        return mu, nu, w
     dt, n = _check(g, mu, nu, w, scalars)
     lib = build.load_library()
     err = lib.fused_adamw_launch(

@@ -12,8 +12,11 @@ x once.  A row whose width is not a multiple of the 16-byte vector (or
 too wide for the registers) takes the kernel's scalar loop instead.
 
 :func:`rmsnorm_rows` runs the plain version :func:`rmsnorm_rows_ref` only
-for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-``rmsnorm_rows.launches`` counts kernel launches.
+for tensors on the CPU; for meta tensors it returns an empty output of
+the right shape and type; for CUDA tensors it launches the kernel or
+raises.  ``rmsnorm_rows.launches`` counts kernel launches.  Under
+:func:`repro_torch.roofline.count_work` a call counts as
+``kernel_cost("rmsnorm_rows", ...)``, its body's ops hidden.
 
 :class:`RMSNormRows` mirrors the reference's ``jax.custom_vjp``
 (``repro/kernels/rmsnorm/ops.py``): the forward is :func:`rmsnorm_rows`
@@ -26,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import analysis as roofline
 
 
 def rmsnorm_rows_ref(x, scale, eps: float = 1e-6):
@@ -38,8 +42,19 @@ def rmsnorm_rows_ref(x, scale, eps: float = 1e-6):
 
 def rmsnorm_rows(x, scale, eps: float = 1e-6):
     """x [R, d]; scale [d] -> [R, d] in x's type."""
+    if roofline.ACTIVE is not None:
+        return roofline.kernel(
+            "rmsnorm_rows", lambda: _rmsnorm_rows(x, scale, eps),
+            R=x.numel() // max(x.shape[-1], 1), d=x.shape[-1],
+            itemsize=x.element_size())
+    return _rmsnorm_rows(x, scale, eps)
+
+
+def _rmsnorm_rows(x, scale, eps):
     if x.device.type == "cpu" and scale.device.type == "cpu":
         return rmsnorm_rows_ref(x, scale, eps)
+    if x.device.type == "meta" and scale.device.type == "meta":
+        return torch.empty_like(x)
     if x.device.type != "cuda" or scale.device != x.device:
         raise ValueError(f"rmsnorm_rows: x on {x.device}, scale on "
                          f"{scale.device}; both must be on one CUDA device "

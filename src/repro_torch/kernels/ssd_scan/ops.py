@@ -20,10 +20,13 @@ indexed by batch, never copied per head.
 - :func:`ssd_reference` is the sequential recurrence, the oracle of the
   tests.
 - :func:`ssd_scan` runs :func:`ssd_chunked_ref` only for tensors on the
-  CPU; for CUDA tensors it launches its route's kernels or raises.
+  CPU; for meta tensors it returns empty outputs of the right shapes;
+  for CUDA tensors it launches its route's kernels or raises.
   ``ssd_scan.launches`` counts its calls that launched (one per scan,
   whatever the route); :data:`ROUTE_KERNELS` names the kernels each route
-  runs, by which a profile tells the routes apart.
+  runs, by which a profile tells the routes apart.  Under
+  :func:`repro_torch.roofline.count_work` a call counts as
+  ``kernel_cost("ssd_scan", ...)``, its body's ops hidden.
 - :class:`SSDScan` mirrors the reference's ``jax.custom_vjp``: the forward
   pads and runs :func:`ssd_scan`, saving only x, B, C, dt, A and h0; the
   backward recomputes :func:`ssd_chunked_ref` under autograd (the
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.roofline import analysis as roofline
 
 MAX_CHUNK = 128            # csrc/ssd_scan.cu kMaxQ
 MAX_STATE = 256            # csrc/ssd_scan.cu kMaxN
@@ -197,13 +201,28 @@ def ssd_scan(x, Bc, Cc, dt, A, *, chunk: int = 64, h0=None):
     if S % Q:
         raise ValueError(f"ssd_scan: S={S} is not a multiple of the chunk "
                          f"{Q}: pad the sequence first")
+    if roofline.ACTIVE is not None:
+        Bsz, _, H, P = x.shape
+        return roofline.kernel(
+            "ssd_scan", lambda: _ssd_scan(x, Bc, Cc, dt, A, chunk, h0),
+            B=Bsz, S=S, H=H, P=P, N=Bc.shape[-1], Q=Q,
+            itemsize=x.element_size(), h0=h0 is not None)
+    return _ssd_scan(x, Bc, Cc, dt, A, chunk, h0)
+
+
+def _ssd_scan(x, Bc, Cc, dt, A, chunk, h0):
     ins = (x, Bc, Cc, dt, A) + (() if h0 is None else (h0,))
     if all(t.device.type == "cpu" for t in ins):
         return ssd_chunked_ref(x, Bc, Cc, dt, A, chunk, h0)
+    Bsz, S, H, P = x.shape
+    N = Bc.shape[-1]
+    if all(t.device.type == "meta" for t in ins):
+        return (torch.empty(x.shape, dtype=torch.float32, device=x.device),
+                torch.empty((Bsz, H, P, N), dtype=torch.float32,
+                            device=x.device))
+    Q = min(chunk, S)
     _check(x, Bc, Cc, dt, A, Q, h0)
     route = ssd_scan_route(x.dtype)
-    Bsz, _, H, P = x.shape
-    N = Bc.shape[-1]
     lib = build.load_library()
     tc = route == TENSOR_CORES
     launch = lib.ssd_scan_bf16_launch if tc else lib.ssd_scan_f32_launch

@@ -1,0 +1,468 @@
+"""One-card dry run: every (architecture x input shape) cell built on the
+meta device, its memory and its roofline recorded (counterpart of
+``repro/launch/dryrun.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+        --arch tinyllama-1.1b --shape train_4k --P 4
+    PYTHONPATH=src python -m repro_torch.roofline.summarize
+
+The reference lowers each cell on a 256- or 512-chip mesh and reads the
+partitioned HLO.  Here a cell is one card's: a training shape runs the
+port's pipeline step over ``--P`` virtual stages with the reference's
+``default_plan`` (``chronos``, v=2, Chronos-Recomp of the shallowest
+chunk, 2 sequences a microbatch), or with ``--plan-hbm-gb`` the pick of
+:func:`repro_torch.plan.plan_under_budget` for a stage budget of that
+many GB; a serving shape runs the LM's prefill chunks over the prompt
+(2048 tokens each, the engine's unit of work) or one decode step
+over a full cache, for the shape's whole batch.  Parameters, optimizer
+state, caches and batches are meta tensors: shapes without storage, so
+grok-1-314b builds in seconds and nothing runs on a device.
+
+The work is counted by :func:`repro_torch.roofline.count_work`, but not
+by running the whole step: the training step's executor is built with
+:func:`memoized`, which runs each distinct op of the task table once
+(by the executor's ``op_key``: device column, chunk, op kind, send and
+sequence chunk, and which of its ring slots it uses) and adds that
+count again for every later op of the same key; the sends that land in
+the rings likewise.  These are ``analyze_hlo``'s loop multipliers: the
+count equals a full run's (held against the CPU and a full meta step in
+``tests/test_torch_roofline.py`` for the default plan, chronos_zb, the
+sequence-chunked schedules and offload, and against the card in
+``chip_smoke.py``), and ``train_4k``'s 256 sequences cost as much as a
+few.  The single-device ``train()`` step is counted whole up to two
+microbatches; past that, at one and two, the difference extended to
+all of them.
+
+Each cell writes ``<arch>__<shape>__<tag>.json`` into :data:`RESULTS`
+(``DRYRUN_RESULTS``, else ``results/dryrun_torch`` at the checkout's
+root, git-ignored): status, plan, the static bytes the port holds
+(parameters, gradients and optimizer state per virtual stage, or
+weights and cache), the planner's prediction and whether the cell fits
+80 GB, the counted work, ``model_flops_for``, the roofline on the H100's
+peaks (a reckoning, not a measurement) and the seconds it took.  The
+reference's multi-pod layout (a TP=16 mesh, FSDP, the ``pod`` pipeline
+axis) waits for the multi-rank slice.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+import traceback
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs import (ARCH_IDS, SHAPES, cell_is_skipped,
+                                 get_config, get_shape)
+from repro_torch.configs.base import (OptimizerConfig, ParallelPlan,
+                                      RecomputeConfig, ShapeConfig)
+from repro_torch.roofline import analysis
+from repro_torch.roofline.analysis import (CollectiveStats, WorkCount,
+                                           cost_to_roofline, count_work,
+                                           model_flops_for)
+from repro_torch.tree import tree_leaves
+
+RESULTS = os.environ.get(
+    "DRYRUN_RESULTS",
+    str(Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"))
+CARD_BYTES = 80e9               # an H100's 80 GB
+PLANNER_RESERVE = 2.0e9         # PlannerQuery's default reserve
+SERVE_CHUNK = 2048              # prefill tokens a chunk (serving shapes)
+MICROBATCH = 2                  # sequences a microbatch (default_plan's)
+
+
+def default_plan() -> ParallelPlan:
+    """The reference's ``default_plan`` as the port's plan (the fused
+    kernels; ZeRO and the pipeline axis have no meaning on one card)."""
+    return ParallelPlan(
+        schedule="chronos", num_chunks=2,
+        microbatch_size=MICROBATCH,
+        recompute=RecomputeConfig(mode="chronos", num_recomp_chunks=1),
+        kernels="fused")
+
+
+def budget_plan(cfg, shape: ShapeConfig, P: int,
+                hbm_gb: float) -> ParallelPlan:
+    """The planner's pick for ``P`` virtual stages of ``hbm_gb`` GB each
+    (``--plan-hbm-gb``)."""
+    from repro_torch.plan import plan_under_budget
+    ep = plan_under_budget(
+        cfg, pp=P, tp=1, hbm_bytes=hbm_gb * 1e9,
+        microbatch=MICROBATCH,
+        seq_len=shape.seq_len)
+    print(f"[plan] {cfg.name}: {ep.summary()}")
+    return ep.parallel_plan()
+
+
+# ---------------------------------------------------------------------------
+# counting a step
+# ---------------------------------------------------------------------------
+
+def memoized(cls):
+    """``cls`` (an executor class) whose ops and sends each run once per
+    key and replay their count into the running count after that (it
+    raises outside :func:`count_work`): an op's key is the executor's
+    ``op_key`` (two ops of one key run the same aten ops on tensors of
+    the same shapes, whatever microbatch they carry); a send's, its ring
+    and device.  For the meta device only: a replayed op computes
+    nothing."""
+
+    class Memoized(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.memo = {}
+
+        def _replay(self, key, run):
+            if analysis.ACTIVE is None:
+                raise RuntimeError("a memoized executor runs only under "
+                                   "count_work()")
+            count = analysis.ACTIVE.count
+            if key in self.memo:
+                delta, out = self.memo[key]
+                count.add(delta)
+                return out
+            before = count.copy()
+            out = run()
+            self.memo[key] = (count - before, out)
+            return out
+
+        def _op(self, d, row, *args):
+            return self._replay(("op",) + self.op_key(d, row),
+                                lambda: super(Memoized, self)._op(
+                                    d, row, *args))
+
+        def _put(self, name, d, c, slot, payload):
+            return self._replay(("put", name, d, c), lambda: super(
+                Memoized, self)._put(name, d, c, slot, payload))
+
+    return Memoized
+
+
+def _batch(cfg, seq_len: int, m: int, mbB: int, device, seed: int = 1):
+    """A batch of ``m`` microbatches of ``mbB`` sequences as the training
+    steps read it (tokens int32, a VLM's patch or an encoder-decoder's
+    frame embeddings fp32): the synthetic stream's on a real device,
+    empty tensors of the same shapes on meta."""
+    dev = torch.device(device)
+    extra = {}
+    if cfg.vision is not None:
+        extra["patch_embeds"] = (cfg.vision.num_patches, cfg.d_model)
+    if cfg.encdec is not None:
+        extra["frame_embeds"] = (cfg.encdec.num_frames, cfg.d_model)
+    if dev.type == "meta":
+        out = {"tokens": torch.empty((m, mbB, seq_len), dtype=torch.int32,
+                                     device=dev)}
+        for k, shape in extra.items():
+            out[k] = torch.empty((m, mbB) + shape, dtype=torch.float32,
+                                 device=dev)
+        return out
+    from repro_torch.data import synthetic_source
+    flat = synthetic_source(cfg, seq_len, seed=seed).next_batch(m * mbB)
+    if not isinstance(flat, dict):
+        flat = {"tokens": flat}
+    return {k: torch.from_numpy(a.reshape((m, mbB) + a.shape[1:])).to(dev)
+            for k, a in flat.items()}
+
+
+def _generator(device):
+    """A seeded generator on a real device; None on meta (shapes only)."""
+    dev = torch.device(device)
+    return None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(0)
+
+
+def build_pipeline(cfg, shape: ShapeConfig, plan: ParallelPlan,
+                   ocfg: OptimizerConfig, P: int, device="meta",
+                   wrap_executor=None):
+    """The pipeline step and everything it reads, built on ``device``:
+    ``(step, args, spec)`` with ``step(*args)`` one training step."""
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   init_psum_ef)
+    from repro_torch.launch.steps import (make_pipeline_train_step,
+                                          offload_kept, psum_bits_of)
+    from repro_torch.optim.adamw import adamw_init
+    step, m, mbB, spec = make_pipeline_train_step(
+        cfg, shape, plan, ocfg, P=P, device=device,
+        wrap_executor=wrap_executor)
+    params = init_pipeline_params(_generator(device), cfg, spec.layout,
+                                  device)
+    offload = plan.offload.enabled and plan.offload.num_offload_chunks > 0
+    opt_state = adamw_init(offload_kept(params, plan)[0] if offload
+                           else params)
+    args = (params, opt_state, _batch(cfg, shape.seq_len, m, mbB, device))
+    if psum_bits_of(plan):
+        args += (init_psum_ef(spec, params),)
+    return step, args, spec
+
+
+def count_pipeline_step(cfg, shape: ShapeConfig, plan: ParallelPlan,
+                        ocfg: OptimizerConfig, P: int,
+                        device="meta") -> WorkCount:
+    """The work of one ``train_pipeline`` step over ``P`` virtual stages:
+    on the meta device each distinct op once (:func:`memoized`), on a
+    real device every op run."""
+    meta = torch.device(device).type == "meta"
+    step, args, _ = build_pipeline(cfg, shape, plan, ocfg, P, device,
+                                   memoized if meta else None)
+    with count_work() as c:
+        step(*args)
+    return c
+
+
+def count_single_step(cfg, shape: ShapeConfig, plan: ParallelPlan,
+                      ocfg: OptimizerConfig, device="meta") -> WorkCount:
+    """The work of one ``train()`` step (``global_batch //
+    microbatch_size`` microbatches): on a real device, and on the meta
+    device for up to two microbatches, the whole step; on the meta device
+    for more, the step at one and at two microbatches, the difference
+    being one microbatch's ``LM.loss``, its gradient and its sum into the
+    fp32 buffers, extended to all of them."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import adamw_init
+    mbB = plan.microbatch_size
+    m = max(1, shape.global_batch // mbB)
+    meta = torch.device(device).type == "meta"
+    counts = []
+    for mm in ((1, 2) if meta and m > 2 else (m,)):
+        step, lm = make_train_step(cfg, plan, ocfg, mm, device=device)
+        params = lm.init(_generator(device))
+        args = (params, adamw_init(params),
+                _batch(cfg, shape.seq_len, mm, mbB, device))
+        with count_work() as c:
+            step(*args)
+        counts.append(c)
+    if len(counts) == 1:
+        return counts[0]
+    return counts[0].copy().add(counts[1] - counts[0], m - 1)
+
+
+def count_serve(cfg, shape: ShapeConfig, device="meta"):
+    """The work of serving ``shape`` with the LM (fused kernels): a
+    prefill shape runs its prompt in chunks of :data:`SERVE_CHUNK` tokens
+    (the
+    first one with a VLM's patches or an encoder-decoder's frames), a
+    decode shape one step at the last position of a full cache, each for
+    the shape's whole batch.  Returns ``(count, lm, params, cache)``."""
+    from repro_torch.models import LM
+    lm = LM(cfg, kernels="fused", device=device)
+    params = lm.init(_generator(device))
+    Bz, S = shape.global_batch, shape.seq_len
+    cache = lm.init_cache(Bz, S)
+    dev = lm.device
+    with torch.no_grad(), count_work() as c:
+        if shape.kind == "prefill":
+            for pos0 in range(0, S, SERVE_CHUNK):
+                n = min(SERVE_CHUNK, S - pos0)
+                kw = {}
+                if pos0 == 0:
+                    emb = _batch(cfg, 1, 1, Bz, dev)
+                    kw = {k: v[0] for k, v in emb.items() if k != "tokens"}
+                tok = torch.zeros((Bz, n), dtype=torch.int32, device=dev)
+                lm.prefill_chunk(params, tok, cache, pos0, **kw)
+        else:
+            tok = torch.zeros((Bz, 1), dtype=torch.int32, device=dev)
+            lm.decode_step(params, tok, cache, S - 1)
+    return c, lm, params, cache
+
+
+# ---------------------------------------------------------------------------
+# memory
+# ---------------------------------------------------------------------------
+
+def _nbytes(a) -> int:
+    return a.numel() * a.element_size()
+
+
+def static_bytes(params, opt_state, P: int) -> Dict:
+    """What the port holds for a pipeline run, from the built trees:
+    weights, gradient accumulators (a block leaf's in its own dtype, a
+    shared leaf's in fp32, as the executor makes them) and the fp32
+    optimizer state (master, mu, nu); per virtual stage (block leaves
+    ``[P, ...]``) and shared (held once)."""
+    blocks = tree_leaves(params["blocks"])
+    shared = [a for k, v in params.items() if k != "blocks"
+              for a in tree_leaves(v)]
+    opt = [a for k in ("master", "mu", "nu") for a in
+           tree_leaves(opt_state[k])]
+    w_blk = sum(_nbytes(a) for a in blocks)
+    w_sh = sum(_nbytes(a) for a in shared)
+    g_blk, g_sh = w_blk, sum(4 * a.numel() for a in shared)
+    n_sh = sum(a.numel() for a in shared)
+    o_sh = 12 * n_sh
+    o_blk = sum(_nbytes(a) for a in opt) - o_sh
+    per_stage = (w_blk + g_blk + o_blk) // P
+    return {"weights": w_blk + w_sh, "grads": g_blk + g_sh,
+            "optimizer": o_blk + o_sh, "per_stage": per_stage,
+            "shared": w_sh + g_sh + o_sh,
+            "total": w_blk + w_sh + g_blk + g_sh + o_blk + o_sh,
+            "params": sum(a.numel() for a in blocks) + n_sh}
+
+
+def predicted_card_peak(cfg, shape: ShapeConfig, plan: ParallelPlan,
+                        P: int):
+    """The one-card reading of the planner's per-device model: the P
+    virtual stages' model state, ``P x model_state``; the activations
+    each stage's schedule holds at its own peak, ``sum_s
+    peak_activation(per_stage=True)[s] x m_a``, at the run's microbatch
+    count; for a sequence-chunked plan the planner's KV-carry term (a
+    full-sequence K/V buffer and its dKV twin per in-flight microbatch)
+    on each stage; and the planner's reserve once.  Returns (total, state,
+    act, kv) in bytes."""
+    from repro_torch.core.analysis import MemoryModel
+    from repro_torch.core.pipeline_runtime import (SEQ_SCHEDULES,
+                                                   _SCHEDULES_WITH_V)
+    from repro_torch.core.schedules import get_schedule
+    from repro_torch.launch.steps import plan_schedule_kwargs
+    from repro_torch.plan.planner import _metrics
+    m = plan.num_microbatches or max(
+        2, shape.global_batch // plan.microbatch_size)
+    kw = plan_schedule_kwargs(plan)
+    if plan.schedule in SEQ_SCHEDULES:
+        kw["n_seq"] = plan.seq_chunks
+    if plan.schedule in _SCHEDULES_WITH_V:
+        kw["v"] = plan.num_chunks
+    sched = get_schedule(plan.schedule, P, m, **kw)
+    mm = MemoryModel.build(cfg)
+    L, tokens = cfg.num_layers, plan.microbatch_size * shape.seq_len
+    off = plan.offload.num_offload_chunks / plan.num_chunks \
+        if plan.offload.enabled else 0.0
+    state = P * mm.model_state(L, P, 1, offload_frac=off)
+    act = sum(sched.peak_activation(per_stage=True)) * mm.m_a(tokens, L)
+    kv = 0.0
+    if sched.n_seq > 1:
+        kv_frac = _metrics(plan.schedule, P, m, tuple(sorted(kw.items())))[4]
+        kv = P * 2.0 * kv_frac * mm.kv_a(tokens, L)
+    return state + act + kv + PLANNER_RESERVE, state, act, kv
+
+
+def collective_stats(spec) -> CollectiveStats:
+    """The boundary payloads one step sends across virtual stages, as a
+    P-card deployment would move them (``collective-permute``)."""
+    from repro_torch.core.pipeline_runtime import stage_crossing_sends
+    sends, nbytes = stage_crossing_sends(spec)
+    return CollectiveStats({"collective-permute": float(nbytes)},
+                           {"collective-permute": sends})
+
+
+# ---------------------------------------------------------------------------
+# cells
+# ---------------------------------------------------------------------------
+
+def run_cell(arch: str, shape_name: str, P: int = 4,
+             plan_hbm_gb: float = 0.0) -> dict:
+    cfg = get_config(arch)
+    shape = get_shape(shape_name)
+    skip = cell_is_skipped(cfg, shape)
+    head = {"arch": arch, "shape": shape_name, "P": P}
+    if skip:
+        return {**head, "status": "skipped", "reason": skip}
+    t0 = time.time()
+    mf = model_flops_for(cfg, shape, shape.kind)
+    if shape.kind == "train":
+        plan = budget_plan(cfg, shape, P, plan_hbm_gb) if plan_hbm_gb > 0 \
+            else default_plan()
+        ocfg = OptimizerConfig()
+        step, args, spec = build_pipeline(cfg, shape, plan, ocfg, P, "meta",
+                                          memoized)
+        static = static_bytes(args[0], args[1], P)
+        with count_work() as count:
+            step(*args)
+        total, state, act, kv = predicted_card_peak(cfg, shape, plan, P)
+        coll = collective_stats(spec)
+        tab = spec.table
+        out = {
+            "kind": "train", "entry": "train_pipeline",
+            "plan": {"schedule": plan.schedule, "v": plan.num_chunks,
+                     "seq_chunks": plan.seq_chunks,
+                     "microbatch_size": plan.microbatch_size,
+                     "num_microbatches": tab.m,
+                     "recompute": dataclasses.asdict(plan.recompute),
+                     "offload_chunks": plan.offload.num_offload_chunks
+                     if plan.offload.enabled else 0,
+                     "L_pad": spec.layout.L_pad, "ticks": tab.T},
+            "memory": {"static": static,
+                       "predicted": {"total": total, "model_state": state,
+                                     "activations": act, "kv_carry": kv},
+                       "fits_80gb": total <= CARD_BYTES},
+            "collectives": {"bytes_by_kind": coll.bytes_by_kind,
+                            "count_by_kind": coll.count_by_kind}}
+    else:
+        coll = CollectiveStats({}, {})
+        count, _, params, cache = count_serve(cfg, shape)
+        w = sum(_nbytes(a) for a in tree_leaves(params))
+        kv = sum(_nbytes(a) for a in tree_leaves(cache))
+        out = {"kind": shape.kind, "entry": "LM.prefill_chunk"
+               if shape.kind == "prefill" else "LM.decode_step",
+               "chunk": SERVE_CHUNK if shape.kind == "prefill" else None,
+               "memory": {"static": {"weights": w, "cache": kv,
+                                     "total": w + kv},
+                          "predicted": {"total": w + kv + PLANNER_RESERVE},
+                          "fits_80gb": w + kv + PLANNER_RESERVE
+                          <= CARD_BYTES}}
+    roof = cost_to_roofline(count, coll, 1, mf)
+    top = sorted(count.ops.items(), key=lambda kv: -kv[1][2])[:12]
+    return {**head, "status": "ok", **out,
+            "work": {**count.as_dict(), "top_ops_by_bytes": top},
+            "roofline": roof.as_dict(), "chips": 1,
+            "seconds": round(time.time() - t0, 2)}
+
+
+def cell_path(arch: str, shape_name: str, tag: str) -> str:
+    return os.path.join(RESULTS, f"{arch}__{shape_name}__{tag}.json")
+
+
+def main(argv: Optional[list] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--P", type=int, default=4,
+                    help="virtual pipeline stages on the one card")
+    ap.add_argument("--plan-hbm-gb", type=float, default=0.0,
+                    help="plan train cells with repro_torch.plan under "
+                         "this per-stage HBM budget (GB) instead of the "
+                         "fixed chronos default")
+    args = ap.parse_args(argv)
+    if not args.all and not (args.arch and args.shape):
+        ap.error("give --all, or --arch and --shape")
+    os.makedirs(RESULTS, exist_ok=True)
+    tag = f"onecard_P{args.P}" + (f"_hbm{args.plan_hbm_gb:g}"
+                                  if args.plan_hbm_gb > 0 else "")
+    cells = [(a, s) for a in ARCH_IDS for s in SHAPES] if args.all \
+        else [(args.arch, args.shape)]
+    failures = 0
+    for arch, shape_name in cells:
+        path = cell_path(arch, shape_name, tag)
+        if os.path.exists(path) and not args.force:
+            print(f"[cached] {arch} x {shape_name}")
+            continue
+        print(f"=== {arch} x {shape_name} ({tag}) ===", flush=True)
+        try:
+            res = run_cell(arch, shape_name, P=args.P,
+                           plan_hbm_gb=args.plan_hbm_gb)
+        except Exception:
+            failures += 1
+            res = {"arch": arch, "shape": shape_name, "P": args.P,
+                   "status": "error",
+                   "error": traceback.format_exc()[-3000:]}
+            print(res["error"])
+        res["tag"] = tag
+        with open(path, "w") as f:
+            json.dump(res, f, indent=1)
+        r = res.get("roofline")
+        print(f"-> {res['status']}" + (
+            f" ({res['seconds']} s): {r['flops_per_device']:.4g} FLOP, "
+            f"{r['hbm_bytes_per_device']:.4g} B, dominant {r['dominant']}, "
+            f"useful {r['useful_ratio']:.3f}" if r else ""), flush=True)
+    print(f"done; failures={failures}")
+    raise SystemExit(1 if failures else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -88,7 +88,7 @@ def plan_schedule_kwargs(plan: ParallelPlan) -> Dict:
 
 def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
                              plan: ParallelPlan, ocfg: OptimizerConfig, *,
-                             P: int, device):
+                             P: int, device, wrap_executor=None):
     """ChronosPipe train step over ``P`` virtual stages on ``device``.
     Returns ``(step, m, mbB, spec)``: ``step(params, opt_state, batch)
     ->`` :class:`~repro_torch.core.pipeline_runtime.TrainStepOut`
@@ -132,7 +132,11 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
     raises ValueError, as the reference.  The reference also refuses it
     with ``kernels="fused"``, because its fused AdamW then runs inside
     the executor; the port's update always runs after the executor, so
-    it is allowed there (a deliberate divergence)."""
+    it is allowed there (a deliberate divergence).
+
+    ``wrap_executor`` reaches
+    :func:`~repro_torch.core.pipeline_runtime.make_train_grads_fn` (the
+    dry run's counting executor)."""
     from repro_torch.core.pipeline_runtime import (make_pipeline_spec,
                                                    make_train_update_fn)
     mbB = plan.microbatch_size
@@ -160,7 +164,7 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
         def split(tree):
             return offload_kept(tree, plan)
     step = make_train_update_fn(spec, device, ocfg, m, use_kernel=fuse_opt,
-                                split=split)
+                                split=split, wrap_executor=wrap_executor)
     if split is None or not bits:
         return step, m, mbB, spec
     update = step

@@ -18,7 +18,15 @@ NEG_INF = -2.0 ** 30
 
 def dense_init(gen, shape, fan_in: int, dtype, device):
     """``dense_init``: N(0, 1) / sqrt(fan_in), drawn in fp32 on the
-    generator's device, then cast and moved to ``device``."""
+    generator's device, then cast and moved to ``device``.  ``gen`` None
+    builds the shape only, on the meta device (the dry run's), where no
+    generator exists."""
+    if gen is None:
+        if torch.device(device).type != "meta":
+            raise ValueError(f"dense_init: no generator for a tensor on "
+                             f"{device}; only the meta device builds "
+                             "shapes without one")
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, device=gen.device)
     # scaled in place: one fp32 draw alive at a time (a full-width MoE
     # expert stack is 4.2 G elements)

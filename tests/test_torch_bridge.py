@@ -186,8 +186,8 @@ def test_kernel_wrappers_on_cuda_tensors_launch_or_raise(monkeypatch):
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     meta = torch.zeros((4, 128), device="meta")
-    with pytest.raises(ValueError):
-        rmsnorm_rows(meta, torch.ones(128, device="meta"))
+    with pytest.raises(ValueError):      # meta x beside a CPU scale
+        rmsnorm_rows(meta, torch.ones(128))
     x = torch.zeros((4, 128), dtype=torch.float16).as_subclass(_CudaLooking)
     s = torch.ones(128, dtype=torch.float16).as_subclass(_CudaLooking)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
