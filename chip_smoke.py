@@ -50,7 +50,7 @@ Phases, in order; any failure exits non-zero:
    kernels), after freeing tinyllama's tensors, then a profiled step;
 9. phase 7's checks on mamba2-2.7b (4 layers, two SSD chunks);
 10. train-single: full-width tinyllama-1.1b through ``repro_torch.launch.
-    train.train`` (8 sequences of 2049 tokens in 2 microbatches, 4 steps)
+    train.train`` (8 sequences of 2049 tokens in 2 microbatches, 3 steps)
     with the recompute modes none, chronos and full, a profiled chronos
     step, then mamba2-2.7b cut to 16 layers in chronos (8 microbatches of
     one sequence);
@@ -79,11 +79,11 @@ Phases, in order; any failure exits non-zero:
     ``chronos_seq``, n_seq=2 (two 1024-position chunks per sequence,
     KV-carry and dKV rings) and ``RecomputeConfig("chronos",
     num_recomp_chunks=1)``;
-14. train-seq-1f1b: phase 6's run, cut to 8 layers, with ``seq1f1b``,
+14. train-seq-1f1b: phase 6's run, cut to 4 layers, with ``seq1f1b``,
     v=1, n_seq=4;
-    phases 12-14 check what phase 6 checks (launch counts from the
-    table: a sequence-chunked op runs each layer's flash at its chunk's
-    offset) and print step time, tokens/s, peak memory and the table's
+    phases 12-14 (2 steps each) check what phase 6 checks (launch counts
+    from the table: a sequence-chunked op runs each layer's flash at its
+    chunk's offset) and print step time, tokens/s, peak memory and the table's
     ring depths beside phase 6's, and each profiles one step;
 15. fp32, full width, 4 layers: v_min, v_half and v_zb against
     ``LM.loss`` autograd, v_min against the interleaved chronos on the
@@ -181,7 +181,8 @@ Phases, in order; any failure exits non-zero:
     an int8 grid with error feedback): the rings' bytes, 25a's and
     25b's each equal to the reckoning from the task table, every leaf's
     ``ef_abs_max`` within half its grid step, moved masters, phase 6's
-    launches, loss_4 within 0.03 of phase 6's; 25c phase 11's offload
+    launches, loss_4 within 0.03 of phase 6's (25b 4 steps, 25a and 25c
+    2 each); 25c phase 11's offload
     run with ``int8_ef`` (the deep
     gradients shipped as int8 codes and scales, dequantized on the host):
     phase 11's launches, its peak plus the EF's 0.524 GB plus 0.1 GiB at
@@ -206,7 +207,20 @@ Phases, in order; any failure exits non-zero:
     against the phase's median step, beside the card's name and power
     limit; and phase 4's decode tick counted there, its bytes at least
     the weights ``decode_bound_ms`` reads;
-27. a JSON ``kernels`` line, then the JSON result line.
+27. train-ranks: phase 6's configuration trained as four processes on
+    the card, one pipeline stage each (``repro_torch.launch.mesh.spawn``,
+    gloo through page-locked host memory: NCCL refuses two ranks on one
+    device, and that refusal is checked first), 3 steps with the
+    overlapped exchange and 2 with the synchronous one, each rank's
+    launches summed into ``train_ranks``; finite losses equal on every
+    rank, shared replicas equal after every step, the summed launches
+    the table's; each rank's step time, peak beside ``MemoryModel``'s
+    stage prediction, bytes moved beside the dry run's and its share of
+    waits on the exchange, and the two step times beside
+    ``comm_calibration`` scaled by the synchronous step (printed, not
+    gated); then the fp32 check at 4 layers: every rank's gradients
+    bitwise the one-device executor's;
+28. a JSON ``kernels`` line, then the JSON result line.
 
 Every bound phase 3 prints is ``repro_torch.roofline.kernel_cost``'s
 work of the kernel's function over the H100's peaks (``kernel_bound``).
@@ -235,10 +249,12 @@ each case's route printed and checked (bf16: the tensor-core passes,
 fp32: the CUDA-core kernel).
 
 Each phase prints a ``[time]`` line.  On an NVIDIA H100 80GB HBM3 at
-700.00 W the whole run took 857.9 s of its 1200 s limit; the roofline's
-share was 26.1 s: the counted steps 25.9 s in phases 6-15a and phase 26
-0.2 s (the dry run's 26.0 s of CPU passed in its child process during
-phase 6).  Host speed moves the host-paced phases by up to ~45%.
+700.00 W the whole run took 811.8 s of its 1200 s limit on a fast host,
+and 1062.4 s on a slow one where the tree before phase 27 took 1117.6
+s: phase 27 took 67.8-98.8 s, 23-39 s of it the four fresh processes'
+first step, and fewer steps in phases 10-11 (3), 12-14 (2), 25a and 25c
+(2) and phase 14 at 4 layers pay for it.  Host speed moves the
+host-paced phases by up to ~45%.
 
 Needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -985,6 +1001,17 @@ DEEPSEEK_TRAIN_LAYERS = 16
 # tinyllama-1.1b's 22 layers: their host-paced steps and long traces
 # (seq1f1b: 84.2 s at 22 layers) made room for phases 21-22
 SEQ_TRAIN_LAYERS = 8
+# steps of phases 12-14 (4 before phase 27 needed the time; the first
+# warms up, the second is timed), and phase 14's depth (8 before): at
+# v=1 a block holds L_pad / 4 layers, so 4 layers halve its host-paced
+# step, where the v=2 schedules of phases 12-13 would only pad 4 layers
+# back to 8
+SCHEDULE_STEPS = 2
+SEQ1F1B_LAYERS = 4
+# steps of phases 10 and 11 (4 before phase 27; a cut past the phases
+# 12-14 and 25 that phase 27's time was to come from)
+SINGLE_STEPS = 3
+OFFLOAD_STEPS = 3
 # (tag, TrainConfig, P, peak bytes) of every pipeline training run, for
 # phase 16's predicted-against-measured lines
 TRAIN_RUNS = []
@@ -1877,9 +1904,9 @@ def _kernel_fns():
 
 
 def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
-                inspect=None, seq=TRAIN_SEQ, count=False, **plan):
-    """Full-width ``arch`` (cut to ``layers`` layers if given) trained 4
-    steps on ``P`` virtual stages through ``train_pipeline``, with phase
+                inspect=None, seq=TRAIN_SEQ, count=False, steps=4, **plan):
+    """Full-width ``arch`` (cut to ``layers`` layers if given) trained
+    ``steps`` steps on ``P`` virtual stages through ``train_pipeline``, with phase
     6's plan (chronos_zb) or ``plan``'s overrides of it (phases 12-14:
     v_min, chronos_seq, seq1f1b); launch counts from the table; then one
     more step under the profiler.  ``bwd_ms``: layer kind -> the per-call
@@ -1894,7 +1921,6 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
     from repro_torch.launch.train import train_pipeline
     from repro_torch.tree import tree_leaves
     tc = _train_config(arch, layers=layers, seq=seq, **plan)
-    steps = 4
     spec = _spec_of(tc, P)
     tab = spec.table
     gc.collect()
@@ -1929,7 +1955,7 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
     print(f"[{tag}] steps={out['steps']} losses={out['losses']} "
           f"grad_norms={out['grad_norms']} lrs={out['lrs']} "
           f"step_s={out['step_s']}")
-    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-4: "
+    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-{steps}: "
           f"{[round(s * 1e3, 1) for s in out['step_s'][1:]]}), "
           f"{tokens} tokens/step -> {tokens / med:.1f} tokens/s; "
           f"max_memory_allocated={peak / 2 ** 30:.3f} GiB")
@@ -2515,7 +2541,7 @@ def phase_train_single(torch):
     for name, rc in modes.items():
         runs[name], n = train_single_run(
             torch, "tinyllama-1.1b", rc, 4, f"train-single-{name}",
-            profile=name == "chronos", count=True)
+            steps=SINGLE_STEPS, profile=name == "chronos", count=True)
         total = {k: total.get(k, 0) + v for k, v in n.items()}
     l1 = {k: r["losses"][0] for k, r in runs.items()}
     g1 = {k: r["grad_norms"][0] for k, r in runs.items()}
@@ -2540,7 +2566,7 @@ def phase_train_single(torch):
     done("train-single tinyllama-1.1b")
     _, mamba = train_single_run(
         torch, "mamba2-2.7b", modes["chronos"], 1, "train-single-mamba2",
-        layers=MAMBA2_TRAIN_LAYERS)
+        steps=SINGLE_STEPS, layers=MAMBA2_TRAIN_LAYERS)
     done("train-single mamba2-2.7b")
     return {"train_single_tinyllama": total, "train_single_mamba2": mamba}
 
@@ -2736,6 +2762,8 @@ def train_offload_run(torch, arch: str, tag: str, base, steps: int):
              f"the deep state's {deep_state / 2 ** 30:.3f} GiB")
     TRAIN_RUNS.append((tag, tc, P, peak))
     base["offload_run"] = {"peak": peak, "launches": launches,
+                           "per_step": {k: n // steps
+                                        for k, n in want.items()},
                            "median_s": med, "losses": out["losses"],
                            "bytes_down": rep["bytes_down"],
                            "copy_down_gbps": rep["copy_down_gbps"],
@@ -2753,10 +2781,10 @@ def phase_train_offload(torch, base):
     base["tinyllama-1.1b"]["phase"] = 6
     base["mamba2-2.7b"]["phase"] = 8
     tiny = train_offload_run(torch, "tinyllama-1.1b", "train-offload",
-                             base["tinyllama-1.1b"], 4)
+                             base["tinyllama-1.1b"], OFFLOAD_STEPS)
     done("train-offload tinyllama-1.1b")
     mamba = train_offload_run(torch, "mamba2-2.7b", "train-offload-mamba2",
-                              base["mamba2-2.7b"], 4)
+                              base["mamba2-2.7b"], OFFLOAD_STEPS)
     done("train-offload mamba2-2.7b")
     return {"train_offload_tinyllama": tiny, "train_offload_mamba2": mamba}
 
@@ -2860,8 +2888,8 @@ def phase_train_schedules(torch, bwd_ms, base):
     """Phases 12-14: full-width tinyllama-1.1b cut to
     ``SEQ_TRAIN_LAYERS`` layers through ``train_pipeline`` as phase 6
     (seed, data, optimizer, fused kernels, P=4, m=8, one 2049-token
-    sequence per microbatch, 4 steps, launch counts from the table, a
-    profiled step) with v_min (v=2, the fold-back placement, split
+    sequence per microbatch, ``SCHEDULE_STEPS`` steps, launch counts from
+    the table, a profiled step) with v_min (v=2, the fold-back placement, split
     backward and fused AdamW), chronos_seq (v=2, n_seq=2,
     ``RecomputeConfig("chronos", num_recomp_chunks=1)``) and seq1f1b
     (v=1, n_seq=4), each printed beside phase 6.  Returns the launch
@@ -2877,8 +2905,9 @@ def phase_train_schedules(torch, bwd_ms, base):
                 recompute=RecomputeConfig("chronos", num_recomp_chunks=1),
                 layers=SEQ_TRAIN_LAYERS)),
             ("train-seq-1f1b", dict(schedule="seq1f1b", num_chunks=1,
-                                    seq_chunks=4, layers=SEQ_TRAIN_LAYERS))):
-        out = phase_train(torch, "tinyllama-1.1b", tag, bwd_ms, **plan)
+                                    seq_chunks=4, layers=SEQ1F1B_LAYERS))):
+        out = phase_train(torch, "tinyllama-1.1b", tag, bwd_ms,
+                          steps=SCHEDULE_STEPS, **plan)
         print(f"[{tag}] beside phase 6 ({ref['schedule']}; layers "
               f"{out['layers']} vs {ref['layers']}): median step "
               f"{out['median_s'] * 1e3:.1f} ms vs "
@@ -4177,6 +4206,13 @@ def phase_serve_batched(torch):
 # same bits each time (tinyllama's steps repeat bitwise); the bound is a
 # few times that
 WIRE_INT8_LOSS_TOL = 0.03
+# steps of the 25a and 25c runs (4 before phase 27 needed the time): 25a
+# is held bitwise against phase 6's first WIRE_STEPS steps, 25c's
+# shipment against phase 11's.  25b keeps phase 6's 4 steps: after one
+# update its loss gate read 0.0154 (2 steps, NVIDIA H100 80GB HBM3,
+# 700.00 W), too close to the bound set at step 4 to tell a faulty wire
+WIRE_STEPS = 2
+WIRE_INT8_STEPS = 4
 EF_BYTES_TINYLLAMA = 0.524e9     # fp32 EF: embed 65.5 M + head 65.5 M + norm
 # 25d: the card against the CPU, same wire on both.  Block leaves: per
 # leaf max |d| / max |cpu|, a few times each wire's reading (PR 24's chip
@@ -4213,7 +4249,7 @@ def _ring_reckoning(spec, wire):
     return n, n * per
 
 
-def _wire_run(torch, tag: str, steps: int = 4, **plan):
+def _wire_run(torch, tag: str, steps: int = WIRE_STEPS, **plan):
     """Phase 6's run (tinyllama-1.1b at full width, chronos_zb, P=4, v=2,
     8 microbatches of one 2049-token sequence, seed 0, fused kernels)
     with ``plan``'s overrides, through ``train_pipeline``: the result,
@@ -4263,12 +4299,14 @@ def _wire_run(torch, tag: str, steps: int = 4, **plan):
 
 
 def phase_train_wire(torch, base):
-    """25a-c at full width (tinyllama-1.1b, phase 6's configuration):
+    """25a-c at full width (tinyllama-1.1b, phase 6's configuration),
+    ``WIRE_STEPS`` steps each (25b ``WIRE_INT8_STEPS``):
     25a ``wire="bf16"`` (the exact wire at bf16 compute: losses and
     gradient norms bitwise phase 6's); 25b ``wire="int8"`` with
     ``grad_compression="int8_ef"`` (finite, every ``ef_abs_max`` within
-    half its grid step, masters moved, phase 6's launches, loss_4 within
-    ``WIRE_INT8_LOSS_TOL`` of phase 6's; the rings' bytes, 25a's and
+    half its grid step, masters moved, phase 6's launches, the last loss
+    within ``WIRE_INT8_LOSS_TOL`` of phase 6's at that step; the rings'
+    bytes, 25a's and
     25b's each equal to :func:`_ring_reckoning`); 25c phase 11's offload run with ``int8_ef`` (finite,
     phase 11's launches, a peak within phase 11's plus the EF's 0.524 GB
     plus 0.1 GiB; the shipped bytes beside phase 11's bf16 shipment, the
@@ -4278,20 +4316,24 @@ def phase_train_wire(torch, base):
     b11 = b6["offload_run"]
     finite = (lambda r: all(math.isfinite(x) for x in
                             r["out"]["losses"] + r["out"]["grad_norms"]))
+    n = WIRE_STEPS
+    b6_launches = {k: n * v for k, v in b6["per_step"].items()}
+    b11_launches = {k: n * v for k, v in b11["per_step"].items()}
 
     a = _wire_run(torch, "train-wire-bf16", wire="bf16")
-    same = (a["out"]["losses"] == b6["losses"]
-            and a["out"]["grad_norms"] == b6["grad_norms"])
-    print(f"[train-wire-bf16] 25a against phase 6: losses and gradient "
-          f"norms {'bitwise equal' if same else 'DIFFER'} (phase 6 "
-          f"{b6['losses']}, {b6['grad_norms']}); median step "
+    same = (a["out"]["losses"] == b6["losses"][:n]
+            and a["out"]["grad_norms"] == b6["grad_norms"][:n])
+    print(f"[train-wire-bf16] 25a against phase 6's first {n} steps: "
+          f"losses and gradient norms "
+          f"{'bitwise equal' if same else 'DIFFER'} (phase 6 "
+          f"{b6['losses'][:n]}, {b6['grad_norms'][:n]}); median step "
           f"{a['median_s'] * 1e3:.1f} ms (phase 6 {b6['median_s'] * 1e3:.1f}"
           f"), peak {a['peak'] / 2 ** 30:.3f} GiB (phase 6 "
           f"{b6['peak'] / 2 ** 30:.3f})")
     if not same:
         fail("25a: the bf16 wire at bf16 compute departs from phase 6")
-    if a["launches"] != b6["launches"]:
-        fail(f"25a: launches {a['launches']} != phase 6's {b6['launches']}")
+    if a["launches"] != b6_launches:
+        fail(f"25a: launches {a['launches']} != phase 6's {b6_launches}")
     bf16_rings = a["out"]["wire"]["ring_bytes"]
     n_slots, want = _ring_reckoning(a["spec"], "bf16")
     print(f"[train-wire-bf16] 25a: payload rings {bf16_rings} B against "
@@ -4302,12 +4344,14 @@ def phase_train_wire(torch, base):
     del a
     done("train-wire bf16 (25a)")
 
-    b = _wire_run(torch, "train-wire-int8", wire="int8",
+    n8 = WIRE_INT8_STEPS
+    b6_int8_launches = {k: n8 * v for k, v in b6["per_step"].items()}
+    b = _wire_run(torch, "train-wire-int8", steps=n8, wire="int8",
                   grad_compression="int8_ef")
     w = b["out"]["wire"]
-    moves = sum(abs(x - y) for x, y in zip(b6["losses"][1:],
-                                           b6["losses"][:-1]))
-    d4 = abs(b["out"]["losses"][-1] - b6["losses"][-1])
+    moves = sum(abs(x - y) for x, y in zip(b6["losses"][1:n8],
+                                           b6["losses"][:n8 - 1]))
+    d_n = abs(b["out"]["losses"][-1] - b6["losses"][n8 - 1])
     _, int8_want = _ring_reckoning(b["spec"], "int8")
     print(f"[train-wire-int8] 25b: payload rings {w['ring_bytes']} B "
           f"({w['ring_bytes'] / 2 ** 30:.4f} GiB, int8 codes plus fp32 "
@@ -4318,8 +4362,8 @@ def phase_train_wire(torch, base):
         s_ = w["psum_scale"][k]
         print(f"[train-wire-int8] ef_abs_max {k}: {e:.6e} against half its "
               f"grid step {s_ / 2:.6e}")
-    print(f"[train-wire-int8] loss_4 {b['out']['losses'][-1]} against phase "
-          f"6's {b6['losses'][-1]}: |d| {d4:.6f} (bound "
+    print(f"[train-wire-int8] loss_{n8} {b['out']['losses'][-1]} against "
+          f"phase 6's {b6['losses'][n8 - 1]}: |d| {d_n:.6f} (bound "
           f"{WIRE_INT8_LOSS_TOL}; phase 6's loss moved {moves:.4f} over its "
           f"steps); median step "
           f"{b['median_s'] * 1e3:.1f} ms against phase 6's "
@@ -4334,12 +4378,13 @@ def phase_train_wire(torch, base):
         fail(f"25b: error feedback past half a grid step in {bad}")
     if not b["moved"]:
         fail("25b: an fp32 master did not move")
-    if b["launches"] != b6["launches"]:
-        fail(f"25b: launches {b['launches']} != phase 6's {b6['launches']}")
+    if b["launches"] != b6_int8_launches:
+        fail(f"25b: launches {b['launches']} != phase 6's "
+             f"{b6_int8_launches}")
     if w["ring_bytes"] != int8_want:
         fail(f"25b: payload rings {w['ring_bytes']} B, reckoned {int8_want}")
-    if not d4 <= WIRE_INT8_LOSS_TOL:
-        fail(f"25b: loss_4 departs from phase 6's by {d4}")
+    if not d_n <= WIRE_INT8_LOSS_TOL:
+        fail(f"25b: loss_{n8} departs from phase 6's by {d_n}")
     launches["train_wire_int8"] = b["launches"]
     del b, w                  # w holds the run's EF (0.524 GB): free it
     done("train-wire int8 (25b)")
@@ -4365,13 +4410,13 @@ def phase_train_wire(torch, base):
           f"(phase 11 {b11['losses']})")
     if not finite(c):
         fail("25c: non-finite loss or gradient norm")
-    if c["launches"] != b11["launches"]:
+    if c["launches"] != b11_launches:
         fail(f"25c: launches {c['launches']} != phase 11's "
-             f"{b11['launches']}")
+             f"{b11_launches}")
     if not c["peak"] <= limit:
         fail(f"25c: peak {c['peak']} past phase 11's plus the EF ({limit})")
-    if rep["submits"] != 4:
-        fail(f"25c: {rep['submits']} submits in 4 steps")
+    if rep["submits"] != n:
+        fail(f"25c: {rep['submits']} submits in {n} steps")
     launches["train_offload_int8"] = c["launches"]
     del c
     gc.collect()
@@ -4685,6 +4730,313 @@ def phase_roofline(torch, smi: str, dry: DryRun) -> None:
           f"weights {d['weight_bytes']} B")
 
 
+# ---------------------------------------------------------------------------
+# 27. the pipeline stages as torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+RANKS_P = 4
+RANKS_STEPS = 3          # the first a warm-up
+RANKS_SYNC_STEPS = 2     # the synchronous exchange's run
+RANKS_TC = 0.25          # nominal P2P latency (grains) of comm_calibration
+RANKS_TIMEOUT = 300      # seconds for the phase's one spawn
+RANKS_CHECK = dict(layers=4, m=8, seq=257)   # the fp32 check (P=4, v=2)
+CHECK_REL = 2e-5         # phase 7's fp32 tolerance, where processes differ
+
+
+def _ranks_check_spec():
+    """The fp32 check's spec: full width cut to 4 layers, chronos_zb,
+    P=4, v=2, 8 microbatches of one 257-token sequence, fused kernels,
+    the overlapped table."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline_runtime import make_pipeline_spec
+    c = RANKS_CHECK
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              num_layers=c["layers"], param_dtype="float32",
+                              compute_dtype="float32")
+    return make_pipeline_spec(cfg, P=RANKS_P, v=2, m=c["m"], microbatch=1,
+                              seq_len=c["seq"], schedule="chronos_zb",
+                              kernels="fused", overlap=True)
+
+
+def _ranks_check_inputs(torch, spec, device):
+    """The check's weights (seed 0) and tokens (seed 1) on ``device``."""
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
+    params = init_pipeline_params(
+        torch.Generator(device=device).manual_seed(0), spec.cfg,
+        spec.layout, device)
+    c = RANKS_CHECK
+    tokens = torch.randint(0, spec.cfg.vocab_size, (c["m"], 1, c["seq"]),
+                           device=device, generator=torch.Generator(
+                               device=device).manual_seed(1))
+    return params, {"tokens": tokens}
+
+
+def _ranks_fp32_check(torch, mesh, ref_path):
+    """On one rank: the check's gradients over the mesh (this rank's
+    column) against the one-device executor's run in the parent
+    (``ref_path``, read by memory map: the rank's column only), leaf by
+    leaf: bitwise, or the max relative error.  Where they differ, the
+    one-device executor runs here too, to tell whether it gives the
+    parent's bits in this process (``here``)."""
+    from repro_torch.core.pipeline_runtime import (make_train_grads_fn,
+                                                   rank_params)
+    from repro_torch.tree import tree_leaves
+    spec = _ranks_check_spec()
+    dev, r = mesh.device, mesh.rank
+    params, batch = _ranks_check_inputs(torch, spec, dev)
+    g, met = make_train_grads_fn(spec, dev, mesh=mesh)(
+        rank_params(params, r), batch)
+
+    def leaves(tree, blocks):
+        return blocks + [a for k, v in tree.items() if k != "blocks"
+                         for a in tree_leaves(v)]
+
+    def column(tree):                  # a one-device tree at this rank
+        return leaves(tree, [a[r] for a in tree_leaves(tree["blocks"])])
+
+    def compare(want):
+        want = [w.to(dev) for w in want]
+        return ([bool(torch.equal(a, b)) for a, b in
+                 zip(got, want, strict=True)],
+                [_rel_err(a, b) for a, b in zip(got, want)])
+    got = leaves(g, tree_leaves(g["blocks"]))
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    same, rel = compare(column(ref["g"]))
+    out = {"loss": float(met["loss"]), "parent_loss": float(ref["loss"]),
+           "same": same, "rel": rel, "here": None}
+    if all(same) and out["loss"] == out["parent_loss"]:
+        return out
+    g1, m1 = make_train_grads_fn(spec, dev)(params, batch)
+    here = compare(column(g1))
+    out["here"] = {
+        "same": here[0], "rel": here[1],
+        "loss_same": bool(torch.equal(met["loss"], m1["loss"])),
+        "same_as_parent": all(torch.equal(a, b.to(dev)) for a, b in
+                              zip(column(g1), column(ref["g"])))}
+    return out
+
+
+def _train_ranks_body(mesh, tc, steps, sync_steps, ref_path):
+    """What each of phase 27's ranks runs: ``steps`` steps with the
+    overlapped exchange (the main path, launches counted), then
+    ``sync_steps`` with the synchronous one, then the fp32 check against
+    the parent's one-device gradients in ``ref_path``."""
+    import torch
+
+    from repro_torch.launch.train import train_rank
+
+    def log(line):
+        print(f"[train-ranks] {line}", flush=True)
+    over = train_rank(mesh, tc, RANKS_P, {"overlap": True, "steps": steps,
+                                          "log": log})
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync = train_rank(mesh, tc, RANKS_P, {"overlap": False,
+                                          "steps": sync_steps, "log": log})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"overlap": over, "sync": sync,
+            "check": _ranks_fp32_check(torch, mesh, ref_path)}
+
+
+def rank_predictions(tc=None) -> dict:
+    """What phase 27 predicts before it runs, reckoned on the host (no
+    card): each stage's peak by ``MemoryModel`` (its model state, the
+    embedding and head spread over the stages, plus the stage's peak
+    activations), the same with each rank's whole replica of the shared
+    leaves, the bytes the exchange should move a step
+    (``stage_crossing_sends``) and the shared-gradient all-reduce's
+    (``collective_stats``), and ``comm_calibration``'s makespans."""
+    from repro_torch.core.analysis import MemoryModel
+    from repro_torch.core.schedule import comm_calibration
+    from repro_torch.core.schedules import get_schedule
+    from repro_torch.launch.dryrun import collective_stats
+    tc = tc or _train_config("tinyllama-1.1b")
+    cfg, plan = tc.model, tc.plan
+    spec = _spec_of(tc, RANKS_P)
+    sched = get_schedule(plan.schedule, RANKS_P, spec.table.m,
+                         v=plan.num_chunks)
+    mm = MemoryModel.build(cfg)
+    L, tokens = cfg.num_layers, plan.microbatch_size * tc.shape.seq_len
+    state = mm.model_state(L, RANKS_P, 1)
+    replica = mm.params_embed * mm.state_bytes_per_param * (
+        1 - 1 / RANKS_P)
+    acts = [a * mm.m_a(tokens, L)
+            for a in sched.peak_activation(per_stage=True)]
+    coll = collective_stats(spec)
+    return {"stage_bytes": [state + a for a in acts],
+            "stage_bytes_replica": [state + replica + a for a in acts],
+            "exchange_bytes": coll.bytes_by_kind["collective-permute"],
+            "sends": coll.count_by_kind["collective-permute"],
+            "allreduce_bytes": coll.bytes_by_kind["all-reduce"],
+            "calibration": comm_calibration(sched, RANKS_TC)}
+
+
+def phase_train_ranks(torch, smi: str, base):
+    """27: phase 6's configuration trained as ``RANKS_P`` processes on the
+    card (gloo through page-locked host memory, the ``host`` transport):
+    NCCL's refusal of two ranks on one device first; then one spawn whose
+    ranks each run ``RANKS_STEPS`` steps with the overlapped exchange,
+    ``RANKS_SYNC_STEPS`` with the synchronous one, and the fp32 check.
+    Gates: finite losses equal on every rank, the shared replicas equal
+    after every step, every rank's launches summed equal to the table's
+    count (each op runs on one rank; fused AdamW once a leaf on every
+    rank), the 4-layer fp32 gradients bitwise the one-device executor's
+    run in this process (or, only where that executor gives other bits
+    in the ranks' processes and the ranks equal it there bitwise, within
+    phase 7's 2e-5 relative).  Prints each rank's step time, peak beside
+    ``MemoryModel``'s stage prediction, bytes moved and wait share, and
+    the two step times beside ``comm_calibration`` scaled by the
+    synchronous step.  Returns the summed launch counts."""
+    import tempfile
+
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   make_train_grads_fn)
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.tree import tree_leaves, tree_map
+    tc = _train_config("tinyllama-1.1b")      # phase 6's configuration
+    spec = _spec_of(tc, RANKS_P)
+    pred = rank_predictions(tc)
+    try:
+        spawn(RANKS_P, _train_ranks_body, backend="nccl", device="cuda")
+        fail("27: NCCL accepted four ranks on one card")
+    except RuntimeError as e:
+        if "host transport" not in str(e):
+            fail(f"27: NCCL refused with another message: {e}")
+        print(f"[train-ranks] NCCL, {RANKS_P} ranks on one card: refused "
+              f"({e})")
+    with tempfile.TemporaryDirectory(prefix="ranks_check_") as tmp:
+        # the fp32 check's one-device gradients, for the ranks to read
+        cspec = _ranks_check_spec()
+        params, batch = _ranks_check_inputs(torch, cspec, "cuda")
+        g1, m1 = make_train_grads_fn(cspec, "cuda")(params, batch)
+        ref_path = os.path.join(tmp, "one_device.pt")
+        torch.save(tree_map(lambda a: a.cpu(), {"g": g1, "loss": m1["loss"]}),
+                   ref_path)
+        del g1, m1, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = spawn(RANKS_P, _train_ranks_body,
+                     args=(tc, RANKS_STEPS, RANKS_SYNC_STEPS, ref_path),
+                     backend="gloo", device="cuda",
+                     timeout_s=RANKS_TIMEOUT)
+        wall = time.perf_counter() - t0
+    over = [o["overlap"] for o in outs]
+    sync = [o["sync"] for o in outs]
+    print(f"[train-ranks] {smi} | {RANKS_P} processes on one card, "
+          f"{tc.model.name} full width bf16 ({tc.model.num_layers} layers), "
+          f"{spec.table.name} v={tc.plan.num_chunks} m={spec.table.m} "
+          f"mbB={spec.mbB} seq {spec.S}, gloo through page-locked host "
+          f"memory; spawn, {RANKS_STEPS} overlapped + {RANKS_SYNC_STEPS} "
+          f"synchronous steps and the fp32 check in {wall:.1f} s")
+    losses = over[0]["losses"]
+    if not all(math.isfinite(x) for x in losses + over[0]["grad_norms"]):
+        fail(f"27: non-finite loss or gradient norm {losses}")
+    if any(o["losses"] != losses for o in over) or \
+            any(o["losses"] != sync[0]["losses"] for o in sync):
+        fail("27: the ranks disagree on the loss")
+    if not all(all(o["replicas_equal"]) for o in over + sync):
+        fail(f"27: shared replicas differ across ranks "
+             f"{[o['replicas_equal'] for o in over + sync]}")
+    b6 = base["tinyllama-1.1b"]
+    print(f"[train-ranks] losses {losses} (phase 6, one process: "
+          f"{b6['losses'][:RANKS_STEPS]}; step 1 "
+          f"{'bitwise equal' if losses[0] == b6['losses'][0] else 'differs'}"
+          f"); gradient norms {over[0]['grad_norms']}; shared replicas "
+          f"equal on every rank after every step")
+    # the launches: every op of the table runs on one rank; each rank
+    # updates its own tree (the full tree's leaf count) with fused AdamW
+    n_leaves = len(tree_leaves(init_pipeline_params(
+        None, tc.model, spec.layout, "meta")))
+    per_step = expected_train_launches(spec, RANKS_P * n_leaves)
+    want = {k: RANKS_STEPS * n for k, n in per_step.items()}
+    summed = {k: sum(o["launches"][k] for o in over) for k in want}
+    print(f"[train-ranks] launches by rank "
+          f"{[o['launches'] for o in over]}, summed {summed} (the table: "
+          f"{want})")
+    if summed != want:
+        fail(f"27: launches {summed} != {want}")
+    if any(not o["launches"][k] for o in over
+           for k in ("rmsnorm_rows", "flash_attention_fwd",
+                     "fused_adamw_flat")):
+        fail("27: a rank launched no kernel of the path")
+    med = [statistics.median(o["step_s"][1:]) for o in over]
+    med_sync = [statistics.median(o["step_s"][1:]) for o in sync]
+    for r, o in enumerate(over):
+        ex = o["exchange"]
+        waits = ex["wait_s"][1:]
+        share = sum(waits) / sum(o["step_s"][1:])
+        share_sync = sum(sync[r]["exchange"]["wait_s"][1:]) \
+            / sum(sync[r]["step_s"][1:])
+        print(f"[train-ranks] {smi} | rank {r}: step {med[r] * 1e3:.1f} ms "
+              f"(steps {[round(x * 1e3, 1) for x in o['step_s']]}; "
+              f"synchronous {med_sync[r] * 1e3:.1f} ms, "
+              f"{[round(x * 1e3, 1) for x in sync[r]['step_s']]}); "
+              f"max_memory_allocated {o['peak_bytes'] / 2 ** 30:.3f} GiB "
+              f"(weights and optimizer state "
+              f"{o['static_bytes'] / 2 ** 30:.3f}) against MemoryModel's "
+              f"stage {r} "
+              f"{pred['stage_bytes'][r] / 2 ** 30:.3f} GiB "
+              f"({pred['stage_bytes_replica'][r] / 2 ** 30:.3f} with the "
+              f"whole shared replica); exchange {ex['bytes_sent'][-1]} B "
+              f"sent, {ex['bytes_recv'][-1]} B received, "
+              f"{ex['messages'][-1]} messages a step, all-reduce "
+              f"{ex['reduced_bytes'][-1]} B; waits on the exchange "
+              f"{[round(w * 1e3, 1) for w in waits]} ms, {100 * share:.1f}% "
+              f"of steps 2-{RANKS_STEPS} (synchronous: "
+              f"{100 * share_sync:.1f}%)")
+    sent = sum(o["exchange"]["bytes_sent"][-1] for o in over)
+    reduced = sum(o["exchange"]["reduced_bytes"][-1] for o in over)
+    print(f"[train-ranks] a step's exchange over the ranks: {sent} B in "
+          f"{sum(o['exchange']['messages'][-1] for o in over) // 2} sends "
+          f"(the dry run: {pred['exchange_bytes']:.0f} B in "
+          f"{pred['sends']} collective-permute sends); all-reduces "
+          f"{reduced} B (the dry run's shared-gradient all-reduce "
+          f"{pred['allreduce_bytes']:.0f} B, plus the loss, count and "
+          f"norm scalars)")
+    cal = pred["calibration"]
+    scale = max(med_sync) / cal["sync"]
+    print(f"[train-ranks] {smi} | step (slowest rank's median): "
+          f"overlapped {max(med) * 1e3:.1f} ms, synchronous "
+          f"{max(med_sync) * 1e3:.1f} ms, phase 6's one process "
+          f"{b6['median_s'] * 1e3:.1f} ms; comm_calibration at tc "
+          f"{RANKS_TC} grains {cal} scaled by the synchronous step "
+          f"({scale * 1e3:.2f} ms a grain): zero "
+          f"{cal['zero'] * scale * 1e3:.1f} ms, async {cal['async'] * scale * 1e3:.1f} ms, sync "
+          f"{cal['sync'] * scale * 1e3:.1f} ms (printed, not gated)")
+    # the fp32 check: each rank against the one-device executor run in
+    # this process (and, where they differ, in the rank's own)
+    for r, o in enumerate(outs):
+        c = o["check"]
+        print(f"[train-ranks] fp32 check, rank {r} ({RANKS_CHECK}): "
+              f"{sum(c['same'])} of {len(c['same'])} gradient leaves "
+              f"bitwise the one-device executor's (max rel "
+              f"{max(c['rel']):.3e}); loss {c['loss']} against "
+              f"{c['parent_loss']}")
+        if all(c["same"]) and c["loss"] == c["parent_loss"]:
+            continue
+        differ = [i for i, x in enumerate(c["same"]) if not x]
+        h = c["here"]
+        print(f"[train-ranks] rank {r}: the one-device executor in the "
+              f"rank's process: {sum(h['same'])} leaves bitwise the rank's "
+              f"(max rel {max(h['rel']):.3e}), its gradients "
+              f"{'equal' if h['same_as_parent'] else 'differ from'} this "
+              f"process's")
+        if not h["same_as_parent"] and all(h["same"]) and h["loss_same"] \
+                and max(c["rel"]) <= CHECK_REL:
+            print(f"[train-ranks] rank {r}: leaves {differ} differ from this "
+                  f"process's run as the one-device executor in the rank's "
+                  f"process does (another library algorithm there), within "
+                  f"{CHECK_REL} relative")
+            continue
+        fail(f"27: rank {r}'s fp32 gradients differ from the one-device "
+             f"executor's (leaves {differ})")
+    return summed
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -4926,7 +5278,15 @@ def main() -> None:
     phase_roofline(torch, smi, dry)
     done("roofline")
 
-    # 27. kernels line, then the result line.  ``launches`` sums the
+    # 27. phase 6's configuration as four processes on the card, one
+    #     pipeline stage each (gloo through page-locked host memory), the
+    #     overlapped and the synchronous exchange, and the fp32 check
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train_ranks"] = phase_train_ranks(torch, smi, base)
+    done("train-ranks")
+
+    # 28. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

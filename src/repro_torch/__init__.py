@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of ``repro``: its pipelined serving path, its
 ChronosPipe pipeline training step (with Chronos-Offload, the deepest
 chunks' AdamW on the host) and its single-device training driver with
-Chronos-Recomp, each on one device.
+Chronos-Recomp, each on one device; the pipeline step also runs one
+stage a ``torch.distributed`` rank (:mod:`repro_torch.launch.mesh`).
 
 The package stands beside the JAX package ``repro`` and imports nothing
 of it (nor JAX): every module it needs is its own copy.  Layout and

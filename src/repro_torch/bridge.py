@@ -12,6 +12,11 @@ as its raw 16-bit pattern.
 Every leaf keeps its own dtype, so the reference's fp32 leaves in a bf16
 tree (an MoE layer's router, a Mamba-2 layer's ``A_log``, ``D`` and
 ``dt_bias``) cross as fp32, as the port's ``LM.init`` builds them.
+
+A stage-stacked pipeline tree (``init_pipeline_params``: block leaves
+``[P, v, M, ...]``, the shared leaves as above) crosses the same way,
+whole, or one rank's column at a time (:func:`rank_params_from_numpy`,
+the tree a rank of the port's multi-rank executor holds).
 """
 from __future__ import annotations
 
@@ -34,6 +39,19 @@ def lm_params_from_numpy(tree, device):
     """numpy tree -> torch tree on ``device``, every leaf's bits and dtype
     kept exactly."""
     return tree_map(lambda a: _leaf_to_torch(a, device), tree)
+
+
+def rank_params_from_numpy(tree, rank: int, device):
+    """A stage-stacked numpy tree -> rank ``rank``'s torch tree on
+    ``device``: block leaves ``[v, M, ...]`` cut from ``[P, v, M, ...]``
+    before they cross (what
+    :func:`repro_torch.core.pipeline_runtime.rank_params` cuts from the
+    whole tree), the shared leaves whole; bits and dtypes kept."""
+    return {**lm_params_from_numpy(
+        {k: v for k, v in tree.items() if k != "blocks"}, device),
+        "blocks": lm_params_from_numpy(
+            [tree_map(lambda a: a[rank], t) for t in tree["blocks"]],
+            device)}
 
 
 def _leaf_to_numpy(t):

@@ -10,8 +10,25 @@ plus :func:`~repro_torch.models.backend.head_loss` at the last stage),
 then the tick's sends land in their consumers' queue slots.  All of a
 tick's ops run before any of its sends land, as the reference's tick
 body reads its queues before the route writes them.  The table is built
-with ``overlap=False`` (one card has no collective to overlap; the
-reference builds the same per-device op order in both modes).
+with ``overlap=False`` unless :func:`make_pipeline_spec` is asked for
+the double-buffered exchange (``overlap=True``): then a send to another
+device column lands one tick later, after the next tick's ops, and the
+device-local channels (``SEND_F_LOC``, ``SEND_B_LOC``) still land in
+their own tick, as in the reference's ``route_xdev`` / ``route_local``
+split.  The reference builds the same per-device op order in both
+modes, so both give the same gradients.
+
+**Ranks** (:class:`_RankExecutor`, ``make_train_grads_fn(mesh=)``): the
+same table run with one pipeline stage per ``torch.distributed`` rank,
+the reference's ``shard_map`` deployment.  A rank holds its device
+column only (its block leaves ``[v, M, ...]`` and its rings), runs its
+column's ops with the same ``_op``, and trades payloads with its
+neighbours through :class:`repro_torch.core.exchange.Exchange`, each
+payload packed into one ``uint16 [mbB, W]`` message
+(:func:`pack_payload`, the reference's ``_pack_payload``).  After the
+tick loop the shared gradients, the loss and the microbatch count are
+summed over the ranks (the exact fp32 sum, or with ``grad_psum_bits``
+:func:`~repro_torch.optim.compression.compressed_sum_over`).
 
 Memory follows the table, not the microbatch count.  Every buffer is
 preallocated per device column at the table's depths, in the compute
@@ -62,10 +79,11 @@ No autograd graph outlives its op.  Shared-parameter gradients sum over
 stages; the loss is the mean of the microbatches' ``CE + aux_weight *
 aux``.
 
-**The wire** (``spec.wire``, the reference's ``_leaf_exact`` /
-``_pack_payload`` / ``_unpack_payload`` without the byte packing, which
-exists to move one array per collective): the rings store each payload
-leaf as the wire delivers it.  On the fp32 wire every leaf is exact and
+**The wire** (``spec.wire``, the reference's ``_leaf_exact``): the
+rings store each payload leaf as the wire delivers it; the byte packing
+of ``_pack_payload`` / ``_unpack_payload``, one array per collective,
+is :func:`pack_payload` / :func:`unpack_payload`, used where payloads
+cross ranks.  On the fp32 wire every leaf is exact and
 the rings hold the compute dtype; on the bf16 wire an fp32 leaf is
 stored in bf16; on the int8 wire ``x`` and ``enc`` are quantized per
 batch row (int8 codes beside an fp32 ``[depth, mbB]`` scale twin).
@@ -81,7 +99,8 @@ stage that writes a shared leaf (:func:`psum_writers`) keeps its own
 fp32 partial, and the step ends with
 :func:`~repro_torch.optim.compression.compressed_sum` over them against
 the caller's error-feedback state (:func:`init_psum_ef`): the
-reference's ``compressed_psum`` over the pipe axis.
+reference's ``compressed_psum`` over the pipe axis (over ranks,
+:func:`~repro_torch.optim.compression.compressed_sum_over`).
 """
 from __future__ import annotations
 
@@ -103,7 +122,7 @@ from repro_torch.models import backend as compute_backend
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_dtype, _init_encoder,
                                             _init_layers, encode)
-from repro_torch.optim.adamw import adamw_update, cast_like
+from repro_torch.optim.adamw import adamw_update, cast_like, leaf_sq_sum
 from repro_torch.optim.compression import (compressed_sum, grid_scale,
                                           quantize_with)
 from repro_torch.tree import (tree_leaves, tree_map, tree_paths,
@@ -289,6 +308,7 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
                        kernels: str = "plain", n_seq: int = 1,
                        wire: str = "fp32",
                        grad_psum_bits: Optional[int] = None,
+                       overlap: bool = False,
                        **sched_kw) -> PipelineSpec:
     """Build the schedule, its layout (the schedule's placement decides
     which device holds which layer block) and its task table.  The
@@ -304,7 +324,9 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
     no aux sum and no encoder output, and its chunks would cut the
     prefix).  ``S`` is ``seq_len - 1`` plus a VLM's patches.  ``wire``
     must be one of :data:`WIRES` and ``grad_psum_bits`` None, 8 or 16
-    (ValueError otherwise)."""
+    (ValueError otherwise).  ``overlap`` builds the table of the
+    double-buffered exchange (a device-crossing edge two ticks long);
+    per device the ops run in the same order either way."""
     if wire not in WIRES:
         raise ValueError(f"unknown wire {wire!r}: expected one of {WIRES}")
     if grad_psum_bits not in (None, 8, 16):
@@ -322,7 +344,7 @@ def make_pipeline_spec(cfg: ModelConfig, *, P: int, v: int, m: int,
         raise ValueError(f"{schedule} constructs v={sched.v}, spec asked "
                          f"for v={v}")
     layout = StageLayout.build(cfg, P, v, sched.pl)
-    table = build_task_table(sched, overlap=False)
+    table = build_task_table(sched, overlap=overlap)
     if n_seq > 1:
         if cfg.ssm is not None or cfg.moe is not None \
                 or cfg.encdec is not None or cfg.vision is not None:
@@ -458,6 +480,97 @@ def stage_crossing_sends(spec: PipelineSpec):
     return sends, sends * _payload_bytes(spec)
 
 
+# ---------------------------------------------------------------------------
+# the packed payload: one uint16 [mbB, W] message a send
+# ---------------------------------------------------------------------------
+
+def _packed_layout(spec: PipelineSpec):
+    """``(key, shape, dtype, stored dtype, scaled, row bytes)`` of each
+    payload leaf in the packed row, in :func:`_payload_leaves` order: an
+    int8 leaf's row is its fp32 scale (4 bytes, the reference's two
+    leading words) then its codes; the batch-free ``aux`` fills a row of
+    its own bytes, broadcast over the batch rows."""
+    B, out = spec.mbB, []
+    for key, shape, dt in _payload_leaves(spec):
+        store, scaled = _wire_storage(key, dt, spec.wire)
+        elts = math.prod(shape) if key == "aux" else math.prod(shape) // B
+        if scaled and elts % 2:
+            raise ValueError(f"the int8 wire packs code pairs into words: "
+                             f"payload leaf {key!r} has an odd row length "
+                             f"{elts}")
+        out.append((key, shape, dt, store, scaled, elts * store.itemsize))
+    return out
+
+
+def payload_words(spec: PipelineSpec) -> int:
+    """Packed row width, uint16 words per batch row (the reference's
+    ``_payload_words``): an exact leaf ``itemsize / 2`` words an element,
+    a bf16 one one word, an int8 one half a word an element plus the two
+    words of its row's fp32 scale, the ``aux`` sum two words."""
+    return sum(n + 4 * scaled
+               for *_, scaled, n in _packed_layout(spec)) // 2
+
+
+def pack_payload(spec: PipelineSpec, payload, out=None) -> torch.Tensor:
+    """Payload ``(x, aux[, enc])`` -> the packed ``uint16 [mbB, W]``
+    words (the reference's ``_pack_payload``): each leaf encoded for
+    ``spec.wire`` by :func:`wire_encode`, as the one-device executor
+    stores it, and its bytes laid out in the row; a leaf of None (an
+    absent cotangent) packs as zeros.  ``out``: a ``uint8 [mbB, 2W]``
+    buffer to write into."""
+    B = spec.mbB
+    dev = next(a.device for a in payload if a is not None)
+    buf = torch.empty((B, 2 * payload_words(spec)), dtype=torch.uint8,
+                      device=dev) if out is None else out
+    off = 0
+    for (key, shape, dt, _, scaled, n), a in zip(_packed_layout(spec),
+                                                 payload):
+        if a is None:
+            a = torch.zeros(shape, dtype=dt, device=dev)
+        stored, scale = wire_encode(a, spec.wire, key)
+        if scaled:
+            buf[:, off:off + 4].copy_(_bytes_of(scale, B))
+            off += 4
+        buf[:, off:off + n].copy_(_bytes_of(stored, 1 if key == "aux"
+                                            else B))
+        off += n
+    return buf.view(torch.uint16)
+
+
+def _bytes_of(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """``a``'s bytes as ``uint8 [rows, -1]`` (a view when contiguous)."""
+    return a.contiguous().view(torch.uint8).view(rows, -1)
+
+
+def _unpack_stored(spec: PipelineSpec, words: torch.Tensor):
+    """Packed words -> each leaf's ``(stored, scale)`` in the wire's
+    storage form, as the one-device executor's rings hold it (``aux``
+    read back from row 0)."""
+    B = spec.mbB
+    buf = words.contiguous().view(torch.uint8)
+    out, off = [], 0
+    for key, shape, _, store, scaled, n in _packed_layout(spec):
+        scale = None
+        if scaled:
+            scale = buf[:, off:off + 4].contiguous().view(torch.float32) \
+                .view(B)
+            off += 4
+        seg = buf[:1] if key == "aux" else buf
+        out.append((seg[:, off:off + n].contiguous().view(store)
+                    .view(shape), scale))
+        off += n
+    return out
+
+
+def unpack_payload(spec: PipelineSpec, words: torch.Tensor):
+    """Inverse of :func:`pack_payload` (the reference's
+    ``_unpack_payload``): each leaf as its reader sees it, bitwise for an
+    exact leaf, widened from bf16 or dequantized from int8 codes by
+    :func:`wire_decode`."""
+    return [wire_decode(stored, scale, dt) for (stored, scale), (_, _, dt)
+            in zip(_unpack_stored(spec, words), _payload_leaves(spec))]
+
+
 class _PayloadLeaf:
     """One payload leaf's rings (``RING_NAMES``, each per device; the
     chunked ones per chunk too) in the wire's storage form: the compute
@@ -498,11 +611,30 @@ class _PayloadLeaf:
             if rings is not None:
                 self._slot(rings, *dst).copy_(self._slot(rings, *src))
 
+    def land_packed(self, name, d, slot, buf, off: int, n: int) -> int:
+        """Copy this leaf's stored bytes (and its scale's) from the packed
+        ``uint8 [mbB, 2W]`` message ``buf``, starting at byte ``off`` of
+        the row, into a receive slot; returns the next leaf's offset."""
+        B = buf.shape[0]
+
+        def dst(rings, rows):           # a view: ring slots are contiguous
+            return self._slot(rings, name, d, None, slot) \
+                .view(torch.uint8).view(rows, -1)
+        if self.scales is not None:
+            dst(self.scales, B).copy_(buf[:, off:off + 4])
+            off += 4
+        rows = 1 if self.key == "aux" else B
+        dst(self.rings, rows).copy_(buf[:rows, off:off + n])
+        return off + n
+
 
 class _Executor:
-    """One table's rings, allocated once, and the tick loop over them."""
+    """One table's rings, allocated once, and the tick loop over them.
+    ``columns``: the device columns whose rings are allocated (every
+    column by default; a rank's own one under :class:`_RankExecutor`,
+    None in the others' places)."""
 
-    def __init__(self, spec: PipelineSpec, device):
+    def __init__(self, spec: PipelineSpec, device, columns=None):
         self.spec = spec
         tab = spec.table
         self.A = tab.arrays()                           # [T, P, 16]
@@ -510,21 +642,23 @@ class _Executor:
         self.flags = spec.layout.flags(spec.cfg)        # host numpy
         self.Sc = spec.S // spec.n_seq                  # payload positions
 
+        cols = range(tab.P) if columns is None else columns
+
         def rings(shape, dt):
             def ring(depth):
                 return torch.zeros((depth,) + shape, dtype=dt, device=device)
-            P_ = tab.P
+
+            def per_device(make):
+                return [make() if d in cols else None for d in range(tab.P)]
             return {
-                "fq": [ring(tab.fq_depth) for _ in range(P_)],
-                "bq": [ring(tab.bq_depth) for _ in range(P_)],
-                "act": [{c: ring(k) for c, k in tab.act_depth.items()}
-                        for _ in range(P_)],
-                "rmt": [{c: ring(k) for c, k in tab.rmt_depth.items()}
-                        for _ in range(P_)],
-                "wx": [{c: ring(k) for c, k in tab.wstash_depth.items()}
-                       for _ in range(P_)],
-                "wdy": [{c: ring(k) for c, k in tab.wstash_depth.items()}
-                        for _ in range(P_)],
+                "fq": per_device(lambda: ring(tab.fq_depth)),
+                "bq": per_device(lambda: ring(tab.bq_depth)),
+                **{name: per_device(lambda depths=depths: {
+                    c: ring(k) for c, k in depths.items()})
+                   for name, depths in (("act", tab.act_depth),
+                                        ("rmt", tab.rmt_depth),
+                                        ("wx", tab.wstash_depth),
+                                        ("wdy", tab.wstash_depth))},
             }
         # the payload's leaves (forward rings) and their cotangents
         # (backward rings), slot for slot, each stored in the wire's form
@@ -541,8 +675,14 @@ class _Executor:
         s = self.spec.layout.pl.stage(d, c)
         return (c == 0 and s == 0), (c == tab.v - 1 and s == tab.P - 1)
 
+    @staticmethod
+    def _dc(a, d: int, c: int):
+        """Device ``d``'s chunk ``c`` of a stage-stacked block leaf."""
+        return a[d, c]
+
     def _block(self, params, d: int, c: int, grad: bool):
-        blocks = [tree_map(lambda a: a[d, c], t) for t in params["blocks"]]
+        blocks = [tree_map(lambda a: self._dc(a, d, c), t)
+                  for t in params["blocks"]]
         return _with_grad(blocks) if grad else blocks
 
     def _first_input(self, shared, tok_in, batch, mb):
@@ -739,7 +879,7 @@ class _Executor:
         blk = tree_leaves(blocks_c)
         shl = tree_leaves(sh) if with_shared else []
         gs = _grad(outs, seeds, blk + shl + list(extra))
-        accs = [a[d, c] for a in tree_leaves(acc["gb"])]
+        accs = [self._dc(a, d, c) for a in tree_leaves(acc["gb"])]
         if with_shared:
             accs += acc["gs_at"][d]
         for a, g in zip(accs, gs):
@@ -753,8 +893,7 @@ class _Executor:
     # -- the tick loop -----------------------------------------------------
     def run(self, params, batch, psum_ef=None):
         spec = self.spec
-        tab, bits = spec.table, spec.grad_psum_bits
-        if bits and psum_ef is None:
+        if spec.grad_psum_bits and psum_ef is None:
             raise ValueError("grad_psum_bits needs the error-feedback "
                              "state (init_psum_ef)")
         shared = {k: v for k, v in params.items() if k != "blocks"}
@@ -764,19 +903,33 @@ class _Executor:
             "loss": torch.zeros((), dtype=torch.float32, device=dev),
             "n": 0,
         }
-        if bits:
-            # one fp32 partial per stage that writes the leaf
-            writers = psum_writers(spec, shared)
+        parts = self._shared_accumulators(acc, shared)
+        self._ticks(params, shared, batch, acc)
+        return self._reduce(acc, shared, parts, psum_ef)
+
+    def _shared_accumulators(self, acc, shared):
+        """The fp32 accumulators of the shared gradients, and
+        ``acc["gs_at"][d]``, the leaves device ``d``'s ops add into: one
+        tree for every device, or under the compressed sum one partial
+        per writing stage (:func:`psum_writers`), stacked per leaf."""
+        P = self.spec.table.P
+        if self.spec.grad_psum_bits:
+            writers = psum_writers(self.spec, shared)
             parts = [torch.zeros((len(w),) + a.shape, dtype=torch.float32,
                                  device=a.device)
                      for a, w in zip(tree_leaves(shared), writers)]
             acc["gs_at"] = [[p[w.index(d)] if d in w else None
                              for p, w in zip(parts, writers)]
-                            for d in range(tab.P)]
-        else:
-            gs = tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
-                                                device=a.device), shared)
-            acc["gs_at"] = [tree_leaves(gs)] * tab.P
+                            for d in range(P)]
+            return parts
+        gs = [torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+              for a in tree_leaves(shared)]
+        acc["gs_at"] = [gs] * P
+        return gs
+
+    def _ticks(self, params, shared, batch, acc):
+        tab = self.spec.table
+        pending = []        # an overlapped table's device-crossing sends
         for t in range(tab.T):
             sends = []
             for d in range(tab.P):
@@ -785,19 +938,34 @@ class _Executor:
                     continue
                 out = self._op(d, row, params, shared, batch, acc)
                 if out is not None and row[5] != SEND_NONE:
-                    sends.append((d, int(row[5]), out))
+                    sends.append((t, d, int(row[5]), out))
             # the tick's ops have read their queues: land the sends (a
-            # payload (x, aux[, enc]); an aux of None is not carried)
-            for d, code, out in sends:
+            # payload (x, aux[, enc]); an aux of None is not carried).  On
+            # an overlapped table a send to another device column lands
+            # after the next tick's ops, before the local ones of that
+            # tick, as the reference's deferred route
+            now, later = [], []
+            for s in sends:
+                (later if tab.overlap and _ROUTE[s[2]][0] else now).append(s)
+            for ts, d, code, out in pending + now:
                 delta, q, col = _ROUTE[code]
                 dest = (d + delta) % tab.P
-                slot = int(self.A[t, dest, col])
-                assert slot >= 0, f"tick {t}: no receive slot at {dest}"
+                slot = int(self.A[ts, dest, col])
+                assert slot >= 0, f"tick {ts}: no receive slot at {dest}"
                 self._put(q + "q", dest, None, slot, out)
+            pending = later
+        assert not pending, "the table ends with a send in flight"
+
+    def _reduce(self, acc, shared, parts, psum_ef):
+        """``(grads, metrics[, psum_ef])``: the shared gradients summed
+        over the stages (exactly, or by ``compressed_sum`` of the
+        partials against ``psum_ef``), the loss the microbatches' mean."""
         n = acc["n"]
         metrics = {"loss": acc["loss"] / max(n, 1), "n_microbatches": n}
+        bits = self.spec.grad_psum_bits
         if not bits:
-            return {"blocks": acc["gb"], **gs}, metrics
+            return ({"blocks": acc["gb"], **tree_unflatten(shared, parts)},
+                    metrics)
         red, scales = [], []
         for p, e in zip(parts, tree_leaves(psum_ef)):
             r, _, sc = compressed_sum(list(p.unbind(0)), e, bits,
@@ -807,6 +975,118 @@ class _Executor:
         metrics["psum_scale"] = tree_unflatten(shared, scales)
         return ({"blocks": acc["gb"], **tree_unflatten(shared, red)},
                 metrics, psum_ef)
+
+
+class _RankExecutor(_Executor):
+    """One rank's column of the table: the reference's per-device body
+    under ``shard_map``.  ``params`` hold the rank's block leaves ``[v,
+    M, ...]`` (:func:`rank_params`) and every shared leaf; the rings hold
+    its device column; ``_op`` runs unchanged with ``d`` the rank.  Each
+    tick's device-crossing sends go through the rank's
+    :class:`~repro_torch.core.exchange.Exchange`, posted as soon as the
+    tick's op is launched and landed in the tick (``overlap=False``) or
+    just before tick ``t + 2``'s op, the first that reads them
+    (``overlap=True``: tick ``t + 1``'s op runs beside the transfer); the
+    local channels land in their own tick.  After
+    the tick loop the shared gradients (each rank's own fp32 partial:
+    the exact sum, or the compressed sum against the rank's
+    error-feedback rows), the loss and the microbatch count are summed
+    over the ranks."""
+
+    def __init__(self, spec: PipelineSpec, mesh):
+        if mesh.P != spec.table.P:
+            raise ValueError(f"a mesh of {mesh.P} ranks for a table of "
+                             f"P={spec.table.P} stages")
+        super().__init__(spec, mesh.device, columns=(mesh.rank,))
+        from repro_torch.core.exchange import Exchange
+        self.mesh = mesh
+        self.exchange = Exchange(spec, mesh)
+        self.layout_bytes = [n for *_, n in _packed_layout(spec)]
+
+    @staticmethod
+    def _dc(a, d: int, c: int):
+        return a[c]                     # the rank's own column
+
+    def _shared_accumulators(self, acc, shared):
+        r, P = self.mesh.rank, self.spec.table.P
+        leaves = tree_leaves(shared)
+        writers = psum_writers(self.spec, shared) \
+            if self.spec.grad_psum_bits else [(r,)] * len(leaves)
+        parts = [torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+                 if r in w else None for a, w in zip(leaves, writers)]
+        acc["gs_at"] = [parts if d == r else None for d in range(P)]
+        return parts
+
+    def _land(self, q, slot, words):
+        """A packed message into the rank's receive queue ``q``."""
+        off = 0
+        for leaf, n in zip(self.leaves, self.layout_bytes):
+            off = leaf.land_packed(q + "q", self.mesh.rank, slot, words, off,
+                                   n)
+
+    def _ticks(self, params, shared, batch, acc):
+        tab, r, ex = self.spec.table, self.mesh.rank, self.exchange
+        A = self.A
+        # the tick whose arrivals the next ops may read first
+        lag = 2 if tab.overlap else 0
+
+        def land(t):
+            for code, words in ex.complete(t):
+                _, q, col = _ROUTE[code]
+                slot = int(A[t, r, col])
+                assert slot >= 0, f"tick {t}: no receive slot at {r}"
+                self._land(q, slot, words)
+
+        for t in range(tab.T):
+            if lag and t >= lag:
+                land(t - lag)
+            row = A[t, r]
+            out = None if row[0] == IDLE else \
+                self._op(r, row, params, shared, batch, acc)
+            code = int(row[5])
+            xdev = code != SEND_NONE and _ROUTE[code][0] != 0
+            ex.stage(t, out if xdev else None)
+            ex.post(t)
+            if not lag:
+                land(t)
+            if out is not None and code != SEND_NONE and not xdev:
+                _, q, col = _ROUTE[code]
+                self._put(q + "q", r, None, int(A[t, r, col]), out)
+        for t in range(max(tab.T - lag, 0), tab.T):
+            land(t)
+
+    def _reduce(self, acc, shared, parts, psum_ef):
+        mesh, bits = self.mesh, self.spec.grad_psum_bits
+        tot = torch.stack([acc["loss"], torch.tensor(
+            float(acc["n"]), device=acc["loss"].device)])
+        mesh.all_reduce(tot, "sum")
+        n = int(tot[1].item())
+        metrics = {"loss": tot[0] / max(n, 1), "n_microbatches": n}
+        if not bits:
+            for p in parts:
+                mesh.all_reduce(p, "sum")
+            return ({"blocks": acc["gb"], **tree_unflatten(shared, parts)},
+                    metrics)
+        from repro_torch.optim.compression import compressed_sum_over
+        red, scales = [], []
+        for a, p, e in zip(tree_leaves(shared), parts,
+                           tree_leaves(psum_ef)):
+            s_, sc = compressed_sum_over(mesh, p, e[0] if len(e) else None,
+                                         bits, like=a)
+            red.append(s_)
+            scales.append(sc)
+        metrics["psum_scale"] = tree_unflatten(shared, scales)
+        return ({"blocks": acc["gb"], **tree_unflatten(shared, red)},
+                metrics, psum_ef)
+
+
+def rank_params(tree, rank: int):
+    """A stage-stacked tree (parameters, gradients or optimizer moments:
+    block leaves ``[P, v, M, ...]``) cut to one rank's column: block
+    leaves ``[v, M, ...]`` (own copies, so the whole tree can be freed),
+    shared leaves as they are."""
+    return {**tree, "blocks": [tree_map(lambda a: a[rank].clone(), t)
+                               for t in tree["blocks"]]}
 
 
 def psum_writers(spec: PipelineSpec, shared):
@@ -841,16 +1121,18 @@ def psum_writers(spec: PipelineSpec, shared):
     return [of(p) for p in tree_paths(shared)]
 
 
-def init_psum_ef(spec: PipelineSpec, params):
+def init_psum_ef(spec: PipelineSpec, params, rank: Optional[int] = None):
     """Zero error-feedback state for ``spec.grad_psum_bits``: one fp32
     residual per shared leaf and writing stage (:func:`psum_writers`),
     each leaf stacked ``[n_writers, ...]`` -- the rows of the reference's
     ``[P, ...]`` stack that can be nonzero.  Thread it through the grads
-    fn: ``grads, metrics, ef = fn(params, batch, ef)``."""
+    fn: ``grads, metrics, ef = fn(params, batch, ef)``.  With ``rank``
+    (a rank's executor) only that stage's rows: ``[1, ...]`` where it
+    writes the leaf, ``[0, ...]`` elsewhere."""
     shared = {k: v for k, v in params.items() if k != "blocks"}
     return tree_unflatten(shared, [
-        torch.zeros((len(w),) + a.shape, dtype=torch.float32,
-                    device=a.device)
+        torch.zeros(((len(w) if rank is None else int(rank in w)),)
+                    + a.shape, dtype=torch.float32, device=a.device)
         for a, w in zip(tree_leaves(shared), psum_writers(spec, shared))])
 
 
@@ -868,7 +1150,8 @@ def _grad(outputs, seeds, inputs):
     return torch.autograd.grad(outputs, inputs, seeds, allow_unused=True)
 
 
-def make_train_grads_fn(spec: PipelineSpec, device, *, wrap_executor=None):
+def make_train_grads_fn(spec: PipelineSpec, device, *, mesh=None,
+                        wrap_executor=None):
     """Returns ``fn(params, batch) -> (grads, metrics)`` running the full
     schedule.  ``batch``: ``tokens`` [m, mbB, seq_len] (+ optional
     ``loss_mask`` [m, mbB, seq_len - 1], and ``patch_embeds`` [m, mbB,
@@ -893,22 +1176,39 @@ def make_train_grads_fn(spec: PipelineSpec, device, *, wrap_executor=None):
     each leaf's shared scale.  Sequence-chunked specs refuse it
     (ValueError), as in the reference.
 
+    ``mesh`` (:class:`repro_torch.launch.mesh.PipeMesh`): run this
+    rank's column only (:class:`_RankExecutor`, on ``mesh.device``;
+    ``params`` from :func:`rank_params`, ``psum_ef`` from
+    ``init_psum_ef(rank=)``).  Block gradients are the rank's ``[v, M,
+    ...]``, shared gradients and metrics the sums over the ranks.  A
+    sequence-chunked spec raises NotImplementedError under a mesh (ROADMAP
+    queue A).
+
     ``wrap_executor``: a function of the executor class to the class to
     build (the dry run's, which counts each distinct op once)."""
-    if spec.n_seq > 1:
-        if spec.grad_psum_bits:
-            raise ValueError("compressed gradient psum is not implemented "
-                             "for sequence-chunked specs")
-        from repro_torch.seqpipe.runtime import SeqExecutor
-        cls = SeqExecutor
+    if mesh is not None and spec.n_seq > 1:
+        raise NotImplementedError(
+            "the sequence-chunked executor over ranks is not ported yet "
+            "(ROADMAP queue A, after item 3)")
+    if mesh is not None:
+        ex = _RankExecutor(spec, mesh)
     else:
-        cls = _Executor
-    ex = (cls if wrap_executor is None else wrap_executor(cls))(spec, device)
+        if spec.n_seq > 1:
+            if spec.grad_psum_bits:
+                raise ValueError("compressed gradient psum is not "
+                                 "implemented for sequence-chunked specs")
+            from repro_torch.seqpipe.runtime import SeqExecutor
+            cls = SeqExecutor
+        else:
+            cls = _Executor
+        ex = (cls if wrap_executor is None else wrap_executor(cls))(spec,
+                                                                    device)
 
     def fn(params, batch, psum_ef=None):
         return ex.run(params, batch, psum_ef)
 
     fn.rings = ex.rings
+    fn.exchange = getattr(ex, "exchange", None)     # a rank's, else None
     return fn
 
 
@@ -926,7 +1226,7 @@ class TrainStepOut(NamedTuple):
 
 
 def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
-                         use_kernel: bool = True, split=None,
+                         use_kernel: bool = True, split=None, mesh=None,
                          wrap_executor=None):
     """Gradients, then the AdamW step on them: returns ``fn(params,
     opt_state, batch[, psum_ef]) ->`` :class:`TrainStepOut`.  The update
@@ -944,9 +1244,28 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
 
     With ``spec.grad_psum_bits`` the step takes the error-feedback state
     ``psum_ef`` and returns the new one as ``ef``.  ``wrap_executor``: as
-    :func:`make_train_grads_fn`."""
-    grads_fn = make_train_grads_fn(spec, device, wrap_executor=wrap_executor)
+    :func:`make_train_grads_fn`.
+
+    ``mesh``: one rank's step (``params`` and ``opt_state`` of its
+    column, :func:`rank_params`).  The clip norm is the reference's
+    in-executor one, ``sqrt(psum(sq_b) + sq_s + 1e-30)``: the rank's
+    block square sum summed over the ranks, plus the shared leaves'
+    (equal on every rank after the sum).  Each rank updates its block
+    leaves and its replica of the shared leaves."""
+    if mesh is not None and split is not None:
+        raise NotImplementedError("Chronos-Offload over ranks is not ported "
+                                  "yet (ROADMAP queue A, after item 3)")
+    grads_fn = make_train_grads_fn(spec, device, mesh=mesh,
+                                   wrap_executor=wrap_executor)
     m_dev = torch.tensor(float(m), dtype=torch.float32, device=device)
+
+    def norm_over_ranks(grads):
+        sq_b = sum(leaf_sq_sum(g, m_dev)
+                   for g in tree_leaves(grads["blocks"]))
+        sq_s = sum(leaf_sq_sum(g, m_dev) for k, v in grads.items()
+                   if k != "blocks" for g in tree_leaves(v))
+        mesh.all_reduce(sq_b, "sum")
+        return torch.sqrt(sq_b + sq_s + 1e-30)
 
     def fn(params, opt_state, batch, psum_ef=None):
         res = grads_fn(params, batch, psum_ef)
@@ -954,12 +1273,13 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
         kept, held = params, None
         if split is not None:
             (grads, held), kept = split(grads), split(params)[0]
-        master, opt_state, om = adamw_update(grads, opt_state, ocfg,
-                                             use_kernel=use_kernel,
-                                             grad_div=m_dev)
+        master, opt_state, om = adamw_update(
+            grads, opt_state, ocfg, use_kernel=use_kernel, grad_div=m_dev,
+            grad_norm=None if mesh is None else norm_over_ranks(grads))
         cast_like(master, kept)
         return TrainStepOut(params, opt_state, {**metrics, **om}, held,
                             res[2] if spec.grad_psum_bits else None)
 
     fn.rings = grads_fn.rings
+    fn.exchange = getattr(grads_fn, "exchange", None)
     return fn

@@ -438,14 +438,22 @@ class Schedule:
         return gaps
 
 
-def retime_with_comm(sched: Schedule, tc: float) -> Schedule:
+def retime_with_comm(sched: Schedule, tc: float,
+                     sync: bool = False) -> Schedule:
     """Re-simulate start times with a P2P latency ``tc`` (grains) on every
     device-*crossing* dependency edge, preserving each device's task
     order.  Under the interleaved placement every cross-stage edge
     crosses devices (the pre-placement behavior); under a V-shape
-    placement the chunk hops are device-local and pay no latency.  P2P
-    is asynchronous: latency delays only the consumer (the reference's
-    ``sync=True`` paper accounting has no caller in the port).
+    placement the chunk hops are device-local and pay no latency.
+
+    ``sync=False`` (default) models fully-asynchronous P2P (an asynchronous
+    send/receive): latency delays only the consumer.  ``sync=True``
+    reproduces the paper's accounting, where each send/receive blocks the
+    stage for ``tc`` (mainstream-framework synchronous P2P): every task
+    with a device-crossing input or output is lengthened by ``tc`` per
+    edge.  Under sync the paper's result emerges: chronos with v chunks
+    pays ~v x the 1F1B P2P bubble; under async chronos hides P2P better
+    than 1F1B.
     """
     P, v, ns = sched.P, sched.v, sched.n_seq
     rcs = sched.r_chunks()
@@ -478,9 +486,9 @@ def retime_with_comm(sched: Schedule, tc: float) -> Schedule:
     in_rcs = np.isin(chunk, list(rcs)) if rcs else np.zeros(n_total, bool)
     sm1, cm1 = np.maximum(stage - 1, 0), np.maximum(chunk - 1, 0)
     sp1, cp1 = np.minimum(stage + 1, P - 1), np.minimum(chunk + 1, v - 1)
+    qm1, qp1 = np.maximum(seq - 1, 0), np.minimum(seq + 1, ns - 1)
     pl_P1 = np.full(n_total, P - 1)
     pl_0 = np.zeros(n_total, np.int64)
-    qm1, qp1 = np.maximum(seq - 1, 0), np.minimum(seq + 1, ns - 1)
     add_deps(is_f & (stage > 0), ind[0, mb, chunk, sm1, seq], sm1, chunk,
              False)
     add_deps(is_f & (stage == 0) & (chunk > 0),
@@ -504,6 +512,20 @@ def retime_with_comm(sched: Schedule, tc: float) -> Schedule:
              local=True)
     add_deps(is_b & (seq < ns - 1), ind[1, mb, chunk, stage, qp1], stage,
              chunk, True, local=True)
+
+    # sync mode: device-crossing inputs + outputs lengthen the task
+    n_cross = np.array([sum(1 for t_ in tcs if t_ > 0)
+                        for tcs in dep_tc], np.int64)
+    out_s = np.where(is_f, sp1, sm1)
+    out_s = np.where(is_f & (stage == P - 1), 0, out_s)
+    out_s = np.where(is_b & (stage == 0), P - 1, out_s)
+    out_c = np.where(is_f & (stage == P - 1), cp1,
+                     np.where(is_b & (stage == 0), cm1, chunk))
+    has_out = (is_f & ((stage < P - 1) | (chunk < v - 1))) | \
+        (is_b & ((stage > 0) | (chunk > 0)))
+    out_c_dev = dev[out_s, out_c]
+    n_cross = n_cross + (has_out & (out_c_dev != my_dev)).astype(np.int64)
+    extra_a = tc * n_cross if sync else np.zeros(n_total)
 
     # ---- event-driven replay preserving each device's task order ----
     order = {d: [i for i in np.lexsort((a["start"],))
@@ -533,7 +555,7 @@ def retime_with_comm(sched: Schedule, tc: float) -> Schedule:
                         es = max(es, t_)
                 start = max(free[d], es, g - recomp_a[i])
                 new_start[i] = start
-                done_t[i] = start + dur_a[i]
+                done_t[i] = start + dur_a[i] + extra_a[i]
                 done[i] = True
                 free[d] = done_t[i]
                 ptr[d] += 1
@@ -543,13 +565,33 @@ def retime_with_comm(sched: Schedule, tc: float) -> Schedule:
             raise RuntimeError(
                 f"deadlock retiming {sched.name}: placed "
                 f"{placed}/{n_total}")
-    new_tasks = [dataclasses.replace(t, start=float(new_start[i]))
+    new_tasks = [dataclasses.replace(t, start=float(new_start[i]),
+                                     dur=t.dur + float(extra_a[i]),
+                                     comm=t.comm + float(extra_a[i]))
                  for i, t in enumerate(sched.tasks)]
     out = dataclasses.replace(
         sched, tasks=sorted(new_tasks,
                             key=lambda t: (t.start, t.stage)))
     out.meta = dict(sched.meta, tc=tc)
     return out
+
+
+def comm_calibration(sched: Schedule, tc: float) -> Dict[str, float]:
+    """Predicted makespans (grains) of ``sched`` under the three wire
+    models the executor can realize: ``zero`` (free communication, the
+    compute floor), ``sync`` (each device-crossing edge blocks its
+    producer/consumer for ``tc`` — the in-tick synchronous exchange),
+    and ``async`` (latency delays only the consumer — the
+    double-buffered overlapped exchange, which hides ``tc`` behind the
+    next tick's compute).
+
+    Calibrate against a measurement by scaling with a measured sync
+    step: ``scale = measured_sync / cal['sync']`` turns the async
+    prediction into wall-clock (``chip_smoke.py``'s train-ranks phase
+    prints the scaled predictions beside the measured steps)."""
+    return {"zero": retime_with_comm(sched, 0.0).total_time(),
+            "sync": retime_with_comm(sched, tc, sync=True).total_time(),
+            "async": retime_with_comm(sched, tc, sync=False).total_time()}
 
 
 def _dep_keys(t: Task, P: int, v: int,

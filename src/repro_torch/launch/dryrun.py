@@ -341,12 +341,25 @@ def predicted_card_peak(cfg, shape: ShapeConfig, plan: ParallelPlan,
 
 
 def collective_stats(spec) -> CollectiveStats:
-    """The boundary payloads one step sends across virtual stages, as a
-    P-card deployment would move them (``collective-permute``)."""
-    from repro_torch.core.pipeline_runtime import stage_crossing_sends
+    """What one step hands to collectives when its stages are ``P``
+    ranks (:func:`repro_torch.core.pipeline_runtime.make_train_grads_fn`
+    with a mesh), summed over the ranks: the boundary payloads sent
+    across stages (``collective-permute``: sends and bytes, each payload
+    as the wire stores it), and the shared-gradient sum (``all-reduce``:
+    every rank's fp32 leaves, or under ``grad_psum_bits`` each leaf's
+    fp32 amax and its int32 codes; calls counted per rank)."""
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   stage_crossing_sends)
     sends, nbytes = stage_crossing_sends(spec)
-    return CollectiveStats({"collective-permute": float(nbytes)},
-                           {"collective-permute": sends})
+    P = spec.table.P
+    params = init_pipeline_params(None, spec.cfg, spec.layout, "meta")
+    shared = [a.numel() for k, v in params.items() if k != "blocks"
+              for a in tree_leaves(v)]
+    n_calls = len(shared) * (2 if spec.grad_psum_bits else 1)
+    ar = 4 * sum(shared) + (4 * len(shared) if spec.grad_psum_bits else 0)
+    return CollectiveStats(
+        {"collective-permute": float(nbytes), "all-reduce": float(P * ar)},
+        {"collective-permute": sends, "all-reduce": P * n_calls})
 
 
 # ---------------------------------------------------------------------------

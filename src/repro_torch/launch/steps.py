@@ -1,9 +1,10 @@
-"""Training steps of the port, on one device (no shardings): the
-single-device step of the reference's ``train()`` and
-``make_pipeline_train_step`` of ``repro/launch/steps.py``, with its
-Chronos-Offload path, its compressed boundary wire (``plan.wire``) and
-its compressed shared-gradient sum and deep-gradient shipment
-(``plan.grad_compression``)."""
+"""Training steps of the port (no shardings): the single-device step of
+the reference's ``train()`` and ``make_pipeline_train_step`` of
+``repro/launch/steps.py``, with its Chronos-Offload path, its compressed
+boundary wire (``plan.wire``) and its compressed shared-gradient sum and
+deep-gradient shipment (``plan.grad_compression``); the pipeline step
+runs its ``P`` stages on one device, or one stage a rank over a
+:class:`~repro_torch.launch.mesh.PipeMesh`."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -88,7 +89,8 @@ def plan_schedule_kwargs(plan: ParallelPlan) -> Dict:
 
 def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
                              plan: ParallelPlan, ocfg: OptimizerConfig, *,
-                             P: int, device, wrap_executor=None):
+                             P: int, device, mesh=None, overlap: bool = False,
+                             wrap_executor=None):
     """ChronosPipe train step over ``P`` virtual stages on ``device``.
     Returns ``(step, m, mbB, spec)``: ``step(params, opt_state, batch)
     ->`` :class:`~repro_torch.core.pipeline_runtime.TrainStepOut`
@@ -134,6 +136,18 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
     the executor; the port's update always runs after the executor, so
     it is allowed there (a deliberate divergence).
 
+    ``overlap``: the double-buffered exchange's table
+    (``make_pipeline_spec(overlap=)``); per device the same op order, so
+    the same gradients.
+
+    ``mesh`` (:class:`~repro_torch.launch.mesh.PipeMesh` of ``P`` ranks):
+    the step of one rank, on ``mesh.device``: ``params`` and
+    ``opt_state`` are the rank's column
+    (:func:`~repro_torch.core.pipeline_runtime.rank_params`), the clip
+    norm spans every rank's leaves, and each rank updates its replica of
+    the shared leaves.  Chronos-Offload and ``seq_chunks > 1`` raise
+    NotImplementedError under a mesh (ROADMAP queue A).
+
     ``wrap_executor`` reaches
     :func:`~repro_torch.core.pipeline_runtime.make_train_grads_fn` (the
     dry run's counting executor)."""
@@ -145,6 +159,14 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
         raise ValueError(f"{plan.schedule} is a fixed v=2 V-shape "
                          f"construction, got num_chunks={plan.num_chunks}")
     bits = psum_bits_of(plan)
+    if mesh is not None and plan.offload.enabled \
+            and plan.offload.num_offload_chunks > 0:
+        raise NotImplementedError("Chronos-Offload over ranks is not ported "
+                                  "yet (ROADMAP queue A, after item 3)")
+    if mesh is not None and plan.seq_chunks > 1:
+        raise NotImplementedError("the sequence-chunked executor over ranks "
+                                  "is not ported yet (ROADMAP queue A, after "
+                                  "item 3)")
     if bits and plan.seq_chunks > 1:
         raise ValueError("grad_compression composes with the whole-"
                          "sequence pipeline step only (not seq-chunked "
@@ -153,7 +175,7 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
         cfg, P=P, v=plan.num_chunks, m=m, microbatch=mbB,
         seq_len=shape.seq_len, schedule=plan.schedule, kernels=plan.kernels,
         n_seq=plan.seq_chunks, wire=plan.wire, grad_psum_bits=bits,
-        **plan_schedule_kwargs(plan))
+        overlap=overlap, **plan_schedule_kwargs(plan))
     fuse_opt = plan.kernels == "fused" and spec.table.has_w
     split = None
     if plan.offload.enabled and plan.offload.num_offload_chunks > 0:
@@ -164,7 +186,8 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
         def split(tree):
             return offload_kept(tree, plan)
     step = make_train_update_fn(spec, device, ocfg, m, use_kernel=fuse_opt,
-                                split=split, wrap_executor=wrap_executor)
+                                split=split, mesh=mesh,
+                                wrap_executor=wrap_executor)
     if split is None or not bits:
         return step, m, mbB, spec
     update = step

@@ -19,9 +19,19 @@ reference's checkpointer, health monitor, fault injector and watchdog
     out = train_pipeline(tc, P=4)                  # on the card
     out = train_pipeline(tc, P=2, device="cpu")    # plain versions
 
-``P`` virtual stages run in lockstep on the device (the reference maps
-them onto a mesh axis).  Both run on CUDA unless ``device="cpu"``; a CUDA
-request without a card raises.
+``P`` virtual stages run in lockstep on the device, or with ``mesh=``
+one stage a ``torch.distributed`` rank, the reference's deployment
+(started by :func:`repro_torch.launch.mesh.spawn`; :func:`train_rank` is
+the rank's body)::
+
+    from repro_torch.launch.mesh import spawn
+    outs = spawn(4, train_rank, args=(tc, 4),
+                 device="cuda")          # four ranks on one card (gloo)
+    outs = spawn(4, train_rank, args=(tc, 4), backend="nccl",
+                 device="cuda")          # one card a rank
+
+Both run on CUDA unless ``device="cpu"``; a CUDA request without a card
+raises.
 
 Checkpoints (``tc.checkpoint_dir``): both drivers restore the latest
 checkpoint of the directory at start (parameters, optimizer state, the
@@ -47,7 +57,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.pipeline_runtime import (init_pipeline_params,
                                                init_psum_ef,
-                                               payload_ring_bytes)
+                                               payload_ring_bytes,
+                                               rank_params)
 from repro_torch.data import DataPipeline, synthetic_source
 from repro_torch.ft.checkpoint import Checkpointer
 from repro_torch.ft.health import Action, HealthMonitor
@@ -59,6 +70,9 @@ from repro_torch.optim import adamw_init
 from repro_torch.optim.offload import (ChronosOffloadRunner,
                                        merge_deep_shallow)
 from repro_torch.tree import tree_leaves, tree_paths
+
+# elements of a leaf read at a time by leaf_digest
+_DIGEST_SLAB = 1 << 22
 
 
 def _checkpointer(tc: TrainConfig) -> Optional[Checkpointer]:
@@ -220,6 +234,7 @@ def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
 def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
                    steps: Optional[int] = None, data_source=None,
                    params=None, injector=None, watchdog=None,
+                   mesh=None, overlap: bool = False, after_step=None,
                    log: Callable[[str], None] = print) -> Dict:
     """Train up to ``steps`` (default ``tc.optimizer.total_steps``) steps.
     Parameters are drawn from a ``torch.Generator`` seeded with
@@ -296,12 +311,42 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     ``wire``: the wire, the payload rings' bytes as it stores them, and
     under ``grad_compression`` the final ``psum_ef``, and per shared
     leaf (``"embed/tokens"``, ...) its ``ef_abs_max`` and the last
-    step's shared scale ``psum_scale``."""
+    step's shared scale ``psum_scale``.
+
+    ``overlap``: the double-buffered exchange's table
+    (``make_pipeline_spec(overlap=)``), the same gradients.
+
+    ``after_step(step, params, opt_state)``, if given, is called after
+    every step (e.g. :func:`replicas_equal` under a mesh).
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.PipeMesh` of ``P``
+    ranks; ``device`` is then ``mesh.device``): this process is one
+    stage.  Every rank draws the whole stage-stacked tree from
+    ``tc.seed`` (or takes ``params``, such a tree) and keeps its column
+    (:func:`~repro_torch.core.pipeline_runtime.rank_params`), so its
+    weights are bitwise the one-device run's; it reads the same data,
+    runs its column of the table and updates its own leaves and its
+    replica of the shared ones.  Rank 0 logs.  Checkpoints, the fault
+    injector and the watchdog (lost-process detection) and
+    Chronos-Offload raise NotImplementedError under a mesh (ROADMAP
+    queue A).  Returns the keys above (``params`` and ``opt_state`` the
+    rank's) and ``rank``, ``overlap``, ``peak_bytes`` (on a card,
+    ``max_memory_allocated`` after a reset once the weights and the
+    optimizer state are made), ``static_bytes`` (allocated at that
+    reset) and ``exchange`` (the rank's ``bytes_sent``, ``bytes_recv``,
+    ``messages`` and ``wait_s`` per step, and ``reduced_bytes``, the
+    bytes it handed to all-reduces)."""
+    if mesh is not None:
+        return _train_pipeline_ranks(tc, P=P, mesh=mesh, overlap=overlap,
+                                     steps=steps, data_source=data_source,
+                                     params=params, injector=injector,
+                                     watchdog=watchdog,
+                                     after_step=after_step, log=log)
     cfg, shape, plan, ocfg = tc.model, tc.shape, tc.plan, tc.optimizer
     dev = resolve_device(device)
     steps = steps or ocfg.total_steps
-    step_fn, m, mbB, spec = make_pipeline_train_step(cfg, shape, plan,
-                                                     ocfg, P=P, device=dev)
+    step_fn, m, mbB, spec = make_pipeline_train_step(
+        cfg, shape, plan, ocfg, P=P, device=dev, overlap=overlap)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tc.seed)
         params = init_pipeline_params(gen, cfg, spec.layout, dev)
@@ -408,6 +453,8 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
             next_step = step + 1
             if first_step_s is None:
                 first_step_s = time.time() - t_start
+            if after_step is not None:
+                after_step(step, params, opt_state)
             action = monitor.record_step(
                 injector.step_time(step, dt) if injector is not None
                 else dt)
@@ -475,6 +522,161 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
                                         collect_wait_s=collect_wait_s)
         res["host_optimizer"] = runner.opt
     return res
+
+
+def _train_pipeline_ranks(tc: TrainConfig, *, P: int, mesh, overlap: bool,
+                          steps, data_source, params, injector, watchdog,
+                          after_step, log) -> Dict:
+    """:func:`train_pipeline` as one rank of ``mesh``."""
+    if tc.checkpoint_dir is not None:
+        raise NotImplementedError("checkpoints under a mesh are not ported "
+                                  "yet (ROADMAP queue A, after item 3)")
+    if injector is not None or watchdog is not None:
+        raise NotImplementedError("fault injection and lost-process "
+                                  "detection under a mesh are not ported "
+                                  "yet (ROADMAP queue A, after item 3)")
+    if mesh.P != P:
+        raise ValueError(f"P={P} stages on a mesh of {mesh.P} ranks")
+    cfg, shape, plan, ocfg = tc.model, tc.shape, tc.plan, tc.optimizer
+    dev, rank = mesh.device, mesh.rank
+    steps = steps or ocfg.total_steps
+    step_fn, m, mbB, spec = make_pipeline_train_step(
+        cfg, shape, plan, ocfg, P=P, device=dev, mesh=mesh, overlap=overlap)
+    if params is None:
+        # the whole draw, then the column: the one-device run's weights
+        gen = torch.Generator(device=dev).manual_seed(tc.seed)
+        params = init_pipeline_params(gen, cfg, spec.layout, dev)
+    params = rank_params(params, rank)
+    opt_state = adamw_init(params)
+    bits = psum_bits_of(plan)
+    psum_ef = init_psum_ef(spec, params, rank=rank) if bits else None
+    cuda = dev.type == "cuda"
+    static = None
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        static = torch.cuda.memory_allocated(dev)
+
+    def say(line):
+        if rank == 0:
+            log(line)
+    source = data_source or synthetic_source(cfg, shape.seq_len,
+                                             seed=tc.seed)
+    pipe = DataPipeline(source, global_batch=mbB * m, microbatches=m,
+                        prefetch=2)
+    ex = step_fn.exchange
+    losses, gnorms, lrs, step_s = [], [], [], []
+    traffic = {"bytes_sent": [], "bytes_recv": [], "messages": [],
+               "wait_s": [], "reduced_bytes": []}
+    t_start = time.time()
+    pipe.start()
+    try:
+        for step in range(steps):
+            t0 = time.time()
+            batch = {k: torch.from_numpy(a).to(dev)
+                     for k, a in pipe.next().items()}
+            if "loss_mask" in batch:
+                batch["loss_mask"] = batch["loss_mask"][..., 1:]
+            ex.reset_stats()
+            reduced0 = mesh.reduced_bytes
+            out = step_fn(params, opt_state, batch, psum_ef)
+            params, opt_state, metrics, psum_ef = (
+                out.params, out.opt_state, out.metrics, out.ef)
+            del out
+            loss = float(metrics["loss"])     # waits for the step
+            dt = time.time() - t0
+            for k, v in ex.stats().items():
+                traffic[k].append(v)
+            traffic["reduced_bytes"].append(mesh.reduced_bytes - reduced0)
+            losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            lrs.append(float(metrics["lr"]))
+            step_s.append(dt)
+            if after_step is not None:
+                after_step(step, params, opt_state)
+            if step % tc.log_every == 0:
+                say(f"[train-pp rank 0/{P}] step {step} loss {loss:.4f} "
+                    f"gnorm {gnorms[-1]:.3f} lr {lrs[-1]:.3e} ({dt:.2f}s, "
+                    f"exchange wait {traffic['wait_s'][-1]:.3f}s)")
+    finally:
+        pipe.stop()
+    return {"losses": losses, "final_loss": losses[-1] if losses else None,
+            "steps": len(losses), "start_step": 0, "next_step": len(losses),
+            "status": "complete", "wall_s": time.time() - t_start,
+            "schedule": spec.table.name, "grad_norms": gnorms, "lrs": lrs,
+            "step_s": step_s, "params": params, "opt_state": opt_state,
+            "rank": rank, "overlap": overlap,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+            else None, "static_bytes": static,
+            "exchange": traffic,
+            "wire": {"wire": plan.wire,
+                     "ring_bytes": payload_ring_bytes(spec) // P,
+                     "psum_ef": psum_ef}}
+
+
+def leaf_digest(a: torch.Tensor) -> torch.Tensor:
+    """int64 ``[2]`` of a 16- or 32-bit leaf: the sum of its bit patterns
+    read as integers, and their sum weighted by position (mod 1021), read
+    in slabs, exact.  Two tensors that differ in any bit almost surely
+    differ here, so equal digests stand for bitwise equality at a few
+    bytes' cost."""
+    flat = a.detach().reshape(-1).view(
+        torch.int16 if a.element_size() == 2 else torch.int32)
+    s0 = s1 = torch.zeros((), dtype=torch.int64, device=a.device)
+    for i in range(0, flat.numel(), _DIGEST_SLAB):
+        x = flat[i:i + _DIGEST_SLAB].long()
+        w = torch.arange(i, i + x.numel(), device=a.device) % 1021
+        s0 = s0 + x.sum()
+        s1 = s1 + (x * w).sum()
+    return torch.stack([s0, s1])
+
+
+def shared_digest(params, opt_state) -> torch.Tensor:
+    """The :func:`leaf_digest` of every shared leaf's weight and fp32
+    master, stacked."""
+    return torch.cat([leaf_digest(a)
+                      for tree in (params, opt_state["master"])
+                      for k, v in tree.items() if k != "blocks"
+                      for a in tree_leaves(v)])
+
+
+def replicas_equal(mesh, params, opt_state) -> bool:
+    """Does every rank of ``mesh`` hold the same shared leaves (weights
+    and fp32 masters)?  Their :func:`shared_digest` gathered over the
+    ranks: a collective every rank must join.  A check for the smoke and
+    the tests (``train_pipeline(after_step=)``), not part of a step."""
+    digests = mesh.all_gather(shared_digest(params, opt_state))
+    return all(torch.equal(d, digests[0]) for d in digests)
+
+
+def train_rank(mesh, tc: TrainConfig, P: int,
+               kw: Optional[Dict] = None) -> Dict:
+    """One rank's :func:`train_pipeline` (``kw`` its keywords:
+    ``overlap``, ``steps``, ...), the body :func:`repro_torch.launch.
+    mesh.spawn` runs in each process (``args=(tc, P, kw)``): the result
+    without the rank's trees and error feedback (they stay in the rank),
+    plus ``launches``, each CUDA kernel's launches in this rank's run
+    (counted from 0 at its start), and ``replicas_equal``, per step
+    whether every rank holds the same shared leaves after it
+    (:func:`replicas_equal`)."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_adamw import fused_adamw_flat
+    from repro_torch.kernels.rmsnorm import rmsnorm_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    kernels = {"rmsnorm_rows": rmsnorm_rows,
+               "flash_attention_fwd": flash_attention_fwd,
+               "fused_adamw_flat": fused_adamw_flat, "ssd_scan": ssd_scan}
+    for fn in kernels.values():
+        fn.launches = 0
+    equal = []
+    out = train_pipeline(tc, P=P, mesh=mesh, after_step=lambda _, p, o: (
+        equal.append(replicas_equal(mesh, p, o))), **(kw or {}))
+    out["launches"] = {k: fn.launches for k, fn in kernels.items()}
+    out["replicas_equal"] = equal
+    for k in ("params", "opt_state"):
+        del out[k]
+    del out["wire"]["psum_ef"]
+    return out
 
 
 def offload_report(tc: TrainConfig, spec, runner, *,

@@ -81,14 +81,25 @@ def global_norm(tree) -> torch.Tensor:
                           for a in tree_leaves(tree)) + 1e-30)
 
 
+def leaf_sq_sum(g, grad_div=None) -> torch.Tensor:
+    """``sum((g.float() / grad_div) ** 2)`` of one gradient leaf, with the
+    operations :func:`adamw_update` runs for its norm (so the same bits),
+    leaving ``g`` as it is."""
+    w = g.float() if grad_div is None else g.float() / grad_div
+    return (w.square() if w is g else w.square_()).sum()
+
+
 def adamw_update(grads, state, cfg: OptimizerConfig, *,
-                 use_kernel: bool = False, grad_div=None):
+                 use_kernel: bool = False, grad_div=None, grad_norm=None):
     """Returns ``(master, state, metrics)``; ``state`` is updated in place
     (see the module docstring).  ``grads`` may be any float dtype; the
     math is fp32.  With ``grad_div`` (a device scalar) the update reads
     ``g.float() / grad_div``, the reference's ``g.astype(f32) / m``: fp32
     leaves are divided in place first, other leaves as they are widened.
-    ``metrics`` holds ``grad_norm`` and ``lr`` as device tensors."""
+    ``grad_norm``: the clip norm when the caller reckons it (a rank's
+    step: the norm over every rank's leaves), else the norm of
+    ``grads``.  ``metrics`` holds ``grad_norm`` and ``lr`` as device
+    tensors."""
     if grad_div is not None:
         for g in tree_leaves(grads):
             if g.dtype == torch.float32:
@@ -107,7 +118,8 @@ def adamw_update(grads, state, cfg: OptimizerConfig, *,
 
     step = state["step"] + 1
     lr = lr_at(cfg, step)
-    gnorm = torch.sqrt(sum(sq_sum(g) for g in tree_leaves(grads)) + 1e-30)
+    gnorm = torch.sqrt(sum(sq_sum(g) for g in tree_leaves(grads)) + 1e-30) \
+        if grad_norm is None else grad_norm
     if cfg.grad_clip > 0:
         clip = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
                            / torch.clamp(gnorm, min=1e-9), max=1.0)

@@ -9,7 +9,11 @@ stages' partial gradients as a list and makes both reductions explicit:
 one scale shared by every stage (the max of ``|g + e|`` over all of
 them, over ``qmax``), each stage's codes rounded on that grid and
 summed exactly as int32, the sum times the scale.  The residual each
-stage's wire dropped is its new error-feedback state.
+stage's wire dropped is its new error-feedback state.  With the stages
+as ``torch.distributed`` ranks, :func:`compressed_sum_over` makes the
+same two reductions collectives (an all-reduce MAX of the amax, an
+all-reduce SUM of the int32 codes); both are exact, so its result is
+bitwise :func:`compressed_sum`'s.
 
 Every function computes in fp32 in the reference's operation order, so
 the results equal the JAX package's bitwise (``torch.round`` rounds half
@@ -68,6 +72,38 @@ def compressed_sum(partials: List[Any], ef, bits: int = 8, *,
     if with_scales:
         out += (tree_unflatten(ef, [r[1] for r in res]),)
     return out
+
+
+def compressed_sum_over(group, g, e, bits: int = 8, *, like):
+    """One shared leaf's :func:`compressed_sum` over ranks: the
+    reference's ``compressed_psum`` (``pmax`` of the amax, then ``psum``
+    of the int32 codes) with ``group.all_reduce(tensor, op)`` (a
+    :class:`repro_torch.launch.mesh.PipeMesh`) for the two collectives.
+
+    ``g``: this rank's fp32 partial, consumed (``g + e`` is formed in its
+    storage, which then holds the sum), and ``e`` its error-feedback
+    residual, updated in place; both None on a rank that writes no
+    gradient into the leaf (it adds zero codes and keeps no residual).
+    ``like``: the leaf (shape and device of the sum).  Every rank calls
+    this for every leaf in the same order.  Returns ``(sum fp32, shared
+    scale 0-d)``."""
+    if g is not None:
+        g = g.float().add_(e)
+        amax = g.abs().max()
+    else:
+        amax = torch.zeros((), dtype=torch.float32, device=like.device)
+    group.all_reduce(amax, "max")
+    scale = grid_scale(amax, bits)
+    if g is None:
+        summed = torch.zeros(like.shape, dtype=torch.int32,
+                             device=like.device)
+    else:
+        codes = quantize_with(g, scale, bits)
+        torch.sub(g, codes * scale, out=e)
+        summed = codes.to(torch.int32)
+    group.all_reduce(summed, "sum")
+    out = summed.float() if g is None else g.copy_(summed)
+    return out.mul_(scale), scale
 
 
 def quantize_int8(g) -> Tuple[torch.Tensor, torch.Tensor]:
