@@ -50,7 +50,7 @@ Phases, in order; any failure exits non-zero:
    kernels), after freeing tinyllama's tensors, then a profiled step;
 9. phase 7's checks on mamba2-2.7b (4 layers, two SSD chunks);
 10. train-single: full-width tinyllama-1.1b through ``repro_torch.launch.
-    train.train`` (8 sequences of 2049 tokens in 2 microbatches, 3 steps)
+    train.train`` (8 sequences of 2049 tokens in 2 microbatches, 2 steps)
     with the recompute modes none, chronos and full, a profiled chronos
     step, then mamba2-2.7b cut to 16 layers in chronos (8 microbatches of
     one sequence);
@@ -103,9 +103,9 @@ Phases, in order; any failure exits non-zero:
     chronos, within 2e-5 relative;
 16. train-planner: the memory-budget planner (``repro_torch.plan``) on
     the card, each stage's budget a quarter of the card's memory: (a) its
-    pick for tinyllama-1.1b trained 4 steps as phase 6; (b) deepseek-7b's
+    pick for tinyllama-1.1b trained 3 steps as phase 6; (b) deepseek-7b's
     width: ``max_trainable_layers`` of ``1f1b`` and of the best point,
-    then the pick for that depth trained at 16 layers, 2 steps (``ep.m``
+    then the pick for that depth trained at 8 layers, 2 steps (``ep.m``
     sequences of 2049 tokens), both gated as phase 6 (finite losses, moved masters,
     launch counts from the table); (c) for every pipeline training run
     of phases 6-16 (15a included) the planner's per-stage total, the
@@ -220,7 +220,21 @@ Phases, in order; any failure exits non-zero:
     ``comm_calibration`` scaled by the synchronous step (printed, not
     gated); then the fp32 check at 4 layers: every rank's gradients
     bitwise the one-device executor's;
-28. a JSON ``kernels`` line, then the JSON result line.
+28. train-mesh: full-width tinyllama-1.1b cut to 4 layers, chronos_zb
+    P=2 v=2, m=4, one 2049-token sequence a dp rank a microbatch, on a
+    pp 2 x dp 2 x tp 2 mesh of eight processes on the card
+    (``spawn(shape=)``, gloo through page-locked host memory): heads,
+    FFN and vocab split over tp, the batch over dp, the blocks'
+    optimizer state over dp (ZeRO-1), 3 steps; finite losses equal on
+    every rank, the dp replicas and the tp-replicated leaves bitwise
+    equal after every step, the summed launches the table's x dp x tp
+    (fused AdamW one a leaf slice a rank), the bytes handed to
+    collectives each step ``collective_stats``' count axis by axis; each
+    rank's step, peak beside ``MemoryModel``'s stage at (pp 2, tp 2),
+    bytes by axis and exchange wait share; then the fp32 check at 4
+    layers (m=2, 257 tokens): every rank's gradient shard within 2e-5
+    relative of the one-process executor's;
+29. a JSON ``kernels`` line, then the JSON result line.
 
 Every bound phase 3 prints is ``repro_torch.roofline.kernel_cost``'s
 work of the kernel's function over the H100's peaks (``kernel_bound``).
@@ -230,7 +244,10 @@ B=2 ragged, H == G on both CTAs; whisper's non-causal encoder and causal
 decoder; gemma3's prefill chunks past the window), printing each bf16
 case's CTA shape, and times the head-dim-256 kernel at paligemma's
 training shape beside its bound, the plain version and SDPA with the
-boolean prefix-LM mask, with the Function's gradients there.
+boolean prefix-LM mask, with the Function's gradients there; and flash
+at a tp=2 rank's heads of the training shape (phase 28's: q
+[1,2048,16,64] over kv [1,2048,2,64]) in fp32 and bf16, timed beside
+the plain version, SDPA and the bound.
 Phase 3 also holds fused AdamW bitwise against its plain version (up
 to qwen2-moe's stacked expert leaf of 692 M elements), the
 RMSNorm, flash and SSD Functions' gradients against autograd through the
@@ -249,12 +266,16 @@ each case's route printed and checked (bf16: the tensor-core passes,
 fp32: the CUDA-core kernel).
 
 Each phase prints a ``[time]`` line.  On an NVIDIA H100 80GB HBM3 at
-700.00 W the whole run took 811.8 s of its 1200 s limit on a fast host,
-and 1062.4 s on a slow one where the tree before phase 27 took 1117.6
-s: phase 27 took 67.8-98.8 s, 23-39 s of it the four fresh processes'
-first step, and fewer steps in phases 10-11 (3), 12-14 (2), 25a and 25c
-(2) and phase 14 at 4 layers pay for it.  Host speed moves the
-host-paced phases by up to ~45%.
+700.00 W the run before phase 28 took 811.8 s of its 1200 s limit on a
+fast host, and 1062.4 s on a slow one where the tree before phase 27
+took 1117.6 s: phase 27 took 67.8-98.8 s, 23-39 s of it the four fresh
+processes' first step, and fewer steps in phases 10-11 (3), 12-14 (2),
+25a and 25c (2) and phase 14 at 4 layers pay for it.  Phase 28 took
+50.7 s alone (eight fresh processes' first step ~16 s, then ~4.1 s a
+step, the fp32 check) and phase 3's tp=2 flash case ~2 s; phase 16b at
+8 layers (16 before: its two steps took 40.8 s), phase 16a's 3 steps
+(4 before, ~5.6 s a step) and phase 10's 2 (3 before, ~2.8 s a step)
+pay for them.  Host speed moves the host-paced phases by up to ~45%.
 
 Needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -994,9 +1015,12 @@ TRAIN_SEQ = 2049               # 2048 positions per sequence fed to the stack
 # inside its time limit on a slow host (an H100 run took 1064.5 s with 32)
 MAMBA2_TRAIN_LAYERS = 16
 # deepseek-7b's planner pick (phase 16b), planned for the largest depth
-# that fits a quarter of the card (24 layers) and trained at 16: its 2
-# host-paced steps took 68 s at 24 layers on a slow host
-DEEPSEEK_TRAIN_LAYERS = 16
+# that fits a quarter of the card (24 layers) and trained at 8 (16
+# before phase 28 needed the time): its 2 host-paced steps took 68 s at
+# 24 layers on a slow host, 40.8 s at 16 on a fast one
+DEEPSEEK_TRAIN_LAYERS = 8
+# steps of phase 16a, tinyllama-1.1b's planner pick (4 before phase 28)
+PLANNER_STEPS = 3
 # the sequence-chunked runs (phases 13-14) at full width, cut to 8 of
 # tinyllama-1.1b's 22 layers: their host-paced steps and long traces
 # (seq1f1b: 84.2 s at 22 layers) made room for phases 21-22
@@ -1009,8 +1033,9 @@ SEQ_TRAIN_LAYERS = 8
 SCHEDULE_STEPS = 2
 SEQ1F1B_LAYERS = 4
 # steps of phases 10 and 11 (4 before phase 27; a cut past the phases
-# 12-14 and 25 that phase 27's time was to come from)
-SINGLE_STEPS = 3
+# 12-14 and 25 that phase 27's time was to come from; phase 10's 2 since
+# phase 28: the first warms up, the second is timed)
+SINGLE_STEPS = 2
 OFFLOAD_STEPS = 3
 # (tag, TrainConfig, P, peak bytes) of every pipeline training run, for
 # phase 16's predicted-against-measured lines
@@ -1258,6 +1283,60 @@ def phase_train_shapes(torch, gen, rows):
     rows["rmsnorm_rows"]["train"] = {
         "max_abs_err": e_r, **t, "bound_ms": rb_ms, "bound_by": rby,
         "timed_shape": f"x [{S},2048] bf16"}
+
+
+def phase_flash_tp(torch, gen, rows, H=16, G=2, d=64):
+    """Flash at a tp=2 rank's heads of the training shape (phase 28's):
+    q [1,2048,16,64] over kv [1,2048,2,64], fp32 and bf16, held against
+    the plain version at phase 3's tolerances and timed beside it, SDPA
+    and the bound (bf16 in the kernels line's row, fp32 beside it)."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    import torch.nn.functional as F
+    S = TRAIN_SEQ - 1
+    tols = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 1e-5)}
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, S, H, d), generator=gen, device="cuda").to(dt)
+        k = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
+        o, lse = flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_ref(q, k, v)
+        e_o, e_l = max_err(o, o_ref), max_err(lse, lse_ref)
+        t_o, t_l = tols[dt]
+        ok = e_o <= t_o and e_l <= t_l
+        name = str(dt)[6:]
+        print(f"[kernels] flash_attention_fwd {name} q [1,{S},{H},{d}] kv "
+              f"[1,{S},{G},{d}] (a tp=2 rank's heads, phase 28): max|d| "
+              f"o={e_o:.3e} (tol {t_o:g}) lse={e_l:.3e} (tol {t_l:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("flash_attention_fwd disagrees with attention_ref at the "
+                 "tp=2 training shape")
+        del o, lse, o_ref, lse_ref
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v), iters=20,
+                     warmup=3)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=5, warmup=1)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20, warmup=3)
+        b_ms, by, flops, _ = kernel_bound(
+            "flash_attention_fwd", peak="bf16" if dt == torch.bfloat16
+            else "fp32", B=1, Sq=S, Sk=S, H=H, G=G, d=d,
+            itemsize=q.element_size())
+        print(f"[kernels] flash_attention_fwd {name} timed at the tp=2 "
+              f"shape (CUDA events): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, SDPA (is_causal, GQA) {lib_ms:.3f} ms "
+              f"(kernel = {ms / lib_ms:.2f}x SDPA), bound {b_ms * 1e3:.2f} "
+              f"us ({by}; {flops / 1e9:.2f} GFLOP) = {ms / b_ms:.1f}x bound")
+        out[name] = {"max_abs_err": e_o, "lse_max_abs_err": e_l, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": by,
+                     "timed_shape": f"q [1,{S},{H},{d}] kv [1,{S},{G},{d}] "
+                                    f"{name}"}
+        del q, k, v, qt, kt, vt
+    rows["flash_attention_fwd"]["train_tp2"] = out
 
 
 PALI_PREFIX = 256               # paligemma-3b's patches
@@ -3146,8 +3225,9 @@ def planner_run(torch, tag: str, tc, steps: int):
 
 def phase_train_planner(torch):
     """16. The memory-budget planner on the card: (a) its pick for
-    tinyllama-1.1b under a quarter of the card per stage, trained 4
-    steps as phase 6 (8 sequences of 2049 tokens); (b) for deepseek-7b's
+    tinyllama-1.1b under a quarter of the card per stage, trained
+    ``PLANNER_STEPS`` steps as phase 6 (8 sequences of 2049 tokens);
+    (b) for deepseek-7b's
     published width, ``max_trainable_layers`` of ``1f1b`` and of the
     best point under the same budget, then the pick for the best depth
     trained 2 steps with ``ep.m`` sequences at ``DEEPSEEK_TRAIN_LAYERS``
@@ -3182,7 +3262,7 @@ def phase_train_planner(torch):
     ep = plan_under_budget(cfg, pp=4, tp=1, hbm_bytes=hbm, microbatch=1,
                            seq_len=TRAIN_SEQ)
     launches["train_planner_tinyllama"] = trained(
-        "train-planner", cfg, ep, 8, 4)[0]
+        "train-planner", cfg, ep, 8, PLANNER_STEPS)[0]
     done("train-planner tinyllama-1.1b")
 
     # (b) the largest deepseek-7b one card trains
@@ -5037,6 +5117,255 @@ def phase_train_ranks(torch, smi: str, base):
     return summed
 
 
+# ---------------------------------------------------------------------------
+# 28. data and tensor parallelism beside the pipe axis
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (2, 2, 2)   # pp x dp x tp: eight processes on the card
+MESH_LAYERS = 4          # tinyllama-1.1b cut from 22 (full width)
+MESH_STEPS = 3           # the first a warm-up
+MESH_TIMEOUT = 300       # seconds for the phase's one spawn
+MESH_CHECK = dict(layers=4, m=2, seq=257)    # the fp32 check
+
+
+def _mesh_config():
+    """Phase 28's configuration: full-width tinyllama-1.1b cut to
+    ``MESH_LAYERS`` layers, chronos_zb P=2 v=2, one 2049-token sequence a
+    dp rank a microbatch (a global microbatch of dp sequences), m=4."""
+    return _train_config("tinyllama-1.1b", layers=MESH_LAYERS,
+                         num_microbatches=4)
+
+
+def _mesh_check_spec(global_batch: bool):
+    """The fp32 check's spec: full width cut to 4 layers, chronos_zb,
+    P=2, v=2, m=2 microbatches of one 257-token sequence a dp rank
+    (``global_batch``: the one-process run's two), fused kernels, the
+    overlapped table."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline_runtime import make_pipeline_spec
+    c = MESH_CHECK
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              num_layers=c["layers"], param_dtype="float32",
+                              compute_dtype="float32")
+    return make_pipeline_spec(cfg, P=MESH_SHAPE[0], v=2, m=c["m"],
+                              microbatch=MESH_SHAPE[1] if global_batch
+                              else 1, seq_len=c["seq"],
+                              schedule="chronos_zb", kernels="fused",
+                              overlap=True)
+
+
+def _mesh_check_inputs(torch, spec, device):
+    """The check's weights (seed 0) and global tokens (seed 1)."""
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
+    params = init_pipeline_params(
+        torch.Generator(device=device).manual_seed(0), spec.cfg,
+        spec.layout, device)
+    c = MESH_CHECK
+    tokens = torch.randint(0, spec.cfg.vocab_size,
+                           (c["m"], MESH_SHAPE[1], c["seq"]), device=device,
+                           generator=torch.Generator(
+                               device=device).manual_seed(1))
+    return params, {"tokens": tokens}
+
+
+def _mesh_fp32_check(torch, mesh, ref_path):
+    """On one rank: the check's gradients over the mesh (its pp column,
+    tp shard) against the same shard of the one-process executor's
+    gradients in ``ref_path`` (cut by the rank's ``RankShard``): each
+    leaf's max |difference|, for the parent to divide by the whole
+    leaf's largest element."""
+    from repro_torch.core.pipeline_runtime import (RankShard,
+                                                   make_train_grads_fn,
+                                                   rank_params)
+    from repro_torch.tree import tree_leaves
+    spec = _mesh_check_spec(False)
+    dev, p = mesh.device, mesh.coord("pp")
+    shard = RankShard(spec.cfg, spec.layout, mesh.shape, mesh.rules,
+                      mesh.coords)
+    params, batch = _mesh_check_inputs(torch, spec, dev)
+    params = rank_params(params, p, shard)
+    g, met = make_train_grads_fn(spec, dev, mesh=mesh)(params, batch)
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    want = shard.cut(ref["g"], p)
+    diff = [float((a - b.to(dev)).abs().max())
+            for a, b in zip(tree_leaves(g), tree_leaves(want), strict=True)]
+    return {"loss": float(met["loss"]), "parent_loss": float(ref["loss"]),
+            "diff": diff, "paths": ["/".join(map(str, q))
+                                    for q in shard.paths]}
+
+
+def _train_mesh_body(mesh, tc, steps, ref_path):
+    """What each of phase 28's ranks runs: ``steps`` steps on the mesh
+    (the main path, launches counted), then the fp32 check."""
+    import torch
+
+    from repro_torch.launch.train import train_rank
+
+    def log(line):
+        print(f"[train-mesh] {line}", flush=True)
+    out = train_rank(mesh, tc, MESH_SHAPE[0], {"overlap": True,
+                                               "steps": steps, "log": log})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train": out, "check": _mesh_fp32_check(torch, mesh, ref_path)}
+
+
+def mesh_predictions(tc) -> dict:
+    """What phase 28 predicts before it runs, reckoned on the host:
+    ``MemoryModel``'s stage prediction at (pp 2, tp 2) (the model state
+    over pp x tp, the embedding and head over tp and spread over the
+    stages, plus the stage's peak activations over tp), the same with
+    each rank's whole tp shard of the shared leaves, and the bytes a
+    step hands to collectives (``collective_stats`` on the mesh)."""
+    from repro_torch.core.analysis import MemoryModel
+    from repro_torch.core.schedules import get_schedule
+    from repro_torch.launch.dryrun import collective_stats
+    pp, dp, tp = MESH_SHAPE
+    cfg, plan = tc.model, tc.plan
+    spec = _spec_of(tc, pp)
+    sched = get_schedule(plan.schedule, pp, spec.table.m, v=plan.num_chunks)
+    mm = MemoryModel.build(cfg, tp=tp)
+    L, tokens = cfg.num_layers, plan.microbatch_size * tc.shape.seq_len
+    state = mm.model_state(L, pp, tp)
+    replica = mm.params_embed / tp * mm.state_bytes_per_param * (1 - 1 / pp)
+    acts = [a * mm.m_a(tokens, L)
+            for a in sched.peak_activation(per_stage=True)]
+    return {"stage_bytes": [state + a for a in acts],
+            "stage_bytes_replica": [state + replica + a for a in acts],
+            "collectives": collective_stats(spec, dp, tp, update=True)}
+
+
+def phase_train_mesh(torch, smi: str):
+    """28: ``_mesh_config()`` trained on a pp 2 x dp 2 x tp 2 mesh of
+    eight processes on the card (gloo through page-locked host memory):
+    ``MESH_STEPS`` steps, then the fp32 check.  Gates: finite losses
+    equal on every rank; the dp replicas (every weight) and the
+    tp-replicated leaves (weights and masters) bitwise equal after every
+    step, and the shared leaves over pp; launches summed over the ranks
+    equal to the table's count x dp x tp for RMSNorm and flash, one
+    fused-AdamW launch a leaf slice a rank a step; the bytes handed to
+    collectives each step equal to ``collective_stats``' count, axis by
+    axis (``by_axis``); the fp32 gradients of every rank's shard within phase 7's 2e-5
+    relative of the one-process executor's (of the whole leaf's largest
+    element).  Prints each rank's step time and peak beside
+    ``MemoryModel``'s stage prediction at (pp 2, tp 2), the bytes moved
+    per axis and the exchange's wait share.  Returns the summed launch
+    counts."""
+    import tempfile
+
+    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
+                                                   make_train_grads_fn)
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.tree import tree_leaves, tree_map
+    pp, dp, tp = MESH_SHAPE
+    n = pp * dp * tp
+    tc = _mesh_config()
+    spec = _spec_of(tc, pp)
+    pred = mesh_predictions(tc)
+    with tempfile.TemporaryDirectory(prefix="mesh_check_") as tmp:
+        cspec = _mesh_check_spec(True)
+        params, batch = _mesh_check_inputs(torch, cspec, "cuda")
+        g1, m1 = make_train_grads_fn(cspec, "cuda")(params, batch)
+        ref_path = os.path.join(tmp, "one_process.pt")
+        g1 = tree_map(lambda a: a.cpu(), g1)
+        torch.save({"g": g1, "loss": m1["loss"].cpu()}, ref_path)
+        ref_max = [float(a.abs().max()) for a in tree_leaves(g1)]
+        del params, batch, g1
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = spawn(n, _train_mesh_body,
+                     args=(tc, MESH_STEPS, ref_path), shape=MESH_SHAPE,
+                     backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+    runs = [o["train"] for o in outs]
+    print(f"[train-mesh] {smi} | {n} processes on one card, pp {pp} x dp "
+          f"{dp} x tp {tp}, {tc.model.name} full width bf16 "
+          f"({tc.model.num_layers} layers), {spec.table.name} "
+          f"v={tc.plan.num_chunks} m={spec.table.m}, {spec.mbB} sequence "
+          f"a dp rank a microbatch of {spec.S} positions, gloo through "
+          f"page-locked host memory; spawn, {MESH_STEPS} steps and the "
+          f"fp32 check in {wall:.1f} s")
+    losses = runs[0]["losses"]
+    if not all(math.isfinite(x) for x in losses + runs[0]["grad_norms"]):
+        fail(f"28: non-finite loss or gradient norm {losses}")
+    if any(o["losses"] != losses for o in runs):
+        fail(f"28: the ranks disagree on the loss "
+             f"{[o['losses'] for o in runs]}")
+    if not all(all(o["replicas_equal"]) for o in runs):
+        fail(f"28: replicas differ {[o['replica_checks'] for o in runs]}")
+    print(f"[train-mesh] losses {losses}; gradient norms "
+          f"{runs[0]['grad_norms']}; after every step the dp replicas, the "
+          f"tp-replicated leaves and the shared leaves over pp bitwise "
+          f"equal on every rank")
+    n_leaves = len(tree_leaves(init_pipeline_params(
+        None, tc.model, spec.layout, "meta")))
+    per_step = expected_train_launches(spec, n_leaves)
+    want = {k: MESH_STEPS * v * (n if k == "fused_adamw_flat" else dp * tp)
+            for k, v in per_step.items()}
+    summed = {k: sum(o["launches"][k] for o in runs) for k in want}
+    print(f"[train-mesh] launches by rank {[o['launches'] for o in runs]}, "
+          f"summed {summed} (the table x dp x tp; fused AdamW a leaf slice "
+          f"a rank: {want})")
+    if summed != want:
+        fail(f"28: launches {summed} != {want}")
+    if any(not o["launches"][k] for o in runs
+           for k in ("rmsnorm_rows", "flash_attention_fwd",
+                     "fused_adamw_flat")):
+        fail("28: a rank launched no kernel of the path")
+    coll = pred["collectives"]
+    kb, kc = coll.bytes_by_kind, coll.count_by_kind
+    for step in range(MESH_STEPS):
+        got = {a: sum(o["exchange"]["axis_bytes"][step][a] for o in runs)
+               for a in ("pp", "data", "model")}
+        if got != coll.by_axis:
+            fail(f"28: step {step} handed {got} B to collectives, "
+                 f"collective_stats counts {coll.by_axis}")
+    print(f"[train-mesh] bytes handed to collectives a step, over the "
+          f"ranks, equal to collective_stats' count: pp "
+          f"{coll.by_axis['pp']} (sends {int(kb['collective-permute'])}, "
+          f"shared-gradient sum {int(kb['all-reduce'])}), data "
+          f"{coll.by_axis['data']} (gradients {int(kb['all-reduce-dp'])},"
+          f" ZeRO-1 all-gather {int(kb['all-gather-dp'])}), model "
+          f"{coll.by_axis['model']} ({kc['all-reduce-tp']} "
+          f"activation all-reduces)")
+    for o in runs:
+        r, co = o["rank"], o["coords"]
+        med = statistics.median(o["step_s"][1:])
+        share = sum(o["exchange"]["wait_s"][1:]) / sum(o["step_s"][1:])
+        print(f"[train-mesh] {smi} | rank {r} (pp {co['pp']}, dp "
+              f"{co['data']}, tp {co['model']}): step {med * 1e3:.1f} ms "
+              f"(steps {[round(x * 1e3, 1) for x in o['step_s']]}); "
+              f"max_memory_allocated {o['peak_bytes'] / 2 ** 30:.3f} GiB "
+              f"(weights and optimizer state "
+              f"{o['static_bytes'] / 2 ** 30:.3f}) against MemoryModel's "
+              f"stage {co['pp']} at (pp {pp}, tp {tp}) "
+              f"{pred['stage_bytes'][co['pp']] / 2 ** 30:.3f} GiB "
+              f"({pred['stage_bytes_replica'][co['pp']] / 2 ** 30:.3f} with "
+              f"the rank's whole shard of the shared leaves); bytes a step "
+              f"{o['exchange']['axis_bytes'][-1]}; exchange waits "
+              f"{100 * share:.1f}% of steps 2-{MESH_STEPS}")
+    worst = 0.0
+    for o in outs:
+        c = o["check"]
+        rel = [d / max(m, 1e-30) for d, m in zip(c["diff"], ref_max)]
+        worst = max(worst, max(rel))
+        if abs(c["loss"] - c["parent_loss"]) > CHECK_REL * abs(
+                c["parent_loss"]) or max(rel) > CHECK_REL:
+            fail(f"28: rank fp32 gradients differ from the one-process "
+                 f"executor's: loss {c['loss']} vs {c['parent_loss']}, "
+                 f"max rel {max(rel):.3e} at "
+                 f"{c['paths'][rel.index(max(rel))]}")
+    print(f"[train-mesh] fp32 check ({MESH_CHECK}, the global batch of "
+          f"{dp} sequences a microbatch): every rank's gradient shard "
+          f"within {worst:.3e} relative of the one-process executor's "
+          f"(tol {CHECK_REL}); loss {outs[0]['check']['loss']} against "
+          f"{outs[0]['check']['parent_loss']}")
+    return summed
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -5102,6 +5431,7 @@ def main() -> None:
     by_name = {r["name"]: r for r in rows}
     phase_functions(torch, gen)
     phase_train_shapes(torch, gen, by_name)
+    phase_flash_tp(torch, gen, by_name)
     phase_flash_d256(torch, gen, by_name)
     phase_rmsnorm_widths(torch, gen)
     phase_flash_offsets(torch, gen, by_name)
@@ -5286,7 +5616,15 @@ def main() -> None:
     launches["train_ranks"] = phase_train_ranks(torch, smi, base)
     done("train-ranks")
 
-    # 28. kernels line, then the result line.  ``launches`` sums the
+    # 28. data and tensor parallelism beside the pipe axis: four layers
+    #     of tinyllama-1.1b at full width on a pp 2 x dp 2 x tp 2 mesh of
+    #     eight processes on the card, and its fp32 check
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["train_mesh"] = phase_train_mesh(torch, smi)
+    done("train-mesh")
+
+    # 29. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

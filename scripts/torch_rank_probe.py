@@ -87,8 +87,8 @@ def rank_body(mesh, tc):
     around(rt, "adamw_update", "the AdamW update")
     around(tr, "shared_digest", "the replicas' digest")
     out = tr.train_pipeline(tc, P=4, mesh=mesh, overlap=True, steps=2,
-                            after_step=lambda _, p, o: tr.replicas_equal(
-                                mesh, p, o), log=lambda s: None)
+                            after_step=lambda _, p, o, s: tr.replicas_equal(
+                                mesh, p, o, s), log=lambda s: None)
     if mesh.rank in (0, 3):
         lines = [f"rank {mesh.rank}: weights and optimizer state "
                  f"{out['static_bytes'] / GiB:.3f} GiB; the largest peaks"]

@@ -41,17 +41,22 @@ def lm_params_from_numpy(tree, device):
     return tree_map(lambda a: _leaf_to_torch(a, device), tree)
 
 
-def rank_params_from_numpy(tree, rank: int, device):
+def rank_params_from_numpy(tree, rank: int, device, shard=None):
     """A stage-stacked numpy tree -> rank ``rank``'s torch tree on
     ``device``: block leaves ``[v, M, ...]`` cut from ``[P, v, M, ...]``
     before they cross (what
     :func:`repro_torch.core.pipeline_runtime.rank_params` cuts from the
-    whole tree), the shared leaves whole; bits and dtypes kept."""
-    return {**lm_params_from_numpy(
-        {k: v for k, v in tree.items() if k != "blocks"}, device),
-        "blocks": lm_params_from_numpy(
-            [tree_map(lambda a: a[rank], t) for t in tree["blocks"]],
-            device)}
+    whole tree), the shared leaves whole; bits and dtypes kept.  With
+    ``shard`` (a :class:`~repro_torch.core.pipeline_runtime.RankShard`,
+    a rank of a ``pp x dp x tp`` mesh) every leaf is also cut to the
+    rank's tp shard by the reference's specs, on the host, before it
+    moves to ``device``."""
+    col = {**{k: v for k, v in tree.items() if k != "blocks"},
+           "blocks": [tree_map(lambda a: a[rank], t) for t in tree["blocks"]]}
+    if shard is None:
+        return lm_params_from_numpy(col, device)
+    return tree_map(lambda a: a.to(device),
+                    shard.cut(lm_params_from_numpy(col, "cpu")))
 
 
 def _leaf_to_numpy(t):

@@ -273,6 +273,11 @@ class ParallelPlan:
                                     # the pipeline executor: fp32
                                     # (exact), bf16, int8 (per-row
                                     # scale beside the codes)
+    zero_stage: int = 1             # ZeRO stage over the data axis of a
+                                    # mesh: 0 (replicated optimizer
+                                    # state) or 1 (each dp rank keeps
+                                    # and updates its fsdp slice of the
+                                    # blocks' state); 2 and 3 raise
     kernels: str = "plain"          # compute backend for the chunk body
                                     # (repro_torch.models.backend):
                                     # "plain" | "fused" (the CUDA rmsnorm,

@@ -51,7 +51,9 @@ from repro_torch.core.tasktable import IDLE, SEND_NONE
 
 class Exchange:
     """One rank's sends and receives for every tick of ``spec``'s table
-    over ``mesh`` (:class:`repro_torch.launch.mesh.PipeMesh`).  Counts
+    over ``mesh`` (:class:`repro_torch.launch.mesh.PipeMesh`: the rank's
+    pp group; its stages are translated to the process ranks of a
+    ``pp x dp x tp`` mesh by ``mesh.global_rank``).  Counts
     ``bytes_sent``, ``bytes_recv``, ``messages`` and ``wait_s`` (host
     seconds blocked in :meth:`complete`)."""
 
@@ -137,13 +139,14 @@ class Exchange:
         ops, k = [], t % 2
         if t in self.sends:
             buf = self.send_pin[k] if self.host else self.send_buf[k]
-            ops.append(dist.P2POp(dist.isend, buf, self.sends[t],
+            ops.append(dist.P2POp(dist.isend, buf,
+                                  self.mesh.global_rank(self.sends[t]),
                                   self.mesh.group, tag=t))
             self.bytes_sent += buf.numel()
         for q, _ in self.recvs.get(t, ()):
             buf = self.recv_pin[k][q] if self.host else self.recv_buf[k][q]
-            ops.append(dist.P2POp(dist.irecv, buf, q, self.mesh.group,
-                                  tag=t))
+            ops.append(dist.P2POp(dist.irecv, buf, self.mesh.global_rank(q),
+                                  self.mesh.group, tag=t))
             self.bytes_recv += buf.numel()
         if not ops:
             return

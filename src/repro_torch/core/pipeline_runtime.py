@@ -106,6 +106,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -120,9 +121,13 @@ from repro_torch.core.tasktable import (F_OPS, IDLE, R_OPS, SEND_B_DOWN,
                                         TaskTable, build_task_table)
 from repro_torch.models import backend as compute_backend
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import (ShardEnv, local_shard,
+                                         sanitize_spec, shard_env, spec_map)
 from repro_torch.models.transformer import (_dtype, _init_encoder,
-                                            _init_layers, encode)
-from repro_torch.optim.adamw import adamw_update, cast_like, leaf_sq_sum
+                                            _init_layers, encode,
+                                            encoder_specs, layer_specs)
+from repro_torch.optim.adamw import (adamw_update, cast_like, drop_fsdp,
+                                     leaf_sq_sum, zero_state_specs)
 from repro_torch.optim.compression import (compressed_sum, grid_scale,
                                           quantize_with)
 from repro_torch.tree import (tree_leaves, tree_map, tree_paths,
@@ -181,6 +186,155 @@ def init_pipeline_params(generator: torch.Generator, cfg: ModelConfig,
     if cfg.encdec is not None:
         params.update(_init_encoder(generator, cfg, device))
     return params
+
+
+def pipeline_logical_specs(cfg: ModelConfig, layout: StageLayout):
+    """Logical sharding specs of :func:`init_pipeline_params`' tree (the
+    reference's ``init_pipeline_params`` specs): every block leaf
+    ``("pp", None, None)`` (device, chunk, layer) ahead of its layer
+    spec, the shared leaves' own specs."""
+    specs: Dict[str, Any] = {"blocks": [
+        spec_map(lambda sp: ("pp", None, None) + tuple(sp),
+                 layer_specs(cfg, j)) for j in range(layout.period)],
+        "embed": L.embed_specs(cfg.tie_embeddings),
+        "final_norm": L.rmsnorm_specs()}
+    if cfg.encdec is not None:
+        specs.update(encoder_specs(cfg))
+    return specs
+
+
+def pipeline_layout_specs(logical):
+    """The pipeline's layout over a mesh, as the reference's pipeline
+    step builds it: ``(params, state)`` logical specs, the block leaves
+    keeping fsdp x tp and the shared ones (embedding, head, final norm,
+    encoder) dropping fsdp; the optimizer state by
+    :func:`~repro_torch.optim.adamw.zero_state_specs` (stage 1) on the
+    blocks, the shared leaves' as their parameters'."""
+    params = {k: (v if k == "blocks" else drop_fsdp(v))
+              for k, v in logical.items()}
+    state = zero_state_specs(params, 1)
+    state = {k: (v if k == "blocks" else params[k])
+             for k, v in state.items()}
+    return params, state
+
+
+class RankShard:
+    """What one rank of a ``pp x dp x tp`` mesh holds of the pipeline
+    tree, from the reference's logical specs
+    (:func:`pipeline_logical_specs`, :func:`pipeline_layout_specs`)
+    resolved by ``rules`` and sanitized on the leaves' global shapes:
+
+    - parameters: the rank's pp column (block leaves ``[v, M, ...]``),
+      cut to its tp shard, replicated over dp (the port's block layout is
+      ZeRO-1: the reference keeps fsdp on the block parameters, which
+      XLA gathers at use; the numbers are the same);
+    - optimizer state (``zero_stage`` 1): each leaf whose state spec puts
+      "data" on a dimension holds the rank's dp slice of it
+      (``zero_dims``); the others whole.  Stage 0 keeps every state
+      whole.
+
+    ``shape``: axis name -> size (``Mesh.shape``); ``coords``: the rank's
+    coordinate on each axis.  Per leaf, in ``tree_leaves`` order of the
+    pipeline tree: ``param_specs`` (local: a block leaf's pp entry
+    dropped), ``tp_split`` and ``zero_dims`` (local dimension or
+    None)."""
+
+    def __init__(self, cfg: ModelConfig, layout: StageLayout, shape,
+                 rules, coords, zero_stage: int = 1):
+        self.shape, self.coords = dict(shape), dict(coords)
+        mesh = SimpleNamespace(shape=self.shape)   # a layout: no processes
+        env = ShardEnv(mesh, rules)
+        tree = init_pipeline_params(None, cfg, layout, "meta")
+        pspec, sspec = pipeline_layout_specs(
+            pipeline_logical_specs(cfg, layout))
+        paths = tree_paths(tree)
+        shapes = [tuple(a.shape) for a in tree_leaves(tree)]
+
+        def phys(specs):
+            flat = _spec_leaves(specs)
+            assert len(flat) == len(shapes), "spec tree != parameter tree"
+            return [sanitize_spec(env.resolve(sp), sh, mesh)
+                    for sp, sh in zip(flat, shapes)]
+        # the port's parameters drop fsdp everywhere (replicated over dp)
+        ps = phys(drop_fsdp(pspec))
+        ss = phys(sspec if zero_stage >= 1 else drop_fsdp(pspec))
+        self.paths = paths
+        self.param_specs = [sp[1:] if p[0] == "blocks" else sp
+                            for p, sp in zip(paths, ps)]
+        tp_ax, dp_ax = rules.get("tp"), rules.get("dp")
+        self.tp_split = [_names(sp, tp_ax) for sp in self.param_specs]
+        self.zero_dims = []
+        for p, sp in zip(paths, ss):
+            k = next((i for i, ax in enumerate(sp) if _names((ax,), dp_ax)),
+                     None)
+            # a block leaf's local dimensions lack the pp one
+            self.zero_dims.append(k - 1 if k is not None and
+                                  p[0] == "blocks" else k)
+        self.dp = self.shape.get(dp_ax, 1) if dp_ax else 1
+        self.dp_coord = self.coords.get(dp_ax, 0) if dp_ax else 0
+        self.tp_coord = self.coords.get(tp_ax, 0) if tp_ax else 0
+        self._tp_cut = {tp_ax: (self.tp_coord, self.shape[tp_ax])} \
+            if tp_ax in self.shape else {}
+
+    def cut(self, tree, pp_rank: Optional[int] = None):
+        """A whole pipeline tree (global leaves) -> this rank's: block
+        leaves ``[v, M, ...]`` of stage ``pp_rank`` (None: the blocks are
+        that column already), every leaf cut to the rank's tp shard, as
+        own contiguous copies."""
+        leaves = []
+        for p, a, sp in zip(self.paths, tree_leaves(tree), self.param_specs):
+            if p[0] == "blocks" and pp_rank is not None:
+                a = a[pp_rank]
+            leaves.append(local_shard(a, sp, self._tp_cut).clone(
+                memory_format=torch.contiguous_format))
+        return tree_unflatten(tree, leaves)
+
+    def zero_slice(self, a: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf ``i`` (a rank leaf) narrowed to the rank's dp slice where
+        its state is sliced (a view), else the leaf."""
+        k = self.zero_dims[i]
+        if k is None:
+            return a
+        n = a.shape[k] // self.dp
+        return a.narrow(k, self.dp_coord * n, n)
+
+    def zero_views(self, tree):
+        """The rank tree's leaves narrowed to the dp slices the rank
+        updates (views)."""
+        return tree_unflatten(tree, [self.zero_slice(a, i) for i, a in
+                                     enumerate(tree_leaves(tree))])
+
+    def owned(self, g: torch.Tensor, i: int) -> Optional[torch.Tensor]:
+        """The part of gradient leaf ``i`` the rank counts in the clip
+        norm, so that every element counts once over the mesh: its dp
+        slice (or the whole leaf on dp coordinate 0 where the state is
+        whole), and a tp-replicated leaf on tp coordinate 0 only; None
+        where the rank counts nothing."""
+        if not self.tp_split[i] and self.tp_coord != 0:
+            return None
+        if self.zero_dims[i] is None and self.dp_coord != 0:
+            return None
+        return self.zero_slice(g, i)
+
+
+def _names(spec, axis) -> bool:
+    """Does ``spec`` put mesh axis ``axis`` on any dimension?"""
+    if axis is None:
+        return False
+    for ax in spec:
+        if ax == axis or (isinstance(ax, tuple) and axis in ax):
+            return True
+    return False
+
+
+def _spec_leaves(tree):
+    """The specs of a spec tree in ``tree_leaves`` order (a spec tuple is
+    a leaf)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _spec_leaves(t)]
+    return [tree]
 
 
 def unstage_params(tree, layout: StageLayout) -> Dict[str, Any]:
@@ -369,7 +523,7 @@ def _embed_tokens(spec: PipelineSpec, shared, tokens, patch=None):
     """Token embedding scaled by sqrt(d) (the scale rounded to the
     embedding's dtype, as the reference does), with a VLM's patch
     embeddings [mbB, P, d] ahead of it, in the compute dtype."""
-    x = L.embed(shared["embed"], tokens)
+    x = L.embed(shared["embed"], tokens, vocab=spec.cfg.vocab_size)
     mult = torch.tensor(spec.cfg.d_model ** 0.5, dtype=x.dtype).item()
     x = x * mult
     if patch is not None:
@@ -666,6 +820,9 @@ class _Executor:
                        for key, shape, dt in _payload_leaves(spec)]
         self.rings: Dict[str, Any] = self.leaves[0].rings
         self.aux0 = torch.zeros((1,), dtype=torch.float32, device=device)
+        # per microbatch, the head's fixed normalizer (a data-parallel
+        # rank's global-microbatch count), or None: the local mean
+        self.denom = None
 
     # -- helpers -------------------------------------------------------------
     def _ends(self, d: int, c: int):
@@ -758,8 +915,9 @@ class _Executor:
                                              enc_in)
 
         def head(sh, x, aux):
-            return compute_backend.head_loss(spec, sh, x, labels, mask,
-                                             aux=aux)
+            return compute_backend.head_loss(
+                spec, sh, x, labels, mask, aux=aux,
+                denom=None if self.denom is None else self.denom[mb])
 
         def terms(out, seed, enc_out=None):
             """Outputs and seeds of a non-last chunk: ``x`` always, the
@@ -991,7 +1149,13 @@ class _RankExecutor(_Executor):
     the tick loop the shared gradients (each rank's own fp32 partial:
     the exact sum, or the compressed sum against the rank's
     error-feedback rows), the loss and the microbatch count are summed
-    over the ranks."""
+    over the ranks.
+
+    The pp view of a ``pp x dp x tp`` mesh (``mesh.parent``) adds the
+    other two axes: the tick loop runs under the mesh's env (the layers
+    split over tp), the rank reads its dp rows of each microbatch, the
+    loss and the count also sum over dp, and every gradient is summed
+    over dp."""
 
     def __init__(self, spec: PipelineSpec, mesh):
         if mesh.P != spec.table.P:
@@ -1000,8 +1164,37 @@ class _RankExecutor(_Executor):
         super().__init__(spec, mesh.device, columns=(mesh.rank,))
         from repro_torch.core.exchange import Exchange
         self.mesh = mesh
+        self.full = mesh.parent            # the pp x dp x tp mesh, or None
         self.exchange = Exchange(spec, mesh)
         self.layout_bytes = [n for *_, n in _packed_layout(spec)]
+
+    def run(self, params, batch, psum_ef=None):
+        """On a ``pp x dp x tp`` mesh: the rank's rows of the global batch
+        (``[m, mbB * dp, ...]``, dp slice ``d`` of dim 1), the global
+        microbatches' normalizers, and the tick loop under the mesh's
+        :class:`~repro_torch.models.sharding.ShardEnv`."""
+        full = self.full
+        if full is None:
+            return super().run(params, batch, psum_ef)
+        if full.dp > 1:
+            d, B = full.coord("data"), self.spec.mbB
+            batch = {k: v[:, d * B:(d + 1) * B] for k, v in batch.items()}
+            self.denom = self._denominators(batch)
+        with shard_env(full, full.rules):
+            return super().run(params, batch, psum_ef)
+
+    def _denominators(self, batch):
+        """Each microbatch's normalizer over the *global* microbatch, the
+        reference's mean: the label count of all dp ranks, or the mask
+        count all-reduced over dp (at least 1) -- not the local mean."""
+        tok = batch["tokens"]
+        if "loss_mask" not in batch:
+            n = self.full.dp * tok.shape[1] * (tok.shape[2] - 1)
+            return torch.full((tok.shape[0],), float(n),
+                              dtype=torch.float32, device=tok.device)
+        cnt = batch["loss_mask"].float().sum(dim=(1, 2)).contiguous()
+        self.full.all_reduce(cnt, "data")
+        return cnt.clamp_(min=1.0)
 
     @staticmethod
     def _dc(a, d: int, c: int):
@@ -1060,31 +1253,46 @@ class _RankExecutor(_Executor):
         tot = torch.stack([acc["loss"], torch.tensor(
             float(acc["n"]), device=acc["loss"].device)])
         mesh.all_reduce(tot, "sum")
-        n = int(tot[1].item())
+        dp = 1 if self.full is None else self.full.dp
+        if dp > 1:
+            # the loss sums over pp and dp, never over tp (equal there)
+            self.full.all_reduce(tot, "data")
+        n = int(round(tot[1].item())) // dp
         metrics = {"loss": tot[0] / max(n, 1), "n_microbatches": n}
         if not bits:
             for p in parts:
                 mesh.all_reduce(p, "sum")
-            return ({"blocks": acc["gb"], **tree_unflatten(shared, parts)},
-                    metrics)
-        from repro_torch.optim.compression import compressed_sum_over
-        red, scales = [], []
-        for a, p, e in zip(tree_leaves(shared), parts,
-                           tree_leaves(psum_ef)):
-            s_, sc = compressed_sum_over(mesh, p, e[0] if len(e) else None,
-                                         bits, like=a)
-            red.append(s_)
-            scales.append(sc)
-        metrics["psum_scale"] = tree_unflatten(shared, scales)
-        return ({"blocks": acc["gb"], **tree_unflatten(shared, red)},
-                metrics, psum_ef)
+            out = ({"blocks": acc["gb"], **tree_unflatten(shared, parts)},
+                   metrics)
+        else:
+            from repro_torch.optim.compression import compressed_sum_over
+            red, scales = [], []
+            for a, p, e in zip(tree_leaves(shared), parts,
+                               tree_leaves(psum_ef)):
+                s_, sc = compressed_sum_over(mesh, p,
+                                             e[0] if len(e) else None,
+                                             bits, like=a)
+                red.append(s_)
+                scales.append(sc)
+            metrics["psum_scale"] = tree_unflatten(shared, scales)
+            out = ({"blocks": acc["gb"], **tree_unflatten(shared, red)},
+                   metrics, psum_ef)
+        if dp > 1:
+            # every gradient summed over dp, exactly (the global batch's)
+            for g in tree_leaves(out[0]):
+                self.full.all_reduce(g, "data")
+        return out
 
 
-def rank_params(tree, rank: int):
+def rank_params(tree, rank: int, shard: Optional[RankShard] = None):
     """A stage-stacked tree (parameters, gradients or optimizer moments:
     block leaves ``[P, v, M, ...]``) cut to one rank's column: block
     leaves ``[v, M, ...]`` (own copies, so the whole tree can be freed),
-    shared leaves as they are."""
+    shared leaves as they are.  With ``shard`` (a rank of a ``pp x dp x
+    tp`` mesh) every leaf is also cut to the rank's tp shard
+    (:meth:`RankShard.cut`)."""
+    if shard is not None:
+        return shard.cut(tree, rank)
     return {**tree, "blocks": [tree_map(lambda a: a[rank].clone(), t)
                                for t in tree["blocks"]]}
 
@@ -1181,6 +1389,10 @@ def make_train_grads_fn(spec: PipelineSpec, device, *, mesh=None,
     ``params`` from :func:`rank_params`, ``psum_ef`` from
     ``init_psum_ef(rank=)``).  Block gradients are the rank's ``[v, M,
     ...]``, shared gradients and metrics the sums over the ranks.  A
+    :class:`repro_torch.launch.mesh.Mesh` (``pp x dp x tp``) runs its
+    pipe: ``params`` the rank's tp shard (``rank_params(shard=)``),
+    ``batch`` the global one (``mbB * dp`` rows a microbatch, the rank
+    reads its own), the gradients those of the global batch.  A
     sequence-chunked spec raises NotImplementedError under a mesh (ROADMAP
     queue A).
 
@@ -1191,7 +1403,7 @@ def make_train_grads_fn(spec: PipelineSpec, device, *, mesh=None,
             "the sequence-chunked executor over ranks is not ported yet "
             "(ROADMAP queue A, after item 3)")
     if mesh is not None:
-        ex = _RankExecutor(spec, mesh)
+        ex = _RankExecutor(spec, getattr(mesh, "pipe", mesh))
     else:
         if spec.n_seq > 1:
             if spec.grad_psum_bits:
@@ -1227,7 +1439,7 @@ class TrainStepOut(NamedTuple):
 
 def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
                          use_kernel: bool = True, split=None, mesh=None,
-                         wrap_executor=None):
+                         wrap_executor=None, shard=None):
     """Gradients, then the AdamW step on them: returns ``fn(params,
     opt_state, batch[, psum_ef]) ->`` :class:`TrainStepOut`.  The update
     reads each gradient as ``g.float() / m`` (``m`` microbatches), as the
@@ -1251,7 +1463,17 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
     in-executor one, ``sqrt(psum(sq_b) + sq_s + 1e-30)``: the rank's
     block square sum summed over the ranks, plus the shared leaves'
     (equal on every rank after the sum).  Each rank updates its block
-    leaves and its replica of the shared leaves."""
+    leaves and its replica of the shared leaves.
+
+    ``shard`` (a :class:`RankShard`; ``mesh`` then a ``pp x dp x tp``
+    :class:`~repro_torch.launch.mesh.Mesh`): ``params`` are the rank's
+    tp shard, ``opt_state`` the state of its ZeRO slices
+    (``adamw_init(shard.zero_views(params))``).  Every leaf's dp slice
+    (or whole leaf) is updated by fused AdamW (one launch a leaf), its
+    weights written into the slice and all-gathered over dp.  The clip
+    norm counts every element once (:meth:`RankShard.owned`): the owned
+    block squares summed over pp, plus the owned shared ones, summed
+    over tp and dp."""
     if mesh is not None and split is not None:
         raise NotImplementedError("Chronos-Offload over ranks is not ported "
                                   "yet (ROADMAP queue A, after item 3)")
@@ -1267,19 +1489,63 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
         mesh.all_reduce(sq_b, "sum")
         return torch.sqrt(sq_b + sq_s + 1e-30)
 
+    def norm_over_mesh(grads):
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        sq = {"blocks": zero, "shared": zero}
+        for i, (path, g) in enumerate(zip(shard.paths,
+                                          tree_leaves(grads))):
+            part = shard.owned(g, i)
+            if part is not None:
+                k = "blocks" if path[0] == "blocks" else "shared"
+                sq[k] = sq[k] + leaf_sq_sum(part, m_dev)
+        sq_b = sq["blocks"].contiguous()
+        mesh.all_reduce(sq_b, "pp")
+        tot = (sq_b + sq["shared"]).contiguous()
+        mesh.all_reduce(tot, "model")
+        mesh.all_reduce(tot, "data")
+        return torch.sqrt(tot + 1e-30)
+
+    def gather_weights(params):
+        """The updated dp slices of every sliced leaf, all-gathered over
+        dp into the whole leaf."""
+        if shard.dp == 1:
+            return
+        for i, a in enumerate(tree_leaves(params)):
+            k = shard.zero_dims[i]
+            if k is None:
+                continue
+            n = a.shape[k] // shard.dp
+            mine = a.narrow(k, shard.dp_coord * n, n).contiguous()
+            outs = [torch.empty_like(mine) for _ in range(shard.dp)]
+            mesh.all_gather_into(outs, mine, "data")
+            for j, o in enumerate(outs):
+                if j != shard.dp_coord:
+                    a.narrow(k, j * n, n).copy_(o)
+
     def fn(params, opt_state, batch, psum_ef=None):
         res = grads_fn(params, batch, psum_ef)
         grads, metrics = res[:2]
         kept, held = params, None
         if split is not None:
             (grads, held), kept = split(grads), split(params)[0]
+        if shard is not None:
+            norm = norm_over_mesh(grads)
+            grads = tree_unflatten(grads, [
+                shard.zero_slice(g, i).contiguous()
+                for i, g in enumerate(tree_leaves(grads))])
+            kept = shard.zero_views(params)
+        else:
+            norm = None if mesh is None else norm_over_ranks(grads)
         master, opt_state, om = adamw_update(
             grads, opt_state, ocfg, use_kernel=use_kernel, grad_div=m_dev,
-            grad_norm=None if mesh is None else norm_over_ranks(grads))
+            grad_norm=norm)
         cast_like(master, kept)
+        if shard is not None:
+            gather_weights(params)
         return TrainStepOut(params, opt_state, {**metrics, **om}, held,
                             res[2] if spec.grad_psum_bits else None)
 
     fn.rings = grads_fn.rings
     fn.exchange = getattr(grads_fn, "exchange", None)
+    fn.shard = shard
     return fn

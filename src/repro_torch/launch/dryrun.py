@@ -42,7 +42,9 @@ weights and cache), the planner's prediction and whether the cell fits
 80 GB, the counted work, ``model_flops_for``, the roofline on the H100's
 peaks (a reckoning, not a measurement) and the seconds it took.  The
 reference's multi-pod layout (a TP=16 mesh, FSDP, the ``pod`` pipeline
-axis) waits for the multi-rank slice.
+axis) per rank on the meta device is ROADMAP queue A item 3b; what a
+step of a ``pp x dp x tp`` mesh hands to collectives is
+:func:`collective_stats` with its ``dp`` and ``tp``.
 """
 from __future__ import annotations
 
@@ -340,18 +342,47 @@ def predicted_card_peak(cfg, shape: ShapeConfig, plan: ParallelPlan,
     return state + act + kv + PLANNER_RESERVE, state, act, kv
 
 
-def collective_stats(spec) -> CollectiveStats:
+def collective_stats(spec, dp: int = 1, tp: int = 1, *,
+                     masked: bool = False, update: bool = True,
+                     zero_stage: int = 1) -> CollectiveStats:
     """What one step hands to collectives when its stages are ``P``
     ranks (:func:`repro_torch.core.pipeline_runtime.make_train_grads_fn`
     with a mesh), summed over the ranks: the boundary payloads sent
     across stages (``collective-permute``: sends and bytes, each payload
     as the wire stores it), and the shared-gradient sum (``all-reduce``:
     every rank's fp32 leaves, or under ``grad_psum_bits`` each leaf's
-    fp32 amax and its int32 codes; calls counted per rank)."""
+    fp32 amax and its int32 codes; calls counted per rank).
+
+    On a ``P x dp x tp`` mesh (dp or tp > 1) every pipe of ``dp * tp``
+    carries its own sends and shared-gradient sum (of its tp shards),
+    and three kinds join them (:func:`_mesh_collectives`):
+    ``all-reduce-tp``, the activations' tensor-parallel sums of a step's
+    F, B and W ops (B and W recompute their chunk under autograd, so the
+    forward's sums run again there, beside the backward's);
+    ``all-reduce-dp``, every gradient summed over dp; ``all-gather-dp``,
+    the ZeRO-1 weights (none at ``zero_stage`` 0).  ``by_axis`` then
+    holds each axis's bytes with the scalars (the loss and count, the
+    clip norm's sums with ``update``, each microbatch's mask count over
+    dp with ``masked``): what the ranks' counters read, which phase 28
+    and the mesh tests gate on."""
     from repro_torch.core.pipeline_runtime import (init_pipeline_params,
                                                    stage_crossing_sends)
     sends, nbytes = stage_crossing_sends(spec)
     P = spec.table.P
+    if dp * tp > 1:
+        mc = _mesh_collectives(spec, dp, tp, masked, update, zero_stage)
+        return CollectiveStats(
+            {"collective-permute": float(dp * tp * nbytes),
+             "all-reduce": float(mc["pp"]["shared_bytes"]),
+             "all-reduce-tp": float(mc["model"]["bytes"]),
+             "all-reduce-dp": float(mc["data"]["grad_bytes"]),
+             "all-gather-dp": float(mc["data"]["gather_bytes"])},
+            {"collective-permute": dp * tp * sends,
+             "all-reduce": mc["pp"]["shared_calls"],
+             "all-reduce-tp": mc["model"]["calls"],
+             "all-reduce-dp": mc["data"]["grad_calls"],
+             "all-gather-dp": mc["data"]["gather_calls"]},
+            {a: v["total"] for a, v in mc.items()})
     params = init_pipeline_params(None, spec.cfg, spec.layout, "meta")
     shared = [a.numel() for k, v in params.items() if k != "blocks"
               for a in tree_leaves(v)]
@@ -360,6 +391,130 @@ def collective_stats(spec) -> CollectiveStats:
     return CollectiveStats(
         {"collective-permute": float(nbytes), "all-reduce": float(P * ar)},
         {"collective-permute": sends, "all-reduce": P * n_calls})
+
+
+def _tp_units(spec, tp: int, d: int):
+    """One device column's tensor-parallel all-reduces of a step, as
+    ``(bytes, calls)`` per rank: its F, B and W ops (and the head's and
+    the embedding's at the pipeline ends), from the table."""
+    from repro_torch.core.tasktable import F_OPS, IDLE, R_OPS, W_OPS
+    from repro_torch.models.transformer import _dtype
+    cfg, tab = spec.cfg, spec.table
+    A = tab.arrays()
+    B, S, dm = spec.mbB, spec.S, cfg.d_model
+    cdt = _dtype(cfg.compute_dtype).itemsize
+    pdt = _dtype(cfg.param_dtype).itemsize
+    act = B * S * dm * cdt
+    # a chunk's forward sums: each attention layer's output (tp divides
+    # the heads) and each MLP's where tp divides its width; a backward
+    # sums as many input gradients
+    per_layer = 0
+    for j in range(spec.layout.period):
+        if cfg.layer_kind(j) == "attn":
+            per_layer += spec.layout.M
+        if cfg.d_ff and cfg.d_ff % tp == 0:
+            per_layer += spec.layout.M
+    vocab = cfg.vocab_size % tp == 0
+    tot_b = tot_c = 0
+    for t in range(tab.T):
+        op, c = int(A[t, d, 0]), int(A[t, d, 1])
+        if op == IDLE or op in R_OPS:
+            continue
+        s = spec.layout.pl.stage(d, c)
+        first = c == 0 and s == 0
+        last = c == tab.v - 1 and s == tab.P - 1
+        fwd = op in F_OPS
+        if not fwd and op not in W_OPS and tab.has_w and first:
+            continue                     # the first block's split B: none
+        calls = per_layer * (1 if fwd else 2)
+        b = calls * act
+        if first and vocab and (fwd or op in W_OPS or not tab.has_w):
+            b, calls = b + B * S * dm * pdt, calls + 1      # the lookup
+        if last and vocab:
+            # max, sum of exponentials, gold logit; backward: dh
+            b, calls = b + 3 * B * S * 4, calls + 3
+            if not fwd:
+                b, calls = b + act, calls + 1
+        tot_b += b
+        tot_c += calls
+    return tot_b, tot_c
+
+
+def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
+                      zero_stage: int) -> Dict[str, Dict[str, int]]:
+    """The bytes and calls one training step of ``spec`` on a ``P x dp x
+    tp`` mesh hands to collectives, by mesh axis, summed over the ranks
+    (:class:`repro_torch.launch.mesh.Mesh` counts the same per rank):
+
+    - ``pp``: the packed payloads sent (``send_bytes``), the shared
+      gradients' sum (``shared_bytes``, each rank's tp shard in fp32),
+      and the scalars (the loss and count, 8 B; with ``update`` the
+      clip norm's block sum, 4 B);
+    - ``data``: every gradient leaf of the rank (``grad_bytes``: blocks
+      in their dtype, shared in fp32), the ZeRO-1 weights' all-gather
+      (``gather_bytes``: each rank's dp slices, none at ``zero_stage``
+      0), and the scalars (loss
+      and count, 8 B; the norm, 4 B; with ``masked`` each microbatch's
+      mask count, 4 B);
+    - ``model``: the activations' sums (``bytes``, :func:`_tp_units`)
+      and the norm's 4 B.
+
+    ``total`` per axis is what the ranks' counters read
+    (:attr:`CollectiveStats.by_axis`)."""
+    from repro_torch.core.pipeline_runtime import (RankShard,
+                                                   init_pipeline_params,
+                                                   payload_words,
+                                                   stage_crossing_sends)
+    from repro_torch.launch.mesh import MESH_RULES
+    P, m = spec.table.P, spec.table.m
+    sends, _ = stage_crossing_sends(spec)
+    n = P * dp * tp
+    send_bytes = dp * tp * sends * 2 * payload_words(spec) * spec.mbB
+    tree = init_pipeline_params(None, spec.cfg, spec.layout, "meta")
+    shard = RankShard(spec.cfg, spec.layout, {"pp": P, "data": dp,
+                                              "model": tp}, MESH_RULES,
+                      {"pp": 0, "data": 0, "model": 0}, zero_stage)
+    shared_b = grad_b = gather_b = 0
+    shared_c = grad_c = gather_c = 0
+    for i, (path, a, sp) in enumerate(zip(shard.paths, tree_leaves(tree),
+                                          shard.param_specs)):
+        numel = a[0].numel() if path[0] == "blocks" else a.numel()
+        if shard.tp_split[i]:
+            numel //= tp
+        if path[0] == "blocks":
+            grad_b += numel * a.element_size()
+            if shard.zero_dims[i] is not None and dp > 1:
+                gather_b += numel // dp * a.element_size()
+                gather_c += 1
+        else:
+            grad_b += 4 * numel
+            shared_b += 4 * numel + (4 if spec.grad_psum_bits else 0)
+            shared_c += 2 if spec.grad_psum_bits else 1
+        grad_c += 1
+    model_b = model_c = 0
+    if tp > 1:
+        for d in range(P):
+            b, c = _tp_units(spec, tp, d)
+            model_b += b * dp * tp
+            model_c += c * dp * tp
+    pp_scalar = (8 + 4 * update) if P > 1 else 0
+    out = {
+        "pp": {"send_bytes": send_bytes, "sends": dp * tp * sends,
+               "shared_bytes": shared_b * n if P > 1 else 0,
+               "shared_calls": shared_c * n if P > 1 else 0,
+               "scalar_bytes": pp_scalar * n},
+        "data": {"grad_bytes": grad_b * n if dp > 1 else 0,
+                 "grad_calls": grad_c * n if dp > 1 else 0,
+                 "gather_bytes": gather_b * n if dp > 1 and update else 0,
+                 "gather_calls": gather_c * n if dp > 1 and update else 0,
+                 "scalar_bytes": (8 + 4 * update + (4 * m if masked else 0))
+                 * n if dp > 1 else 0},
+        "model": {"bytes": model_b, "calls": model_c,
+                  "scalar_bytes": 4 * update * n if tp > 1 else 0}}
+    for ax, v in out.items():
+        v["total"] = sum(x for k, x in v.items()
+                         if k.endswith("bytes"))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""Training steps of the port (no shardings): the single-device step of
-the reference's ``train()`` and ``make_pipeline_train_step`` of
-``repro/launch/steps.py``, with its Chronos-Offload path, its compressed
-boundary wire (``plan.wire``) and its compressed shared-gradient sum and
-deep-gradient shipment (``plan.grad_compression``); the pipeline step
-runs its ``P`` stages on one device, or one stage a rank over a
-:class:`~repro_torch.launch.mesh.PipeMesh`."""
+"""Training steps of the port: the single-device step of the reference's
+``train()`` and ``make_pipeline_train_step`` of ``repro/launch/steps.py``,
+with its Chronos-Offload path, its compressed boundary wire
+(``plan.wire``) and its compressed shared-gradient sum and deep-gradient
+shipment (``plan.grad_compression``); the pipeline step runs its ``P``
+stages on one device, one stage a rank over a
+:class:`~repro_torch.launch.mesh.PipeMesh`, or on a ``pp x dp x tp``
+:class:`~repro_torch.launch.mesh.Mesh` with the reference's sharding
+(the batch over dp, heads / FFN / vocab over tp, ZeRO-1 over dp)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -22,6 +24,47 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 # plan.grad_compression -> int width of the compressed sum and shipment
 PSUM_BITS = {"none": None, "int8_ef": 8, "int16_ef": 16}
+# where the rest of ROADMAP queue A item 3 is queued
+ITEM_3B = "ROADMAP queue A item 3b"
+
+
+def check_zero_stage(plan: ParallelPlan) -> None:
+    """ZeRO stages 0 and 1 run; 2 and 3 (sharded gradients, sharded
+    weights) raise NotImplementedError."""
+    if plan.zero_stage not in (0, 1):
+        raise NotImplementedError(
+            f"zero_stage={plan.zero_stage}: sharded gradients and weights "
+            f"(ZeRO-2/3, the reference's fsdp block layout) are not ported "
+            f"yet ({ITEM_3B})")
+
+
+def check_mesh_model(cfg: ModelConfig, dp: int, tp: int) -> None:
+    """Refuse what the mesh does not split yet: under tp > 1 a head count
+    tp does not divide (ValueError), and Mamba-2 layers (their norm over
+    a split width), MoE layers (the ``exp`` axis), the encoder-decoder
+    and the VLM (NotImplementedError); under dp > 1 MoE layers (their
+    router statistics span the global microbatch)."""
+    if tp > 1:
+        if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+            raise ValueError(
+                f"tp={tp} must divide num_heads={cfg.num_heads} and "
+                f"num_kv_heads={cfg.num_kv_heads} of {cfg.name} (whole "
+                f"query and K/V heads a rank; tp not dividing the K/V "
+                f"heads: {ITEM_3B})")
+        what = ("Mamba-2 layers (a norm over a tp-split width)"
+                if cfg.ssm is not None else
+                "MoE layers (the exp axis)" if cfg.moe is not None else
+                "the encoder-decoder" if cfg.encdec is not None else
+                "the VLM's patch prefix" if cfg.vision is not None else None)
+        if what is not None:
+            raise NotImplementedError(
+                f"tensor parallelism over {what} of {cfg.name} is not "
+                f"ported yet ({ITEM_3B})")
+    if dp > 1 and cfg.moe is not None:
+        raise NotImplementedError(
+            f"data parallelism over MoE layers of {cfg.name} (router "
+            f"statistics of the global microbatch) is not ported yet "
+            f"({ITEM_3B})")
 
 
 def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
@@ -38,6 +81,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
     divided by ``m``.  ``params`` and the optimizer state are updated in
     place; ``metrics`` holds device scalars ``loss`` (the microbatch
     mean), ``grad_norm`` and ``lr``."""
+    check_zero_stage(plan)
     lm = LM(cfg, kernels=plan.kernels, device=device)
     dev = lm.device
     m_dev = torch.tensor(float(m), dtype=torch.float32, device=dev)
@@ -148,13 +192,30 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
     the shared leaves.  Chronos-Offload and ``seq_chunks > 1`` raise
     NotImplementedError under a mesh (ROADMAP queue A).
 
+    A ``pp x dp x tp`` :class:`~repro_torch.launch.mesh.Mesh` (``pp ==
+    P``): ``mbB`` is a dp rank's share of a microbatch (the reference's
+    ``microbatch_size``; the global microbatch is ``mbB * dp``) and
+    ``batch`` the global one; the step's
+    :class:`~repro_torch.core.pipeline_runtime.RankShard` is
+    ``step.shard`` (``params = rank_params(..., shard=step.shard)``,
+    ``opt_state = adamw_init(step.shard.zero_views(params))``), and
+    :func:`check_mesh_model` and :func:`check_zero_stage` refuse what it
+    does not run.
+
     ``wrap_executor`` reaches
     :func:`~repro_torch.core.pipeline_runtime.make_train_grads_fn` (the
     dry run's counting executor)."""
     from repro_torch.core.pipeline_runtime import (make_pipeline_spec,
                                                    make_train_update_fn)
+    check_zero_stage(plan)
+    full = mesh if hasattr(mesh, "pipe") else None
+    dp = 1 if full is None else full.dp
+    if full is not None:
+        check_mesh_model(cfg, full.dp, full.tp)
+        if full.pp != P:
+            raise ValueError(f"P={P} stages on a mesh of pp={full.pp}")
     mbB = plan.microbatch_size
-    m = plan.num_microbatches or max(2, shape.global_batch // mbB)
+    m = plan.num_microbatches or max(2, shape.global_batch // (mbB * dp))
     if plan.schedule in VSHAPE_SCHEDULES and plan.num_chunks != 2:
         raise ValueError(f"{plan.schedule} is a fixed v=2 V-shape "
                          f"construction, got num_chunks={plan.num_chunks}")
@@ -185,9 +246,14 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
 
         def split(tree):
             return offload_kept(tree, plan)
+    shard = None
+    if full is not None:
+        from repro_torch.core.pipeline_runtime import RankShard
+        shard = RankShard(cfg, spec.layout, full.shape, full.rules,
+                          full.coords, plan.zero_stage)
     step = make_train_update_fn(spec, device, ocfg, m, use_kernel=fuse_opt,
                                 split=split, mesh=mesh,
-                                wrap_executor=wrap_executor)
+                                wrap_executor=wrap_executor, shard=shard)
     if split is None or not bits:
         return step, m, mbB, spec
     update = step

@@ -316,8 +316,11 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     ``overlap``: the double-buffered exchange's table
     (``make_pipeline_spec(overlap=)``), the same gradients.
 
-    ``after_step(step, params, opt_state)``, if given, is called after
-    every step (e.g. :func:`replicas_equal` under a mesh).
+    ``after_step(step, params, opt_state, shard)``, if given, is called
+    after every step (e.g. :func:`replicas_equal` under a mesh);
+    ``shard`` is the step's
+    :class:`~repro_torch.core.pipeline_runtime.RankShard` on a ``pp x dp
+    x tp`` :class:`~repro_torch.launch.mesh.Mesh`, else None.
 
     ``mesh`` (a :class:`~repro_torch.launch.mesh.PipeMesh` of ``P``
     ranks; ``device`` is then ``mesh.device``): this process is one
@@ -454,7 +457,7 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
             if first_step_s is None:
                 first_step_s = time.time() - t_start
             if after_step is not None:
-                after_step(step, params, opt_state)
+                after_step(step, params, opt_state, None)
             action = monitor.record_step(
                 injector.step_time(step, dt) if injector is not None
                 else dt)
@@ -535,10 +538,12 @@ def _train_pipeline_ranks(tc: TrainConfig, *, P: int, mesh, overlap: bool,
         raise NotImplementedError("fault injection and lost-process "
                                   "detection under a mesh are not ported "
                                   "yet (ROADMAP queue A, after item 3)")
-    if mesh.P != P:
-        raise ValueError(f"P={P} stages on a mesh of {mesh.P} ranks")
+    full = mesh if hasattr(mesh, "pipe") else None
+    pipe = mesh if full is None else full.pipe
+    if pipe.P != P:
+        raise ValueError(f"P={P} stages on a mesh of {pipe.P} ranks")
     cfg, shape, plan, ocfg = tc.model, tc.shape, tc.plan, tc.optimizer
-    dev, rank = mesh.device, mesh.rank
+    dev, rank = pipe.device, pipe.rank
     steps = steps or ocfg.total_steps
     step_fn, m, mbB, spec = make_pipeline_train_step(
         cfg, shape, plan, ocfg, P=P, device=dev, mesh=mesh, overlap=overlap)
@@ -546,10 +551,14 @@ def _train_pipeline_ranks(tc: TrainConfig, *, P: int, mesh, overlap: bool,
         # the whole draw, then the column: the one-device run's weights
         gen = torch.Generator(device=dev).manual_seed(tc.seed)
         params = init_pipeline_params(gen, cfg, spec.layout, dev)
-    params = rank_params(params, rank)
-    opt_state = adamw_init(params)
+    shard = step_fn.shard
+    params = rank_params(params, rank, shard)
+    opt_state = adamw_init(params if shard is None
+                           else shard.zero_views(params))
     bits = psum_bits_of(plan)
     psum_ef = init_psum_ef(spec, params, rank=rank) if bits else None
+    dp = 1 if full is None else full.dp
+    me, n_ranks = (rank, P) if full is None else (full.rank, full.size)
     cuda = dev.type == "cuda"
     static = None
     if cuda:
@@ -558,27 +567,30 @@ def _train_pipeline_ranks(tc: TrainConfig, *, P: int, mesh, overlap: bool,
         static = torch.cuda.memory_allocated(dev)
 
     def say(line):
-        if rank == 0:
+        if me == 0:
             log(line)
     source = data_source or synthetic_source(cfg, shape.seq_len,
                                              seed=tc.seed)
-    pipe = DataPipeline(source, global_batch=mbB * m, microbatches=m,
+    data = DataPipeline(source, global_batch=mbB * dp * m, microbatches=m,
                         prefetch=2)
     ex = step_fn.exchange
     losses, gnorms, lrs, step_s = [], [], [], []
     traffic = {"bytes_sent": [], "bytes_recv": [], "messages": [],
                "wait_s": [], "reduced_bytes": []}
+    if full is not None:
+        traffic["axis_bytes"] = []
     t_start = time.time()
-    pipe.start()
+    data.start()
     try:
         for step in range(steps):
             t0 = time.time()
             batch = {k: torch.from_numpy(a).to(dev)
-                     for k, a in pipe.next().items()}
+                     for k, a in data.next().items()}
             if "loss_mask" in batch:
                 batch["loss_mask"] = batch["loss_mask"][..., 1:]
             ex.reset_stats()
-            reduced0 = mesh.reduced_bytes
+            reduced0 = pipe.reduced_bytes
+            axis0 = None if full is None else full.collective_bytes()
             out = step_fn(params, opt_state, batch, psum_ef)
             params, opt_state, metrics, psum_ef = (
                 out.params, out.opt_state, out.metrics, out.ef)
@@ -587,25 +599,36 @@ def _train_pipeline_ranks(tc: TrainConfig, *, P: int, mesh, overlap: bool,
             dt = time.time() - t0
             for k, v in ex.stats().items():
                 traffic[k].append(v)
-            traffic["reduced_bytes"].append(mesh.reduced_bytes - reduced0)
+            traffic["reduced_bytes"].append(pipe.reduced_bytes - reduced0)
+            if full is not None:
+                # bytes handed to collectives by axis: the pipe's sends
+                # and all-reduces, and the dp and tp all-reduces and
+                # all-gathers
+                now = full.collective_bytes()
+                traffic["axis_bytes"].append({
+                    a: now[a] - axis0[a] + (ex.bytes_sent if a == "pp"
+                                            else 0) for a in now})
             losses.append(loss)
             gnorms.append(float(metrics["grad_norm"]))
             lrs.append(float(metrics["lr"]))
             step_s.append(dt)
             if after_step is not None:
-                after_step(step, params, opt_state)
+                after_step(step, params, opt_state, shard)
             if step % tc.log_every == 0:
-                say(f"[train-pp rank 0/{P}] step {step} loss {loss:.4f} "
+                say(f"[train-pp rank 0/{n_ranks}] step {step} loss "
+                    f"{loss:.4f} "
                     f"gnorm {gnorms[-1]:.3f} lr {lrs[-1]:.3e} ({dt:.2f}s, "
                     f"exchange wait {traffic['wait_s'][-1]:.3f}s)")
     finally:
-        pipe.stop()
+        data.stop()
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
             "steps": len(losses), "start_step": 0, "next_step": len(losses),
             "status": "complete", "wall_s": time.time() - t_start,
             "schedule": spec.table.name, "grad_norms": gnorms, "lrs": lrs,
             "step_s": step_s, "params": params, "opt_state": opt_state,
-            "rank": rank, "overlap": overlap,
+            "rank": me,
+            "coords": None if full is None else dict(full.coords),
+            "overlap": overlap,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
             else None, "static_bytes": static,
             "exchange": traffic,
@@ -640,13 +663,46 @@ def shared_digest(params, opt_state) -> torch.Tensor:
                       for a in tree_leaves(v)])
 
 
-def replicas_equal(mesh, params, opt_state) -> bool:
+def replicas_equal(mesh, params, opt_state, shard=None) -> bool:
     """Does every rank of ``mesh`` hold the same shared leaves (weights
     and fp32 masters)?  Their :func:`shared_digest` gathered over the
     ranks: a collective every rank must join.  A check for the smoke and
-    the tests (``train_pipeline(after_step=)``), not part of a step."""
-    digests = mesh.all_gather(shared_digest(params, opt_state))
-    return all(torch.equal(d, digests[0]) for d in digests)
+    the tests (``train_pipeline(after_step=)``), not part of a step.
+
+    On a ``pp x dp x tp`` :class:`~repro_torch.launch.mesh.Mesh`: the
+    shared leaves over the pipe, every weight over dp (the ZeRO-1
+    all-gather leaves the dp replicas whole and equal), and the weights
+    and masters of the tp-replicated leaves over tp, which ``shard`` (the
+    run's :class:`~repro_torch.core.pipeline_runtime.RankShard`, handed
+    to ``after_step``) names (:func:`replica_checks` gives each)."""
+    return all(replica_checks(mesh, params, opt_state, shard).values())
+
+
+def replica_checks(mesh, params, opt_state, shard=None) -> Dict[str, bool]:
+    """:func:`replicas_equal` axis by axis: ``{"pp": ...}``, and on a
+    ``pp x dp x tp`` mesh also ``"data"`` and ``"model"`` (which needs
+    the run's ``shard``)."""
+    if not hasattr(mesh, "pipe"):
+        digests = mesh.all_gather(shared_digest(params, opt_state))
+        return {"pp": all(torch.equal(d, digests[0]) for d in digests)}
+    out = {}
+    pipe = mesh.pipe
+    d = pipe.all_gather(shared_digest(params, opt_state)) if pipe.P > 1 \
+        else []
+    out["pp"] = all(torch.equal(x, d[0]) for x in d)
+    d = mesh.all_gather(torch.cat([leaf_digest(a) for a in
+                                   tree_leaves(params)]), "data")
+    out["data"] = all(torch.equal(x, d[0]) for x in d)
+    if shard is None:
+        raise ValueError("the tp replicas' check needs the run's RankShard "
+                         "(after_step's shard)")
+    split = shard.tp_split
+    rep = [leaf_digest(a) for a, sp in zip(tree_leaves(params), split)
+           if not sp] + [leaf_digest(a) for a, sp in zip(
+               tree_leaves(opt_state["master"]), split) if not sp]
+    d = mesh.all_gather(torch.cat(rep), "model") if rep else []
+    out["model"] = all(torch.equal(x, d[0]) for x in d)
+    return out
 
 
 def train_rank(mesh, tc: TrainConfig, P: int,
@@ -656,9 +712,13 @@ def train_rank(mesh, tc: TrainConfig, P: int,
     mesh.spawn` runs in each process (``args=(tc, P, kw)``): the result
     without the rank's trees and error feedback (they stay in the rank),
     plus ``launches``, each CUDA kernel's launches in this rank's run
-    (counted from 0 at its start), and ``replicas_equal``, per step
+    (counted from 0 at its start), ``replicas_equal``, per step
     whether every rank holds the same shared leaves after it
-    (:func:`replicas_equal`)."""
+    (:func:`replicas_equal`), and ``replica_checks``, the same axis by
+    axis (:func:`replica_checks`: on a ``pp x dp x tp`` mesh every weight
+    over dp and the tp-replicated leaves over tp too).  ``mesh``: a
+    :class:`~repro_torch.launch.mesh.PipeMesh` or a ``pp x dp x tp``
+    :class:`~repro_torch.launch.mesh.Mesh` (``spawn(shape=)``)."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_adamw import fused_adamw_flat
     from repro_torch.kernels.rmsnorm import rmsnorm_rows
@@ -668,11 +728,12 @@ def train_rank(mesh, tc: TrainConfig, P: int,
                "fused_adamw_flat": fused_adamw_flat, "ssd_scan": ssd_scan}
     for fn in kernels.values():
         fn.launches = 0
-    equal = []
-    out = train_pipeline(tc, P=P, mesh=mesh, after_step=lambda _, p, o: (
-        equal.append(replicas_equal(mesh, p, o))), **(kw or {}))
+    checks = []
+    out = train_pipeline(tc, P=P, mesh=mesh, after_step=lambda _, p, o, s: (
+        checks.append(replica_checks(mesh, p, o, s))), **(kw or {}))
     out["launches"] = {k: fn.launches for k, fn in kernels.items()}
-    out["replicas_equal"] = equal
+    out["replica_checks"] = checks
+    out["replicas_equal"] = [all(c.values()) for c in checks]
     for k in ("params", "opt_state"):
         del out[k]
     del out["wire"]["psum_ef"]

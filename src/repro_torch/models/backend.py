@@ -17,7 +17,10 @@ what runs:
   a kernel of this package.
 
 :func:`chunk_fwd` and :func:`head_loss` are the ChunkBody seam the
-pipeline executor runs every F, B and W op through.
+pipeline executor runs every F, B and W op through.  Neither takes a
+sharding argument: under a mesh the executor installs its
+:class:`~repro_torch.models.sharding.ShardEnv` around the tick loop, and
+the layers read it.
 """
 from __future__ import annotations
 
@@ -144,15 +147,20 @@ def head_loss(spec, params, x, labels, loss_mask=None, denom=None,
     """Final norm + unembed + CE, plus ``spec.aux_weight`` times the
     payload's MoE aux sum ``aux`` [1] where one is given: the loss of one
     microbatch at the last stage.  The ``spec.prefix`` patch positions
-    are dropped before the head.  ``denom``: the sequence-chunked
-    executor's fixed normalizer (the whole microbatch's token or mask
-    count), so chunk losses sum to the microbatch's mean."""
+    are dropped before the head.  ``denom``: a fixed normalizer (the
+    sequence-chunked executor's whole-microbatch token or mask count, so
+    chunk losses sum to the microbatch's mean; a data-parallel rank's
+    global-microbatch count, so the ranks' losses sum to it).  Under a
+    tensor-parallel env the head is vocab-parallel
+    (:func:`repro_torch.models.layers.unembed`, ``softmax_xent``) and
+    every tp rank returns the whole loss."""
     bk = get_backend(spec.kernels)
     if spec.prefix:
         x = x[:, spec.prefix:]
     h = bk.rmsnorm(params["final_norm"], x, spec.cfg.norm_eps)
-    logits = L.unembed(params["embed"], h)
-    ce = L.softmax_xent(logits, labels, loss_mask, denom=denom)
+    V = spec.cfg.vocab_size
+    logits = L.unembed(params["embed"], h, vocab=V)
+    ce = L.softmax_xent(logits, labels, loss_mask, denom=denom, vocab=V)
     if aux is None:
         return ce
     return ce + spec.aux_weight * aux[0]

@@ -4,6 +4,17 @@ Conventions (same as the reference): activations [batch, seq, d_model];
 attention heads [B, S, H, hd]; norms and softmax run in fp32 whatever the
 compute dtype.  Weights keep the JAX layout — ``wq`` is ``[d, H*hd]`` and
 is applied as ``x @ W`` — so bridged weights are leaf-for-leaf copies.
+
+Each ``*_specs`` function gives its leaves' logical sharding specs, the
+ones the reference's ``init_*`` returns.  Under a tensor-parallel env
+(:func:`repro_torch.models.sharding.tp_env`) the layers run on their
+leaves' tp shards, as GSPMD runs the reference's under those specs:
+:func:`mlp` and :func:`attention` split their hidden width (heads) by
+columns and their output projection by rows and sum the partial outputs
+over tp; :func:`embed` looks up the rank's vocab rows; :func:`unembed`
+and :func:`softmax_xent` give vocab-parallel logits and their
+cross-entropy.  A leaf whose width tp does not divide stays whole
+(``sanitize_spec`` drops the axis) and its layer runs unsplit.
 """
 from __future__ import annotations
 
@@ -13,7 +24,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding import (copy_to_tp, max_over_tp,
+                                         reduce_from_tp, tp_env)
+
 NEG_INF = -2.0 ** 30
+A_TP, A_FSDP = "tp", "fsdp"
 
 
 def dense_init(gen, shape, fan_in: int, dtype, device):
@@ -36,6 +51,10 @@ def dense_init(gen, shape, fan_in: int, dtype, device):
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
+
+def rmsnorm_specs():
+    return {"scale": (None,)}
+
 
 def rmsnorm(params, x, eps: float = 1e-6):
     dt = x.dtype
@@ -79,37 +98,83 @@ def init_mlp(gen, n: int, d: int, ff: int, act: str, dtype, device):
     return p
 
 
+def mlp_specs(act: str):
+    specs = {"wi": (A_FSDP, A_TP), "wo": (A_TP, A_FSDP)}
+    if act in ("silu", "geglu"):
+        specs["wg"] = (A_FSDP, A_TP)
+    return specs
+
+
 def _act(x, act: str):
     if act in ("silu",):
         return F.silu(x)
     return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
 
 
-def mlp(params, x, act: str):
+def mlp(params, x, act: str, d_ff: Optional[int] = None):
+    """``d_ff``: the full hidden width, read only under a tp env: where
+    tp divides it the leaves are the rank's columns of ``wi`` / ``wg``
+    and rows of ``wo``, and the partial outputs are summed over tp."""
+    env = tp_env()
+    split = env is not None and d_ff is not None and env.splits(d_ff)
+    if split:
+        x = copy_to_tp(x, env)
     h = x @ params["wi"]
     if "wg" in params:
         h = _act(x @ params["wg"], act) * h
     else:
         h = _act(h, act)
-    return h @ params["wo"]
+    y = h @ params["wo"]
+    return reduce_from_tp(y, env) if split else y
 
 
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def embed(params, tokens):
-    """tokens [B, S] -> [B, S, d]."""
-    return params["tokens"][tokens]
+def embed_specs(tie: bool):
+    specs = {"tokens": (A_TP, A_FSDP)}
+    if not tie:
+        specs["head"] = (A_FSDP, A_TP)
+    return specs
 
 
-def unembed(params, x):
+def _vocab_split(vocab: Optional[int]):
+    """The tp env when the vocab (of ``vocab`` rows) is split over it."""
+    env = tp_env()
+    return env if env is not None and vocab is not None \
+        and env.splits(vocab) else None
+
+
+def embed(params, tokens, vocab: Optional[int] = None):
+    """tokens [B, S] -> [B, S, d].  Under a tp env that splits the
+    ``vocab`` rows (the vocab-parallel lookup): the rank looks up the
+    tokens in its rows, gives zeros for the others, and the lookups are
+    summed over tp."""
+    env = _vocab_split(vocab)
+    if env is None:
+        return params["tokens"][tokens]
+    rows = params["tokens"].shape[0]
+    local = tokens - env.mesh.coord(env.tp_axis) * rows
+    inside = (local >= 0) & (local < rows)
+    out = params["tokens"][local.clamp(0, rows - 1)]
+    out = torch.where(inside[..., None], out, torch.zeros_like(out))
+    return reduce_from_tp(out, env)
+
+
+def unembed(params, x, vocab: Optional[int] = None):
+    """Logits ``x @ head`` (or the tied ``tokens.T``); under a tp env that
+    splits the ``vocab``, the rank's vocab columns of them."""
+    env = _vocab_split(vocab)
+    if env is not None:
+        x = copy_to_tp(x, env)
     if "head" in params:
         return x @ params["head"]
     return x @ params["tokens"].T.to(x.dtype)
 
 
-def softmax_xent(logits, labels, mask=None, denom=None):
+def softmax_xent(logits, labels, mask=None, denom=None,
+                 vocab: Optional[int] = None):
     """Stable CE in fp32 (mirror of the reference's ``softmax_xent``; the
     gold logit is a gather here, which picks the same value as the
     reference's one-hot contraction).
@@ -118,9 +183,24 @@ def softmax_xent(logits, labels, mask=None, denom=None):
     chunked losses pass the *whole-sequence* token (or mask) count so
     per-chunk partial losses sum to the full-sequence loss."""
     lg = logits.float()
-    m = lg.amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
-    gold = lg.gather(-1, labels.long()[..., None])[..., 0]
+    env = _vocab_split(vocab)
+    if env is None:
+        m = lg.amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+        gold = lg.gather(-1, labels.long()[..., None])[..., 0]
+    else:
+        # vocab-parallel: ``logits`` are the rank's columns; the max, the
+        # sum of exponentials and the gold logit are reduced over tp, so
+        # every tp rank holds the whole loss
+        m = max_over_tp(lg.amax(dim=-1, keepdim=True), env)
+        lse = torch.log(reduce_from_tp(torch.exp(lg - m).sum(dim=-1), env)) \
+            + m[..., 0]
+        cols = lg.shape[-1]
+        local = labels.long() - env.mesh.coord(env.tp_axis) * cols
+        inside = (local >= 0) & (local < cols)
+        g = lg.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0]
+        gold = reduce_from_tp(torch.where(inside, g, torch.zeros_like(g)),
+                              env)
     nll = lse - gold
     if mask is not None:
         nll = nll * mask
@@ -134,6 +214,15 @@ def softmax_xent(logits, labels, mask=None, denom=None):
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
+
+def attention_specs(qkv_bias: bool = False):
+    specs = {"wq": (A_FSDP, A_TP), "wk": (A_FSDP, A_TP),
+             "wv": (A_FSDP, A_TP), "wo": (A_TP, A_FSDP)}
+    if qkv_bias:
+        for n in ("bq", "bk", "bv"):
+            specs[n] = (A_TP,)
+    return specs
+
 
 def make_mask(q_pos, kv_pos, *, causal: bool, window=0,
               prefix_len: int = 0):
@@ -252,9 +341,27 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
     :func:`blockwise_attention` and a shorter one the dense path.
     Cross-attention (no mask: every query sees every encoder position)
     stays on the plain dense path, as the reference keeps it out of its
-    kernel."""
+    kernel.
+
+    Under a tp env the query and K/V head counts are read from the leaf
+    widths: where ``wq`` holds fewer than ``num_heads`` heads it is the
+    rank's block of query heads (``H / tp`` from ``t * H / tp``) and
+    ``wk`` / ``wv`` its block of K/V heads (``G / tp`` from ``t * G /
+    tp``: the groups of those query heads), ``wo`` the matching rows,
+    and the partial outputs are summed over tp."""
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(hd)
+    heads = params["wq"].shape[-1] // hd
+    split = heads != num_heads
+    env = tp_env() if split else None
+    if split:
+        if env is None or heads * env.tp != num_heads:
+            raise ValueError(f"attention: wq holds {heads} of {num_heads} "
+                             "heads outside a tensor-parallel env of that "
+                             "split")
+        num_kv = params["wk"].shape[-1] // hd
+        num_heads = heads
+        x = copy_to_tp(x, env)
     q = x @ params["wq"]
     if "bq" in params:
         q = q + params["bq"]
@@ -325,6 +432,8 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
         out = dense_attention(q, k, v, msk[None, None, None], scale)
 
     y = out.reshape(B, S, num_heads * hd) @ params["wo"]
+    if split:
+        y = reduce_from_tp(y, env)
     if return_kv:
         return y, (k, v)
     return y, new_cache

@@ -161,6 +161,17 @@ def mamba_block(params, x, cfg: SSMConfig, *, cache: Optional[dict] = None,
     return out, cache
 
 
+def mamba_specs() -> Dict:
+    """Logical sharding specs of :func:`init_mamba`'s leaves (the
+    reference's)."""
+    fsdp, tp = L.A_FSDP, L.A_TP
+    return {"wz": (fsdp, tp), "wx": (fsdp, tp), "wB": (fsdp, None),
+            "wC": (fsdp, None), "wdt": (fsdp, tp), "conv_x": (None, tp),
+            "conv_B": (None, None), "conv_C": (None, None),
+            "A_log": (tp,), "D": (tp,), "dt_bias": (tp,),
+            "norm_scale": (tp,), "wo": (tp, fsdp)}
+
+
 def init_mamba_cache(batch: int, d: int, cfg: SSMConfig, dtype,
                      device) -> Dict[str, torch.Tensor]:
     d_in = cfg.expand * d

@@ -52,6 +52,23 @@ def init_moe(gen, n: int, d: int, cfg: MoEConfig, act: str, dtype,
     return p
 
 
+A_EXP = "exp"
+
+
+def moe_specs(cfg: MoEConfig, act: str) -> Dict:
+    """Logical sharding specs of :func:`init_moe`'s leaves (the
+    reference's): the experts over "exp" and their hidden width over
+    tp; the router replicated."""
+    specs = {"router": (None, None),
+             "wi": (A_EXP, L.A_FSDP, L.A_TP),
+             "wo": (A_EXP, L.A_TP, L.A_FSDP)}
+    if act in ("silu", "geglu"):
+        specs["wg"] = (A_EXP, L.A_FSDP, L.A_TP)
+    if cfg.num_shared_experts:
+        specs["shared"] = L.mlp_specs(act)
+    return specs
+
+
 def capacity(T: int, cfg: MoEConfig) -> int:
     """Slots per expert for ``T`` tokens: ``ceil(T k / E)`` times the
     capacity factor, rounded up to a multiple of 128 (or of 16 below

@@ -86,6 +86,37 @@ def _init_layers(gen, cfg: ModelConfig, n: int, device,
     return layer
 
 
+def layer_specs(cfg: ModelConfig, idx: int) -> Dict[str, Any]:
+    """Logical sharding specs of one decoder layer shaped as layer
+    ``idx`` (the tree of :func:`_init_layers` without its stacked axis):
+    the reference's ``_init_layer`` specs."""
+    s: Dict[str, Any] = {"norm1": L.rmsnorm_specs()}
+    if cfg.layer_kind(idx) == "attn":
+        s["attn"] = L.attention_specs(cfg.qkv_bias)
+    else:
+        s["mamba"] = M.mamba_specs()
+    if cfg.encdec is not None:
+        s["norm_x"] = L.rmsnorm_specs()
+        s["cross"] = L.attention_specs(False)
+    if cfg.layer_is_moe(idx):
+        s["norm2"] = L.rmsnorm_specs()
+        s["moe"] = MOE.moe_specs(cfg.moe, cfg.act)
+    elif cfg.d_ff:
+        s["norm2"] = L.rmsnorm_specs()
+        s["mlp"] = L.mlp_specs(cfg.act)
+    return s
+
+
+def encoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical specs of :func:`_init_encoder`'s ``encoder`` and
+    ``enc_norm`` (the reference's ``LM.init`` encoder specs)."""
+    one = {"norm1": L.rmsnorm_specs(), "attn": L.attention_specs(False),
+           "norm2": L.rmsnorm_specs(), "mlp": L.mlp_specs(cfg.act)}
+    return {"encoder": [dict(one) for _ in
+                        range(cfg.encdec.num_encoder_layers)],
+            "enc_norm": L.rmsnorm_specs()}
+
+
 def _attn_leaves(dense, cfg: ModelConfig) -> Dict[str, Any]:
     """Bias-free attention projections ``wq``, ``wk``, ``wv``, ``wo``
     drawn by ``dense(shape, fan_in)``."""
@@ -218,7 +249,7 @@ def _apply_layer(p, x, positions, cfg: ModelConfig, idx: int, *,
         x = x + y
     elif "mlp" in p:
         h = bk.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        y = L.mlp(p["mlp"], h, cfg.act)
+        y = L.mlp(p["mlp"], h, cfg.act, d_ff=cfg.d_ff)
         if scaled:
             y = y * gate
         x = x + y

@@ -1,7 +1,7 @@
 """AdamW with fp32 master weights + model-dtype weights (mixed precision),
 global-norm clipping and decoupled weight decay with a rank-based mask
-(own copy of ``repro/optim/adamw.py`` without its ZeRO spec helpers:
-nothing is sharded on one card).
+(own copy of ``repro/optim/adamw.py``, with its ZeRO spec helpers
+:func:`zero_state_specs` and :func:`drop_fsdp`).
 
 State: ``{"step": int32 0-d tensor, "mu": fp32 tree, "nu": fp32 tree,
 "master": fp32 tree}``, all on the parameters' device.
@@ -154,3 +154,53 @@ def cast_like(tree_fp32, params):
     with torch.no_grad():
         tree_map(lambda m, p: p.copy_(m), tree_fp32, params)
     return params
+
+
+# ---------------------------------------------------------------------------
+# ZeRO sharding-spec derivation (the reference's)
+# ---------------------------------------------------------------------------
+
+def zero_state_specs(param_logical_specs, zero_stage: int):
+    """Optimizer-state logical specs from parameter logical specs: at
+    stage >= 1 every state (mu / nu / master) carries the fsdp axis, on
+    the spec's first free (None) axis where the parameter has none (a
+    spec without a free axis stays replicated)."""
+    from repro_torch.models.sharding import spec_map
+
+    def add_fsdp(spec):
+        if spec is None:
+            return spec
+        spec = tuple(spec)
+        if any(ax == "fsdp" or (isinstance(ax, tuple) and "fsdp" in ax)
+               for ax in spec):
+            return spec
+        out = list(spec)
+        for i, ax in enumerate(out):
+            if ax is None:
+                out[i] = "fsdp"
+                return tuple(out)
+        return spec
+
+    if zero_stage < 1:
+        return param_logical_specs
+    return spec_map(add_fsdp, param_logical_specs)
+
+
+def drop_fsdp(param_logical_specs):
+    """Parameter specs for ZeRO-1/2 (parameters replicated over dp,
+    states sharded): the fsdp axis removed."""
+    from repro_torch.models.sharding import spec_map
+
+    def rm(spec):
+        if spec is None:
+            return spec
+        out = []
+        for ax in tuple(spec):
+            if ax == "fsdp":
+                out.append(None)
+            elif isinstance(ax, tuple):
+                out.append(tuple(a for a in ax if a != "fsdp") or None)
+            else:
+                out.append(ax)
+        return tuple(out)
+    return spec_map(rm, param_logical_specs)

@@ -176,21 +176,26 @@ class ExecutablePlan:
         - ``kernels`` (the port's field): "fused" runs the CUDA kernels
           (on a CPU tensor each wrapper runs its plain version), "plain"
           runs no kernel;
-        - ``pp_axis`` and ``zero_stage`` have no field: the stages are
-          virtual on one card, so only the default axis name "pp" holds,
-          and ZeRO stage 0 or 1 at a data-parallel size of 1 keeps the
-          whole optimizer state on the card as the port does.  Any other
-          value raises ValueError (mesh and ZeRO sharding: ROADMAP
-          A.1d)."""
+        - ``zero_stage`` 0 or 1 is the plan's field (the optimizer
+          state replicated, or each data-parallel rank's fsdp slice of
+          the blocks' state on a mesh); stages 2 and 3 shard gradients or
+          weights and raise ValueError (ROADMAP queue A item 3b);
+        - ``pp_axis`` has no field: the mesh's pipe axis is always "pp",
+          so any other name raises ValueError.
+
+        A point's ``tp`` (``self.query.tp``) trains on a mesh of that tp
+        (``train_pipeline(mesh=)`` with a
+        :class:`~repro_torch.launch.mesh.Mesh` of tp ranks a stage)."""
         if pp_axis != "pp":
             raise ValueError(
-                f"pp_axis={pp_axis!r}: one card has no mesh; its "
-                f"{self.query.pp} pipeline stages are virtual (pp_axis "
-                f"'pp' only)")
+                f"pp_axis={pp_axis!r}: the port's mesh names its pipe axis "
+                f"'pp' (its {self.query.pp} pipeline stages; pp_axis 'pp' "
+                f"only, virtual stages on one card or ranks of a mesh)")
         if zero_stage not in (0, 1):
             raise ValueError(
                 f"zero_stage={zero_stage} shards gradients or weights over "
-                f"data-parallel ranks; one card runs stage 0 or 1")
+                f"data-parallel ranks; the port runs stage 0 or 1 (ROADMAP "
+                f"queue A item 3b)")
         p = self.point
         if p.recomp_chunks:
             rc = RecomputeConfig(mode="chronos",
@@ -209,7 +214,8 @@ class ExecutablePlan:
             microbatch_size=(microbatch_size
                              if microbatch_size is not None
                              else self.query.microbatch),
-            recompute=rc, offload=off, kernels=kernels)
+            recompute=rc, offload=off, zero_stage=zero_stage,
+            kernels=kernels)
 
     def summary(self) -> Dict:
         p = self.point

@@ -65,6 +65,10 @@ LINK_BW = 450e9
 class CollectiveStats:
     bytes_by_kind: Dict[str, float]
     count_by_kind: Dict[str, int]
+    #: on a ``pp x dp x tp`` mesh: the bytes handed to collectives by
+    #: mesh axis ("pp", "data", "model"), scalars included, summed over
+    #: the ranks (what the ranks' counters read); empty otherwise
+    by_axis: Dict[str, int] = field(default_factory=dict)
 
     @property
     def total_bytes(self) -> float:

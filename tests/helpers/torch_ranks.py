@@ -90,8 +90,8 @@ def train_on_rank(mesh, tc, P, kw):
     from repro_torch.launch.train import replicas_equal, train_pipeline
     torch.set_num_threads(1)
     equal = []
-    out = train_pipeline(tc, P=P, mesh=mesh, after_step=lambda _, p, o: (
-        equal.append(replicas_equal(mesh, p, o))), **kw)
+    out = train_pipeline(tc, P=P, mesh=mesh, after_step=lambda _, p, o, s: (
+        equal.append(replicas_equal(mesh, p, o, s))), **kw)
     return {**{k: v for k, v in out.items()
                if k not in ("params", "opt_state", "wire")},
             "replicas_equal": equal,

@@ -155,9 +155,9 @@ def test_replan_for_pp_matches_jax(new_pp):
 
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "deepseek-7b-24"])
 def test_parallel_plan_maps_every_point(name):
-    """The port's plan equals the reference's on every field it has; the
-    mesh and ZeRO terms it has not raise on a value one card cannot
-    honour."""
+    """The port's plan equals the reference's on every field it has
+    (``zero_stage`` too); the mesh axis name it has not, and the ZeRO
+    stages it does not run, raise."""
     q, jq = _queries(name)
     for p, jp in zip(enumerate_points(q), jax_enumerate_points(jq)):
         pp_ = ExecutablePlan(q, p).parallel_plan()
@@ -166,10 +166,11 @@ def test_parallel_plan_maps_every_point(name):
         theirs = dataclasses.asdict(ref)
         assert mine.pop("kernels") == "fused"
         assert {k: theirs[k] for k in mine} == mine, p.describe()
-        assert set(theirs) - set(mine) >= {"pp_axis", "zero_stage"}
+        assert set(theirs) - set(mine) >= {"pp_axis"}
+        assert mine["zero_stage"] == theirs["zero_stage"] == 1
     ep = ExecutablePlan(q, enumerate_points(q)[0])
-    assert ep.parallel_plan(microbatch_size=3, zero_stage=0,
-                            kernels="plain").microbatch_size == 3
+    pp0 = ep.parallel_plan(microbatch_size=3, zero_stage=0, kernels="plain")
+    assert pp0.microbatch_size == 3 and pp0.zero_stage == 0
     with pytest.raises(ValueError, match="virtual"):
         ep.parallel_plan(pp_axis="pod")
     with pytest.raises(ValueError, match="zero_stage=2"):
