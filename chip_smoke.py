@@ -1581,27 +1581,35 @@ def _ssd_design_bytes(B, S, H, P, N, Q, el):
     return must + 4 * states + 2 * cum, rereads
 
 
-def _ssd_kernel_ms(torch, fn, calls: int = 1, sessions: int = 3) -> dict:
+def _ssd_kernel_ms(torch, fn, calls: int = 1, sessions: int = 4) -> dict:
     """Kernel name -> device ms per call of each SSD kernel that ``fn``
     launches, from ``torch.profiler`` over ``calls`` calls after one more
     untraced; the names tell the routes apart (``ROUTE_KERNELS``).  A
     profiler session on the card now and then drops device records (seen
     with torch 2.11, on a 4096^2 matmul as well), all of a kernel's or
-    some: a session is kept only if its kernel names are a whole route's
-    and each kernel has one record per wrapper launch in it, else it is
-    traced again, up to ``sessions`` in all, and then the run fails."""
+    some, in bursts: the SSD kernel that ends a session is missing while
+    the kernels before it are recorded, for two or three sessions in a
+    row, in every process on the card at once.  So each session stays
+    open a moment after the last kernel ends, a session is kept only if
+    its kernel names are a whole route's and each kernel has one record
+    per wrapper launch in it, and a session that is not is traced again
+    after a pause that doubles (0.5 s, 1 s, 2 s), up to ``sessions`` in
+    all.  Returns {} if none was whole."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.ssd_scan import ssd_scan
     fn()
     torch.cuda.synchronize()
     for k in range(sessions):
+        if k:
+            time.sleep(0.25 * 2 ** k)
         out, seen = {}, {}
         before = ssd_scan.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.01)
         n = ssd_scan.launches - before
         for e in prof.key_averages():
             m = re.search(r"\bssd_scan_kernel\w*", e.key)
@@ -1616,9 +1624,56 @@ def _ssd_kernel_ms(torch, fn, calls: int = 1, sessions: int = 3) -> dict:
                 c == n for c in seen.values()):
             return out
         print(f"[kernels] the profiler recorded SSD kernels {seen} over "
-              f"{n} wrapper launches: traced again")
-    fail(f"the profiler dropped SSD kernel records in all {sessions} "
-         "sessions")
+              f"{n} wrapper launches"
+              + (": traced again" if k + 1 < sessions else ""))
+    print(f"[kernels] the profiler dropped SSD kernel records in all "
+          f"{sessions} sessions")
+    return {}
+
+
+def _ssd_graph_kernels(torch, fn) -> dict:
+    """SSD kernel name -> its kernel nodes in a CUDA graph captured from
+    one ``fn()`` call: what the wrapper enqueued, as the graph holds it,
+    read from the graph's debug dump (mangled names; the kernels sit in
+    an anonymous namespace, so a name is matched whole by the digit of
+    its length before it and the ``E`` or ``I`` after it)."""
+    import tempfile
+
+    from repro_torch.kernels.ssd_scan.ops import ROUTE_KERNELS
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
+        fn()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        g.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    del g
+    names = {k for ks in ROUTE_KERNELS.values() for k in ks}
+    found = {k: len(re.findall(rf"\d{re.escape(k)}[EI]", text))
+             for k in names}
+    return {k: c for k, c in found.items() if c}
+
+
+def _ssd_route_ran(torch, fn) -> tuple:
+    """(route, how it was read) of the SSD kernels one ``fn()`` call
+    runs: from the profiler's records, or, where the profiler dropped
+    them in every session, from the kernel nodes of a captured graph of
+    the same call."""
+    ran = _ssd_route_of(_ssd_kernel_ms(torch, fn))
+    if ran != "none":
+        return ran, "profiler"
+    nodes = _ssd_graph_kernels(torch, fn)
+    ran = _ssd_route_of(nodes) if all(c == 1 for c in nodes.values()) \
+        else "none"
+    print(f"[kernels] SSD kernel nodes of the captured call: {nodes}")
+    return ran, "graph nodes"
 
 
 def _ssd_route_of(names) -> str:
@@ -1661,7 +1716,7 @@ def phase_ssd(torch, gen):
             if ssd_scan.launches != before + 1:
                 fail(f"ssd_scan ({name}, {dtype}) counted "
                      f"{ssd_scan.launches - before} launches, not 1")
-            ran = _ssd_route_of(_ssd_kernel_ms(torch, call))
+            ran, how = _ssd_route_ran(torch, call)
             y_ref, h_ref = ssd_chunked_ref(*ins, Q)
             scale = max(1.0, float(y_ref.abs().max()),
                         float(h_ref.abs().max()))
@@ -1669,7 +1724,7 @@ def phase_ssd(torch, gen):
             ok = (y.shape == y_ref.shape and h.shape == h_ref.shape
                   and max(e_y, e_h) <= SSD_TOL * scale)
             print(f"[kernels] ssd_scan ({name}) {str(dtype)[6:]} x [{B},{S},"
-                  f"{H},{P}] N={N} Q={Q}, route {ran}: "
+                  f"{H},{P}] N={N} Q={Q}, route {ran} ({how}): "
                   f"max|d| y={e_y:.3e} h={e_h:.3e} "
                   f"(tol {SSD_TOL:g} * {scale:.3g}) "
                   f"{'ok' if ok else 'FAIL'}")
@@ -1750,8 +1805,8 @@ def phase_ssd_h0(torch, gen, rows):
         ins = _ssd_inputs(torch, gen, B, S, H, P, N, dtype)
         y, h = ssd_scan(*ins, chunk=Q, h0=h0)
         torch.cuda.synchronize()
-        ran = _ssd_route_of(_ssd_kernel_ms(
-            torch, lambda: ssd_scan(*ins, chunk=Q, h0=h0)))
+        ran, how = _ssd_route_ran(
+            torch, lambda: ssd_scan(*ins, chunk=Q, h0=h0))
         y_ref, h_ref = ssd_chunked_ref(*ins, Q, h0)
         scale = max(1.0, float(y_ref.abs().max()), float(h_ref.abs().max()))
         e_y, e_h = max_err(y, y_ref), max_err(h, h_ref)
@@ -1760,7 +1815,8 @@ def phase_ssd_h0(torch, gen, rows):
         bitwise = torch.equal(z[0], n[0]) and torch.equal(z[1], n[1])
         ok = max(e_y, e_h) <= SSD_TOL * scale
         print(f"[kernels] ssd_scan h0 {str(dtype)[6:]} x [{B},{S},{H},{P}] "
-              f"N={N} Q={Q}, route {ran}: max|d| vs ssd_chunked_ref(h0) "
+              f"N={N} Q={Q}, route {ran} ({how}): max|d| vs "
+              f"ssd_chunked_ref(h0) "
               f"y={e_y:.3e} h={e_h:.3e} (tol {SSD_TOL:g} * {scale:.3g}) "
               f"{'ok' if ok else 'FAIL'}; h0=zeros "
               f"{'bitwise ==' if bitwise else 'DIFFERS from'} no h0")
@@ -2072,10 +2128,12 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
         for _ in range(2):
             if ssd_counts == want_ssd:
                 break
-            # a profiler session on the card now and then drops records
-            # (seen with torch 2.11): the count must be seen whole once
+            # a profiler session on the card now and then drops records,
+            # in bursts (see _ssd_kernel_ms): the count must be seen whole
+            # once, in a session a second apart from the last
             print(f"[{tag}] the profiler recorded SSD kernels {ssd_counts} "
                   f"of {want_ssd}: one more step traced")
+            time.sleep(1.0)
             ssd_counts = profile_train_step(torch, tc, P, out["params"],
                                             out["opt_state"], med, tag, bwd)
         print(f"[{tag}] ssd_scan kernels in the profiled step: {ssd_counts}")
@@ -5123,7 +5181,7 @@ def phase_train_ranks(torch, smi: str, base):
 
 MESH_SHAPE = (2, 2, 2)   # pp x dp x tp: eight processes on the card
 MESH_LAYERS = 4          # tinyllama-1.1b cut from 22 (full width)
-MESH_STEPS = 3           # the first a warm-up
+MESH_STEPS = 2           # the first a warm-up
 MESH_TIMEOUT = 300       # seconds for the phase's one spawn
 MESH_CHECK = dict(layers=4, m=2, seq=257)    # the fp32 check
 
@@ -5170,9 +5228,10 @@ def _mesh_check_inputs(torch, spec, device):
     return params, {"tokens": tokens}
 
 
-def _mesh_fp32_check(torch, mesh, ref_path):
+def _mesh_fp32_check(torch, mesh, ref_path, zero_stage: int = 1):
     """On one rank: the check's gradients over the mesh (its pp column,
-    tp shard) against the same shard of the one-process executor's
+    tp shard; at ``zero_stage`` 3 the dp slices of the fsdp block
+    leaves) against the same part of the one-process executor's
     gradients in ``ref_path`` (cut by the rank's ``RankShard``): each
     leaf's max |difference|, for the parent to divide by the whole
     leaf's largest element."""
@@ -5183,10 +5242,11 @@ def _mesh_fp32_check(torch, mesh, ref_path):
     spec = _mesh_check_spec(False)
     dev, p = mesh.device, mesh.coord("pp")
     shard = RankShard(spec.cfg, spec.layout, mesh.shape, mesh.rules,
-                      mesh.coords)
+                      mesh.coords, zero_stage)
     params, batch = _mesh_check_inputs(torch, spec, dev)
     params = rank_params(params, p, shard)
-    g, met = make_train_grads_fn(spec, dev, mesh=mesh)(params, batch)
+    g, met = make_train_grads_fn(spec, dev, mesh=mesh,
+                                 shard=shard)(params, batch)
     ref = torch.load(ref_path, mmap=True, weights_only=True)
     want = shard.cut(ref["g"], p)
     diff = [float((a - b.to(dev)).abs().max())
@@ -5196,20 +5256,152 @@ def _mesh_fp32_check(torch, mesh, ref_path):
                                     for q in shard.paths]}
 
 
-def _train_mesh_body(mesh, tc, steps, ref_path):
+def _warm_blas(torch):
+    """One bf16 and one fp32 product, forward and backward, with and
+    without a bias, so that cuBLAS's and cuBLASLt's workspaces (held by
+    the caching allocator for the life of the process) exist before the
+    first measured run and count in every run's base alike."""
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.ones(64, 64, device="cuda", dtype=dt, requires_grad=True)
+        b = torch.ones(64, device="cuda", dtype=dt)
+        (a @ a + torch.nn.functional.linear(a, a, b)).sum().backward()
+    torch.cuda.synchronize()
+
+
+def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path):
     """What each of phase 28's ranks runs: ``steps`` steps on the mesh
-    (the main path, launches counted), then the fp32 check."""
+    (the main path, launches counted), then the fp32 check; then phase
+    29's cases in the same processes: ``ZERO3_STEPS`` steps of ``tc`` at
+    ZeRO stage 3 and its fp32 check, and on the same eight processes
+    regrouped as ``SINGLE_MESH_SHAPE`` ``train()`` for each ``(stage,
+    steps)`` of ``SINGLE_MESH_RUNS`` and its fp32 check.  ``base``: the
+    bytes allocated just before each run (after ``_warm_blas``), which
+    the memory readings are taken over."""
+    import dataclasses
+
     import torch
 
-    from repro_torch.launch.train import train_rank
+    from repro_torch.launch.train import train_rank, train_single_rank
 
     def log(line):
         print(f"[train-mesh] {line}", flush=True)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+    _warm_blas(torch)
+    base = {"train": free()}
     out = train_rank(mesh, tc, MESH_SHAPE[0], {"overlap": True,
                                                "steps": steps, "log": log})
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"train": out, "check": _mesh_fp32_check(torch, mesh, ref_path)}
+    free()
+    res = {"train": out, "check": _mesh_fp32_check(torch, mesh, ref_path),
+           "base": base}
+    base["zero3"] = free()
+    t0 = time.perf_counter()
+    tc3 = dataclasses.replace(tc, plan=dataclasses.replace(tc.plan,
+                                                           zero_stage=3))
+    res["zero3"] = train_rank(mesh, tc3, MESH_SHAPE[0], {
+        "overlap": True, "steps": ZERO3_STEPS, "log": log})
+    free()
+    res["zero3_check"] = _mesh_fp32_check(torch, mesh, ref_path,
+                                          zero_stage=3)
+    free()
+    res["zero3_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = mesh.regroup(SINGLE_MESH_SHAPE)
+    res["single"], res["single_check"] = {}, {}
+    for z, n in SINGLE_MESH_RUNS:
+        base[z] = free()
+        res["single"][z] = train_single_rank(single, _single_mesh_config(z),
+                                             {"steps": n, "log": log})
+        free()
+        res["single_check"][z] = _single_mesh_fp32_check(
+            torch, single, single_ref_path, z)
+    res["single_s"] = time.perf_counter() - t0
+    return res
+
+
+ZERO3_STEPS = 2          # phase 29 (A): stage 3 on MESH_SHAPE
+SINGLE_MESH_SHAPE = (1, 4, 2)   # phase 29 (B): the same eight processes
+# (ZeRO stage, steps) of train() in turn: stage 3 first, its first step
+# the processes' warm-up on this layout, then stage 1 warm; each with its
+# fp32 check
+SINGLE_MESH_RUNS = ((3, 2), (1, 1))
+SINGLE_MESH_LAYERS = 4   # tinyllama-1.1b cut from 22 (full width)
+SINGLE_MESH_CHECK = dict(seq=257)    # the fp32 check, 4 layers
+
+
+def _single_mesh_config(zero_stage: int, check: bool = False):
+    """Phase 29 (B): full-width tinyllama-1.1b cut to
+    ``SINGLE_MESH_LAYERS`` layers through ``train()`` on
+    ``SINGLE_MESH_SHAPE``: 8 sequences of 2049 tokens a step, one a dp
+    rank a microbatch (2 microbatches), chronos recompute over 2 chunks,
+    at ``zero_stage``; ``check``: the fp32 check's (257 tokens)."""
+    import dataclasses
+
+    from repro_torch.configs.base import RecomputeConfig
+    tc = _single_config("tinyllama-1.1b", RecomputeConfig("chronos"), 1,
+                        SINGLE_MESH_LAYERS)
+    tc = dataclasses.replace(tc, plan=dataclasses.replace(
+        tc.plan, zero_stage=zero_stage))
+    if not check:
+        return tc
+    return dataclasses.replace(
+        tc, model=dataclasses.replace(tc.model, param_dtype="float32",
+                                      compute_dtype="float32"),
+        shape=dataclasses.replace(tc.shape,
+                                  seq_len=SINGLE_MESH_CHECK["seq"]))
+
+
+def _single_mesh_check_inputs(torch, tc, device):
+    """The (B) check's weights (seed 0) and global batch (seed 1:
+    ``[m, dp, seq]`` tokens)."""
+    from repro_torch.models import LM
+    dp = SINGLE_MESH_SHAPE[1]
+    m = tc.shape.global_batch // dp
+    params = LM(tc.model, device=device).init(
+        torch.Generator(device=device).manual_seed(0))
+    tokens = torch.randint(0, tc.model.vocab_size, (m, dp, tc.shape.seq_len),
+                           device=device, generator=torch.Generator(
+                               device=device).manual_seed(1))
+    return params, {"tokens": tokens}, m
+
+
+def _single_mesh_reference(torch, path):
+    """The one-process ``train()`` step's fp32 gradient sums and loss sum
+    on the (B) check's inputs, saved to ``path``; returns each leaf's
+    largest |element|."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.tree import tree_leaves
+    tc = _single_mesh_config(1, check=True)
+    params, batch, m = _single_mesh_check_inputs(torch, tc, "cuda")
+    step, _ = make_train_step(tc.model, tc.plan, tc.optimizer, m,
+                              device="cuda")
+    g, lsum = step.grads(params, batch)
+    torch.save({"g": [a.cpu() for a in tree_leaves(g)],
+                "lsum": float(lsum)}, path)
+    return [float(a.abs().max()) for a in tree_leaves(g)]
+
+
+def _single_mesh_fp32_check(torch, mesh, ref_path, zero_stage: int):
+    """On one rank of ``SINGLE_MESH_SHAPE``: the (B) check's gradient
+    sums (the rank's state slices) against the same part of the
+    one-process step's: each leaf's max |difference|, and the loss
+    sums."""
+    from repro_torch.launch.steps import make_train_step
+    tc = _single_mesh_config(zero_stage, check=True)
+    params, batch, m = _single_mesh_check_inputs(torch, tc, mesh.device)
+    step, _ = make_train_step(tc.model, tc.plan, tc.optimizer, m,
+                              device=mesh.device, mesh=mesh)
+    shard = step.shard
+    g, lsum = step.grads(shard.cut(params), batch)
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    diff = [float((a - shard.zero_slice(shard.cut_leaf(
+        b.to(mesh.device), i), i)).abs().max())
+        for i, (a, b) in enumerate(zip(g, ref["g"], strict=True))]
+    return {"lsum": float(lsum), "parent_lsum": ref["lsum"], "diff": diff,
+            "paths": ["/".join(map(str, q)) for q in shard.paths]}
 
 
 def mesh_predictions(tc) -> dict:
@@ -5232,9 +5424,35 @@ def mesh_predictions(tc) -> dict:
     replica = mm.params_embed / tp * mm.state_bytes_per_param * (1 - 1 / pp)
     acts = [a * mm.m_a(tokens, L)
             for a in sched.peak_activation(per_stage=True)]
+    state3 = mm.model_state(L, pp, tp, dp_shard=dp)
     return {"stage_bytes": [state + a for a in acts],
             "stage_bytes_replica": [state + replica + a for a in acts],
-            "collectives": collective_stats(spec, dp, tp, update=True)}
+            "model_state": state, "model_state_zero3": state3,
+            "stage_bytes_zero3": [state3 + a for a in acts],
+            "collectives": collective_stats(spec, dp, tp, update=True),
+            "collectives_zero3": collective_stats(spec, dp, tp, update=True,
+                                                  zero_stage=3)}
+
+
+def single_mesh_predictions() -> dict:
+    """Phase 29 (B)'s reckoning on the host: ``MemoryModel``'s model
+    state of the 4-layer tinyllama on (pp 1, tp 2) with the state over
+    dp (ZeRO-1) and with everything over dp (``dp_shard=dp``, ZeRO-3),
+    and the bytes a step hands to collectives at each stage
+    (``train_collective_stats``)."""
+    from repro_torch.core.analysis import MemoryModel
+    from repro_torch.launch.dryrun import train_collective_stats
+    _, dp, tp = SINGLE_MESH_SHAPE
+    tc = _single_mesh_config(1)
+    mm = MemoryModel.build(tc.model, tp=tp)
+    L = tc.model.num_layers
+    m = tc.shape.global_batch // dp
+    return {"model_state": {1: mm.model_state(L, 1, tp),
+                            3: mm.model_state(L, 1, tp, dp_shard=dp)},
+            "m": m,
+            "collectives": {z: train_collective_stats(
+                tc.model, m=m, mbB=1, seq_len=tc.shape.seq_len, dp=dp,
+                tp=tp, zero_stage=z) for z, _ in SINGLE_MESH_RUNS}}
 
 
 def phase_train_mesh(torch, smi: str):
@@ -5251,8 +5469,9 @@ def phase_train_mesh(torch, smi: str):
     relative of the one-process executor's (of the whole leaf's largest
     element).  Prints each rank's step time and peak beside
     ``MemoryModel``'s stage prediction at (pp 2, tp 2), the bytes moved
-    per axis and the exchange's wait share.  Returns the summed launch
-    counts."""
+    per axis and the exchange's wait share; then phase 29
+    (:func:`phase_zero3_checks`), whose cases run in the same spawn.
+    Returns the launch counts by path."""
     import tempfile
 
     from repro_torch.core.pipeline_runtime import (init_pipeline_params,
@@ -5275,10 +5494,15 @@ def phase_train_mesh(torch, smi: str):
         del params, batch, g1
         gc.collect()
         torch.cuda.empty_cache()
+        single_ref = os.path.join(tmp, "one_process_train.pt")
+        single_max = _single_mesh_reference(torch, single_ref)
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         outs = spawn(n, _train_mesh_body,
-                     args=(tc, MESH_STEPS, ref_path), shape=MESH_SHAPE,
-                     backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT)
+                     args=(tc, MESH_STEPS, ref_path, single_ref),
+                     shape=MESH_SHAPE, backend="gloo", device="cuda",
+                     timeout_s=MESH_TIMEOUT)
         wall = time.perf_counter() - t0
     runs = [o["train"] for o in outs]
     print(f"[train-mesh] {smi} | {n} processes on one card, pp {pp} x dp "
@@ -5338,32 +5562,217 @@ def phase_train_mesh(torch, smi: str):
         print(f"[train-mesh] {smi} | rank {r} (pp {co['pp']}, dp "
               f"{co['data']}, tp {co['model']}): step {med * 1e3:.1f} ms "
               f"(steps {[round(x * 1e3, 1) for x in o['step_s']]}); "
-              f"max_memory_allocated {o['peak_bytes'] / 2 ** 30:.3f} GiB "
+              f"max_memory_allocated {_gib(o['peak_bytes'])} GiB "
               f"(weights and optimizer state "
-              f"{o['static_bytes'] / 2 ** 30:.3f}) against MemoryModel's "
+              f"{_gib(o['static_bytes'])}) against MemoryModel's "
               f"stage {co['pp']} at (pp {pp}, tp {tp}) "
               f"{pred['stage_bytes'][co['pp']] / 2 ** 30:.3f} GiB "
               f"({pred['stage_bytes_replica'][co['pp']] / 2 ** 30:.3f} with "
               f"the rank's whole shard of the shared leaves); bytes a step "
               f"{o['exchange']['axis_bytes'][-1]}; exchange waits "
               f"{100 * share:.1f}% of steps 2-{MESH_STEPS}")
-    worst = 0.0
-    for o in outs:
-        c = o["check"]
-        rel = [d / max(m, 1e-30) for d, m in zip(c["diff"], ref_max)]
-        worst = max(worst, max(rel))
-        if abs(c["loss"] - c["parent_loss"]) > CHECK_REL * abs(
-                c["parent_loss"]) or max(rel) > CHECK_REL:
-            fail(f"28: rank fp32 gradients differ from the one-process "
-                 f"executor's: loss {c['loss']} vs {c['parent_loss']}, "
-                 f"max rel {max(rel):.3e} at "
-                 f"{c['paths'][rel.index(max(rel))]}")
+    worst = _check_fp32("28", [o["check"] for o in outs], ref_max, "loss")
     print(f"[train-mesh] fp32 check ({MESH_CHECK}, the global batch of "
           f"{dp} sequences a microbatch): every rank's gradient shard "
           f"within {worst:.3e} relative of the one-process executor's "
           f"(tol {CHECK_REL}); loss {outs[0]['check']['loss']} against "
           f"{outs[0]['check']['parent_loss']}")
-    return summed
+    return {"train_mesh": summed,
+            **phase_zero3_checks(smi, outs, tc, spec, pred, per_step,
+                                 ref_max, single_max)}
+
+
+def _gib(nbytes) -> str:
+    """Bytes as GiB, three decimals."""
+    return f"{nbytes / 2 ** 30:.3f}"
+
+
+def _check_fp32(tag: str, checks, ref_max, loss_key: str):
+    """Every rank's fp32 check within ``CHECK_REL`` of the one-process
+    run (each leaf's max |difference| over the whole leaf's largest
+    element, and the loss); returns the worst relative difference."""
+    worst = 0.0
+    for c in checks:
+        rel = [d / max(m, 1e-30) for d, m in zip(c["diff"], ref_max)]
+        worst = max(worst, max(rel))
+        ours, theirs = c[loss_key], c["parent_" + loss_key]
+        if abs(ours - theirs) > CHECK_REL * abs(theirs) \
+                or max(rel) > CHECK_REL:
+            fail(f"{tag}: rank fp32 gradients differ from the one-process "
+                 f"run's: {loss_key} {ours} vs {theirs}, max rel "
+                 f"{max(rel):.3e} at {c['paths'][rel.index(max(rel))]}")
+    return worst
+
+
+def phase_zero3_checks(smi: str, outs, tc, spec, pred, per_step, ref_max,
+                       single_max):
+    """29: what phase 28's eight processes ran after it.  (A) ``tc`` at
+    ZeRO stage 3 on the same mesh (each rank holding its dp slice of
+    every fsdp block leaf, gathered by each op): phase 28's gates (finite
+    losses equal on every rank, the whole leaves' replicas equal,
+    launches the table's x dp x tp, each step's bytes by axis
+    ``collective_stats(zero_stage=3)``'s, fp32 gradient slices within
+    ``CHECK_REL`` of the one-process executor's), and the losses within
+    ``CHECK_REL`` of phase 28's stage-1 run on the same data.  (B)
+    ``train()`` on the eight processes regrouped as
+    ``SINGLE_MESH_SHAPE`` for each ``(stage, steps)`` of
+    ``SINGLE_MESH_RUNS``: losses equal on every rank, the first step's
+    equal across the stages bitwise (the later steps' gap is printed: a
+    reduce-scatter of dp 4 bf16 operands may associate them by the
+    message's size, a layer's at stage 3, a stacked leaf's at stage 1),
+    replicas, each step's bytes ``train_collective_stats``', launches
+    ``expected_single_launches`` a rank, the fp32 check at each stage
+    against the one-process ``train()`` step.
+    Prints each rank's peak and weights and state at each stage over the
+    bytes allocated just before the run (its base), beside
+    ``MemoryModel``.  Returns the launch counts by path."""
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
+    from repro_torch.tree import tree_leaves
+    pp, dp, tp = MESH_SHAPE
+    n = pp * dp * tp
+    runs1 = [o["train"] for o in outs]
+    runs = [o["zero3"] for o in outs]
+    losses = runs[0]["losses"]
+    print(f"[train-zero3] {smi} | phase 28's {tc.model.name} "
+          f"({tc.model.num_layers} layers) at ZeRO stage 3 on pp {pp} x dp "
+          f"{dp} x tp {tp}, the same eight processes: {ZERO3_STEPS} steps "
+          f"and the fp32 check in {outs[0]['zero3_s']:.1f} s")
+    if not all(math.isfinite(x) for x in losses + runs[0]["grad_norms"]):
+        fail(f"29: non-finite loss or gradient norm {losses}")
+    if any(o["losses"] != losses for o in runs):
+        fail(f"29: the ranks disagree on the loss "
+             f"{[o['losses'] for o in runs]}")
+    if not all(all(o["replicas_equal"]) for o in runs):
+        fail(f"29: replicas differ {[o['replica_checks'] for o in runs]}")
+    base = runs1[0]["losses"][:ZERO3_STEPS]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, base))
+    print(f"[train-zero3] losses {losses} against stage 1's {base}: max "
+          f"relative gap {gap:.3e} (tol {CHECK_REL}); gradient norms "
+          f"{runs[0]['grad_norms']}")
+    if gap > CHECK_REL:
+        fail(f"29: stage-3 losses {losses} differ from stage 1's {base}")
+    n_leaves = len(tree_leaves(init_pipeline_params(
+        None, tc.model, spec.layout, "meta")))
+    want = {k: ZERO3_STEPS * v * (n if k == "fused_adamw_flat" else dp * tp)
+            for k, v in per_step.items()}
+    zero3 = {k: sum(o["launches"][k] for o in runs) for k in want}
+    print(f"[train-zero3] launches summed {zero3} (the table x dp x tp; "
+          f"fused AdamW a leaf slice a rank: {want}; {n_leaves} leaves)")
+    if zero3 != want:
+        fail(f"29: launches {zero3} != {want}")
+    coll = pred["collectives_zero3"]
+    for step in range(ZERO3_STEPS):
+        got = {a: sum(o["exchange"]["axis_bytes"][step][a] for o in runs)
+               for a in ("pp", "data", "model")}
+        if got != coll.by_axis:
+            fail(f"29: step {step} handed {got} B to collectives, "
+                 f"collective_stats(zero_stage=3) counts {coll.by_axis}")
+    kb, kc = coll.bytes_by_kind, coll.count_by_kind
+    print(f"[train-zero3] bytes handed to collectives a step, over the "
+          f"ranks, equal to collective_stats(zero_stage=3): pp "
+          f"{coll.by_axis['pp']}, data {coll.by_axis['data']} (gathers "
+          f"{int(kb['all-gather-fsdp'])} in {kc['all-gather-fsdp']} calls, "
+          f"reduce-scatters {int(kb['reduce-scatter-fsdp'])} in "
+          f"{kc['reduce-scatter-fsdp']}, other gradients "
+          f"{int(kb['all-reduce-dp'])}, ZeRO-1 all-gather "
+          f"{int(kb['all-gather-dp'])}), model {coll.by_axis['model']}; "
+          f"stage 1's data {pred['collectives'].by_axis['data']}")
+    for o1, o, b in zip(runs1, runs, [r["base"] for r in outs]):
+        co = o["coords"]
+        b1, b3 = b["train"], b["zero3"]
+        print(f"[train-zero3] {smi} | rank {o['rank']} (pp {co['pp']}, dp "
+              f"{co['data']}, tp {co['model']}): step "
+              f"{statistics.median(o['step_s'][1:]) * 1e3:.1f} ms (stage 1 "
+              f"{statistics.median(o1['step_s'][1:]) * 1e3:.1f}); over "
+              f"each run's base (allocated just before it: {_gib(b3)} GiB, "
+              f"stage 1 {_gib(b1)}): max_memory_allocated "
+              f"{_gib(o['peak_bytes'] - b3)} GiB (stage 1 "
+              f"{_gib(o1['peak_bytes'] - b1)}), weights and state "
+              f"{_gib(o['static_bytes'] - b3)} (stage 1 "
+              f"{_gib(o1['static_bytes'] - b1)}); MemoryModel's model "
+              f"state {pred['model_state_zero3'] / 2 ** 30:.3f} GiB "
+              f"(dp_shard={dp}) against {pred['model_state'] / 2 ** 30:.3f}"
+              f", its stage {co['pp']} "
+              f"{pred['stage_bytes_zero3'][co['pp']] / 2 ** 30:.3f} GiB")
+    worst = _check_fp32("29", [o["zero3_check"] for o in outs], ref_max,
+                        "loss")
+    print(f"[train-zero3] fp32 check ({MESH_CHECK}, stage 3): every rank's "
+          f"gradient slices within {worst:.3e} relative of the one-process "
+          f"executor's (tol {CHECK_REL})")
+
+    # (B) train() on the regrouped mesh
+    sp, sdp, stp = SINGLE_MESH_SHAPE
+    spred = single_mesh_predictions()
+    stc = _single_mesh_config(1)
+    per_rank = expected_single_launches(stc.model, spred["m"])
+    out = {}
+    first = None
+    for z, steps in SINGLE_MESH_RUNS:
+        runs = [o["single"][z] for o in outs]
+        losses = runs[0]["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"29 (train, stage {z}): non-finite loss {losses}")
+        if any(o["losses"] != losses for o in runs):
+            fail(f"29 (train, stage {z}): the ranks disagree on the loss "
+                 f"{[o['losses'] for o in runs]}")
+        if first is None:
+            first = losses
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, first))
+        if losses[0] != first[0]:
+            fail(f"29 (train): stage {z}'s first loss {losses[0]} differs "
+                 f"from stage {SINGLE_MESH_RUNS[0][0]}'s {first[0]}")
+        if not all(all(o["replicas_equal"]) for o in runs):
+            fail(f"29 (train, stage {z}): replicas differ "
+                 f"{[o['replica_checks'] for o in runs]}")
+        coll = spred["collectives"][z]
+        for step in range(steps):
+            got = {a: sum(o["exchange"]["axis_bytes"][step][a] for o in runs)
+                   for a in ("pp", "data", "model")}
+            if got != coll.by_axis:
+                fail(f"29 (train, stage {z}): step {step} handed {got} B "
+                     f"to collectives, train_collective_stats counts "
+                     f"{coll.by_axis}")
+        want = {k: steps * v * n for k, v in per_rank.items()}
+        got_l = {k: sum(o["launches"][k] for o in runs) for k in want}
+        if got_l != want or any(not o["launches"][k] for o in runs for k in
+                                ("rmsnorm_rows", "flash_attention_fwd")):
+            fail(f"29 (train, stage {z}): launches {got_l} != {want}")
+        out[f"train_single_mesh_zero{z}"] = got_l
+        kb = coll.bytes_by_kind
+        print(f"[train-single-mesh] {smi} | train() of "
+              f"{stc.model.name} full width bf16 ({stc.model.num_layers} "
+              f"layers) on pp {sp} x dp {sdp} x tp {stp} (the same eight "
+              f"processes), ZeRO stage {z}, {spred['m']} microbatches of "
+              f"one {stc.shape.seq_len}-token sequence a dp rank: losses "
+              f"{losses} (relative gap to stage {SINGLE_MESH_RUNS[0][0]}'s "
+              f"{gap:.3e}); launches {got_l} (expected_single_launches a "
+              f"rank); bytes a step by axis {coll.by_axis} (tp sums "
+              f"{int(kb['all-reduce-tp'])}, fsdp gathers "
+              f"{int(kb['all-gather-fsdp'])}, reduce-scatters "
+              f"{int(kb['reduce-scatter-fsdp'] + kb['reduce-scatter-dp'])},"
+              f" ZeRO-1 all-gather {int(kb['all-gather-dp'])})")
+        for o, b in zip(runs, [r["base"][z] for r in outs]):
+            co = o["coords"]
+            print(f"[train-single-mesh] {smi} | stage {z} rank {o['rank']} "
+                  f"(dp {co['data']}, tp {co['model']}): step "
+                  f"{statistics.median(o['step_s'][-1:]) * 1e3:.1f} ms "
+                  f"(steps {[round(x * 1e3, 1) for x in o['step_s']]}); "
+                  f"over the run's base ({_gib(b)} GiB): "
+                  f"max_memory_allocated {_gib(o['peak_bytes'] - b)} GiB, "
+                  f"weights and state {_gib(o['static_bytes'] - b)}; "
+                  f"MemoryModel's model state "
+                  f"{spred['model_state'][z] / 2 ** 30:.3f} GiB")
+        worst = _check_fp32(f"29 (train, stage {z})",
+                            [o["single_check"][z] for o in outs], single_max,
+                            "lsum")
+        print(f"[train-single-mesh] fp32 check (4 layers, "
+              f"{SINGLE_MESH_CHECK['seq']} tokens, stage {z}): every rank's "
+              f"fp32 gradient slices within {worst:.3e} relative of the "
+              f"one-process train() step's (tol {CHECK_REL})")
+    print(f"[train-single-mesh] regroup, (stage, steps) {SINGLE_MESH_RUNS} "
+          f"and the check in {outs[0]['single_s']:.1f} s")
+    out["train_mesh_zero3"] = zero3
+    return out
 
 
 def print_ptxas(log: str) -> None:
@@ -5618,13 +6027,15 @@ def main() -> None:
 
     # 28. data and tensor parallelism beside the pipe axis: four layers
     #     of tinyllama-1.1b at full width on a pp 2 x dp 2 x tp 2 mesh of
-    #     eight processes on the card, and its fp32 check
+    #     eight processes on the card, and its fp32 check; 29. in the same
+    #     processes, the same at ZeRO stage 3, then train() on them
+    #     regrouped as pp 1 x dp 4 x tp 2 at stages 1 and 3
     gc.collect()
     torch.cuda.empty_cache()
-    launches["train_mesh"] = phase_train_mesh(torch, smi)
-    done("train-mesh")
+    launches.update(phase_train_mesh(torch, smi))
+    done("train-mesh and train-zero3 (28-29)")
 
-    # 29. kernels line, then the result line.  ``launches`` sums the
+    # 30. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

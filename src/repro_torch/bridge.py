@@ -16,7 +16,8 @@ tree (an MoE layer's router, a Mamba-2 layer's ``A_log``, ``D`` and
 A stage-stacked pipeline tree (``init_pipeline_params``: block leaves
 ``[P, v, M, ...]``, the shared leaves as above) crosses the same way,
 whole, or one rank's column at a time (:func:`rank_params_from_numpy`,
-the tree a rank of the port's multi-rank executor holds).
+the tree a rank of the port's multi-rank executor holds); an ``LM`` tree
+crosses cut to a mesh rank's part with ``lm_params_from_numpy(shard=)``.
 """
 from __future__ import annotations
 
@@ -35,10 +36,18 @@ def _leaf_to_torch(a, device):
     return t.to(device)
 
 
-def lm_params_from_numpy(tree, device):
+def lm_params_from_numpy(tree, device, shard=None):
     """numpy tree -> torch tree on ``device``, every leaf's bits and dtype
-    kept exactly."""
-    return tree_map(lambda a: _leaf_to_torch(a, device), tree)
+    kept exactly.  With ``shard`` (a
+    :class:`~repro_torch.models.sharding.TreeShard` of the tree, e.g.
+    :func:`repro_torch.launch.steps.lm_shard` for an ``LM`` tree on a
+    ``1 x dp x tp`` mesh) every leaf is cut to the rank's part (its tp
+    shard, its dp slice where the rank holds one) on the host before it
+    moves to ``device``."""
+    if shard is None:
+        return tree_map(lambda a: _leaf_to_torch(a, device), tree)
+    return tree_map(lambda a: a.to(device),
+                    shard.cut(lm_params_from_numpy(tree, "cpu")))
 
 
 def rank_params_from_numpy(tree, rank: int, device, shard=None):
@@ -49,8 +58,8 @@ def rank_params_from_numpy(tree, rank: int, device, shard=None):
     whole tree), the shared leaves whole; bits and dtypes kept.  With
     ``shard`` (a :class:`~repro_torch.core.pipeline_runtime.RankShard`,
     a rank of a ``pp x dp x tp`` mesh) every leaf is also cut to the
-    rank's tp shard by the reference's specs, on the host, before it
-    moves to ``device``."""
+    rank's tp shard (and at ZeRO-3 a block leaf to its dp slice) by the
+    reference's specs, on the host, before it moves to ``device``."""
     col = {**{k: v for k, v in tree.items() if k != "blocks"},
            "blocks": [tree_map(lambda a: a[rank], t) for t in tree["blocks"]]}
     if shard is None:

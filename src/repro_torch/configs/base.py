@@ -275,9 +275,11 @@ class ParallelPlan:
                                     # scale beside the codes)
     zero_stage: int = 1             # ZeRO stage over the data axis of a
                                     # mesh: 0 (replicated optimizer
-                                    # state) or 1 (each dp rank keeps
+                                    # state), 1 or 2 (each dp rank keeps
                                     # and updates its fsdp slice of the
-                                    # blocks' state); 2 and 3 raise
+                                    # blocks' state; 2 is 1, as in the
+                                    # reference), 3 (the fsdp weights
+                                    # too, gathered at use)
     kernels: str = "plain"          # compute backend for the chunk body
                                     # (repro_torch.models.backend):
                                     # "plain" | "fused" (the CUDA rmsnorm,

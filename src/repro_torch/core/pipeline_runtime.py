@@ -106,7 +106,6 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from types import SimpleNamespace
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -121,8 +120,8 @@ from repro_torch.core.tasktable import (F_OPS, IDLE, R_OPS, SEND_B_DOWN,
                                         TaskTable, build_task_table)
 from repro_torch.models import backend as compute_backend
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import (ShardEnv, local_shard,
-                                         sanitize_spec, shard_env, spec_map)
+from repro_torch.models.sharding import (TreeShard, gather_at_use,
+                                         shard_env, spec_map)
 from repro_torch.models.transformer import (_dtype, _init_encoder,
                                             _init_layers, encode,
                                             encoder_specs, layer_specs)
@@ -218,123 +217,52 @@ def pipeline_layout_specs(logical):
     return params, state
 
 
-class RankShard:
+class RankShard(TreeShard):
     """What one rank of a ``pp x dp x tp`` mesh holds of the pipeline
-    tree, from the reference's logical specs
-    (:func:`pipeline_logical_specs`, :func:`pipeline_layout_specs`)
-    resolved by ``rules`` and sanitized on the leaves' global shapes:
+    tree (a :class:`~repro_torch.models.sharding.TreeShard`), from the
+    reference's logical specs (:func:`pipeline_logical_specs`,
+    :func:`pipeline_layout_specs`):
 
     - parameters: the rank's pp column (block leaves ``[v, M, ...]``),
-      cut to its tp shard, replicated over dp (the port's block layout is
-      ZeRO-1: the reference keeps fsdp on the block parameters, which
-      XLA gathers at use; the numbers are the same);
-    - optimizer state (``zero_stage`` 1): each leaf whose state spec puts
-      "data" on a dimension holds the rank's dp slice of it
+      cut to its tp shard.  At ``zero_stage`` < 3 they are replicated
+      over dp; at stage 3 each block leaf the reference keeps fsdp on is
+      held as the rank's dp slice (``fsdp_dims``), gathered at its use by
+      each F, B and W op, as XLA gathers the reference's.  The shared
+      leaves (embedding, head, final norm, encoder) drop fsdp at every
+      stage, as the reference's pipeline step drops it;
+    - optimizer state (``zero_stage`` >= 1): each leaf whose state spec
+      puts "data" on a dimension holds the rank's dp slice of it
       (``zero_dims``); the others whole.  Stage 0 keeps every state
-      whole.
+      whole; stage 2 is stage 1 (the reference's ``zero_state_specs``
+      does not tell them apart).
 
     ``shape``: axis name -> size (``Mesh.shape``); ``coords``: the rank's
     coordinate on each axis.  Per leaf, in ``tree_leaves`` order of the
-    pipeline tree: ``param_specs`` (local: a block leaf's pp entry
-    dropped), ``tp_split`` and ``zero_dims`` (local dimension or
-    None)."""
+    pipeline tree, the local dimensions lack a block leaf's pp one."""
 
     def __init__(self, cfg: ModelConfig, layout: StageLayout, shape,
                  rules, coords, zero_stage: int = 1):
-        self.shape, self.coords = dict(shape), dict(coords)
-        mesh = SimpleNamespace(shape=self.shape)   # a layout: no processes
-        env = ShardEnv(mesh, rules)
         tree = init_pipeline_params(None, cfg, layout, "meta")
         pspec, sspec = pipeline_layout_specs(
             pipeline_logical_specs(cfg, layout))
-        paths = tree_paths(tree)
-        shapes = [tuple(a.shape) for a in tree_leaves(tree)]
-
-        def phys(specs):
-            flat = _spec_leaves(specs)
-            assert len(flat) == len(shapes), "spec tree != parameter tree"
-            return [sanitize_spec(env.resolve(sp), sh, mesh)
-                    for sp, sh in zip(flat, shapes)]
-        # the port's parameters drop fsdp everywhere (replicated over dp)
-        ps = phys(drop_fsdp(pspec))
-        ss = phys(sspec if zero_stage >= 1 else drop_fsdp(pspec))
-        self.paths = paths
-        self.param_specs = [sp[1:] if p[0] == "blocks" else sp
-                            for p, sp in zip(paths, ps)]
-        tp_ax, dp_ax = rules.get("tp"), rules.get("dp")
-        self.tp_split = [_names(sp, tp_ax) for sp in self.param_specs]
-        self.zero_dims = []
-        for p, sp in zip(paths, ss):
-            k = next((i for i, ax in enumerate(sp) if _names((ax,), dp_ax)),
-                     None)
-            # a block leaf's local dimensions lack the pp one
-            self.zero_dims.append(k - 1 if k is not None and
-                                  p[0] == "blocks" else k)
-        self.dp = self.shape.get(dp_ax, 1) if dp_ax else 1
-        self.dp_coord = self.coords.get(dp_ax, 0) if dp_ax else 0
-        self.tp_coord = self.coords.get(tp_ax, 0) if tp_ax else 0
-        self._tp_cut = {tp_ax: (self.tp_coord, self.shape[tp_ax])} \
-            if tp_ax in self.shape else {}
+        self.zero_stage = zero_stage
+        super().__init__(
+            tree, pspec if zero_stage >= 3 else drop_fsdp(pspec),
+            sspec if zero_stage >= 1 else drop_fsdp(pspec), shape, rules,
+            coords, dropped=lambda path: int(path[0] == "blocks"))
 
     def cut(self, tree, pp_rank: Optional[int] = None):
         """A whole pipeline tree (global leaves) -> this rank's: block
         leaves ``[v, M, ...]`` of stage ``pp_rank`` (None: the blocks are
-        that column already), every leaf cut to the rank's tp shard, as
-        own contiguous copies."""
+        that column already), every leaf cut to the rank's tp shard (and
+        at stage 3 a block leaf to its dp slice), as own contiguous
+        copies."""
         leaves = []
-        for p, a, sp in zip(self.paths, tree_leaves(tree), self.param_specs):
+        for i, (p, a) in enumerate(zip(self.paths, tree_leaves(tree))):
             if p[0] == "blocks" and pp_rank is not None:
                 a = a[pp_rank]
-            leaves.append(local_shard(a, sp, self._tp_cut).clone(
-                memory_format=torch.contiguous_format))
+            leaves.append(self.cut_leaf(a, i))
         return tree_unflatten(tree, leaves)
-
-    def zero_slice(self, a: torch.Tensor, i: int) -> torch.Tensor:
-        """Leaf ``i`` (a rank leaf) narrowed to the rank's dp slice where
-        its state is sliced (a view), else the leaf."""
-        k = self.zero_dims[i]
-        if k is None:
-            return a
-        n = a.shape[k] // self.dp
-        return a.narrow(k, self.dp_coord * n, n)
-
-    def zero_views(self, tree):
-        """The rank tree's leaves narrowed to the dp slices the rank
-        updates (views)."""
-        return tree_unflatten(tree, [self.zero_slice(a, i) for i, a in
-                                     enumerate(tree_leaves(tree))])
-
-    def owned(self, g: torch.Tensor, i: int) -> Optional[torch.Tensor]:
-        """The part of gradient leaf ``i`` the rank counts in the clip
-        norm, so that every element counts once over the mesh: its dp
-        slice (or the whole leaf on dp coordinate 0 where the state is
-        whole), and a tp-replicated leaf on tp coordinate 0 only; None
-        where the rank counts nothing."""
-        if not self.tp_split[i] and self.tp_coord != 0:
-            return None
-        if self.zero_dims[i] is None and self.dp_coord != 0:
-            return None
-        return self.zero_slice(g, i)
-
-
-def _names(spec, axis) -> bool:
-    """Does ``spec`` put mesh axis ``axis`` on any dimension?"""
-    if axis is None:
-        return False
-    for ax in spec:
-        if ax == axis or (isinstance(ax, tuple) and axis in ax):
-            return True
-    return False
-
-
-def _spec_leaves(tree):
-    """The specs of a spec tree in ``tree_leaves`` order (a spec tuple is
-    a leaf)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
-    if isinstance(tree, list):
-        return [x for t in tree for x in _spec_leaves(t)]
-    return [tree]
 
 
 def unstage_params(tree, layout: StageLayout) -> Dict[str, Any]:
@@ -837,6 +765,16 @@ class _Executor:
         """Device ``d``'s chunk ``c`` of a stage-stacked block leaf."""
         return a[d, c]
 
+    def _use(self, blocks_c):
+        """A chunk's block leaves as the chunk body reads them (the rank
+        executor at ZeRO stage 3 gathers the dp slices here)."""
+        return blocks_c
+
+    def _block_accumulators(self, blocks):
+        """Zeros for the block gradients, each in its leaf's dtype (the
+        reference's ``zeros_like(blocks)``)."""
+        return tree_map(torch.zeros_like, blocks)
+
     def _block(self, params, d: int, c: int, grad: bool):
         blocks = [tree_map(lambda a: self._dc(a, d, c), t)
                   for t in params["blocks"]]
@@ -911,8 +849,8 @@ class _Executor:
         enc = bool(spec.enc_len)
 
         def chunk(blocks_c, x, aux, enc_in=None):
-            return compute_backend.chunk_fwd(spec, blocks_c, flags_c, x, aux,
-                                             enc_in)
+            return compute_backend.chunk_fwd(spec, self._use(blocks_c),
+                                             flags_c, x, aux, enc_in)
 
         def head(sh, x, aux):
             return compute_backend.head_loss(
@@ -1057,7 +995,7 @@ class _Executor:
         shared = {k: v for k, v in params.items() if k != "blocks"}
         dev = params["final_norm"]["scale"].device
         acc = {
-            "gb": tree_map(torch.zeros_like, params["blocks"]),
+            "gb": self._block_accumulators(params["blocks"]),
             "loss": torch.zeros((), dtype=torch.float32, device=dev),
             "n": 0,
         }
@@ -1155,9 +1093,18 @@ class _RankExecutor(_Executor):
     other two axes: the tick loop runs under the mesh's env (the layers
     split over tp), the rank reads its dp rows of each microbatch, the
     loss and the count also sum over dp, and every gradient is summed
-    over dp."""
+    over dp.
 
-    def __init__(self, spec: PipelineSpec, mesh):
+    ``shard`` (the step's :class:`RankShard`) at ZeRO stage 3: the rank
+    holds its dp slice of each block leaf the reference keeps fsdp on.
+    Each F, B and W op gathers its chunk's slices over dp before the
+    chunk body (:func:`~repro_torch.models.sharding.gather_fsdp`; B and
+    W recompute the chunk, so they gather again) and frees the whole
+    leaves when it ends; the gradients of a B or W op are reduce-scattered
+    over dp by the gather's backward and added into fp32 accumulators of
+    the slices, so they need no dp sum after the tick loop."""
+
+    def __init__(self, spec: PipelineSpec, mesh, shard=None):
         if mesh.P != spec.table.P:
             raise ValueError(f"a mesh of {mesh.P} ranks for a table of "
                              f"P={spec.table.P} stages")
@@ -1167,6 +1114,22 @@ class _RankExecutor(_Executor):
         self.full = mesh.parent            # the pp x dp x tp mesh, or None
         self.exchange = Exchange(spec, mesh)
         self.layout_bytes = [n for *_, n in _packed_layout(spec)]
+        self.shard = shard if shard is not None and shard.sliced else None
+        self.block_dims = None if self.shard is None \
+            else self.shard.fsdp_tree()["blocks"]
+
+    def _use(self, blocks_c):
+        # a block leaf [v, M, ...] of the rank, indexed by chunk: its
+        # fsdp dimension less one
+        return gather_at_use(blocks_c, self.block_dims, shift=1)
+
+    def _block_accumulators(self, blocks):
+        if self.shard is None:
+            return super()._block_accumulators(blocks)
+        return tree_map(lambda a, k: torch.zeros_like(a) if k is None else
+                        torch.zeros(a.shape, dtype=torch.float32,
+                                    device=a.device), blocks,
+                        self.block_dims)
 
     def run(self, params, batch, psum_ef=None):
         """On a ``pp x dp x tp`` mesh: the rank's rows of the global batch
@@ -1278,9 +1241,11 @@ class _RankExecutor(_Executor):
             out = ({"blocks": acc["gb"], **tree_unflatten(shared, red)},
                    metrics, psum_ef)
         if dp > 1:
-            # every gradient summed over dp, exactly (the global batch's)
-            for g in tree_leaves(out[0]):
-                self.full.all_reduce(g, "data")
+            # every gradient summed over dp, exactly (the global batch's);
+            # a slice's was reduce-scattered where its op made it
+            for i, g in enumerate(tree_leaves(out[0])):
+                if self.shard is None or self.shard.fsdp_dims[i] is None:
+                    self.full.all_reduce(g, "data")
         return out
 
 
@@ -1359,7 +1324,7 @@ def _grad(outputs, seeds, inputs):
 
 
 def make_train_grads_fn(spec: PipelineSpec, device, *, mesh=None,
-                        wrap_executor=None):
+                        wrap_executor=None, shard=None):
     """Returns ``fn(params, batch) -> (grads, metrics)`` running the full
     schedule.  ``batch``: ``tokens`` [m, mbB, seq_len] (+ optional
     ``loss_mask`` [m, mbB, seq_len - 1], and ``patch_embeds`` [m, mbB,
@@ -1396,6 +1361,11 @@ def make_train_grads_fn(spec: PipelineSpec, device, *, mesh=None,
     sequence-chunked spec raises NotImplementedError under a mesh (ROADMAP
     queue A).
 
+    ``shard`` (a :class:`RankShard`, with a ``pp x dp x tp`` mesh) at
+    ZeRO stage 3: ``params`` hold the rank's dp slice of every block leaf
+    the reference keeps fsdp on (``rank_params(shard=)``), and so do its
+    gradients, in fp32 (:class:`_RankExecutor`).
+
     ``wrap_executor``: a function of the executor class to the class to
     build (the dry run's, which counts each distinct op once)."""
     if mesh is not None and spec.n_seq > 1:
@@ -1403,7 +1373,7 @@ def make_train_grads_fn(spec: PipelineSpec, device, *, mesh=None,
             "the sequence-chunked executor over ranks is not ported yet "
             "(ROADMAP queue A, after item 3)")
     if mesh is not None:
-        ex = _RankExecutor(spec, getattr(mesh, "pipe", mesh))
+        ex = _RankExecutor(spec, getattr(mesh, "pipe", mesh), shard)
     else:
         if spec.n_seq > 1:
             if spec.grad_psum_bits:
@@ -1470,7 +1440,9 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
     tp shard, ``opt_state`` the state of its ZeRO slices
     (``adamw_init(shard.zero_views(params))``).  Every leaf's dp slice
     (or whole leaf) is updated by fused AdamW (one launch a leaf), its
-    weights written into the slice and all-gathered over dp.  The clip
+    weights written into the slice and all-gathered over dp; at ZeRO
+    stage 3 a leaf held as its dp slice is updated in place and gathered
+    only where an op uses it.  The clip
     norm counts every element once (:meth:`RankShard.owned`): the owned
     block squares summed over pp, plus the owned shared ones, summed
     over tp and dp."""
@@ -1478,7 +1450,7 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
         raise NotImplementedError("Chronos-Offload over ranks is not ported "
                                   "yet (ROADMAP queue A, after item 3)")
     grads_fn = make_train_grads_fn(spec, device, mesh=mesh,
-                                   wrap_executor=wrap_executor)
+                                   wrap_executor=wrap_executor, shard=shard)
     m_dev = torch.tensor(float(m), dtype=torch.float32, device=device)
 
     def norm_over_ranks(grads):
@@ -1505,23 +1477,6 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
         mesh.all_reduce(tot, "data")
         return torch.sqrt(tot + 1e-30)
 
-    def gather_weights(params):
-        """The updated dp slices of every sliced leaf, all-gathered over
-        dp into the whole leaf."""
-        if shard.dp == 1:
-            return
-        for i, a in enumerate(tree_leaves(params)):
-            k = shard.zero_dims[i]
-            if k is None:
-                continue
-            n = a.shape[k] // shard.dp
-            mine = a.narrow(k, shard.dp_coord * n, n).contiguous()
-            outs = [torch.empty_like(mine) for _ in range(shard.dp)]
-            mesh.all_gather_into(outs, mine, "data")
-            for j, o in enumerate(outs):
-                if j != shard.dp_coord:
-                    a.narrow(k, j * n, n).copy_(o)
-
     def fn(params, opt_state, batch, psum_ef=None):
         res = grads_fn(params, batch, psum_ef)
         grads, metrics = res[:2]
@@ -1541,7 +1496,7 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
             grad_norm=norm)
         cast_like(master, kept)
         if shard is not None:
-            gather_weights(params)
+            shard.gather_weights(mesh, params)
         return TrainStepOut(params, opt_state, {**metrics, **om}, held,
                             res[2] if spec.grad_psum_bits else None)
 

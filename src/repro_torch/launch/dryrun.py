@@ -360,7 +360,11 @@ def collective_stats(spec, dp: int = 1, tp: int = 1, *,
     F, B and W ops (B and W recompute their chunk under autograd, so the
     forward's sums run again there, beside the backward's);
     ``all-reduce-dp``, every gradient summed over dp; ``all-gather-dp``,
-    the ZeRO-1 weights (none at ``zero_stage`` 0).  ``by_axis`` then
+    the ZeRO-1 weights (none at ``zero_stage`` 0).  At ``zero_stage`` 3
+    the block leaves held as dp slices leave those two, and two kinds
+    count them instead: ``all-gather-fsdp``, each F, B and W op's gather
+    of its chunk's slices, and ``reduce-scatter-fsdp``, each B or W op's
+    gradients of the whole chunk.  ``by_axis`` then
     holds each axis's bytes with the scalars (the loss and count, the
     clip norm's sums with ``update``, each microbatch's mask count over
     dp with ``masked``): what the ranks' counters read, which phase 28
@@ -371,18 +375,23 @@ def collective_stats(spec, dp: int = 1, tp: int = 1, *,
     P = spec.table.P
     if dp * tp > 1:
         mc = _mesh_collectives(spec, dp, tp, masked, update, zero_stage)
-        return CollectiveStats(
-            {"collective-permute": float(dp * tp * nbytes),
-             "all-reduce": float(mc["pp"]["shared_bytes"]),
-             "all-reduce-tp": float(mc["model"]["bytes"]),
-             "all-reduce-dp": float(mc["data"]["grad_bytes"]),
-             "all-gather-dp": float(mc["data"]["gather_bytes"])},
-            {"collective-permute": dp * tp * sends,
-             "all-reduce": mc["pp"]["shared_calls"],
-             "all-reduce-tp": mc["model"]["calls"],
-             "all-reduce-dp": mc["data"]["grad_calls"],
-             "all-gather-dp": mc["data"]["gather_calls"]},
-            {a: v["total"] for a, v in mc.items()})
+        kinds = {"collective-permute": (dp * tp * nbytes, dp * tp * sends),
+                 "all-reduce": (mc["pp"]["shared_bytes"],
+                                mc["pp"]["shared_calls"]),
+                 "all-reduce-tp": (mc["model"]["bytes"],
+                                   mc["model"]["calls"]),
+                 "all-reduce-dp": (mc["data"]["grad_bytes"],
+                                   mc["data"]["grad_calls"]),
+                 "all-gather-dp": (mc["data"]["gather_bytes"],
+                                   mc["data"]["gather_calls"])}
+        if zero_stage >= 3:
+            kinds["all-gather-fsdp"] = (mc["data"]["fsdp_gather_bytes"],
+                                        mc["data"]["fsdp_gather_calls"])
+            kinds["reduce-scatter-fsdp"] = (mc["data"]["fsdp_rs_bytes"],
+                                            mc["data"]["fsdp_rs_calls"])
+        return CollectiveStats({k: float(b) for k, (b, _) in kinds.items()},
+                               {k: c for k, (_, c) in kinds.items()},
+                               {a: v["total"] for a, v in mc.items()})
     params = init_pipeline_params(None, spec.cfg, spec.layout, "meta")
     shared = [a.numel() for k, v in params.items() if k != "blocks"
               for a in tree_leaves(v)]
@@ -391,6 +400,117 @@ def collective_stats(spec, dp: int = 1, tp: int = 1, *,
     return CollectiveStats(
         {"collective-permute": float(nbytes), "all-reduce": float(P * ar)},
         {"collective-permute": sends, "all-reduce": P * n_calls})
+
+
+def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
+                           dp: int, tp: int, zero_stage: int = 1,
+                           masked: bool = False) -> CollectiveStats:
+    """What one step of ``train()`` on a ``1 x dp x tp`` mesh
+    (:func:`repro_torch.launch.steps.make_train_step` with a mesh) hands
+    to collectives, summed over the ranks, by kind and by mesh axis:
+    ``m`` microbatches of ``mbB`` sequences a rank of ``seq_len`` tokens.
+
+    Per microbatch and rank, every period of the stack runs under its
+    Chronos-Recomp checkpoint, whose recompute runs its forward's
+    collectives again in the backward up to the last saved tensor (torch
+    stops it there): all but the period's last MLP output sum.
+
+    - ``all-reduce-tp``: each attention layer's output and each MLP's
+      (where tp divides ``d_ff``) forward, again on a period's recompute
+      but for the period's last MLP (its down-projection's inputs are
+      the last saved tensors, and the sum comes after them), and their
+      inputs' gradients backward, ``[mbB, S, d]`` in the
+      compute dtype; where tp divides the vocab, the lookup (in the
+      parameters' dtype), the head's max, sum of exponentials and gold
+      logit (fp32 ``[mbB, S]``) and its input's gradient;
+    - ``all-gather-fsdp`` / ``reduce-scatter-fsdp`` (ZeRO-3): each leaf
+      held as its dp slice gathered where it is used (a period's layer
+      twice, forward and recompute; the tied embedding at the lookup and
+      the head) and its gradient reduce-scattered once a use (the whole
+      leaf's bytes), the leaves a use reads together in one call a
+      dtype (a layer, the encoder, an embedding leaf);
+    - ``reduce-scatter-dp`` / ``all-reduce-dp``: every other gradient
+      leaf summed over dp into its state's slice, or whole where the
+      state is whole;
+
+    and per step the loss (4 B over dp), each microbatch's mask count
+    (4 B each over dp, with ``masked``), the clip norm's sum (4 B over tp
+    and over dp) and, below stage 3, the updated slices' all-gather over
+    dp (``all-gather-dp``)."""
+    from repro_torch.launch.mesh import MESH_RULES
+    from repro_torch.launch.steps import lm_shard
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import _dtype
+    shard = lm_shard(cfg, {"pp": 1, "data": dp, "model": tp}, MESH_RULES,
+                     {"pp": 0, "data": 0, "model": 0}, zero_stage)
+    tree = LM(cfg, device="meta").init(None)
+    S, d = seq_len - 1, cfg.d_model
+    act = mbB * S * d * _dtype(cfg.compute_dtype).itemsize
+    n = dp * tp
+    kinds = {k: [0, 0] for k in ("all-reduce-tp", "all-gather-fsdp",
+                                 "reduce-scatter-fsdp", "reduce-scatter-dp",
+                                 "all-reduce-dp", "all-gather-dp")}
+
+    def add(kind, nbytes, calls=1):
+        kinds[kind][0] += nbytes
+        kinds[kind][1] += calls
+    nper = cfg.num_layers // cfg.period
+    if tp > 1:
+        for idx in range(cfg.num_layers):
+            stacked = idx < nper * cfg.period
+            runs = 3 if stacked else 2
+            if cfg.layer_kind(idx) == "attn":
+                add("all-reduce-tp", runs * act, runs)
+            if cfg.d_ff and cfg.d_ff % tp == 0:
+                last = stacked and idx % cfg.period == cfg.period - 1
+                add("all-reduce-tp", (runs - last) * act, runs - last)
+        if cfg.vocab_size % tp == 0:
+            add("all-reduce-tp", mbB * S * d * _dtype(cfg.param_dtype)
+                .itemsize)
+            add("all-reduce-tp", 3 * mbB * S * 4, 3)
+            add("all-reduce-tp", act)
+    if dp > 1:
+        units: Dict[tuple, list] = {}     # what one gather call reads
+        for i, (path, a) in enumerate(zip(shard.paths, tree_leaves(tree))):
+            numel = a.numel() // (tp if shard.tp_split[i] else 1)
+            nbytes = numel * a.element_size()
+            if shard.fsdp_dims[i] is not None:
+                key = path[:1] if path[0] == "encoder" else path[:2]
+                units.setdefault(key, []).append((nbytes, a.dtype))
+            elif shard.zero_dims[i] is not None:
+                add("reduce-scatter-dp", nbytes)
+            else:
+                add("all-reduce-dp", nbytes)
+        for key, leaves in units.items():
+            nbytes = sum(b for b, _ in leaves)
+            calls = len({dt for _, dt in leaves})
+            # the uses a microbatch: a period position's layers in each
+            # period, forward and recompute; the tied embedding twice
+            if key[0] == "layers":
+                uses, gathers, nbytes = nper, 2 * nper, nbytes // nper
+            else:
+                uses = 1 + (key == ("embed", "tokens")
+                            and cfg.tie_embeddings)
+                gathers = uses
+            add("all-gather-fsdp", gathers * nbytes // dp, gathers * calls)
+            add("reduce-scatter-fsdp", uses * nbytes, uses * calls)
+    per_mb = {k: v for k, v in kinds.items() if k != "all-gather-dp"}
+    kinds = {k: [b * m * n, c * m * n] for k, (b, c) in per_mb.items()}
+    gather_b = gather_c = 0
+    if dp > 1:
+        for i, a in enumerate(tree_leaves(tree)):
+            if shard.zero_dims[i] is not None and shard.fsdp_dims[i] is None:
+                numel = a.numel() // (tp if shard.tp_split[i] else 1)
+                gather_b += numel // dp * a.element_size()
+                gather_c += 1
+    kinds["all-gather-dp"] = [gather_b * n, gather_c * n]
+    scalars_dp = (8 + 4 * m * masked) * n if dp > 1 else 0
+    by_axis = {"pp": 0,
+               "data": sum(kinds[k][0] for k in kinds if k != "all-reduce-tp")
+               + scalars_dp,
+               "model": kinds["all-reduce-tp"][0] + (4 * n if tp > 1 else 0)}
+    return CollectiveStats({k: float(b) for k, (b, _) in kinds.items()},
+                           {k: c for k, (_, c) in kinds.items()}, by_axis)
 
 
 def _tp_units(spec, tp: int, d: int):
@@ -440,6 +560,32 @@ def _tp_units(spec, tp: int, d: int):
     return tot_b, tot_c
 
 
+def _fsdp_units(spec, d: int):
+    """One device column's ZeRO-3 traffic over dp a step, per rank:
+    ``(gathers, reduce-scatters)``, the ops that gather the chunk's
+    slices (F, B and W; a split table's first-block B runs nothing) and
+    those that reduce-scatter its gradients (W, and B where the table
+    has no W)."""
+    from repro_torch.core.tasktable import F_OPS, IDLE, R_OPS, W_OPS
+    tab = spec.table
+    A = tab.arrays()
+    gathers = scatters = 0
+    for t in range(tab.T):
+        op, c = int(A[t, d, 0]), int(A[t, d, 1])
+        if op == IDLE or op in R_OPS:
+            continue
+        first = c == 0 and spec.layout.pl.stage(d, c) == 0
+        if op in F_OPS or op in W_OPS:
+            gathers += 1
+            scatters += op in W_OPS
+        elif not tab.has_w:
+            gathers += 1
+            scatters += 1
+        elif not first:
+            gathers += 1
+    return gathers, scatters
+
+
 def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
                       zero_stage: int) -> Dict[str, Dict[str, int]]:
     """The bytes and calls one training step of ``spec`` on a ``P x dp x
@@ -453,7 +599,12 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
     - ``data``: every gradient leaf of the rank (``grad_bytes``: blocks
       in their dtype, shared in fp32), the ZeRO-1 weights' all-gather
       (``gather_bytes``: each rank's dp slices, none at ``zero_stage``
-      0), and the scalars (loss
+      0); at stage 3, for the block leaves held as dp slices, instead of
+      those the ops' gathers (``fsdp_gather_bytes``: the chunk's slices)
+      and reduce-scatters (``fsdp_rs_bytes``: the chunk's whole
+      gradients, in the leaves' dtype), one call a dtype an op
+      (:func:`_fsdp_units`); and the
+      scalars (loss
       and count, 8 B; the norm, 4 B; with ``masked`` each microbatch's
       mask count, 4 B);
     - ``model``: the activations' sums (``bytes``, :func:`_tp_units`)
@@ -476,11 +627,17 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
                       {"pp": 0, "data": 0, "model": 0}, zero_stage)
     shared_b = grad_b = gather_b = 0
     shared_c = grad_c = gather_c = 0
+    chunk_b = 0                     # one chunk's dp slices (ZeRO-3)
+    chunk_dtypes = set()            # one collective a dtype
     for i, (path, a, sp) in enumerate(zip(shard.paths, tree_leaves(tree),
                                           shard.param_specs)):
         numel = a[0].numel() if path[0] == "blocks" else a.numel()
         if shard.tp_split[i]:
             numel //= tp
+        if shard.fsdp_dims[i] is not None:
+            chunk_b += numel // dp // spec.table.v * a.element_size()
+            chunk_dtypes.add(a.dtype)
+            continue
         if path[0] == "blocks":
             grad_b += numel * a.element_size()
             if shard.zero_dims[i] is not None and dp > 1:
@@ -491,6 +648,16 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
             shared_b += 4 * numel + (4 if spec.grad_psum_bits else 0)
             shared_c += 2 if spec.grad_psum_bits else 1
         grad_c += 1
+    fsdp = {"fsdp_gather_bytes": 0, "fsdp_gather_calls": 0,
+            "fsdp_rs_bytes": 0, "fsdp_rs_calls": 0}
+    chunk_c = len(chunk_dtypes)
+    if chunk_c:
+        for d in range(P):
+            g, r = _fsdp_units(spec, d)
+            fsdp["fsdp_gather_bytes"] += g * chunk_b * dp * tp
+            fsdp["fsdp_gather_calls"] += g * chunk_c * dp * tp
+            fsdp["fsdp_rs_bytes"] += r * chunk_b * dp * dp * tp
+            fsdp["fsdp_rs_calls"] += r * chunk_c * dp * tp
     model_b = model_c = 0
     if tp > 1:
         for d in range(P):
@@ -507,6 +674,7 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
                  "grad_calls": grad_c * n if dp > 1 else 0,
                  "gather_bytes": gather_b * n if dp > 1 and update else 0,
                  "gather_calls": gather_c * n if dp > 1 and update else 0,
+                 **fsdp,
                  "scalar_bytes": (8 + 4 * update + (4 * m if masked else 0))
                  * n if dp > 1 else 0},
         "model": {"bytes": model_b, "calls": model_c,

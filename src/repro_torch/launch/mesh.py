@@ -16,7 +16,10 @@ Running meshes:
   ``(p * dp + d) * tp + t``, with one process group per line of each
   axis (every process creates every group, in one fixed order), the
   reference's pipeline rules (:data:`MESH_RULES`), and per-axis
-  collectives that count the bytes they are handed.
+  collectives that count the bytes they are handed (all-reduce,
+  all-gather, reduce-scatter).  A mesh of pp 1 serves ``train()``;
+  :meth:`Mesh.regroup` lays the same world out again (another ``pp x dp
+  x tp`` of the same size), so one spawn can run several layouts.
 
 The transport follows from the backend and the device, never from a
 fallback:
@@ -33,13 +36,15 @@ that meet over a ``FileStore`` in a temporary directory, so no TCP port
 is taken and parallel runs cannot collide::
 
     from repro_torch.launch.mesh import spawn
-    from repro_torch.launch.train import train_rank
+    from repro_torch.launch.train import train_rank, train_single_rank
     outs = spawn(4, train_rank, args=(tc, 4))        # one card (gloo)
     outs = spawn(4, train_rank, args=(tc, 4), backend="nccl",
                  device="cuda")                      # one card a rank
     outs = spawn(2, train_rank, args=(tc, 2), device="cpu")  # gloo, CPU
     outs = spawn(8, train_rank, args=(tc, 2), shape=(2, 2, 2),
                  device="cpu")               # pp 2 x dp 2 x tp 2, gloo
+    outs = spawn(4, train_single_rank, args=(tc,), shape=(1, 2, 2),
+                 device="cpu")               # train() on dp 2 x tp 2
 """
 from __future__ import annotations
 
@@ -59,7 +64,8 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 AXES = ("pp", "data", "model")
 #: the reference's pipeline rules (``production_rules(multi_pod=True,
 #: pipeline=True)``) with its pipe axis under the host study mesh's name:
-#: fsdp over "data" shards the blocks' optimizer state (ZeRO-1)
+#: fsdp over "data" shards the optimizer state (ZeRO-1), and at ZeRO-3
+#: the weights the reference keeps fsdp on
 MESH_RULES = {"dp": "data", "fsdp": "data", "tp": "model", "sp": "data",
               "pp": "pp"}
 
@@ -178,6 +184,50 @@ def _all_gather_into(outs: List[torch.Tensor], t: torch.Tensor, group,
         o.copy_(x, non_blocking=True)
 
 
+def _reduce_scatter(ts: List[torch.Tensor], dims: Sequence[int], n: int,
+                    me: int, group, staged: bool,
+                    staging: "_Staging") -> List[torch.Tensor]:
+    """Each ``ts[i]`` split into ``n`` equal blocks along ``dims[i]``,
+    summed over the group's ranks: block ``me`` of each (new contiguous
+    tensors), in one collective (the tensors share a dtype and a
+    device).  The send buffer holds rank ``j``'s blocks of every tensor
+    flat, one after another, at row ``j``; under ``host`` it and the
+    result are staged through one page-locked slab."""
+    parts = [t.chunk(n, d) for t, d in zip(ts, dims)]
+    sizes = [p[0].numel() for p in parts]
+    k = sum(sizes)
+    t0 = ts[0]
+    if staged:
+        slab = staging.flat(t0.dtype, k * (n + 1))
+    else:
+        slab = torch.empty(k * (n + 1), dtype=t0.dtype, device=t0.device)
+    rows = [slab[k * j:k * (j + 1)] for j in range(n + 1)]
+    for j in range(n):
+        off = 0
+        for p, m in zip(parts, sizes):
+            rows[j][off:off + m].view(p[j].shape).copy_(p[j],
+                                                       non_blocking=True)
+            off += m
+    if staged:
+        torch.cuda.current_stream(t0.device).synchronize()
+    dist.reduce_scatter(rows[n], rows[:n], group=group)
+    out, off = [], 0
+    for p, m in zip(parts, sizes):
+        o = torch.empty(p[me].shape, dtype=t0.dtype, device=t0.device)
+        out.append(o.copy_(rows[n][off:off + m].view(o.shape),
+                           non_blocking=True))
+        off += m
+    return out
+
+
+def _by_dtype(ts: Sequence[torch.Tensor]) -> List[List[int]]:
+    """The indices of ``ts`` grouped by dtype, in first-seen order."""
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(ts):
+        groups.setdefault(t.dtype, []).append(i)
+    return list(groups.values())
+
+
 @dataclass
 class PipeMesh:
     """One rank's view of the pipe axis: its process group, its place
@@ -236,7 +286,8 @@ class Mesh:
     each axis through it; ``pipe`` the :class:`PipeMesh` of its pp group
     (the exchange's, with the stages' global ranks).  The collectives
     over "data" and "model" count what they are handed in
-    ``reduced_bytes[axis]``; the pipe's all-reduces count in
+    ``reduced_bytes[axis]`` (a reduce-scatter its whole input, an
+    all-gather the rank's part); the pipe's all-reduces count in
     ``pipe.reduced_bytes``."""
 
     def __init__(self, pp: int, dp: int, tp: int, rank: int, backend: str,
@@ -290,6 +341,56 @@ class Mesh:
         self.reduced_bytes[axis] += t.numel() * t.element_size()
         _all_gather_into(outs, t, self.groups[axis], self.staged,
                          self._staging)
+
+    def all_gather_cat(self, ts: Sequence[torch.Tensor], axis: str,
+                       dims: Sequence[int]) -> List[torch.Tensor]:
+        """Every rank's ``ts[i]`` over ``axis`` joined along ``dims[i]``
+        in axis order (new tensors): whole leaves from their slices
+        (ZeRO-3's gather at use), the leaves of one dtype flat in one
+        collective, counting the bytes of ``ts``."""
+        n = self.shape[axis]
+        out: List[Any] = [None] * len(ts)
+        for idx in _by_dtype(ts):
+            flat = torch.cat([ts[i].reshape(-1) for i in idx])
+            outs = [torch.empty_like(flat) for _ in range(n)]
+            self.all_gather_into(outs, flat, axis)
+            off = 0
+            for i in idx:
+                m = ts[i].numel()
+                out[i] = torch.cat([o[off:off + m].view(ts[i].shape)
+                                    for o in outs], dim=dims[i])
+                off += m
+        return out
+
+    def reduce_scatter(self, ts: Sequence[torch.Tensor], axis: str,
+                       dims: Sequence[int]) -> List[torch.Tensor]:
+        """Each ``ts[i]`` summed over ``axis`` and cut into its ranks'
+        equal blocks along ``dims[i]``: this rank's blocks (new
+        tensors), the tensors of one dtype in one collective, counting
+        the bytes of ``ts`` (the gradients of leaves held as dp
+        slices)."""
+        n = self.shape[axis]
+        if n == 1:
+            return list(ts)
+        out: List[Any] = [None] * len(ts)
+        for idx in _by_dtype(ts):
+            group = [ts[i] for i in idx]
+            self.reduced_bytes[axis] += sum(t.numel() * t.element_size()
+                                            for t in group)
+            got = _reduce_scatter(group, [dims[i] for i in idx], n,
+                                  self.coords[axis], self.groups[axis],
+                                  self.staged, self._staging)
+            for i, g in zip(idx, got):
+                out[i] = g
+        return out
+
+    def regroup(self, shape) -> "Mesh":
+        """Another layout ``(pp, dp, tp)`` of the same world (the same
+        number of ranks), its axis groups made by every process in one
+        order, as :func:`init_mesh` makes them: one spawn can then run
+        several layouts.  A collective the new mesh's ranks all join."""
+        pp, dp, tp = _check_shape(self.size, shape)
+        return _make_mesh(pp, dp, tp, self.rank, self.backend, self.device)
 
     def all_gather(self, t: torch.Tensor, axis: str) -> List[torch.Tensor]:
         """Every rank's ``t`` over ``axis``, on the host (uncounted: the
@@ -411,6 +512,15 @@ def init_mesh(shape, rank: int, backend: str, store, *,
     n = pp * dp * tp
     check_mesh(n, backend=backend, device=device)
     dev = _join(n, rank, backend, store, device, timeout_s)
+    return _make_mesh(pp, dp, tp, rank, backend, dev)
+
+
+def _make_mesh(pp: int, dp: int, tp: int, rank: int, backend: str,
+               dev) -> Mesh:
+    """Every axis group of a ``pp x dp x tp`` layout of the joined world
+    (the same calls in the same order on every process) and the rank's
+    :class:`Mesh`; each group's first collective is an all-reduce its
+    ranks join."""
     mine = {}
     for axis, lines in mesh_groups(pp, dp, tp).items():
         for ranks in lines:

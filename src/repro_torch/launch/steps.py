@@ -9,6 +9,7 @@ stages on one device, one stage a rank over a
 (the batch over dp, heads / FFN / vocab over tp, ZeRO-1 over dp)."""
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -17,7 +18,8 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       ParallelPlan, ShapeConfig)
 from repro_torch.models import LM
 from repro_torch.optim import adamw_update, cast_like
-from repro_torch.optim.adamw import _slabs
+from repro_torch.models.sharding import shard_env
+from repro_torch.optim.adamw import _slabs, leaf_sq_sum
 from repro_torch.optim.compression import (_wire_dtype, grid_scale,
                                           quantize_with)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -29,13 +31,14 @@ ITEM_3B = "ROADMAP queue A item 3b"
 
 
 def check_zero_stage(plan: ParallelPlan) -> None:
-    """ZeRO stages 0 and 1 run; 2 and 3 (sharded gradients, sharded
-    weights) raise NotImplementedError."""
-    if plan.zero_stage not in (0, 1):
-        raise NotImplementedError(
-            f"zero_stage={plan.zero_stage}: sharded gradients and weights "
-            f"(ZeRO-2/3, the reference's fsdp block layout) are not ported "
-            f"yet ({ITEM_3B})")
+    """ZeRO stages 0-3 run (ValueError for another): 0 keeps the optimizer
+    state whole, 1 and 2 (which the reference's ``zero_state_specs``
+    does not tell apart) slice it over dp, 3 also keeps the weights the
+    reference shards over fsdp as each dp rank's slice, gathered at
+    use."""
+    if plan.zero_stage not in (0, 1, 2, 3):
+        raise ValueError(f"zero_stage={plan.zero_stage}: expected 0, 1, 2 "
+                         f"or 3")
 
 
 def check_mesh_model(cfg: ModelConfig, dp: int, tp: int) -> None:
@@ -67,8 +70,29 @@ def check_mesh_model(cfg: ModelConfig, dp: int, tp: int) -> None:
             f"({ITEM_3B})")
 
 
+def lm_shard(cfg: ModelConfig, shape, rules, coords, zero_stage: int):
+    """What one rank of a ``1 x dp x tp`` mesh holds of the ``LM`` tree
+    in the reference's ``make_train_step`` (a
+    :class:`~repro_torch.models.sharding.TreeShard` of
+    :func:`~repro_torch.models.transformer.lm_specs`): the parameters
+    keep fsdp at ``zero_stage`` 3 and drop it below; the optimizer state
+    (and the fp32 gradient sums beside it) carries fsdp at stages 1-3 and
+    is whole at stage 0 (the reference shards it at any stage, as the
+    port's pipeline keeps it whole at stage 0)."""
+    from repro_torch.models.sharding import TreeShard
+    from repro_torch.models.transformer import lm_specs
+    from repro_torch.optim.adamw import drop_fsdp, zero_state_specs
+    logical = lm_specs(cfg)
+    tree = LM(cfg, device="meta").init(None)
+    return TreeShard(tree, logical if zero_stage >= 3 else
+                     drop_fsdp(logical),
+                     zero_state_specs(logical, zero_stage)
+                     if zero_stage >= 1 else drop_fsdp(logical),
+                     shape, rules, coords)
+
+
 def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
-                    ocfg: OptimizerConfig, m: int, *, device):
+                    ocfg: OptimizerConfig, m: int, *, device, mesh=None):
     """The step of the reference's single-device ``train()``.  Returns
     ``(step, lm)``: ``step(params, opt_state, batch) -> (params,
     opt_state, metrics)`` with every key of ``batch`` [m, mbB, S].
@@ -80,31 +104,114 @@ def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
     ``a + b.astype(f32)``), and the plain AdamW update reads the sum
     divided by ``m``.  ``params`` and the optimizer state are updated in
     place; ``metrics`` holds device scalars ``loss`` (the microbatch
-    mean), ``grad_norm`` and ``lr``."""
+    mean), ``grad_norm`` and ``lr``.  ``step.grads(params, batch)`` is the
+    step's gradient part alone: ``(gsum, lsum)``, the fp32 sums.
+
+    ``mesh`` (a ``1 x dp x tp`` :class:`~repro_torch.launch.mesh.Mesh`):
+    the reference's ``make_train_step`` sharding, one rank's step
+    (``step.shard``, :func:`lm_shard`; ``params =
+    step.shard.cut(whole)``, ``opt_state =
+    adamw_init(step.shard.zero_views(params))``).  ``batch`` is the
+    global one (``mbB * dp`` rows a microbatch) and the rank reads its dp
+    rows (the reference's ``train_batch_specs``), each microbatch's loss
+    normalized by the global microbatch's count; the layers split over
+    tp.  The fp32 sums are the state's dp slices: each microbatch's
+    gradients are reduce-scattered over dp into them (all-reduced where
+    the state is whole; a leaf held as its dp slice at ZeRO-3 has its
+    gradient reduce-scattered by its gather's backward).  The plain
+    AdamW updates the slices, the clip norm counting every element once
+    over the mesh, and at stages below 3 the updated slices are
+    all-gathered over dp into the weights.  :func:`check_mesh_model`
+    refuses what the mesh does not split."""
     check_zero_stage(plan)
-    lm = LM(cfg, kernels=plan.kernels, device=device)
+    shard = None
+    if mesh is not None:
+        if mesh.pp != 1:
+            raise ValueError(f"train() runs a mesh of pp=1, got "
+                             f"pp={mesh.pp} (train_pipeline runs pp > 1)")
+        check_mesh_model(cfg, mesh.dp, mesh.tp)
+        shard = lm_shard(cfg, mesh.shape, mesh.rules, mesh.coords,
+                         plan.zero_stage)
+    lm = LM(cfg, kernels=plan.kernels, device=device,
+            fsdp=None if shard is None else shard.fsdp_tree())
     dev = lm.device
     m_dev = torch.tensor(float(m), dtype=torch.float32, device=dev)
 
-    def step(params, opt_state, batch):
-        gsum = tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
-                                              device=dev), params)
+    def grads(params, batch):
+        """``(gsum, lsum)``: the fp32 sums of the microbatches' gradients
+        (a list in ``tree_leaves`` order; on a mesh the rank's state
+        slices) and of their losses (on a mesh each microbatch's loss the
+        global one)."""
+        denom, env, sums = [None] * m, contextlib.nullcontext(), params
+        if mesh is not None:
+            d = mesh.coord("data")
+            rows = batch["tokens"].shape[1] // mesh.dp
+            batch = {k: v[:, d * rows:(d + 1) * rows]
+                     for k, v in batch.items()}
+            denom = global_counts(mesh, batch)
+            env = shard_env(mesh, mesh.rules)
+            sums = shard.zero_views(params)
+        gsum = [torch.zeros(a.shape, dtype=torch.float32, device=dev)
+                for a in tree_leaves(sums)]
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(m):
-            p = tree_map(lambda a: a.detach().requires_grad_(), params)
-            loss = lm.loss(p, {k: v[i] for k, v in batch.items()},
-                           recomp=plan.recompute,
-                           num_chunks=plan.num_chunks)[0]
-            grads = torch.autograd.grad(loss, tree_leaves(p))
-            for a, g in zip(tree_leaves(gsum), grads):
-                a.add_(g)
-            lsum += loss.detach()
-            del p, loss, grads      # one microbatch's gradients at a time
-        master, opt_state, om = adamw_update(gsum, opt_state, ocfg,
-                                             grad_div=m_dev)
-        return cast_like(master, params), opt_state, {"loss": lsum / m,
-                                                      **om}
+        with env:
+            for i in range(m):
+                p = tree_map(lambda a: a.detach().requires_grad_(), params)
+                loss = lm.loss(p, {k: v[i] for k, v in batch.items()},
+                               recomp=plan.recompute,
+                               num_chunks=plan.num_chunks,
+                               denom=denom[i])[0]
+                gs = torch.autograd.grad(loss, tree_leaves(p))
+                for j, (a, g) in enumerate(zip(gsum, gs)):
+                    a.add_(g if mesh is None
+                           else shard.reduce_grad(mesh, g, j))
+                lsum += loss.detach()
+                del p, loss, gs     # one microbatch's gradients at a time
+        if mesh is not None:
+            # the ranks' losses are parts of the global microbatches' means
+            mesh.all_reduce(lsum, "data")
+        return gsum, lsum
+
+    def step(params, opt_state, batch):
+        gsum, lsum = grads(params, batch)
+        if mesh is None:
+            master, opt_state, om = adamw_update(
+                tree_unflatten(params, gsum), opt_state, ocfg,
+                grad_div=m_dev)
+            return cast_like(master, params), opt_state, {"loss": lsum / m,
+                                                          **om}
+        views = shard.zero_views(params)
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for j, g in enumerate(gsum):
+            if shard.counts(j):
+                sq = sq + leaf_sq_sum(g, m_dev)
+        mesh.all_reduce(sq, "model")
+        mesh.all_reduce(sq, "data")
+        master, opt_state, om = adamw_update(
+            tree_unflatten(views, gsum), opt_state, ocfg, grad_div=m_dev,
+            grad_norm=torch.sqrt(sq + 1e-30))
+        cast_like(master, views)
+        shard.gather_weights(mesh, params)
+        return params, opt_state, {"loss": lsum / m, **om}
+
+    step.shard, step.grads = shard, grads
     return step, lm
+
+
+def global_counts(mesh, batch) -> torch.Tensor:
+    """Each microbatch's label count over the global microbatch (all
+    ``dp`` ranks' rows; ``batch`` the rank's, token-aligned as
+    ``LM.loss`` reads it), the reference's mean's normalizer: the masked
+    positions' count all-reduced over dp (at least 1), else ``dp`` times
+    the rows times the labels."""
+    tok = batch["tokens"]
+    if "loss_mask" not in batch:
+        n = mesh.dp * tok.shape[1] * (tok.shape[2] - 1)
+        return torch.full((tok.shape[0],), float(n), dtype=torch.float32,
+                          device=tok.device)
+    cnt = batch["loss_mask"][:, :, 1:].float().sum(dim=(1, 2)).contiguous()
+    mesh.all_reduce(cnt, "data")
+    return cnt.clamp_(min=1.0)
 
 
 VSHAPE_SCHEDULES = ("v_min", "v_half", "v_zb")

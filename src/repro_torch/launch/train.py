@@ -135,7 +135,7 @@ def _save(ck, pipe, save_step, next_step, params, opt_state, *, sync,
 
 
 def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
-          data_source=None, params=None,
+          data_source=None, params=None, mesh=None, after_step=None,
           log: Callable[[str], None] = print) -> Dict:
     """Single-device training: ``steps`` (default
     ``tc.optimizer.total_steps``) steps of ``m = global_batch //
@@ -166,32 +166,66 @@ def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
     ``steps``, ``wall_s`` and ``median_step_s`` (the health monitor's) as
     the reference does, plus ``start_step``, per-step ``grad_norms``,
     ``lrs`` and ``step_s``, the final ``params`` and ``opt_state``, and
-    ``checkpoint_records`` (:attr:`Checkpointer.records`)."""
+    ``checkpoint_records`` (:attr:`Checkpointer.records`).
+
+    ``mesh`` (a ``1 x dp x tp`` :class:`~repro_torch.launch.mesh.Mesh`,
+    from ``spawn(shape=(1, dp, tp))`` or :meth:`Mesh.regroup`; ``device``
+    is then ``mesh.device``): this process is one rank of the
+    reference's ``train()`` on a mesh (its ``make_train_step``
+    sharding, :func:`repro_torch.launch.steps.make_train_step`).  Every
+    rank draws the whole tree from ``tc.seed`` (or takes ``params``, such
+    a tree) and keeps its part (``step.shard.cut``: the tp shard, and at
+    ``plan.zero_stage`` 3 the dp slice of each leaf the reference keeps
+    fsdp on); ``m = global_batch // (microbatch_size * dp)`` microbatches
+    of ``microbatch_size * dp`` rows, each rank reading its own.
+    ``after_step(step, params, opt_state, shard)``, if given, is called
+    after every step (e.g. :func:`replicas_equal`; ``shard`` is None
+    without a mesh).  Checkpoints raise
+    NotImplementedError under a mesh.  The result's ``params`` and
+    ``opt_state`` are the rank's; it adds ``rank``, ``coords``,
+    ``peak_bytes`` and ``static_bytes`` (on a card, as
+    :func:`train_pipeline`'s) and ``exchange["axis_bytes"]``, the bytes
+    the rank handed to collectives each step by mesh axis."""
     cfg, shape, plan, ocfg = tc.model, tc.shape, tc.plan, tc.optimizer
-    dev = resolve_device(device)
+    if mesh is not None and tc.checkpoint_dir is not None:
+        raise NotImplementedError("checkpoints under a mesh are not ported "
+                                  "yet (ROADMAP queue A, after item 3)")
+    dev = resolve_device(device) if mesh is None else mesh.device
+    dp = 1 if mesh is None else mesh.dp
     steps = steps or ocfg.total_steps
     mbB = plan.microbatch_size
-    m = max(1, shape.global_batch // mbB)
-    step_fn, lm = make_train_step(cfg, plan, ocfg, m, device=dev)
+    m = max(1, shape.global_batch // (mbB * dp))
+    step_fn, lm = make_train_step(cfg, plan, ocfg, m, device=dev, mesh=mesh)
+    shard = step_fn.shard
     if params is None:
         params = lm.init(torch.Generator(device=dev).manual_seed(tc.seed))
-    opt_state = adamw_init(params)
+    if shard is not None:
+        params = shard.cut(params)
+    opt_state = adamw_init(params if shard is None
+                           else shard.zero_views(params))
+    cuda = mesh is not None and dev.type == "cuda"
+    static = None
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        static = torch.cuda.memory_allocated(dev)
 
     source = data_source or synthetic_source(cfg, shape.seq_len,
                                              seed=tc.seed)
-    pipe = DataPipeline(source, global_batch=mbB * m, microbatches=m,
+    pipe = DataPipeline(source, global_batch=mbB * dp * m, microbatches=m,
                         prefetch=2)
     ck = _checkpointer(tc)
     monitor = HealthMonitor()
     start_step = _resume(ck, pipe, {"params": params, "opt": opt_state},
                          log, "train") or 0
+    tag = "train" if mesh is None else f"train rank 0/{mesh.size}"
 
     def save(save_step, next_step_, sync):
         _save(ck, pipe, save_step, next_step_, params, opt_state,
               sync=sync, log=log, tag="train")
 
     pipe.start()
-    losses, gnorms, lrs, step_s = [], [], [], []
+    losses, gnorms, lrs, step_s, axis_bytes = [], [], [], [], []
     next_step = start_step
     t_start = time.time()
     try:
@@ -199,17 +233,23 @@ def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
             t0 = time.time()
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in pipe.next().items()}
+            before = None if mesh is None else mesh.collective_bytes()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])     # waits for the step
             dt = time.time() - t0
+            if mesh is not None:
+                now = mesh.collective_bytes()
+                axis_bytes.append({a: now[a] - before[a] for a in now})
             losses.append(loss)
             gnorms.append(float(metrics["grad_norm"]))
             lrs.append(float(metrics["lr"]))
             step_s.append(dt)
             next_step = step + 1
             action = monitor.record_step(dt)
-            if step % tc.log_every == 0:
-                log(f"[train] step {step} loss {loss:.4f} "
+            if after_step is not None:
+                after_step(step, params, opt_state, shard)
+            if step % tc.log_every == 0 and (mesh is None or mesh.rank == 0):
+                log(f"[{tag}] step {step} loss {loss:.4f} "
                     f"gnorm {gnorms[-1]:.3f} lr {lrs[-1]:.3e} ({dt:.2f}s)")
             if _wants_save(ck, tc, step, action):
                 save(step, step + 1, sync=False)
@@ -223,12 +263,18 @@ def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
             save(next_step, next_step, sync=True)
     finally:
         pipe.stop()
-    return {"losses": losses, "final_loss": losses[-1] if losses else None,
-            "steps": len(losses), "wall_s": time.time() - t_start,
-            "median_step_s": monitor.median_step, "start_step": start_step,
-            "grad_norms": gnorms, "lrs": lrs, "step_s": step_s,
-            "params": params, "opt_state": opt_state,
-            "checkpoint_records": ck.records if ck is not None else []}
+    out = {"losses": losses, "final_loss": losses[-1] if losses else None,
+           "steps": len(losses), "wall_s": time.time() - t_start,
+           "median_step_s": monitor.median_step, "start_step": start_step,
+           "grad_norms": gnorms, "lrs": lrs, "step_s": step_s,
+           "params": params, "opt_state": opt_state,
+           "checkpoint_records": ck.records if ck is not None else []}
+    if mesh is not None:
+        out.update(rank=mesh.rank, coords=dict(mesh.coords),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda
+                   else None, static_bytes=static,
+                   exchange={"axis_bytes": axis_bytes})
+    return out
 
 
 def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
@@ -670,11 +716,13 @@ def replicas_equal(mesh, params, opt_state, shard=None) -> bool:
     the tests (``train_pipeline(after_step=)``), not part of a step.
 
     On a ``pp x dp x tp`` :class:`~repro_torch.launch.mesh.Mesh`: the
-    shared leaves over the pipe, every weight over dp (the ZeRO-1
-    all-gather leaves the dp replicas whole and equal), and the weights
-    and masters of the tp-replicated leaves over tp, which ``shard`` (the
-    run's :class:`~repro_torch.core.pipeline_runtime.RankShard`, handed
-    to ``after_step``) names (:func:`replica_checks` gives each)."""
+    shared leaves over the pipe, every weight the rank holds whole over
+    dp (the ZeRO-1 all-gather leaves the dp replicas whole and equal; at
+    ZeRO-3 a leaf held as its dp slice differs by design), and the
+    weights and masters of the tp-replicated leaves over tp, which
+    ``shard`` (the run's
+    :class:`~repro_torch.models.sharding.TreeShard`, handed to
+    ``after_step``) names (:func:`replica_checks` gives each)."""
     return all(replica_checks(mesh, params, opt_state, shard).values())
 
 
@@ -690,12 +738,12 @@ def replica_checks(mesh, params, opt_state, shard=None) -> Dict[str, bool]:
     d = pipe.all_gather(shared_digest(params, opt_state)) if pipe.P > 1 \
         else []
     out["pp"] = all(torch.equal(x, d[0]) for x in d)
-    d = mesh.all_gather(torch.cat([leaf_digest(a) for a in
-                                   tree_leaves(params)]), "data")
-    out["data"] = all(torch.equal(x, d[0]) for x in d)
     if shard is None:
-        raise ValueError("the tp replicas' check needs the run's RankShard "
-                         "(after_step's shard)")
+        raise ValueError("the dp and tp replicas' checks need the run's "
+                         "shard (after_step's)")
+    d = mesh.all_gather(torch.cat([leaf_digest(a) for a, k in zip(
+        tree_leaves(params), shard.fsdp_dims) if k is None]), "data")
+    out["data"] = all(torch.equal(x, d[0]) for x in d)
     split = shard.tp_split
     rep = [leaf_digest(a) for a, sp in zip(tree_leaves(params), split)
            if not sp] + [leaf_digest(a) for a, sp in zip(
@@ -719,6 +767,27 @@ def train_rank(mesh, tc: TrainConfig, P: int,
     over dp and the tp-replicated leaves over tp too).  ``mesh``: a
     :class:`~repro_torch.launch.mesh.PipeMesh` or a ``pp x dp x tp``
     :class:`~repro_torch.launch.mesh.Mesh` (``spawn(shape=)``)."""
+    out = _checked_rank(mesh, lambda after: train_pipeline(
+        tc, P=P, mesh=mesh, after_step=after, **(kw or {})))
+    del out["wire"]["psum_ef"]
+    return out
+
+
+def train_single_rank(mesh, tc: TrainConfig,
+                      kw: Optional[Dict] = None) -> Dict:
+    """One rank's :func:`train` on a ``1 x dp x tp`` mesh (``kw`` its
+    keywords), the body ``spawn(n, train_single_rank, args=(tc, kw),
+    shape=(1, dp, tp))`` runs: the result without the rank's trees, with
+    ``launches``, ``replica_checks`` and ``replicas_equal`` as
+    :func:`train_rank`'s."""
+    return _checked_rank(mesh, lambda after: train(
+        tc, mesh=mesh, after_step=after, **(kw or {})))
+
+
+def _checked_rank(mesh, run) -> Dict:
+    """``run(after_step)`` with every kernel's launch count from 0 and
+    the replicas checked after every step; the result without
+    ``params`` and ``opt_state``."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_adamw import fused_adamw_flat
     from repro_torch.kernels.rmsnorm import rmsnorm_rows
@@ -729,14 +798,13 @@ def train_rank(mesh, tc: TrainConfig, P: int,
     for fn in kernels.values():
         fn.launches = 0
     checks = []
-    out = train_pipeline(tc, P=P, mesh=mesh, after_step=lambda _, p, o, s: (
-        checks.append(replica_checks(mesh, p, o, s))), **(kw or {}))
+    out = run(lambda _, p, o, s: checks.append(replica_checks(mesh, p, o,
+                                                              s)))
     out["launches"] = {k: fn.launches for k, fn in kernels.items()}
     out["replica_checks"] = checks
     out["replicas_equal"] = [all(c.values()) for c in checks]
     for k in ("params", "opt_state"):
         del out[k]
-    del out["wire"]["psum_ef"]
     return out
 
 

@@ -20,13 +20,24 @@ backward) where a replicated activation enters a split product, and
 where partial products leave it.  Both capture the env when they run
 forward, so their backward (on autograd's device thread for CUDA
 tensors) reduces over the same group.
+
+ZeRO stage 3 (the reference's fsdp layout, where XLA gathers a sharded
+weight at its use): :class:`TreeShard` says which leaves a rank holds
+as its dp slice, and :func:`gather_fsdp` (all-gather over the fsdp
+axis forward, reduce-scatter of the gradient backward) stands where the
+weight is used, :func:`gather_at_use` over a tree.  The gathered leaf
+is a temporary of the op that uses it: under a checkpoint the gather
+runs again on recompute, and only the slice outlives the op.
 """
 from __future__ import annotations
 
 import contextlib
+from types import SimpleNamespace
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 
 Axes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Axes, ...]
@@ -88,6 +99,14 @@ class ShardEnv:
         if self.mesh is None or self.tp_axis is None:
             return 1
         return axis_size(self.mesh, self.tp_axis)
+
+    @property
+    def fsdp(self) -> int:
+        """The size of the fsdp axis on a running mesh (1 without one)."""
+        ax = self.rules.get("fsdp")
+        if self.mesh is None or ax is None:
+            return 1
+        return axis_size(self.mesh, ax)
 
     def splits(self, width: int) -> bool:
         """Is a dimension of ``width`` split over tp (the rule of
@@ -320,3 +339,227 @@ def max_over_tp(x: torch.Tensor, env: ShardEnv) -> torch.Tensor:
     y = x.detach().contiguous().clone()
     env.mesh.all_reduce(y, env.tp_axis, op="max")
     return y
+
+
+class _GatherFSDP(torch.autograd.Function):
+    """All-gather over the fsdp axis forward (each leaf ``xs[i]`` joined
+    along ``dims[i]``, the leaves of one dtype in one collective); the
+    gradients reduce-scattered (summed, this rank's slices kept)
+    backward, likewise one collective a dtype."""
+
+    @staticmethod
+    def forward(ctx, env, dims, *xs):
+        ctx.env, ctx.dims = env, dims
+        ctx.like = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(env.mesh.all_gather_cat(list(xs), env.rules["fsdp"],
+                                             dims))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        env = ctx.env
+        n = env.fsdp
+        gs = [g if g is not None else
+              torch.zeros(_times(shape, d, n), dtype=dt, device=dev)
+              for g, (shape, dt, dev), d in zip(gs, ctx.like, ctx.dims)]
+        return (None, None) + tuple(env.mesh.reduce_scatter(
+            gs, env.rules["fsdp"], ctx.dims))
+
+
+def _times(shape, dim: int, n: int):
+    """``shape`` with dimension ``dim`` ``n`` times as long."""
+    return tuple(s * n if i == dim else s for i, s in enumerate(shape))
+
+
+def gather_fsdp(xs: Sequence[torch.Tensor], dims: Sequence[int],
+                env: Optional[ShardEnv] = None) -> list:
+    """The whole leaves from their fsdp slices (``xs[i]`` along
+    ``dims[i]``; new tensors, one collective a dtype), and on the way
+    back the slices of the gradients summed over fsdp.  The leaves
+    themselves without an env whose fsdp axis has more than one rank."""
+    env = env or current_env()
+    if env is None or env.fsdp <= 1 or not xs:
+        return list(xs)
+    return list(_GatherFSDP.apply(env, tuple(dims), *xs))
+
+
+def gather_at_use(tree, dims, shift: int = 0):
+    """``tree`` with every leaf whose entry of ``dims`` (a tree of the
+    same structure: a dimension or None) is set gathered over fsdp
+    (:func:`gather_fsdp` along that dimension less ``shift``, the leading
+    axes the caller indexed away), in one call; ``dims`` None: ``tree``
+    itself."""
+    if dims is None:
+        return tree
+    leaves, ks = tree_leaves(tree), tree_leaves(dims)
+    at = [i for i, k in enumerate(ks) if k is not None]
+    whole = gather_fsdp([leaves[i] for i in at], [ks[i] - shift for i in at])
+    for i, a in zip(at, whole):
+        leaves[i] = a
+    return tree_unflatten(tree, leaves)
+
+
+# ---------------------------------------------------------------------------
+# one rank's part of a parameter tree
+# ---------------------------------------------------------------------------
+
+class TreeShard:
+    """What one rank of a mesh holds of a parameter tree under the
+    reference's logical specs, resolved by ``rules`` and sanitized on
+    the leaves' global shapes (``tree``: the global tree, e.g. on the
+    meta device; ``param_logical`` / ``state_logical``: the logical spec
+    trees of the parameters as the rank holds them and of their
+    optimizer state; ``shape``: axis name -> size; ``coords``: the
+    rank's coordinate on each axis; ``dropped(path)``: how many leading
+    dimensions of the leaf at ``path`` the rank indexes away, e.g. a
+    pipeline block leaf's stage axis).  Per leaf, in ``tree_leaves``
+    order, in the rank's local dimensions:
+
+    - ``param_specs``: the physical spec of the rank's parameter;
+    - ``tp_split``: is it split over tp;
+    - ``fsdp_dims``: the dimension it is cut over dp on (ZeRO-3: the
+      rank holds that slice only and gathers the whole at use), or None;
+    - ``zero_dims``: the dimension its optimizer state is cut over dp on
+      (ZeRO-1; a leaf cut over dp has its state cut the same way), or
+      None where the state is whole."""
+
+    def __init__(self, tree, param_logical, state_logical, shape, rules,
+                 coords, dropped=lambda path: 0):
+        self.shape, self.coords = dict(shape), dict(coords)
+        mesh = SimpleNamespace(shape=self.shape)   # a layout: no processes
+        env = ShardEnv(mesh, rules)
+        self.paths = tree_paths(tree)
+        self._structure = tree_map(lambda a: None, tree)
+        shapes = [tuple(a.shape) for a in tree_leaves(tree)]
+
+        def phys(specs):
+            flat = spec_leaves(specs)
+            assert len(flat) == len(shapes), "spec tree != parameter tree"
+            return [sanitize_spec(env.resolve(sp), sh, mesh)
+                    for sp, sh in zip(flat, shapes)]
+        cut = [dropped(p) for p in self.paths]
+        ps, ss = phys(param_logical), phys(state_logical)
+        self.param_specs = [sp[k:] for sp, k in zip(ps, cut)]
+        tp_ax, dp_ax = rules.get("tp"), rules.get("dp")
+        self.tp_split = [names_axis(sp, tp_ax) for sp in self.param_specs]
+
+        def dim_of(sp, k):
+            i = next((i for i, ax in enumerate(sp)
+                      if names_axis((ax,), dp_ax)), None)
+            return None if i is None else i - k
+        self.dp = self.shape.get(dp_ax, 1) if dp_ax else 1
+        # a dp axis of one rank cuts nothing: every leaf is whole
+        self.fsdp_dims = [dim_of(sp, 0) if self.dp > 1 else None
+                          for sp in self.param_specs]
+        self.zero_dims = [dim_of(sp, k) for sp, k in zip(ss, cut)]
+        for f, z in zip(self.fsdp_dims, self.zero_dims):
+            assert f is None or f == z, "a dp-cut leaf's state cut elsewhere"
+        self.dp_coord = self.coords.get(dp_ax, 0) if dp_ax else 0
+        self.tp_coord = self.coords.get(tp_ax, 0) if tp_ax else 0
+        self._cut = {a: (self.coords[a], self.shape[a]) for a in
+                     (tp_ax, dp_ax) if a in self.shape}
+
+    @property
+    def sliced(self) -> bool:
+        """Does the rank hold any parameter as its dp slice (ZeRO-3)?"""
+        return any(k is not None for k in self.fsdp_dims)
+
+    def fsdp_tree(self):
+        """``fsdp_dims`` as a tree shaped as the parameter tree (None
+        where a leaf is whole), or None when no leaf is cut over dp."""
+        return tree_unflatten(self._structure, self.fsdp_dims) \
+            if self.sliced else None
+
+    def cut(self, tree):
+        """A whole tree (global leaves) -> this rank's (:meth:`cut_leaf`
+        of every leaf)."""
+        return tree_unflatten(tree, [self.cut_leaf(a, i) for i, a in
+                                     enumerate(tree_leaves(tree))])
+
+    def cut_leaf(self, a: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf ``i`` (its rank-local dimensions, whole) cut to the rank's
+        tp shard and dp slice, as its own contiguous copy."""
+        return local_shard(a, self.param_specs[i], self._cut).clone(
+            memory_format=torch.contiguous_format)
+
+    def zero_slice(self, a: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf ``i`` (a rank leaf) narrowed to the rank's dp slice where
+        its state is sliced (a view), else the leaf; a leaf the rank
+        holds as its dp slice is that slice already."""
+        k = self.zero_dims[i]
+        if k is None or self.fsdp_dims[i] is not None:
+            return a
+        n = a.shape[k] // self.dp
+        return a.narrow(k, self.dp_coord * n, n)
+
+    def zero_views(self, tree):
+        """The rank tree's leaves narrowed to the dp slices the rank
+        updates (views)."""
+        return tree_unflatten(tree, [self.zero_slice(a, i) for i, a in
+                                     enumerate(tree_leaves(tree))])
+
+    def owned(self, g: torch.Tensor, i: int) -> Optional[torch.Tensor]:
+        """The part of gradient leaf ``i`` the rank counts in the clip
+        norm, so that every element counts once over the mesh: its dp
+        slice (or the whole leaf on dp coordinate 0 where the state is
+        whole), and a tp-replicated leaf on tp coordinate 0 only; None
+        where the rank counts nothing."""
+        return self.zero_slice(g, i) if self.counts(i) else None
+
+    def counts(self, i: int) -> bool:
+        """Does the rank count its part of leaf ``i`` in a sum over the
+        mesh (:meth:`owned`): not a tp-replicated leaf off tp coordinate
+        0, not a dp-whole one off dp coordinate 0."""
+        if not self.tp_split[i] and self.tp_coord != 0:
+            return False
+        return self.zero_dims[i] is not None or self.dp_coord == 0
+
+    def reduce_grad(self, mesh, g: torch.Tensor, i: int) -> torch.Tensor:
+        """A rank's gradient of leaf ``i`` summed over dp into the part
+        its state covers: reduce-scattered to the dp slice where the
+        state is sliced, all-reduced where it is whole, as it is where the
+        leaf is held as a slice (its gather's backward summed it)."""
+        if self.dp == 1 or self.fsdp_dims[i] is not None:
+            return g
+        k = self.zero_dims[i]
+        if k is None:
+            return mesh.all_reduce(g.contiguous(), "data")
+        return mesh.reduce_scatter([g], "data", [k])[0]
+
+    def gather_weights(self, mesh, params) -> None:
+        """After an update of the dp slices: every leaf whose state is
+        sliced and whose parameter is whole all-gathered over dp into the
+        whole leaf (ZeRO-1's weight all-gather; a leaf held as its slice
+        needs none)."""
+        if self.dp == 1:
+            return
+        for i, a in enumerate(tree_leaves(params)):
+            k = self.zero_dims[i]
+            if k is None or self.fsdp_dims[i] is not None:
+                continue
+            n = a.shape[k] // self.dp
+            mine = a.narrow(k, self.dp_coord * n, n).contiguous()
+            outs = [torch.empty_like(mine) for _ in range(self.dp)]
+            mesh.all_gather_into(outs, mine, "data")
+            for j, o in enumerate(outs):
+                if j != self.dp_coord:
+                    a.narrow(k, j * n, n).copy_(o)
+
+
+def names_axis(spec, axis) -> bool:
+    """Does ``spec`` put mesh axis ``axis`` on any dimension?"""
+    if axis is None:
+        return False
+    for ax in spec:
+        if ax == axis or (isinstance(ax, tuple) and axis in ax):
+            return True
+    return False
+
+
+def spec_leaves(tree):
+    """The specs of a spec tree in ``tree_leaves`` order (a spec tuple is
+    a leaf)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in spec_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in spec_leaves(t)]
+    return [tree]

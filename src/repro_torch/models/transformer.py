@@ -34,6 +34,7 @@ from repro_torch.models import backend as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
+from repro_torch.models.sharding import gather_at_use, spec_map
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -115,6 +116,26 @@ def encoder_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return {"encoder": [dict(one) for _ in
                         range(cfg.encdec.num_encoder_layers)],
             "enc_norm": L.rmsnorm_specs()}
+
+
+def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical sharding specs of :meth:`LM.init`'s tree (the reference's
+    ``LM.init`` specs, its ``_specs_only``): each stacked period leaf's
+    layer spec behind a None for the stacked axis, the remainder layers'
+    own, the embedding's, the final norm's and an encoder-decoder
+    config's encoder."""
+    nper = cfg.num_layers // cfg.period
+    specs: Dict[str, Any] = {
+        "embed": L.embed_specs(cfg.tie_embeddings),
+        "final_norm": L.rmsnorm_specs(),
+        "layers": [spec_map(lambda sp: (None,) + tuple(sp),
+                            layer_specs(cfg, j))
+                   for j in range(cfg.period) if nper],
+        "rem_layers": [layer_specs(cfg, nper * cfg.period + r)
+                       for r in range(cfg.num_layers - nper * cfg.period)]}
+    if cfg.encdec is not None:
+        specs.update(encoder_specs(cfg))
+    return specs
 
 
 def _attn_leaves(dense, cfg: ModelConfig) -> Dict[str, Any]:
@@ -293,15 +314,34 @@ class LM:
     prefix; an encoder-decoder's encoder).  ``kernels`` selects the
     compute backend ("fused" default, or "plain"); ``device`` where
     parameters and caches live (CUDA unless the caller asks for the
-    CPU)."""
+    CPU).
 
-    def __init__(self, cfg: ModelConfig, *, kernels=None, device="cuda"):
+    ``fsdp`` (ZeRO-3 on a mesh): a tree shaped as the parameters giving
+    the dimension each leaf is held cut over dp on (None: whole), from
+    :meth:`~repro_torch.models.sharding.TreeShard.fsdp_tree`.  Each
+    layer's leaves are then gathered where the layer runs, inside its
+    period's Chronos-Recomp checkpoint, so the recompute gathers them
+    again and only the slices live between forward and backward; the
+    embedding, head and encoder leaves are gathered where they are used
+    and live until the microbatch's backward."""
+
+    def __init__(self, cfg: ModelConfig, *, kernels=None, device="cuda",
+                 fsdp=None):
         self.cfg = cfg
         self.backend = B.get_backend(kernels)
         self.device = resolve_device(device)
         self.period = cfg.period
         self.num_periods = cfg.num_layers // self.period
         self.num_rem = cfg.num_layers - self.num_periods * self.period
+        self.fsdp = fsdp
+
+    def _use(self, tree, *path, shift: int = 0):
+        """The subtree at ``path`` of a parameter tree's ``tree`` as the
+        layers read it: its dp slices gathered under ``fsdp``."""
+        dims = self.fsdp
+        for k in path:
+            dims = None if dims is None else dims[k]
+        return gather_at_use(tree, dims, shift)
 
     # -- init ----------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -334,7 +374,8 @@ class LM:
     # -- encoder -------------------------------------------------------------
     def encode(self, params, frame_embeds):
         """The encoder over frame embeddings [B, T, d] (:func:`encode`)."""
-        return encode(self.cfg, params, frame_embeds, self.backend)
+        enc = {k: self._use(params[k], k) for k in ("encoder", "enc_norm")}
+        return encode(self.cfg, enc, frame_embeds, self.backend)
 
     # -- decoder stack -------------------------------------------------------
     def _stack(self, params, x, positions, *, cache=None, cache_pos=0,
@@ -358,7 +399,8 @@ class LM:
             for j in range(self.period):
                 c = None if cache is None else _index(cache["periods"][j], i)
                 x, _, aux = _apply_layer(
-                    _index(params["layers"][j], i), x, positions, cfg, j,
+                    self._use(_index(params["layers"][j], i), "layers", j,
+                              shift=1), x, positions, cfg, j,
                     cache=c, cache_pos=cache_pos, enc_out=enc_out,
                     prefix_len=prefix_len, aux_sum=aux,
                     backend=self.backend)
@@ -373,8 +415,10 @@ class LM:
         for r in range(self.num_rem):
             idx = nper * self.period + r
             c = None if cache is None else cache["rem"][r]
-            x, _, aux = _apply_layer(params["rem_layers"][r], x, positions,
-                                     cfg, idx, cache=c, cache_pos=cache_pos,
+            x, _, aux = _apply_layer(self._use(params["rem_layers"][r],
+                                               "rem_layers", r), x,
+                                     positions, cfg, idx, cache=c,
+                                     cache_pos=cache_pos,
                                      enc_out=enc_out, prefix_len=prefix_len,
                                      aux_sum=aux, backend=self.backend)
         return x, aux
@@ -382,14 +426,26 @@ class LM:
     def embed(self, params, tokens):
         """Token embedding scaled by sqrt(d), in the compute dtype.  The
         scale is rounded to the embedding's dtype first, as the
-        reference's ``jnp.asarray(d ** 0.5, x.dtype)`` does."""
-        x = L.embed(params["embed"], tokens)
+        reference's ``jnp.asarray(d ** 0.5, x.dtype)`` does.  Under a tp
+        env that splits the vocab, the vocab-parallel lookup."""
+        x = L.embed(self._embed_leaf(params, "tokens"), tokens,
+                    vocab=self.cfg.vocab_size)
         mult = torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype).item()
         return (x * mult).to(_dtype(self.cfg.compute_dtype))
 
     def head(self, params, x):
-        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return L.unembed(params["embed"], x)
+        """Final norm and logits (under a tp env that splits the vocab,
+        the rank's vocab columns)."""
+        x = L.rmsnorm(self._use(params["final_norm"], "final_norm"), x,
+                      self.cfg.norm_eps)
+        key = "head" if "head" in params["embed"] else "tokens"
+        return L.unembed(self._embed_leaf(params, key), x,
+                         vocab=self.cfg.vocab_size)
+
+    def _embed_leaf(self, params, key):
+        """``{key: params["embed"][key]}``, gathered under ``fsdp``: the
+        one embedding leaf a lookup or the head reads."""
+        return {key: self._use(params["embed"][key], "embed", key)}
 
     def embed_prefix(self, params, tokens, patch_embeds=None):
         """:meth:`embed`, with a VLM's patch embeddings [B, P, d] ahead of
@@ -440,14 +496,17 @@ class LM:
                            frame_embeds=frame_embeds)
         return self.head(params, x), cache
 
-    def loss(self, params, batch, *, recomp=None, num_chunks: int = 1):
+    def loss(self, params, batch, *, recomp=None, num_chunks: int = 1,
+             denom=None):
         """batch: {'tokens': [B, S], 'loss_mask': [B, S] optional,
         'patch_embeds' [B, P, d] / 'frame_embeds' [B, T, d] optional}.
         Next-token CE over the token positions (a VLM's patch positions
         are dropped before the head) plus 0.01 times the MoE layers'
         load-balancing sum (the single-device training loss, and the
-        oracle of the pipeline executor).  Returns ``(ce + 0.01 * aux,
-        {"ce": ce, "aux": aux})``."""
+        oracle of the pipeline executor).  ``denom``: a fixed normalizer
+        of the CE in place of the local mean (a data-parallel rank's
+        global-microbatch count, so the ranks' losses sum to the global
+        mean).  Returns ``(ce + 0.01 * aux, {"ce": ce, "aux": aux})``."""
         tokens = batch["tokens"]
         patch = batch.get("patch_embeds")
         x, aux = self.hidden(params, tokens[:, :-1], recomp=recomp,
@@ -458,7 +517,8 @@ class LM:
         logits = self.head(params, x)
         mask = batch.get("loss_mask")
         ce = L.softmax_xent(logits, tokens[:, 1:],
-                            None if mask is None else mask[:, 1:])
+                            None if mask is None else mask[:, 1:],
+                            denom=denom, vocab=self.cfg.vocab_size)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, seq: int):
@@ -537,7 +597,13 @@ def _wrap_remat(body, recomp: RecomputeConfig, chunk_idx: int):
     internals (the selective policy, the paper's §6.1 default).
     Non-reentrant, so the stacked parameters the body indexes get their
     gradients; the layers draw no random numbers, so no RNG state is
-    stashed."""
+    stashed.
+
+    The recompute stops early, once the last tensor the backward saved is
+    rebuilt (torch's default): a period's trailing MLP down-projection and
+    its tp all-reduce do not run again
+    (:func:`repro_torch.launch.dryrun.train_collective_stats` counts
+    so)."""
     if recomp.mode == "full":
         selective = False
     elif recomp.mode == "chronos" and chunk_idx < recomp.num_recomp_chunks:

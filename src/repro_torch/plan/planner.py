@@ -176,10 +176,10 @@ class ExecutablePlan:
         - ``kernels`` (the port's field): "fused" runs the CUDA kernels
           (on a CPU tensor each wrapper runs its plain version), "plain"
           runs no kernel;
-        - ``zero_stage`` 0 or 1 is the plan's field (the optimizer
-          state replicated, or each data-parallel rank's fsdp slice of
-          the blocks' state on a mesh); stages 2 and 3 shard gradients or
-          weights and raise ValueError (ROADMAP queue A item 3b);
+        - ``zero_stage`` 0-3 is the plan's field (0: the optimizer
+          state replicated; 1 and 2: each data-parallel rank's fsdp
+          slice of the blocks' state on a mesh; 3: of the block weights
+          too, gathered at use); another stage raises ValueError;
         - ``pp_axis`` has no field: the mesh's pipe axis is always "pp",
           so any other name raises ValueError.
 
@@ -191,11 +191,9 @@ class ExecutablePlan:
                 f"pp_axis={pp_axis!r}: the port's mesh names its pipe axis "
                 f"'pp' (its {self.query.pp} pipeline stages; pp_axis 'pp' "
                 f"only, virtual stages on one card or ranks of a mesh)")
-        if zero_stage not in (0, 1):
-            raise ValueError(
-                f"zero_stage={zero_stage} shards gradients or weights over "
-                f"data-parallel ranks; the port runs stage 0 or 1 (ROADMAP "
-                f"queue A item 3b)")
+        if zero_stage not in (0, 1, 2, 3):
+            raise ValueError(f"zero_stage={zero_stage}: expected 0, 1, 2 "
+                             f"or 3")
         p = self.point
         if p.recomp_chunks:
             rc = RecomputeConfig(mode="chronos",

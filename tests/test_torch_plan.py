@@ -156,8 +156,8 @@ def test_replan_for_pp_matches_jax(new_pp):
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "deepseek-7b-24"])
 def test_parallel_plan_maps_every_point(name):
     """The port's plan equals the reference's on every field it has
-    (``zero_stage`` too); the mesh axis name it has not, and the ZeRO
-    stages it does not run, raise."""
+    (``zero_stage`` too, at each of the stages 0-3 it runs); the mesh
+    axis name it has not, and a stage past 3, raise."""
     q, jq = _queries(name)
     for p, jp in zip(enumerate_points(q), jax_enumerate_points(jq)):
         pp_ = ExecutablePlan(q, p).parallel_plan()
@@ -173,8 +173,12 @@ def test_parallel_plan_maps_every_point(name):
     assert pp0.microbatch_size == 3 and pp0.zero_stage == 0
     with pytest.raises(ValueError, match="virtual"):
         ep.parallel_plan(pp_axis="pod")
-    with pytest.raises(ValueError, match="zero_stage=2"):
-        ep.parallel_plan(zero_stage=2)
+    jep = JaxExecutablePlan(jq, jax_enumerate_points(jq)[0])
+    for z in (2, 3):
+        assert ep.parallel_plan(zero_stage=z).zero_stage == \
+            jep.parallel_plan(zero_stage=z).zero_stage == z
+    with pytest.raises(ValueError, match="zero_stage=4"):
+        ep.parallel_plan(zero_stage=4)
 
 
 def _train_pick(cfg, describe, P=2, steps=2):

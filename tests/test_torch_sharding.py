@@ -34,7 +34,7 @@ from repro.optim.adamw import zero_state_specs as jax_zero_state_specs
 from repro_torch.configs import _ARCH_MODULES, get_config, get_reduced
 from repro_torch.configs.base import ParallelPlan
 from repro_torch.core.layout import StageLayout
-from repro_torch.core.pipeline_runtime import (RankShard, _spec_leaves,
+from repro_torch.core.pipeline_runtime import (RankShard,
                                                init_pipeline_params,
                                                pipeline_layout_specs,
                                                pipeline_logical_specs)
@@ -135,11 +135,11 @@ def test_pipeline_specs_equal_the_reference(arch):
         cfg, lay, tree = _port(arch, P)
         ours = pipeline_logical_specs(cfg, lay)
         assert [tuple(a.shape) for a in tree_leaves(tree)] == shapes
-        assert _spec_leaves(ours) == _jax_spec_leaves(ref)
-        assert _spec_leaves(drop_fsdp(ours)) == \
+        assert S.spec_leaves(ours) == _jax_spec_leaves(ref)
+        assert S.spec_leaves(drop_fsdp(ours)) == \
             _jax_spec_leaves(jax_drop_fsdp(ref))
         for stage in (0, 1, 3):
-            assert _spec_leaves(zero_state_specs(ours, stage)) == \
+            assert S.spec_leaves(zero_state_specs(ours, stage)) == \
                 _jax_spec_leaves(jax_zero_state_specs(ref, stage))
 
 
@@ -164,7 +164,7 @@ def test_resolved_specs_equal_the_reference(arch, name, mesh, rules):
     jenv = jax_sharding.ShardEnv(Stub(mesh.shape), rules)
     for ours, theirs in ((params, jparams), (state, jstate)):
         a = [_canon(S.sanitize_spec(env.resolve(sp), sh, mesh))
-             for sp, sh in zip(_spec_leaves(ours), shapes)]
+             for sp, sh in zip(S.spec_leaves(ours), shapes)]
         b = [_canon(jax_sharding.sanitize_spec(jenv.resolve(sp), sh,
                                                Stub(mesh.shape)))
              for sp, sh in zip(_jax_spec_leaves(theirs), shapes)]
@@ -285,8 +285,9 @@ def test_rank_shard_slices_and_ownership():
 
 def test_refusals_without_processes():
     """tp not dividing the heads (ValueError); Mamba-2, MoE, the
-    encoder-decoder and the VLM under tp, MoE under dp, and ZeRO stages
-    2 and 3 (NotImplementedError naming the ROADMAP item)."""
+    encoder-decoder and the VLM under tp, MoE under dp
+    (NotImplementedError naming the ROADMAP item); ZeRO stages 0-3 run,
+    another stage raises ValueError."""
     tiny = get_reduced("tinyllama-1.1b")            # 8 heads, 2 K/V heads
     with pytest.raises(ValueError, match="num_kv_heads=2"):
         check_mesh_model(tiny, 1, 4)
@@ -307,10 +308,10 @@ def test_refusals_without_processes():
     with pytest.raises(NotImplementedError, match="MoE.*item 3b"):
         check_mesh_model(get_reduced("qwen2-moe-a2.7b"), 2, 1)
     check_mesh_model(get_reduced("mamba2-2.7b"), 2, 1)
-    for z in (2, 3):
-        with pytest.raises(NotImplementedError,
-                           match=f"zero_stage={z}.*item 3b"):
+    for z in (-1, 4):
+        with pytest.raises(ValueError, match=f"zero_stage={z}"):
             check_zero_stage(ParallelPlan(zero_stage=z))
-    check_zero_stage(ParallelPlan(zero_stage=0))
+    for z in (0, 1, 2, 3):
+        check_zero_stage(ParallelPlan(zero_stage=z))
     with pytest.raises(ValueError, match="pp x dp x tp"):
         M.spawn(8, print, shape=(2, 2, 1), device="cpu")
