@@ -27,14 +27,14 @@ Phases, in order; any failure exits non-zero:
    plain backends agree on fp32 logits (2 layers, full width);
 5a. serve-mamba2: full-width mamba2-2.7b through the same ``main``, 128-
    token chunks (its SSD chunk), 8 requests of 128 or 256 prompt tokens
-   and 16-32 new ones: every prefill scan runs the SSD kernel from the
+   and 8-16 new ones: every prefill scan runs the SSD kernel from the
    slot's carried fp32 state (launches 64 x the prefill chunks, no call
    of the plain ``ssd_chunked_ref``), gated as phase 4, with phase 5's
    checks at 128-token chunks;
 5b. serve-qwen2-moe: full-width qwen2-moe-a2.7b (60 routed experts top
-   4 plus 4 shared, MHA 16 x 128) with phase 4's traffic and gates, the
-   decode tick's weight-read bound beside its per-token time, and phase
-   5's checks;
+   4 plus 4 shared, MHA 16 x 128) with phase 4's traffic (8-16 new
+   tokens) and gates, the decode tick's weight-read bound beside its
+   per-token time, and phase 5's checks;
 6. train: full-width tinyllama-1.1b (bf16, fp32 optimizer state, random
    weights from seed 0) through ``repro_torch.launch.train.
    train_pipeline``: chronos_zb, P=4 virtual stages, v=2, 8 microbatches
@@ -45,14 +45,14 @@ Phases, in order; any failure exits non-zero:
 7. train checks (fp32, full width, 4 layers): pipeline gradients against
    ``LM.loss`` autograd, chronos_recomp == chronos bitwise, fused vs
    plain backend, kernel vs plain AdamW update bitwise;
-8. train mamba2-2.7b at full width, cut to 16 of its 64 layers, as
+8. train mamba2-2.7b at full width, cut to 8 of its 64 layers, as
    phase 6 does tinyllama (the SSD scan, rmsnorm and fused-AdamW
    kernels), after freeing tinyllama's tensors, then a profiled step;
 9. phase 7's checks on mamba2-2.7b (4 layers, two SSD chunks);
 10. train-single: full-width tinyllama-1.1b through ``repro_torch.launch.
-    train.train`` (8 sequences of 2049 tokens in 2 microbatches, 2 steps)
+    train.train`` (8 sequences of 2049 tokens in 2 microbatches, 1 step)
     with the recompute modes none, chronos and full, a profiled chronos
-    step, then mamba2-2.7b cut to 16 layers in chronos (8 microbatches of
+    step, then mamba2-2.7b cut to 8 layers in chronos (8 microbatches of
     one sequence);
     checks the launch counts derived from the model and the remat, the
     bitwise step-1 losses across modes, their gradient norms, the peak
@@ -68,7 +68,7 @@ Phases, in order; any failure exits non-zero:
     (fused AdamW on the shallow and shared leaves only) and the peak's
     fall of at least 0.9 x the deep state; prints step time, tokens/s,
     ``collect_wait_s``, host update seconds, the copies' GB/s and the
-    Eq. (5)/(7) report; then fp32, 4 layers, 3 steps with the gradient
+    Eq. (5)/(7) report; then fp32, 4 layers, 2 steps with the gradient
     clip off: offload against the on-device optimizer (|d loss| <= 5e-3)
     and against the on-device optimizer with its deep weights rounded
     to bf16 after every step (<= 1e-4); with the clip on, printed only;
@@ -103,9 +103,9 @@ Phases, in order; any failure exits non-zero:
     chronos, within 2e-5 relative;
 16. train-planner: the memory-budget planner (``repro_torch.plan``) on
     the card, each stage's budget a quarter of the card's memory: (a) its
-    pick for tinyllama-1.1b trained 3 steps as phase 6; (b) deepseek-7b's
+    pick for tinyllama-1.1b trained 1 step as phase 6; (b) deepseek-7b's
     width: ``max_trainable_layers`` of ``1f1b`` and of the best point,
-    then the pick for that depth trained at 8 layers, 2 steps (``ep.m``
+    then the pick for that depth trained at 8 layers, 1 step (``ep.m``
     sequences of 2049 tokens), both gated as phase 6 (finite losses, moved masters,
     launch counts from the table); (c) for every pipeline training run
     of phases 6-16 (15a included) the planner's per-stage total, the
@@ -114,7 +114,7 @@ Phases, in order; any failure exits non-zero:
 17. serve-gemma3: full-width gemma3-27b (62 layers, 52 of them with a
     1024-token sliding window; 27.0 B parameters, 54.0 GB bf16) through
     ``launch.serve.main``: P=1, 4 slots, 128-token chunks, prompts of 1
-    to 12 chunks (at least two past the window), 16-32 new tokens,
+    to 12 chunks (at least two past the window), 8-16 new tokens,
     gated as phase 4; the peak beside its reckoning (the copying pack
     frees each LM leaf as it packs it: weights plus one block leaf), the
     decode tick's bound; 17a. reduced gemma3 in
@@ -210,8 +210,8 @@ Phases, in order; any failure exits non-zero:
 27. train-ranks: phase 6's configuration trained as four processes on
     the card, one pipeline stage each (``repro_torch.launch.mesh.spawn``,
     gloo through page-locked host memory: NCCL refuses two ranks on one
-    device, and that refusal is checked first), 3 steps with the
-    overlapped exchange and 2 with the synchronous one, each rank's
+    device, and that refusal is checked first), 2 steps with the
+    overlapped exchange and 1 with the synchronous one, each rank's
     launches summed into ``train_ranks``; finite losses equal on every
     rank, shared replicas equal after every step, the summed launches
     the table's; each rank's step time, peak beside ``MemoryModel``'s
@@ -225,7 +225,7 @@ Phases, in order; any failure exits non-zero:
     pp 2 x dp 2 x tp 2 mesh of eight processes on the card
     (``spawn(shape=)``, gloo through page-locked host memory): heads,
     FFN and vocab split over tp, the batch over dp, the blocks'
-    optimizer state over dp (ZeRO-1), 3 steps; finite losses equal on
+    optimizer state over dp (ZeRO-1), 2 steps; finite losses equal on
     every rank, the dp replicas and the tp-replicated leaves bitwise
     equal after every step, the summed launches the table's x dp x tp
     (fused AdamW one a leaf slice a rank), the bytes handed to
@@ -234,7 +234,20 @@ Phases, in order; any failure exits non-zero:
     bytes by axis and exchange wait share; then the fp32 check at 4
     layers (m=2, 257 tokens): every rank's gradient shard within 2e-5
     relative of the one-process executor's;
-29. a JSON ``kernels`` line, then the JSON result line.
+29. train-zero3 and train-single-mesh, in phase 28's processes: the same
+    at ZeRO stage 3, then ``train()`` on them regrouped as pp 1 x dp 4 x
+    tp 2 at stages 3 and 1, each with its fp32 check;
+30. train-families, in the same processes: mamba2-2.7b at full width cut
+    to 4 layers (the Mamba-2 channels and heads over tp, the gated
+    norm's rows across the ranks on the split-width RMSNorm pair) and
+    qwen2-moe-a2.7b at full width, 2 layers, half its vocabulary (the
+    experts' hidden width over tp, the routing over the global
+    microbatch), on pp 2 x dp 2 x tp 2, 2 steps each, gated as phase 28
+    (for qwen2-moe also every F op's dropped fraction in its fp32 check,
+    equal on all ranks and to the one-process run's); then ``train()``
+    of each on pp 1 x dp 4 x tp 2 at stage 1, one step and its fp32
+    check;
+31. a JSON ``kernels`` line, then the JSON result line.
 
 Every bound phase 3 prints is ``repro_torch.roofline.kernel_cost``'s
 work of the kernel's function over the H100's peaks (``kernel_bound``).
@@ -247,7 +260,12 @@ training shape beside its bound, the plain version and SDPA with the
 boolean prefix-LM mask, with the Function's gradients there; and flash
 at a tp=2 rank's heads of the training shape (phase 28's: q
 [1,2048,16,64] over kv [1,2048,2,64]) in fp32 and bf16, timed beside
-the plain version, SDPA and the bound.
+the plain version, SDPA and the bound; and the split-width RMSNorm pair
+(``rmsnorm_sumsq_rows``, ``rmsnorm_scale_rows``) against its plain
+versions and, over two column halves, against ``rmsnorm_rows`` on the
+whole rows, timed at a tp 2 rank's [2049, 2560] in bf16 and fp32 beside
+``rmsnorm_rows`` at the whole [2049, 5120], with the SSD scan at a tp 2
+rank's 40 heads.
 Phase 3 also holds fused AdamW bitwise against its plain version (up
 to qwen2-moe's stacked expert leaf of 692 M elements), the
 RMSNorm, flash and SSD Functions' gradients against autograd through the
@@ -275,7 +293,12 @@ processes' first step, and fewer steps in phases 10-11 (3), 12-14 (2),
 step, the fp32 check) and phase 3's tp=2 flash case ~2 s; phase 16b at
 8 layers (16 before: its two steps took 40.8 s), phase 16a's 3 steps
 (4 before, ~5.6 s a step) and phase 10's 2 (3 before, ~2.8 s a step)
-pay for them.  Host speed moves the host-paced phases by up to ~45%.
+pay for them.  Phases 28-30 took 197.8 s on a fast host and 262.8 s on
+a slow one, where the whole run took 1001.2 s and 1206.4 s: to keep a
+slow host inside the limit, mamba2's phases 8, 10 and 11 run 8 layers
+(16 before), and phases 10, 16a, 16b, 29 (A) and 27's synchronous
+run one step, phases 11 (and its fp32 checks) and 27's overlapped run
+two, phase 29 (B)'s stage 3 one.  Host speed moves the host-paced phases by up to ~45%.
 
 Needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -333,6 +356,19 @@ def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def warm_median(step_s) -> float:
+    """The median of a run's step times after its first (a warm-up), or
+    its one step where it ran one."""
+    return statistics.median(step_s[1:] or step_s)
+
+
+def median_word(step_s) -> str:
+    """What :func:`warm_median` of ``step_s`` is: the median of the warm
+    steps, or the one step of a one-step run, which is cold (it carries
+    the run's first-call costs) and not comparable with a median."""
+    return "median step" if len(step_s) > 1 else "one cold step"
 
 
 def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
@@ -753,15 +789,22 @@ class PlainScanCounter:
             mod.ssd_chunked_ref = orig
 
 
+# new tokens a request of the family serves (phases 5a, 5b and 17): half
+# of phase 4's 16-32, as their decode ticks take 3x phase 4's
+FAMILY_GEN = (8, 16)
+
+
 def serve_argv(arch: str, chunk: int = 64, prompt_chunks: int = 4,
                prompt_len: int = 224):
-    """Phase 4's traffic for ``arch``: 8 requests at once, 4 slots,
-    prompts of 1 to ``prompt_chunks`` chunks of ``chunk`` tokens, 16 to
-    32 new tokens, greedy, full width, fused kernels; the defaults are
-    phase 4's own."""
+    """Phase 4's traffic for ``arch`` with ``FAMILY_GEN`` new tokens: 8
+    requests at once, 4 slots, prompts of 1 to ``prompt_chunks`` chunks
+    of ``chunk`` tokens, greedy, full width, fused kernels; the defaults
+    are phase 4's own."""
     argv = list(SERVE_ARGV)
     for flag, val in (("--arch", arch), ("--chunk", str(chunk)),
-                      ("--prompt-len", str(prompt_len))):
+                      ("--prompt-len", str(prompt_len)),
+                      ("--gen-min", str(FAMILY_GEN[0])),
+                      ("--gen", str(FAMILY_GEN[1]))):
         argv[argv.index(flag) + 1] = val
     return argv + ["--prompt-chunks", str(prompt_chunks)]
 
@@ -839,6 +882,25 @@ def phase_serve(torch, argv=None, tag="serve"):
     return launches, eng, {**s, "peak": peak, "decode_bound_ms": dms}
 
 
+def _device_rows(prof) -> list:
+    """(kernel name, records, device us) of each kernel name in a closed
+    ``torch.profiler.profile`` session: the device rows of its
+    ``key_averages()`` (a kernel's self time is its duration), summed
+    from the raw kineto records.  ``key_averages()`` first builds an
+    event object for every record and links the runtime calls to their
+    kernels, which took 8-21 s a training step on the card's host; this
+    reads the same records without them."""
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA") or e.is_async() \
+                or getattr(e, "is_hidden_event", lambda: False)():
+            continue                  # runtime calls; their kernels count
+        r = rows.setdefault(e.name(), [0, 0.0])
+        r[0] += 1
+        r[1] += e.duration_ns() / 1e3
+    return [(k, n, us) for k, (n, us) in rows.items()]
+
+
 def phase_profile(torch, eng, tag="serve"):
     """Where the serve path's time goes, on the warm engine of a serve
     phase: 4 more requests of 8 new tokens each served once with tracing
@@ -870,16 +932,11 @@ def phase_profile(torch, eng, tag="serve"):
     fams = {"rmsnorm_rows (ours)": 0.0, "flash_attention_fwd (ours)": 0.0,
             "ssd_scan (ours)": 0.0, "matmul": 0.0, "other": 0.0}
     rows = []
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue                  # host ops; their kernels are listed
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
+    for key, count, dev in _device_rows(prof):
         if dev <= 0:
             continue
-        rows.append((dev, e.count, e.key))
-        name = e.key.lower()
+        rows.append((dev, count, key))
+        name = key.lower()
         if "rmsnorm_rows_kernel" in name:
             fams["rmsnorm_rows (ours)"] += dev
         elif "flash_fwd_kernel" in name:
@@ -1010,17 +1067,22 @@ def phase_checks(torch, arch="tinyllama-1.1b", chunk=64, tag="check"):
 # ---------------------------------------------------------------------------
 
 TRAIN_SEQ = 2049               # 2048 positions per sequence fed to the stack
-# mamba2-2.7b's pipeline runs (phases 8 and 11) at full width, cut to 16
-# of its 64 layers so that the whole smoke, with phases 17-20, keeps well
-# inside its time limit on a slow host (an H100 run took 1064.5 s with 32)
-MAMBA2_TRAIN_LAYERS = 16
+# mamba2-2.7b's pipeline runs (phases 8 and 11) and train() (10) at full
+# width, cut to 8 of its 64 layers (16 before phase 30 needed the time)
+# so that the whole smoke keeps inside its time limit on a slow host (an
+# H100 run took 1064.5 s with 32)
+MAMBA2_TRAIN_LAYERS = 8
 # deepseek-7b's planner pick (phase 16b), planned for the largest depth
 # that fits a quarter of the card (24 layers) and trained at 8 (16
 # before phase 28 needed the time): its 2 host-paced steps took 68 s at
 # 24 layers on a slow host, 40.8 s at 16 on a fast one
 DEEPSEEK_TRAIN_LAYERS = 8
-# steps of phase 16a, tinyllama-1.1b's planner pick (4 before phase 28)
-PLANNER_STEPS = 3
+# its steps (2 before phase 30 needed the time: one host-paced step of a
+# fresh model, untimed warm)
+DEEPSEEK_STEPS = 1
+# steps of phase 16a, tinyllama-1.1b's planner pick (4 before phase 28, 3
+# before phase 30)
+PLANNER_STEPS = 1
 # the sequence-chunked runs (phases 13-14) at full width, cut to 8 of
 # tinyllama-1.1b's 22 layers: their host-paced steps and long traces
 # (seq1f1b: 84.2 s at 22 layers) made room for phases 21-22
@@ -1034,9 +1096,10 @@ SCHEDULE_STEPS = 2
 SEQ1F1B_LAYERS = 4
 # steps of phases 10 and 11 (4 before phase 27; a cut past the phases
 # 12-14 and 25 that phase 27's time was to come from; phase 10's 2 since
-# phase 28: the first warms up, the second is timed)
-SINGLE_STEPS = 2
-OFFLOAD_STEPS = 3
+# phase 28 and 1 since phase 30, phase 11's 2 since phase 30: the first
+# warms up, the second is timed)
+SINGLE_STEPS = 1
+OFFLOAD_STEPS = 2
 # (tag, TrainConfig, P, peak bytes) of every pipeline training run, for
 # phase 16's predicted-against-measured lines
 TRAIN_RUNS = []
@@ -1921,6 +1984,167 @@ def phase_mamba_shapes(torch, gen, rows):
     rows["rmsnorm_rows"]["train_mamba2"] = out
 
 
+SPLIT_D = 2560           # a tp rank's columns of mamba2-2.7b's gated norm
+SPLIT_ROWS = TRAIN_SEQ   # rows timed (the main path gives TRAIN_SEQ - 1)
+
+
+def phase_rmsnorm_split(torch, gen, rows):
+    """The split-width RMSNorm pair (``rmsnorm_sumsq_rows``, then
+    ``rmsnorm_scale_rows`` from the whole rows' sums) against its plain
+    versions: at a tp 2 rank's part of mamba2-2.7b's gated norm
+    ([2048, 2560], the main path's rows, and [2049, 2560]), at [7, 100]
+    (the scalar loop in bf16) and [300, 5120], in bf16 and fp32, the
+    sums to 1e-5 relative and the rows at phase 3's rmsnorm tolerances;
+    the pair joined over two column halves of a row against
+    ``rmsnorm_rows`` over the whole row.  Timed at [2049, 2560] bf16 and
+    fp32 from device memory (rotating inputs), each kernel beside its
+    plain version and its bound, the pair beside ``rmsnorm_rows`` at the
+    whole [2049, 5120] (the same bytes of x).  Then the SSD scan at a tp
+    2 rank's heads of mamba2-2.7b (x [1, 2048, 40, 64]) in bf16 against
+    its plain version, timed.  Returns the two kernels' rows of the
+    kernels line."""
+    from repro_torch.kernels.rmsnorm import (rmsnorm_rows,
+                                             rmsnorm_scale_rows,
+                                             rmsnorm_scale_rows_ref,
+                                             rmsnorm_sumsq_rows,
+                                             rmsnorm_sumsq_rows_ref)
+    eps = 1e-6
+    tols = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
+    worst = {"rmsnorm_sumsq_rows": 0.0, "rmsnorm_scale_rows": 0.0}
+    for dt, (atol, rtol) in tols.items():
+        for R, d in ((SPLIT_ROWS - 1, SPLIT_D), (SPLIT_ROWS, SPLIT_D),
+                     (7, 100), (300, 5120)):
+            x = torch.randn((R, d), generator=gen, device="cuda").to(dt)
+            scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                           device="cuda")).to(dt)
+            ss = rmsnorm_sumsq_rows(x)
+            want_ss = rmsnorm_sumsq_rows_ref(x)
+            # the whole rows' sums: this part's and a second part's
+            full = ss + 0.5 * want_ss
+            y = rmsnorm_scale_rows(x, full, scale, 2 * d, eps)
+            torch.cuda.synchronize()
+            want = rmsnorm_scale_rows_ref(x, full, scale, 2 * d, eps)
+            e_ss, e_y = max_err(ss, want_ss), max_err(y, want)
+            ok = rel_ok(ss, want_ss, 0.0, 1e-5) and rel_ok(y, want, atol,
+                                                           rtol)
+            print(f"[kernels] rmsnorm split pair {str(dt)[6:]} R={R} d={d}:"
+                  f" sums max|d|={e_ss:.3e} (tol 1e-05*|ref|), rows "
+                  f"max|d|={e_y:.3e} (tol {atol:g}+{rtol:g}*|ref|) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the split-width RMSNorm pair disagrees with its plain "
+                     f"versions ({dt}, R={R}, d={d})")
+            worst["rmsnorm_sumsq_rows"] = max(worst["rmsnorm_sumsq_rows"],
+                                              e_ss)
+            worst["rmsnorm_scale_rows"] = max(worst["rmsnorm_scale_rows"],
+                                              e_y)
+        # two column halves of each row against the one-launch kernel
+        R, d = SPLIT_ROWS - 1, 2 * SPLIT_D
+        x = torch.randn((R, d), generator=gen, device="cuda").to(dt)
+        scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                       device="cuda")).to(dt)
+        halves = [x[:, :SPLIT_D].contiguous(), x[:, SPLIT_D:].contiguous()]
+        tot = rmsnorm_sumsq_rows(halves[0]) + rmsnorm_sumsq_rows(halves[1])
+        y = torch.cat([rmsnorm_scale_rows(h, tot, scale[i * SPLIT_D:(i + 1)
+                                                         * SPLIT_D]
+                                          .contiguous(), d, eps)
+                       for i, h in enumerate(halves)], dim=1)
+        whole = rmsnorm_rows(x, scale, eps)
+        torch.cuda.synchronize()
+        e = max_err(y, whole)
+        ok = rel_ok(y, whole, atol, rtol)
+        print(f"[kernels] rmsnorm split pair {str(dt)[6:]} over two halves "
+              f"of [{R}, {d}] against rmsnorm_rows on the whole rows: "
+              f"max|d|={e:.3e} (tol {atol:g}+{rtol:g}*|ref|) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the split pair over two halves differs from rmsnorm_rows "
+                 f"({dt})")
+    out = {}
+    for name in worst:
+        out[name] = {"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/rmsnorm.cu",
+                     "replaces": "src/repro/kernels/rmsnorm/kernel.py:18",
+                     "max_abs_err": worst[name], "library_ms": None,
+                     "timed_shape": f"x [{SPLIT_ROWS},{SPLIT_D}] bf16"}
+    for dt in (torch.bfloat16, torch.float32):
+        R, d = SPLIT_ROWS, SPLIT_D
+        x = torch.randn((R, d), generator=gen, device="cuda").to(dt)
+        scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                       device="cuda")).to(dt)
+        ss = rmsnorm_sumsq_rows_ref(x) * 2
+        sets = rotating(torch, (x, scale, ss))
+        t = {"rmsnorm_sumsq_rows": (
+            cold_ms(lambda a, b, c: rmsnorm_sumsq_rows(a), sets),
+            cold_ms(lambda a, b, c: rmsnorm_sumsq_rows_ref(a), sets)),
+             "rmsnorm_scale_rows": (
+            cold_ms(lambda a, b, c: rmsnorm_scale_rows(a, c, b, 2 * d, eps),
+                    sets),
+            cold_ms(lambda a, b, c: rmsnorm_scale_rows_ref(a, c, b, 2 * d,
+                                                           eps), sets))}
+        del sets
+        xw = torch.randn((R, 2 * d), generator=gen, device="cuda").to(dt)
+        sw = torch.ones((2 * d,), dtype=dt, device="cuda")
+        wsets = rotating(torch, (xw, sw))
+        whole_ms = cold_ms(lambda a, b: rmsnorm_rows(a, b, eps), wsets)
+        del wsets
+        pair = sum(k for k, _ in t.values())
+        wb_ms, _, _, _ = kernel_bound("rmsnorm_rows", R=R, d=2 * d,
+                                      itemsize=x.element_size())
+        parts = []
+        for name, (k_ms, p_ms) in t.items():
+            b_ms, by, _, _ = kernel_bound(name, R=R, d=d,
+                                          itemsize=x.element_size())
+            parts.append(f"{name} {k_ms * 1e3:.2f} us (plain "
+                         f"{p_ms * 1e3:.2f}, bound {b_ms * 1e3:.3f} us, "
+                         f"{by})")
+            if dt == torch.bfloat16:
+                out[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                 bound_by=by)
+            else:
+                out[name]["fp32"] = {"ms": k_ms, "plain_ms": p_ms,
+                                     "bound_ms": b_ms}
+        print(f"[kernels] rmsnorm split pair {str(dt)[6:]} x [{R},{d}] (a "
+              f"tp 2 rank of mamba2-2.7b's gated norm; device time per "
+              f"call, from device memory, CUDA graph): {'; '.join(parts)};"
+              f" the pair {pair * 1e3:.2f} us against rmsnorm_rows on the "
+              f"whole [{R},{2 * d}] {whole_ms * 1e3:.2f} us (bound "
+              f"{wb_ms * 1e3:.3f} us); no library call takes a partial "
+              f"sum of squares")
+        for name in t:
+            out[name].setdefault("whole_row_ms", {})[str(dt)[6:]] = whole_ms
+    phase_ssd_tp(torch, gen, rows)
+    return [out["rmsnorm_sumsq_rows"], out["rmsnorm_scale_rows"]]
+
+
+def phase_ssd_tp(torch, gen, rows):
+    """The SSD scan at a tp 2 rank's heads of mamba2-2.7b in training (x
+    [1, 2048, 40, 64], B and C [1, 2048, 128], Q=128, bf16) against
+    ``ssd_chunked_ref``, timed beside it and its bound."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_scan
+    B, S, H, P, N, Q = 1, TRAIN_SEQ - 1, 40, 64, 128, 128
+    ins = _ssd_inputs(torch, gen, B, S, H, P, N, torch.bfloat16)
+    y, h = ssd_scan(*ins, chunk=Q)
+    torch.cuda.synchronize()
+    yr, hr = ssd_chunked_ref(*ins, Q)
+    e = max(max_err(y, yr), max_err(h, hr))
+    scale = max(1.0, float(yr.abs().max()), float(hr.abs().max()))
+    if e > SSD_TOL * scale:
+        fail(f"ssd_scan at the tp rank's shape: max|d| {e:.3e} > "
+             f"{SSD_TOL} x {scale:.3g}")
+    ms = time_ms(lambda: ssd_scan(*ins, chunk=Q), iters=50, warmup=5)
+    plain_ms = time_ms(lambda: ssd_chunked_ref(*ins, Q), iters=5, warmup=1)
+    b_ms, by, _, _ = kernel_bound("ssd_scan", B=B, S=S, H=H, P=P, N=N, Q=Q,
+                                  itemsize=2)
+    print(f"[kernels] ssd_scan bf16 at a tp 2 rank of mamba2-2.7b, x "
+          f"[{B},{S},{H},{P}], N={N}, Q={Q}: max|d|={e:.3e} (tol {SSD_TOL} "
+          f"x {scale:.3g}) ok; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+          f"(CUDA events), bound {b_ms * 1e3:.2f} us ({by}, kernel_cost)")
+    rows["ssd_scan"]["train_tp2"] = {"max_abs_err": e, "ms": ms,
+                                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                                     "bound_by": by}
+
+
 def _body_ops(spec):
     """(op, first, last) for every op of the task table that runs the
     chunk body: F, B and W ops, except a split backward of the first
@@ -1948,7 +2172,7 @@ def _layers_of(spec, kind: str) -> int:
                        for j in range(lay.period))
 
 
-def expected_train_launches(spec, n_leaves: int):
+def expected_train_launches(spec, n_leaves: int, tp: int = 1):
     """Kernel launches of one training step, derived from the task table:
     every op that runs the chunk body runs its K layers; an attention
     layer launches one flash kernel, a Mamba-2 layer one SSD scan, and
@@ -1962,10 +2186,14 @@ def expected_train_launches(spec, n_leaves: int):
     chunk: a sequence-chunked F runs each layer's flash once at its
     chunk's offset, and its B once more in the replay.  The update
     launches fused AdamW once per leaf where the table has W tasks (the
-    split backward: zero-bubble and V-shape), else not at all."""
+    split backward: zero-bubble and V-shape), else not at all.  Under
+    ``tp`` > 1 the Mamba-2 gated norm's row spans the ranks: it launches
+    the split-width pair (``rmsnorm_sumsq_rows`` and
+    ``rmsnorm_scale_rows``, once each) in place of ``rmsnorm_rows``."""
     cfg = spec.cfg
     attn, mamba = _layers_of(spec, "attn"), _layers_of(spec, "mamba")
-    rms = attn + 2 * mamba + (attn + mamba) * (cfg.d_ff > 0) \
+    split = mamba if tp > 1 else 0
+    rms = attn + 2 * mamba - split + (attn + mamba) * (cfg.d_ff > 0) \
         + (attn + mamba) * (cfg.encdec is not None)
     n_enc = cfg.encdec.num_encoder_layers if cfg.encdec is not None else 0
     n = {"flash_attention_fwd": 0, "rmsnorm_rows": 0, "ssd_scan": 0}
@@ -1973,6 +2201,9 @@ def expected_train_launches(spec, n_leaves: int):
         n["flash_attention_fwd"] += attn + first * n_enc
         n["ssd_scan"] += mamba
         n["rmsnorm_rows"] += rms + last + first * (2 * n_enc + (n_enc > 0))
+    if tp > 1:
+        ops = sum(1 for _ in _body_ops(spec))
+        n["rmsnorm_sumsq_rows"] = n["rmsnorm_scale_rows"] = split * ops
     return {**n, "fused_adamw_flat": n_leaves if spec.table.has_w else 0}
 
 
@@ -2086,11 +2317,12 @@ def phase_train(torch, arch: str, tag: str, bwd_ms, P=4, layers=None,
     per_step = expected_train_launches(spec, len(leaves))
     want = {k: steps * n for k, n in per_step.items()}
     tokens = spec.table.m * spec.mbB * spec.S
-    med = statistics.median(out["step_s"][1:])      # step 1 warms up
+    med = warm_median(out["step_s"])                # step 1 warms up
     print(f"[{tag}] steps={out['steps']} losses={out['losses']} "
           f"grad_norms={out['grad_norms']} lrs={out['lrs']} "
           f"step_s={out['step_s']}")
-    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-{steps}: "
+    print(f"[{tag}] {median_word(out['step_s'])} {med * 1e3:.1f} ms "
+          f"(steps 2-{steps}: "
           f"{[round(s * 1e3, 1) for s in out['step_s'][1:]]}), "
           f"{tokens} tokens/step -> {tokens / med:.1f} tokens/s; "
           f"max_memory_allocated={peak / 2 ** 30:.3f} GiB")
@@ -2391,19 +2623,14 @@ def profile_step(torch, run, untraced_s, tag, bwd, what):
             "flash_attention_fwd (ours)": 0.0, "ssd_scan (ours)": 0.0,
             "matmul": 0.0, "other": 0.0}
     rows, ssd_counts = [], {}
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue                  # runtime calls; their kernels count
-        m = re.search(r"\bssd_scan_kernel\w*", e.key)
+    for key, count, dev in _device_rows(prof):
+        m = re.search(r"\bssd_scan_kernel\w*", key)
         if m:
-            ssd_counts[m.group(0)] = ssd_counts.get(m.group(0), 0) + e.count
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
+            ssd_counts[m.group(0)] = ssd_counts.get(m.group(0), 0) + count
         if dev <= 0:
             continue
-        rows.append((dev, e.count, e.key))
-        name = e.key.lower()
+        rows.append((dev, count, key))
+        name = key.lower()
         if "fused_adamw_kernel" in name:
             fams["fused_adamw_flat (ours)"] += dev
         elif "rmsnorm_rows_kernel" in name:
@@ -2557,7 +2784,7 @@ def _single_config(arch: str, rc, mbB: int, layers=None):
         seed=0, log_every=1)
 
 
-def expected_single_launches(cfg, m: int):
+def expected_single_launches(cfg, m: int, tp: int = 1):
     """Kernel launches of one ``train()`` step of ``m`` microbatches: every
     layer launches flash (attention) or the SSD scan (Mamba-2) once and
     rmsnorm for ``norm1``, the Mamba-2 gated norm and ``norm2`` where the
@@ -2565,17 +2792,25 @@ def expected_single_launches(cfg, m: int):
     them again when its backward recomputes it (every recompute mode
     wraps every period, ``none`` selectively); remainder layers run
     once.  The final norm is the plain one of ``LM.head``, and the update
-    is the plain AdamW: no fused-AdamW launch."""
+    is the plain AdamW: no fused-AdamW launch.  Under ``tp`` > 1 the
+    Mamba-2 gated norm launches the split-width pair in place of
+    ``rmsnorm_rows``."""
     wrapped = cfg.num_layers // cfg.period * cfg.period
     n = {"flash_attention_fwd": 0, "rmsnorm_rows": 0, "ssd_scan": 0,
          "fused_adamw_flat": 0}
+    if tp > 1:
+        n["rmsnorm_sumsq_rows"] = n["rmsnorm_scale_rows"] = 0
     for idx in range(cfg.num_layers):
         times = m * (2 if idx < wrapped else 1)
         kind = cfg.layer_kind(idx)
+        gated = kind == "mamba"
         n["flash_attention_fwd"] += times * (kind == "attn")
-        n["ssd_scan"] += times * (kind == "mamba")
-        n["rmsnorm_rows"] += times * (1 + (kind == "mamba")
+        n["ssd_scan"] += times * gated
+        n["rmsnorm_rows"] += times * (1 + (gated and tp == 1)
                                       + (cfg.d_ff > 0))
+        if tp > 1:
+            n["rmsnorm_sumsq_rows"] += times * gated
+            n["rmsnorm_scale_rows"] += times * gated
     return n
 
 
@@ -2618,10 +2853,11 @@ def train_single_run(torch, arch: str, rc, mbB: int, tag: str,
     per_step = expected_single_launches(cfg, m)
     want = {k: steps * n for k, n in per_step.items()}
     tokens = m * mbB * (TRAIN_SEQ - 1)
-    med = statistics.median(out["step_s"][1:])      # step 1 warms up
+    med = warm_median(out["step_s"])                # step 1 warms up
     print(f"[{tag}] losses={out['losses']} grad_norms={out['grad_norms']} "
           f"step_s={out['step_s']}")
-    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-{steps}: "
+    print(f"[{tag}] {median_word(out['step_s'])} {med * 1e3:.1f} ms "
+          f"(steps 2-{steps}: "
           f"{[round(t * 1e3, 1) for t in out['step_s'][1:]]}), {tokens} "
           f"tokens/step -> {tokens / med:.1f} tokens/s; "
           f"max_memory_allocated={peak / 2 ** 30:.3f} GiB")
@@ -2844,7 +3080,8 @@ def train_offload_run(torch, arch: str, tag: str, base, steps: int):
     fall = base["peak"] - peak
     print(f"[{tag}] losses={out['losses']} grad_norms={out['grad_norms']} "
           f"step_s={out['step_s']}")
-    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-{steps}: "
+    print(f"[{tag}] {median_word(out['step_s'])} {med * 1e3:.1f} ms "
+          f"(steps 2-{steps}: "
           f"{[round(t * 1e3, 1) for t in out['step_s'][1:]]}; phase "
           f"{base['phase']} {base['median_s'] * 1e3:.1f} ms), {tokens} "
           f"tokens/step -> {tokens / med:.1f} tokens/s; "
@@ -2926,8 +3163,13 @@ def phase_train_offload(torch, base):
     return {"train_offload_tinyllama": tiny, "train_offload_mamba2": mamba}
 
 
+# steps of phase 11's fp32 checks (3 before phase 30 needed the time)
+OFFLOAD_CHECK_STEPS = 2
+
+
 def _fp32_offload_losses(torch, cfg, ocfg, mode: str):
-    """3 steps of ``cfg`` (fp32), chronos_zb P=2, v=2, m=4, mbB=1, seq 257,
+    """``OFFLOAD_CHECK_STEPS`` steps of ``cfg`` (fp32), chronos_zb P=2,
+    v=2, m=4, mbB=1, seq 257,
     seed 0, through ``train_pipeline``: ``mode`` "device" (the on-device
     optimizer), "offload" (the deep chunk's AdamW on the host), or
     "device+bf16" (the on-device step, its deep weights rounded to bf16
@@ -2950,7 +3192,8 @@ def _fp32_offload_losses(torch, cfg, ocfg, mode: str):
                           offload=OffloadConfig(enabled=mode == "offload")),
         optimizer=ocfg, seed=0)
     if mode != "device+bf16":
-        return train_pipeline(tc, P=2, device="cuda", steps=3,
+        return train_pipeline(tc, P=2, device="cuda",
+                              steps=OFFLOAD_CHECK_STEPS,
                               log=lambda s: None)["losses"]
     dev = torch.device("cuda")
     step, m, mbB, spec = make_pipeline_train_step(cfg, tc.shape, tc.plan,
@@ -2962,7 +3205,7 @@ def _fp32_offload_losses(torch, cfg, ocfg, mode: str):
     src = SyntheticLM(cfg.vocab_size, 257, seed=tc.seed)
     _, deep = offload_kept(params, tc.plan)
     losses = []
-    for _ in range(3):
+    for _ in range(OFFLOAD_CHECK_STEPS):
         toks = torch.from_numpy(src.next_batch(m * mbB).reshape(m, mbB, -1))
         params, opt, met = step(params, opt, {"tokens": toks.to(dev)})[:3]
         losses.append(float(met["loss"]))
@@ -2973,7 +3216,8 @@ def _fp32_offload_losses(torch, cfg, ocfg, mode: str):
 
 def phase_train_offload_checks(torch):
     """fp32, full width, 4 layers, the optimizer of phases 6 and 8 with
-    the gradient clip off, 3 steps, same weights and data
+    the gradient clip off, ``OFFLOAD_CHECK_STEPS`` steps, same weights and
+    data
     (:func:`_fp32_offload_losses`): (a) offload against the port's
     on-device optimizer, step-1 losses bitwise, then within the
     reference's 5e-3; (b) offload against the on-device optimizer with
@@ -3004,7 +3248,8 @@ def phase_train_offload_checks(torch):
             d_b = max(abs(a - b) for a, b in zip(runs["device+bf16"], off))
             first = runs["device"][0] == off[0]
             print(f"[train-offload-check] {arch} fp32 4 layers, grad_clip "
-                  f"{clip}, 3 steps: on-device {runs['device']}, offload "
+                  f"{clip}, {OFFLOAD_CHECK_STEPS} steps: on-device "
+                  f"{runs['device']}, offload "
                   f"{off}, on-device with bf16 deep weights "
                   f"{runs['device+bf16']}; offload - on-device max |d| "
                   f"{d_a:.3e}, offload - bf16-deep on-device max |d| "
@@ -3247,10 +3492,11 @@ def planner_run(torch, tag: str, tc, steps: int):
     per_step = expected_train_launches(spec, len(before))
     want = {k: steps * n for k, n in per_step.items()}
     tokens = tab.m * spec.mbB * spec.S
-    med = statistics.median(out["step_s"][1:])      # step 1 warms up
+    med = warm_median(out["step_s"])                # step 1 warms up
     print(f"[{tag}] losses={out['losses']} grad_norms={out['grad_norms']} "
           f"step_s={out['step_s']}")
-    print(f"[{tag}] median step {med * 1e3:.1f} ms (steps 2-{steps}: "
+    print(f"[{tag}] {median_word(out['step_s'])} {med * 1e3:.1f} ms "
+          f"(steps 2-{steps}: "
           f"{[round(t * 1e3, 1) for t in out['step_s'][1:]]}), {tokens} "
           f"tokens/step -> {tokens / med:.1f} tokens/s; "
           f"max_memory_allocated={peak / 2 ** 30:.3f} GiB; per step, the "
@@ -3353,7 +3599,7 @@ def phase_train_planner(torch):
               f"{-(-layers // unit) * unit}: the padding layers hold "
               f"weights and optimizer state the model does not count")
     n, peak_b, med_b = trained("train-planner-deepseek", deep_cfg, ep, ep.m,
-                               2)
+                               DEEPSEEK_STEPS)
     launches["train_planner_deepseek"] = n
     tokens = ep.m * (TRAIN_SEQ - 1)
     print(f"[train-planner-deepseek] the {depth}-layer pick trained at "
@@ -3388,12 +3634,12 @@ def phase_train_planner(torch):
 # ---------------------------------------------------------------------------
 
 GEMMA3_ARGV = ["--chunk", "128", "--prompt-chunks", "12",
-               "--prompt-len", "1536"]     # max_seq = 1536 + 32 + 512
+               "--prompt-len", "1536"]     # max_seq = 1536 + 16 + 512
 
 
 def phase_serve_gemma3(torch):
     """17. gemma3-27b served at full width through ``launch.serve.main``
-    (P=1, 4 slots, 128-token chunks, prompts of 1-12 chunks, 16-32 new
+    (P=1, 4 slots, 128-token chunks, prompts of 1-12 chunks, 8-16 new
     tokens, 8 requests at t=0), gated as phase 4; the requests whose
     prompts pass the 1024-token window (at least two), the peak beside
     its reckoning.  Returns the launch counts."""
@@ -3407,7 +3653,7 @@ def phase_serve_gemma3(torch):
     launches, eng, s = phase_serve(torch, argv, "serve-gemma3")
     from repro_torch.serve import poisson_requests
     reqs = poisson_requests(8, 1e9, chunk=eng.chunk, max_seq=eng.max_seq,
-                            prompt_range=(1, 12), gen_range=(16, 32),
+                            prompt_range=(1, 12), gen_range=FAMILY_GEN,
                             vocab=cfg.vocab_size, seed=0)
     past = [len(r.prompt) for r in reqs if len(r.prompt) > cfg.sliding_window]
     print(f"[serve-gemma3] prompts past the {cfg.sliding_window}-token "
@@ -4873,8 +5119,9 @@ def phase_roofline(torch, smi: str, dry: DryRun) -> None:
 # ---------------------------------------------------------------------------
 
 RANKS_P = 4
-RANKS_STEPS = 3          # the first a warm-up
-RANKS_SYNC_STEPS = 2     # the synchronous exchange's run
+RANKS_STEPS = 2          # the first a warm-up (3 before phase 30)
+RANKS_SYNC_STEPS = 1     # the synchronous exchange's run (2 before phase
+#                          30; warm, after the overlapped run)
 RANKS_TC = 0.25          # nominal P2P latency (grains) of comm_calibration
 RANKS_TIMEOUT = 300      # seconds for the phase's one spawn
 RANKS_CHECK = dict(layers=4, m=8, seq=257)   # the fp32 check (P=4, v=2)
@@ -5102,13 +5349,13 @@ def phase_train_ranks(torch, smi: str, base):
                      "fused_adamw_flat")):
         fail("27: a rank launched no kernel of the path")
     med = [statistics.median(o["step_s"][1:]) for o in over]
-    med_sync = [statistics.median(o["step_s"][1:]) for o in sync]
+    med_sync = [statistics.median(o["step_s"]) for o in sync]
     for r, o in enumerate(over):
         ex = o["exchange"]
         waits = ex["wait_s"][1:]
         share = sum(waits) / sum(o["step_s"][1:])
-        share_sync = sum(sync[r]["exchange"]["wait_s"][1:]) \
-            / sum(sync[r]["step_s"][1:])
+        share_sync = sum(sync[r]["exchange"]["wait_s"]) \
+            / sum(sync[r]["step_s"])
         print(f"[train-ranks] {smi} | rank {r}: step {med[r] * 1e3:.1f} ms "
               f"(steps {[round(x * 1e3, 1) for x in o['step_s']]}; "
               f"synchronous {med_sync[r] * 1e3:.1f} ms, "
@@ -5180,34 +5427,65 @@ def phase_train_ranks(torch, smi: str, base):
 # ---------------------------------------------------------------------------
 
 MESH_SHAPE = (2, 2, 2)   # pp x dp x tp: eight processes on the card
-MESH_LAYERS = 4          # tinyllama-1.1b cut from 22 (full width)
+# full width, cut in depth: tinyllama-1.1b (phases 28-29) and mamba2-2.7b
+# at 4 layers, v=2; qwen2-moe-a2.7b (phase 30) at 2 layers, one a stage
+# (v=1): at 4 layers (v=2) the eight ranks' state leaves less than 10 GB
+# of the card (PERF.md, section 6)
+MESH_LAYERS = {"tinyllama-1.1b": 4, "mamba2-2.7b": 4, "qwen2-moe-a2.7b": 2}
+MESH_CHUNKS = {"tinyllama-1.1b": 2, "mamba2-2.7b": 2, "qwen2-moe-a2.7b": 1}
+# qwen2-moe's vocabulary held here: half of its 151936 rows (the share of
+# a second pair of vocab-parallel chips).  Every rank of the pipeline
+# holds the embedding and the head with their whole fp32 state over dp,
+# as the reference lays them out (both tables replicated over pp,
+# src/repro/core/pipeline_runtime.py:370-372 and 392-393; no fsdp on
+# them, src/repro/launch/steps.py:405-413): at the whole vocabulary the
+# eight ranks' weights, gradients, state and logits come to 65.3 GiB
+# (``family_reckoning``), which with eight CUDA contexts and the steps'
+# activations leaves no room on the card.  An eighth in the fp32 checks,
+# whose one-process references hold the whole fp32 tree.
+MOE_VOCAB_SHARE = {"main": 2, "check": 8}
 MESH_STEPS = 2           # the first a warm-up
-MESH_TIMEOUT = 300       # seconds for the phase's one spawn
-MESH_CHECK = dict(layers=4, m=2, seq=257)    # the fp32 check
+MESH_TIMEOUT = 600       # seconds for the phases' one spawn (28-30)
+MESH_CHECK = dict(m=2, seq=257)    # the fp32 checks
 
 
-def _mesh_config():
-    """Phase 28's configuration: full-width tinyllama-1.1b cut to
-    ``MESH_LAYERS`` layers, chronos_zb P=2 v=2, one 2049-token sequence a
-    dp rank a microbatch (a global microbatch of dp sequences), m=4."""
-    return _train_config("tinyllama-1.1b", layers=MESH_LAYERS,
-                         num_microbatches=4)
-
-
-def _mesh_check_spec(global_batch: bool):
-    """The fp32 check's spec: full width cut to 4 layers, chronos_zb,
-    P=2, v=2, m=2 microbatches of one 257-token sequence a dp rank
-    (``global_batch``: the one-process run's two), fused kernels, the
-    overlapped table."""
+def _mesh_model(arch: str, check: bool = False):
+    """``arch`` at full width as the mesh phases run it: ``MESH_LAYERS``
+    layers, an MoE config's vocabulary cut to its share
+    (``MOE_VOCAB_SHARE``); ``check``: fp32, and the check's share."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=MESH_LAYERS[arch])
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, vocab_size=cfg.vocab_size
+                                  // MOE_VOCAB_SHARE["check" if check
+                                                     else "main"])
+    if check:
+        cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                  compute_dtype="float32")
+    return cfg
+
+
+def _mesh_config(arch: str = "tinyllama-1.1b"):
+    """Phase 28's (and 30's) configuration: ``_mesh_model(arch)``,
+    chronos_zb P=2 at ``MESH_CHUNKS`` chunks a stage, one 2049-token
+    sequence a dp rank a microbatch (a global microbatch of dp
+    sequences), m=4."""
+    import dataclasses
+    tc = _train_config(arch, num_microbatches=4, num_chunks=MESH_CHUNKS[arch])
+    return dataclasses.replace(tc, model=_mesh_model(arch))
+
+
+def _mesh_check_spec(global_batch: bool, arch: str = "tinyllama-1.1b"):
+    """The fp32 check's spec: ``_mesh_model(arch, True)``, chronos_zb,
+    P=2, ``MESH_CHUNKS`` chunks a stage, m=2 microbatches of one 257-token
+    sequence a dp rank (``global_batch``: the one-process run's two),
+    fused kernels, the overlapped table."""
     from repro_torch.core.pipeline_runtime import make_pipeline_spec
     c = MESH_CHECK
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
-                              num_layers=c["layers"], param_dtype="float32",
-                              compute_dtype="float32")
-    return make_pipeline_spec(cfg, P=MESH_SHAPE[0], v=2, m=c["m"],
+    return make_pipeline_spec(_mesh_model(arch, True), P=MESH_SHAPE[0],
+                              v=MESH_CHUNKS[arch], m=c["m"],
                               microbatch=MESH_SHAPE[1] if global_batch
                               else 1, seq_len=c["seq"],
                               schedule="chronos_zb", kernels="fused",
@@ -5228,32 +5506,58 @@ def _mesh_check_inputs(torch, spec, device):
     return params, {"tokens": tokens}
 
 
-def _mesh_fp32_check(torch, mesh, ref_path, zero_stage: int = 1):
-    """On one rank: the check's gradients over the mesh (its pp column,
-    tp shard; at ``zero_stage`` 3 the dp slices of the fsdp block
-    leaves) against the same part of the one-process executor's
+def _mesh_reference(torch, path, arch: str = "tinyllama-1.1b"):
+    """The one-process executor's fp32 gradients and loss on the check's
+    global batch of ``arch``, saved to ``path`` with every F op's MoE
+    dropped fractions (:class:`_DroppedRecorder`); returns each leaf's
+    largest |element|."""
+    from repro_torch.core.pipeline_runtime import make_train_grads_fn
+    from repro_torch.tree import tree_leaves, tree_map
+    spec = _mesh_check_spec(True, arch)
+    params, batch = _mesh_check_inputs(torch, spec, "cuda")
+    with _DroppedRecorder() as rec:
+        g, met = make_train_grads_fn(spec, "cuda")(params, batch)
+    del params
+    g = tree_map(lambda a: a.cpu(), g)
+    torch.save({"g": g, "loss": met["loss"].cpu(),
+                "dropped": sorted(rec.rec.items())}, path)
+    return [float(a.abs().max()) for a in tree_leaves(g)]
+
+
+def _mesh_fp32_check(torch, mesh, ref_path, zero_stage: int = 1,
+                     arch: str = "tinyllama-1.1b"):
+    """On one rank: the check's gradients of ``arch`` over the mesh (its
+    pp column, tp shard; at ``zero_stage`` 3 the dp slices of the fsdp
+    block leaves) against the same part of the one-process executor's
     gradients in ``ref_path`` (cut by the rank's ``RankShard``): each
     leaf's max |difference|, for the parent to divide by the whole
-    leaf's largest element."""
+    leaf's largest element; and the MoE layers' dropped fractions of
+    this rank's F ops beside the one-process run's of its pp column."""
     from repro_torch.core.pipeline_runtime import (RankShard,
                                                    make_train_grads_fn,
                                                    rank_params)
     from repro_torch.tree import tree_leaves
-    spec = _mesh_check_spec(False)
+    spec = _mesh_check_spec(False, arch)
     dev, p = mesh.device, mesh.coord("pp")
     shard = RankShard(spec.cfg, spec.layout, mesh.shape, mesh.rules,
                       mesh.coords, zero_stage)
     params, batch = _mesh_check_inputs(torch, spec, dev)
     params = rank_params(params, p, shard)
-    g, met = make_train_grads_fn(spec, dev, mesh=mesh,
-                                 shard=shard)(params, batch)
+    gc.collect()
+    torch.cuda.empty_cache()       # the whole tree each rank drew
+    with _DroppedRecorder() as rec:
+        g, met = make_train_grads_fn(spec, dev, mesh=mesh,
+                                     shard=shard)(params, batch)
     ref = torch.load(ref_path, mmap=True, weights_only=True)
     want = shard.cut(ref["g"], p)
     diff = [float((a - b.to(dev)).abs().max())
             for a, b in zip(tree_leaves(g), tree_leaves(want), strict=True)]
     return {"loss": float(met["loss"]), "parent_loss": float(ref["loss"]),
             "diff": diff, "paths": ["/".join(map(str, q))
-                                    for q in shard.paths]}
+                                    for q in shard.paths],
+            "dropped": sorted(rec.rec.items()),
+            "parent_dropped": [(tuple(k), v) for k, v in ref["dropped"]
+                               if k[0] == p]}
 
 
 def _warm_blas(torch):
@@ -5268,13 +5572,14 @@ def _warm_blas(torch):
     torch.cuda.synchronize()
 
 
-def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path):
+def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path, fam_refs):
     """What each of phase 28's ranks runs: ``steps`` steps on the mesh
     (the main path, launches counted), then the fp32 check; then phase
     29's cases in the same processes: ``ZERO3_STEPS`` steps of ``tc`` at
     ZeRO stage 3 and its fp32 check, and on the same eight processes
     regrouped as ``SINGLE_MESH_SHAPE`` ``train()`` for each ``(stage,
-    steps)`` of ``SINGLE_MESH_RUNS`` and its fp32 check.  ``base``: the
+    steps)`` of ``SINGLE_MESH_RUNS`` and its fp32 check; then phase 30's
+    (:func:`_families_body`, ``fam_refs`` its references).  ``base``: the
     bytes allocated just before each run (after ``_warm_blas``), which
     the memory readings are taken over."""
     import dataclasses
@@ -5319,39 +5624,44 @@ def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path):
         res["single_check"][z] = _single_mesh_fp32_check(
             torch, single, single_ref_path, z)
     res["single_s"] = time.perf_counter() - t0
+    res["families"] = _families_body(mesh, single, log, free, base,
+                                     fam_refs)
     return res
 
 
-ZERO3_STEPS = 2          # phase 29 (A): stage 3 on MESH_SHAPE
+ZERO3_STEPS = 2          # phase 29 (A): stage 3 on MESH_SHAPE (the first
+#                          a warm-up; step 2's loss checks the sliced update)
 SINGLE_MESH_SHAPE = (1, 4, 2)   # phase 29 (B): the same eight processes
-# (ZeRO stage, steps) of train() in turn: stage 3 first, its first step
-# the processes' warm-up on this layout, then stage 1 warm; each with its
-# fp32 check
-SINGLE_MESH_RUNS = ((3, 2), (1, 1))
-SINGLE_MESH_LAYERS = 4   # tinyllama-1.1b cut from 22 (full width)
-SINGLE_MESH_CHECK = dict(seq=257)    # the fp32 check, 4 layers
+# (ZeRO stage, steps) of train() in turn: stage 3 first, its step the
+# processes' warm-up on this layout, then stage 1 warm; each with its fp32
+# check (stage 3 ran 2 steps before phase 30)
+SINGLE_MESH_RUNS = ((3, 1), (1, 1))
+SINGLE_MESH_CHECK = dict(seq=257)    # the fp32 checks
+# microbatches of one sequence a dp rank in a train() step: phase 29 (B)'s
+# tinyllama 2, phase 30 (C)'s one (its qwen2-moe step reduce-scatters the
+# experts' gradients over dp each microbatch: 26.2 GB at 2)
+SINGLE_MESH_M = {"tinyllama-1.1b": 2, "mamba2-2.7b": 1, "qwen2-moe-a2.7b": 1}
 
 
-def _single_mesh_config(zero_stage: int, check: bool = False):
-    """Phase 29 (B): full-width tinyllama-1.1b cut to
-    ``SINGLE_MESH_LAYERS`` layers through ``train()`` on
-    ``SINGLE_MESH_SHAPE``: 8 sequences of 2049 tokens a step, one a dp
-    rank a microbatch (2 microbatches), chronos recompute over 2 chunks,
-    at ``zero_stage``; ``check``: the fp32 check's (257 tokens)."""
+def _single_mesh_config(zero_stage: int, check: bool = False,
+                        arch: str = "tinyllama-1.1b"):
+    """Phase 29 (B) (and 30 (C)): ``_mesh_model(arch, check)`` through
+    ``train()`` on ``SINGLE_MESH_SHAPE``: ``SINGLE_MESH_M`` microbatches of
+    one 2049-token sequence a dp rank a step, chronos recompute over 2
+    chunks, at ``zero_stage``; ``check``: the fp32 check's (257 tokens)."""
     import dataclasses
 
     from repro_torch.configs.base import RecomputeConfig
-    tc = _single_config("tinyllama-1.1b", RecomputeConfig("chronos"), 1,
-                        SINGLE_MESH_LAYERS)
-    tc = dataclasses.replace(tc, plan=dataclasses.replace(
-        tc.plan, zero_stage=zero_stage))
+    tc = _single_config(arch, RecomputeConfig("chronos"), 1)
+    tc = dataclasses.replace(
+        tc, model=_mesh_model(arch, check),
+        shape=dataclasses.replace(tc.shape, global_batch=SINGLE_MESH_M[arch]
+                                  * SINGLE_MESH_SHAPE[1]),
+        plan=dataclasses.replace(tc.plan, zero_stage=zero_stage))
     if not check:
         return tc
-    return dataclasses.replace(
-        tc, model=dataclasses.replace(tc.model, param_dtype="float32",
-                                      compute_dtype="float32"),
-        shape=dataclasses.replace(tc.shape,
-                                  seq_len=SINGLE_MESH_CHECK["seq"]))
+    return dataclasses.replace(tc, shape=dataclasses.replace(
+        tc.shape, seq_len=SINGLE_MESH_CHECK["seq"]))
 
 
 def _single_mesh_check_inputs(torch, tc, device):
@@ -5368,34 +5678,39 @@ def _single_mesh_check_inputs(torch, tc, device):
     return params, {"tokens": tokens}, m
 
 
-def _single_mesh_reference(torch, path):
+def _single_mesh_reference(torch, path, arch: str = "tinyllama-1.1b"):
     """The one-process ``train()`` step's fp32 gradient sums and loss sum
-    on the (B) check's inputs, saved to ``path``; returns each leaf's
-    largest |element|."""
+    on the (B) check's inputs of ``arch``, saved to ``path``; returns each
+    leaf's largest |element|."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.tree import tree_leaves
-    tc = _single_mesh_config(1, check=True)
+    tc = _single_mesh_config(1, check=True, arch=arch)
     params, batch, m = _single_mesh_check_inputs(torch, tc, "cuda")
     step, _ = make_train_step(tc.model, tc.plan, tc.optimizer, m,
                               device="cuda")
     g, lsum = step.grads(params, batch)
+    del params
     torch.save({"g": [a.cpu() for a in tree_leaves(g)],
                 "lsum": float(lsum)}, path)
     return [float(a.abs().max()) for a in tree_leaves(g)]
 
 
-def _single_mesh_fp32_check(torch, mesh, ref_path, zero_stage: int):
+def _single_mesh_fp32_check(torch, mesh, ref_path, zero_stage: int,
+                            arch: str = "tinyllama-1.1b"):
     """On one rank of ``SINGLE_MESH_SHAPE``: the (B) check's gradient
-    sums (the rank's state slices) against the same part of the
-    one-process step's: each leaf's max |difference|, and the loss
+    sums of ``arch`` (the rank's state slices) against the same part of
+    the one-process step's: each leaf's max |difference|, and the loss
     sums."""
     from repro_torch.launch.steps import make_train_step
-    tc = _single_mesh_config(zero_stage, check=True)
+    tc = _single_mesh_config(zero_stage, check=True, arch=arch)
     params, batch, m = _single_mesh_check_inputs(torch, tc, mesh.device)
     step, _ = make_train_step(tc.model, tc.plan, tc.optimizer, m,
                               device=mesh.device, mesh=mesh)
     shard = step.shard
-    g, lsum = step.grads(shard.cut(params), batch)
+    params = shard.cut(params)
+    gc.collect()
+    torch.cuda.empty_cache()       # the whole tree each rank drew
+    g, lsum = step.grads(params, batch)
     ref = torch.load(ref_path, mmap=True, weights_only=True)
     diff = [float((a - shard.zero_slice(shard.cut_leaf(
         b.to(mesh.device), i), i)).abs().max())
@@ -5474,33 +5789,39 @@ def phase_train_mesh(torch, smi: str):
     Returns the launch counts by path."""
     import tempfile
 
-    from repro_torch.core.pipeline_runtime import (init_pipeline_params,
-                                                   make_train_grads_fn)
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
     from repro_torch.launch.mesh import spawn
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
     pp, dp, tp = MESH_SHAPE
     n = pp * dp * tp
     tc = _mesh_config()
     spec = _spec_of(tc, pp)
     pred = mesh_predictions(tc)
     with tempfile.TemporaryDirectory(prefix="mesh_check_") as tmp:
-        cspec = _mesh_check_spec(True)
-        params, batch = _mesh_check_inputs(torch, cspec, "cuda")
-        g1, m1 = make_train_grads_fn(cspec, "cuda")(params, batch)
         ref_path = os.path.join(tmp, "one_process.pt")
-        g1 = tree_map(lambda a: a.cpu(), g1)
-        torch.save({"g": g1, "loss": m1["loss"].cpu()}, ref_path)
-        ref_max = [float(a.abs().max()) for a in tree_leaves(g1)]
-        del params, batch, g1
+        ref_max = _mesh_reference(torch, ref_path)
         gc.collect()
         torch.cuda.empty_cache()
         single_ref = os.path.join(tmp, "one_process_train.pt")
         single_max = _single_mesh_reference(torch, single_ref)
         gc.collect()
         torch.cuda.empty_cache()
+        # phase 30's one-process references
+        fam_refs, fam_max = {}, {}
+        for arch in FAMILIES:
+            fam_refs[arch] = {k: os.path.join(tmp, f"{arch}_{k}.pt")
+                              for k in ("pipe", "single")}
+            fam_max[arch] = {"pipe": _mesh_reference(
+                torch, fam_refs[arch]["pipe"], arch)}
+            gc.collect()
+            torch.cuda.empty_cache()
+            fam_max[arch]["single"] = _single_mesh_reference(
+                torch, fam_refs[arch]["single"], arch)
+            gc.collect()
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         outs = spawn(n, _train_mesh_body,
-                     args=(tc, MESH_STEPS, ref_path, single_ref),
+                     args=(tc, MESH_STEPS, ref_path, single_ref, fam_refs),
                      shape=MESH_SHAPE, backend="gloo", device="cuda",
                      timeout_s=MESH_TIMEOUT)
         wall = time.perf_counter() - t0
@@ -5572,14 +5893,16 @@ def phase_train_mesh(torch, smi: str):
               f"{o['exchange']['axis_bytes'][-1]}; exchange waits "
               f"{100 * share:.1f}% of steps 2-{MESH_STEPS}")
     worst = _check_fp32("28", [o["check"] for o in outs], ref_max, "loss")
-    print(f"[train-mesh] fp32 check ({MESH_CHECK}, the global batch of "
+    print(f"[train-mesh] fp32 check ({MESH_CHECK}, {tc.model.num_layers} "
+          f"layers, the global batch of "
           f"{dp} sequences a microbatch): every rank's gradient shard "
           f"within {worst:.3e} relative of the one-process executor's "
           f"(tol {CHECK_REL}); loss {outs[0]['check']['loss']} against "
           f"{outs[0]['check']['parent_loss']}")
     return {"train_mesh": summed,
             **phase_zero3_checks(smi, outs, tc, spec, pred, per_step,
-                                 ref_max, single_max)}
+                                 ref_max, single_max),
+            **phase_families_checks(smi, outs, fam_max)}
 
 
 def _gib(nbytes) -> str:
@@ -5682,7 +6005,7 @@ def phase_zero3_checks(smi: str, outs, tc, spec, pred, per_step, ref_max,
         b1, b3 = b["train"], b["zero3"]
         print(f"[train-zero3] {smi} | rank {o['rank']} (pp {co['pp']}, dp "
               f"{co['data']}, tp {co['model']}): step "
-              f"{statistics.median(o['step_s'][1:]) * 1e3:.1f} ms (stage 1 "
+              f"{warm_median(o['step_s']) * 1e3:.1f} ms (stage 1 "
               f"{statistics.median(o1['step_s'][1:]) * 1e3:.1f}); over "
               f"each run's base (allocated just before it: {_gib(b3)} GiB, "
               f"stage 1 {_gib(b1)}): max_memory_allocated "
@@ -5775,6 +6098,342 @@ def phase_zero3_checks(smi: str, outs, tc, spec, pred, per_step, ref_max,
     return out
 
 
+# phase 30: Mamba-2 and MoE on the same eight processes (pp 2 x dp 2 x tp
+# 2), then train() of each on them regrouped as SINGLE_MESH_SHAPE
+FAMILIES = ("mamba2-2.7b", "qwen2-moe-a2.7b")
+FAMILY_STEPS = 2         # the first a warm-up
+FAMILY_SINGLE_STEPS = 1  # (C): train() at stage 1 on SINGLE_MESH_SHAPE
+
+
+class _DroppedRecorder:
+    """Every MoE layer's ``router_fraction_dropped`` in the F ops of an
+    executor run, by ``(device column, chunk, microbatch)`` in layer
+    order: ``moe_ffn`` and the executor's op wrapped while it is
+    entered."""
+
+    def __init__(self):
+        self.rec, self.cur = {}, None
+
+    def __enter__(self):
+        from repro_torch.core import pipeline_runtime as PR
+        from repro_torch.core.tasktable import F_OPS
+        from repro_torch.models import moe as MOE
+        self.op, self.ffn = PR._Executor._op, MOE.moe_ffn
+        me = self
+
+        def op(ex, d, row, *a):
+            me.cur = (d, int(row[1]), int(row[2])) \
+                if int(row[0]) in F_OPS else None
+            try:
+                return me.op(ex, d, row, *a)
+            finally:
+                me.cur = None
+
+        def ffn(*a, **k):
+            y, aux = me.ffn(*a, **k)
+            if me.cur is not None:
+                me.rec.setdefault(me.cur, []).append(
+                    float(aux["router_fraction_dropped"]))
+            return y, aux
+        PR._Executor._op, MOE.moe_ffn = op, ffn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import pipeline_runtime as PR
+        from repro_torch.models import moe as MOE
+        PR._Executor._op, MOE.moe_ffn = self.op, self.ffn
+
+
+def _families_body(mesh, single, log, free, base, refs):
+    """Phase 30 on one rank, after phase 29: for each of ``FAMILIES``,
+    ``FAMILY_STEPS`` steps of ``_mesh_config(arch)`` on ``mesh`` (the main
+    path, launches counted) and its fp32 check; then on ``single`` (the
+    processes regrouped as ``SINGLE_MESH_SHAPE``) ``train()`` of each at
+    stage 1 and its fp32 check.  ``refs``: arch -> the one-process
+    references' paths."""
+    import torch
+
+    from repro_torch.launch.train import train_rank, train_single_rank
+    out = {}
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        base[arch] = free()
+        r = {"train": train_rank(mesh, _mesh_config(arch), MESH_SHAPE[0],
+                                 {"overlap": True, "steps": FAMILY_STEPS,
+                                  "log": log})}
+        free()
+        r["check"] = _mesh_fp32_check(torch, mesh, refs[arch]["pipe"],
+                                      arch=arch)
+        free()
+        r["s"] = time.perf_counter() - t0
+        out[arch] = r
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        base["single " + arch] = free()
+        r = out[arch]
+        r["single"] = train_single_rank(
+            single, _single_mesh_config(1, arch=arch),
+            {"steps": FAMILY_SINGLE_STEPS, "log": log})
+        free()
+        r["single_check"] = _single_mesh_fp32_check(
+            torch, single, refs[arch]["single"], 1, arch)
+        free()
+        r["single_s"] = time.perf_counter() - t0
+    return out
+
+
+def family_reckoning(tc, zero_stage: int = 1) -> dict:
+    """What a rank of ``MESH_SHAPE`` holds of ``tc``'s model, reckoned on
+    the host from its ``RankShard`` (no card): per pp coordinate the
+    weights (their dtype), the gradient accumulators (the block leaves in
+    their dtype, the shared leaves in fp32) and the fp32 optimizer state
+    (master, mu and nu of the dp slices), in bytes; the last stage's fp32
+    logits ``[mbB * S, V / tp]`` once; and their sum over the eight
+    ranks."""
+    from repro_torch.core.pipeline_runtime import (RankShard,
+                                                   init_pipeline_params)
+    from repro_torch.launch.mesh import MESH_RULES
+    from repro_torch.tree import tree_leaves
+    pp, dp, tp = MESH_SHAPE
+    spec = _spec_of(tc, pp)
+    tree = init_pipeline_params(None, tc.model, spec.layout, "meta")
+    out = {}
+    for p in range(pp):
+        sh = RankShard(tc.model, spec.layout, {"pp": pp, "data": dp,
+                                               "model": tp}, MESH_RULES,
+                       {"pp": p, "data": 0, "model": 0}, zero_stage)
+        w = g = st = 0
+        for i, (path, a) in enumerate(zip(sh.paths, tree_leaves(tree))):
+            n = (a[0].numel() if path[0] == "blocks" else a.numel())
+            n //= tp if sh.tp_split[i] else 1
+            w += n * a.element_size()
+            g += n * (a.element_size() if path[0] == "blocks" else 4)
+            st += 12 * (n // dp if sh.zero_dims[i] is not None else n)
+        logits = (4 * spec.mbB * spec.S * tc.model.vocab_size // tp
+                  if p == pp - 1 else 0)
+        out[p] = {"weights": w, "grads": g, "state": st, "logits": logits,
+                  "total": w + g + st + logits}
+    out["ranks"] = dp * tp * sum(out[p]["total"] for p in range(pp))
+    return out
+
+
+def families_predictions() -> dict:
+    """Phase 30's reckoning on the host, per family: ``family_reckoning``,
+    the same at qwen2-moe's whole vocabulary, ``MemoryModel``'s stage
+    prediction at (pp 2, tp 2) as phase 28's, and the bytes a step hands
+    to collectives on the mesh (``collective_stats``) and of (C)'s
+    ``train()`` (``train_collective_stats``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import (collective_stats,
+                                           train_collective_stats)
+    out = {}
+    for arch in FAMILIES:
+        tc = _mesh_config(arch)
+        whole = dataclasses.replace(tc, model=dataclasses.replace(
+            tc.model, vocab_size=get_config(arch).vocab_size))
+        pred = mesh_predictions(tc)
+        stc = _single_mesh_config(1, arch=arch)
+        _, sdp, stp = SINGLE_MESH_SHAPE
+        m = stc.shape.global_batch // sdp
+        out[arch] = {"reckoning": family_reckoning(tc),
+                     "reckoning_whole_vocab": family_reckoning(whole),
+                     "stage_bytes": pred["stage_bytes"],
+                     "collectives": collective_stats(
+                         _spec_of(tc, MESH_SHAPE[0]), MESH_SHAPE[1],
+                         MESH_SHAPE[2], update=True),
+                     "single_m": m,
+                     "single_collectives": train_collective_stats(
+                         stc.model, m=m, mbB=1, seq_len=stc.shape.seq_len,
+                         dp=sdp, tp=stp, zero_stage=1)}
+    return out
+
+
+def phase_families_checks(smi: str, outs, ref_max) -> dict:
+    """30: what phase 28's eight processes ran after phase 29.  (A)
+    mamba2-2.7b and (B) qwen2-moe-a2.7b (``_mesh_config``) on pp 2 x dp
+    2 x tp 2 through ``train_pipeline(mesh=)``: finite losses equal on
+    every rank; after every step the dp replicas and the tp-replicated
+    leaves (mamba2: ``wB``, ``wC``, ``conv_B``, ``conv_C``, the norms and
+    the tied embedding over pp; qwen2-moe: the router and the norms)
+    bitwise equal; launches summed over the ranks the table's x dp x tp
+    (the split-width RMSNorm pair for the gated norms, the SSD scan,
+    flash, fused AdamW a leaf slice a rank); each step's bytes by axis
+    ``collective_stats``'; the fp32 check's gradient shards within
+    ``CHECK_REL`` of the one-process executor's, and for qwen2-moe every
+    F op's dropped fraction at its capacity factor 1.25 equal on every
+    rank and to the one-process run's.  (C) ``train()`` of each on the
+    processes regrouped as ``SINGLE_MESH_SHAPE`` at stage 1: losses
+    equal on every rank, replicas, bytes ``train_collective_stats``',
+    launches ``expected_single_launches(tp=2)`` a rank, the fp32 check.
+    Prints each rank's step and peak over its run's base beside the
+    reckoning and ``MemoryModel``'s stage prediction.  ``ref_max``: arch ->
+    the one-process references' largest |element| a leaf.  Returns the
+    launch counts by path."""
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
+    from repro_torch.tree import tree_leaves
+    pp, dp, tp = MESH_SHAPE
+    n = pp * dp * tp
+    preds = families_predictions()
+    launches = {}
+    for arch in FAMILIES:
+        tag = f"30 ({arch})"
+        tc = _mesh_config(arch)
+        spec = _spec_of(tc, pp)
+        pred = preds[arch]
+        fam = [o["families"][arch] for o in outs]
+        runs = [f["train"] for f in fam]
+        losses = runs[0]["losses"]
+        print(f"[train-families] {smi} | {arch} full width bf16 "
+              f"({tc.model.num_layers} layers, vocab "
+              f"{tc.model.vocab_size}) on pp {pp} x dp {dp} x tp {tp}, "
+              f"the same eight processes: {spec.table.name} "
+              f"v={tc.plan.num_chunks} m={spec.table.m}, {spec.mbB} "
+              f"sequence a dp rank a microbatch of {spec.S} positions; "
+              f"{FAMILY_STEPS} steps and the fp32 check in "
+              f"{fam[0]['s']:.1f} s")
+        if not all(math.isfinite(x) for x in losses + runs[0]["grad_norms"]):
+            fail(f"{tag}: non-finite loss or gradient norm {losses}")
+        if any(o["losses"] != losses for o in runs):
+            fail(f"{tag}: the ranks disagree on the loss "
+                 f"{[o['losses'] for o in runs]}")
+        if not all(all(o["replicas_equal"]) for o in runs):
+            fail(f"{tag}: replicas differ "
+                 f"{[o['replica_checks'] for o in runs]}")
+        n_leaves = len(tree_leaves(init_pipeline_params(
+            None, tc.model, spec.layout, "meta")))
+        per_step = expected_train_launches(spec, n_leaves, tp=tp)
+        want = {k: FAMILY_STEPS * v * (n if k == "fused_adamw_flat"
+                                        else dp * tp)
+                for k, v in per_step.items()}
+        summed = {k: sum(o["launches"][k] for o in runs) for k in want}
+        print(f"[train-families] {arch}: losses {losses}, gradient norms "
+              f"{runs[0]['grad_norms']}; after every step the dp replicas, "
+              f"the tp-replicated leaves and the shared leaves over pp "
+              f"bitwise equal on every rank; launches summed {summed} (the "
+              f"table x dp x tp; fused AdamW a leaf slice a rank: {want})")
+        if summed != want:
+            fail(f"{tag}: launches {summed} != {want}")
+        used = [k for k, v in want.items() if v]
+        if any(not o["launches"][k] for o in runs for k in used):
+            fail(f"{tag}: a rank launched no kernel of the path")
+        coll = pred["collectives"]
+        for step in range(FAMILY_STEPS):
+            got = {a: sum(o["exchange"]["axis_bytes"][step][a] for o in runs)
+                   for a in ("pp", "data", "model")}
+            if got != coll.by_axis:
+                fail(f"{tag}: step {step} handed {got} B to collectives, "
+                     f"collective_stats counts {coll.by_axis}")
+        kb, kc = coll.bytes_by_kind, coll.count_by_kind
+        print(f"[train-families] {arch}: bytes a step over the ranks equal "
+              f"to collective_stats' count: pp {coll.by_axis['pp']}, data "
+              f"{coll.by_axis['data']} (routing {int(kb.get('all-gather-route', 0))}"
+              f" in {kc.get('all-gather-route', 0)} calls), model "
+              f"{coll.by_axis['model']} ({kc['all-reduce-tp']} tp sums)")
+        rk = pred["reckoning"]
+        for o, b in zip(runs, [r["base"][arch] for r in outs]):
+            co = o["coords"]
+            print(f"[train-families] {smi} | {arch} rank {o['rank']} (pp "
+                  f"{co['pp']}, dp {co['data']}, tp {co['model']}): step "
+                  f"{statistics.median(o['step_s'][1:]) * 1e3:.1f} ms "
+                  f"(steps {[round(x * 1e3, 1) for x in o['step_s']]}); "
+                  f"over the run's base ({_gib(b)} GiB): "
+                  f"max_memory_allocated {_gib(o['peak_bytes'] - b)} GiB, "
+                  f"weights and state {_gib(o['static_bytes'] - b)}; "
+                  f"reckoned {_gib(rk[co['pp']]['total'])} GiB (weights "
+                  f"{_gib(rk[co['pp']]['weights'])}, gradients "
+                  f"{_gib(rk[co['pp']]['grads'])}, state "
+                  f"{_gib(rk[co['pp']]['state'])}, logits "
+                  f"{_gib(rk[co['pp']]['logits'])}); MemoryModel's stage "
+                  f"{co['pp']} at (pp {pp}, tp {tp}) "
+                  f"{pred['stage_bytes'][co['pp']] / 2 ** 30:.3f} GiB")
+        print(f"[train-families] {arch}: the eight ranks' reckoning "
+              f"{_gib(rk['ranks'])} GiB; at the whole vocabulary "
+              f"{_gib(pred['reckoning_whole_vocab']['ranks'])} GiB")
+        worst = _check_fp32(tag, [f["check"] for f in fam],
+                            ref_max[arch]["pipe"], "loss")
+        print(f"[train-families] {arch} fp32 check ({MESH_CHECK}, "
+              f"{_mesh_model(arch, True).num_layers} layers, vocab "
+              f"{_mesh_model(arch, True).vocab_size}): every rank's "
+              f"gradient shard within {worst:.3e} relative of the "
+              f"one-process executor's (tol {CHECK_REL}); loss "
+              f"{fam[0]['check']['loss']} against "
+              f"{fam[0]['check']['parent_loss']}")
+        if tc.model.moe is not None:
+            for f in fam:
+                c = f["check"]
+                if not c["dropped"] or c["dropped"] != c["parent_dropped"]:
+                    fail(f"{tag}: dropped fractions {c['dropped']} differ "
+                         f"from the one-process run's "
+                         f"{c['parent_dropped']}")
+            per_pp = {o["train"]["coords"]["pp"]: f["check"]["dropped"]
+                      for o, f in zip(outs, fam)}
+            print(f"[train-families] {arch} fp32 check, capacity factor "
+                  f"{tc.model.moe.capacity_factor}: every F op's "
+                  f"router_fraction_dropped over the global microbatch "
+                  f"equal on every rank and to the one-process run's: "
+                  + "; ".join(f"pp {p}: " + ", ".join(
+                      f"(chunk {k[1]}, microbatch {k[2]}) {v}"
+                      for k, v in per_pp[p]) for p in sorted(per_pp)))
+        launches[f"train_families_{arch}"] = summed
+
+        # (C) train() on the regrouped processes
+        sp, sdp, stp = SINGLE_MESH_SHAPE
+        stc = _single_mesh_config(1, arch=arch)
+        runs = [f["single"] for f in fam]
+        losses = runs[0]["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{tag} (train): non-finite loss {losses}")
+        if any(o["losses"] != losses for o in runs):
+            fail(f"{tag} (train): the ranks disagree on the loss "
+                 f"{[o['losses'] for o in runs]}")
+        if not all(all(o["replicas_equal"]) for o in runs):
+            fail(f"{tag} (train): replicas differ "
+                 f"{[o['replica_checks'] for o in runs]}")
+        coll = pred["single_collectives"]
+        for step in range(FAMILY_SINGLE_STEPS):
+            got = {a: sum(o["exchange"]["axis_bytes"][step][a] for o in runs)
+                   for a in ("pp", "data", "model")}
+            if got != coll.by_axis:
+                fail(f"{tag} (train): step {step} handed {got} B to "
+                     f"collectives, train_collective_stats counts "
+                     f"{coll.by_axis}")
+        per_rank = expected_single_launches(stc.model, pred["single_m"],
+                                            tp=stp)
+        want = {k: FAMILY_SINGLE_STEPS * v * n for k, v in per_rank.items()}
+        got_l = {k: sum(o["launches"][k] for o in runs) for k in want}
+        if got_l != want:
+            fail(f"{tag} (train): launches {got_l} != {want}")
+        launches[f"train_single_families_{arch}"] = got_l
+        print(f"[train-families] {smi} | train() of {arch} full width "
+              f"bf16 ({stc.model.num_layers} layers, vocab "
+              f"{stc.model.vocab_size}) on pp {sp} x dp {sdp} x tp {stp}, "
+              f"stage 1, {pred['single_m']} microbatches of one "
+              f"{stc.shape.seq_len}-token sequence a dp rank: losses "
+              f"{losses}; launches {got_l} (expected_single_launches a "
+              f"rank); bytes a step by axis {coll.by_axis}; in "
+              f"{fam[0]['single_s']:.1f} s")
+        for o, b in zip(runs, [r["base"]["single " + arch] for r in outs]):
+            co = o["coords"]
+            print(f"[train-families] {smi} | train() {arch} rank "
+                  f"{o['rank']} (dp {co['data']}, tp {co['model']}): step "
+                  f"{o['step_s'][-1] * 1e3:.1f} ms; over the run's base "
+                  f"({_gib(b)} GiB): max_memory_allocated "
+                  f"{_gib(o['peak_bytes'] - b)} GiB, weights and state "
+                  f"{_gib(o['static_bytes'] - b)}")
+        worst = _check_fp32(f"{tag} (train)",
+                            [f["single_check"] for f in fam],
+                            ref_max[arch]["single"],
+                            "lsum")
+        print(f"[train-families] train() {arch} fp32 check "
+              f"({_mesh_model(arch, True).num_layers} layers, "
+              f"{SINGLE_MESH_CHECK['seq']} tokens, stage 1): every rank's "
+              f"fp32 gradient slices within {worst:.3e} relative of the "
+              f"one-process train() step's (tol {CHECK_REL})")
+    return launches
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel of ``nvcc -Xptxas -v``'s log: registers,
     static shared memory, spill stores and loads (the flash kernel's
@@ -5850,6 +6509,7 @@ def main() -> None:
     phase_ssd_grads(torch, gen)
     phase_ssd_h0(torch, gen, by_name)
     phase_mamba_shapes(torch, gen, by_name)
+    rows += phase_rmsnorm_split(torch, gen, by_name)
     torch.cuda.empty_cache()
     done("kernels against their plain versions")
 
@@ -5893,7 +6553,7 @@ def main() -> None:
     phase_train_checks(torch, "tinyllama-1.1b", "train-check")
     done("train checks tinyllama-1.1b")
 
-    # 8. train mamba2 at full width, 16 layers (all of tinyllama's
+    # 8. train mamba2 at full width, 8 layers (all of tinyllama's
     #    tensors freed first), then a profiled step; 9. its train checks
     gc.collect()
     torch.cuda.empty_cache()
@@ -6030,12 +6690,17 @@ def main() -> None:
     #     eight processes on the card, and its fp32 check; 29. in the same
     #     processes, the same at ZeRO stage 3, then train() on them
     #     regrouped as pp 1 x dp 4 x tp 2 at stages 1 and 3
+    #     30. in the same processes, mamba2-2.7b and qwen2-moe-a2.7b on
+    #     the pp 2 x dp 2 x tp 2 mesh (the Mamba-2 gated norm on the
+    #     split-width RMSNorm pair, the experts split over tp, the MoE
+    #     routing over the global microbatch), then train() of each on
+    #     the processes regrouped as pp 1 x dp 4 x tp 2
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_train_mesh(torch, smi))
-    done("train-mesh and train-zero3 (28-29)")
+    done("train-mesh, train-zero3 and train-families (28-30)")
 
-    # 30. kernels line, then the result line.  ``launches`` sums the
+    # 31. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

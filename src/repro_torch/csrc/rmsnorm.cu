@@ -25,6 +25,7 @@
 // 8 warps x 32 lanes x kVec vectors) take rmsnorm_rows_kernel, one CTA of
 // 256 threads per row with scalar loads and a second pass over the row.
 #include <cstdint>
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -224,7 +225,145 @@ int launch(const void* x, const void* scale, void* y, int rows, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Split-width rows: a row's columns lie on several ranks (a tensor-parallel
+// split of the Mamba-2 gated norm's d_in), so the sum of squares is reduced
+// in two passes with an all-reduce of the [R] fp32 sums between them.
+// rmsnorm_sumsq_kernel writes each row's fp32 sum of squares over the
+// columns this rank holds; rmsnorm_scale_kernel writes
+// (x * rsqrt(ss / d_full + eps)) * scale in x's type from the all-reduced
+// sums.  Bound on the H100: memory (the first pass reads x once and writes
+// 4 bytes a row, the second reads x and writes y once).  Design: one warp a
+// row, 8 rows a CTA; 16-byte loads and stores where the row width is a
+// multiple of the vector and the pointers are 16-byte aligned, else scalar
+// ones.  A simple kernel: nothing is held in registers across the passes,
+// since the all-reduce sits between them.
+constexpr int kSplitRows = 8;  // rows (warps) per CTA
+
+template <typename T, bool kVec16>
+__global__ void __launch_bounds__(kSplitRows * 32)
+rmsnorm_sumsq_kernel(const T* __restrict__ x, float* __restrict__ ss, int R,
+                     int d) {
+  const int row = blockIdx.x * kSplitRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= R) return;  // the whole warp: a row is one warp's
+  float s = 0.f;
+  if (kVec16) {
+    using V = Vec16<T>;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * d);
+    const int nvec = d / V::kN;
+    for (int i = lane; i < nvec; i += 32) {
+      float f[V::kN];
+      V::unpack(xr[i], f);
+#pragma unroll
+      for (int e = 0; e < V::kN; ++e) s += f[e] * f[e];
+    }
+  } else {
+    const T* xr = x + (size_t)row * d;
+    for (int i = lane; i < d; i += 32) {
+      const float v = to_f32(xr[i]);
+      s += v * v;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) ss[row] = s;
+}
+
+template <typename T, bool kVec16>
+__global__ void __launch_bounds__(kSplitRows * 32)
+rmsnorm_scale_kernel(const T* __restrict__ x, const float* __restrict__ ss,
+                     const T* __restrict__ scale, T* __restrict__ y, int R,
+                     int d, int d_full, float eps) {
+  const int row = blockIdx.x * kSplitRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= R) return;
+  const float inv = rsqrtf(ss[row] / static_cast<float>(d_full) + eps);
+  if (kVec16) {
+    using V = Vec16<T>;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * d);
+    const uint4* sr = reinterpret_cast<const uint4*>(scale);
+    uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * d);
+    const int nvec = d / V::kN;
+    for (int i = lane; i < nvec; i += 32) {
+      float f[V::kN], sc[V::kN];
+      V::unpack(xr[i], f);
+      V::unpack(__ldg(sr + i), sc);
+#pragma unroll
+      for (int e = 0; e < V::kN; ++e) f[e] = (f[e] * inv) * sc[e];
+      yr[i] = V::pack(f);
+    }
+  } else {
+    const T* xr = x + (size_t)row * d;
+    T* yr = y + (size_t)row * d;
+    for (int i = lane; i < d; i += 32)
+      yr[i] = from_f32<T>((to_f32(xr[i]) * inv) * to_f32(scale[i]));
+  }
+}
+
+template <typename T>
+bool vec16_ok(int d, std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return (bits & 15) == 0 && d % (16 / static_cast<int>(sizeof(T))) == 0;
+}
+
+template <typename T>
+int launch_sumsq(const void* x, float* ss, int rows, int d, cudaStream_t s) {
+  const int grid = (rows + kSplitRows - 1) / kSplitRows;
+  if (vec16_ok<T>(d, {x}))
+    rmsnorm_sumsq_kernel<T, true><<<grid, kSplitRows * 32, 0, s>>>(
+        static_cast<const T*>(x), ss, rows, d);
+  else
+    rmsnorm_sumsq_kernel<T, false><<<grid, kSplitRows * 32, 0, s>>>(
+        static_cast<const T*>(x), ss, rows, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_scale(const void* x, const float* ss, const void* scale, void* y,
+                 int rows, int d, int d_full, float eps, cudaStream_t s) {
+  const int grid = (rows + kSplitRows - 1) / kSplitRows;
+  if (vec16_ok<T>(d, {x, scale, y}))
+    rmsnorm_scale_kernel<T, true><<<grid, kSplitRows * 32, 0, s>>>(
+        static_cast<const T*>(x), ss, static_cast<const T*>(scale),
+        static_cast<T*>(y), rows, d, d_full, eps);
+  else
+    rmsnorm_scale_kernel<T, false><<<grid, kSplitRows * 32, 0, s>>>(
+        static_cast<const T*>(x), ss, static_cast<const T*>(scale),
+        static_cast<T*>(y), rows, d, d_full, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int rmsnorm_sumsq_launch(const void* x, void* ss, int rows, int d,
+                                    int dtype, void* stream) {
+  if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(ss);
+  if (dtype == DTYPE_F32) return launch_sumsq<float>(x, out, rows, d, s);
+  if (dtype == DTYPE_BF16)
+    return launch_sumsq<__nv_bfloat16>(x, out, rows, d, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int rmsnorm_scale_launch(const void* x, const void* ss,
+                                    const void* scale, void* y, int rows,
+                                    int d, int d_full, float eps, int dtype,
+                                    void* stream) {
+  if (rows <= 0 || d <= 0 || d_full < d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sums = static_cast<const float*>(ss);
+  if (dtype == DTYPE_F32)
+    return launch_scale<float>(x, sums, scale, y, rows, d, d_full, eps, s);
+  if (dtype == DTYPE_BF16)
+    return launch_scale<__nv_bfloat16>(x, sums, scale, y, rows, d, d_full,
+                                       eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 extern "C" int rmsnorm_rows_launch(const void* x, const void* scale, void* y,
                                    int rows, int d, float eps, int dtype,

@@ -35,6 +35,10 @@ _SIGNATURES = {
                            _I, _P],
     # x, scale, y, rows, d, eps, dtype, stream
     "rmsnorm_rows_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
+    # x, ss (fp32 [rows]), rows, d, dtype, stream
+    "rmsnorm_sumsq_launch": [_P, _P, _I, _I, _I, _P],
+    # x, ss, scale, y, rows, d, d_full, eps, dtype, stream
+    "rmsnorm_scale_launch": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, lse, B, Sq, Sk, H, G, D, scale, causal, window, prefix,
     # q_offset, dtype, stream
     "flash_attention_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -360,7 +360,9 @@ def collective_stats(spec, dp: int = 1, tp: int = 1, *,
     F, B and W ops (B and W recompute their chunk under autograd, so the
     forward's sums run again there, beside the backward's);
     ``all-reduce-dp``, every gradient summed over dp; ``all-gather-dp``,
-    the ZeRO-1 weights (none at ``zero_stage`` 0).  At ``zero_stage`` 3
+    the ZeRO-1 weights (none at ``zero_stage`` 0); with MoE layers under
+    dp, ``all-gather-route``, their expert counts in every op that runs
+    the chunk's forward.  At ``zero_stage`` 3
     the block leaves held as dp slices leave those two, and two kinds
     count them instead: ``all-gather-fsdp``, each F, B and W op's gather
     of its chunk's slices, and ``reduce-scatter-fsdp``, each B or W op's
@@ -384,6 +386,9 @@ def collective_stats(spec, dp: int = 1, tp: int = 1, *,
                                    mc["data"]["grad_calls"]),
                  "all-gather-dp": (mc["data"]["gather_bytes"],
                                    mc["data"]["gather_calls"])}
+        if mc["data"]["route_calls"]:
+            kinds["all-gather-route"] = (mc["data"]["route_bytes"],
+                                         mc["data"]["route_calls"])
         if zero_stage >= 3:
             kinds["all-gather-fsdp"] = (mc["data"]["fsdp_gather_bytes"],
                                         mc["data"]["fsdp_gather_calls"])
@@ -415,12 +420,12 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
     collectives again in the backward up to the last saved tensor (torch
     stops it there): all but the period's last MLP output sum.
 
-    - ``all-reduce-tp``: each attention layer's output and each MLP's
-      (where tp divides ``d_ff``) forward, again on a period's recompute
-      but for the period's last MLP (its down-projection's inputs are
-      the last saved tensors, and the sum comes after them), and their
-      inputs' gradients backward, ``[mbB, S, d]`` in the
-      compute dtype; where tp divides the vocab, the lookup (in the
+    - ``all-reduce-tp``: each layer's tensor-parallel sums
+      (:func:`layer_traffic`: attention, MLP, Mamba-2 and MoE outputs, the
+      Mamba-2 norm's row sums) forward, again on a period's recompute but
+      for the period's last output sum (the inputs of the products before
+      it are the last saved tensors, and the sum comes after them), and
+      the layers' backward sums; where tp divides the vocab, the lookup (in the
       parameters' dtype), the head's max, sum of exponentials and gold
       logit (fp32 ``[mbB, S]``) and its input's gradient;
     - ``all-gather-fsdp`` / ``reduce-scatter-fsdp`` (ZeRO-3): each leaf
@@ -429,6 +434,8 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
       the head) and its gradient reduce-scattered once a use (the whole
       leaf's bytes), the leaves a use reads together in one call a
       dtype (a layer, the encoder, an embedding leaf);
+    - ``all-gather-route``: each MoE layer's expert counts over dp, in
+      the forward and the recompute;
     - ``reduce-scatter-dp`` / ``all-reduce-dp``: every other gradient
       leaf summed over dp into its state's slice, or whole where the
       state is whole;
@@ -447,7 +454,8 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
     S, d = seq_len - 1, cfg.d_model
     act = mbB * S * d * _dtype(cfg.compute_dtype).itemsize
     n = dp * tp
-    kinds = {k: [0, 0] for k in ("all-reduce-tp", "all-gather-fsdp",
+    kinds = {k: [0, 0] for k in ("all-reduce-tp", "all-gather-route",
+                                 "all-gather-fsdp",
                                  "reduce-scatter-fsdp", "reduce-scatter-dp",
                                  "all-reduce-dp", "all-gather-dp")}
 
@@ -455,15 +463,21 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
         kinds[kind][0] += nbytes
         kinds[kind][1] += calls
     nper = cfg.num_layers // cfg.period
+    for idx in range(cfg.num_layers):
+        lt = layer_traffic(cfg, idx, tp, dp, mbB * S)
+        stacked = idx < nper * cfg.period
+        # a stacked layer's forward runs again in its period's recompute,
+        # but for the period's last output sum
+        last = lt["last"] if stacked and idx % cfg.period \
+            == cfg.period - 1 else 0
+        runs = 2 if stacked else 1
+        if lt["fwd"][1] or lt["bwd"][1]:
+            add("all-reduce-tp", runs * lt["fwd"][0] - last + lt["bwd"][0],
+                runs * lt["fwd"][1] - (last > 0) + lt["bwd"][1])
+        if lt["route"][1]:
+            add("all-gather-route", runs * lt["route"][0],
+                runs * lt["route"][1])
     if tp > 1:
-        for idx in range(cfg.num_layers):
-            stacked = idx < nper * cfg.period
-            runs = 3 if stacked else 2
-            if cfg.layer_kind(idx) == "attn":
-                add("all-reduce-tp", runs * act, runs)
-            if cfg.d_ff and cfg.d_ff % tp == 0:
-                last = stacked and idx % cfg.period == cfg.period - 1
-                add("all-reduce-tp", (runs - last) * act, runs - last)
         if cfg.vocab_size % tp == 0:
             add("all-reduce-tp", mbB * S * d * _dtype(cfg.param_dtype)
                 .itemsize)
@@ -513,6 +527,70 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
                            {k: c for k, (_, c) in kinds.items()}, by_axis)
 
 
+def layer_traffic(cfg, idx: int, tp: int, dp: int, tokens: int) -> Dict:
+    """What decoder layer ``idx`` hands to collectives in one forward and
+    one backward over ``tokens`` tokens (a microbatch a rank), per rank:
+
+    - ``fwd`` / ``bwd``: ``(bytes, calls)`` of its tensor-parallel sums
+      (all-reduces over tp; none at tp 1).  Forward: the attention's and
+      the Mamba-2 block's output ``[tokens, d]`` in the compute dtype, the
+      Mamba-2 gated norm's fp32 ``[tokens]`` sums of squares, an MLP's
+      output where tp divides its width, an MoE layer's combined expert
+      (and shared) outputs where tp divides the experts' width, else the
+      shared experts' own where tp divides theirs.  Backward: the inputs'
+      gradients of every split product (``[tokens, d]`` each), the
+      Mamba-2 block's replicated B and C (``[tokens, N]`` each) and its
+      norm's fp32 ``[tokens]`` row sums, and the MoE gates (fp32
+      ``[tokens * k]``) where the experts are split;
+    - ``last``: the bytes of the layer's final output sum (the last
+      collective of its forward, after which it saves no tensor: a
+      Chronos-Recomp checkpoint's recompute stops before it), or 0;
+    - ``route``: ``(bytes, calls)`` over dp a forward: an MoE layer's
+      all-gather of its int64 ``[E]`` expert counts (dp > 1)."""
+    from repro_torch.models.transformer import _dtype
+    d = cfg.d_model
+    cdt = _dtype(cfg.compute_dtype).itemsize
+    act = tokens * d * cdt
+    fwd, bwd = [0, 0], [0, 0]
+    last = 0
+
+    def add(acc, nbytes, calls=1):
+        acc[0] += nbytes
+        acc[1] += calls
+    if tp > 1:
+        if cfg.layer_kind(idx) == "attn":
+            add(fwd, act)
+            add(bwd, act)
+        else:
+            add(fwd, act + 4 * tokens, 2)
+            add(bwd, act + 2 * tokens * cfg.ssm.state_dim * cdt
+                + 4 * tokens, 4)
+        last = act
+        moe = cfg.moe if cfg.layer_is_moe(idx) else None
+        if moe is not None:
+            experts = moe.d_ff_expert % tp == 0
+            ff = moe.num_shared_experts * moe.d_ff_shared
+            shared = ff > 0 and ff % tp == 0
+            if experts:
+                add(fwd, act)
+                add(bwd, act + 4 * tokens * moe.top_k, 2)
+            elif shared:
+                add(fwd, act)
+                add(bwd, act)
+            last = act if experts or shared else 0
+        elif cfg.d_ff:
+            split = cfg.d_ff % tp == 0
+            if split:
+                add(fwd, act)
+                add(bwd, act)
+            last = act if split else 0
+    route = [0, 0]
+    if dp > 1 and cfg.layer_is_moe(idx):
+        add(route, 8 * cfg.moe.num_experts)
+    return {"fwd": tuple(fwd), "bwd": tuple(bwd), "last": last,
+            "route": tuple(route)}
+
+
 def _tp_units(spec, tp: int, d: int):
     """One device column's tensor-parallel all-reduces of a step, as
     ``(bytes, calls)`` per rank: its F, B and W ops (and the head's and
@@ -525,15 +603,15 @@ def _tp_units(spec, tp: int, d: int):
     cdt = _dtype(cfg.compute_dtype).itemsize
     pdt = _dtype(cfg.param_dtype).itemsize
     act = B * S * dm * cdt
-    # a chunk's forward sums: each attention layer's output (tp divides
-    # the heads) and each MLP's where tp divides its width; a backward
-    # sums as many input gradients
-    per_layer = 0
+    # a chunk's forward sums and a backward's (which also recomputes the
+    # forward): each of its layers' (:func:`layer_traffic`)
+    fb = fc = bb = bc = 0
     for j in range(spec.layout.period):
-        if cfg.layer_kind(j) == "attn":
-            per_layer += spec.layout.M
-        if cfg.d_ff and cfg.d_ff % tp == 0:
-            per_layer += spec.layout.M
+        lt = layer_traffic(cfg, j, tp, 1, B * S)
+        fb += spec.layout.M * lt["fwd"][0]
+        fc += spec.layout.M * lt["fwd"][1]
+        bb += spec.layout.M * (lt["fwd"][0] + lt["bwd"][0])
+        bc += spec.layout.M * (lt["fwd"][1] + lt["bwd"][1])
     vocab = cfg.vocab_size % tp == 0
     tot_b = tot_c = 0
     for t in range(tab.T):
@@ -546,8 +624,7 @@ def _tp_units(spec, tp: int, d: int):
         fwd = op in F_OPS
         if not fwd and op not in W_OPS and tab.has_w and first:
             continue                     # the first block's split B: none
-        calls = per_layer * (1 if fwd else 2)
-        b = calls * act
+        b, calls = (fb, fc) if fwd else (bb, bc)
         if first and vocab and (fwd or op in W_OPS or not tab.has_w):
             b, calls = b + B * S * dm * pdt, calls + 1      # the lookup
         if last and vocab:
@@ -558,6 +635,20 @@ def _tp_units(spec, tp: int, d: int):
         tot_b += b
         tot_c += calls
     return tot_b, tot_c
+
+
+def _route_units(spec, dp: int, d: int):
+    """One device column's MoE routing all-gathers over dp a step, per
+    rank: ``(bytes, calls)``, a chunk's MoE layers' in every op that runs
+    its forward (F, B and W; a split table's first-block B runs
+    nothing)."""
+    nb = nc = 0
+    for j in range(spec.layout.period):
+        b, c = layer_traffic(spec.cfg, j, 1, dp, 1)["route"]
+        nb += spec.layout.M * b
+        nc += spec.layout.M * c
+    gathers, _ = _fsdp_units(spec, d)
+    return gathers * nb, gathers * nc
 
 
 def _fsdp_units(spec, d: int):
@@ -664,6 +755,12 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
             b, c = _tp_units(spec, tp, d)
             model_b += b * dp * tp
             model_c += c * dp * tp
+    route_b = route_c = 0
+    if dp > 1:
+        for d in range(P):
+            b, c = _route_units(spec, dp, d)
+            route_b += b * dp * tp
+            route_c += c * dp * tp
     pp_scalar = (8 + 4 * update) if P > 1 else 0
     out = {
         "pp": {"send_bytes": send_bytes, "sends": dp * tp * sends,
@@ -675,6 +772,7 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
                  "gather_bytes": gather_b * n if dp > 1 and update else 0,
                  "gather_calls": gather_c * n if dp > 1 and update else 0,
                  **fsdp,
+                 "route_bytes": route_b, "route_calls": route_c,
                  "scalar_bytes": (8 + 4 * update + (4 * m if masked else 0))
                  * n if dp > 1 else 0},
         "model": {"bytes": model_b, "calls": model_c,

@@ -6,7 +6,8 @@ shipment (``plan.grad_compression``); the pipeline step runs its ``P``
 stages on one device, one stage a rank over a
 :class:`~repro_torch.launch.mesh.PipeMesh`, or on a ``pp x dp x tp``
 :class:`~repro_torch.launch.mesh.Mesh` with the reference's sharding
-(the batch over dp, heads / FFN / vocab over tp, ZeRO-1 over dp)."""
+(the batch over dp, heads / FFN / vocab, the Mamba-2 channels and the
+experts' hidden width over tp, ZeRO-1 over dp)."""
 from __future__ import annotations
 
 import contextlib
@@ -42,32 +43,33 @@ def check_zero_stage(plan: ParallelPlan) -> None:
 
 
 def check_mesh_model(cfg: ModelConfig, dp: int, tp: int) -> None:
-    """Refuse what the mesh does not split yet: under tp > 1 a head count
-    tp does not divide (ValueError), and Mamba-2 layers (their norm over
-    a split width), MoE layers (the ``exp`` axis), the encoder-decoder
-    and the VLM (NotImplementedError); under dp > 1 MoE layers (their
-    router statistics span the global microbatch)."""
-    if tp > 1:
-        if cfg.num_heads % tp or cfg.num_kv_heads % tp:
-            raise ValueError(
-                f"tp={tp} must divide num_heads={cfg.num_heads} and "
-                f"num_kv_heads={cfg.num_kv_heads} of {cfg.name} (whole "
-                f"query and K/V heads a rank; tp not dividing the K/V "
-                f"heads: {ITEM_3B})")
-        what = ("Mamba-2 layers (a norm over a tp-split width)"
-                if cfg.ssm is not None else
-                "MoE layers (the exp axis)" if cfg.moe is not None else
-                "the encoder-decoder" if cfg.encdec is not None else
-                "the VLM's patch prefix" if cfg.vision is not None else None)
-        if what is not None:
-            raise NotImplementedError(
-                f"tensor parallelism over {what} of {cfg.name} is not "
-                f"ported yet ({ITEM_3B})")
-    if dp > 1 and cfg.moe is not None:
+    """Refuse what the mesh does not split yet.  Under tp > 1: a config
+    with attention layers whose query or K/V head count tp does not
+    divide (ValueError; an attention-free config's unused head counts
+    are not read), a Mamba-2 config whose SSM heads tp does not divide
+    (ValueError), the encoder-decoder and the VLM (NotImplementedError).
+    Mamba-2 and MoE layers split over tp, and MoE layers route over the
+    global microbatch under dp."""
+    if tp <= 1:
+        return
+    has_attn = cfg.ssm is None or cfg.ssm.attn_period != 0
+    if has_attn and (cfg.num_heads % tp or cfg.num_kv_heads % tp):
+        raise ValueError(
+            f"tp={tp} must divide num_heads={cfg.num_heads} and "
+            f"num_kv_heads={cfg.num_kv_heads} of {cfg.name} (whole "
+            f"query and K/V heads a rank; tp not dividing the K/V "
+            f"heads: {ITEM_3B}.4)")
+    if cfg.ssm is not None:
+        heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        if heads % tp:
+            raise ValueError(f"tp={tp} must divide the {heads} Mamba-2 "
+                             f"heads of {cfg.name} (whole heads a rank)")
+    what = ("the encoder-decoder" if cfg.encdec is not None else
+            "the VLM's patch prefix" if cfg.vision is not None else None)
+    if what is not None:
         raise NotImplementedError(
-            f"data parallelism over MoE layers of {cfg.name} (router "
-            f"statistics of the global microbatch) is not ported yet "
-            f"({ITEM_3B})")
+            f"tensor parallelism over {what} of {cfg.name} is not "
+            f"ported yet ({ITEM_3B}.3)")
 
 
 def lm_shard(cfg: ModelConfig, shape, rules, coords, zero_stage: int):

@@ -790,9 +790,13 @@ def _checked_rank(mesh, run) -> Dict:
     ``params`` and ``opt_state``."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_adamw import fused_adamw_flat
-    from repro_torch.kernels.rmsnorm import rmsnorm_rows
+    from repro_torch.kernels.rmsnorm import (rmsnorm_rows,
+                                             rmsnorm_scale_rows,
+                                             rmsnorm_sumsq_rows)
     from repro_torch.kernels.ssd_scan import ssd_scan
     kernels = {"rmsnorm_rows": rmsnorm_rows,
+               "rmsnorm_sumsq_rows": rmsnorm_sumsq_rows,
+               "rmsnorm_scale_rows": rmsnorm_scale_rows,
                "flash_attention_fwd": flash_attention_fwd,
                "fused_adamw_flat": fused_adamw_flat, "ssd_scan": ssd_scan}
     for fn in kernels.values():

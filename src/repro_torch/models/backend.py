@@ -5,7 +5,8 @@ The layer body calls ``backend.rmsnorm``, ``backend.flash`` and
 what runs:
 
 - ``"fused"`` (the default): the hand-written CUDA kernels
-  (:mod:`repro_torch.kernels`) — RMSNorm rows for every layer norm, the
+  (:mod:`repro_torch.kernels`) — RMSNorm rows for every layer norm (the
+  split-width pair where tensor parallelism cuts a row), the
   flash-attention forward for every whole-sequence or prefill-chunk
   attention, and the SSD chunk scan for every Mamba-2 scan, from a zero
   state (training) or from a carried one (serving's prefill chunks) —
@@ -29,10 +30,12 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
+from repro_torch.kernels.rmsnorm.ops import (rmsnorm_fused,
+                                             rmsnorm_split_fused)
 from repro_torch.kernels.ssd_scan.ops import ssd as ssd_fused
 from repro_torch.kernels.ssd_scan.ops import ssd_chunked_ref
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import tp_all_reduce
 
 
 @dataclass(frozen=True)
@@ -47,6 +50,15 @@ class ComputeBackend:
         if not self.fuse_rmsnorm:
             return L.rmsnorm(params, x, eps)
         return rmsnorm_fused(x, params["scale"], eps)
+
+    def rmsnorm_split(self, params, x, eps: float, d_full: int, env):
+        """RMSNorm of rows whose ``d_full`` columns are cut over ``env``'s
+        tp ranks: the split-width kernel pair around the all-reduce of the
+        rows' sums of squares, or the plain version."""
+        if not self.fuse_rmsnorm:
+            return L.rmsnorm_split(params, x, eps, d_full, env)
+        return rmsnorm_split_fused(x, params["scale"], d_full,
+                                   tp_all_reduce(env), eps)
 
     def flash(self, q, k, v, *, causal: bool, window: int, prefix: int,
               q_offset: int = 0):

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.sharding import (copy_to_tp, max_over_tp,
-                                         reduce_from_tp, tp_env)
+                                         reduce_from_tp, sum_over_tp, tp_env)
 
 NEG_INF = -2.0 ** 30
 A_TP, A_FSDP = "tp", "fsdp"
@@ -61,6 +61,18 @@ def rmsnorm(params, x, eps: float = 1e-6):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+def rmsnorm_split(params, x, eps: float, d_full: int, env):
+    """:func:`rmsnorm` of rows whose ``d_full`` columns are cut over the
+    tp ranks of ``env`` (``x`` and ``params["scale"]`` hold this rank's):
+    the rows' sums of squares summed over tp, differentiably
+    (:func:`~repro_torch.models.sharding.sum_over_tp`)."""
+    dt = x.dtype
+    x32 = x.float()
+    ss = sum_over_tp(x32.square().sum(dim=-1, keepdim=True), env)
+    y = x32 * torch.rsqrt(ss / d_full + eps)
     return (y * params["scale"].float()).to(dt)
 
 
@@ -119,13 +131,20 @@ def mlp(params, x, act: str, d_ff: Optional[int] = None):
     split = env is not None and d_ff is not None and env.splits(d_ff)
     if split:
         x = copy_to_tp(x, env)
+    y = mlp_body(params, x, act)
+    return reduce_from_tp(y, env) if split else y
+
+
+def mlp_body(params, x, act: str):
+    """The MLP's products on the leaves as they are (under tp a rank's
+    partial output: the caller enters ``x`` through ``copy_to_tp`` and
+    sums the output over tp)."""
     h = x @ params["wi"]
     if "wg" in params:
         h = _act(x @ params["wg"], act) * h
     else:
         h = _act(h, act)
-    y = h @ params["wo"]
-    return reduce_from_tp(y, env) if split else y
+    return h @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_chunked_ref
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import copy_to_tp, reduce_from_tp, tp_env
 
 
 def init_mamba(gen, n: int, d: int, cfg: SSMConfig, dtype,
@@ -86,17 +87,41 @@ def mamba_block(params, x, cfg: SSMConfig, *, cache: Optional[dict] = None,
     ``backend``: compute backend (:mod:`repro_torch.models.backend`); a
     fused one routes the chunk scan through the SSD kernel (train path,
     no carried state) and the gated norm through the RMSNorm kernel.
-    None runs the plain versions."""
-    B, S, d = x.shape
-    d_in = cfg.expand * d
-    H = d_in // cfg.head_dim
-    P, W = cfg.head_dim, cfg.conv_width
+    None runs the plain versions.
 
-    z = x @ params["wz"]
-    xr = x @ params["wx"]
+    Under a tensor-parallel env (training, no cache) the leaves split
+    over tp hold a rank's ``d_in / tp`` channels and ``H / tp`` heads
+    (the reference's ``mamba_specs``): ``z``, ``x`` and ``dt`` are the
+    rank's, the scan runs on its heads, the gated norm's rows span the
+    ranks (the split-width norm: the sums of squares summed over tp) and
+    ``wo``'s partial products are summed over tp."""
+    B, S, d = x.shape
+    d_full = cfg.expand * d
+    P, W = cfg.head_dim, cfg.conv_width
+    # the heads the leaves hold: all of them, or a tp rank's block where
+    # a tensor-parallel env splits them
+    H_full = d_full // P
+    env = tp_env()
+    if env is not None and not env.splits(H_full):
+        env = None
+    H = H_full if env is None else H_full // env.tp
+    if params["wdt"].shape[-1] != H or (env is not None
+                                         and cache is not None):
+        raise ValueError(f"mamba_block: the leaves hold "
+                         f"{params['wdt'].shape[-1]} of {H_full} heads, "
+                         f"{H} expected"
+                         + ("" if env is None else
+                            f" (a training tp {env.tp} split, no cache)"))
+    d_in = H * P
+    # the split products read x through copy_to_tp (their input gradients
+    # are partial over tp); B and C's products are replicated
+    xs = x if env is None else copy_to_tp(x, env)
+
+    z = xs @ params["wz"]
+    xr = xs @ params["wx"]
     Bc = x @ params["wB"]
     Cc = x @ params["wC"]
-    dt_raw = x @ params["wdt"]
+    dt_raw = xs @ params["wdt"]
 
     decode = cache is not None and S == 1
     if decode:
@@ -125,6 +150,11 @@ def mamba_block(params, x, cfg: SSMConfig, *, cache: Optional[dict] = None,
     xr_c = F.silu(xr_c)
     Bc_c = F.silu(Bc_c)
     Cc_c = F.silu(Cc_c)
+    if env is not None:
+        # replicated B and C feed only this rank's heads: their gradients
+        # are partial over tp and are summed on the way back, so that the
+        # replicated wB, wC, conv_B and conv_C get whole, equal gradients
+        Bc_c, Cc_c = copy_to_tp(Bc_c, env), copy_to_tp(Cc_c, env)
 
     A = -torch.exp(params["A_log"])                      # [H], negative
     dt = _softplus(dt_raw.float() + params["dt_bias"])
@@ -150,9 +180,17 @@ def mamba_block(params, x, cfg: SSMConfig, *, cache: Optional[dict] = None,
 
     y = y + params["D"][None, None, :, None] * xh.float()
     y = y.reshape(B, S, d_in).to(x.dtype)
-    nrm = L.rmsnorm if backend is None else backend.rmsnorm
-    y = nrm({"scale": params["norm_scale"]}, y * F.silu(z), norm_eps)
+    gated, scale = y * F.silu(z), {"scale": params["norm_scale"]}
+    if env is None:
+        nrm = L.rmsnorm if backend is None else backend.rmsnorm
+        y = nrm(scale, gated, norm_eps)
+    else:
+        # the gated norm's row spans the tp ranks' channels
+        nrm = L.rmsnorm_split if backend is None else backend.rmsnorm_split
+        y = nrm(scale, gated, norm_eps, d_full, env)
     out = y @ params["wo"]
+    if env is not None:
+        out = reduce_from_tp(out, env)
 
     if cache is not None:
         for k, t in new_conv.items():

@@ -30,6 +30,8 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import (copy_to_tp, dp_env, reduce_from_tp,
+                                         tp_env)
 
 
 def init_moe(gen, n: int, d: int, cfg: MoEConfig, act: str, dtype,
@@ -95,12 +97,38 @@ def route(xt, router, K: int):
 def moe_ffn(params, x, cfg: MoEConfig, act: str) -> Tuple[torch.Tensor,
                                                           Dict]:
     """x: [B, S, d] -> (y, aux) with aux = {"lb_loss",
-    "router_fraction_dropped"} (fp32 scalars)."""
+    "router_fraction_dropped"} (fp32 scalars).
+
+    Under a data-parallel env ``x`` is the rank's rows of the global
+    microbatch (dp rank ``r`` holds its ``r``-th block of rows) and the
+    routing is the reference's over the global microbatch: the ranks'
+    ``[E]`` expert counts are all-gathered over dp, the capacity is
+    reckoned from the global token count, and a token's rank within its
+    expert is the counts of the dp ranks before it plus its rank here
+    (the stable sort of the global token order), so the kept tokens and
+    ``router_fraction_dropped`` are the global ones.  ``lb_loss`` is
+    then this rank's share of the global loss, ``E * sum(p_r / T *
+    ce)`` with ``p_r`` the rank's summed probabilities, ``T`` the global
+    token count and ``ce`` the global expert fractions: the ranks' shares
+    sum to the global ``lb_loss`` (as their cross-entropy parts sum to
+    the global mean), and each share's gradient reaches only the rank's
+    own tokens.  The rank's expert products run on a ``[E, cap, d]``
+    buffer of its own kept tokens (``cap`` the global capacity).
+
+    Under a tensor-parallel env that splits the experts' hidden width
+    ``wi`` / ``wg`` / ``wo`` hold the rank's ``F / tp`` of each expert
+    (and the shared experts theirs): the router stays replicated in
+    fp32, so every tp rank routes alike; the tokens enter the experts
+    through ``copy_to_tp``, the gates that weight the partial outputs
+    too, and the combined partial outputs (with the shared experts') are
+    summed over tp once."""
     Bz, S, d = x.shape
     T = Bz * S
     E, K = cfg.num_experts, cfg.top_k
     xt = x.reshape(T, d)
     dev = x.device
+    tp, dpe = tp_env(), dp_env()
+    split = tp is not None and tp.splits(cfg.d_ff_expert)
 
     probs, gate_vals, gate_idx = route(xt, params["router"], K)
 
@@ -108,12 +136,22 @@ def moe_ffn(params, x, cfg: MoEConfig, act: str) -> Tuple[torch.Tensor,
     flat_exp = gate_idx.reshape(-1)                           # [T*K]
     counts = torch.zeros(E, dtype=torch.int64, device=dev).index_add_(
         0, flat_exp, torch.ones_like(flat_exp))
-    me = probs.mean(dim=0)                                    # [E]
-    ce = counts.float() / T          # mean over tokens of the k-hot rows
+    if dpe is None:
+        T_all, before, counts_all = T, None, counts
+        me = probs.mean(dim=0)                                # [E]
+    else:
+        ranks = [torch.empty_like(counts) for _ in range(dpe.dp)]
+        dpe.mesh.all_gather_into(ranks, counts, dpe.dp_axis)
+        r = dpe.mesh.coord(dpe.dp_axis)
+        counts_all = torch.stack(ranks).sum(dim=0)
+        before = sum(ranks[:r], torch.zeros_like(counts))
+        T_all = T * dpe.dp
+        me = probs.sum(dim=0) / T_all      # this rank's share of the mean
+    ce = counts_all.float() / T_all  # mean over tokens of the k-hot rows
     lb_loss = E * (me * ce).sum()
 
     # ---- sort-based capacity dispatch ----
-    cap = capacity(T, cfg)
+    cap = capacity(T_all, cfg)
     flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
     flat_w = gate_vals.reshape(-1)
     order = torch.argsort(flat_exp, stable=True)
@@ -122,13 +160,15 @@ def moe_ffn(params, x, cfg: MoEConfig, act: str) -> Tuple[torch.Tensor,
     sorted_w = flat_w[order]
     offsets = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - offsets[sorted_exp]
-    keep = rank < cap
+    # the rank within the expert over the global microbatch
+    keep = (rank if before is None else rank + before[sorted_exp]) < cap
     dest = torch.where(keep, sorted_exp * cap + rank,
                        torch.full_like(rank, E * cap))        # drop slot
 
     # scatter tokens into [E*cap (+1 drop slot), d]; only the drop slot
     # takes more than one row, and it is cut off
-    src = xt[sorted_tok] * keep[:, None].to(x.dtype)
+    xe = copy_to_tp(xt, tp) if split else xt
+    src = xe[sorted_tok] * keep[:, None].to(x.dtype)
     buf = torch.zeros((E * cap + 1, d), dtype=x.dtype,
                       device=dev).index_copy(0, dest, src)
     eb = buf[:E * cap].reshape(E, cap, d)
@@ -144,7 +184,10 @@ def moe_ffn(params, x, cfg: MoEConfig, act: str) -> Tuple[torch.Tensor,
     # the sorted positions of its k picks, added in ascending position
     out_flat = torch.cat([out.reshape(E * cap, d),
                           torch.zeros((1, d), dtype=out.dtype, device=dev)])
-    back = out_flat[dest] * (sorted_w * keep)[:, None].to(out.dtype)
+    w = sorted_w * keep
+    if split:
+        w = copy_to_tp(w, tp)        # the gates weight partial outputs
+    back = out_flat[dest] * w[:, None].to(out.dtype)
     pos = torch.empty_like(order).scatter_(
         0, order, torch.arange(T * K, device=dev))
     pos = pos.view(T, K).sort(dim=1).values
@@ -152,9 +195,18 @@ def moe_ffn(params, x, cfg: MoEConfig, act: str) -> Tuple[torch.Tensor,
     for k in range(1, K):
         y = y + back[pos[:, k]]
 
+    shared = None
     if "shared" in params:
-        y = y + L.mlp(params["shared"], xt, act)
+        ff = cfg.num_shared_experts * cfg.d_ff_shared
+        if split and tp.splits(ff):
+            y = y + L.mlp_body(params["shared"], xe, act)
+        else:       # whole on every rank, or split and summed on its own
+            shared = L.mlp(params["shared"], xt, act, d_ff=ff)
+    if split:
+        y = reduce_from_tp(y, tp)
+    if shared is not None:
+        y = y + shared
 
-    aux = {"lb_loss": lb_loss,
-           "router_fraction_dropped": 1.0 - keep.float().mean()}
+    dropped = 1.0 - counts_all.clamp(max=cap).sum().float() / (T_all * K)
+    aux = {"lb_loss": lb_loss, "router_fraction_dropped": dropped}
     return y.reshape(Bz, S, d), aux

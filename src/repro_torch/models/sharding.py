@@ -101,6 +101,17 @@ class ShardEnv:
         return axis_size(self.mesh, self.tp_axis)
 
     @property
+    def dp_axis(self) -> Axes:
+        return self.rules.get("dp")
+
+    @property
+    def dp(self) -> int:
+        """The size of the data-parallel axis (1 without one)."""
+        if self.mesh is None or self.dp_axis is None:
+            return 1
+        return axis_size(self.mesh, self.dp_axis)
+
+    @property
     def fsdp(self) -> int:
         """The size of the fsdp axis on a running mesh (1 without one)."""
         ax = self.rules.get("fsdp")
@@ -135,6 +146,16 @@ def tp_env() -> Optional[ShardEnv]:
     unsplit)."""
     env = current_env()
     if env is None or env.tp <= 1:
+        return None
+    return env
+
+
+def dp_env() -> Optional[ShardEnv]:
+    """The installed env when its mesh runs a data-parallel axis of size
+    > 1 (a rank then holds its rows of the global microbatch), else
+    None."""
+    env = current_env()
+    if env is None or env.dp <= 1:
         return None
     return env
 
@@ -331,6 +352,39 @@ def reduce_from_tp(x: torch.Tensor, env: Optional[ShardEnv] = None):
     if env is None:
         return x
     return _ReduceFromTP.apply(x, env)
+
+
+class _SumOverTP(torch.autograd.Function):
+    """All-reduce (sum) over tp forward, and its true gradient backward:
+    every rank's input reaches every rank's sum, so each input's gradient
+    is the sum of the ranks' output gradients (an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, env):
+        ctx.env = env
+        y = x.contiguous().clone()
+        env.mesh.all_reduce(y, env.tp_axis)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        env = ctx.env
+        g = g.contiguous().clone()
+        env.mesh.all_reduce(g, env.tp_axis)
+        return g, None
+
+
+def sum_over_tp(x: torch.Tensor, env: ShardEnv) -> torch.Tensor:
+    """Partial sums of the tp ranks summed, differentiably: the forward and
+    the backward each all-reduce over tp (a sum whose every rank's result
+    is used, such as a split row's sum of squares)."""
+    return _SumOverTP.apply(x, env)
+
+
+def tp_all_reduce(env: ShardEnv) -> Callable[[torch.Tensor], torch.Tensor]:
+    """An in-place sum over ``env``'s tp axis (a kernel Function's
+    collective, called in its forward and backward)."""
+    return lambda t: env.mesh.all_reduce(t, env.tp_axis)
 
 
 def max_over_tp(x: torch.Tensor, env: ShardEnv) -> torch.Tensor:

@@ -221,6 +221,17 @@ def _rmsnorm_cost(R, d, itemsize):
     return 0, (2 * R * d + d) * itemsize
 
 
+def _rmsnorm_sumsq_cost(R, d, itemsize):
+    """Bytes only: x read once, the fp32 sums written."""
+    return 0, R * d * itemsize + 4 * R
+
+
+def _rmsnorm_scale_cost(R, d, itemsize):
+    """Bytes only: x read and y written once, the fp32 sums and the scale
+    once."""
+    return 0, (2 * R * d + d) * itemsize + 4 * R
+
+
 def _adamw_cost(n, g_itemsize):
     """g read once; mu, nu and w read and written once, fp32."""
     return ADAMW_FLOPS * n, (g_itemsize + ADAMW_STATE_BYTES) * n
@@ -245,7 +256,9 @@ def _ssd_cost(B, S, H, P, N, Q, itemsize, h0=False):
 
 
 _COSTS = {"flash_attention_fwd": _flash_cost, "rmsnorm_rows": _rmsnorm_cost,
-          "fused_adamw_flat": _adamw_cost, "ssd_scan": _ssd_cost}
+          "fused_adamw_flat": _adamw_cost, "ssd_scan": _ssd_cost,
+          "rmsnorm_sumsq_rows": _rmsnorm_sumsq_cost,
+          "rmsnorm_scale_rows": _rmsnorm_scale_cost}
 KERNELS = tuple(_COSTS)
 
 
@@ -256,7 +269,8 @@ def kernel_cost(name: str, **shapes) -> Tuple[int, int]:
 
     - ``flash_attention_fwd``: B, Sq, Sk, H, G, d, itemsize, causal,
       window, prefix, q_offset;
-    - ``rmsnorm_rows``: R, d, itemsize;
+    - ``rmsnorm_rows``, ``rmsnorm_sumsq_rows``, ``rmsnorm_scale_rows``:
+      R, d, itemsize;
     - ``fused_adamw_flat``: n, g_itemsize;
     - ``ssd_scan``: B, S, H, P, N, Q (the chunk), itemsize, h0 (bool)."""
     if name not in _COSTS:

@@ -194,6 +194,46 @@ def test_mesh_layouts_and_rules_equal_the_reference(monkeypatch):
     assert M.MESH_RULES == want
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen2-moe-a2.7b",
+                                  "jamba-v0.1-52b"])
+def test_mesh_takes_the_ssm_moe_and_hybrid_families(arch):
+    """Full and reduced mamba2-2.7b (attention-free: its unused
+    ``num_heads=1`` is not read), qwen2-moe-a2.7b and jamba-v0.1-52b pass
+    ``check_mesh_model`` at tp 2 and dp 2 (and both); whisper and
+    paligemma keep their refusal under tp."""
+    for cfg in (get_config(arch), get_reduced(arch)):
+        for dp, tp in ((2, 1), (1, 2), (2, 2)):
+            check_mesh_model(cfg, dp, tp)
+    assert get_config("mamba2-2.7b").num_heads == 1
+    with pytest.raises(NotImplementedError, match="item 3b.3"):
+        check_mesh_model(get_config("whisper-base"), 2, 2)
+    with pytest.raises(ValueError, match="item 3b.4"):
+        check_mesh_model(get_config("paligemma-3b"), 1, 2)
+
+
+@pytest.mark.parametrize("name,mesh,rules", LAYOUTS,
+                         ids=[x[0] for x in LAYOUTS])
+def test_exp_resolves_to_no_mesh_axis(name, mesh, rules):
+    """The experts' ``exp`` axis is mapped by none of the rule sets (no
+    expert parallelism, as in the reference): it resolves to no mesh axis
+    in the port and the reference alike, so every MoE expert leaf of
+    qwen2-moe-a2.7b and jamba-v0.1-52b keeps its expert dimension whole
+    on every layout."""
+    env = S.ShardEnv(mesh, rules)
+    jenv = jax_sharding.ShardEnv(Stub(mesh.shape), rules)
+    assert "exp" not in rules
+    assert env.resolve(("exp",)) == () == tuple(jenv.resolve(("exp",)))
+    for arch in ("qwen2-moe-a2.7b", "jamba-v0.1-52b"):
+        cfg, lay, tree = _port(arch, _pp_of(mesh, rules))
+        params, _ = pipeline_layout_specs(pipeline_logical_specs(cfg, lay))
+        for path, sp, a in zip(tree_paths(tree), S.spec_leaves(params),
+                               tree_leaves(tree)):
+            if path[-2] == "moe" and path[-1] in ("wi", "wg", "wo"):
+                phys = S.sanitize_spec(env.resolve(sp), a.shape, mesh)
+                assert sp[3] == "exp"
+                assert len(phys) < 4 or phys[3] is None, (path, phys)
+
+
 def test_resolve_and_sanitize_corner_cases():
     """Duplicates dropped, tuples resolved, trailing Nones stripped, a
     dimension the axis does not divide left whole (whisper's 51865
@@ -284,30 +324,29 @@ def test_rank_shard_slices_and_ownership():
 
 
 def test_refusals_without_processes():
-    """tp not dividing the heads (ValueError); Mamba-2, MoE, the
-    encoder-decoder and the VLM under tp, MoE under dp
+    """tp not dividing the heads of a config with attention layers, or the
+    Mamba-2 heads (ValueError); the encoder-decoder and the VLM under tp
     (NotImplementedError naming the ROADMAP item); ZeRO stages 0-3 run,
     another stage raises ValueError."""
     tiny = get_reduced("tinyllama-1.1b")            # 8 heads, 2 K/V heads
-    with pytest.raises(ValueError, match="num_kv_heads=2"):
+    with pytest.raises(ValueError, match="num_kv_heads=2.*item 3b.4"):
         check_mesh_model(tiny, 1, 4)
     with pytest.raises(ValueError, match="num_heads=8"):
         check_mesh_model(dataclasses.replace(tiny, num_kv_heads=8), 1, 3)
     check_mesh_model(tiny, 2, 2)
     check_mesh_model(get_reduced("deepseek-7b"), 1, 4)
-    for arch, what in (("mamba2-2.7b", "Mamba-2"), ("qwen2-moe-a2.7b", "MoE"),
-                       ("whisper-base", "encoder-decoder"),
+    with pytest.raises(ValueError, match="3 must divide the 8 Mamba-2"):
+        check_mesh_model(get_reduced("mamba2-2.7b"), 1, 3)
+    for arch, what in (("whisper-base", "encoder-decoder"),
                        ("paligemma-3b", "VLM")):
         cfg = get_reduced(arch)
         tp = 2 if cfg.num_kv_heads % 2 == 0 else 1
         if tp == 1:
             cfg = dataclasses.replace(cfg, num_heads=8, num_kv_heads=2)
         with pytest.raises(NotImplementedError,
-                           match=f"{what}.*ROADMAP queue A item 3b"):
+                           match=f"{what}.*ROADMAP queue A item 3b.3"):
             check_mesh_model(cfg, 1, 2)
-    with pytest.raises(NotImplementedError, match="MoE.*item 3b"):
-        check_mesh_model(get_reduced("qwen2-moe-a2.7b"), 2, 1)
-    check_mesh_model(get_reduced("mamba2-2.7b"), 2, 1)
+        check_mesh_model(get_reduced(arch), 2, 1)
     for z in (-1, 4):
         with pytest.raises(ValueError, match=f"zero_stage={z}"):
             check_zero_stage(ParallelPlan(zero_stage=z))
