@@ -207,8 +207,9 @@ Phases, in order; any failure exits non-zero:
     against the phase's median step, beside the card's name and power
     limit; and phase 4's decode tick counted there, its bytes at least
     the weights ``decode_bound_ms`` reads;
-27. train-ranks: phase 6's configuration trained as four processes on
-    the card, one pipeline stage each (``repro_torch.launch.mesh.spawn``,
+27. train-ranks: phase 6's configuration cut to 8 layers
+    (``RANKS_LAYERS``) trained as four processes on the card, one
+    pipeline stage each (``repro_torch.launch.mesh.spawn``,
     gloo through page-locked host memory: NCCL refuses two ranks on one
     device, and that refusal is checked first), 2 steps with the
     overlapped exchange and 1 with the synchronous one, each rank's
@@ -247,7 +248,18 @@ Phases, in order; any failure exits non-zero:
     equal on all ranks and to the one-process run's); then ``train()``
     of each on pp 1 x dp 4 x tp 2 at stage 1, one step and its fp32
     check;
-31. a JSON ``kernels`` line, then the JSON result line.
+31. train-encvlm, in the same processes, gated as phase 30:
+    whisper-base at full width and depth (its encoder over tp, the
+    cross-attention's encoder input summed over tp backward, its odd
+    51865-row table and head whole on every tp rank), v=1, 449-token
+    sequences with their 1500 frames, on pp 2 x dp 2 x tp 2, and
+    paligemma-3b at full width, 4 layers and its whole vocabulary on the
+    processes regrouped as pp 2 x dp 1 x tp 4 (its one K/V head on the
+    four tp ranks of its K/V group: their copies bitwise equal after
+    every step, their gradient summed over them), 2 steps each and their
+    fp32 checks; then ``train()`` of each on pp 1 x dp 4 x tp 2
+    (paligemma at 2 layers), one step and its fp32 check;
+32. a JSON ``kernels`` line, then the JSON result line.
 
 Every bound phase 3 prints is ``repro_torch.roofline.kernel_cost``'s
 work of the kernel's function over the H100's peaks (``kernel_bound``).
@@ -260,7 +272,10 @@ training shape beside its bound, the plain version and SDPA with the
 boolean prefix-LM mask, with the Function's gradients there; and flash
 at a tp=2 rank's heads of the training shape (phase 28's: q
 [1,2048,16,64] over kv [1,2048,2,64]) in fp32 and bf16, timed beside
-the plain version, SDPA and the bound; and the split-width RMSNorm pair
+the plain version, SDPA and the bound, and at phase 31's rank shapes (a
+tp 4 paligemma rank's q [1,2304,2,256] over its one K/V head, prefix
+256; a tp 2 whisper encoder rank's q = kv [1,1500,4,64], non-causal),
+bf16, timed likewise; and the split-width RMSNorm pair
 (``rmsnorm_sumsq_rows``, ``rmsnorm_scale_rows``) against its plain
 versions and, over two column halves, against ``rmsnorm_rows`` on the
 whole rows, timed at a tp 2 rank's [2049, 2560] in bf16 and fp32 beside
@@ -298,7 +313,9 @@ a slow one, where the whole run took 1001.2 s and 1206.4 s: to keep a
 slow host inside the limit, mamba2's phases 8, 10 and 11 run 8 layers
 (16 before), and phases 10, 16a, 16b, 29 (A) and 27's synchronous
 run one step, phases 11 (and its fp32 checks) and 27's overlapped run
-two, phase 29 (B)'s stage 3 one.  Host speed moves the host-paced phases by up to ~45%.
+two, phase 29 (B)'s stage 3 one.  Phase 31 added ~80 s on a fast host
+(the whole run 790.4 s there): phase 27 runs 8 of its 22 layers to pay
+for it.  Host speed moves the host-paced phases by up to ~45%.
 
 Needs one CUDA card and imports nothing of JAX or of the JAX package.
 """
@@ -1475,6 +1492,76 @@ def phase_flash_d256(torch, gen, rows):
                               (torch.bfloat16, 2e-2, 1e-2)):
         _flash_grad_case(torch, gen, gdt, 512, tol_o, tol_g, H=8, G=1,
                          d=256, prefix=64)
+
+
+# phase 31's ranks, bf16: (q heads, K/V heads, head dim, positions, mask)
+FLASH_ENCVLM = {
+    # a tp 4 rank of paligemma-3b: 2 of its 8 query heads over its one
+    # K/V head, the 256 patches a bidirectional prefix
+    "train_tp4_d256": (2, 1, 256, PALI_PREFIX + TRAIN_SEQ - 1,
+                       dict(prefix=PALI_PREFIX)),
+    # a tp 2 rank of whisper-base's encoder: 4 of its 8 heads over the
+    # 1500 frames, non-causal
+    "train_tp2_encoder": (4, 4, 64, 1500, dict(causal=False)),
+}
+
+
+def phase_flash_encvlm(torch, gen, rows):
+    """Flash at phase 31's rank shapes (``FLASH_ENCVLM``, bf16): each held
+    against ``attention_ref`` at phase 3's tolerances, timed by
+    CUDA-graph replay beside the plain version, SDPA (paligemma's given
+    the boolean prefix-LM mask, K/V repeated to the query heads) and the
+    bound from ``kernel_cost``."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    import torch.nn.functional as F
+    dt = torch.bfloat16
+    for key, (H, G, d, S, kw) in FLASH_ENCVLM.items():
+        q = torch.randn((1, S, H, d), generator=gen, device="cuda").to(dt)
+        k = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((1, S, G, d), generator=gen, device="cuda").to(dt)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_ref(q, k, v, **kw)
+        e_o, e_l = max_err(o, o_ref), max_err(lse, lse_ref)
+        ok = e_o <= 2e-2 and e_l <= 1e-5
+        shape = f"q [1,{S},{H},{d}] kv [1,{S},{G},{d}] bf16 {kw}"
+        print(f"[kernels] flash_attention_fwd at phase 31's {key} shape "
+              f"{shape}: max|d| o={e_o:.3e} (tol 2e-2) lse={e_l:.3e} (tol "
+              f"1e-5) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash_attention_fwd disagrees with attention_ref at "
+                 f"{key}")
+        del o, lse, o_ref, lse_ref
+        ms = graph_ms(lambda: flash_attention_fwd(q, k, v, **kw))
+        plain_ms = graph_ms(lambda: attention_ref(q, k, v, **kw), reps=3,
+                            iters=3)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
+        pre, causal = kw.get("prefix", 0), kw.get("causal", True)
+        if pre:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) | (pos[None, :] < pre)
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+        else:
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+        b_ms, by, flops, nbytes = kernel_bound(
+            "flash_attention_fwd", B=1, Sq=S, Sk=S, H=H, G=G, d=d,
+            itemsize=q.element_size(), causal=causal, prefix=pre)
+        print(f"[kernels] flash_attention_fwd {key} timed (CUDA graph): "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (kernel = "
+              f"{ms / lib_ms:.2f}x SDPA), bound {b_ms * 1e3:.2f} us ({by}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) = "
+              f"{ms / b_ms:.1f}x bound")
+        rows["flash_attention_fwd"][key] = {
+            "max_abs_err": e_o, "lse_max_abs_err": e_l, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": by, "timed_shape": shape}
+        del q, k, v, qt, kt, vt
 
 
 def phase_flash_offsets(torch, gen, rows, H=32, G=4, d=64, n_seqs=(2, 4),
@@ -2794,8 +2881,12 @@ def expected_single_launches(cfg, m: int, tp: int = 1):
     once.  The final norm is the plain one of ``LM.head``, and the update
     is the plain AdamW: no fused-AdamW launch.  Under ``tp`` > 1 the
     Mamba-2 gated norm launches the split-width pair in place of
-    ``rmsnorm_rows``."""
+    ``rmsnorm_rows``.  An encoder-decoder's layers add ``norm_x`` (its
+    cross-attention takes the plain path), and its encoder runs once a
+    microbatch outside the checkpoints: per encoder layer one flash
+    kernel (``causal=False``) and rmsnorm twice, then ``enc_norm``."""
     wrapped = cfg.num_layers // cfg.period * cfg.period
+    n_enc = cfg.encdec.num_encoder_layers if cfg.encdec is not None else 0
     n = {"flash_attention_fwd": 0, "rmsnorm_rows": 0, "ssd_scan": 0,
          "fused_adamw_flat": 0}
     if tp > 1:
@@ -2807,10 +2898,12 @@ def expected_single_launches(cfg, m: int, tp: int = 1):
         n["flash_attention_fwd"] += times * (kind == "attn")
         n["ssd_scan"] += times * gated
         n["rmsnorm_rows"] += times * (1 + (gated and tp == 1)
-                                      + (cfg.d_ff > 0))
+                                      + (cfg.d_ff > 0) + (n_enc > 0))
         if tp > 1:
             n["rmsnorm_sumsq_rows"] += times * gated
             n["rmsnorm_scale_rows"] += times * gated
+    n["flash_attention_fwd"] += m * n_enc
+    n["rmsnorm_rows"] += m * (2 * n_enc + (n_enc > 0))
     return n
 
 
@@ -5118,7 +5211,31 @@ def phase_roofline(torch, smi: str, dry: DryRun) -> None:
 # 27. the pipeline stages as torch.distributed ranks
 # ---------------------------------------------------------------------------
 
+def release_host_cache(torch) -> str:
+    """Return the page-locked blocks torch's caching host allocator keeps
+    free (the earlier phases' offload, checkpoint and staging copies; it
+    rounds each to a power of two and never frees one by itself) to the
+    system, so that the mesh phases' eight processes have the host's
+    memory.  Returns a line: the pinned bytes held before and after, or
+    that this torch has no binding for it."""
+    fn = getattr(torch._C, "_host_emptyCache", None)
+
+    def held():
+        return torch.cuda.host_memory_stats().get("allocated_bytes.current",
+                                                  0)
+    before = held()
+    if fn is None:
+        return (f"page-locked host cache {_gib(before)} GiB kept (no "
+                f"binding to release it in torch {torch.__version__})")
+    fn()
+    return f"page-locked host cache {_gib(before)} -> {_gib(held())} GiB"
+
+
 RANKS_P = 4
+# phase 6's tinyllama-1.1b cut to 8 of its 22 layers (22 before phase 31
+# needed the time: 72.5 s, 34.6 s of it the four fresh processes' first
+# step, on a fast host)
+RANKS_LAYERS = 8
 RANKS_STEPS = 2          # the first a warm-up (3 before phase 30)
 RANKS_SYNC_STEPS = 1     # the synchronous exchange's run (2 before phase
 #                          30; warm, after the overlapped run)
@@ -5238,7 +5355,7 @@ def rank_predictions(tc=None) -> dict:
     from repro_torch.core.schedule import comm_calibration
     from repro_torch.core.schedules import get_schedule
     from repro_torch.launch.dryrun import collective_stats
-    tc = tc or _train_config("tinyllama-1.1b")
+    tc = tc or _train_config("tinyllama-1.1b", layers=RANKS_LAYERS)
     cfg, plan = tc.model, tc.plan
     spec = _spec_of(tc, RANKS_P)
     sched = get_schedule(plan.schedule, RANKS_P, spec.table.m,
@@ -5259,9 +5376,9 @@ def rank_predictions(tc=None) -> dict:
             "calibration": comm_calibration(sched, RANKS_TC)}
 
 
-def phase_train_ranks(torch, smi: str, base):
-    """27: phase 6's configuration trained as ``RANKS_P`` processes on the
-    card (gloo through page-locked host memory, the ``host`` transport):
+def phase_train_ranks(torch, smi: str):
+    """27: phase 6's configuration cut to ``RANKS_LAYERS`` layers trained
+    as ``RANKS_P`` processes on the card (gloo through page-locked host memory, the ``host`` transport):
     NCCL's refusal of two ranks on one device first; then one spawn whose
     ranks each run ``RANKS_STEPS`` steps with the overlapped exchange,
     ``RANKS_SYNC_STEPS`` with the synchronous one, and the fp32 check.
@@ -5281,7 +5398,7 @@ def phase_train_ranks(torch, smi: str, base):
                                                    make_train_grads_fn)
     from repro_torch.launch.mesh import spawn
     from repro_torch.tree import tree_leaves, tree_map
-    tc = _train_config("tinyllama-1.1b")      # phase 6's configuration
+    tc = _train_config("tinyllama-1.1b", layers=RANKS_LAYERS)
     spec = _spec_of(tc, RANKS_P)
     pred = rank_predictions(tc)
     try:
@@ -5303,6 +5420,8 @@ def phase_train_ranks(torch, smi: str, base):
         del g1, m1, params, batch
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"[train-ranks] {release_host_cache(torch)} (this process, "
+              f"before the spawn)")
         t0 = time.perf_counter()
         outs = spawn(RANKS_P, _train_ranks_body,
                      args=(tc, RANKS_STEPS, RANKS_SYNC_STEPS, ref_path),
@@ -5326,12 +5445,9 @@ def phase_train_ranks(torch, smi: str, base):
     if not all(all(o["replicas_equal"]) for o in over + sync):
         fail(f"27: shared replicas differ across ranks "
              f"{[o['replicas_equal'] for o in over + sync]}")
-    b6 = base["tinyllama-1.1b"]
-    print(f"[train-ranks] losses {losses} (phase 6, one process: "
-          f"{b6['losses'][:RANKS_STEPS]}; step 1 "
-          f"{'bitwise equal' if losses[0] == b6['losses'][0] else 'differs'}"
-          f"); gradient norms {over[0]['grad_norms']}; shared replicas "
-          f"equal on every rank after every step")
+    print(f"[train-ranks] losses {losses}; gradient norms "
+          f"{over[0]['grad_norms']}; shared replicas equal on every rank "
+          f"after every step")
     # the launches: every op of the table runs on one rank; each rank
     # updates its own tree (the full tree's leaf count) with fused AdamW
     n_leaves = len(tree_leaves(init_pipeline_params(
@@ -5386,8 +5502,7 @@ def phase_train_ranks(torch, smi: str, base):
     scale = max(med_sync) / cal["sync"]
     print(f"[train-ranks] {smi} | step (slowest rank's median): "
           f"overlapped {max(med) * 1e3:.1f} ms, synchronous "
-          f"{max(med_sync) * 1e3:.1f} ms, phase 6's one process "
-          f"{b6['median_s'] * 1e3:.1f} ms; comm_calibration at tc "
+          f"{max(med_sync) * 1e3:.1f} ms; comm_calibration at tc "
           f"{RANKS_TC} grains {cal} scaled by the synchronous step "
           f"({scale * 1e3:.2f} ms a grain): zero "
           f"{cal['zero'] * scale * 1e3:.1f} ms, async {cal['async'] * scale * 1e3:.1f} ms, sync "
@@ -5431,8 +5546,15 @@ MESH_SHAPE = (2, 2, 2)   # pp x dp x tp: eight processes on the card
 # at 4 layers, v=2; qwen2-moe-a2.7b (phase 30) at 2 layers, one a stage
 # (v=1): at 4 layers (v=2) the eight ranks' state leaves less than 10 GB
 # of the card (PERF.md, section 6)
-MESH_LAYERS = {"tinyllama-1.1b": 4, "mamba2-2.7b": 4, "qwen2-moe-a2.7b": 2}
-MESH_CHUNKS = {"tinyllama-1.1b": 2, "mamba2-2.7b": 2, "qwen2-moe-a2.7b": 1}
+# phase 31: whisper-base at its full depth (6 decoder and 6 encoder
+# layers), one a stage (v=1); paligemma-3b at 4 of its 18 layers, v=2
+MESH_LAYERS = {"tinyllama-1.1b": 4, "mamba2-2.7b": 4, "qwen2-moe-a2.7b": 2,
+               "whisper-base": 6, "paligemma-3b": 4}
+MESH_CHUNKS = {"tinyllama-1.1b": 2, "mamba2-2.7b": 2, "qwen2-moe-a2.7b": 1,
+               "whisper-base": 1, "paligemma-3b": 2}
+# tokens a sequence where not TRAIN_SEQ: whisper's decoder context of
+# 448 positions (phase 19's length), each sequence with its 1500 frames
+MESH_SEQ = {"whisper-base": 449}
 # qwen2-moe's vocabulary held here: half of its 151936 rows (the share of
 # a second pair of vocab-parallel chips).  Every rank of the pipeline
 # holds the embedding and the head with their whole fp32 state over dp,
@@ -5449,14 +5571,18 @@ MESH_TIMEOUT = 600       # seconds for the phases' one spawn (28-30)
 MESH_CHECK = dict(m=2, seq=257)    # the fp32 checks
 
 
-def _mesh_model(arch: str, check: bool = False):
+def _mesh_model(arch: str, check: bool = False, single: bool = False):
     """``arch`` at full width as the mesh phases run it: ``MESH_LAYERS``
-    layers, an MoE config's vocabulary cut to its share
+    layers (``single``: ``train()``'s, ``SINGLE_MESH_LAYERS`` where it
+    names the config), an MoE config's vocabulary cut to its share
     (``MOE_VOCAB_SHARE``); ``check``: fp32, and the check's share."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(arch), num_layers=MESH_LAYERS[arch])
+    layers = MESH_LAYERS[arch]
+    if single:
+        layers = SINGLE_MESH_LAYERS.get(arch, layers)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, vocab_size=cfg.vocab_size
                                   // MOE_VOCAB_SHARE["check" if check
@@ -5468,45 +5594,68 @@ def _mesh_model(arch: str, check: bool = False):
 
 
 def _mesh_config(arch: str = "tinyllama-1.1b"):
-    """Phase 28's (and 30's) configuration: ``_mesh_model(arch)``,
+    """Phase 28's (and 30's and 31's) configuration: ``_mesh_model(arch)``,
     chronos_zb P=2 at ``MESH_CHUNKS`` chunks a stage, one 2049-token
-    sequence a dp rank a microbatch (a global microbatch of dp
-    sequences), m=4."""
+    (``MESH_SEQ``) sequence a dp rank a microbatch (a global microbatch
+    of dp sequences), m=4."""
     import dataclasses
-    tc = _train_config(arch, num_microbatches=4, num_chunks=MESH_CHUNKS[arch])
+    tc = _train_config(arch, seq=MESH_SEQ.get(arch, TRAIN_SEQ),
+                       num_microbatches=4, num_chunks=MESH_CHUNKS[arch])
     return dataclasses.replace(tc, model=_mesh_model(arch))
+
+
+def _mesh_shape(arch: str):
+    """The ``(pp, dp, tp)`` layout ``arch`` trains on in phases 28-31."""
+    return ENCVLM_SHAPE.get(arch, MESH_SHAPE)
 
 
 def _mesh_check_spec(global_batch: bool, arch: str = "tinyllama-1.1b"):
     """The fp32 check's spec: ``_mesh_model(arch, True)``, chronos_zb,
     P=2, ``MESH_CHUNKS`` chunks a stage, m=2 microbatches of one 257-token
-    sequence a dp rank (``global_batch``: the one-process run's two),
-    fused kernels, the overlapped table."""
+    sequence a dp rank of ``_mesh_shape(arch)`` (``global_batch``: the
+    one-process run's dp), fused kernels, the overlapped table."""
     from repro_torch.core.pipeline_runtime import make_pipeline_spec
     c = MESH_CHECK
-    return make_pipeline_spec(_mesh_model(arch, True), P=MESH_SHAPE[0],
+    pp, dp, _ = _mesh_shape(arch)
+    return make_pipeline_spec(_mesh_model(arch, True), P=pp,
                               v=MESH_CHUNKS[arch], m=c["m"],
-                              microbatch=MESH_SHAPE[1] if global_batch
-                              else 1, seq_len=c["seq"],
-                              schedule="chronos_zb", kernels="fused",
-                              overlap=True)
+                              microbatch=dp if global_batch else 1,
+                              seq_len=c["seq"], schedule="chronos_zb",
+                              kernels="fused", overlap=True)
 
 
-def _mesh_check_inputs(torch, spec, device):
-    """The check's weights (seed 0) and global tokens (seed 1)."""
+def _embeds(torch, cfg, lead, device):
+    """A VLM's ``patch_embeds`` or an encoder-decoder's ``frame_embeds``
+    (``lead`` + ``[P or T, d]``, N(0, 1) fp32, seed 2), else none."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    out = {}
+    for key, n in (("patch_embeds", cfg.vision and cfg.vision.num_patches),
+                   ("frame_embeds", cfg.encdec and cfg.encdec.num_frames)):
+        if n:
+            out[key] = torch.randn(tuple(lead) + (n, cfg.d_model),
+                                   generator=gen, device=device)
+    return out
+
+
+def _mesh_check_inputs(torch, spec, device, dp: int = MESH_SHAPE[1]):
+    """The check's weights (seed 0) and global batch of ``dp`` sequences
+    a microbatch: tokens (seed 1), and the config's patch or frame
+    embeddings (seed 2)."""
     from repro_torch.core.pipeline_runtime import init_pipeline_params
     params = init_pipeline_params(
         torch.Generator(device=device).manual_seed(0), spec.cfg,
         spec.layout, device)
     c = MESH_CHECK
     tokens = torch.randint(0, spec.cfg.vocab_size,
-                           (c["m"], MESH_SHAPE[1], c["seq"]), device=device,
+                           (c["m"], dp, c["seq"]), device=device,
                            generator=torch.Generator(
                                device=device).manual_seed(1))
-    return params, {"tokens": tokens}
+    return params, {"tokens": tokens,
+                    **_embeds(torch, spec.cfg, (c["m"], dp), device)}
 
 
-def _mesh_reference(torch, path, arch: str = "tinyllama-1.1b"):
+def _mesh_reference(torch, path, arch: str = "tinyllama-1.1b",
+                    device: str = "cuda"):
     """The one-process executor's fp32 gradients and loss on the check's
     global batch of ``arch``, saved to ``path`` with every F op's MoE
     dropped fractions (:class:`_DroppedRecorder`); returns each leaf's
@@ -5514,9 +5663,10 @@ def _mesh_reference(torch, path, arch: str = "tinyllama-1.1b"):
     from repro_torch.core.pipeline_runtime import make_train_grads_fn
     from repro_torch.tree import tree_leaves, tree_map
     spec = _mesh_check_spec(True, arch)
-    params, batch = _mesh_check_inputs(torch, spec, "cuda")
+    params, batch = _mesh_check_inputs(torch, spec, device,
+                                       _mesh_shape(arch)[1])
     with _DroppedRecorder() as rec:
-        g, met = make_train_grads_fn(spec, "cuda")(params, batch)
+        g, met = make_train_grads_fn(spec, device)(params, batch)
     del params
     g = tree_map(lambda a: a.cpu(), g)
     torch.save({"g": g, "loss": met["loss"].cpu(),
@@ -5541,7 +5691,7 @@ def _mesh_fp32_check(torch, mesh, ref_path, zero_stage: int = 1,
     dev, p = mesh.device, mesh.coord("pp")
     shard = RankShard(spec.cfg, spec.layout, mesh.shape, mesh.rules,
                       mesh.coords, zero_stage)
-    params, batch = _mesh_check_inputs(torch, spec, dev)
+    params, batch = _mesh_check_inputs(torch, spec, dev, mesh.dp)
     params = rank_params(params, p, shard)
     gc.collect()
     torch.cuda.empty_cache()       # the whole tree each rank drew
@@ -5579,7 +5729,8 @@ def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path, fam_refs):
     ZeRO stage 3 and its fp32 check, and on the same eight processes
     regrouped as ``SINGLE_MESH_SHAPE`` ``train()`` for each ``(stage,
     steps)`` of ``SINGLE_MESH_RUNS`` and its fp32 check; then phase 30's
-    (:func:`_families_body`, ``fam_refs`` its references).  ``base``: the
+    and phase 31's (:func:`_families_body`, ``fam_refs`` their
+    references).  ``base``: the
     bytes allocated just before each run (after ``_warm_blas``), which
     the memory readings are taken over."""
     import dataclasses
@@ -5594,6 +5745,7 @@ def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path, fam_refs):
     def free():
         gc.collect()
         torch.cuda.empty_cache()
+        release_host_cache(torch)
         return torch.cuda.memory_allocated()
     _warm_blas(torch)
     base = {"train": free()}
@@ -5626,6 +5778,8 @@ def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path, fam_refs):
     res["single_s"] = time.perf_counter() - t0
     res["families"] = _families_body(mesh, single, log, free, base,
                                      fam_refs)
+    res["encvlm"] = _families_body(mesh, single, log, free, base, fam_refs,
+                                   ENCVLM)
     return res
 
 
@@ -5638,25 +5792,32 @@ SINGLE_MESH_SHAPE = (1, 4, 2)   # phase 29 (B): the same eight processes
 SINGLE_MESH_RUNS = ((3, 1), (1, 1))
 SINGLE_MESH_CHECK = dict(seq=257)    # the fp32 checks
 # microbatches of one sequence a dp rank in a train() step: phase 29 (B)'s
-# tinyllama 2, phase 30 (C)'s one (its qwen2-moe step reduce-scatters the
-# experts' gradients over dp each microbatch: 26.2 GB at 2)
-SINGLE_MESH_M = {"tinyllama-1.1b": 2, "mamba2-2.7b": 1, "qwen2-moe-a2.7b": 1}
+# tinyllama 2, phases 30 and 31 (C)'s one (30's qwen2-moe step
+# reduce-scatters the experts' gradients over dp each microbatch: 26.2 GB
+# at 2)
+SINGLE_MESH_M = {"tinyllama-1.1b": 2, "mamba2-2.7b": 1, "qwen2-moe-a2.7b": 1,
+                 "whisper-base": 1, "paligemma-3b": 1}
+# layers of train() on the mesh where not MESH_LAYERS: phase 31 (C)'s
+# paligemma-3b
+SINGLE_MESH_LAYERS = {"paligemma-3b": 2}
 
 
 def _single_mesh_config(zero_stage: int, check: bool = False,
                         arch: str = "tinyllama-1.1b"):
-    """Phase 29 (B) (and 30 (C)): ``_mesh_model(arch, check)`` through
-    ``train()`` on ``SINGLE_MESH_SHAPE``: ``SINGLE_MESH_M`` microbatches of
-    one 2049-token sequence a dp rank a step, chronos recompute over 2
-    chunks, at ``zero_stage``; ``check``: the fp32 check's (257 tokens)."""
+    """Phase 29 (B) (and 30 and 31 (C)): ``_mesh_model(arch, check,
+    single=True)`` through ``train()`` on ``SINGLE_MESH_SHAPE``:
+    ``SINGLE_MESH_M`` microbatches of one 2049-token (``MESH_SEQ``)
+    sequence a dp rank a step, chronos recompute over 2 chunks, at
+    ``zero_stage``; ``check``: the fp32 check's (257 tokens)."""
     import dataclasses
 
     from repro_torch.configs.base import RecomputeConfig
     tc = _single_config(arch, RecomputeConfig("chronos"), 1)
     tc = dataclasses.replace(
-        tc, model=_mesh_model(arch, check),
+        tc, model=_mesh_model(arch, check, single=True),
         shape=dataclasses.replace(tc.shape, global_batch=SINGLE_MESH_M[arch]
-                                  * SINGLE_MESH_SHAPE[1]),
+                                  * SINGLE_MESH_SHAPE[1],
+                                  seq_len=MESH_SEQ.get(arch, TRAIN_SEQ)),
         plan=dataclasses.replace(tc.plan, zero_stage=zero_stage))
     if not check:
         return tc
@@ -5666,7 +5827,8 @@ def _single_mesh_config(zero_stage: int, check: bool = False,
 
 def _single_mesh_check_inputs(torch, tc, device):
     """The (B) check's weights (seed 0) and global batch (seed 1:
-    ``[m, dp, seq]`` tokens)."""
+    ``[m, dp, seq]`` tokens; seed 2: the config's patch or frame
+    embeddings)."""
     from repro_torch.models import LM
     dp = SINGLE_MESH_SHAPE[1]
     m = tc.shape.global_batch // dp
@@ -5675,19 +5837,21 @@ def _single_mesh_check_inputs(torch, tc, device):
     tokens = torch.randint(0, tc.model.vocab_size, (m, dp, tc.shape.seq_len),
                            device=device, generator=torch.Generator(
                                device=device).manual_seed(1))
-    return params, {"tokens": tokens}, m
+    return params, {"tokens": tokens,
+                    **_embeds(torch, tc.model, (m, dp), device)}, m
 
 
-def _single_mesh_reference(torch, path, arch: str = "tinyllama-1.1b"):
+def _single_mesh_reference(torch, path, arch: str = "tinyllama-1.1b",
+                           device: str = "cuda"):
     """The one-process ``train()`` step's fp32 gradient sums and loss sum
     on the (B) check's inputs of ``arch``, saved to ``path``; returns each
     leaf's largest |element|."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.tree import tree_leaves
     tc = _single_mesh_config(1, check=True, arch=arch)
-    params, batch, m = _single_mesh_check_inputs(torch, tc, "cuda")
+    params, batch, m = _single_mesh_check_inputs(torch, tc, device)
     step, _ = make_train_step(tc.model, tc.plan, tc.optimizer, m,
-                              device="cuda")
+                              device=device)
     g, lsum = step.grads(params, batch)
     del params
     torch.save({"g": [a.cpu() for a in tree_leaves(g)],
@@ -5719,17 +5883,17 @@ def _single_mesh_fp32_check(torch, mesh, ref_path, zero_stage: int,
             "paths": ["/".join(map(str, q)) for q in shard.paths]}
 
 
-def mesh_predictions(tc) -> dict:
+def mesh_predictions(tc, shape=MESH_SHAPE) -> dict:
     """What phase 28 predicts before it runs, reckoned on the host:
-    ``MemoryModel``'s stage prediction at (pp 2, tp 2) (the model state
-    over pp x tp, the embedding and head over tp and spread over the
-    stages, plus the stage's peak activations over tp), the same with
-    each rank's whole tp shard of the shared leaves, and the bytes a
+    ``MemoryModel``'s stage prediction at (pp, tp) of ``shape`` (the
+    model state over pp x tp, the embedding and head over tp and spread
+    over the stages, plus the stage's peak activations over tp), the same
+    with each rank's whole tp shard of the shared leaves, and the bytes a
     step hands to collectives (``collective_stats`` on the mesh)."""
     from repro_torch.core.analysis import MemoryModel
     from repro_torch.core.schedules import get_schedule
     from repro_torch.launch.dryrun import collective_stats
-    pp, dp, tp = MESH_SHAPE
+    pp, dp, tp = shape
     cfg, plan = tc.model, tc.plan
     spec = _spec_of(tc, pp)
     sched = get_schedule(plan.schedule, pp, spec.table.m, v=plan.num_chunks)
@@ -5806,9 +5970,9 @@ def phase_train_mesh(torch, smi: str):
         single_max = _single_mesh_reference(torch, single_ref)
         gc.collect()
         torch.cuda.empty_cache()
-        # phase 30's one-process references
+        # phases 30 and 31's one-process references
         fam_refs, fam_max = {}, {}
-        for arch in FAMILIES:
+        for arch in FAMILIES + ENCVLM:
             fam_refs[arch] = {k: os.path.join(tmp, f"{arch}_{k}.pt")
                               for k in ("pipe", "single")}
             fam_max[arch] = {"pipe": _mesh_reference(
@@ -5819,6 +5983,8 @@ def phase_train_mesh(torch, smi: str):
                 torch, fam_refs[arch]["single"], arch)
             gc.collect()
             torch.cuda.empty_cache()
+        print(f"[train-mesh] {release_host_cache(torch)} (this process, "
+              f"before the spawn)")
         t0 = time.perf_counter()
         outs = spawn(n, _train_mesh_body,
                      args=(tc, MESH_STEPS, ref_path, single_ref, fam_refs),
@@ -5902,7 +6068,9 @@ def phase_train_mesh(torch, smi: str):
     return {"train_mesh": summed,
             **phase_zero3_checks(smi, outs, tc, spec, pred, per_step,
                                  ref_max, single_max),
-            **phase_families_checks(smi, outs, fam_max)}
+            **phase_families_checks(smi, outs, fam_max),
+            **phase_families_checks(smi, outs, fam_max, ENCVLM, "31",
+                                    "encvlm", "train-encvlm")}
 
 
 def _gib(nbytes) -> str:
@@ -6103,6 +6271,18 @@ def phase_zero3_checks(smi: str, outs, tc, spec, pred, per_step, ref_max,
 FAMILIES = ("mamba2-2.7b", "qwen2-moe-a2.7b")
 FAMILY_STEPS = 2         # the first a warm-up
 FAMILY_SINGLE_STEPS = 1  # (C): train() at stage 1 on SINGLE_MESH_SHAPE
+# phase 31: the encoder-decoder and the VLM on the mesh, in the same eight
+# processes after phase 30, with its steps and gates: whisper-base on
+# MESH_SHAPE; paligemma-3b, its whole vocabulary, on the eight regrouped
+# as pp 2 x dp 1 x tp 4 (each rank two of its eight query heads over its
+# one K/V head, replicated over the four tp ranks: ROADMAP A item 3b.4's
+# widest case).  At pp 2 x dp 2 x tp 2 each rank would hold half of the
+# 257216-row table with its fp32 gradient and state whole over dp
+# (family_reckoning: 47.5 GiB of weights, gradients, state and logits for
+# the eight, before eight CUDA contexts and the activations: too close to
+# one card)
+ENCVLM = ("whisper-base", "paligemma-3b")
+ENCVLM_SHAPE = {"paligemma-3b": (2, 1, 4)}
 
 
 class _DroppedRecorder:
@@ -6144,30 +6324,35 @@ class _DroppedRecorder:
         PR._Executor._op, MOE.moe_ffn = self.op, self.ffn
 
 
-def _families_body(mesh, single, log, free, base, refs):
-    """Phase 30 on one rank, after phase 29: for each of ``FAMILIES``,
-    ``FAMILY_STEPS`` steps of ``_mesh_config(arch)`` on ``mesh`` (the main
-    path, launches counted) and its fp32 check; then on ``single`` (the
-    processes regrouped as ``SINGLE_MESH_SHAPE``) ``train()`` of each at
-    stage 1 and its fp32 check.  ``refs``: arch -> the one-process
-    references' paths."""
+def _families_body(mesh, single, log, free, base, refs, archs=FAMILIES):
+    """Phase 30 (31, ``archs`` ``ENCVLM``) on one rank, after phase 29
+    (30): for each of ``archs``, ``FAMILY_STEPS`` steps of
+    ``_mesh_config(arch)`` on ``mesh`` regrouped as its ``_mesh_shape``
+    (the main path, launches counted) and its fp32 check; then on
+    ``single`` (the processes regrouped as ``SINGLE_MESH_SHAPE``)
+    ``train()`` of each at stage 1 and its fp32 check.  ``refs``: arch ->
+    the one-process references' paths."""
     import torch
 
     from repro_torch.launch.train import train_rank, train_single_rank
-    out = {}
-    for arch in FAMILIES:
+    out, meshes = {}, {tuple(mesh.sizes): mesh}
+    for arch in archs:
+        shape = tuple(_mesh_shape(arch))
+        if shape not in meshes:
+            meshes[shape] = mesh.regroup(shape)
+        on = meshes[shape]
         t0 = time.perf_counter()
         base[arch] = free()
-        r = {"train": train_rank(mesh, _mesh_config(arch), MESH_SHAPE[0],
+        r = {"train": train_rank(on, _mesh_config(arch), shape[0],
                                  {"overlap": True, "steps": FAMILY_STEPS,
                                   "log": log})}
         free()
-        r["check"] = _mesh_fp32_check(torch, mesh, refs[arch]["pipe"],
+        r["check"] = _mesh_fp32_check(torch, on, refs[arch]["pipe"],
                                       arch=arch)
         free()
         r["s"] = time.perf_counter() - t0
         out[arch] = r
-    for arch in FAMILIES:
+    for arch in archs:
         t0 = time.perf_counter()
         base["single " + arch] = free()
         r = out[arch]
@@ -6182,19 +6367,19 @@ def _families_body(mesh, single, log, free, base, refs):
     return out
 
 
-def family_reckoning(tc, zero_stage: int = 1) -> dict:
-    """What a rank of ``MESH_SHAPE`` holds of ``tc``'s model, reckoned on
-    the host from its ``RankShard`` (no card): per pp coordinate the
-    weights (their dtype), the gradient accumulators (the block leaves in
-    their dtype, the shared leaves in fp32) and the fp32 optimizer state
+def family_reckoning(tc, zero_stage: int = 1, shape=MESH_SHAPE) -> dict:
+    """What a rank of ``shape`` holds of ``tc``'s model, reckoned on the
+    host from its ``RankShard`` (no card): per pp coordinate the weights
+    (their dtype), the gradient accumulators (the block leaves in their
+    dtype, the shared leaves in fp32) and the fp32 optimizer state
     (master, mu and nu of the dp slices), in bytes; the last stage's fp32
-    logits ``[mbB * S, V / tp]`` once; and their sum over the eight
-    ranks."""
+    logits ``[mbB * tokens, V / tp]`` once (a VLM's head sees the tokens
+    only); and their sum over the ranks."""
     from repro_torch.core.pipeline_runtime import (RankShard,
                                                    init_pipeline_params)
     from repro_torch.launch.mesh import MESH_RULES
     from repro_torch.tree import tree_leaves
-    pp, dp, tp = MESH_SHAPE
+    pp, dp, tp = shape
     spec = _spec_of(tc, pp)
     tree = init_pipeline_params(None, tc.model, spec.layout, "meta")
     out = {}
@@ -6205,44 +6390,48 @@ def family_reckoning(tc, zero_stage: int = 1) -> dict:
         w = g = st = 0
         for i, (path, a) in enumerate(zip(sh.paths, tree_leaves(tree))):
             n = (a[0].numel() if path[0] == "blocks" else a.numel())
-            n //= tp if sh.tp_split[i] else 1
+            n //= sh.tp_parts[i]
             w += n * a.element_size()
             g += n * (a.element_size() if path[0] == "blocks" else 4)
             st += 12 * (n // dp if sh.zero_dims[i] is not None else n)
-        logits = (4 * spec.mbB * spec.S * tc.model.vocab_size // tp
-                  if p == pp - 1 else 0)
+        V = tc.model.vocab_size
+        logits = (4 * spec.mbB * (spec.S - spec.prefix)
+                  * (V // tp if V % tp == 0 else V) if p == pp - 1 else 0)
         out[p] = {"weights": w, "grads": g, "state": st, "logits": logits,
                   "total": w + g + st + logits}
     out["ranks"] = dp * tp * sum(out[p]["total"] for p in range(pp))
     return out
 
 
-def families_predictions() -> dict:
-    """Phase 30's reckoning on the host, per family: ``family_reckoning``,
-    the same at qwen2-moe's whole vocabulary, ``MemoryModel``'s stage
-    prediction at (pp 2, tp 2) as phase 28's, and the bytes a step hands
-    to collectives on the mesh (``collective_stats``) and of (C)'s
-    ``train()`` (``train_collective_stats``)."""
+def families_predictions(archs=FAMILIES) -> dict:
+    """Phase 30's (31's) reckoning on the host, per family of ``archs``:
+    ``family_reckoning`` on its ``_mesh_shape``, the same at the whole
+    vocabulary, ``MemoryModel``'s stage prediction at (pp, tp) as phase
+    28's, and the bytes a step hands to collectives on the mesh
+    (``collective_stats``) and of (C)'s ``train()``
+    (``train_collective_stats``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import (collective_stats,
                                            train_collective_stats)
     out = {}
-    for arch in FAMILIES:
+    for arch in archs:
         tc = _mesh_config(arch)
+        shape = _mesh_shape(arch)
         whole = dataclasses.replace(tc, model=dataclasses.replace(
             tc.model, vocab_size=get_config(arch).vocab_size))
-        pred = mesh_predictions(tc)
+        pred = mesh_predictions(tc, shape)
         stc = _single_mesh_config(1, arch=arch)
         _, sdp, stp = SINGLE_MESH_SHAPE
         m = stc.shape.global_batch // sdp
-        out[arch] = {"reckoning": family_reckoning(tc),
-                     "reckoning_whole_vocab": family_reckoning(whole),
+        out[arch] = {"reckoning": family_reckoning(tc, shape=shape),
+                     "reckoning_whole_vocab": family_reckoning(
+                         whole, shape=shape),
                      "stage_bytes": pred["stage_bytes"],
                      "collectives": collective_stats(
-                         _spec_of(tc, MESH_SHAPE[0]), MESH_SHAPE[1],
-                         MESH_SHAPE[2], update=True),
+                         _spec_of(tc, shape[0]), shape[1], shape[2],
+                         update=True),
                      "single_m": m,
                      "single_collectives": train_collective_stats(
                          stc.model, m=m, mbB=1, seq_len=stc.shape.seq_len,
@@ -6250,8 +6439,11 @@ def families_predictions() -> dict:
     return out
 
 
-def phase_families_checks(smi: str, outs, ref_max) -> dict:
-    """30: what phase 28's eight processes ran after phase 29.  (A)
+def phase_families_checks(smi: str, outs, ref_max, archs=FAMILIES,
+                          phase: str = "30", key: str = "families",
+                          label: str = "train-families") -> dict:
+    """30 (and 31, the same gates on ``archs`` ``ENCVLM``): what phase
+    28's eight processes ran after phase 29 (30).  (A)
     mamba2-2.7b and (B) qwen2-moe-a2.7b (``_mesh_config``) on pp 2 x dp
     2 x tp 2 through ``train_pipeline(mesh=)``: finite losses equal on
     every rank; after every step the dp replicas and the tp-replicated
@@ -6268,24 +6460,33 @@ def phase_families_checks(smi: str, outs, ref_max) -> dict:
     equal on every rank, replicas, bytes ``train_collective_stats``',
     launches ``expected_single_launches(tp=2)`` a rank, the fp32 check.
     Prints each rank's step and peak over its run's base beside the
-    reckoning and ``MemoryModel``'s stage prediction.  ``ref_max``: arch ->
-    the one-process references' largest |element| a leaf.  Returns the
-    launch counts by path."""
+    reckoning and ``MemoryModel``'s stage prediction.  Phase 31: (A)
+    whisper-base at full depth on pp 2 x dp 2 x tp 2 (its encoder over
+    tp, flash ``causal=False`` on a rank's 4 heads of its 1500 frames;
+    the cross-attention's encoder input summed over tp backward; its
+    51865-row table and head whole on every tp rank), (B) paligemma-3b at
+    4 layers and its whole vocabulary on the processes regrouped as pp 2
+    x dp 1 x tp 4 (its one K/V head on all four tp ranks, their copies
+    bitwise equal after every step: replica check "kv"), (C) ``train()``
+    of each (paligemma at 2 layers).  ``ref_max``: arch -> the
+    one-process references' largest |element| a leaf.  Returns the
+    launch counts by path (``key``'s).  ``outs[r][key][arch]`` holds what
+    rank ``r`` ran of ``arch``; ``label`` tags the printed lines."""
     from repro_torch.core.pipeline_runtime import init_pipeline_params
     from repro_torch.tree import tree_leaves
-    pp, dp, tp = MESH_SHAPE
-    n = pp * dp * tp
-    preds = families_predictions()
+    preds = families_predictions(archs)
     launches = {}
-    for arch in FAMILIES:
-        tag = f"30 ({arch})"
+    for arch in archs:
+        pp, dp, tp = _mesh_shape(arch)
+        n = pp * dp * tp
+        tag = f"{phase} ({arch})"
         tc = _mesh_config(arch)
         spec = _spec_of(tc, pp)
         pred = preds[arch]
-        fam = [o["families"][arch] for o in outs]
+        fam = [o[key][arch] for o in outs]
         runs = [f["train"] for f in fam]
         losses = runs[0]["losses"]
-        print(f"[train-families] {smi} | {arch} full width bf16 "
+        print(f"[{label}] {smi} | {arch} full width bf16 "
               f"({tc.model.num_layers} layers, vocab "
               f"{tc.model.vocab_size}) on pp {pp} x dp {dp} x tp {tp}, "
               f"the same eight processes: {spec.table.name} "
@@ -6308,7 +6509,7 @@ def phase_families_checks(smi: str, outs, ref_max) -> dict:
                                         else dp * tp)
                 for k, v in per_step.items()}
         summed = {k: sum(o["launches"][k] for o in runs) for k in want}
-        print(f"[train-families] {arch}: losses {losses}, gradient norms "
+        print(f"[{label}] {arch}: losses {losses}, gradient norms "
               f"{runs[0]['grad_norms']}; after every step the dp replicas, "
               f"the tp-replicated leaves and the shared leaves over pp "
               f"bitwise equal on every rank; launches summed {summed} (the "
@@ -6326,7 +6527,7 @@ def phase_families_checks(smi: str, outs, ref_max) -> dict:
                 fail(f"{tag}: step {step} handed {got} B to collectives, "
                      f"collective_stats counts {coll.by_axis}")
         kb, kc = coll.bytes_by_kind, coll.count_by_kind
-        print(f"[train-families] {arch}: bytes a step over the ranks equal "
+        print(f"[{label}] {arch}: bytes a step over the ranks equal "
               f"to collective_stats' count: pp {coll.by_axis['pp']}, data "
               f"{coll.by_axis['data']} (routing {int(kb.get('all-gather-route', 0))}"
               f" in {kc.get('all-gather-route', 0)} calls), model "
@@ -6334,7 +6535,7 @@ def phase_families_checks(smi: str, outs, ref_max) -> dict:
         rk = pred["reckoning"]
         for o, b in zip(runs, [r["base"][arch] for r in outs]):
             co = o["coords"]
-            print(f"[train-families] {smi} | {arch} rank {o['rank']} (pp "
+            print(f"[{label}] {smi} | {arch} rank {o['rank']} (pp "
                   f"{co['pp']}, dp {co['data']}, tp {co['model']}): step "
                   f"{statistics.median(o['step_s'][1:]) * 1e3:.1f} ms "
                   f"(steps {[round(x * 1e3, 1) for x in o['step_s']]}); "
@@ -6348,12 +6549,12 @@ def phase_families_checks(smi: str, outs, ref_max) -> dict:
                   f"{_gib(rk[co['pp']]['logits'])}); MemoryModel's stage "
                   f"{co['pp']} at (pp {pp}, tp {tp}) "
                   f"{pred['stage_bytes'][co['pp']] / 2 ** 30:.3f} GiB")
-        print(f"[train-families] {arch}: the eight ranks' reckoning "
+        print(f"[{label}] {arch}: the eight ranks' reckoning "
               f"{_gib(rk['ranks'])} GiB; at the whole vocabulary "
               f"{_gib(pred['reckoning_whole_vocab']['ranks'])} GiB")
         worst = _check_fp32(tag, [f["check"] for f in fam],
                             ref_max[arch]["pipe"], "loss")
-        print(f"[train-families] {arch} fp32 check ({MESH_CHECK}, "
+        print(f"[{label}] {arch} fp32 check ({MESH_CHECK}, "
               f"{_mesh_model(arch, True).num_layers} layers, vocab "
               f"{_mesh_model(arch, True).vocab_size}): every rank's "
               f"gradient shard within {worst:.3e} relative of the "
@@ -6369,14 +6570,14 @@ def phase_families_checks(smi: str, outs, ref_max) -> dict:
                          f"{c['parent_dropped']}")
             per_pp = {o["train"]["coords"]["pp"]: f["check"]["dropped"]
                       for o, f in zip(outs, fam)}
-            print(f"[train-families] {arch} fp32 check, capacity factor "
+            print(f"[{label}] {arch} fp32 check, capacity factor "
                   f"{tc.model.moe.capacity_factor}: every F op's "
                   f"router_fraction_dropped over the global microbatch "
                   f"equal on every rank and to the one-process run's: "
                   + "; ".join(f"pp {p}: " + ", ".join(
                       f"(chunk {k[1]}, microbatch {k[2]}) {v}"
                       for k, v in per_pp[p]) for p in sorted(per_pp)))
-        launches[f"train_families_{arch}"] = summed
+        launches[f"train_{key}_{arch}"] = summed
 
         # (C) train() on the regrouped processes
         sp, sdp, stp = SINGLE_MESH_SHAPE
@@ -6405,8 +6606,8 @@ def phase_families_checks(smi: str, outs, ref_max) -> dict:
         got_l = {k: sum(o["launches"][k] for o in runs) for k in want}
         if got_l != want:
             fail(f"{tag} (train): launches {got_l} != {want}")
-        launches[f"train_single_families_{arch}"] = got_l
-        print(f"[train-families] {smi} | train() of {arch} full width "
+        launches[f"train_single_{key}_{arch}"] = got_l
+        print(f"[{label}] {smi} | train() of {arch} full width "
               f"bf16 ({stc.model.num_layers} layers, vocab "
               f"{stc.model.vocab_size}) on pp {sp} x dp {sdp} x tp {stp}, "
               f"stage 1, {pred['single_m']} microbatches of one "
@@ -6416,7 +6617,7 @@ def phase_families_checks(smi: str, outs, ref_max) -> dict:
               f"{fam[0]['single_s']:.1f} s")
         for o, b in zip(runs, [r["base"]["single " + arch] for r in outs]):
             co = o["coords"]
-            print(f"[train-families] {smi} | train() {arch} rank "
+            print(f"[{label}] {smi} | train() {arch} rank "
                   f"{o['rank']} (dp {co['data']}, tp {co['model']}): step "
                   f"{o['step_s'][-1] * 1e3:.1f} ms; over the run's base "
                   f"({_gib(b)} GiB): max_memory_allocated "
@@ -6426,8 +6627,8 @@ def phase_families_checks(smi: str, outs, ref_max) -> dict:
                             [f["single_check"] for f in fam],
                             ref_max[arch]["single"],
                             "lsum")
-        print(f"[train-families] train() {arch} fp32 check "
-              f"({_mesh_model(arch, True).num_layers} layers, "
+        print(f"[{label}] train() {arch} fp32 check "
+              f"({_mesh_model(arch, True, True).num_layers} layers, "
               f"{SINGLE_MESH_CHECK['seq']} tokens, stage 1): every rank's "
               f"fp32 gradient slices within {worst:.3e} relative of the "
               f"one-process train() step's (tol {CHECK_REL})")
@@ -6501,6 +6702,7 @@ def main() -> None:
     phase_train_shapes(torch, gen, by_name)
     phase_flash_tp(torch, gen, by_name)
     phase_flash_d256(torch, gen, by_name)
+    phase_flash_encvlm(torch, gen, by_name)
     phase_rmsnorm_widths(torch, gen)
     phase_flash_offsets(torch, gen, by_name)
     phase_flash_offsets(torch, gen, by_name, H=32, G=32, d=128, n_seqs=(4,),
@@ -6677,12 +6879,12 @@ def main() -> None:
     phase_roofline(torch, smi, dry)
     done("roofline")
 
-    # 27. phase 6's configuration as four processes on the card, one
-    #     pipeline stage each (gloo through page-locked host memory), the
+    # 27. phase 6's configuration at 8 layers as four processes on the
+    #     card, one pipeline stage each (gloo through page-locked host memory), the
     #     overlapped and the synchronous exchange, and the fp32 check
     gc.collect()
     torch.cuda.empty_cache()
-    launches["train_ranks"] = phase_train_ranks(torch, smi, base)
+    launches["train_ranks"] = phase_train_ranks(torch, smi)
     done("train-ranks")
 
     # 28. data and tensor parallelism beside the pipe axis: four layers
@@ -6695,12 +6897,17 @@ def main() -> None:
     #     split-width RMSNorm pair, the experts split over tp, the MoE
     #     routing over the global microbatch), then train() of each on
     #     the processes regrouped as pp 1 x dp 4 x tp 2
+    #     31. in the same processes, whisper-base on pp 2 x dp 2 x tp 2 and
+    #     paligemma-3b on pp 2 x dp 1 x tp 4 (its one K/V head replicated
+    #     over the four tp ranks), then train() of each on pp 1 x dp 4 x
+    #     tp 2
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_train_mesh(torch, smi))
-    done("train-mesh, train-zero3 and train-families (28-30)")
+    done("train-mesh, train-zero3, train-families and train-encvlm "
+         "(28-31)")
 
-    # 31. kernels line, then the result line.  ``launches`` sums the
+    # 32. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

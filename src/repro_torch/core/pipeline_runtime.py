@@ -236,6 +236,10 @@ class RankShard(TreeShard):
       whole; stage 2 is stage 1 (the reference's ``zero_state_specs``
       does not tell them apart).
 
+    Where the config's K/V heads divide tp and are fewer than it, each
+    rank holds the whole K/V head of its query heads, replicated over its
+    K/V group (``TreeShard.kv``).
+
     ``shape``: axis name -> size (``Mesh.shape``); ``coords``: the rank's
     coordinate on each axis.  Per leaf, in ``tree_leaves`` order of the
     pipeline tree, the local dimensions lack a block leaf's pp one."""
@@ -249,7 +253,8 @@ class RankShard(TreeShard):
         super().__init__(
             tree, pspec if zero_stage >= 3 else drop_fsdp(pspec),
             sspec if zero_stage >= 1 else drop_fsdp(pspec), shape, rules,
-            coords, dropped=lambda path: int(path[0] == "blocks"))
+            coords, dropped=lambda path: int(path[0] == "blocks"),
+            kv_heads=cfg.num_kv_heads)
 
     def cut(self, tree, pp_rank: Optional[int] = None):
         """A whole pipeline tree (global leaves) -> this rank's: block
@@ -1102,7 +1107,11 @@ class _RankExecutor(_Executor):
     W recompute the chunk, so they gather again) and frees the whole
     leaves when it ends; the gradients of a B or W op are reduce-scattered
     over dp by the gather's backward and added into fp32 accumulators of
-    the slices, so they need no dp sum after the tick loop."""
+    the slices, so they need no dp sum after the tick loop.
+
+    ``shard`` with replicated K/V heads (``TreeShard.kv``): after the dp
+    sum, each K/V leaf's gradient is summed over its K/V group
+    (:meth:`~repro_torch.models.sharding.TreeShard.kv_sum`)."""
 
     def __init__(self, spec: PipelineSpec, mesh, shard=None):
         if mesh.P != spec.table.P:
@@ -1114,6 +1123,12 @@ class _RankExecutor(_Executor):
         self.full = mesh.parent            # the pp x dp x tp mesh, or None
         self.exchange = Exchange(spec, mesh)
         self.layout_bytes = [n for *_, n in _packed_layout(spec)]
+        if shard is None and self.full is not None:
+            # the stage-1 layout: which leaves hold replicated K/V heads
+            shard = RankShard(spec.cfg, spec.layout, self.full.shape,
+                              self.full.rules, self.full.coords)
+        self.kv_shard = shard if shard is not None and any(shard.kv) \
+            else None
         self.shard = shard if shard is not None and shard.sliced else None
         self.block_dims = None if self.shard is None \
             else self.shard.fsdp_tree()["blocks"]
@@ -1246,6 +1261,8 @@ class _RankExecutor(_Executor):
             for i, g in enumerate(tree_leaves(out[0])):
                 if self.shard is None or self.shard.fsdp_dims[i] is None:
                     self.full.all_reduce(g, "data")
+        if self.kv_shard is not None:
+            self.kv_shard.kv_sum(self.full, tree_leaves(out[0]))
         return out
 
 

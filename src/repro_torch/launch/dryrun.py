@@ -55,7 +55,7 @@ import os
 import time
 import traceback
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -362,7 +362,11 @@ def collective_stats(spec, dp: int = 1, tp: int = 1, *,
     ``all-reduce-dp``, every gradient summed over dp; ``all-gather-dp``,
     the ZeRO-1 weights (none at ``zero_stage`` 0); with MoE layers under
     dp, ``all-gather-route``, their expert counts in every op that runs
-    the chunk's forward.  At ``zero_stage`` 3
+    the chunk's forward; with K/V heads replicated over tp,
+    ``all-reduce-kv``, their gradients summed over each K/V group once a
+    step (counted under "model").  An encoder-decoder's ``all-reduce-tp``
+    holds its encoder's sums where an op runs it and its
+    cross-attentions'.  At ``zero_stage`` 3
     the block leaves held as dp slices leave those two, and two kinds
     count them instead: ``all-gather-fsdp``, each F, B and W op's gather
     of its chunk's slices, and ``reduce-scatter-fsdp``, each B or W op's
@@ -389,6 +393,9 @@ def collective_stats(spec, dp: int = 1, tp: int = 1, *,
         if mc["data"]["route_calls"]:
             kinds["all-gather-route"] = (mc["data"]["route_bytes"],
                                          mc["data"]["route_calls"])
+        if mc["model"]["kv_calls"]:
+            kinds["all-reduce-kv"] = (mc["model"]["kv_bytes"],
+                                      mc["model"]["kv_calls"])
         if zero_stage >= 3:
             kinds["all-gather-fsdp"] = (mc["data"]["fsdp_gather_bytes"],
                                         mc["data"]["fsdp_gather_calls"])
@@ -442,8 +449,12 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
 
     and per step the loss (4 B over dp), each microbatch's mask count
     (4 B each over dp, with ``masked``), the clip norm's sum (4 B over tp
-    and over dp) and, below stage 3, the updated slices' all-gather over
-    dp (``all-gather-dp``)."""
+    and over dp), below stage 3 the updated slices' all-gather over dp
+    (``all-gather-dp``), and the replicated K/V heads' fp32 gradient
+    sums over their K/V groups (``all-reduce-kv``, under "model").  An
+    encoder-decoder adds its encoder's tp sums (once a microbatch: the
+    encoder runs outside the checkpoints) and each layer's
+    cross-attention's (its encoder input's gradient among them)."""
     from repro_torch.launch.mesh import MESH_RULES
     from repro_torch.launch.steps import lm_shard
     from repro_torch.models import LM
@@ -463,8 +474,12 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
         kinds[kind][0] += nbytes
         kinds[kind][1] += calls
     nper = cfg.num_layers // cfg.period
+    T = cfg.encdec.num_frames if cfg.encdec is not None else 0
+    # the stack runs over a VLM's patches and the tokens, the head and the
+    # lookup over the tokens
+    pre = cfg.vision.num_patches if cfg.vision is not None else 0
     for idx in range(cfg.num_layers):
-        lt = layer_traffic(cfg, idx, tp, dp, mbB * S)
+        lt = layer_traffic(cfg, idx, tp, dp, mbB * (pre + S), mbB * T)
         stacked = idx < nper * cfg.period
         # a stacked layer's forward runs again in its period's recompute,
         # but for the period's last output sum
@@ -472,11 +487,16 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
             == cfg.period - 1 else 0
         runs = 2 if stacked else 1
         if lt["fwd"][1] or lt["bwd"][1]:
-            add("all-reduce-tp", runs * lt["fwd"][0] - last + lt["bwd"][0],
-                runs * lt["fwd"][1] - (last > 0) + lt["bwd"][1])
+            add("all-reduce-tp", runs * lt["fwd"][0] - last + lt["bwd"][0]
+                + lt["kv_bwd"][0], runs * lt["fwd"][1] - (last > 0)
+                + lt["bwd"][1] + lt["kv_bwd"][1])
         if lt["route"][1]:
             add("all-gather-route", runs * lt["route"][0],
                 runs * lt["route"][1])
+    enc = encoder_traffic(cfg, tp, mbB * T)       # once, unwrapped
+    for k in ("fwd", "bwd"):
+        if enc[k][1]:
+            add("all-reduce-tp", *enc[k])
     if tp > 1:
         if cfg.vocab_size % tp == 0:
             add("all-reduce-tp", mbB * S * d * _dtype(cfg.param_dtype)
@@ -486,7 +506,7 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
     if dp > 1:
         units: Dict[tuple, list] = {}     # what one gather call reads
         for i, (path, a) in enumerate(zip(shard.paths, tree_leaves(tree))):
-            numel = a.numel() // (tp if shard.tp_split[i] else 1)
+            numel = a.numel() // shard.tp_parts[i]
             nbytes = numel * a.element_size()
             if shard.fsdp_dims[i] is not None:
                 key = path[:1] if path[0] == "encoder" else path[:2]
@@ -514,22 +534,31 @@ def train_collective_stats(cfg, *, m: int, mbB: int, seq_len: int,
     if dp > 1:
         for i, a in enumerate(tree_leaves(tree)):
             if shard.zero_dims[i] is not None and shard.fsdp_dims[i] is None:
-                numel = a.numel() // (tp if shard.tp_split[i] else 1)
+                numel = a.numel() // shard.tp_parts[i]
                 gather_b += numel // dp * a.element_size()
                 gather_c += 1
     kinds["all-gather-dp"] = [gather_b * n, gather_c * n]
+    # the replicated K/V heads' fp32 gradient sums (the state's dp slices)
+    # over their K/V groups, once a step
+    kv_b, kv_c = kv_sum_traffic(shard, tree, lambda i, path, a, numel: 4 * (
+        numel // dp if shard.zero_dims[i] is not None else numel))
+    kinds["all-reduce-kv"] = [kv_b * n, kv_c * n]
     scalars_dp = (8 + 4 * m * masked) * n if dp > 1 else 0
     by_axis = {"pp": 0,
-               "data": sum(kinds[k][0] for k in kinds if k != "all-reduce-tp")
+               "data": sum(kinds[k][0] for k in kinds
+                           if k not in ("all-reduce-tp", "all-reduce-kv"))
                + scalars_dp,
-               "model": kinds["all-reduce-tp"][0] + (4 * n if tp > 1 else 0)}
+               "model": kinds["all-reduce-tp"][0] + kinds["all-reduce-kv"][0]
+               + (4 * n if tp > 1 else 0)}
     return CollectiveStats({k: float(b) for k, (b, _) in kinds.items()},
                            {k: c for k, (_, c) in kinds.items()}, by_axis)
 
 
-def layer_traffic(cfg, idx: int, tp: int, dp: int, tokens: int) -> Dict:
+def layer_traffic(cfg, idx: int, tp: int, dp: int, tokens: int,
+                  enc_tokens: int = 0) -> Dict:
     """What decoder layer ``idx`` hands to collectives in one forward and
-    one backward over ``tokens`` tokens (a microbatch a rank), per rank:
+    one backward over ``tokens`` tokens (a microbatch a rank; an
+    encoder-decoder's ``enc_tokens`` encoder positions), per rank:
 
     - ``fwd`` / ``bwd``: ``(bytes, calls)`` of its tensor-parallel sums
       (all-reduces over tp; none at tp 1).  Forward: the attention's and
@@ -541,7 +570,13 @@ def layer_traffic(cfg, idx: int, tp: int, dp: int, tokens: int) -> Dict:
       gradients of every split product (``[tokens, d]`` each), the
       Mamba-2 block's replicated B and C (``[tokens, N]`` each) and its
       norm's fp32 ``[tokens]`` row sums, and the MoE gates (fp32
-      ``[tokens * k]``) where the experts are split;
+      ``[tokens * k]``) where the experts are split.  An encoder-decoder
+      layer's cross-attention adds its output forward and its query
+      input's gradient backward;
+    - ``kv_bwd``: ``(bytes, calls)`` of the cross-attention's encoder
+      input's gradient (``[enc_tokens, d]``), summed over tp where the
+      encoder output needs a gradient (not in a W op that does not run
+      the encoder);
     - ``last``: the bytes of the layer's final output sum (the last
       collective of its forward, after which it saves no tensor: a
       Chronos-Recomp checkpoint's recompute stops before it), or 0;
@@ -551,7 +586,7 @@ def layer_traffic(cfg, idx: int, tp: int, dp: int, tokens: int) -> Dict:
     d = cfg.d_model
     cdt = _dtype(cfg.compute_dtype).itemsize
     act = tokens * d * cdt
-    fwd, bwd = [0, 0], [0, 0]
+    fwd, bwd, kv_bwd = [0, 0], [0, 0], [0, 0]
     last = 0
 
     def add(acc, nbytes, calls=1):
@@ -565,6 +600,10 @@ def layer_traffic(cfg, idx: int, tp: int, dp: int, tokens: int) -> Dict:
             add(fwd, act + 4 * tokens, 2)
             add(bwd, act + 2 * tokens * cfg.ssm.state_dim * cdt
                 + 4 * tokens, 4)
+        if cfg.encdec is not None:
+            add(fwd, act)
+            add(bwd, act)
+            add(kv_bwd, enc_tokens * d * cdt)
         last = act
         moe = cfg.moe if cfg.layer_is_moe(idx) else None
         if moe is not None:
@@ -588,7 +627,39 @@ def layer_traffic(cfg, idx: int, tp: int, dp: int, tokens: int) -> Dict:
     if dp > 1 and cfg.layer_is_moe(idx):
         add(route, 8 * cfg.moe.num_experts)
     return {"fwd": tuple(fwd), "bwd": tuple(bwd), "last": last,
-            "route": tuple(route)}
+            "route": tuple(route), "kv_bwd": tuple(kv_bwd)}
+
+
+def encoder_traffic(cfg, tp: int, enc_tokens: int) -> Dict:
+    """What an encoder-decoder's encoder hands to collectives over tp in
+    one forward and one backward over ``enc_tokens`` positions, per rank:
+    ``fwd`` / ``bwd`` ``(bytes, calls)``, each layer's attention output
+    and its input's gradient, and its MLP's where tp divides ``d_ff``
+    (``[enc_tokens, d]`` in the compute dtype each); zeros without an
+    encoder or tp."""
+    from repro_torch.models.transformer import _dtype
+    if cfg.encdec is None or tp <= 1:
+        return {"fwd": (0, 0), "bwd": (0, 0)}
+    act = enc_tokens * cfg.d_model * _dtype(cfg.compute_dtype).itemsize
+    n = cfg.encdec.num_encoder_layers * (1 + (cfg.d_ff % tp == 0))
+    return {"fwd": (n * act, n), "bwd": (n * act, n)}
+
+
+def kv_sum_traffic(shard, tree, nbytes) -> Tuple[int, int]:
+    """``(bytes, calls)`` a rank hands to the sums of its replicated K/V
+    heads' gradients over their K/V groups once a step
+    (:meth:`~repro_torch.models.sharding.TreeShard.kv_sum`), one call a
+    K/V leaf: ``nbytes(i, path, leaf, numel)`` the bytes of leaf ``i``'s
+    gradient as the rank sums it, ``numel`` the rank's part of the
+    global ``leaf`` of ``tree`` (a block leaf's pp column)."""
+    nb = nc = 0
+    for i, (path, a) in enumerate(zip(shard.paths, tree_leaves(tree))):
+        if shard.kv[i]:
+            numel = (a[0].numel() if path[0] == "blocks" else a.numel()) \
+                // shard.tp_parts[i]
+            nb += nbytes(i, path, a, numel)
+            nc += 1
+    return nb, nc
 
 
 def _tp_units(spec, tp: int, d: int):
@@ -602,16 +673,22 @@ def _tp_units(spec, tp: int, d: int):
     B, S, dm = spec.mbB, spec.S, cfg.d_model
     cdt = _dtype(cfg.compute_dtype).itemsize
     pdt = _dtype(cfg.param_dtype).itemsize
-    act = B * S * dm * cdt
+    # the head and the lookup see the tokens, not a VLM's patches
+    St = S - spec.prefix
+    act = B * St * dm * cdt
     # a chunk's forward sums and a backward's (which also recomputes the
-    # forward): each of its layers' (:func:`layer_traffic`)
-    fb = fc = bb = bc = 0
+    # forward): each of its layers' (:func:`layer_traffic`); the cross-
+    # attention's encoder-input gradients where the enc payload needs one
+    fb = fc = bb = bc = kb = kc = 0
     for j in range(spec.layout.period):
-        lt = layer_traffic(cfg, j, tp, 1, B * S)
+        lt = layer_traffic(cfg, j, tp, 1, B * S, B * spec.enc_len)
         fb += spec.layout.M * lt["fwd"][0]
         fc += spec.layout.M * lt["fwd"][1]
         bb += spec.layout.M * (lt["fwd"][0] + lt["bwd"][0])
         bc += spec.layout.M * (lt["fwd"][1] + lt["bwd"][1])
+        kb += spec.layout.M * lt["kv_bwd"][0]
+        kc += spec.layout.M * lt["kv_bwd"][1]
+    enc = encoder_traffic(cfg, tp, B * spec.enc_len)
     vocab = cfg.vocab_size % tp == 0
     tot_b = tot_c = 0
     for t in range(tab.T):
@@ -625,11 +702,20 @@ def _tp_units(spec, tp: int, d: int):
         if not fwd and op not in W_OPS and tab.has_w and first:
             continue                     # the first block's split B: none
         b, calls = (fb, fc) if fwd else (bb, bc)
-        if first and vocab and (fwd or op in W_OPS or not tab.has_w):
-            b, calls = b + B * S * dm * pdt, calls + 1      # the lookup
+        if not fwd and (first or op not in W_OPS):
+            # the enc input needs a gradient: a B op's payload, or the
+            # encoder the first block's W op runs
+            b, calls = b + kb, calls + kc
+        embeds = first and (fwd or op in W_OPS or not tab.has_w)
+        if embeds:
+            # the encoder, run where the microbatch is embedded
+            for k in ("fwd",) if fwd else ("fwd", "bwd"):
+                b, calls = b + enc[k][0], calls + enc[k][1]
+        if embeds and vocab:
+            b, calls = b + B * St * dm * pdt, calls + 1     # the lookup
         if last and vocab:
             # max, sum of exponentials, gold logit; backward: dh
-            b, calls = b + 3 * B * S * 4, calls + 3
+            b, calls = b + 3 * B * St * 4, calls + 3
             if not fwd:
                 b, calls = b + act, calls + 1
         tot_b += b
@@ -722,9 +808,8 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
     chunk_dtypes = set()            # one collective a dtype
     for i, (path, a, sp) in enumerate(zip(shard.paths, tree_leaves(tree),
                                           shard.param_specs)):
-        numel = a[0].numel() if path[0] == "blocks" else a.numel()
-        if shard.tp_split[i]:
-            numel //= tp
+        numel = (a[0].numel() if path[0] == "blocks" else a.numel()) \
+            // shard.tp_parts[i]
         if shard.fsdp_dims[i] is not None:
             chunk_b += numel // dp // spec.table.v * a.element_size()
             chunk_dtypes.add(a.dtype)
@@ -755,6 +840,12 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
             b, c = _tp_units(spec, tp, d)
             model_b += b * dp * tp
             model_c += c * dp * tp
+    # the replicated K/V heads' gradients over their K/V groups: as the
+    # tick loop leaves them, a block leaf in its dtype (fp32, its dp
+    # slice, where it is held as one), a shared one in fp32
+    kv_b, kv_c = kv_sum_traffic(shard, tree, lambda i, path, a, numel: (
+        4 * numel // dp if shard.fsdp_dims[i] is not None else
+        numel * (a.element_size() if path[0] == "blocks" else 4)))
     route_b = route_c = 0
     if dp > 1:
         for d in range(P):
@@ -776,6 +867,7 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
                  "scalar_bytes": (8 + 4 * update + (4 * m if masked else 0))
                  * n if dp > 1 else 0},
         "model": {"bytes": model_b, "calls": model_c,
+                  "kv_bytes": kv_b * n, "kv_calls": kv_c * n,
                   "scalar_bytes": 4 * update * n if tp > 1 else 0}}
     for ax, v in out.items():
         v["total"] = sum(x for k, x in v.items()

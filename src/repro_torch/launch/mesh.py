@@ -15,11 +15,13 @@ Running meshes:
   ``make_host_study_mesh``'s ``("pp", "data", "model")`` lattice, rank
   ``(p * dp + d) * tp + t``, with one process group per line of each
   axis (every process creates every group, in one fixed order), the
-  reference's pipeline rules (:data:`MESH_RULES`), and per-axis
-  collectives that count the bytes they are handed (all-reduce,
-  all-gather, reduce-scatter).  A mesh of pp 1 serves ``train()``;
-  :meth:`Mesh.regroup` lays the same world out again (another ``pp x dp
-  x tp`` of the same size), so one spawn can run several layouts.
+  reference's pipeline rules (:data:`MESH_RULES`), the K/V groups of
+  each tp line (:func:`kv_groups`: its runs of consecutive tp ranks that
+  share a replicated K/V head), and per-axis collectives that count the
+  bytes they are handed (all-reduce, all-gather, reduce-scatter).  A
+  mesh of pp 1 serves ``train()``; :meth:`Mesh.regroup` lays the same
+  world out again (another ``pp x dp x tp`` of the same size), so one
+  spawn can run several layouts.
 
 The transport follows from the backend and the device, never from a
 fallback:
@@ -134,7 +136,10 @@ class _Staging:
     ``host`` transport's collectives copy a CUDA tensor down, reduce on
     the host and copy it back up.  Each use synchronizes the stream
     before gloo reads the buffer, which also orders it after the last
-    use's copy up."""
+    use's copy up.  One per process (:data:`_STAGING`), shared by every
+    mesh it lays out: the caching host allocator keeps each freed
+    page-locked block, so buffers of their own would pin the largest
+    transfer of every layout a process regroups into."""
 
     def __init__(self):
         self.bufs: Dict[torch.dtype, torch.Tensor] = {}
@@ -150,6 +155,9 @@ class _Staging:
 
     def take(self, t: torch.Tensor) -> torch.Tensor:
         return self.flat(t.dtype, t.numel()).view(t.shape)
+
+
+_STAGING = _Staging()
 
 
 def _all_reduce(t: torch.Tensor, group, op: str, staged: bool,
@@ -242,7 +250,7 @@ class PipeMesh:
     reduced_bytes: int = 0     # bytes this rank handed to all_reduce
     ranks: Optional[Tuple[int, ...]] = None
     parent: Any = None
-    _staging: Any = field(default_factory=lambda: _Staging(), repr=False)
+    _staging: Any = field(default=_STAGING, repr=False)
 
     @property
     def staged(self) -> bool:
@@ -288,19 +296,23 @@ class Mesh:
     over "data" and "model" count what they are handed in
     ``reduced_bytes[axis]`` (a reduce-scatter its whole input, an
     all-gather the rank's part); the pipe's all-reduces count in
-    ``pipe.reduced_bytes``."""
+    ``pipe.reduced_bytes``.  ``kv_groups``: span -> the process group of
+    the rank's K/V group of that span on its tp line
+    (:func:`kv_groups`)."""
 
     def __init__(self, pp: int, dp: int, tp: int, rank: int, backend: str,
-                 device, groups: Optional[Dict[str, Any]] = None):
+                 device, groups: Optional[Dict[str, Any]] = None,
+                 kv: Optional[Dict[int, Any]] = None):
         self.sizes = (pp, dp, tp)
         self.pp, self.dp, self.tp = pp, dp, tp
         self.rank, self.backend = rank, backend
         self.device = torch.device(device)
         self.coords = dict(zip(AXES, mesh_coords(rank, pp, dp, tp)))
         self.groups = groups or {a: None for a in AXES}
+        self.kv_groups = kv or {}
         self.rules = dict(MESH_RULES)
         self.reduced_bytes = {a: 0 for a in AXES[1:]}
-        self._staging = _Staging()
+        self._staging = _STAGING
         p, d, t = (self.coords[a] for a in AXES)
         self.pipe = PipeMesh(self.groups["pp"], p, pp, backend, self.device,
                              ranks=tuple(mesh_rank(q, d, t, dp, tp)
@@ -322,17 +334,22 @@ class Mesh:
     def coord(self, axis: str) -> int:
         return self.coords[axis]
 
-    def all_reduce(self, t: torch.Tensor, axis: str,
-                   op: str = "sum") -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum",
+                   span: Optional[int] = None) -> torch.Tensor:
         """In-place all-reduce of ``t`` over ``axis`` ("pp", "data" or
-        "model"); a no-op on an axis of size 1."""
+        "model"); a no-op on an axis of size 1.  ``span`` (on "model"):
+        over the rank's K/V group of ``span`` consecutive tp ranks only,
+        counted under "model"."""
         if axis == "pp":
             return self.pipe.all_reduce(t, op)
         if self.shape[axis] == 1:
             return t
+        group = self.groups[axis]
+        if span is not None and span != self.shape[axis]:
+            assert axis == "model", "K/V groups lie on the tp axis"
+            group = self.kv_groups[span]
         self.reduced_bytes[axis] += t.numel() * t.element_size()
-        return _all_reduce(t, self.groups[axis], op, self.staged,
-                           self._staging)
+        return _all_reduce(t, group, op, self.staged, self._staging)
 
     def all_gather_into(self, outs: List[torch.Tensor], t: torch.Tensor,
                         axis: str) -> None:
@@ -436,6 +453,20 @@ def mesh_groups(pp: int, dp: int, tp: int) -> Dict[str, List[List[int]]]:
     return out
 
 
+def kv_groups(pp: int, dp: int, tp: int) -> Dict[int, List[List[int]]]:
+    """span -> the K/V groups of that span (lists of global ranks): on
+    every tp line, its runs of ``span`` consecutive tp coordinates, for
+    every span that divides tp strictly between 1 and tp (the ranks that
+    hold one K/V head of a config with ``tp / span`` K/V heads; a span
+    of tp is the line's own group), in the one order every process
+    creates them."""
+    return {span: [[mesh_rank(p, d, k * span + j, dp, tp)
+                    for j in range(span)]
+                   for p in range(pp) for d in range(dp)
+                   for k in range(tp // span)]
+            for span in range(2, tp) if tp % span == 0}
+
+
 def check_mesh(P: int, *, backend: str, device: str) -> None:
     """Raise on a request no run can honour: an unknown backend, fewer
     than 2 ranks (``P`` the number of processes, ``pp * dp * tp``), NCCL
@@ -521,15 +552,20 @@ def _make_mesh(pp: int, dp: int, tp: int, rank: int, backend: str,
     (the same calls in the same order on every process) and the rank's
     :class:`Mesh`; each group's first collective is an all-reduce its
     ranks join."""
-    mine = {}
+    mine, kv = {}, {}
     for axis, lines in mesh_groups(pp, dp, tp).items():
         for ranks in lines:
             g = dist.new_group(ranks)
             if rank in ranks:
                 mine[axis] = g
-    mesh = Mesh(pp, dp, tp, rank, backend, dev, mine)
-    for axis in AXES:
-        dist.all_reduce(torch.zeros((1,), device=dev), group=mine[axis])
+    for span, lines in kv_groups(pp, dp, tp).items():
+        for ranks in lines:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                kv[span] = g
+    mesh = Mesh(pp, dp, tp, rank, backend, dev, mine, kv)
+    for g in list(mine.values()) + list(kv.values()):
+        dist.all_reduce(torch.zeros((1,), device=dev), group=g)
     return mesh
 
 

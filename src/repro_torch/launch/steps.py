@@ -7,7 +7,8 @@ stages on one device, one stage a rank over a
 :class:`~repro_torch.launch.mesh.PipeMesh`, or on a ``pp x dp x tp``
 :class:`~repro_torch.launch.mesh.Mesh` with the reference's sharding
 (the batch over dp, heads / FFN / vocab, the Mamba-2 channels and the
-experts' hidden width over tp, ZeRO-1 over dp)."""
+experts' hidden width over tp, K/V heads split or replicated over tp,
+ZeRO-1 over dp)."""
 from __future__ import annotations
 
 import contextlib
@@ -43,33 +44,31 @@ def check_zero_stage(plan: ParallelPlan) -> None:
 
 
 def check_mesh_model(cfg: ModelConfig, dp: int, tp: int) -> None:
-    """Refuse what the mesh does not split yet.  Under tp > 1: a config
-    with attention layers whose query or K/V head count tp does not
-    divide (ValueError; an attention-free config's unused head counts
-    are not read), a Mamba-2 config whose SSM heads tp does not divide
-    (ValueError), the encoder-decoder and the VLM (NotImplementedError).
-    Mamba-2 and MoE layers split over tp, and MoE layers route over the
-    global microbatch under dp."""
+    """Refuse what the mesh does not split yet: under tp > 1, a config
+    with attention layers (an encoder's and a cross-attention's too)
+    whose query heads tp does not divide, or whose K/V head count ``G``
+    and tp divide neither one another (ValueError; an attention-free
+    config's unused head counts are not read), and a Mamba-2 config
+    whose SSM heads tp does not divide (ValueError).  Where tp divides
+    ``G`` each rank holds ``G / tp`` K/V heads; where ``G`` divides tp
+    each K/V head is replicated over ``tp / G`` ranks.  Every family
+    splits over tp: Mamba-2, MoE, the encoder-decoder and the VLM; MoE
+    layers route over the global microbatch under dp."""
     if tp <= 1:
         return
     has_attn = cfg.ssm is None or cfg.ssm.attn_period != 0
-    if has_attn and (cfg.num_heads % tp or cfg.num_kv_heads % tp):
+    H, G = cfg.num_heads, cfg.num_kv_heads
+    if has_attn and (H % tp or (G % tp and tp % G)):
         raise ValueError(
-            f"tp={tp} must divide num_heads={cfg.num_heads} and "
-            f"num_kv_heads={cfg.num_kv_heads} of {cfg.name} (whole "
-            f"query and K/V heads a rank; tp not dividing the K/V "
-            f"heads: {ITEM_3B}.4)")
+            f"tp={tp} must divide num_heads={H} of {cfg.name}, and tp and "
+            f"num_kv_heads={G} must divide one another (whole query heads "
+            f"a rank; K/V heads split over tp or replicated over tp / "
+            f"num_kv_heads ranks; tp splitting a head: {ITEM_3B}.4')")
     if cfg.ssm is not None:
         heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
         if heads % tp:
             raise ValueError(f"tp={tp} must divide the {heads} Mamba-2 "
                              f"heads of {cfg.name} (whole heads a rank)")
-    what = ("the encoder-decoder" if cfg.encdec is not None else
-            "the VLM's patch prefix" if cfg.vision is not None else None)
-    if what is not None:
-        raise NotImplementedError(
-            f"tensor parallelism over {what} of {cfg.name} is not "
-            f"ported yet ({ITEM_3B}.3)")
 
 
 def lm_shard(cfg: ModelConfig, shape, rules, coords, zero_stage: int):
@@ -90,7 +89,7 @@ def lm_shard(cfg: ModelConfig, shape, rules, coords, zero_stage: int):
                      drop_fsdp(logical),
                      zero_state_specs(logical, zero_stage)
                      if zero_stage >= 1 else drop_fsdp(logical),
-                     shape, rules, coords)
+                     shape, rules, coords, kv_heads=cfg.num_kv_heads)
 
 
 def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
@@ -120,7 +119,8 @@ def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
     tp.  The fp32 sums are the state's dp slices: each microbatch's
     gradients are reduce-scattered over dp into them (all-reduced where
     the state is whole; a leaf held as its dp slice at ZeRO-3 has its
-    gradient reduce-scattered by its gather's backward).  The plain
+    gradient reduce-scattered by its gather's backward), and a
+    replicated K/V head's summed over its K/V group once a step.  The plain
     AdamW updates the slices, the clip norm counting every element once
     over the mesh, and at stages below 3 the updated slices are
     all-gathered over dp into the weights.  :func:`check_mesh_model`
@@ -172,6 +172,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
         if mesh is not None:
             # the ranks' losses are parts of the global microbatches' means
             mesh.all_reduce(lsum, "data")
+            shard.kv_sum(mesh, gsum)
         return gsum, lsum
 
     def step(params, opt_state, batch):

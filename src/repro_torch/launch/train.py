@@ -722,14 +722,16 @@ def replicas_equal(mesh, params, opt_state, shard=None) -> bool:
     weights and masters of the tp-replicated leaves over tp, which
     ``shard`` (the run's
     :class:`~repro_torch.models.sharding.TreeShard`, handed to
-    ``after_step``) names (:func:`replica_checks` gives each)."""
+    ``after_step``) names, and those of each replicated K/V head within
+    its K/V group (:func:`replica_checks` gives each)."""
     return all(replica_checks(mesh, params, opt_state, shard).values())
 
 
 def replica_checks(mesh, params, opt_state, shard=None) -> Dict[str, bool]:
     """:func:`replicas_equal` axis by axis: ``{"pp": ...}``, and on a
-    ``pp x dp x tp`` mesh also ``"data"`` and ``"model"`` (which needs
-    the run's ``shard``)."""
+    ``pp x dp x tp`` mesh also ``"data"`` and ``"model"`` (which need
+    the run's ``shard``), and where the shard holds replicated K/V heads
+    ``"kv"``: their weights and masters equal within each K/V group."""
     if not hasattr(mesh, "pipe"):
         digests = mesh.all_gather(shared_digest(params, opt_state))
         return {"pp": all(torch.equal(d, digests[0]) for d in digests)}
@@ -750,6 +752,13 @@ def replica_checks(mesh, params, opt_state, shard=None) -> Dict[str, bool]:
                tree_leaves(opt_state["master"]), split) if not sp]
     d = mesh.all_gather(torch.cat(rep), "model") if rep else []
     out["model"] = all(torch.equal(x, d[0]) for x in d)
+    if any(shard.kv):
+        d = mesh.all_gather(torch.cat([
+            leaf_digest(a) for tree in (params, opt_state["master"])
+            for a, k in zip(tree_leaves(tree), shard.kv) if k]), "model")
+        r = shard.kv_rep
+        out["kv"] = all(torch.equal(x, d[t - t % r])
+                        for t, x in enumerate(d))
     return out
 
 

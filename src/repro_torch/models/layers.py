@@ -366,8 +366,12 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
     widths: where ``wq`` holds fewer than ``num_heads`` heads it is the
     rank's block of query heads (``H / tp`` from ``t * H / tp``) and
     ``wk`` / ``wv`` its block of K/V heads (``G / tp`` from ``t * G /
-    tp``: the groups of those query heads), ``wo`` the matching rows,
-    and the partial outputs are summed over tp."""
+    tp``: the groups of those query heads; where G divides tp, the one
+    head ``t // (tp / G)`` of them, replicated over ``tp / G`` ranks),
+    ``wo`` the matching rows, and the partial outputs are summed over
+    tp.  Both replicated inputs of the split products enter through
+    ``copy_to_tp``: ``x``, and a cross-attention's encoder output
+    ``kv_x``, so each one's gradient is the whole one on every rank."""
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(hd)
     heads = params["wq"].shape[-1] // hd
@@ -381,6 +385,8 @@ def attention(params, x, positions, *, num_heads: int, num_kv: int, hd: int,
         num_kv = params["wk"].shape[-1] // hd
         num_heads = heads
         x = copy_to_tp(x, env)
+        if kv_x is not None:
+            kv_x = copy_to_tp(kv_x, env)
     q = x @ params["wq"]
     if "bq" in params:
         q = q + params["bq"]

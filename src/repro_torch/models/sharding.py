@@ -474,10 +474,28 @@ class TreeShard:
       rank holds that slice only and gathers the whole at use), or None;
     - ``zero_dims``: the dimension its optimizer state is cut over dp on
       (ZeRO-1; a leaf cut over dp has its state cut the same way), or
-      None where the state is whole."""
+      None where the state is whole;
+    - ``kv``: is it a K/V projection (``wk``, ``wv``, ``bk``, ``bv`` of
+      an ``attn`` or ``cross`` tree) held as whole heads replicated over
+      tp: ``kv_heads`` (the config's ``G``) divides tp and is below it,
+      so rank ``t`` holds head ``t // kv_rep`` (``kv_rep = tp / G``), the
+      group of its ``H / tp`` query heads.  The reference's GSPMD cuts
+      such a leaf's columns by its resolved spec (within a head); the
+      port cuts whole heads (a deliberate divergence: the same numbers),
+      so its ``param_specs`` stay the reference's and the cut is
+      ``cut_specs``;
+    - ``cut_specs``: the spec the rank's part is cut by (``param_specs``,
+      but "model" on a K/V leaf's head columns);
+    - ``tp_parts``: how many distinct parts tp cuts the leaf into (tp
+      where it is split, ``G`` for a replicated K/V leaf, 1 where it is
+      whole).
+
+    The ranks of a K/V group (``kv_rep`` consecutive tp coordinates) hold
+    one head alike: :meth:`kv_sum` sums their gradients of it, and the
+    clip norm counts it on the group's first rank."""
 
     def __init__(self, tree, param_logical, state_logical, shape, rules,
-                 coords, dropped=lambda path: 0):
+                 coords, dropped=lambda path: 0, kv_heads: int = 0):
         self.shape, self.coords = dict(shape), dict(coords)
         mesh = SimpleNamespace(shape=self.shape)   # a layout: no processes
         env = ShardEnv(mesh, rules)
@@ -494,7 +512,17 @@ class TreeShard:
         ps, ss = phys(param_logical), phys(state_logical)
         self.param_specs = [sp[k:] for sp, k in zip(ps, cut)]
         tp_ax, dp_ax = rules.get("tp"), rules.get("dp")
-        self.tp_split = [names_axis(sp, tp_ax) for sp in self.param_specs]
+        self.tp = self.shape.get(tp_ax, 1) if tp_ax else 1
+        self.kv_rep = self.tp // kv_heads if kv_heads and \
+            self.tp > kv_heads and self.tp % kv_heads == 0 else 1
+        self.kv = [self.kv_rep > 1 and is_kv_path(p) for p in self.paths]
+        self.cut_specs = [
+            _on_last(sp, len(sh) - k, tp_ax) if kv else sp
+            for sp, sh, k, kv in zip(self.param_specs, shapes, cut, self.kv)]
+        self.tp_split = [kv or names_axis(sp, tp_ax)
+                         for sp, kv in zip(self.param_specs, self.kv)]
+        self.tp_parts = [kv_heads if kv else self.tp if split else 1
+                         for kv, split in zip(self.kv, self.tp_split)]
 
         def dim_of(sp, k):
             i = next((i for i, ax in enumerate(sp)
@@ -511,6 +539,12 @@ class TreeShard:
         self.tp_coord = self.coords.get(tp_ax, 0) if tp_ax else 0
         self._cut = {a: (self.coords[a], self.shape[a]) for a in
                      (tp_ax, dp_ax) if a in self.shape}
+        # a K/V leaf: tp cuts its head columns into G parts, the rank's
+        # head the one of its query heads
+        self._kv_cut = dict(self._cut)
+        if self.kv_rep > 1:
+            self._kv_cut[tp_ax] = (self.tp_coord // self.kv_rep, kv_heads)
+        self.tp_axis = tp_ax
 
     @property
     def sliced(self) -> bool:
@@ -532,8 +566,14 @@ class TreeShard:
     def cut_leaf(self, a: torch.Tensor, i: int) -> torch.Tensor:
         """Leaf ``i`` (its rank-local dimensions, whole) cut to the rank's
         tp shard and dp slice, as its own contiguous copy."""
-        return local_shard(a, self.param_specs[i], self._cut).clone(
+        return self.local_view(a, i).clone(
             memory_format=torch.contiguous_format)
+
+    def local_view(self, a: torch.Tensor, i: int) -> torch.Tensor:
+        """The rank's part of leaf ``i`` (its rank-local dimensions,
+        whole), as a view: :meth:`cut_leaf` without the copy."""
+        return local_shard(a, self.cut_specs[i],
+                           self._kv_cut if self.kv[i] else self._cut)
 
     def zero_slice(self, a: torch.Tensor, i: int) -> torch.Tensor:
         """Leaf ``i`` (a rank leaf) narrowed to the rank's dp slice where
@@ -555,17 +595,31 @@ class TreeShard:
         """The part of gradient leaf ``i`` the rank counts in the clip
         norm, so that every element counts once over the mesh: its dp
         slice (or the whole leaf on dp coordinate 0 where the state is
-        whole), and a tp-replicated leaf on tp coordinate 0 only; None
-        where the rank counts nothing."""
+        whole), a tp-replicated leaf on tp coordinate 0 only and a
+        replicated K/V head on its group's first rank; None where the
+        rank counts nothing."""
         return self.zero_slice(g, i) if self.counts(i) else None
 
     def counts(self, i: int) -> bool:
         """Does the rank count its part of leaf ``i`` in a sum over the
         mesh (:meth:`owned`): not a tp-replicated leaf off tp coordinate
-        0, not a dp-whole one off dp coordinate 0."""
-        if not self.tp_split[i] and self.tp_coord != 0:
+        0, not a K/V head off its group's first rank, not a dp-whole one
+        off dp coordinate 0."""
+        if self.tp_coord % (self.tp // self.tp_parts[i]):
             return False
         return self.zero_dims[i] is not None or self.dp_coord == 0
+
+    def kv_sum(self, mesh, grads) -> None:
+        """Sum, in place, the gradients of the replicated K/V leaves over
+        their K/V groups (``grads``: the rank's gradient leaves in
+        ``tree_leaves`` order, contiguous; the whole leaf or its dp
+        slice): each rank's is the part of its own query heads, and the
+        group's ranks share the head.  The weights' gradients, not the
+        K/V activations': the input's gradient was summed over tp by its
+        ``copy_to_tp``."""
+        for g, kv in zip(grads, self.kv):
+            if kv:
+                mesh.all_reduce(g, self.tp_axis, span=self.kv_rep)
 
     def reduce_grad(self, mesh, g: torch.Tensor, i: int) -> torch.Tensor:
         """A rank's gradient of leaf ``i`` summed over dp into the part
@@ -597,6 +651,25 @@ class TreeShard:
             for j, o in enumerate(outs):
                 if j != self.dp_coord:
                     a.narrow(k, j * n, n).copy_(o)
+
+
+KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+def is_kv_path(path) -> bool:
+    """Is the leaf at ``path`` a K/V projection of an attention
+    (``attn``: self-attention, the encoder's too; ``cross``: an
+    encoder-decoder's cross-attention)?"""
+    return len(path) >= 2 and path[-1] in KV_LEAVES \
+        and path[-2] in ("attn", "cross")
+
+
+def _on_last(spec, ndim: int, axis) -> Spec:
+    """``spec`` over ``ndim`` dimensions with ``axis`` on the last one
+    (a K/V leaf's head columns)."""
+    sp = list(spec) + [None] * (ndim - len(spec))
+    sp[-1] = axis
+    return tuple(sp)
 
 
 def names_axis(spec, axis) -> bool:

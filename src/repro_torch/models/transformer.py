@@ -282,7 +282,9 @@ def encode(cfg: ModelConfig, params, frame_embeds, backend):
     embeddings [B, T, d]: pre-norm layers of bidirectional self-attention
     (the flash kernel with ``causal=False`` on the fused backend) and an
     MLP, then ``enc_norm``.  ``params`` holds ``encoder`` and
-    ``enc_norm``."""
+    ``enc_norm``; under a tp env the layers run on their leaves' tp
+    shards, as the decoder's, and the output is equal on every tp
+    rank."""
     x = frame_embeds.to(_dtype(cfg.compute_dtype))
     Bz, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None].expand(Bz, T)
@@ -294,7 +296,7 @@ def encode(cfg: ModelConfig, params, frame_embeds, backend):
             rope_theta=cfg.rope_theta, causal=False, backend=backend)
         x = x + y
         h = backend.rmsnorm(pe["norm2"], x, cfg.norm_eps)
-        x = x + L.mlp(pe["mlp"], h, cfg.act)
+        x = x + L.mlp(pe["mlp"], h, cfg.act, d_ff=cfg.d_ff)
     return backend.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 

@@ -1,7 +1,9 @@
-"""Rank bodies for ``tests/test_torch_mesh_families.py``: what each spawned
-gloo rank runs (``repro_torch.launch.mesh.spawn`` pickles these by name)
-for the Mamba-2, MoE and hybrid families on a ``pp x dp x tp`` mesh.
-Imports torch and the port only, so a rank starts without JAX.
+"""Rank bodies for ``tests/test_torch_mesh_families.py`` and
+``tests/test_torch_mesh_encdec_vlm.py``: what each spawned gloo rank runs
+(``repro_torch.launch.mesh.spawn`` pickles these by name) for the
+Mamba-2, MoE and hybrid families, the encoder-decoder and the VLM on a
+``pp x dp x tp`` mesh.  Imports torch and the port only, so a rank
+starts without JAX.
 
 The pipeline cases are ``tests/helpers/torch_mesh.py``'s (chronos_zb P=2
 v=2 m=4, two sequences of 17 tokens a dp rank a microbatch); the
@@ -18,11 +20,11 @@ from repro_torch.bridge import lm_params_from_numpy, rank_params_from_numpy
 from repro_torch.configs import get_reduced
 from repro_torch.core import pipeline_runtime as PR
 from repro_torch.kernels.rmsnorm import RMSNormSplit
-from repro_torch.launch.steps import lm_shard
-from repro_torch.launch.train import replica_checks, train
+from repro_torch.launch.steps import lm_shard, make_train_step
+from repro_torch.launch.train import replica_checks, train, train_rank
 from repro_torch.models import moe as MOE
 from repro_torch.models.sharding import shard_env, tp_all_reduce, tp_env
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def reduced(arch, capacity_factor=None):
@@ -150,6 +152,8 @@ def train_suite(mesh, runs):
                     "mu": res["opt_state"]["mu"],
                     "master": res["opt_state"]["master"],
                     "param_specs": shard.param_specs,
+                    "cut_specs": shard.cut_specs,
+                    "tp_parts": shard.tp_parts,
                     "zero_dims": shard.zero_dims})
     return out
 
@@ -168,3 +172,66 @@ def keep_mask(probs, K, cap):
         rank[pos] = seen.get(e, 0)
         seen[e] = rank[pos] + 1
     return rank < cap
+
+
+def encdec_vlm_suite(mesh, cases, runs, single=None):
+    """On one rank: each ``(case, zero_stage)`` of ``cases`` through
+    ``torch_zero.pipeline_grads`` (the bridge's cut checked), each ``(tc,
+    P, kw)`` of ``runs`` through ``train_rank``; with ``single`` (``(shape,
+    grads, trains)``) the processes regrouped as ``shape`` (pp 1), then
+    each ``(cfg, zero_stage, np_params, batch)`` of ``grads`` through
+    :func:`train_grads` and each ``(tc, np_params)`` of ``trains``
+    through :func:`train_steps`."""
+    torch.set_num_threads(1)
+    out = {"grads": [], "train": [train_rank(mesh, tc, P, kw)
+                                  for tc, P, kw in runs]}
+    for c, z in cases:
+        g = Z.pipeline_grads(mesh, c, z)
+        g["bridge_equal"] = bridge_cuts(mesh, c, z)
+        out["grads"].append(g)
+    if single is not None:
+        shape, grads, trains = single
+        one = mesh.regroup(shape)
+        out["single_grads"] = [train_grads(one, *a) for a in grads]
+        out["single_train"] = [train_steps(one, *a) for a in trains]
+    return out
+
+
+def train_grads(mesh, cfg, zero_stage, np_params, batch):
+    """On one rank of (1, dp, tp): the gradient part of ``train()``'s
+    step (``step.grads``) for ``cfg`` at ``zero_stage`` from the bridged
+    ``LM`` weights ``np_params`` on the global numpy ``batch`` (``[m,
+    mbB * dp, ...]``): the rank's fp32 sums (its state slices, as a tree
+    ``g``), the loss sum, the bytes handed to collectives by axis, and
+    its shard's cut."""
+    tc = dataclasses.replace(Z.train_config(zero_stage), model=cfg)
+    m = batch["tokens"].shape[0]
+    step, _ = make_train_step(cfg, tc.plan, tc.optimizer, m, device="cpu",
+                              mesh=mesh)
+    sh = step.shard
+    params = sh.cut(lm_params_from_numpy(np_params, "cpu"))
+    before = mesh.collective_bytes()
+    gsum, lsum = step.grads(params, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()})
+    after = mesh.collective_bytes()
+    return {"g": tree_unflatten(params, gsum), "lsum": float(lsum),
+            "coords": dict(mesh.coords),
+            "bytes": {a: after[a] - before[a] for a in after},
+            "param_specs": sh.param_specs, "cut_specs": sh.cut_specs,
+            "tp_parts": sh.tp_parts, "zero_dims": sh.zero_dims,
+            "kv": sh.kv}
+
+
+def train_steps(mesh, tc, np_params, steps=1):
+    """On one rank of (1, dp, tp): ``steps`` steps of ``train(tc,
+    mesh=)`` from the bridged ``LM`` weights (the synthetic source's
+    batches, patch or frame embeddings too): the losses, the bytes
+    handed to collectives each step by axis, and the replica checks after
+    each step (the K/V groups' among them)."""
+    checks = []
+    res = train(tc, mesh=mesh, params=lm_params_from_numpy(np_params, "cpu"),
+                steps=steps, after_step=lambda _, p, o, s: checks.append(
+                    replica_checks(mesh, p, o, s)), log=H.quiet)
+    return {"losses": res["losses"], "coords": res["coords"],
+            "axis_bytes": res["exchange"]["axis_bytes"],
+            "replica_checks": checks}

@@ -8,8 +8,10 @@ in it, e.g. the vocab), ``kw`` (the keywords of ``make_pipeline_spec``,
 ``microbatch`` a dp rank's share), ``params`` (a stage-stacked numpy
 tree, e.g. the JAX package's ``init_pipeline_params`` bits, or None for
 the port's own init from seed 0), ``tokens`` (numpy ``[m, mbB * dp,
-seq_len]``, the global batch) and ``mask`` (numpy ``[m, mbB * dp,
-seq_len - 1]`` or None)."""
+seq_len]``, the global batch), ``mask`` (numpy ``[m, mbB * dp,
+seq_len - 1]`` or None) and ``embeds`` (a VLM's ``patch_embeds`` or an
+encoder-decoder's ``frame_embeds``, numpy ``[m, mbB * dp, P or T, d]``
+fp32 from seed 2; empty for the other configs)."""
 import dataclasses
 
 import numpy as np
@@ -40,6 +42,15 @@ def case(arch="tinyllama-1.1b", dp=2, params=None, tokens=None, mask=None,
             0, config(c).vocab_size,
             (kw["m"], kw["microbatch"] * dp, kw["seq_len"]))
     c["tokens"] = np.asarray(tokens, dtype=np.int64)
+    cf, lead = config(c), c["tokens"].shape[:2]
+    rng = np.random.default_rng(2)
+    c["embeds"] = {}
+    if cf.vision is not None:
+        c["embeds"]["patch_embeds"] = rng.standard_normal(
+            lead + (cf.vision.num_patches, cf.d_model)).astype(np.float32)
+    if cf.encdec is not None:
+        c["embeds"]["frame_embeds"] = rng.standard_normal(
+            lead + (cf.encdec.num_frames, cf.d_model)).astype(np.float32)
     return c
 
 
@@ -56,7 +67,8 @@ def spec_of(c, dp=1):
 
 
 def batch_of(c):
-    b = {"tokens": torch.from_numpy(c["tokens"])}
+    b = {"tokens": torch.from_numpy(c["tokens"]),
+         **{k: torch.from_numpy(a) for k, a in c["embeds"].items()}}
     if c["mask"] is not None:
         b["loss_mask"] = torch.from_numpy(np.asarray(c["mask"], np.float32))
     return b
@@ -111,18 +123,21 @@ def grads_on_mesh(mesh, cases):
 
 def gather(spec, mesh_shape, ranks):
     """The global gradient tree from every rank's (``ranks``: one result
-    a rank, rank order): each leaf joined over tp from its shards, the
-    block leaves stacked over pp, the shared ones from pp 0 (dp 0)."""
+    a rank, rank order): each leaf joined over tp from its shards (a
+    replicated K/V head from its group's first rank), the block leaves
+    stacked over pp, the shared ones from pp 0 (dp 0)."""
     by = {(r["coords"]["pp"], r["coords"]["data"], r["coords"]["model"]): r
           for r in ranks}
     shard = shard_of(spec, mesh_shape, {"pp": 0, "data": 0, "model": 0})
     tp = mesh_shape["model"]
     leaves = []
-    for i, (path, sp) in enumerate(zip(shard.paths, shard.param_specs)):
+    for i, (path, sp) in enumerate(zip(shard.paths, shard.cut_specs)):
+        parts = shard.tp_parts[i]
+
         def col(p):
             return join_shards(
-                lambda co: tree_leaves(by[p, 0, co.get("model", (0, 1))[0]]
-                                       ["g"])[i], sp, {"model": tp})
+                lambda co: tree_leaves(by[p, 0, tp_rank(co, tp, parts)]
+                                       ["g"])[i], sp, {"model": parts})
         if path[0] == "blocks":
             leaves.append(torch.stack([col(p)
                                        for p in range(mesh_shape["pp"])]))
@@ -130,6 +145,13 @@ def gather(spec, mesh_shape, ranks):
             leaves.append(col(0))
     return tree_unflatten(init_pipeline_params(None, spec.cfg, spec.layout,
                                                "meta"), leaves)
+
+
+def tp_rank(co, tp, parts):
+    """The tp coordinate holding part ``co["model"]`` of a leaf that tp
+    cuts into ``parts`` (a replicated K/V head: its group's first
+    rank; a whole leaf: rank 0)."""
+    return co.get("model", (0, 1))[0] * (tp // parts)
 
 
 def mesh_suite(mesh, cases, runs):

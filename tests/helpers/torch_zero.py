@@ -121,12 +121,15 @@ def join_pipeline(spec, shape, ranks, zero_stage):
           for r in ranks}
     shard = rank_shard(spec, shape, {"pp": 0, "data": 0, "model": 0},
                        zero_stage)
-    sizes = {"model": shape["model"], "data": shape["data"]}
+    tp = shape["model"]
     leaves = []
-    for i, (path, sp) in enumerate(zip(shard.paths, shard.param_specs)):
+    for i, (path, sp) in enumerate(zip(shard.paths, shard.cut_specs)):
+        parts = shard.tp_parts[i]
+        sizes = {"model": parts, "data": shape["data"]}
+
         def col(p):
             return join_shards(lambda co: tree_leaves(by[
-                p, co.get("data", (0, 1))[0], co.get("model", (0, 1))[0]]
+                p, co.get("data", (0, 1))[0], H.tp_rank(co, tp, parts)]
                 ["g"])[i], sp, sizes)
         if path[0] == "blocks":
             leaves.append(torch.stack([col(p) for p in range(shape["pp"])]))
@@ -183,7 +186,8 @@ def train_suite(mesh, np_params, stages):
             "params": res["params"],
             "mu": res["opt_state"]["mu"],
             "master": res["opt_state"]["master"],
-            "param_specs": shard.param_specs,
+            "param_specs": shard.param_specs, "cut_specs": shard.cut_specs,
+            "tp_parts": shard.tp_parts,
             "zero_dims": shard.zero_dims, "fsdp_dims": shard.fsdp_dims,
             "bridge_equal": all(torch.equal(a, b) for a, b in zip(
                 tree_leaves(bridged), tree_leaves(shard.cut(whole))))}
@@ -211,14 +215,15 @@ def join_lm(ranks, key, shape, tree):
     at one stage), shaped as ``tree``."""
     by = {(r["coords"]["data"], r["coords"]["model"]): r for r in ranks}
     r0 = ranks[0]
-    sizes = {"model": shape["model"], "data": shape["data"]}
+    tp = shape["model"]
     leaves = []
-    for i, (sp, k) in enumerate(zip(r0["param_specs"], r0["zero_dims"])):
+    for i, (sp, k, parts) in enumerate(zip(r0["cut_specs"], r0["zero_dims"],
+                                           r0["tp_parts"])):
         if key != "params":
             sp = state_spec(sp, k)
         leaves.append(join_shards(lambda co: tree_leaves(by[
-            co.get("data", (0, 1))[0], co.get("model", (0, 1))[0]][key])[i],
-            sp, sizes))
+            co.get("data", (0, 1))[0], H.tp_rank(co, tp, parts)][key])[i],
+            sp, {"model": parts, "data": shape["data"]}))
     return tree_unflatten(tree, leaves)
 
 

@@ -15,8 +15,9 @@ meshes).
   with their rules and with the port's mesh rules (``MESH_RULES``), the
   production (16, 16) and the multi-pod (2, 16, 16);
 - ``production_rules``, ``make_*_mesh`` layouts, ``local_shard`` and its
-  inverse, ``RankShard``'s slices, and the refusals that need no
-  process."""
+  inverse, ``RankShard``'s slices (K/V heads replicated over tp too),
+  the reference's production layout data 16 x model 16 on the meta
+  device, and the refusals that need no process."""
 import dataclasses
 
 import jax
@@ -199,16 +200,20 @@ def test_mesh_layouts_and_rules_equal_the_reference(monkeypatch):
 def test_mesh_takes_the_ssm_moe_and_hybrid_families(arch):
     """Full and reduced mamba2-2.7b (attention-free: its unused
     ``num_heads=1`` is not read), qwen2-moe-a2.7b and jamba-v0.1-52b pass
-    ``check_mesh_model`` at tp 2 and dp 2 (and both); whisper and
-    paligemma keep their refusal under tp."""
+    ``check_mesh_model`` at tp 2 and dp 2 (and both); so do whisper and
+    paligemma (full and reduced) at tp 2 and 4 with dp 1 and 2, and tp
+    above their query heads raises, naming item 3b.4'."""
     for cfg in (get_config(arch), get_reduced(arch)):
         for dp, tp in ((2, 1), (1, 2), (2, 2)):
             check_mesh_model(cfg, dp, tp)
     assert get_config("mamba2-2.7b").num_heads == 1
-    with pytest.raises(NotImplementedError, match="item 3b.3"):
-        check_mesh_model(get_config("whisper-base"), 2, 2)
-    with pytest.raises(ValueError, match="item 3b.4"):
-        check_mesh_model(get_config("paligemma-3b"), 1, 2)
+    for enc_vlm in ("whisper-base", "paligemma-3b"):
+        for cfg in (get_config(enc_vlm), get_reduced(enc_vlm)):
+            for dp in (1, 2):
+                for tp in (2, 4):
+                    check_mesh_model(cfg, dp, tp)
+        with pytest.raises(ValueError, match="item 3b.4'"):
+            check_mesh_model(get_config(enc_vlm), 1, 16)
 
 
 @pytest.mark.parametrize("name,mesh,rules", LAYOUTS,
@@ -282,40 +287,62 @@ def test_local_shard_and_its_inverse():
     assert S.local_shard(leaf, spec, {"model": (1, 2)}).shape == (8, 6, 2)
 
 
-def test_rank_shard_slices_and_ownership():
-    """``RankShard`` on reduced tinyllama at (2, 2, 2): the tp cut of
-    every leaf (heads, FFN and vocab split, norms whole), the ZeRO-1
-    slice of every block leaf's state (the first free axis when the
-    parameter has no fsdp: a norm's chunk axis), none for the shared
-    leaves, and an element owned by exactly one rank of the mesh."""
-    cfg = get_reduced("tinyllama-1.1b")
+# (arch, tp) on pp 2 x dp 2 x tp: tinyllama's 2 K/V heads split at tp 2
+# and replicated over pairs at tp 4; paligemma's one K/V head over 2 or 4
+SHARD_CASES = (("tinyllama-1.1b", 2), ("tinyllama-1.1b", 4),
+               ("paligemma-3b", 2), ("paligemma-3b", 4))
+
+
+@pytest.mark.parametrize("arch,tp", SHARD_CASES,
+                         ids=[f"{a}-tp{t}" for a, t in SHARD_CASES])
+def test_rank_shard_slices_and_ownership(arch, tp):
+    """``RankShard`` on a reduced config at (2, 2, tp): the tp cut of
+    every leaf (tinyllama at tp 2: heads, FFN and vocab split, norms
+    whole), the ZeRO-1 slice of every block leaf's state (the first free
+    axis when the parameter has no fsdp: a norm's chunk axis), none for
+    the shared leaves; where the K/V heads are fewer than tp, each rank's
+    ``wk`` / ``wv`` the whole head of its query heads (the same on the
+    ``tp / G`` ranks of its K/V group); and an element owned by exactly
+    one rank of the mesh."""
+    cfg = get_reduced(arch)
     lay = StageLayout.build(cfg, 2, 2, get_placement("interleaved", 2, 2))
-    shape = {"pp": 2, "data": 2, "model": 2}
+    shape = {"pp": 2, "data": 2, "model": tp}
     shards = {(d, t): RankShard(cfg, lay, shape, M.MESH_RULES,
                                 {"pp": 0, "data": d, "model": t})
-              for d in range(2) for t in range(2)}
+              for d in range(2) for t in range(tp)}
     rs = shards[0, 0]
     by = dict(zip([p[-2:] if p[0] == "blocks" else p for p in rs.paths],
                   zip(rs.param_specs, rs.tp_split, rs.zero_dims)))
-    assert by["attn", "wq"] == ((None, None, None, "model"), True, 2)
-    assert by["attn", "wo"] == ((None, None, "model"), True, 3)
-    assert by["mlp", "wi"] == ((None, None, None, "model"), True, 2)
-    assert by["norm1", "scale"] == ((), False, 0)
-    assert by["embed", "tokens"] == (("model",), True, None)
-    assert by["embed", "head"] == ((None, "model"), True, None)
-    assert by["final_norm", "scale"] == ((), False, None)
+    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    rep = tp // G if tp > G else 1
+    assert rs.kv_rep == rep and any(rs.kv) == (rep > 1)
+    if (arch, tp) == ("tinyllama-1.1b", 2):
+        assert by["attn", "wq"] == ((None, None, None, "model"), True, 2)
+        assert by["attn", "wo"] == ((None, None, "model"), True, 3)
+        assert by["mlp", "wi"] == ((None, None, None, "model"), True, 2)
+        assert by["norm1", "scale"] == ((), False, 0)
+        assert by["embed", "tokens"] == (("model",), True, None)
+        assert by["embed", "head"] == ((None, "model"), True, None)
+        assert by["final_norm", "scale"] == ((), False, None)
     tree = init_pipeline_params(torch.Generator().manual_seed(0), cfg, lay,
                                 "cpu")
+    whole = tree_leaves(tree)
     seen = [torch.zeros(a.shape[1:] if p[0] == "blocks" else a.shape)
-            for p, a in zip(tree_paths(tree), tree_leaves(tree))]
+            for p, a in zip(tree_paths(tree), whole)]
     for (d, t), sh in shards.items():
         mine = sh.cut(tree, 0)
         for i, (p, a) in enumerate(zip(sh.paths, tree_leaves(mine))):
             assert a.is_contiguous()
+            if sh.kv[i]:
+                # the whole head t // rep: every rank of its group alike
+                h = t // rep
+                assert torch.equal(a, whole[i][0][..., h * hd:(h + 1) * hd])
             # mark the owned elements in the tp-whole leaf's coordinates
             full = torch.zeros(seen[i].shape)
-            spec = sh.param_specs[i]
-            view = S.local_shard(full, spec, {"model": (t, 2)})
+            parts = sh.tp_parts[i]
+            view = S.local_shard(full, sh.cut_specs[i], {"model": (
+                t // (tp // parts), parts)})
+            assert view.shape == a.shape
             part = sh.owned(torch.ones(view.shape), i)
             if part is not None:
                 sh.zero_slice(view, i).add_(1.0)
@@ -323,30 +350,73 @@ def test_rank_shard_slices_and_ownership():
     assert all(bool((s == 1).all()) for s in seen)
 
 
+PRODUCTION_TP16 = ("llama70b-paper", "qwen2-72b", "grok-1-314b",
+                   "jamba-v0.1-52b", "tinyllama-1.1b")
+
+
+def test_production_layout_replicates_kv_heads_on_meta():
+    """The reference's production mesh, data 16 x model 16
+    (``make_production_mesh``) with its rules: ``check_mesh_model``
+    admits llama70b-paper, qwen2-72b, grok-1-314b, jamba-v0.1-52b and
+    tinyllama-1.1b at tp 16 (their K/V heads divide 16); the
+    ``TreeShard`` of llama70b-paper's ``LM`` tree on the meta device (at
+    ZeRO stage 3, every leaf a rank's part) gives each of the 16 tp
+    ranks one whole K/V head (``wk`` / ``wv`` of 128 columns, head ``t //
+    2``, shared by two consecutive ranks and counted on the first), and
+    allocates nothing."""
+    from repro_torch.launch.steps import lm_shard
+    from repro_torch.models import LM
+    layout = M.make_production_mesh()
+    assert layout.shape == {"data": 16, "model": 16}
+    rules = M.production_rules(False)
+    for arch in PRODUCTION_TP16:
+        cfg = get_config(arch)
+        assert 16 % cfg.num_kv_heads == 0 and cfg.num_kv_heads < 16
+        check_mesh_model(cfg, 16, 16)
+    cfg = get_config("llama70b-paper")
+    hd, G = cfg.resolved_head_dim, cfg.num_kv_heads
+    leaves = tree_leaves(LM(cfg, device="meta").init(None))
+    for t in (0, 1, 6, 7, 15):
+        sh = lm_shard(cfg, layout.shape, rules, {"data": 3, "model": t}, 3)
+        assert sh.kv_rep == 2 and sh._kv_cut["model"] == (t // 2, G)
+        for i, (p, a) in enumerate(zip(sh.paths, leaves)):
+            part = sh.local_view(a, i)
+            assert part.device.type == "meta"
+            if p[-1] in ("wk", "wv"):
+                assert sh.kv[i] and sh.tp_parts[i] == G
+                assert part.shape == (cfg.num_layers, cfg.d_model // 16, hd)
+                assert sh.counts(i) == (t % 2 == 0)
+            elif p[-1] == "wq":
+                assert part.shape[-1] == cfg.num_heads // 16 * hd
+
+
 def test_refusals_without_processes():
-    """tp not dividing the heads of a config with attention layers, or the
-    Mamba-2 heads (ValueError); the encoder-decoder and the VLM under tp
-    (NotImplementedError naming the ROADMAP item); ZeRO stages 0-3 run,
-    another stage raises ValueError."""
+    """tp not dividing the query heads of a config with attention layers,
+    K/V heads and tp dividing neither one another, or tp not dividing
+    the Mamba-2 heads (ValueError, the first two naming ROADMAP item
+    3b.4'); tp 4 over tinyllama's 2 K/V heads (replicated in pairs) and
+    the encoder-decoder and the VLM under tp are taken; ZeRO stages 0-3
+    run, another stage raises ValueError."""
     tiny = get_reduced("tinyllama-1.1b")            # 8 heads, 2 K/V heads
-    with pytest.raises(ValueError, match="num_kv_heads=2.*item 3b.4"):
-        check_mesh_model(tiny, 1, 4)
+    check_mesh_model(tiny, 1, 4)
+    with pytest.raises(ValueError, match="num_kv_heads=6.*item 3b.4'"):
+        check_mesh_model(dataclasses.replace(tiny, num_heads=12,
+                                             num_kv_heads=6), 1, 4)
     with pytest.raises(ValueError, match="num_heads=8"):
         check_mesh_model(dataclasses.replace(tiny, num_kv_heads=8), 1, 3)
+    with pytest.raises(ValueError, match="num_heads=8.*item 3b.4'"):
+        check_mesh_model(tiny, 1, 16)
     check_mesh_model(tiny, 2, 2)
     check_mesh_model(get_reduced("deepseek-7b"), 1, 4)
     with pytest.raises(ValueError, match="3 must divide the 8 Mamba-2"):
         check_mesh_model(get_reduced("mamba2-2.7b"), 1, 3)
-    for arch, what in (("whisper-base", "encoder-decoder"),
-                       ("paligemma-3b", "VLM")):
+    for arch in ("whisper-base", "paligemma-3b"):
         cfg = get_reduced(arch)
-        tp = 2 if cfg.num_kv_heads % 2 == 0 else 1
-        if tp == 1:
-            cfg = dataclasses.replace(cfg, num_heads=8, num_kv_heads=2)
-        with pytest.raises(NotImplementedError,
-                           match=f"{what}.*ROADMAP queue A item 3b.3"):
-            check_mesh_model(cfg, 1, 2)
-        check_mesh_model(get_reduced(arch), 2, 1)
+        check_mesh_model(cfg, 1, 2)
+        check_mesh_model(cfg, 2, 4)
+        check_mesh_model(cfg, 2, 1)
+        with pytest.raises(ValueError, match="item 3b.4'"):
+            check_mesh_model(cfg, 1, 2 * cfg.num_heads)
     for z in (-1, 4):
         with pytest.raises(ValueError, match=f"zero_stage={z}"):
             check_zero_stage(ParallelPlan(zero_stage=z))

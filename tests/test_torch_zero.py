@@ -253,10 +253,11 @@ def test_gather_fsdp_is_the_identity_without_a_mesh():
 
 
 def test_train_refuses_pipe_axes_and_unported_models():
-    """``train(mesh=)`` runs a mesh of pp 1; the encoder-decoder and the
-    VLM under tp keep their refusals (ROADMAP queue A item 3b.3), and tp
-    not dividing the K/V heads its ValueError (item 3b.4); MoE under dp
-    and Mamba-2 under tp are taken."""
+    """``train(mesh=)`` runs a mesh of pp 1; tp not dividing the query
+    heads keeps its ValueError (naming ROADMAP item 3b.4'); the
+    encoder-decoder and the VLM under tp (paligemma's one K/V head
+    replicated over the tp ranks), MoE under dp and Mamba-2 under tp are
+    taken."""
     from repro_torch.configs import get_reduced
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.steps import make_train_step
@@ -266,14 +267,15 @@ def test_train_refuses_pipe_axes_and_unported_models():
         make_train_step(get_reduced("tinyllama-1.1b"), ParallelPlan(),
                         ocfg, 2, device="cpu",
                         mesh=Mesh(2, 1, 1, 0, "gloo", "cpu"))
-    with pytest.raises(NotImplementedError, match="encoder-decoder.*3b.3"):
-        make_train_step(get_reduced("whisper-base"), ParallelPlan(),
-                        ocfg, 2, device="cpu",
-                        mesh=Mesh(1, 1, 2, 0, "gloo", "cpu"))
-    with pytest.raises(ValueError, match="num_kv_heads=1.*3b.4"):
+    with pytest.raises(ValueError, match="num_heads=4.*3b.4'"):
         make_train_step(get_reduced("paligemma-3b"), ParallelPlan(),
                         ocfg, 2, device="cpu",
-                        mesh=Mesh(1, 1, 2, 0, "gloo", "cpu"))
+                        mesh=Mesh(1, 1, 8, 0, "gloo", "cpu"))
+    for arch in ("whisper-base", "paligemma-3b"):
+        step, _ = make_train_step(get_reduced(arch), ParallelPlan(), ocfg,
+                                  2, device="cpu",
+                                  mesh=Mesh(1, 1, 2, 0, "gloo", "cpu"))
+        assert any(step.shard.kv) == (arch == "paligemma-3b")
     for arch, dp, tp in (("qwen2-moe-a2.7b", 2, 1), ("mamba2-2.7b", 1, 2)):
         step, _ = make_train_step(get_reduced(arch), ParallelPlan(), ocfg,
                                   2, device="cpu",
