@@ -3315,44 +3315,40 @@ def phase_train_offload_checks(torch):
     on-device optimizer, step-1 losses bitwise, then within the
     reference's 5e-3; (b) offload against the on-device optimizer with
     the deep weights rounded to bf16 after every step, within 1e-4: what
-    is left is the host update's own rounding.  Then the same pair with
-    the clip on, printed and not checked: the host update never clips
-    the deep gradients and the device clip covers only the shallow and
-    shared leaves, as in the reference, so a clip coefficient that moves
-    from step to step moves Adam's normalised steps apart."""
+    is left is the host update's own rounding.  The clip stays off: the
+    host update never clips the deep gradients and the device clip covers
+    only the shallow and shared leaves, as in the reference
+    (``tests/test_torch_mesh_offload.py`` holds that clip), so a clip
+    coefficient that moves from step to step would move Adam's
+    normalised steps apart."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OptimizerConfig
+    ocfg = OptimizerConfig(warmup_steps=2, total_steps=4, grad_clip=0.0)
     for arch in ("tinyllama-1.1b", "mamba2-2.7b"):
         cfg = dataclasses.replace(get_config(arch), num_layers=4,
                                   param_dtype="float32",
                                   compute_dtype="float32")
-        for clip in (0.0, 1.0):
-            ocfg = OptimizerConfig(warmup_steps=2, total_steps=4,
-                                   grad_clip=clip)
-            runs = {}
-            for mode in ("device", "offload", "device+bf16"):
-                runs[mode] = _fp32_offload_losses(torch, cfg, ocfg, mode)
-                gc.collect()
-                torch.cuda.empty_cache()
-            off = runs["offload"]
-            d_a = max(abs(a - b) for a, b in zip(runs["device"], off))
-            d_b = max(abs(a - b) for a, b in zip(runs["device+bf16"], off))
-            first = runs["device"][0] == off[0]
-            print(f"[train-offload-check] {arch} fp32 4 layers, grad_clip "
-                  f"{clip}, {OFFLOAD_CHECK_STEPS} steps: on-device "
-                  f"{runs['device']}, offload "
-                  f"{off}, on-device with bf16 deep weights "
-                  f"{runs['device+bf16']}; offload - on-device max |d| "
-                  f"{d_a:.3e}, offload - bf16-deep on-device max |d| "
-                  f"{d_b:.3e}; step 1 "
-                  f"{'bitwise' if first else 'DIFFERS'}"
-                  + (" (tols 5e-3 and 1e-4)" if clip == 0.0 else
-                     " (printed, not checked)"))
-            if clip == 0.0 and not (first and d_a <= 5e-3 and d_b <= 1e-4):
-                fail(f"{arch}: offload training departs from the on-device "
-                     "optimizer")
+        runs = {}
+        for mode in ("device", "offload", "device+bf16"):
+            runs[mode] = _fp32_offload_losses(torch, cfg, ocfg, mode)
+            gc.collect()
+            torch.cuda.empty_cache()
+        off = runs["offload"]
+        d_a = max(abs(a - b) for a, b in zip(runs["device"], off))
+        d_b = max(abs(a - b) for a, b in zip(runs["device+bf16"], off))
+        first = runs["device"][0] == off[0]
+        print(f"[train-offload-check] {arch} fp32 4 layers, grad_clip 0.0, "
+              f"{OFFLOAD_CHECK_STEPS} steps: on-device {runs['device']}, "
+              f"offload {off}, on-device with bf16 deep weights "
+              f"{runs['device+bf16']}; offload - on-device max |d| "
+              f"{d_a:.3e}, offload - bf16-deep on-device max |d| "
+              f"{d_b:.3e}; step 1 {'bitwise' if first else 'DIFFERS'} "
+              f"(tols 5e-3 and 1e-4)")
+        if not (first and d_a <= 5e-3 and d_b <= 1e-4):
+            fail(f"{arch}: offload training departs from the on-device "
+                 "optimizer")
 
 
 # ---------------------------------------------------------------------------
@@ -5216,8 +5212,12 @@ def release_host_cache(torch) -> str:
     free (the earlier phases' offload, checkpoint and staging copies; it
     rounds each to a power of two and never frees one by itself) to the
     system, so that the mesh phases' eight processes have the host's
-    memory.  Returns a line: the pinned bytes held before and after, or
-    that this torch has no binding for it."""
+    memory; the offload runner's host buffers (the process's one set,
+    ``optim.offload.release_host_buffers``) are dropped first.  Returns a
+    line: the pinned bytes held before and after, or that this torch has
+    no binding for it."""
+    from repro_torch.optim.offload import release_host_buffers
+    release_host_buffers()          # the offload runner's one set
     fn = getattr(torch._C, "_host_emptyCache", None)
 
     def held():
@@ -5722,7 +5722,8 @@ def _warm_blas(torch):
     torch.cuda.synchronize()
 
 
-def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path, fam_refs):
+def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path, fam_refs,
+                     ckdir):
     """What each of phase 28's ranks runs: ``steps`` steps on the mesh
     (the main path, launches counted), then the fp32 check; then phase
     29's cases in the same processes: ``ZERO3_STEPS`` steps of ``tc`` at
@@ -5730,7 +5731,8 @@ def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path, fam_refs):
     regrouped as ``SINGLE_MESH_SHAPE`` ``train()`` for each ``(stage,
     steps)`` of ``SINGLE_MESH_RUNS`` and its fp32 check; then phase 30's
     and phase 31's (:func:`_families_body`, ``fam_refs`` their
-    references).  ``base``: the
+    references); then phase 32's (:func:`_offload_mesh_body`, its
+    checkpoints in ``ckdir``).  ``base``: the
     bytes allocated just before each run (after ``_warm_blas``), which
     the memory readings are taken over."""
     import dataclasses
@@ -5780,6 +5782,8 @@ def _train_mesh_body(mesh, tc, steps, ref_path, single_ref_path, fam_refs):
                                      fam_refs)
     res["encvlm"] = _families_body(mesh, single, log, free, base, fam_refs,
                                    ENCVLM)
+    res["offload"] = _offload_mesh_body(mesh, ref_path, ckdir, log, free,
+                                        base)
     return res
 
 
@@ -5987,7 +5991,8 @@ def phase_train_mesh(torch, smi: str):
               f"before the spawn)")
         t0 = time.perf_counter()
         outs = spawn(n, _train_mesh_body,
-                     args=(tc, MESH_STEPS, ref_path, single_ref, fam_refs),
+                     args=(tc, MESH_STEPS, ref_path, single_ref, fam_refs,
+                           os.path.join(tmp, "mesh_ckpt")),
                      shape=MESH_SHAPE, backend="gloo", device="cuda",
                      timeout_s=MESH_TIMEOUT)
         wall = time.perf_counter() - t0
@@ -6070,7 +6075,9 @@ def phase_train_mesh(torch, smi: str):
                                  ref_max, single_max),
             **phase_families_checks(smi, outs, fam_max),
             **phase_families_checks(smi, outs, fam_max, ENCVLM, "31",
-                                    "encvlm", "train-encvlm")}
+                                    "encvlm", "train-encvlm"),
+            **phase_offload_mesh_checks(smi, outs, runs,
+                                        [o["base"] for o in outs])}
 
 
 def _gib(nbytes) -> str:
@@ -6269,7 +6276,13 @@ def phase_zero3_checks(smi: str, outs, tc, spec, pred, per_step, ref_max,
 # phase 30: Mamba-2 and MoE on the same eight processes (pp 2 x dp 2 x tp
 # 2), then train() of each on them regrouped as SINGLE_MESH_SHAPE
 FAMILIES = ("mamba2-2.7b", "qwen2-moe-a2.7b")
-FAMILY_STEPS = 2         # the first a warm-up
+# steps of phases 30-31 by arch: two for the cheaper family of each phase
+# (a step on updated, re-gathered weights), one for the others in
+# processes phases 28-29 warmed (two until phase 32 needed the time: the
+# second steps took 3.2, 6.0, 2.7 and 4.0 s on a fast host, measured on
+# one H100)
+FAMILY_STEPS = {"mamba2-2.7b": 2, "qwen2-moe-a2.7b": 1, "whisper-base": 2,
+                "paligemma-3b": 1}
 FAMILY_SINGLE_STEPS = 1  # (C): train() at stage 1 on SINGLE_MESH_SHAPE
 # phase 31: the encoder-decoder and the VLM on the mesh, in the same eight
 # processes after phase 30, with its steps and gates: whisper-base on
@@ -6326,7 +6339,7 @@ class _DroppedRecorder:
 
 def _families_body(mesh, single, log, free, base, refs, archs=FAMILIES):
     """Phase 30 (31, ``archs`` ``ENCVLM``) on one rank, after phase 29
-    (30): for each of ``archs``, ``FAMILY_STEPS`` steps of
+    (30): for each of ``archs``, its ``FAMILY_STEPS`` steps of
     ``_mesh_config(arch)`` on ``mesh`` regrouped as its ``_mesh_shape``
     (the main path, launches counted) and its fp32 check; then on
     ``single`` (the processes regrouped as ``SINGLE_MESH_SHAPE``)
@@ -6344,8 +6357,8 @@ def _families_body(mesh, single, log, free, base, refs, archs=FAMILIES):
         t0 = time.perf_counter()
         base[arch] = free()
         r = {"train": train_rank(on, _mesh_config(arch), shape[0],
-                                 {"overlap": True, "steps": FAMILY_STEPS,
-                                  "log": log})}
+                                 {"overlap": True,
+                                  "steps": FAMILY_STEPS[arch], "log": log})}
         free()
         r["check"] = _mesh_fp32_check(torch, on, refs[arch]["pipe"],
                                       arch=arch)
@@ -6492,7 +6505,7 @@ def phase_families_checks(smi: str, outs, ref_max, archs=FAMILIES,
               f"the same eight processes: {spec.table.name} "
               f"v={tc.plan.num_chunks} m={spec.table.m}, {spec.mbB} "
               f"sequence a dp rank a microbatch of {spec.S} positions; "
-              f"{FAMILY_STEPS} steps and the fp32 check in "
+              f"{FAMILY_STEPS[arch]} steps and the fp32 check in "
               f"{fam[0]['s']:.1f} s")
         if not all(math.isfinite(x) for x in losses + runs[0]["grad_norms"]):
             fail(f"{tag}: non-finite loss or gradient norm {losses}")
@@ -6505,8 +6518,8 @@ def phase_families_checks(smi: str, outs, ref_max, archs=FAMILIES,
         n_leaves = len(tree_leaves(init_pipeline_params(
             None, tc.model, spec.layout, "meta")))
         per_step = expected_train_launches(spec, n_leaves, tp=tp)
-        want = {k: FAMILY_STEPS * v * (n if k == "fused_adamw_flat"
-                                        else dp * tp)
+        want = {k: FAMILY_STEPS[arch] * v * (
+                    n if k == "fused_adamw_flat" else dp * tp)
                 for k, v in per_step.items()}
         summed = {k: sum(o["launches"][k] for o in runs) for k in want}
         print(f"[{label}] {arch}: losses {losses}, gradient norms "
@@ -6520,7 +6533,7 @@ def phase_families_checks(smi: str, outs, ref_max, archs=FAMILIES,
         if any(not o["launches"][k] for o in runs for k in used):
             fail(f"{tag}: a rank launched no kernel of the path")
         coll = pred["collectives"]
-        for step in range(FAMILY_STEPS):
+        for step in range(FAMILY_STEPS[arch]):
             got = {a: sum(o["exchange"]["axis_bytes"][step][a] for o in runs)
                    for a in ("pp", "data", "model")}
             if got != coll.by_axis:
@@ -6536,8 +6549,9 @@ def phase_families_checks(smi: str, outs, ref_max, archs=FAMILIES,
         for o, b in zip(runs, [r["base"][arch] for r in outs]):
             co = o["coords"]
             print(f"[{label}] {smi} | {arch} rank {o['rank']} (pp "
-                  f"{co['pp']}, dp {co['data']}, tp {co['model']}): step "
-                  f"{statistics.median(o['step_s'][1:]) * 1e3:.1f} ms "
+                  f"{co['pp']}, dp {co['data']}, tp {co['model']}): "
+                  f"{median_word(o['step_s'])} "
+                  f"{warm_median(o['step_s']) * 1e3:.1f} ms "
                   f"(steps {[round(x * 1e3, 1) for x in o['step_s']]}); "
                   f"over the run's base ({_gib(b)} GiB): "
                   f"max_memory_allocated {_gib(o['peak_bytes'] - b)} GiB, "
@@ -6633,6 +6647,364 @@ def phase_families_checks(smi: str, outs, ref_max, archs=FAMILIES,
               f"fp32 gradient slices within {worst:.3e} relative of the "
               f"one-process train() step's (tol {CHECK_REL})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 32: Chronos-Offload and checkpoints on the mesh
+# ---------------------------------------------------------------------------
+
+OFFLOAD_MESH_STEPS = MESH_STEPS      # (A): the first a warm-up
+# (B): the checkpoint of a one-step run, then a run restored from it to
+# step OFFLOAD_MESH_STEPS (no periodic save: the step-0 snapshot and each
+# run's final save)
+CKPT_MESH_CUT = 1
+
+
+def _offload_mesh_config():
+    """Phase 32's configuration: phase 28's (``_mesh_config()``) with the
+    deepest of its two chunks offloaded
+    (``OffloadConfig(enabled=True, num_offload_chunks=1)``)."""
+    import dataclasses
+
+    from repro_torch.configs.base import OffloadConfig
+    tc = _mesh_config()
+    return dataclasses.replace(tc, plan=dataclasses.replace(
+        tc.plan, offload=OffloadConfig(enabled=True, num_offload_chunks=1)))
+
+
+def _offload_fp32_check(torch, mesh, ref_path):
+    """On one rank: one step of phase 28's fp32 check configuration with
+    the deepest chunk offloaded, through ``make_pipeline_train_step``:
+    the rank's shipment (its parts of the deep gradient sums) against
+    the same parts of phase 28's one-process reference (``ref_path``):
+    each leaf's max |difference|, and the largest |element| of each
+    global deep leaf of the reference, for the relative bound."""
+    from repro_torch.configs.base import (OffloadConfig, OptimizerConfig,
+                                          ParallelPlan, ShapeConfig)
+    from repro_torch.core.pipeline_runtime import rank_params
+    from repro_torch.launch.steps import (make_pipeline_train_step,
+                                          offload_kept)
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+    c, dev, p = MESH_CHECK, mesh.device, mesh.coord("pp")
+    plan = ParallelPlan(schedule="chronos_zb",
+                        num_chunks=MESH_CHUNKS["tinyllama-1.1b"],
+                        microbatch_size=1, num_microbatches=c["m"],
+                        kernels="fused",
+                        offload=OffloadConfig(enabled=True,
+                                              num_offload_chunks=1))
+    step, m, _, spec = make_pipeline_train_step(
+        _mesh_model("tinyllama-1.1b", True),
+        ShapeConfig("check", c["seq"], c["m"] * mesh.dp, "train"), plan,
+        OptimizerConfig(), P=mesh.pp, device=dev, mesh=mesh, overlap=True)
+    params, batch = _mesh_check_inputs(torch, spec, dev, mesh.dp)
+    params = rank_params(params, p, step.shard)
+    gc.collect()
+    torch.cuda.empty_cache()       # the whole tree each rank drew
+    kept, _ = offload_kept(params, plan, column=True)
+    out = step(params, adamw_init(step.kept_shard.zero_views(kept)), batch)
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    _, want = offload_kept(step.shard.cut(ref["g"], p), plan, column=True)
+    _, whole = offload_kept(ref["g"], plan)
+    got = tree_leaves(out.shipment)
+    diff = [float((a - step.deep_shard.zero_slice(b, i).to(dev))
+                  .abs().max())
+            for i, (a, b) in enumerate(zip(got, tree_leaves(want),
+                                           strict=True))]
+    return {"diff": diff, "top": [float(a.abs().max())
+                                  for a in tree_leaves(whole)],
+            "paths": ["/".join(map(str, q))
+                      for q in step.deep_shard.paths],
+            "loss": float(out.metrics["loss"]),
+            "parent_loss": float(ref["loss"]), "m": m}
+
+
+def _offload_mesh_body(mesh, ref_path, ckdir, log, free, base):
+    """Phase 32 on one rank, after phase 31 in the same processes.  (A)
+    ``_offload_mesh_config()``'s ``OFFLOAD_MESH_STEPS`` steps on the
+    mesh (the main path, launches counted), each collect's deep parts
+    held against the rank's host masters rounded to bf16 after the run
+    (the collect only copies both; ``record_s``: the copies' host time,
+    a collect's), the shipment's fp32 check.  (B) ``CKPT_MESH_CUT`` step into ``ckdir`` (the step-0
+    snapshot and the final save), then a run restored from it to step
+    ``OFFLOAD_MESH_STEPS``, each restored leaf's digest taken right after
+    the restore against the digests of what the first run saved; rank 0
+    returns the checkpoint's manifest.  The page-locked host cache is
+    released before (A) and between (A) and (B)."""
+    import dataclasses
+    import json as _json
+
+    import torch
+
+    from repro_torch.ft import checkpoint as ckpt
+    from repro_torch.launch.train import (leaf_digest, train_pipeline,
+                                          train_rank)
+    from repro_torch.optim import offload as offload_mod
+    from repro_torch.tree import tree_leaves
+    tc = _offload_mesh_config()
+    res = {}
+    t0 = time.perf_counter()
+    base["offload"] = free()            # releases the host cache too
+    recorded, record_s = [], []
+    collect = offload_mod.ChronosOffloadRunner.collect
+
+    def recorded_collect(self):
+        # inside the step's timed window: only copies are taken here (the
+        # deep parts on the card, the host masters), compared after the
+        # run; their host time is returned beside the step times
+        out = collect(self)
+        t_r = time.perf_counter()
+        recorded.append(([w.clone() for w in tree_leaves(self.deep)],
+                         [m.copy() for m in tree_leaves(self.opt.master)]))
+        record_s.append(time.perf_counter() - t_r)
+        return out
+    offload_mod.ChronosOffloadRunner.collect = recorded_collect
+    try:
+        res["train"] = train_rank(mesh, tc, mesh.pp, {
+            "overlap": True, "steps": OFFLOAD_MESH_STEPS, "log": log})
+    finally:
+        offload_mod.ChronosOffloadRunner.collect = collect
+    res["deep_ok"] = [all(
+        torch.equal(w, torch.from_numpy(mst).to(w.device)
+                    .to(torch.bfloat16).to(w.dtype))
+        for w, mst in zip(dev, host)) for dev, host in recorded]
+    res["record_s"] = record_s
+    del recorded
+    free()
+    res["check"] = _offload_fp32_check(torch, mesh, ref_path)
+    res["a_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    base["ckpt"] = free()
+    tck = dataclasses.replace(tc, checkpoint_dir=ckdir,
+                              checkpoint_every=10 ** 6)
+
+    def digests(params, opt_state):
+        return [leaf_digest(a).tolist() for _, a in
+                ckpt._flatten({"params": params, "opt": opt_state})]
+    first = train_pipeline(tck, P=mesh.pp, mesh=mesh, overlap=True,
+                           steps=CKPT_MESH_CUT, log=log)
+    saved = digests(first["params"], first["opt_state"])
+    res["ckpt_first"] = {k: first[k] for k in ("losses",
+                                               "checkpoint_records")}
+    del first
+    free()
+    restored = []
+    restore = ckpt.MeshCheckpointer.restore_into
+
+    def digested_restore(self, tree, step=None, parts=None):
+        extra = restore(self, tree, step, parts)
+        restored.append(digests(tree["params"], tree["opt"]))
+        return extra
+    ckpt.MeshCheckpointer.restore_into = digested_restore
+    try:
+        second = train_pipeline(tck, P=mesh.pp, mesh=mesh, overlap=True,
+                                steps=OFFLOAD_MESH_STEPS, log=log)
+    finally:
+        ckpt.MeshCheckpointer.restore_into = restore
+    res["ckpt_second"] = {k: second[k] for k in (
+        "losses", "start_step", "checkpoint_records")}
+    res["restored_equal"] = len(restored) == 1 and restored[0] == saved
+    res["n_digests"] = len(saved)
+    del second
+    if mesh.rank == 0:
+        with open(os.path.join(ckdir, f"step_{CKPT_MESH_CUT:08d}",
+                               "manifest.json")) as f:
+            res["manifest"] = _json.load(f)
+    free()
+    res["b_s"] = time.perf_counter() - t0
+    return res
+
+
+def one_device_manifest(tc, P: int):
+    """The leaves of the checkpoint the one-device ``train_pipeline`` of
+    ``tc`` writes (``path``, ``file``, ``shape``, ``dtype``, ``spec``),
+    reckoned on the meta device: its stage-stacked parameters and the
+    optimizer state of what the device updates (under offload the kept
+    part: ``offload_kept``)."""
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
+    from repro_torch.ft.checkpoint import _flatten
+    from repro_torch.launch.steps import offload_kept
+    from repro_torch.optim import adamw_init
+    spec = _spec_of(tc, P)
+    meta = init_pipeline_params(None, tc.model, spec.layout, "meta")
+    kept = offload_kept(meta, tc.plan)[0] if tc.plan.offload.enabled \
+        else meta
+    pairs = _flatten({"params": meta, "opt": adamw_init(kept)})
+    return [{"path": p, "file": f"leaf_{i}.bin", "shape": list(a.shape),
+             "dtype": str(a.dtype).removeprefix("torch."), "spec": None}
+            for i, (p, a) in enumerate(pairs)]
+
+
+def phase_offload_mesh_checks(smi: str, outs, runs28, bases) -> dict:
+    """32: what phase 28's eight processes ran after phase 31.  (A)
+    ``_offload_mesh_config()`` on pp 2 x dp 2 x tp 2: finite losses equal
+    on every rank, the step-1 losses bitwise phase 28's (``runs28``);
+    after every step the dp replicas and the tp-replicated leaves
+    bitwise equal; each collect's deep parts on the card equal to the
+    rank's host masters rounded to bf16; launches summed over the ranks
+    the table's x dp x tp for RMSNorm and flash and one fused-AdamW
+    launch a kept leaf slice a rank a step (none for the deep slices,
+    whose AdamW is the host's); each step's bytes by axis
+    ``collective_stats(offload_chunks=1)``'s (the kept leaves' ZeRO-1
+    gather and the deep leaves' after the upload); the fp32 check's
+    shipment within ``CHECK_REL`` of the one-process deep gradients.
+    Prints each rank's step, peak and weights and state beside phase
+    28's (each over its run's base), ``collect_wait_s``, the host update
+    seconds and the copies' GB/s, and the Eq. (5)/(7) report at tp 2.
+    (B) the one-step run's checkpoint and the run restored from it: the
+    first run's loss bitwise (A)'s step 1, the restored run's start step
+    ``CKPT_MESH_CUT`` and its loss bitwise (A)'s step 2, every restored
+    leaf's digest equal to what was saved, the manifest's leaves those
+    the one-device port writes for the same plan; prints each rank's
+    save and restore GB/s.  Returns (A)'s launch counts."""
+    from repro_torch.core.pipeline_runtime import init_pipeline_params
+    from repro_torch.launch.dryrun import collective_stats
+    from repro_torch.tree import tree_leaves
+    pp, dp, tp = MESH_SHAPE
+    n = pp * dp * tp
+    tc = _offload_mesh_config()
+    spec = _spec_of(tc, pp)
+    steps = OFFLOAD_MESH_STEPS
+    res = [o["offload"] for o in outs]
+    runs = [r["train"] for r in res]
+    losses = runs[0]["losses"]
+    print(f"[train-mesh-offload] {smi} | phase 28's {tc.model.name} "
+          f"({tc.model.num_layers} layers) with {tc.plan.offload} on pp "
+          f"{pp} x dp {dp} x tp {tp}, the same eight processes: "
+          f"{steps} steps and the fp32 check in {res[0]['a_s']:.1f} s; "
+          f"the checkpoint run and the restored run in "
+          f"{res[0]['b_s']:.1f} s")
+    if not all(math.isfinite(x) for x in losses + runs[0]["grad_norms"]):
+        fail(f"32: non-finite loss or gradient norm {losses}")
+    if any(o["losses"] != losses for o in runs):
+        fail(f"32: the ranks disagree on the loss "
+             f"{[o['losses'] for o in runs]}")
+    if losses[0] != runs28[0]["losses"][0]:
+        fail(f"32: step-1 loss {losses[0]} != phase 28's "
+             f"{runs28[0]['losses'][0]}")
+    if not all(all(o["replicas_equal"]) for o in runs):
+        fail(f"32: replicas differ {[o['replica_checks'] for o in runs]}")
+    if not all(len(r["deep_ok"]) == steps and all(r["deep_ok"])
+               for r in res):
+        fail(f"32: deep parts differ from the host masters through bf16 "
+             f"{[r['deep_ok'] for r in res]}")
+    rec = [t for r in res for t in r["record_s"]]
+    print(f"[train-mesh-offload] losses {losses} (phase 28 "
+          f"{runs28[0]['losses']}: step 1 bitwise); gradient norms "
+          f"{runs[0]['grad_norms']} (the shallow and shared leaves'); "
+          f"replicas equal after every step; every collect's deep parts "
+          f"the rank's host masters through bf16 ({steps} a rank, "
+          f"compared after the run; their copies took {min(rec):.4f}-"
+          f"{max(rec):.4f} s a collect, inside collect_wait_s and the "
+          f"step times below)")
+    n_leaves = len(tree_leaves(init_pipeline_params(
+        None, tc.model, spec.layout, "meta")))
+    per_step = expected_train_launches(spec, n_leaves)
+    want = {k: steps * v * (n if k == "fused_adamw_flat" else dp * tp)
+            for k, v in per_step.items()}
+    summed = {k: sum(o["launches"][k] for o in runs) for k in want}
+    print(f"[train-mesh-offload] launches summed {summed} (the table x dp "
+          f"x tp; fused AdamW a kept leaf slice a rank a step: {want})")
+    if summed != want or any(not o["launches"][k] for o in runs for k in (
+            "rmsnorm_rows", "flash_attention_fwd", "fused_adamw_flat")):
+        fail(f"32: launches {summed} != {want}")
+    coll = collective_stats(spec, dp, tp, update=True, offload_chunks=1)
+    for step in range(steps):
+        got = {a: sum(o["exchange"]["axis_bytes"][step][a] for o in runs)
+               for a in ("pp", "data", "model")}
+        if got != coll.by_axis:
+            fail(f"32: step {step} handed {got} B to collectives, "
+                 f"collective_stats(offload_chunks=1) counts "
+                 f"{coll.by_axis}")
+    kb = coll.bytes_by_kind
+    data28 = collective_stats(_spec_of(_mesh_config(), pp), dp, tp,
+                              update=True).by_axis["data"]
+    print(f"[train-mesh-offload] bytes handed to collectives a step, over "
+          f"the ranks, equal to collective_stats(offload_chunks=1): "
+          f"{coll.by_axis} (kept ZeRO-1 all-gather "
+          f"{int(kb['all-gather-dp'])}, deep all-gather after the upload "
+          f"{int(kb['all-gather-deep'])}; phase 28's data {data28})")
+    for r, o, o28, b in zip(res, runs, runs28, bases):
+        co, rep = o["coords"], o["offload"]
+        b28, b32 = b["train"], b["offload"]
+        print(f"[train-mesh-offload] {smi} | rank {o['rank']} (pp "
+              f"{co['pp']}, dp {co['data']}, tp {co['model']}): step "
+              f"{warm_median(o['step_s']) * 1e3:.1f} ms (steps "
+              f"{[round(x * 1e3, 1) for x in o['step_s']]}; phase 28 "
+              f"{warm_median(o28['step_s']) * 1e3:.1f}); over each run's "
+              f"base: max_memory_allocated {_gib(o['peak_bytes'] - b32)} "
+              f"GiB (phase 28 {_gib(o28['peak_bytes'] - b28)}), weights "
+              f"and state {_gib(o['static_bytes'] - b32)} (phase 28 "
+              f"{_gib(o28['static_bytes'] - b28)}); collect_wait_s "
+              f"{rep['collect_wait_s']:.3f}, overlapped "
+              f"{rep['overlapped']}/{rep['submits']}, host update s "
+              f"{[round(t, 3) for t in rep['host_update_s']]}, copy-down "
+              f"{rep['bytes_down'] / 1e6:.1f} MB at GB/s "
+              f"{[round(g, 2) for g in rep['copy_down_gbps']]}, upload "
+              f"{rep['bytes_up'] / 1e6:.1f} MB at GB/s "
+              f"{[round(g, 2) for g in rep['upload_gbps']]}")
+    rep = runs[0]["offload"]
+    print(f"[train-mesh-offload] Eq. (5)/(7) model at tp {tp}, the global "
+          f"microbatch {spec.mbB * dp}, pcie_gbps="
+          f"{tc.plan.offload.pcie_gbps}, cpu_flops="
+          f"{tc.plan.offload.cpu_flops} (its inputs, not measured): "
+          f"eq5_offload_ok {rep['eq5_offload_ok']}, eq7_upload_ok "
+          f"{rep['eq7_upload_ok']}, predicted_overlap_ratio "
+          f"{rep['predicted_overlap_ratio']:.4f}; measured_overlap_frac "
+          f"{rep['measured_overlap_frac']:.4f}")
+    worst = 0.0
+    for r in res:
+        c = r["check"]
+        rel = [d / max(t, 1e-30) for d, t in zip(c["diff"], c["top"])]
+        worst = max(worst, max(rel))
+        if max(rel) > CHECK_REL or abs(c["loss"] - c["parent_loss"]) > \
+                CHECK_REL * abs(c["parent_loss"]):
+            fail(f"32: the rank's fp32 shipment differs from the "
+                 f"one-process deep gradients: max rel {max(rel):.3e} at "
+                 f"{c['paths'][rel.index(max(rel))]}, loss {c['loss']} vs "
+                 f"{c['parent_loss']}")
+    print(f"[train-mesh-offload] fp32 check ({MESH_CHECK}): every rank's "
+          f"shipment (its ZeRO slices of the deep gradient sums) within "
+          f"{worst:.3e} relative of phase 28's one-process deep gradients "
+          f"(tol {CHECK_REL})")
+
+    # (B) the checkpoint written by the ranks, and the run restored from it
+    first = [r["ckpt_first"] for r in res]
+    second = [r["ckpt_second"] for r in res]
+    if any(f["losses"] != losses[:CKPT_MESH_CUT] for f in first):
+        fail(f"32 (B): the checkpoint run's losses "
+             f"{[f['losses'] for f in first]} != (A)'s")
+    if any(s["start_step"] != CKPT_MESH_CUT or
+           s["losses"] != losses[CKPT_MESH_CUT:] for s in second):
+        got = [(s["start_step"], s["losses"]) for s in second]
+        fail(f"32 (B): the restored runs' (start, losses) {got} != (A)'s "
+             f"steps after {CKPT_MESH_CUT}: {losses[CKPT_MESH_CUT:]}")
+    if not all(r["restored_equal"] for r in res):
+        fail("32 (B): restored leaves differ from what was saved")
+    manifest = res[0]["manifest"]
+    expect = one_device_manifest(tc, pp)
+    if manifest["leaves"] != expect or manifest["paths"] != [
+            m["path"] for m in expect]:
+        fail("32 (B): the manifest's leaves differ from the one-device "
+             "port's for the same plan")
+    print(f"[train-mesh-offload] (B) checkpoint after step "
+          f"{CKPT_MESH_CUT} restored into a new run: step "
+          f"{CKPT_MESH_CUT + 1} loss {second[0]['losses']} bitwise (A)'s; "
+          f"{res[0]['n_digests']} leaves a rank restored bitwise what was "
+          f"saved (digests); the manifest's {len(expect)} leaves (paths, "
+          f"global shapes, dtypes) the one-device port's")
+    for r in res:
+        co = r["train"]["coords"]
+        print(f"[train-mesh-offload] {smi} | rank {r['train']['rank']} (pp "
+              f"{co['pp']}, dp {co['data']}, tp {co['model']}): its parts "
+              f"of the checkpoints (a sync save waits for rank 0 to "
+              f"publish):")
+        print_checkpoint_records(
+            f"train-mesh-offload rank {r['train']['rank']}",
+            r["ckpt_first"]["checkpoint_records"]
+            + r["ckpt_second"]["checkpoint_records"])
+    return {"train_mesh_offload": summed}
 
 
 def print_ptxas(log: str) -> None:
@@ -6901,13 +7273,17 @@ def main() -> None:
     #     paligemma-3b on pp 2 x dp 1 x tp 4 (its one K/V head replicated
     #     over the four tp ranks), then train() of each on pp 1 x dp 4 x
     #     tp 2
+    #     32. in the same processes, phase 28's model with Chronos-Offload
+    #     on pp 2 x dp 2 x tp 2 (each rank's deep slices updated on the
+    #     host), then a checkpoint written by the ranks and a run restored
+    #     from it
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(phase_train_mesh(torch, smi))
-    done("train-mesh, train-zero3, train-families and train-encvlm "
-         "(28-31)")
+    done("train-mesh, train-zero3, train-families, train-encvlm and "
+         "train-mesh-offload (28-32)")
 
-    # 32. kernels line, then the result line.  ``launches`` sums the
+    # 33. kernels line, then the result line.  ``launches`` sums the
     #     kernel's launches in the main-path runs (each counted from 0
     #     right before its run), split by path in ``launches_by_path``;
     #     launches made to compare a kernel with its plain version are in

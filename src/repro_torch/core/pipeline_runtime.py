@@ -129,6 +129,7 @@ from repro_torch.optim.adamw import (adamw_update, cast_like, drop_fsdp,
                                      leaf_sq_sum, zero_state_specs)
 from repro_torch.optim.compression import (compressed_sum, grid_scale,
                                           quantize_with)
+from repro_torch.optim.offload import split_deep_shallow
 from repro_torch.tree import (tree_leaves, tree_map, tree_paths,
                               tree_unflatten)
 
@@ -242,19 +243,47 @@ class RankShard(TreeShard):
 
     ``shape``: axis name -> size (``Mesh.shape``); ``coords``: the rank's
     coordinate on each axis.  Per leaf, in ``tree_leaves`` order of the
-    pipeline tree, the local dimensions lack a block leaf's pp one."""
+    pipeline tree, the local dimensions lack a block leaf's pp one.
+
+    ``chunks`` (a slice of the chunk axis) lays out a part of the tree,
+    as Chronos-Offload splits it: the block leaves ``[P, v', M, ...]`` of
+    those chunks, with the shared leaves (``shared``) or without them
+    (the tree ``{"blocks": ...}``).  Each spec is sanitized on the part's
+    shapes, as the reference resolves its shallow optimizer state and
+    its deep shipment on theirs (``src/repro/launch/steps.py:412-427``,
+    ``:536-541``): a state cut over dp on the chunk axis of the whole
+    tree is whole on a part of one chunk."""
 
     def __init__(self, cfg: ModelConfig, layout: StageLayout, shape,
-                 rules, coords, zero_stage: int = 1):
+                 rules, coords, zero_stage: int = 1,
+                 chunks: Optional[slice] = None, shared: bool = True):
         tree = init_pipeline_params(None, cfg, layout, "meta")
         pspec, sspec = pipeline_layout_specs(
             pipeline_logical_specs(cfg, layout))
+        if chunks is not None or not shared:
+            cut = slice(None) if chunks is None else chunks
+
+            def part(t, blocks):
+                return {"blocks": blocks, **({k: v for k, v in t.items()
+                                              if k != "blocks"}
+                                             if shared else {})}
+            tree = part(tree, tree_map(lambda a: a[:, cut], tree["blocks"]))
+            pspec, sspec = (part(s, s["blocks"]) for s in (pspec, sspec))
         self.zero_stage = zero_stage
+        self._args = (cfg, layout, shape, rules, coords, zero_stage)
         super().__init__(
             tree, pspec if zero_stage >= 3 else drop_fsdp(pspec),
             sspec if zero_stage >= 1 else drop_fsdp(pspec), shape, rules,
             coords, dropped=lambda path: int(path[0] == "blocks"),
             kv_heads=cfg.num_kv_heads)
+
+    def offload_parts(self, kept_chunks: int):
+        """The ``(kept, deep)`` shards of Chronos-Offload's two parts of
+        the whole tree's layout: the first ``kept_chunks`` chunks with
+        the shared leaves, the rest without them."""
+        return (RankShard(*self._args, chunks=slice(0, kept_chunks)),
+                RankShard(*self._args, chunks=slice(kept_chunks, None),
+                          shared=False))
 
     def cut(self, tree, pp_rank: Optional[int] = None):
         """A whole pipeline tree (global leaves) -> this rank's: block
@@ -1376,7 +1405,7 @@ def make_train_grads_fn(spec: PipelineSpec, device, *, mesh=None,
     ``batch`` the global one (``mbB * dp`` rows a microbatch, the rank
     reads its own), the gradients those of the global batch.  A
     sequence-chunked spec raises NotImplementedError under a mesh (ROADMAP
-    queue A).
+    queue A item 6).
 
     ``shard`` (a :class:`RankShard`, with a ``pp x dp x tp`` mesh) at
     ZeRO stage 3: ``params`` hold the rank's dp slice of every block leaf
@@ -1388,7 +1417,7 @@ def make_train_grads_fn(spec: PipelineSpec, device, *, mesh=None,
     if mesh is not None and spec.n_seq > 1:
         raise NotImplementedError(
             "the sequence-chunked executor over ranks is not ported yet "
-            "(ROADMAP queue A, after item 3)")
+            "(ROADMAP queue A item 6)")
     if mesh is not None:
         ex = _RankExecutor(spec, getattr(mesh, "pipe", mesh), shard)
     else:
@@ -1425,8 +1454,8 @@ class TrainStepOut(NamedTuple):
 
 
 def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
-                         use_kernel: bool = True, split=None, mesh=None,
-                         wrap_executor=None, shard=None):
+                         use_kernel: bool = True, offload_chunks: int = 0,
+                         mesh=None, wrap_executor=None, shard=None):
     """Gradients, then the AdamW step on them: returns ``fn(params,
     opt_state, batch[, psum_ef]) ->`` :class:`TrainStepOut`.  The update
     reads each gradient as ``g.float() / m`` (``m`` microbatches), as the
@@ -1435,11 +1464,14 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
     one fused-AdamW kernel launch per parameter leaf.  The optimizer
     state and ``params`` are updated in place (``params`` is returned).
 
-    ``split``: ``tree -> (kept, held)``, applied alike to the gradients
-    and the parameters (Chronos-Offload: the shallow chunks and the
-    shared leaves, and the deep chunks).  The update then covers the kept
-    part only, and the held gradients are the ``shipment``; the held
-    weights are left as they are.
+    ``offload_chunks`` (Chronos-Offload): the gradients and the
+    parameters are split alike on the chunk axis
+    (:func:`~repro_torch.optim.offload.split_deep_shallow`) into the kept
+    part (the shallow chunks and the shared leaves) and the held one (the
+    last ``offload_chunks`` chunks).  The update then covers the kept
+    part only (its clip norm too, as the reference clips the device
+    update by ``g_dev``'s norm), and the held gradients are the
+    ``shipment``; the held weights are left as they are.
 
     With ``spec.grad_psum_bits`` the step takes the error-feedback state
     ``psum_ef`` and returns the new one as ``ef``.  ``wrap_executor``: as
@@ -1462,13 +1494,33 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
     only where an op uses it.  The clip
     norm counts every element once (:meth:`RankShard.owned`): the owned
     block squares summed over pp, plus the owned shared ones, summed
-    over tp and dp."""
-    if mesh is not None and split is not None:
-        raise NotImplementedError("Chronos-Offload over ranks is not ported "
-                                  "yet (ROADMAP queue A, after item 3)")
+    over tp and dp.
+
+    ``offload_chunks`` with ``shard``: ``fn.kept_shard`` and
+    ``fn.deep_shard`` lay out the two parts
+    (:meth:`RankShard.offload_parts`).  The
+    kept leaves are updated as above on the kept shard's slices (the
+    clip norm counts only theirs); the held gradients, summed over dp,
+    become the rank's shipment in the deep shard's layout: each leaf's
+    ZeRO slice (:meth:`RankShard.zero_slice`, own contiguous copies; at
+    stage 3 a leaf held as its dp slice is that fp32 slice), which the
+    caller's host optimizer updates and whose weights
+    :meth:`RankShard.gather_weights` of the deep shard all-gathers over
+    dp after the upload."""
     grads_fn = make_train_grads_fn(spec, device, mesh=mesh,
                                    wrap_executor=wrap_executor, shard=shard)
     m_dev = torch.tensor(float(m), dtype=torch.float32, device=device)
+    split, kept_shard, deep_shard = None, shard, None
+    if offload_chunks:
+        v = spec.layout.v
+        axis = 0 if mesh is not None else 1     # a rank's column [v, M, ...]
+
+        def split(tree):
+            shallow, deep = split_deep_shallow(tree["blocks"], v,
+                                               offload_chunks, axis=axis)
+            return {**tree, "blocks": shallow}, deep
+        if shard is not None:
+            kept_shard, deep_shard = shard.offload_parts(v - offload_chunks)
 
     def norm_over_ranks(grads):
         sq_b = sum(leaf_sq_sum(g, m_dev)
@@ -1481,9 +1533,9 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
     def norm_over_mesh(grads):
         zero = torch.zeros((), dtype=torch.float32, device=device)
         sq = {"blocks": zero, "shared": zero}
-        for i, (path, g) in enumerate(zip(shard.paths,
+        for i, (path, g) in enumerate(zip(kept_shard.paths,
                                           tree_leaves(grads))):
-            part = shard.owned(g, i)
+            part = kept_shard.owned(g, i)
             if part is not None:
                 k = "blocks" if path[0] == "blocks" else "shared"
                 sq[k] = sq[k] + leaf_sq_sum(part, m_dev)
@@ -1503,21 +1555,28 @@ def make_train_update_fn(spec: PipelineSpec, device, ocfg, m: int, *,
         if shard is not None:
             norm = norm_over_mesh(grads)
             grads = tree_unflatten(grads, [
-                shard.zero_slice(g, i).contiguous()
+                kept_shard.zero_slice(g, i).contiguous()
                 for i, g in enumerate(tree_leaves(grads))])
-            kept = shard.zero_views(params)
+            if held is not None:
+                held = tree_unflatten(held, [
+                    deep_shard.zero_slice(g, i).contiguous()
+                    for i, g in enumerate(tree_leaves(held))])
+            kept_views = kept_shard.zero_views(kept)
         else:
             norm = None if mesh is None else norm_over_ranks(grads)
+            kept_views = kept
         master, opt_state, om = adamw_update(
             grads, opt_state, ocfg, use_kernel=use_kernel, grad_div=m_dev,
             grad_norm=norm)
-        cast_like(master, kept)
+        cast_like(master, kept_views)
         if shard is not None:
-            shard.gather_weights(mesh, params)
+            kept_shard.gather_weights(mesh, kept)
         return TrainStepOut(params, opt_state, {**metrics, **om}, held,
                             res[2] if spec.grad_psum_bits else None)
 
     fn.rings = grads_fn.rings
     fn.exchange = getattr(grads_fn, "exchange", None)
     fn.shard = shard
+    fn.kept_shard = kept_shard if split is not None else None
+    fn.deep_shard = deep_shard
     return fn

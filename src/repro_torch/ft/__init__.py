@@ -6,7 +6,8 @@ every module imports eagerly: none needs JAX).
 / RecoveryRecord) stays an explicit submodule import, as in the
 reference: it pulls in the training driver.
 """
-from repro_torch.ft.checkpoint import Checkpointer  # noqa: F401
+from repro_torch.ft.checkpoint import (Checkpointer, LeafPart,  # noqa: F401
+                                      MeshCheckpointer)
 from repro_torch.ft.elastic import (ElasticDecision,  # noqa: F401
                                     MeshRequirements, plan_mesh,
                                     simulate_failures)
@@ -24,6 +25,6 @@ __all__ = [
     "FaultInjector", "HungCollective", "HungTick",
     "InjectedCheckpointCrash", "SlotCorruption", "Straggler",
     "StragglerTicks", "TickDeviceLoss",
-    "Checkpointer", "ElasticDecision", "MeshRequirements", "plan_mesh",
+    "Checkpointer", "LeafPart", "MeshCheckpointer", "ElasticDecision", "MeshRequirements", "plan_mesh",
     "simulate_failures",
 ]

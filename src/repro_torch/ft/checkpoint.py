@@ -44,21 +44,31 @@ from one.
 Every save and restore appends a record to ``Checkpointer.records``:
 its bytes, and the device-to-host and disk-write seconds of a save or
 the disk-read and host-to-device seconds of a restore.
+
+:class:`MeshCheckpointer` writes and restores the same format from the
+ranks of a mesh, each holding parts of the leaves (:class:`LeafPart`):
+each rank writes the elements it is the writer of into the pre-sized
+leaf files through memory maps, rank 0 publishes, and each rank reads
+back only its own parts.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
 import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 IO_THREADS = 8          # leaf files written or read concurrently
+MESH_WAIT_S = 600.0     # a mesh rank's longest wait for the others' writes
 
 
 # -- fault-injection seams (repro_torch.ft.inject) ---------------------------
@@ -318,3 +328,292 @@ class Checkpointer:
                 leaf.copy_(host)
             return leaf
         return self._restore(tree, step, place, lambda leaf: leaf.device)[1]
+
+
+# -- checkpoints written and restored by the ranks of a mesh -----------------
+
+@dataclass(frozen=True)
+class LeafPart:
+    """A rank's part of a checkpoint leaf: the global leaf's ``shape``,
+    where the rank's tensor lies in it (``index``: an int or a slice a
+    leading dimension, the rank's tensor filling the rest), and whether
+    the rank writes it (``writes``: of the ranks holding the same
+    elements exactly one does)."""
+    shape: Tuple[int, ...]
+    index: Tuple[Any, ...]
+    writes: bool
+
+
+_NP = {torch.bfloat16: np.uint16, torch.float32: np.float32,
+       torch.float16: np.float16, torch.int32: np.int32,
+       torch.int64: np.int64, torch.int8: np.int8, torch.int16: np.int16,
+       torch.uint8: np.uint8, torch.bool: np.bool_}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's numpy view (bf16 as its uint16 bits)."""
+    return (t.view(torch.uint16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _open_leaf(path: str, dtype: torch.dtype, shape, mode: str):
+    """A leaf file as a numpy memory map of its global ``shape`` (``mode``
+    "r+" to write, "r" to read)."""
+    return np.memmap(path, dtype=_NP[dtype], mode=mode, shape=tuple(shape))
+
+
+def _read_part(path: str, dtype: torch.dtype, shape, index) -> np.ndarray:
+    """The elements of one leaf file at ``index``, copied out of a memory
+    map of it: only those pages are read (a seam the tests wrap to see
+    what each rank reads)."""
+    if math.prod(shape) == 0:
+        return np.zeros(shape, _NP[dtype])[index]
+    return np.array(_open_leaf(path, dtype, shape, "r")[index])
+
+
+def _wait_for(paths, what: str, fail=()) -> None:
+    """Poll until every path of ``paths`` exists; raise where one of
+    ``fail`` appears (another rank's write failed) or after
+    :data:`MESH_WAIT_S`."""
+    t0 = time.monotonic()
+    while True:
+        bad = [f for f in fail if os.path.exists(f)]
+        if bad:
+            raise RuntimeError(f"{what}: a rank's write failed "
+                               f"({', '.join(map(os.path.basename, bad))})")
+        if all(os.path.exists(p) for p in paths):
+            return
+        if time.monotonic() - t0 > MESH_WAIT_S:
+            raise TimeoutError(f"{what}: waited {MESH_WAIT_S:.0f} s")
+        time.sleep(0.005)
+
+
+class MeshCheckpointer(Checkpointer):
+    """The checkpointer of one rank of a mesh (``rank`` of ``size``
+    processes), in the reference's format: every leaf stored whole, at
+    its global shape, its ``spec`` null, as one device writes it.  The
+    tree a rank hands in holds its own tensors, and ``parts`` (a tree of
+    the same structure) says where each lies in its global leaf
+    (:class:`LeafPart`).
+
+    A save: each rank copies the parts it writes to host memory (before
+    the call returns, as :meth:`Checkpointer.save_async`), then writes
+    them into the leaf files of ``tmp.<token>.<n>`` (created at their
+    global size by the first writer; disjoint elements, so the ranks
+    write at once) through memory maps, and leaves a ``done.<rank>``
+    marker; rank 0 waits for every marker, then writes the manifest,
+    renames the directory to ``step_<n>``, updates LATEST and collects
+    old steps, as :class:`Checkpointer` does.  No collective is needed,
+    so an asynchronous save's writes run beside the next steps' own
+    collectives.  A rank whose write fails leaves ``error.<rank>``
+    instead, and rank 0 publishes nothing: the previous checkpoint
+    stands.  A synchronous save returns on every rank once rank 0 has
+    published.  ``token`` names this run's temporary directories; every
+    rank must hold the same one (rank 0's, broadcast), and every rank
+    makes the same saves in the same order.
+
+    The directory must lie on a filesystem every rank sees, with memory
+    maps coherent between the processes (one host: the ranks of
+    :func:`repro_torch.launch.mesh.spawn`).
+
+    :meth:`restore_into` reads only the rank's parts of each leaf file,
+    from a memory map of it (:func:`_read_part`), never a whole leaf, and
+    copies them into the rank's tensors in place; restoring onto another
+    mesh (another ``dp x tp`` of the same pipeline) is the same read with
+    that mesh's parts, as the reference's ``reshard``
+    (``src/repro/ft/elastic.py:108-112``) places the whole leaves on new
+    shardings."""
+
+    def __init__(self, directory: str, keep: int = 3, *, rank: int = 0,
+                 size: int = 1, token: str = "mesh"):
+        super().__init__(directory, keep)
+        self.rank, self.size, self.token = rank, size, token
+        self._saves = 0
+
+    # -- save --------------------------------------------------------------
+    def _mesh_snapshot(self, step: int, tree, parts, mode: str):
+        pairs = _flatten(tree)
+        where = [p for _, p in _flatten(parts)]
+        assert len(where) == len(pairs), "parts != tree"
+        cuda = any(x.is_cuda for _, x in pairs)
+        t0 = time.perf_counter()
+        host = [_host_copy(x) if w.writes else None
+                for (_, x), w in zip(pairs, where)]
+        if cuda:
+            torch.cuda.synchronize()
+        leaves = [{"path": p, "file": f"leaf_{i}.bin", "shape": list(w.shape),
+                   "dtype": str(x.dtype).removeprefix("torch."),
+                   "spec": None}
+                  for i, ((p, x), w) in enumerate(zip(pairs, where))]
+        rec = {"op": "save", "mode": mode, "step": step, "rank": self.rank,
+               "bytes": sum(h.numel() * h.element_size()
+                            for h in host if h is not None),
+               "d2h_s": time.perf_counter() - t0 if cuda else 0.0,
+               "write_s": None}
+        self.records.append(rec)
+        self._saves += 1
+        tmp = os.path.join(self.dir, f"tmp.{self.token}.{self._saves:06d}")
+        return (leaves, [p for p, _ in pairs], where, host, tmp), rec
+
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
+             parts: Any = None) -> str:
+        self.wait()
+        job, rec = self._mesh_snapshot(step, tree, parts, "sync")
+        final = self._mesh_write(step, job, extra or {}, rec)
+        if self.rank != 0:
+            # returns once rank 0 has published the step
+            t0 = time.monotonic()
+            while os.path.exists(job[4]) or self.latest_step() != step:
+                if os.path.exists(os.path.join(job[4], "error.0")) or \
+                        time.monotonic() - t0 > MESH_WAIT_S:
+                    raise RuntimeError(f"step {step} was not published")
+                time.sleep(0.005)
+        return final
+
+    def save_async(self, step: int, tree: Any,
+                   extra: Optional[Dict] = None, parts: Any = None) -> None:
+        self.wait()
+        job, rec = self._mesh_snapshot(step, tree, parts, "async")
+
+        def work():
+            try:
+                self._mesh_write(step, job, extra or {}, rec)
+            except BaseException as e:               # noqa: BLE001
+                rec["error"] = repr(e)
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def _mesh_write(self, step: int, job, extra: Dict, rec) -> str:
+        leaves, paths, where, host, tmp = job
+        t0 = time.perf_counter()
+        os.makedirs(tmp, exist_ok=True)
+        try:
+            with ThreadPoolExecutor(IO_THREADS) as ex:
+                for f in [ex.submit(self._write_part, tmp, m, w, h)
+                          for m, w, h in zip(leaves, where, host)
+                          if h is not None]:
+                    f.result()
+        except BaseException:
+            with open(os.path.join(tmp, f"error.{self.rank}"), "w"):
+                pass
+            raise
+        with open(os.path.join(tmp, f"done.{self.rank}"), "w"):
+            pass
+        final = os.path.join(self.dir, f"step_{step:08d}")
+        if self.rank == 0:
+            try:
+                self._publish(step, tmp, final, leaves, paths, extra)
+            except BaseException:
+                with open(os.path.join(tmp, "error.0"), "w"):
+                    pass
+                raise
+        rec["write_s"] = time.perf_counter() - t0
+        return final
+
+    def _publish(self, step, tmp, final, leaves, paths, extra) -> None:
+        """Rank 0: once every rank's marker is there, the manifest, the
+        rename, LATEST and the collection of old steps."""
+        _wait_for([os.path.join(tmp, f"done.{r}")
+                   for r in range(self.size)], f"step {step}",
+                  [os.path.join(tmp, f"error.{r}")
+                   for r in range(self.size)])
+        for m in leaves:      # a leaf of no elements has no writer
+            path = os.path.join(tmp, m["file"])
+            if not os.path.exists(path):
+                open(path, "wb").close()
+        for r in range(self.size):
+            os.remove(os.path.join(tmp, f"done.{r}"))
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump({"step": step, "extra": extra, "leaves": leaves,
+                       "paths": paths}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        _rename(tmp, final)
+        self._update_latest(step)
+        self._gc()
+
+    @staticmethod
+    def _write_part(tmp: str, m: Dict, where: LeafPart, h: torch.Tensor):
+        """The rank's part ``h`` into its place in the leaf file (created,
+        or grown, to the global leaf's bytes first), through a memory map
+        of it."""
+        n = math.prod(where.shape) * h.element_size()
+        if n == 0:
+            return
+        path = os.path.join(tmp, m["file"])
+        fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+        try:
+            if os.fstat(fd).st_size < n:
+                os.ftruncate(fd, n)
+        finally:
+            os.close(fd)
+        mm = _open_leaf(path, h.dtype, where.shape, "r+")
+        mm[where.index] = _numpy(h)
+        mm.flush()
+        del mm
+
+    def _gc(self) -> None:
+        # another incarnation's unpublished directories only: this run's
+        # later saves may be in flight on the other ranks
+        mine = f"tmp.{self.token}."
+        steps = self.all_steps()
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
+                          ignore_errors=True)
+        for d in os.listdir(self.dir):
+            if (d.startswith("tmp.") and not d.startswith(mine)) \
+                    or d.startswith(".latest."):
+                p = os.path.join(self.dir, d)
+                (shutil.rmtree if os.path.isdir(p) else os.remove)(p)
+
+    # -- restore -----------------------------------------------------------
+    def restore_into(self, tree: Any, step: Optional[int] = None,
+                     parts: Any = None) -> Dict:
+        """Copy the rank's parts of checkpoint ``step`` (the latest) into
+        ``tree``'s tensors in place: each read from a memory map of its
+        leaf file at the part's place (:func:`_read_part`).  Raises
+        ValueError where a leaf's global shape or dtype differs from the
+        checkpoint's.  Returns ``extra``."""
+        step, d, manifest = self._manifest(step)
+        by_path = {m["path"]: m for m in manifest["leaves"]}
+        pairs = _flatten(tree)
+        where = [p for _, p in _flatten(parts)]
+        assert len(where) == len(pairs), "parts != tree"
+
+        def read(px):
+            (path, x), w = px
+            m = by_path[path]
+            if list(m["shape"]) != list(w.shape) or \
+                    getattr(torch, m["dtype"]) != x.dtype:
+                raise ValueError(
+                    f"{path}: checkpoint holds {m['dtype']} "
+                    f"{tuple(m['shape'])}, the tree {x.dtype} "
+                    f"{tuple(w.shape)}")
+            a = _read_part(os.path.join(d, m["file"]), x.dtype, w.shape,
+                           w.index)
+            h = torch.from_numpy(a)
+            return h.view(torch.bfloat16) if x.dtype == torch.bfloat16 \
+                else h
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(IO_THREADS) as ex:
+            host = list(ex.map(read, zip(pairs, where)))
+        t1 = time.perf_counter()
+        cuda = False
+        with torch.no_grad():
+            for (path, x), h in zip(pairs, host):
+                if tuple(h.shape) != tuple(x.shape):
+                    raise ValueError(f"{path}: the rank's part is "
+                                     f"{tuple(h.shape)}, its tensor "
+                                     f"{tuple(x.shape)}")
+                x.copy_(h)
+                cuda = cuda or x.is_cuda
+        if cuda:
+            torch.cuda.synchronize()
+        self.records.append({
+            "op": "restore", "step": step, "rank": self.rank,
+            "bytes": sum(h.numel() * h.element_size() for h in host),
+            "read_s": t1 - t0, "h2d_s": time.perf_counter() - t1})
+        return manifest["extra"]

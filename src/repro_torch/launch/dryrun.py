@@ -51,6 +51,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
@@ -344,7 +345,8 @@ def predicted_card_peak(cfg, shape: ShapeConfig, plan: ParallelPlan,
 
 def collective_stats(spec, dp: int = 1, tp: int = 1, *,
                      masked: bool = False, update: bool = True,
-                     zero_stage: int = 1) -> CollectiveStats:
+                     zero_stage: int = 1,
+                     offload_chunks: int = 0) -> CollectiveStats:
     """What one step hands to collectives when its stages are ``P``
     ranks (:func:`repro_torch.core.pipeline_runtime.make_train_grads_fn`
     with a mesh), summed over the ranks: the boundary payloads sent
@@ -374,13 +376,23 @@ def collective_stats(spec, dp: int = 1, tp: int = 1, *,
     holds each axis's bytes with the scalars (the loss and count, the
     clip norm's sums with ``update``, each microbatch's mask count over
     dp with ``masked``): what the ranks' counters read, which phase 28
-    and the mesh tests gate on."""
+    and the mesh tests gate on.
+
+    ``offload_chunks`` (Chronos-Offload of that many deepest chunks, on
+    the mesh): the ZeRO-1 all-gather splits in two, the kept leaves'
+    within the step (``all-gather-dp``, each laid out on the kept part's
+    shapes) and the deep leaves' after the host update's upload
+    (``all-gather-deep``, on the deep part's), which
+    ``train_pipeline(mesh=)`` counts in the step that shipped them; under ``grad_psum_bits`` the shipment's
+    amaxes, one fp32 a deep leaf, are all-reduced over every axis of more
+    than one rank (``all-reduce-amax``, its bytes under each axis)."""
     from repro_torch.core.pipeline_runtime import (init_pipeline_params,
                                                    stage_crossing_sends)
     sends, nbytes = stage_crossing_sends(spec)
     P = spec.table.P
     if dp * tp > 1:
-        mc = _mesh_collectives(spec, dp, tp, masked, update, zero_stage)
+        mc = _mesh_collectives(spec, dp, tp, masked, update, zero_stage,
+                               offload_chunks)
         kinds = {"collective-permute": (dp * tp * nbytes, dp * tp * sends),
                  "all-reduce": (mc["pp"]["shared_bytes"],
                                 mc["pp"]["shared_calls"]),
@@ -396,6 +408,13 @@ def collective_stats(spec, dp: int = 1, tp: int = 1, *,
         if mc["model"]["kv_calls"]:
             kinds["all-reduce-kv"] = (mc["model"]["kv_bytes"],
                                       mc["model"]["kv_calls"])
+        if offload_chunks:
+            kinds["all-gather-deep"] = (mc["data"]["deep_gather_bytes"],
+                                        mc["data"]["deep_gather_calls"])
+            if spec.grad_psum_bits:
+                kinds["all-reduce-amax"] = (
+                    sum(mc[a]["amax_bytes"] for a in mc),
+                    sum(mc[a]["amax_calls"] for a in mc))
         if zero_stage >= 3:
             kinds["all-gather-fsdp"] = (mc["data"]["fsdp_gather_bytes"],
                                         mc["data"]["fsdp_gather_calls"])
@@ -764,7 +783,8 @@ def _fsdp_units(spec, d: int):
 
 
 def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
-                      zero_stage: int) -> Dict[str, Dict[str, int]]:
+                      zero_stage: int,
+                      offload_chunks: int = 0) -> Dict[str, Dict[str, int]]:
     """The bytes and calls one training step of ``spec`` on a ``P x dp x
     tp`` mesh hands to collectives, by mesh axis, summed over the ranks
     (:class:`repro_torch.launch.mesh.Mesh` counts the same per rank):
@@ -816,7 +836,8 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
             continue
         if path[0] == "blocks":
             grad_b += numel * a.element_size()
-            if shard.zero_dims[i] is not None and dp > 1:
+            if not offload_chunks and shard.zero_dims[i] is not None \
+                    and dp > 1:
                 gather_b += numel // dp * a.element_size()
                 gather_c += 1
         else:
@@ -852,6 +873,33 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
             b, c = _route_units(spec, dp, d)
             route_b += b * dp * tp
             route_c += c * dp * tp
+    deep_b = deep_c = amax = 0
+    if offload_chunks:
+        # the kept and the deep parts' ZeRO-1 all-gathers, each laid out
+        # on its own shapes (a state cut over dp on the chunk axis of the
+        # whole tree is whole on a part of one chunk)
+        cut = spec.table.v - offload_chunks
+        elsize = {path: a.element_size()
+                  for path, a in zip(shard.paths, tree_leaves(tree))}
+        for chunks, shared in ((slice(0, cut), True),
+                               (slice(cut, None), False)):
+            part = RankShard(spec.cfg, spec.layout, {
+                "pp": P, "data": dp, "model": tp}, MESH_RULES,
+                {"pp": 0, "data": 0, "model": 0}, zero_stage,
+                chunks=chunks, shared=shared)
+            b = c = 0
+            for i, (path, sh) in enumerate(zip(part.paths, part.shapes)):
+                if path[0] != "blocks" or part.fsdp_dims[i] is not None \
+                        or part.zero_dims[i] is None or dp == 1:
+                    continue
+                b += math.prod(sh[1:]) // part.tp_parts[i] // dp \
+                    * elsize[path]
+                c += 1
+            if shared:
+                gather_b, gather_c = b, c
+            else:
+                deep_b, deep_c = b, c
+                amax = 4 * len(part.paths) if spec.grad_psum_bits else 0
     pp_scalar = (8 + 4 * update) if P > 1 else 0
     out = {
         "pp": {"send_bytes": send_bytes, "sends": dp * tp * sends,
@@ -865,10 +913,16 @@ def _mesh_collectives(spec, dp: int, tp: int, masked: bool, update: bool,
                  **fsdp,
                  "route_bytes": route_b, "route_calls": route_c,
                  "scalar_bytes": (8 + 4 * update + (4 * m if masked else 0))
-                 * n if dp > 1 else 0},
+                 * n if dp > 1 else 0,
+                 "deep_gather_bytes": deep_b * n if dp > 1 else 0,
+                 "deep_gather_calls": deep_c * n if dp > 1 else 0},
         "model": {"bytes": model_b, "calls": model_c,
                   "kv_bytes": kv_b * n, "kv_calls": kv_c * n,
                   "scalar_bytes": 4 * update * n if tp > 1 else 0}}
+    for ax, size in (("pp", P), ("data", dp), ("model", tp)):
+        on = amax and size > 1
+        out[ax].update(amax_bytes=amax * n if on else 0,
+                       amax_calls=n if on else 0)
     for ax, v in out.items():
         v["total"] = sum(x for k, x in v.items()
                          if k.endswith("bytes"))

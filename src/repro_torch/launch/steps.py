@@ -30,6 +30,9 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 PSUM_BITS = {"none": None, "int8_ef": 8, "int16_ef": 16}
 # where the rest of ROADMAP queue A item 3 is queued
 ITEM_3B = "ROADMAP queue A item 3b"
+# what a mesh still refuses, by ROADMAP item
+SEQ_OVER_RANKS = ("the sequence-chunked executor over ranks is not ported "
+                  "yet (ROADMAP queue A item 6)")
 
 
 def check_zero_stage(plan: ParallelPlan) -> None:
@@ -299,8 +302,13 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
     ``opt_state`` are the rank's column
     (:func:`~repro_torch.core.pipeline_runtime.rank_params`), the clip
     norm spans every rank's leaves, and each rank updates its replica of
-    the shared leaves.  Chronos-Offload and ``seq_chunks > 1`` raise
-    NotImplementedError under a mesh (ROADMAP queue A).
+    the shared leaves.  ``seq_chunks > 1`` raises NotImplementedError
+    under a mesh (ROADMAP queue A item 6).  Chronos-Offload runs there:
+    ``opt_state`` covers the rank's kept leaves (``adamw_init`` of
+    :func:`offload_kept` of its column, ``column=True``: the chunk axis
+    is the column's first), the clip norm counts only the kept leaves
+    of every rank, and the shipment is the rank's deep gradients (a
+    quantized one scaled by each global leaf's amax, :func:`ship_deep`).
 
     A ``pp x dp x tp`` :class:`~repro_torch.launch.mesh.Mesh` (``pp ==
     P``): ``mbB`` is a dp rank's share of a microbatch (the reference's
@@ -310,7 +318,11 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
     ``step.shard`` (``params = rank_params(..., shard=step.shard)``,
     ``opt_state = adamw_init(step.shard.zero_views(params))``), and
     :func:`check_mesh_model` and :func:`check_zero_stage` refuse what it
-    does not run.
+    does not run.  Under offload ``step.kept_shard`` and
+    ``step.deep_shard`` lay out the two parts (``opt_state =
+    adamw_init(step.kept_shard.zero_views(offload_kept(params, plan,
+    column=True)[0]))``); the shipment holds the deep leaves' ZeRO slices
+    (:func:`~repro_torch.core.pipeline_runtime.make_train_update_fn`).
 
     ``wrap_executor`` reaches
     :func:`~repro_torch.core.pipeline_runtime.make_train_grads_fn` (the
@@ -330,14 +342,8 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
         raise ValueError(f"{plan.schedule} is a fixed v=2 V-shape "
                          f"construction, got num_chunks={plan.num_chunks}")
     bits = psum_bits_of(plan)
-    if mesh is not None and plan.offload.enabled \
-            and plan.offload.num_offload_chunks > 0:
-        raise NotImplementedError("Chronos-Offload over ranks is not ported "
-                                  "yet (ROADMAP queue A, after item 3)")
     if mesh is not None and plan.seq_chunks > 1:
-        raise NotImplementedError("the sequence-chunked executor over ranks "
-                                  "is not ported yet (ROADMAP queue A, after "
-                                  "item 3)")
+        raise NotImplementedError(SEQ_OVER_RANKS)
     if bits and plan.seq_chunks > 1:
         raise ValueError("grad_compression composes with the whole-"
                          "sequence pipeline step only (not seq-chunked "
@@ -348,31 +354,32 @@ def make_pipeline_train_step(cfg: ModelConfig, shape: ShapeConfig,
         n_seq=plan.seq_chunks, wire=plan.wire, grad_psum_bits=bits,
         overlap=overlap, **plan_schedule_kwargs(plan))
     fuse_opt = plan.kernels == "fused" and spec.table.has_w
-    split = None
+    offload_chunks = 0
     if plan.offload.enabled and plan.offload.num_offload_chunks > 0:
         if not plan.offload.num_offload_chunks < plan.num_chunks:
             raise ValueError("offload must leave at least one shallow "
                              "chunk on device")
-
-        def split(tree):
-            return offload_kept(tree, plan)
+        offload_chunks = plan.offload.num_offload_chunks
     shard = None
     if full is not None:
         from repro_torch.core.pipeline_runtime import RankShard
         shard = RankShard(cfg, spec.layout, full.shape, full.rules,
                           full.coords, plan.zero_stage)
     step = make_train_update_fn(spec, device, ocfg, m, use_kernel=fuse_opt,
-                                split=split, mesh=mesh,
+                                offload_chunks=offload_chunks, mesh=mesh,
                                 wrap_executor=wrap_executor, shard=shard)
-    if split is None or not bits:
+    if not offload_chunks or not bits:
         return step, m, mbB, spec
     update = step
     m_dev = torch.tensor(float(m), dtype=torch.float32, device=device)
 
     def step(params, opt_state, batch, psum_ef):
         out = update(params, opt_state, batch, psum_ef)
-        return out._replace(shipment=ship_deep(out.shipment, m_dev, bits))
+        return out._replace(shipment=ship_deep(out.shipment, m_dev, bits,
+                                               mesh=mesh))
 
+    for k in ("rings", "exchange", "shard", "kept_shard", "deep_shard"):
+        setattr(step, k, getattr(update, k))
     return step, m, mbB, spec
 
 
@@ -385,7 +392,7 @@ def psum_bits_of(plan: ParallelPlan) -> Optional[int]:
     return PSUM_BITS[plan.grad_compression]
 
 
-def ship_deep(held, m_dev, bits: int):
+def ship_deep(held, m_dev, bits: int, mesh=None):
     """The deep chunks' gradient sums quantized for the host shipment
     (the reference's ``ship_deep``): each leaf read as ``g.float() / m``,
     then one symmetric scale over the whole ``[P, n_off, ...]`` leaf,
@@ -394,13 +401,29 @@ def ship_deep(held, m_dev, bits: int):
     a shipment is sent once.  The leaf is read in slabs, a first pass
     for the amax and a second for the codes, so no fp32 copy of a whole
     leaf is held.  Returns ``(codes, scales)``: trees shaped as ``held``
-    of contiguous codes and of 0-d fp32 scales."""
+    of contiguous codes and of 0-d fp32 scales.
+
+    ``mesh`` (a rank's shipment: its part of each global leaf): every
+    leaf's amax is taken over the whole leaf, as the reference's
+    ``jnp.max(jnp.abs(g))`` of the global array -- the ranks' amaxes,
+    one fp32 a leaf, all-reduced by max over every axis that holds a
+    part of it (pp, and on a ``pp x dp x tp`` mesh dp and tp) before
+    the codes are taken; a rank's own amax would scale another grid."""
+    leaves = tree_leaves(held)
+    amax = [torch.stack([(gs.float() / m_dev).abs().max()
+                         for (gs,) in _slabs(g)]).max() for g in leaves]
+    if mesh is not None and leaves:
+        amax = torch.stack(amax)
+        if hasattr(mesh, "pipe"):
+            for axis in ("pp", "data", "model"):
+                mesh.all_reduce(amax, axis, op="max")
+        else:
+            mesh.all_reduce(amax, op="max")
+        amax = list(amax)
     codes, scales = [], []
-    for g in tree_leaves(held):
+    for g, a in zip(leaves, amax):
         q = torch.empty(g.shape, dtype=_wire_dtype(bits), device=g.device)
-        scale = grid_scale(torch.stack([(gs.float() / m_dev).abs().max()
-                                        for gs, _ in _slabs(g, q)]).max(),
-                           bits)
+        scale = grid_scale(a, bits)
         for gs, qs in _slabs(g, q):
             qs.copy_(quantize_with(gs.float() / m_dev, scale, bits))
         codes.append(q)
@@ -408,11 +431,15 @@ def ship_deep(held, m_dev, bits: int):
     return tree_unflatten(held, codes), tree_unflatten(held, scales)
 
 
-def offload_kept(tree, plan: ParallelPlan):
+def offload_kept(tree, plan: ParallelPlan, column: bool = False):
     """``(kept, deep)`` of a pipeline tree under ``plan.offload``: kept is
     the tree with the shallow chunks' block views, deep the deep chunks'
-    block views (:func:`~repro_torch.optim.offload.split_deep_shallow`)."""
+    block views (:func:`~repro_torch.optim.offload.split_deep_shallow`).
+    ``column``: the tree is a mesh rank's (:func:`~repro_torch.core.
+    pipeline_runtime.rank_params`: block leaves ``[v, M, ...]``, the
+    chunk axis first), else the whole ``[P, v, M, ...]``."""
     from repro_torch.optim.offload import split_deep_shallow
     shallow, deep = split_deep_shallow(tree["blocks"], plan.num_chunks,
-                                       plan.offload.num_offload_chunks)
+                                       plan.offload.num_offload_chunks,
+                                       axis=0 if column else 1)
     return {**tree, "blocks": shallow}, deep

@@ -60,24 +60,91 @@ from repro_torch.core.pipeline_runtime import (init_pipeline_params,
                                                payload_ring_bytes,
                                                rank_params)
 from repro_torch.data import DataPipeline, synthetic_source
-from repro_torch.ft.checkpoint import Checkpointer
+from repro_torch.ft.checkpoint import Checkpointer, LeafPart, MeshCheckpointer
 from repro_torch.ft.health import Action, HealthMonitor
 from repro_torch.ft.inject import DeviceLossError
 from repro_torch.launch.steps import (make_pipeline_train_step,
                                       make_train_step, offload_kept,
                                       psum_bits_of)
 from repro_torch.optim import adamw_init
-from repro_torch.optim.offload import (ChronosOffloadRunner,
+from repro_torch.optim.offload import (ChronosOffloadRunner, host_threads,
                                        merge_deep_shallow)
-from repro_torch.tree import tree_leaves, tree_paths
+from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
 
 # elements of a leaf read at a time by leaf_digest
 _DIGEST_SLAB = 1 << 22
 
 
+# what a mesh still refuses, by ROADMAP item
+FAULT_SEAMS_OVER_RANKS = ("fault injection and lost-process detection "
+                          "under a mesh are not ported yet (ROADMAP queue "
+                          "A item 7, second part)")
+
+
 def _checkpointer(tc: TrainConfig) -> Optional[Checkpointer]:
     return Checkpointer(tc.checkpoint_dir, keep=tc.keep_checkpoints) \
         if tc.checkpoint_dir is not None else None
+
+
+def _mesh_checkpointer(tc: TrainConfig, rank: int,
+                       size: int) -> Optional[MeshCheckpointer]:
+    """A rank's :class:`MeshCheckpointer` of ``tc.checkpoint_dir`` (None
+    without one), its token rank 0's, broadcast to the world group: a
+    collective every rank joins (uncounted by the mesh's byte
+    counters)."""
+    if tc.checkpoint_dir is None:
+        return None
+    import uuid
+
+    import torch.distributed as dist
+    token = [uuid.uuid4().hex[:12] if rank == 0 else None]
+    dist.broadcast_object_list(token, src=0)
+    return MeshCheckpointer(tc.checkpoint_dir, keep=tc.keep_checkpoints,
+                            rank=rank, size=size, token=token[0])
+
+
+def rank_parts(params, opt_state, shard, state_shard=None, pp: int = 0,
+               first: bool = True):
+    """Where a mesh rank's checkpoint tree ``{"params", "opt"}`` lies in
+    the global one (:class:`~repro_torch.ft.checkpoint.LeafPart` trees of
+    the same structure): each parameter leaf of ``shard`` (a
+    :class:`~repro_torch.models.sharding.TreeShard`; a block leaf of a
+    pipeline rank at stage ``pp`` of its ``[P, ...]``), each state leaf
+    of ``state_shard`` (the kept part's under offload, else ``shard``)
+    with its ZeRO slice, written by one rank of those holding it
+    (:meth:`TreeShard.writes`; a leaf replicated over pp by stage 0);
+    the optimizer's step by the ``first`` rank."""
+    state_shard = state_shard or shard
+
+    def parts(tree, sh, state):
+        return tree_unflatten(tree, [LeafPart(
+            tuple(sh.shapes[i]),
+            (pp,) * sh.dropped[i] + tuple(sh.part_slices(i, state)),
+            sh.writes(i, state) and (sh.dropped[i] > 0 or pp == 0))
+            for i in range(len(sh.paths))])
+    opt = {k: parts(opt_state[k], state_shard, True)
+           for k in ("master", "mu", "nu")}
+    opt["step"] = LeafPart((), (), first)
+    return {"params": parts(params, shard, False), "opt": opt}
+
+
+def _pipe_shards(spec, plan, mesh, step_fn):
+    """The pipeline rank's ``(shard, kept shard)`` for its checkpoint
+    parts: the step's on a ``pp x dp x tp`` mesh, else its column's on a
+    pipe alone (every axis but pp of one rank)."""
+    if step_fn.shard is not None:
+        return step_fn.shard, step_fn.kept_shard or step_fn.shard
+    from repro_torch.core.pipeline_runtime import RankShard
+    from repro_torch.launch.mesh import MESH_RULES
+    shape = {"pp": mesh.P, "data": 1, "model": 1}
+    coords = {"pp": mesh.rank, "data": 0, "model": 0}
+
+    shard = RankShard(spec.cfg, spec.layout, shape, MESH_RULES, coords,
+                      plan.zero_stage)
+    if not (plan.offload.enabled and plan.offload.num_offload_chunks > 0):
+        return shard, shard
+    return shard, shard.offload_parts(
+        plan.num_chunks - plan.offload.num_offload_chunks)[0]
 
 
 def _wants_save(ck, tc: TrainConfig, step: int, action: Action) -> bool:
@@ -87,13 +154,16 @@ def _wants_save(ck, tc: TrainConfig, step: int, action: Action) -> bool:
         step and step % tc.checkpoint_every == 0))
 
 
-def _resume(ck, pipe, tree, log, tag, layout=None) -> Optional[int]:
+def _resume(ck, pipe, tree, log, tag, layout=None,
+            parts=None) -> Optional[int]:
     """Restore the latest checkpoint of ``ck`` into ``tree`` (``params``
     and ``opt``, in place) and the data cursor into ``pipe``; return the
     step to resume at, or None when there is nothing to restore.  With
     ``layout`` (the pipeline's P, v, schedule and placement), a
     checkpoint written under another (P, v, placement) raises: its block
-    leaves would land at the wrong (device, chunk) positions."""
+    leaves would land at the wrong (device, chunk) positions.  ``parts``
+    (a mesh rank's, :func:`rank_parts`): only the rank's parts are
+    read."""
     latest = ck.latest_step() if ck is not None else None
     if latest is None:
         return None
@@ -107,7 +177,8 @@ def _resume(ck, pipe, tree, log, tag, layout=None) -> Optional[int]:
             f"run uses P={layout['P']} v={layout['v']} "
             f"({layout['placement']}); migrate it first "
             "(repro_torch.ft.elastic_pipeline.migrate_checkpoint)")
-    extra = ck.restore_into(tree)
+    extra = ck.restore_into(tree) if parts is None else \
+        ck.restore_into(tree, parts=parts)
     if "data" in extra:
         pipe.load_state(extra["data"])
     start = int(extra.get("step", latest))
@@ -115,23 +186,94 @@ def _resume(ck, pipe, tree, log, tag, layout=None) -> Optional[int]:
     return start
 
 
-def _save(ck, pipe, save_step, next_step, params, opt_state, *, sync,
-          log, tag, layout=None, injector=None):
-    """Checkpoint ``params`` and ``opt`` with the step to resume at, the
-    data cursor and (pipeline runs) the layout in ``extra``; a write
-    that dies (a fault ``injector`` arms the crash) is retried
-    synchronously, so LATEST keeps resolving to a complete step."""
-    if injector is not None:
-        injector.arm_checkpoint_crash(save_step)
-    tree = {"params": params, "opt": opt_state}
-    extra = {"step": next_step, "data": pipe.state()}
-    if layout is not None:
-        extra["layout"] = layout
-    try:
-        (ck.save if sync else ck.save_async)(save_step, tree, extra=extra)
-    except Exception as e:                   # noqa: BLE001
-        log(f"[{tag}] checkpoint write died ({e!r}) -> synchronous retry")
-        ck.save(save_step, tree, extra=extra)
+class _LoopState:
+    """What the training loops share around their steps: the saves into
+    ``ck`` (None: none), and under Chronos-Offload the host update in
+    flight.  A step's shipment goes to ``runner`` (:meth:`submit`); its
+    update is folded into the device weights by ``fold`` (one device:
+    the merge into the whole tree; a mesh rank: the upload into its deep
+    parts and the dp all-gather) before the next step (timed into
+    ``collect_wait_s``), before every save and after the loop
+    (:meth:`fold`).  Every checkpoint records the step to resume at, the
+    data cursor of ``data`` and (pipeline runs) the ``layout``;
+    ``parts``: a mesh rank's (:func:`rank_parts`)."""
+
+    def __init__(self, ck, data, *, log, tag, runner=None, fold=None,
+                 bits=None, m: int = 1, layout=None, injector=None,
+                 parts=None):
+        self.ck, self.data, self.log, self.tag = ck, data, log, tag
+        self.runner, self._fold, self.bits, self.m = runner, fold, bits, m
+        self.layout, self.injector, self.parts = layout, injector, parts
+        self.pending, self.collect_wait_s = False, 0.0
+
+    def submit(self, shipment) -> None:
+        """Hand a step's shipment to the host (a compressed one as its
+        codes and scales) and mark its update pending."""
+        if self.bits:
+            codes, scales = shipment
+            self.runner.submit(codes, scales=scales)
+        else:
+            self.runner.submit(shipment, grad_div=self.m)
+        self.pending = True
+
+    def fold(self, timed: bool = False) -> None:
+        """Fold the pending host update into the device weights."""
+        if not self.pending:
+            return
+        t0 = time.time()
+        self._fold()
+        self.pending = False
+        if timed:
+            self.collect_wait_s += time.time() - t0
+
+    def save(self, save_step, next_step, params, opt_state, *,
+             sync=False) -> None:
+        """Checkpoint ``params`` and ``opt`` (the pending host update
+        folded in first: otherwise the deep chunks are one step stale).
+        A write that dies (a fault injector arms the crash) is retried
+        synchronously, so LATEST keeps resolving to a complete step; a
+        mesh rank's save is one of every rank's (no retry: the ranks'
+        saves stay in step)."""
+        self.fold()
+        ck = self.ck
+        if self.injector is not None:
+            self.injector.arm_checkpoint_crash(save_step)
+        tree = {"params": params, "opt": opt_state}
+        extra = {"step": next_step, "data": self.data.state()}
+        if self.layout is not None:
+            extra["layout"] = self.layout
+        if self.parts is not None:
+            (ck.save if sync else ck.save_async)(save_step, tree,
+                                                 extra=extra,
+                                                 parts=self.parts)
+            return
+        try:
+            (ck.save if sync else ck.save_async)(save_step, tree,
+                                                 extra=extra)
+        except Exception as e:                   # noqa: BLE001
+            self.log(f"[{self.tag}] checkpoint write died ({e!r}) -> "
+                     "synchronous retry")
+            ck.save(save_step, tree, extra=extra)
+
+    def end(self, next_step, params, opt_state, save: bool = True) -> None:
+        """After the loop: the last host update folded in, then the final
+        save at the step actually reached (an early stop must not
+        mislabel the checkpoint as having finished)."""
+        self.fold()
+        if save and self.ck is not None:
+            self.save(next_step, next_step, params, opt_state, sync=True)
+
+    def wait_on_error(self) -> None:
+        """When an error leaves the loop: let a write in flight end (the
+        next incarnation reads the directory); a failure of that write is
+        logged, and the previous checkpoint stands."""
+        if self.ck is None:
+            return
+        try:
+            self.ck.wait()
+        except Exception as werr:                 # noqa: BLE001
+            self.log(f"[{self.tag}] checkpoint write died ({werr!r}); the "
+                     "previous checkpoint stands")
 
 
 def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
@@ -180,16 +322,22 @@ def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
     of ``microbatch_size * dp`` rows, each rank reading its own.
     ``after_step(step, params, opt_state, shard)``, if given, is called
     after every step (e.g. :func:`replicas_equal`; ``shard`` is None
-    without a mesh).  Checkpoints raise
-    NotImplementedError under a mesh.  The result's ``params`` and
+    without a mesh).  Checkpoints on a mesh (``tc.checkpoint_dir``, a
+    directory every rank sees): the same format, written by the ranks
+    and read back by each for its own parts
+    (:class:`~repro_torch.ft.checkpoint.MeshCheckpointer`,
+    :func:`rank_parts`), so a checkpoint of one layout restores on
+    another ``dp x tp`` or on one device, and one device's on a mesh.
+    The ranks save at the same steps, decided by the step count only
+    (every ``checkpoint_every`` and at the end): the health monitor
+    still times the steps, but a snapshot or restart it asks for on one
+    rank's own step times is not taken (the other ranks would not join
+    the save).  The result's ``params`` and
     ``opt_state`` are the rank's; it adds ``rank``, ``coords``,
     ``peak_bytes`` and ``static_bytes`` (on a card, as
     :func:`train_pipeline`'s) and ``exchange["axis_bytes"]``, the bytes
     the rank handed to collectives each step by mesh axis."""
     cfg, shape, plan, ocfg = tc.model, tc.shape, tc.plan, tc.optimizer
-    if mesh is not None and tc.checkpoint_dir is not None:
-        raise NotImplementedError("checkpoints under a mesh are not ported "
-                                  "yet (ROADMAP queue A, after item 3)")
     dev = resolve_device(device) if mesh is None else mesh.device
     dp = 1 if mesh is None else mesh.dp
     steps = steps or ocfg.total_steps
@@ -214,21 +362,31 @@ def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
                                              seed=tc.seed)
     pipe = DataPipeline(source, global_batch=mbB * dp * m, microbatches=m,
                         prefetch=2)
-    ck = _checkpointer(tc)
     monitor = HealthMonitor()
-    start_step = _resume(ck, pipe, {"params": params, "opt": opt_state},
-                         log, "train") or 0
     tag = "train" if mesh is None else f"train rank 0/{mesh.size}"
-
-    def save(save_step, next_step_, sync):
-        _save(ck, pipe, save_step, next_step_, params, opt_state,
-              sync=sync, log=log, tag="train")
+    parts = None
+    if mesh is None:
+        ck = _checkpointer(tc)
+    else:
+        ck = _mesh_checkpointer(tc, mesh.rank, mesh.size)
+        parts = rank_parts(params, opt_state, shard,
+                           first=mesh.rank == 0) if ck else None
+        log = log if mesh.rank == 0 else _quiet
+    resumed = _resume(ck, pipe, {"params": params, "opt": opt_state},
+                      log, tag, parts=parts)
+    start_step = resumed or 0
+    state = _LoopState(ck, pipe, log=log, tag=tag, parts=parts)
 
     pipe.start()
     losses, gnorms, lrs, step_s, axis_bytes = [], [], [], [], []
     next_step = start_step
     t_start = time.time()
     try:
+        if mesh is not None and ck is not None and resumed is None:
+            # the durable step-0 snapshot, as train_pipeline's: a restart
+            # on another dp x tp finds a whole state before the first
+            # periodic save
+            state.save(0, 0, params, opt_state, sync=True)
         for step in range(start_step, steps):
             t0 = time.time()
             batch = {k: torch.from_numpy(v).to(dev)
@@ -248,19 +406,24 @@ def train(tc: TrainConfig, *, device="cuda", steps: Optional[int] = None,
             action = monitor.record_step(dt)
             if after_step is not None:
                 after_step(step, params, opt_state, shard)
-            if step % tc.log_every == 0 and (mesh is None or mesh.rank == 0):
+            if mesh is not None:
+                # every rank saves at the same steps: a save decided on
+                # one rank's own step time alone would leave the others
+                # out of it, so on a mesh the count of steps decides
+                action = Action.CONTINUE
+            if step % tc.log_every == 0:
                 log(f"[{tag}] step {step} loss {loss:.4f} "
                     f"gnorm {gnorms[-1]:.3f} lr {lrs[-1]:.3e} ({dt:.2f}s)")
             if _wants_save(ck, tc, step, action):
-                save(step, step + 1, sync=False)
+                state.save(step, step + 1, params, opt_state)
             if ck is not None and action == Action.RESTART:
                 log("[train] persistent straggler detected -> checkpoint "
                     "+ abort for elastic restart")
                 break
-        if ck is not None:
-            # final save at the step actually reached (an early RESTART
-            # abort must not mislabel the checkpoint as having finished)
-            save(next_step, next_step, sync=True)
+        state.end(next_step, params, opt_state)
+    except BaseException:
+        state.wait_on_error()
+        raise
     finally:
         pipe.stop()
     out = {"losses": losses, "final_loss": losses[-1] if losses else None,
@@ -375,16 +538,34 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     (:func:`~repro_torch.core.pipeline_runtime.rank_params`), so its
     weights are bitwise the one-device run's; it reads the same data,
     runs its column of the table and updates its own leaves and its
-    replica of the shared ones.  Rank 0 logs.  Checkpoints, the fault
-    injector and the watchdog (lost-process detection) and
-    Chronos-Offload raise NotImplementedError under a mesh (ROADMAP
-    queue A).  Returns the keys above (``params`` and ``opt_state`` the
-    rank's) and ``rank``, ``overlap``, ``peak_bytes`` (on a card,
-    ``max_memory_allocated`` after a reset once the weights and the
-    optimizer state are made), ``static_bytes`` (allocated at that
-    reset) and ``exchange`` (the rank's ``bytes_sent``, ``bytes_recv``,
-    ``messages`` and ``wait_s`` per step, and ``reduced_bytes``, the
-    bytes it handed to all-reduces)."""
+    replica of the shared ones.  Rank 0 logs.  The fault injector and
+    the watchdog (lost-process detection) raise NotImplementedError
+    under a mesh (ROADMAP queue A item 7, second part).
+
+    Chronos-Offload on a mesh: each rank's host optimizer holds the
+    fp32 master, mu and nu of its own parts of the deep leaves (their
+    ZeRO slices of its tp shards; :func:`~repro_torch.optim.offload.
+    host_threads` of the ranks' count as its workers), fed by the
+    rank's shipment; each collect uploads the rank's parts in place and
+    (below ZeRO-3) all-gathers the deep leaves over dp, on every rank at
+    the same point of the loop, its bytes counted in the step that
+    submitted the update.  Checkpoints on a mesh: the reference's format
+    written by the ranks and read back by each for its own parts
+    (:class:`~repro_torch.ft.checkpoint.MeshCheckpointer`,
+    :func:`rank_parts`; a directory every rank sees), with the step-0
+    snapshot, the (P, v, placement) guard, periodic and final saves; a
+    checkpoint of one ``dp x tp`` restores on another (the reference's
+    ``reshard``) and on one device.  The ranks save at the same steps,
+    decided by the count of steps alone: the health monitor times the
+    steps but its snapshot and restart actions, read from one rank's
+    own step times, are not taken.  Returns the keys above (``params``
+    and ``opt_state`` the rank's) and ``rank``, ``overlap``,
+    ``peak_bytes`` (on a card, ``max_memory_allocated`` after a reset
+    once the weights and the optimizer state are made),
+    ``static_bytes`` (allocated at that reset) and ``exchange`` (the
+    rank's ``bytes_sent``, ``bytes_recv``, ``messages`` and ``wait_s``
+    per step, and ``reduced_bytes``, the bytes it handed to
+    all-reduces)."""
     if mesh is not None:
         return _train_pipeline_ranks(tc, P=P, mesh=mesh, overlap=overlap,
                                      steps=steps, data_source=data_source,
@@ -428,33 +609,28 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
     psum_ef = init_psum_ef(spec, params) if bits else None
     scales = None
 
-    def fold_pending():
+    def fold():
         merge_deep_shallow(kept["blocks"], runner.collect(),
                            out=params["blocks"])
 
-    def save_ckpt(save_step, next_step_, *, sync=False):
-        _save(ck, pipe, save_step, next_step_, params, opt_state,
-              sync=sync, log=log, tag="train-pp", layout=layout_meta,
-              injector=injector)
-
+    state = _LoopState(ck, pipe, log=log, tag="train-pp", runner=runner,
+                       fold=fold, bits=bits, m=m, layout=layout_meta,
+                       injector=injector)
     pipe.start()
-    if ck is not None and resumed is None:
-        save_ckpt(0, 0, sync=True)           # the durable step-0 snapshot
     losses, gnorms, lrs, step_s = [], [], [], []
     loss_by_step: Dict[int, float] = {}
     status, next_step, first_step_s = "complete", start_step, None
-    pending, collect_wait_s = False, 0.0
     t_start = time.time()
     try:
+        if ck is not None and resumed is None:
+            # the durable step-0 snapshot
+            state.save(0, 0, params, opt_state, sync=True)
         for step in range(start_step, steps):
             if injector is not None and injector.should_yield(step):
                 # a lost device rejoined: publish a clean checkpoint and
                 # hand control back for the warm scale-up restart
-                if pending:
-                    fold_pending()
-                    pending = False
                 if ck is not None:
-                    save_ckpt(step, step, sync=True)
+                    state.save(step, step, params, opt_state, sync=True)
                 status = "preempted"
                 break
             if injector is not None:
@@ -464,24 +640,14 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
                      for k, a in pipe.next().items()}
             if "loss_mask" in batch:
                 batch["loss_mask"] = batch["loss_mask"][..., 1:]
-            if pending:
-                t_c = time.time()
-                fold_pending()            # bf16 upload of the deep chunks
-                pending = False
-                collect_wait_s += time.time() - t_c
+            state.fold(timed=True)            # bf16 upload of the deep chunks
             if watchdog is not None:
                 watchdog.arm()
             out = step_fn(params, opt_state, batch, psum_ef)
             params, opt_state, metrics, psum_ef = (
                 out.params, out.opt_state, out.metrics, out.ef)
             if offload:                         # grads down, host AdamW
-                if bits:
-                    codes, ship_scales = out.shipment
-                    runner.submit(codes, scales=ship_scales)
-                    del codes, ship_scales
-                else:
-                    runner.submit(out.shipment, grad_div=m)
-                pending = True
+                state.submit(out.shipment)
             scales = metrics.get("psum_scale")
             # the deep gradients are views of the step's accumulators:
             # held here, they would live through the next step
@@ -511,33 +677,18 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
                 log(f"[train-pp] step {step} loss {loss:.4f} "
                     f"gnorm {gnorms[-1]:.3f} lr {lrs[-1]:.3e} ({dt:.2f}s)")
             if _wants_save(ck, tc, step, action):
-                if pending:
-                    # fold the in-flight host update in first: otherwise
-                    # the checkpoint's deep chunks are one step stale
-                    fold_pending()
-                    pending = False
-                save_ckpt(step, step + 1)
+                state.save(step, step + 1, params, opt_state)
             if ck is not None and action == Action.RESTART:
                 log("[train-pp] persistent straggler -> checkpoint + "
                     "abort")
                 status = "restart"
                 break
-        if pending:
-            fold_pending()
-        if ck is not None and status != "preempted":
-            # final save at the step actually reached (a RESTART abort
-            # must not mislabel the checkpoint as having finished)
-            save_ckpt(next_step, next_step, sync=True)
+        state.end(next_step, params, opt_state, save=status != "preempted")
     except BaseException as e:
         # the incarnation dies: let a write in flight end (the elastic
         # driver reads the directory next), and hand the completed
         # steps to the elastic driver on the error
-        if ck is not None:
-            try:
-                ck.wait()
-            except Exception as werr:         # noqa: BLE001
-                log(f"[train-pp] checkpoint write died ({werr!r}); the "
-                    "previous checkpoint stands")
+        state.wait_on_error()
         if isinstance(e, DeviceLossError):
             e.loss_by_step, e.next_step = loss_by_step, next_step
             e.first_step_s, e.step_s = first_step_s, step_s
@@ -567,8 +718,8 @@ def train_pipeline(tc: TrainConfig, *, P: int, device="cuda",
             psum_scale=None if scales is None else dict(zip(
                 names, (float(x) for x in tree_leaves(scales)))))
     if offload:
-        res["offload"] = offload_report(tc, spec, runner,
-                                        collect_wait_s=collect_wait_s)
+        res["offload"] = offload_report(
+            tc, spec, runner, collect_wait_s=state.collect_wait_s)
         res["host_optimizer"] = runner.opt
     return res
 
@@ -577,13 +728,8 @@ def _train_pipeline_ranks(tc: TrainConfig, *, P: int, mesh, overlap: bool,
                           steps, data_source, params, injector, watchdog,
                           after_step, log) -> Dict:
     """:func:`train_pipeline` as one rank of ``mesh``."""
-    if tc.checkpoint_dir is not None:
-        raise NotImplementedError("checkpoints under a mesh are not ported "
-                                  "yet (ROADMAP queue A, after item 3)")
     if injector is not None or watchdog is not None:
-        raise NotImplementedError("fault injection and lost-process "
-                                  "detection under a mesh are not ported "
-                                  "yet (ROADMAP queue A, after item 3)")
+        raise NotImplementedError(FAULT_SEAMS_OVER_RANKS)
     full = mesh if hasattr(mesh, "pipe") else None
     pipe = mesh if full is None else full.pipe
     if pipe.P != P:
@@ -599,8 +745,19 @@ def _train_pipeline_ranks(tc: TrainConfig, *, P: int, mesh, overlap: bool,
         params = init_pipeline_params(gen, cfg, spec.layout, dev)
     shard = step_fn.shard
     params = rank_params(params, rank, shard)
-    opt_state = adamw_init(params if shard is None
-                           else shard.zero_views(params))
+    offload = plan.offload.enabled and plan.offload.num_offload_chunks > 0
+    kept_shard, deep_shard = step_fn.kept_shard, step_fn.deep_shard
+    deep = deep_views = None
+    if offload:
+        kept, deep = offload_kept(params, plan, column=True)
+        opt_state = adamw_init(kept if kept_shard is None
+                               else kept_shard.zero_views(kept))
+        # the rank's parts of the deep leaves: the host updates these
+        deep_views = deep if deep_shard is None else \
+            deep_shard.zero_views({"blocks": deep})["blocks"]
+    else:
+        opt_state = adamw_init(params if shard is None
+                               else shard.zero_views(params))
     bits = psum_bits_of(plan)
     psum_ef = init_psum_ef(spec, params, rank=rank) if bits else None
     dp = 1 if full is None else full.dp
@@ -615,31 +772,79 @@ def _train_pipeline_ranks(tc: TrainConfig, *, P: int, mesh, overlap: bool,
     def say(line):
         if me == 0:
             log(line)
+    tag = f"train-pp rank 0/{n_ranks}"
     source = data_source or synthetic_source(cfg, shape.seq_len,
                                              seed=tc.seed)
     data = DataPipeline(source, global_batch=mbB * dp * m, microbatches=m,
                         prefetch=2)
+    ck = _mesh_checkpointer(tc, me, n_ranks)
+    layout_meta = {"P": spec.table.P, "v": plan.num_chunks,
+                   "schedule": plan.schedule,
+                   "placement": spec.layout.pl.name}
+    parts = None
+    if ck is not None:
+        parts = rank_parts(params, opt_state,
+                           *_pipe_shards(spec, plan, pipe, step_fn),
+                           pp=rank, first=me == 0)
+    resumed = _resume(ck, data, {"params": params, "opt": opt_state}, say,
+                      tag, layout=layout_meta, parts=parts)
+    start_step = resumed or 0
+    # built after the restore: the host masters start from the restored
+    # deep weights (host momenta are not checkpointed, as the reference)
+    runner = ChronosOffloadRunner(deep_views, ocfg, ship_bits=bits,
+                                  threads=host_threads(n_ranks)) \
+        if offload else None
     ex = step_fn.exchange
+    monitor = HealthMonitor()
     losses, gnorms, lrs, step_s = [], [], [], []
+    loss_by_step: Dict[int, float] = {}
     traffic = {"bytes_sent": [], "bytes_recv": [], "messages": [],
                "wait_s": [], "reduced_bytes": []}
     if full is not None:
         traffic["axis_bytes"] = []
+    next_step, first_step_s = start_step, None
+
+    def counted():
+        return pipe.reduced_bytes, (None if full is None
+                                    else full.collective_bytes())
+
+    def fold():
+        """Collect the host update (its weights uploaded into the deep
+        parts in place), all-gather the deep leaves over dp below ZeRO-3,
+        and count its bytes in the step that submitted it."""
+        red0, axis0 = counted()
+        runner.collect()
+        if deep_shard is not None:
+            deep_shard.gather_weights(full, {"blocks": deep})
+        red1, axis1 = counted()
+        if traffic["reduced_bytes"]:
+            traffic["reduced_bytes"][-1] += red1 - red0
+            if full is not None:
+                for a in axis1:
+                    traffic["axis_bytes"][-1][a] += axis1[a] - axis0[a]
+
+    state = _LoopState(ck, data, log=say, tag=tag, runner=runner, fold=fold,
+                       bits=bits, m=m, layout=layout_meta, parts=parts)
     t_start = time.time()
     data.start()
     try:
-        for step in range(steps):
+        if ck is not None and resumed is None:
+            # the durable step-0 snapshot
+            state.save(0, 0, params, opt_state, sync=True)
+        for step in range(start_step, steps):
             t0 = time.time()
             batch = {k: torch.from_numpy(a).to(dev)
                      for k, a in data.next().items()}
             if "loss_mask" in batch:
                 batch["loss_mask"] = batch["loss_mask"][..., 1:]
+            state.fold(timed=True)
             ex.reset_stats()
-            reduced0 = pipe.reduced_bytes
-            axis0 = None if full is None else full.collective_bytes()
+            reduced0, axis0 = counted()
             out = step_fn(params, opt_state, batch, psum_ef)
             params, opt_state, metrics, psum_ef = (
                 out.params, out.opt_state, out.metrics, out.ef)
+            if offload:                         # grads down, host AdamW
+                state.submit(out.shipment)
             del out
             loss = float(metrics["loss"])     # waits for the step
             dt = time.time() - t0
@@ -649,38 +854,66 @@ def _train_pipeline_ranks(tc: TrainConfig, *, P: int, mesh, overlap: bool,
             if full is not None:
                 # bytes handed to collectives by axis: the pipe's sends
                 # and all-reduces, and the dp and tp all-reduces and
-                # all-gathers
+                # all-gathers (and under offload, once it is collected,
+                # the deep leaves' all-gather)
                 now = full.collective_bytes()
                 traffic["axis_bytes"].append({
                     a: now[a] - axis0[a] + (ex.bytes_sent if a == "pp"
                                             else 0) for a in now})
             losses.append(loss)
+            loss_by_step[step] = loss
             gnorms.append(float(metrics["grad_norm"]))
             lrs.append(float(metrics["lr"]))
             step_s.append(dt)
+            next_step = step + 1
+            if first_step_s is None:
+                first_step_s = time.time() - t_start
+            # timed only: the ranks save at the same steps, by the count
+            monitor.record_step(dt)
             if after_step is not None:
                 after_step(step, params, opt_state, shard)
             if step % tc.log_every == 0:
-                say(f"[train-pp rank 0/{n_ranks}] step {step} loss "
-                    f"{loss:.4f} "
+                say(f"[{tag}] step {step} loss {loss:.4f} "
                     f"gnorm {gnorms[-1]:.3f} lr {lrs[-1]:.3e} ({dt:.2f}s, "
                     f"exchange wait {traffic['wait_s'][-1]:.3f}s)")
+            if _wants_save(ck, tc, step, Action.CONTINUE):
+                state.save(step, step + 1, params, opt_state)
+        state.end(next_step, params, opt_state)
+    except BaseException:
+        state.wait_on_error()
+        raise
     finally:
         data.stop()
-    return {"losses": losses, "final_loss": losses[-1] if losses else None,
-            "steps": len(losses), "start_step": 0, "next_step": len(losses),
-            "status": "complete", "wall_s": time.time() - t_start,
-            "schedule": spec.table.name, "grad_norms": gnorms, "lrs": lrs,
-            "step_s": step_s, "params": params, "opt_state": opt_state,
-            "rank": me,
-            "coords": None if full is None else dict(full.coords),
-            "overlap": overlap,
-            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
-            else None, "static_bytes": static,
-            "exchange": traffic,
-            "wire": {"wire": plan.wire,
-                     "ring_bytes": payload_ring_bytes(spec) // P,
-                     "psum_ef": psum_ef}}
+        if runner is not None:
+            runner.close()
+    res = {"losses": losses, "loss_by_step": loss_by_step,
+           "final_loss": losses[-1] if losses else None,
+           "steps": len(losses), "start_step": start_step,
+           "next_step": next_step, "status": "complete",
+           "first_step_s": first_step_s, "wall_s": time.time() - t_start,
+           "median_step_s": monitor.median_step,
+           "schedule": spec.table.name, "grad_norms": gnorms, "lrs": lrs,
+           "step_s": step_s, "params": params, "opt_state": opt_state,
+           "checkpoint_records": ck.records if ck is not None else [],
+           "rank": me,
+           "coords": None if full is None else dict(full.coords),
+           "overlap": overlap,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+           else None, "static_bytes": static,
+           "exchange": traffic,
+           "wire": {"wire": plan.wire,
+                    "ring_bytes": payload_ring_bytes(spec) // P,
+                    "psum_ef": psum_ef}}
+    if offload:
+        res["offload"] = offload_report(
+            tc, spec, runner, collect_wait_s=state.collect_wait_s,
+            tp=1 if full is None else full.tp, dp=dp)
+        res["host_optimizer"] = runner.opt
+    return res
+
+
+def _quiet(line: str) -> None:
+    """A log that drops every line (the ranks other than 0)."""
 
 
 def leaf_digest(a: torch.Tensor) -> torch.Tensor:
@@ -816,24 +1049,26 @@ def _checked_rank(mesh, run) -> Dict:
     out["launches"] = {k: fn.launches for k, fn in kernels.items()}
     out["replica_checks"] = checks
     out["replicas_equal"] = [all(c.values()) for c in checks]
-    for k in ("params", "opt_state"):
-        del out[k]
+    for k in ("params", "opt_state", "host_optimizer"):
+        out.pop(k, None)
     return out
 
 
 def offload_report(tc: TrainConfig, spec, runner, *,
-                   collect_wait_s: float) -> Dict:
-    """Measured offload overlap against the paper's Eq. (5)/(7) model (at
-    tp=1: one card), with the reference's keys, plus what the runner
-    measured (:meth:`ChronosOffloadRunner.measured`: host update seconds,
-    and on a card the copies' milliseconds and GB/s).  The model's
-    ``pcie_gbps`` and ``cpu_flops`` are the plan's inputs, not
-    measurements."""
+                   collect_wait_s: float, tp: int = 1, dp: int = 1) -> Dict:
+    """Measured offload overlap against the paper's Eq. (5)/(7) model, with
+    the reference's keys, plus what the runner measured
+    (:meth:`ChronosOffloadRunner.measured`: host update seconds, and on a
+    card the copies' milliseconds and GB/s).  The model runs at the
+    mesh's ``tp`` (1: one card) and the global microbatch (``spec``'s
+    ``mbB``, a dp rank's share, times ``dp``), as the reference's
+    (``src/repro/launch/train.py:400``, ``:413``).  Its ``pcie_gbps`` and
+    ``cpu_flops`` are the plan's inputs, not measurements."""
     from repro_torch.core.analysis import offload_timing
     plan, shape = tc.plan, tc.shape
     ot = offload_timing(
-        tc.model, seq_len=shape.seq_len, microbatch=spec.mbB,
-        pp=spec.table.P, tp=1, pcie_gbps=plan.offload.pcie_gbps,
+        tc.model, seq_len=shape.seq_len, microbatch=spec.mbB * dp,
+        pp=spec.table.P, tp=tp, pcie_gbps=plan.offload.pcie_gbps,
         cpu_flops=plan.offload.cpu_flops,
         offload_frac=plan.offload.num_offload_chunks / plan.num_chunks)
     submits = max(int(runner.stats["submits"]), 1)

@@ -33,7 +33,8 @@ from __future__ import annotations
 
 import contextlib
 from types import SimpleNamespace
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -246,6 +247,22 @@ def _shard_index(ax: Axes, coords: Mapping[str, Tuple[int, int]]):
     return idx, n
 
 
+def shard_slices(shape, spec: Sequence[Axes],
+                 coords: Mapping[str, Tuple[int, int]]) -> List[slice]:
+    """Where the shard :func:`local_shard` cuts from a leaf of ``shape``
+    lies in it: one slice a dimension."""
+    out = [slice(0, n) for n in shape]
+    for dim, ax in enumerate(spec):
+        if ax is None or dim >= len(shape):
+            continue
+        i, n = _shard_index(ax, coords)
+        if n == 1:
+            continue
+        size = shape[dim] // n
+        out[dim] = slice(i * size, (i + 1) * size)
+    return out
+
+
 def local_shard(leaf: torch.Tensor, spec: Sequence[Axes],
                 coords: Mapping[str, Tuple[int, int]]) -> torch.Tensor:
     """The shard of ``leaf`` (global) that the rank at ``coords`` (mesh
@@ -254,14 +271,9 @@ def local_shard(leaf: torch.Tensor, spec: Sequence[Axes],
     Axes of ``spec`` absent from ``coords`` leave their dimension
     whole."""
     out = leaf
-    for dim, ax in enumerate(spec):
-        if ax is None:
-            continue
-        i, n = _shard_index(ax, coords)
-        if n == 1:
-            continue
-        size = leaf.shape[dim] // n
-        out = out.narrow(dim, i * size, size)
+    for dim, sl in enumerate(shard_slices(leaf.shape, spec, coords)):
+        if sl.stop - sl.start != leaf.shape[dim]:
+            out = out.narrow(dim, sl.start, sl.stop - sl.start)
     return out
 
 
@@ -509,6 +521,9 @@ class TreeShard:
             return [sanitize_spec(env.resolve(sp), sh, mesh)
                     for sp, sh in zip(flat, shapes)]
         cut = [dropped(p) for p in self.paths]
+        # the global shapes, and how many leading dimensions the rank
+        # indexes away (its local dimensions are the rest)
+        self.shapes, self.dropped = shapes, cut
         ps, ss = phys(param_logical), phys(state_logical)
         self.param_specs = [sp[k:] for sp, k in zip(ps, cut)]
         tp_ax, dp_ax = rules.get("tp"), rules.get("dp")
@@ -574,6 +589,35 @@ class TreeShard:
         whole), as a view: :meth:`cut_leaf` without the copy."""
         return local_shard(a, self.cut_specs[i],
                            self._kv_cut if self.kv[i] else self._cut)
+
+    def part_slices(self, i: int, state: bool = False) -> List[slice]:
+        """Where the rank's part of leaf ``i`` lies in its local
+        dimensions (whole): the slices :meth:`local_view` cuts, and with
+        ``state`` also the dp slice :meth:`zero_slice` narrows that to
+        (the rank's part of the leaf's optimizer state)."""
+        local = self.shapes[i][self.dropped[i]:]
+        out = shard_slices(local, self.cut_specs[i],
+                           self._kv_cut if self.kv[i] else self._cut)
+        k = self.zero_dims[i]
+        if state and k is not None and self.fsdp_dims[i] is None \
+                and self.dp > 1:
+            n = (out[k].stop - out[k].start) // self.dp
+            start = out[k].start + self.dp_coord * n
+            out[k] = slice(start, start + n)
+        return out
+
+    def writes(self, i: int, state: bool = False) -> bool:
+        """Is the rank the one of the ranks holding the same elements of
+        leaf ``i`` (of its parameter, or with ``state`` of its state
+        slice) that writes them, so each element is written once: the
+        tp-replicated parts on tp coordinate 0 (a K/V head on its group's
+        first rank), the dp-whole ones on dp coordinate 0 (for the state
+        :meth:`counts`)."""
+        if state:
+            return self.counts(i)
+        if self.tp_coord % (self.tp // self.tp_parts[i]):
+            return False
+        return self.fsdp_dims[i] is not None or self.dp_coord == 0
 
     def zero_slice(self, a: torch.Tensor, i: int) -> torch.Tensor:
         """Leaf ``i`` (a rank leaf) narrowed to the rank's dp slice where

@@ -31,9 +31,11 @@ synchronous copies.
 """
 from __future__ import annotations
 
+import math
 import os
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
@@ -66,10 +68,84 @@ def _to_host_f32(a) -> np.ndarray:
     return np.array(a, np.float32, copy=True)
 
 
+def host_threads(ranks_on_host: int = 1) -> int:
+    """The host update's workers for one of ``ranks_on_host`` processes
+    that share the host's CPUs: ``os.cpu_count() // ranks_on_host`` (at
+    least 1)."""
+    return max(1, (os.cpu_count() or 1) // max(ranks_on_host, 1))
+
+
+class _HostBuffers:
+    """The runner's host buffers: one flat buffer a (role, dtype), grown
+    on demand, page-locked where the runner's device is a card.  One set
+    a process (:data:`_HOST`), handed to one open runner at a time: the
+    caching host allocator keeps every freed page-locked block (rounded
+    to a power of two), so buffers of each runner's own would pin the
+    largest shipment of every run a process makes.  A runner opened
+    while another holds the set gets a set of its own.
+    :func:`release_host_buffers` drops the process's set (then torch's
+    host cache can return it to the system)."""
+
+    def __init__(self):
+        self.bufs: Dict[tuple, torch.Tensor] = {}
+        self.owner = None          # a weak reference to the open runner
+
+    def acquire(self, runner) -> bool:
+        """Hand the set to ``runner``: False while another runner holds
+        it."""
+        held = self.owner() if self.owner is not None else None
+        if held is not None and held is not runner:
+            return False
+        self.owner = weakref.ref(runner)
+        return True
+
+    def release(self, runner) -> None:
+        if self.owner is not None and self.owner() is runner:
+            self.owner = None
+
+    def views(self, role: str, shapes, dtypes, pin: bool) -> List:
+        """Contiguous tensors of ``shapes`` and ``dtypes``, cut from the
+        role's flat buffer of each dtype."""
+        need: Dict[torch.dtype, int] = {}
+        for sh, dt in zip(shapes, dtypes):
+            need[dt] = need.get(dt, 0) + math.prod(sh)
+        flat = {}
+        for dt, n in need.items():
+            key = (role, dt, pin)
+            buf = self.bufs.get(key)
+            if buf is None or buf.numel() < n:
+                buf = torch.empty(n, dtype=dt, pin_memory=pin)
+                self.bufs[key] = buf
+            flat[dt] = buf
+        off = {dt: 0 for dt in need}
+        out = []
+        for sh, dt in zip(shapes, dtypes):
+            n = math.prod(sh)
+            out.append(flat[dt][off[dt]:off[dt] + n].view(sh))
+            off[dt] += n
+        return out
+
+
+_HOST = _HostBuffers()
+
+
+def release_host_buffers() -> int:
+    """Drop this process's set of the offload runner's host buffers
+    (kept while an open runner holds it); returns the bytes dropped."""
+    if _HOST.owner is not None and _HOST.owner() is not None:
+        return 0
+    n = sum(b.numel() * b.element_size() for b in _HOST.bufs.values())
+    _HOST.bufs.clear()
+    return n
+
+
 class HostAdamW:
     """Numpy AdamW over a tree of host-resident fp32 states (fp32 master,
     mu, nu as plain numpy arrays), on ``threads`` workers (default: every
-    CPU of the host)."""
+    CPU of the host).  Where several processes share the host (the ranks
+    of a mesh on one machine), each should take its share,
+    :func:`host_threads` of their number: every CPU each would run the
+    host's update that many times over."""
 
     def __init__(self, params_subset, cfg: OptimizerConfig, *,
                  threads: Optional[int] = None):
@@ -165,30 +241,42 @@ class ChronosOffloadRunner:
 
     ``stats``: ``submits`` and ``overlapped`` (the host update had ended
     when ``collect`` came).  :meth:`measured` gives the host update's
-    seconds and, on a card, the copies' times from CUDA events."""
+    seconds and, on a card, the copies' times from CUDA events.
+
+    ``threads``: the host update's workers (:class:`HostAdamW`; a rank of
+    a mesh that shares its host passes :func:`host_threads`).  The host
+    buffers are the process's one set (:data:`_HOST`) while no other
+    runner holds it, and :func:`release_host_buffers` frees them once
+    the runner is closed.
+
+    On a mesh rank ``deep_params`` are the rank's parts of the deep
+    leaves (their ZeRO slices of its tp shards), and the shipment the
+    same parts of the gradients: the host holds the master, mu and nu of
+    those slices only; the update is elementwise, so a slice gets the
+    bits the same slice of the whole leaf gets."""
 
     def __init__(self, deep_params, cfg: OptimizerConfig,
-                 target_dtype=torch.bfloat16, ship_bits: Optional[int] = None):
+                 target_dtype=torch.bfloat16, ship_bits: Optional[int] = None,
+                 threads: Optional[int] = None):
         self.deep = deep_params
         self.ship_bits = ship_bits
-        self.opt = HostAdamW(deep_params, cfg)
         dev = tree_leaves(deep_params)[0].device
         self.device = dev
         self.cuda = dev.type == "cuda"
-        # pinned host buffers, allocated once: the gradients in their own
-        # dtype (or the shipment's codes and per-leaf scales), the upload
+        self._bufs = _HOST if _HOST.acquire(self) else _HostBuffers()
+        self.opt = HostAdamW(deep_params, cfg, threads=threads)
+        # host buffers (page-locked on a card), the process's one set
+        # (_HOST): the gradients in their own dtype (or the shipment's
+        # codes and per-leaf scales), cut at the first submit; the upload
         # in the target dtype
-        ship = None if ship_bits is None else \
+        self._ship = None if ship_bits is None else \
             (torch.int8 if ship_bits <= 8 else torch.int16)
-        self._grads = tree_map(
-            lambda a: torch.empty(a.shape, dtype=ship or a.dtype,
-                                  pin_memory=self.cuda), deep_params)
-        self._scales = None if ship is None else torch.empty(
-            (len(tree_leaves(deep_params)),), dtype=torch.float32,
-            pin_memory=self.cuda)
-        self._staging = [torch.empty(a.shape, dtype=target_dtype,
-                                     pin_memory=self.cuda)
-                         for a in tree_leaves(deep_params)]
+        self._grads = None
+        shapes = [tuple(a.shape) for a in tree_leaves(deep_params)]
+        self._scales = None if self._ship is None else self._bufs.views(
+            "scales", [(len(shapes),)], [torch.float32], self.cuda)[0]
+        self._staging = self._bufs.views("staging", shapes,
+                                    [target_dtype] * len(shapes), self.cuda)
         self._side = torch.cuda.Stream(dev) if self.cuda else None
         self._uploaded: Optional[torch.cuda.Event] = None
         self._thread: Optional[threading.Thread] = None
@@ -197,11 +285,20 @@ class ChronosOffloadRunner:
         self.host_s: List[float] = []          # host update, per submit
         self._down: List[tuple] = []           # (start, end) CUDA events
         self._up: List[tuple] = []
-        self.bytes_down = sum(a.numel() * a.element_size()
-                              for a in tree_leaves(self._grads)) + (
-            0 if self._scales is None else 4 * self._scales.numel())
         self.bytes_up = sum(a.numel() * a.element_size()
                             for a in self._staging)
+
+    @property
+    def bytes_down(self) -> int:
+        """The shipment's bytes: its buffers as the first submit cut them
+        (before it, at the deep weights' dtype or the codes' width)."""
+        if self._grads is not None:
+            n = sum(a.numel() * a.element_size() for a in self._grads)
+        else:
+            n = sum(a.numel() * (a.element_size() if self._ship is None
+                                 else self._ship.itemsize)
+                    for a in tree_leaves(self.deep))
+        return n + (0 if self._scales is None else 4 * self._scales.numel())
 
     def _events(self):
         return (torch.cuda.Event(enable_timing=True),
@@ -219,8 +316,14 @@ class ChronosOffloadRunner:
         if (scales is None) != (self.ship_bits is None):
             raise ValueError("a quantized shipment needs its scales, and "
                              "only it takes them")
-        bufs = tree_leaves(self._grads)
         grads = tree_leaves(deep_grads)
+        dtypes = [self._ship or g.dtype for g in grads]
+        if self._grads is None or [b.dtype for b in self._grads] != dtypes:
+            # the shipment's own dtypes: a ZeRO-3 rank ships fp32 slices
+            self._grads = self._bufs.views("grads", [tuple(g.shape)
+                                                for g in grads],
+                                      dtypes, self.cuda)
+        bufs = self._grads
         sc = None if scales is None else torch.stack(tree_leaves(scales))
         copied = None
         with torch.no_grad():
@@ -327,15 +430,21 @@ class ChronosOffloadRunner:
             self._thread.join()
             self._thread = None
         self.opt.close()
+        _HOST.release(self)
 
 
 def split_deep_shallow(blocks_grads_or_params, v: int,
-                       num_offload_chunks: int):
-    """Split stacked block trees (leaves [P, v, M, ...]) along the chunk
-    axis into (shallow, deep) views.  Deep = last ``num_offload_chunks``."""
+                       num_offload_chunks: int, axis: int = 1):
+    """Split stacked block trees along the chunk axis into (shallow,
+    deep) views.  Deep = last ``num_offload_chunks``.  ``axis``: the
+    chunk axis, 1 for the whole tree's ``[P, v, M, ...]`` leaves, 0 for
+    a mesh rank's column ``[v, M, ...]``."""
     cut = v - num_offload_chunks
-    return (tree_map(lambda a: a[:, :cut], blocks_grads_or_params),
-            tree_map(lambda a: a[:, cut:], blocks_grads_or_params))
+    lead = (slice(None),) * axis
+    return (tree_map(lambda a: a[lead + (slice(None, cut),)],
+                     blocks_grads_or_params),
+            tree_map(lambda a: a[lead + (slice(cut, None),)],
+                     blocks_grads_or_params))
 
 
 def _same_view(a, b) -> bool:

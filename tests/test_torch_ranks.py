@@ -43,8 +43,8 @@ from repro.core.pipeline_runtime import _pack_payload, _payload_words
 from repro.core.pipeline_runtime import _unpack_payload
 from repro.core.schedules import get_schedule as jax_get_schedule
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.configs.base import (OffloadConfig, OptimizerConfig,
-                                      ParallelPlan, ShapeConfig, TrainConfig)
+from repro_torch.configs.base import (OptimizerConfig, ParallelPlan,
+                                      ShapeConfig, TrainConfig)
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.pipeline_runtime import (make_pipeline_spec,
                                                make_train_grads_fn,
@@ -420,27 +420,27 @@ def test_the_transport_follows_backend_and_device(backend, device, staged):
     assert mesh.staged is staged
 
 
-def test_mesh_refuses_offload_seq_and_checkpoints(tmp_path):
-    """Chronos-Offload, the sequence-chunked executor and checkpoints (and
-    the fault seams) under a mesh raise NotImplementedError naming
-    ROADMAP, before any collective."""
+def test_mesh_refuses_seq_and_fault_seams():
+    """The sequence-chunked executor (ROADMAP queue A item 6) and the fault
+    seams, the injector and the watchdog (item 7, second part), under a
+    mesh raise NotImplementedError naming their ROADMAP items, before any
+    collective; Chronos-Offload and checkpoints run there
+    (``tests/test_torch_mesh_offload.py``,
+    ``tests/test_torch_mesh_checkpoint.py``)."""
     mesh = PipeMesh(None, 0, 2, "gloo", torch.device("cpu"))
-    tc = _tc(offload=OffloadConfig(enabled=True, num_offload_chunks=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_pipeline_train_step(tc.model, tc.shape, tc.plan, tc.optimizer,
-                                 P=2, device="cpu", mesh=mesh)
     tc = _tc(schedule="chronos_seq", seq_chunks=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
         make_pipeline_train_step(tc.model, tc.shape, tc.plan, tc.optimizer,
                                  P=2, device="cpu", mesh=mesh)
     seq = R._spec(R.case(schedule="chronos_seq", n_seq=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
         make_train_grads_fn(seq, "cpu", mesh=mesh)
-    tc = dataclasses.replace(_tc(), checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_pipeline(tc, P=2, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue A item 7, second part"):
         train_pipeline(_tc(), P=2, mesh=mesh, watchdog=object())
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue A item 7, second part"):
+        train_pipeline(_tc(), P=2, mesh=mesh, injector=object())
     with pytest.raises(ValueError, match="P=4 stages on a mesh of 2"):
         train_pipeline(_tc(), P=4, mesh=mesh)
 
